@@ -1,0 +1,64 @@
+"""The port stands alone: ``paddle_tpu_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor ``paddle_tpu``, and its entry points never fall back to
+the CPU quietly."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(str(p.relative_to(ROOT))
+                    for p in (ROOT / "paddle_tpu_torch").rglob("*.py")) \
+    + ["chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "paddle_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module and _forbidden(node.module):
+            bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and _forbidden(str(node.args[0].value)):
+            bad.append(node.args[0].value)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.models, paddle_tpu_torch.ops.kernels\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_engine_without_device_raises_when_cuda_missing(monkeypatch):
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.serving import Engine
+
+    model = GPTForPretraining(GPTConfig(
+        vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
+        max_position_embeddings=32), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(model, block_size=8, num_blocks=8, max_batch=2)
