@@ -1,15 +1,19 @@
 """GPU smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one card.
 
     python3 chip_smoke.py            # the whole run; needs one CUDA card
-    python3 chip_smoke.py --profile  # + a device breakdown of the decode step
+    python3 chip_smoke.py --profile  # + device breakdowns of a decode step
+                                     #   and of a train step
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
-1. build: both CUDA kernels from ``paddle_tpu_torch/ops/kernels/csrc`` with
-   nvcc for sm_90a (one nvcc per source, started together);
-2. kernels: each kernel against its plain PyTorch version at the serving
-   path's shapes, in float32 (tight tolerance: checks the algorithm) and
-   bfloat16 (loose tolerance: checks the working type);
+1. build: every CUDA kernel source in ``paddle_tpu_torch/ops/kernels/csrc``
+   with nvcc for sm_90a (one nvcc per source, started together);
+2. kernels: each kernel against its plain PyTorch version, in float32
+   (tight tolerance: checks the algorithm) and bfloat16 (loose tolerance:
+   checks the working type): the serving kernels at the serving path's
+   shapes; the flash-attention forward (O, LSE) and backward (dQ, dK, dV)
+   at small shapes (ragged causal tail, non-causal T != T_kv, every head
+   width instantiation) and in bf16 at the training shape;
 3. engine: GPT-3 1.3B at full width (24 layers, bf16, random weights from a
    seed) through ``serving.Engine`` over 32 greedy requests, (a) with the
    paged-attention kernel and (b) int8 weights with both kernels. Launch
@@ -17,6 +21,14 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    output must have exactly prompt + 64 tokens and the pool must drain.
    One decode step built with the kernels is held against the same step
    built with the plain versions on the same pool state;
+5. train: GPT-3 1.3B at full width and depth (bf16, seed 0, dropout 0,
+   flash attention, fused LM-head loss, AdamW lr 1e-4) through
+   ``jit.compile_train_step`` on one fixed b2 x s2048 batch: 2 warm-up and
+   8 timed steps; the flash counters, zeroed just before the timed steps,
+   must each read 24 x 8; losses finite and falling. A 4-layer full-width
+   model's gradients through the kernels are held against the same
+   backward with attention on the plain version. Runs before phase 4, so
+   the timing rows carry its launch counts;
 4. timing: each kernel (CUDA events) beside its plain version, the card's
    least time for the same work, and a one-call PyTorch yardstick where
    one exists.
@@ -27,6 +39,7 @@ The last two lines of stdout are the ``{"kernels": [...]}`` JSON line and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -50,8 +63,40 @@ TOL = {
     # rounds scores/probabilities (attention) or only the output (matmul)
     ("paged_attention_rows", torch.bfloat16): (1e-2, 1e-2),
     ("int8_matmul", torch.bfloat16): (1e-1, 1e-2),
+    # flash f32: online vs direct softmax, sums in another order; the
+    # gradients sum T products each
+    ("flash_attention_fwd", torch.float32): (1e-5, 1e-5),
+    ("flash_attention_lse", torch.float32): (1e-5, 1e-5),
+    ("flash_attention_dq", torch.float32): (1e-4, 1e-4),
+    ("flash_attention_dkv", torch.float32): (1e-4, 1e-4),
+    # flash bf16 against the f32 plain version on the same bf16 inputs: the
+    # kernel rounds P to bf16 before P V and O once at the end; the LSE
+    # stays f32 from the same exact bf16 products
+    ("flash_attention_fwd", torch.bfloat16): (2e-2, 2e-2),
+    ("flash_attention_lse", torch.bfloat16): (1e-3, 1e-3),
 }
 LOGITS_REL_TOL = 5e-2  # ||kernel - plain|| / ||plain|| of a full bf16 step
+# bf16 flash gradients: ||kernel - plain|| / ||plain||; P and dS are rounded
+# to bf16 before their products and each gradient once at the end (~0.3%)
+FLASH_GRAD_REL_TOL = 2e-2
+# 4-layer full-width GPT, one bf16 backward through the kernels against the
+# same backward with attention on the plain version: per parameter
+# ||g_kernel - g_plain|| / ||g_plain||; bf16 rounding of activations and
+# gradients through 4 layers and the fused LM head
+GRAD_REL_TOL = 5e-2
+TRAIN_LAYERS_CHECK = 4
+TRAIN_WARMUP, TRAIN_STEPS = 2, 8
+# (B, T, T_kv, H, D, causal): the training shape of GPT-3 1.3B at b2 x s2048
+FLASH_TRAIN = (2, 2048, 2048, 16, 128, True)
+_FA = "paddle_tpu/ops/pallas/flash_attention.py"
+FLASH_REPLACES = {  # the TPU entry points each kernel takes over
+    "flash_attention_fwd": f"{_FA}:719 (_flash_hd_fwd_inner); {_FA}:321 "
+                           "(_flash_fwd_inner)",
+    "flash_attention_dq": f"{_FA}:750 (_flash_hd_bwd_inner, dQ); {_FA}:1038 "
+                          "(_flash_bwd_inner, dQ)",
+    "flash_attention_dkv": f"{_FA}:750 (_flash_hd_bwd_inner, dK/dV); "
+                           f"{_FA}:1038 (_flash_bwd_inner, dK/dV)",
+}
 
 
 def fail(msg: str) -> None:
@@ -78,7 +123,7 @@ def time_ms(fn, iters: int = 20) -> float:
 
 def compare(name, dtype, out, ref):
     atol, rtol = TOL[(name, dtype)]
-    out, ref = out.float(), ref.float()
+    out, ref = out.detach().float(), ref.detach().float()
     if out.shape != ref.shape or not torch.isfinite(out).all():
         fail(f"{name} {dtype}: shape {tuple(out.shape)} vs {tuple(ref.shape)} "
              "or non-finite output")
@@ -152,6 +197,83 @@ def kernel_phase():
     return errs
 
 
+def flash_inputs(B, T, Tk, H, D, dtype, fused_qkv=False, seed=0):
+    """q, k, v (and a cotangent dO) on the card. ``fused_qkv``: q, k, v are
+    strided views of one (B, T, 3, H, D) tensor, as GPTAttention cuts them
+    out of the QKV projection."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    if fused_qkv:
+        q, k, v = rnd(B, T, 3, H, D).unbind(2)
+    else:
+        q, k, v = rnd(B, T, H, D), rnd(B, Tk, H, D), rnd(B, Tk, H, D)
+    return q, k, v, rnd(B, T, H, D)
+
+
+def flash_delta(do, o):
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def rel_err(out, ref):
+    out, ref = out.detach().float(), ref.detach().float()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        return float("inf")
+    return float((out - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def flash_check(B, T, Tk, H, D, causal, dtype, fused_qkv=False):
+    """The three flash kernels against the plain version (f32, autograd for
+    the gradients) on the same inputs. Returns the max abs error per
+    kernel (dkv: over dK and dV)."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    q, k, v, do = flash_inputs(B, T, Tk, H, D, dtype, fused_qkv)
+    o, lse = K.flash_attention_fwd(q, k, v, causal)
+    delta = flash_delta(do, o)
+    dq = K.flash_attention_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = K.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    po, plse = K.flash_attention_plain(qf, kf, vf, causal)
+    gq, gk, gv = torch.autograd.grad(po, (qf, kf, vf), do.float())
+    print(f"  flash B={B} T={T} T_kv={Tk} H={H} D={D} causal={causal} "
+          f"{str(dtype)[6:]}{' (strided q/k/v views)' if fused_qkv else ''}:")
+    errs = {"flash_attention_fwd": compare("flash_attention_fwd", dtype, o, po)}
+    compare("flash_attention_lse", dtype, lse, plse)
+    pairs = {"flash_attention_dq": [(dq, gq)],
+             "flash_attention_dkv": [(dk, gk), (dv, gv)]}
+    for name, outs in pairs.items():
+        if dtype == torch.float32:
+            errs[name] = max(compare(name, dtype, a, b) for a, b in outs)
+            continue
+        rels = [rel_err(a, b) for a, b in outs]
+        errs[name] = max(float((a.float() - b).abs().max()) for a, b in outs)
+        ok = max(rels) <= FLASH_GRAD_REL_TOL
+        print(f"  {name} bf16: rel_norm_err={max(rels):.3e} max_abs_err="
+              f"{errs[name]:.3e} (tol rel {FLASH_GRAD_REL_TOL}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{name} bf16: relative error {max(rels):.3e}")
+    return errs
+
+
+def flash_phase():
+    """Small shapes in f32 and bf16 (every head-width instantiation, a
+    ragged causal tail, non-causal T != T_kv, causal T < T_kv), then bf16 at
+    the training shape through strided q/k/v views."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for shape in ((1, 192, 192, 2, 64, True), (1, 200, 200, 3, 128, True),
+                  (1, 128, 328, 2, 64, False), (1, 96, 160, 1, 256, True),
+                  (2, 130, 130, 2, 32, True)):
+        for dtype in (f32, bf16):
+            flash_check(*shape, dtype)
+    errs = flash_check(*FLASH_TRAIN, bf16, fused_qkv=True)
+    return {(name, bf16): e for name, e in errs.items()}
+
+
 # -- timing phase ------------------------------------------------------------
 
 def bound(nbytes: float, ops: float, dtype) -> tuple:
@@ -214,6 +336,76 @@ def timing_phase(errs, launches):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         "shape": f"M={M} K={Kd} N={N} transpose_w bf16; library: {lib_note}",
     })
+    rows += flash_timing(errs, launches)
+    return rows
+
+
+def flash_timing(errs, launches):
+    """The three flash kernels at the training shape (bf16, strided q/k/v
+    views as the model feeds them). Operations are the matmul FLOPs of the
+    live (causal) score entries: 2 products forward, 3 for dQ, 4 for dK/dV.
+    The plain version's backward and the library's backward each compute
+    dQ, dK and dV together; both backward rows carry that one time."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    B, T, Tk, H, D, causal = FLASH_TRAIN
+    dt = torch.bfloat16
+    q, k, v, do = flash_inputs(B, T, Tk, H, D, dt, fused_qkv=True, seed=1)
+    o, lse = K.flash_attention_fwd(q, k, v, causal)
+    delta = flash_delta(do, o)
+    live = B * H * (T * (T + 1) // 2 if causal else T * Tk)
+    elt = B * T * H * D * 2  # bytes of one (B, T, H, D) bf16 tensor
+    rowf = B * H * T * 4     # bytes of one (B, H, T) f32 row vector
+    ms = {
+        "flash_attention_fwd": time_ms(
+            lambda: K.flash_attention_fwd(q, k, v, causal)),
+        "flash_attention_dq": time_ms(
+            lambda: K.flash_attention_dq(q, k, v, do, lse, delta, causal)),
+        "flash_attention_dkv": time_ms(
+            lambda: K.flash_attention_dkv(q, k, v, do, lse, delta, causal)),
+    }
+    delta_ms = time_ms(lambda: flash_delta(do, o))
+    qp, kp, vp = (x.detach().requires_grad_() for x in (q, k, v))
+    po, _ = K.flash_attention_plain(qp, kp, vp, causal)
+    plain = {"flash_attention_fwd": time_ms(
+        lambda: K.flash_attention_plain(q, k, v, causal), iters=5)}
+    plain["flash_attention_dq"] = plain["flash_attention_dkv"] = time_ms(
+        lambda: torch.autograd.grad(po, (qp, kp, vp), do, retain_graph=True),
+        iters=5)
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    lo = sdpa(qh, kh, vh, is_causal=causal)
+    lib = {"flash_attention_fwd": time_ms(
+        lambda: sdpa(qh, kh, vh, is_causal=causal))}
+    lib["flash_attention_dq"] = lib["flash_attention_dkv"] = time_ms(
+        lambda: torch.autograd.grad(lo, (qh, kh, vh), doh, retain_graph=True))
+    work = {  # (bytes, operations)
+        "flash_attention_fwd": (4 * elt + rowf, 4 * D * live),
+        "flash_attention_dq": (5 * elt + 2 * rowf, 6 * D * live),
+        "flash_attention_dkv": (6 * elt + 2 * rowf, 8 * D * live),
+    }
+    rows = []
+    for name, (nbytes, ops) in work.items():
+        b_ms, b_by = bound(nbytes, ops, dt)
+        note = "" if name == "flash_attention_fwd" else (
+            f"; plain_ms and library_ms are whole backwards (dQ+dK+dV), "
+            f"beside dq+dkv+delta = {ms['flash_attention_dq'] + ms['flash_attention_dkv'] + delta_ms:.4f} ms "
+            f"(delta {delta_ms:.4f} ms)")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": errs[(name, dt)],
+            "ms": ms[name], "plain_ms": plain[name],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib[name],
+            "shape": f"B={B} T={T} H={H} D={D} causal={causal} bf16, strided "
+                     f"q/k/v views; library: torch scaled_dot_product_attention "
+                     f"on (B, H, T, D){note}",
+        })
     return rows
 
 
@@ -224,9 +416,6 @@ def decode_profile(eng, tag, steps=16, B=32, ctx=640):
     batch B and context ~ctx, run on this thread with the engine idle, under
     torch.profiler (CPU + CUDA). Prints the device busy share of the step
     window and the kernels that take the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     bs = eng.config.block_size
     mb = 1
     while mb * bs <= ctx:
@@ -250,26 +439,37 @@ def decode_profile(eng, tag, steps=16, B=32, ctx=640):
         for _ in range(3):
             step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                step()
+        device_breakdown(step, steps, f"profile ({tag}) B={B} ctx~{ctx}")
+
+
+def device_breakdown(step, steps, label, top=8):
+    """Run ``step`` ``steps`` times under torch.profiler (CPU + CUDA) and
+    print the device busy share of the window and the kernels that take the
+    most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
     ev = sorted((e.start_ns(), e.end_ns(), e.name())
                 for e in prof.profiler.kineto_results.events()
                 if e.device_type() == DeviceType.CUDA)
     if not ev:
-        fail(f"profile ({tag}): the trace holds no device activity")
+        fail(f"{label}: the trace holds no device activity")
     busy, end, by_name = 0, 0, {}
     for a, b, name in ev:
         busy += max(0, b - max(a, end))
         end = max(end, b)
         by_name[name] = by_name.get(name, 0) + (b - a)
     window = ev[-1][1] - ev[0][0]
-    print(f"  profile ({tag}) B={B} ctx~{ctx}: device window "
+    print(f"  {label}: device window "
           f"{window / 1e6 / steps:.3f} "
           f"ms/step, busy {busy / 1e6 / steps:.3f} ms/step, idle share "
           f"{1 - busy / window:.3f}, {len(ev) / steps:.0f} device ops/step")
-    for name, ns in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    for name, ns in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {ns / 1e6 / steps:8.3f} ms/step  {name[:90]}")
 
 
@@ -344,10 +544,121 @@ def engine_phase(profile=False):
     return total
 
 
+# -- train phase -------------------------------------------------------------
+
+def train_batch(cfg, B=2, T=2048, seed=0):
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T))).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T))).cuda()
+    return ids, labels
+
+
+def train_model(layers=None):
+    from paddle_tpu_torch.models import GPTForPretraining, gpt3_1p3b
+
+    cfg = gpt3_1p3b(hidden_dropout=0.0, attention_dropout=0.0, remat=False,
+                    attention_impl="flash", fused_lm_loss=True)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return GPTForPretraining(cfg, dtype=torch.bfloat16, seed=0).train()
+
+
+def grad_check():
+    """One bf16 backward of a full-width 4-layer model through the flash
+    kernels against the same backward with attention on the plain
+    version (the module's ``flash_attention_array`` swapped for it)."""
+    import paddle_tpu_torch.nn.functional.attention as A
+    from paddle_tpu_torch.ops import kernels as K
+
+    model = train_model(TRAIN_LAYERS_CHECK)
+    ids, labels = train_batch(model.config)
+    grads, losses = [], []
+    kernel_fn = A.flash_attention_array
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        if plain:
+            A.flash_attention_array = \
+                lambda q, k, v, causal=False: K.flash_attention_plain(
+                    q, k, v, causal)[0]
+        try:
+            loss = model.loss(ids, labels)
+            loss.backward()
+        finally:
+            A.flash_attention_array = kernel_fn
+        losses.append(loss.item())
+        grads.append({n: p.grad.float() for n, p in model.named_parameters()})
+    worst = max(((rel_err(grads[0][n], grads[1][n]), n) for n in grads[0]),
+                key=lambda t: t[0])
+    print(f"  grad check ({TRAIN_LAYERS_CHECK} layers, full width, bf16): "
+          f"loss kernel {losses[0]:.5f} plain {losses[1]:.5f}; worst "
+          f"per-parameter rel_norm_err {worst[0]:.3e} ({worst[1]}), tol "
+          f"{GRAD_REL_TOL}")
+    if not worst[0] <= GRAD_REL_TOL or abs(losses[0] - losses[1]) > 1e-2:
+        fail(f"train grad check: {worst[1]} rel_err {worst[0]:.3e}, "
+             f"losses {losses}")
+    del model, grads
+    torch.cuda.empty_cache()
+
+
+def train_phase(profile=False):
+    """GPT-3 1.3B bf16, 24 layers, b2 x s2048 through compile_train_step."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels as K
+
+    grad_check()
+    t0 = time.monotonic()
+    model = train_model()
+    cfg = model.config
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.named_parameters())
+    step = pt.jit.compile_train_step(model, lambda m, i, l: m.loss(i, l), opt)
+    ids, labels = train_batch(cfg)
+    B, T = ids.shape
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  model: gpt3_1p3b bf16 train, {n_params / 1e9:.3f}B params, "
+          f"{cfg.num_layers} layers, built in {time.monotonic() - t0:.1f}s")
+    losses = [step(ids, labels) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    losses += [step(ids, labels) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [x.item() for x in losses]
+    want = cfg.num_layers * TRAIN_STEPS
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = B * T * TRAIN_STEPS / wall
+    # bench.py's count: 6N (forward + backward matmuls) + 6 L d T (attention)
+    flops_tok = 6.0 * n_params + 6.0 * cfg.num_layers * cfg.hidden_size * T
+    print(f"  train: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, step "
+          f"{step_ms:.2f} ms (host clock, one sync at the end), "
+          f"{tok_s:.1f} tokens/s, MFU {tok_s * flops_tok / 989e12:.4f} "
+          f"(6N + 6*L*d*T = {flops_tok:.4e} FLOP/token against 989 TFLOP/s "
+          f"bf16), peak memory {peak / 2**30:.2f} GiB, launches {counts}")
+    print(f"  losses: {[round(v, 4) for v in vals]}")
+    bad = [k for k in ("flash_attention_fwd", "flash_attention_dq",
+                       "flash_attention_dkv") if counts[k] != want]
+    if bad:
+        fail(f"train: launches {counts}, want {want} for each flash kernel")
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"train: losses {vals}")
+    if profile:
+        device_breakdown(lambda: step(ids, labels), 2,
+                         f"profile (train) b{B}xs{T}", top=14)
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in FLASH_REPLACES}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace each engine's decode step on the device")
+                    help="also trace each engine's decode step and one train "
+                         "step on the device")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -379,12 +690,20 @@ def main(argv=None) -> int:
         print(f"  {name}: {len(regs)} instantiations, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, "
               f"spill-store bytes {spills}")
+        for fn, st, reg in re.findall(
+                r"Function properties for (\S+)\n.*?(\d+) bytes spill stores"
+                r".*?\n.*?Used (\d+) registers", entry["ptxas"]):
+            print(f"    {fn}: {reg} registers, {st} spill-store bytes")
 
     print("[2] kernels against their plain versions")
     errs = kernel_phase()
+    errs.update(flash_phase())
 
     print("[3] engine: gpt3_1p3b through serving.Engine")
     launches = engine_phase(profile=args.profile)
+
+    print("[5] train: gpt3_1p3b through jit.compile_train_step")
+    launches.update(train_phase(profile=args.profile))
 
     print("[4] kernel timing")
     rows = timing_phase(errs, launches)

@@ -1,3 +1,4 @@
-from .layer import Embedding, LayerNorm, Linear, layer_norm
+from . import functional
+from .layer import Dropout, Embedding, LayerNorm, Linear, layer_norm
 
-__all__ = ["Embedding", "LayerNorm", "Linear", "layer_norm"]
+__all__ = ["functional", "Dropout", "Embedding", "LayerNorm", "Linear", "layer_norm"]

@@ -7,6 +7,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..functional.common import dropout
+
 
 class Linear(nn.Module):
     """``x @ weight + bias`` with Paddle's **(in, out)** weight layout, so
@@ -44,3 +46,15 @@ class Embedding(nn.Module):
 
     def forward(self, ids):
         return self.weight[ids]
+
+
+class Dropout(nn.Module):
+    """Inverted dropout drawn from the port's generators (``core/random``),
+    never from torch's global RNG; active only in ``train()`` mode."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x):
+        return dropout(x, self.p, self.training)

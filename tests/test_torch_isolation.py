@@ -42,7 +42,9 @@ def test_no_jax_or_reference_import(path):
 
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.models, paddle_tpu_torch.ops.kernels\n"
+            "paddle_tpu_torch.models, paddle_tpu_torch.ops.kernels, "
+            "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.nn.functional, paddle_tpu_torch.ops.fused_ce\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "assert not bad, bad\n")

@@ -107,7 +107,11 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     x = torch.randn(2, 16)
     qw = torch.randint(-127, 128, (24, 16), dtype=torch.int8)
     TK.int8_matmul(x, qw, torch.tensor(0.5), transpose_w=True)
-    assert TK.launch_counts() == {"paged_attention_rows": 0, "int8_matmul": 0}
+    qkv = torch.randn(1, 8, 2, 16)
+    TK.flash_attention_array(qkv, qkv, qkv, causal=True).sum()
+    assert TK.launch_counts() == {
+        "paged_attention_rows": 0, "int8_matmul": 0, "flash_attention_fwd": 0,
+        "flash_attention_dq": 0, "flash_attention_dkv": 0}
 
 
 def test_attach_int8_head_grafts_quantized_head():
