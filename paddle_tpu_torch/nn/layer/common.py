@@ -7,18 +7,20 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...core.place import resolve_device
 from ..functional.common import dropout
 
 
 class Linear(nn.Module):
     """``x @ weight + bias`` with Paddle's **(in, out)** weight layout, so
-    weights carry across from the reference with no transpose."""
+    weights carry across from the reference with no transpose. Built on
+    ``cuda`` unless ``device="cpu"`` (``core.place.resolve_device``)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None, dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        kw = {"device": device, "dtype": dtype}
+        kw = {"device": resolve_device(device), "dtype": dtype}
         self.weight = nn.Parameter(torch.empty(in_features, out_features, **kw))
         self.bias = (nn.Parameter(torch.zeros(out_features, **kw)) if bias
                      else None)
@@ -33,14 +35,16 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Row lookup into a ``(num_embeddings, dim)`` table named ``weight``."""
+    """Row lookup into a ``(num_embeddings, dim)`` table named ``weight``,
+    built on ``cuda`` unless ``device="cpu"``."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  std: float = 0.02, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
-            num_embeddings, embedding_dim, device=device, dtype=dtype))
+            num_embeddings, embedding_dim, device=resolve_device(device),
+            dtype=dtype))
         with torch.no_grad():
             self.weight.normal_(0.0, std, generator=generator)
 

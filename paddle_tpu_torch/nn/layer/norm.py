@@ -4,6 +4,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...core.place import resolve_device
+
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
     """The explicit mean/variance expression, evaluated in x's dtype (as the
@@ -14,10 +16,12 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
 
 
 class LayerNorm(nn.Module):
+    """Built on ``cuda`` unless ``device="cpu"``."""
+
     def __init__(self, normalized_shape: int, epsilon: float = 1e-5,
                  device=None, dtype=None):
         super().__init__()
-        kw = {"device": device, "dtype": dtype}
+        kw = {"device": resolve_device(device), "dtype": dtype}
         self.weight = nn.Parameter(torch.ones(normalized_shape, **kw))
         self.bias = nn.Parameter(torch.zeros(normalized_shape, **kw))
         self.epsilon = epsilon

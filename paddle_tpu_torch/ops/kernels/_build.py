@@ -81,21 +81,26 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     return log
 
 
+def open_library(path, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The library at ``path``, with ``argtypes``/``restype`` set from
+    ``signatures`` (C entry name -> (argtypes tuple, restype)) and for every
+    library's ``pt_error_string``."""
+    lib = ctypes.CDLL(str(path))
+    sigs = dict(signatures, pt_error_string=((ctypes.c_int,), ctypes.c_char_p))
+    for fn, (argtypes, restype) in sigs.items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = restype
+    return lib
+
+
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (built on first call), with
-    ``argtypes``/``restype`` set from ``signatures`` (C entry name ->
-    (argtypes tuple, restype)) and for every library's ``pt_error_string``."""
+    """The loaded library for ``csrc/<name>.cu`` (built on first call); see
+    ``open_library``."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_target(name)))
-            sigs = dict(signatures,
-                        pt_error_string=((ctypes.c_int,), ctypes.c_char_p))
-            for fn, (argtypes, restype) in sigs.items():
-                getattr(lib, fn).argtypes = list(argtypes)
-                getattr(lib, fn).restype = restype
-            _libs[name] = lib
+            lib = _libs[name] = open_library(_target(name), signatures)
         return lib
 
 

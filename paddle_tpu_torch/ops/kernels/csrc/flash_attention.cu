@@ -13,8 +13,8 @@
 //                    `_dfused_kernel_resident`, `_dkv_kernel_hd` :669)
 // The TPU needed a (B*H, T, D) route and a native (B, T, H*D) route because
 // its transposes are HBM passes and its VMEM bounds the resident tiles. Here
-// every kernel reads q, k, v (and dO) in the reference's (B, T, H, D) layout
-// through strides, so one kernel covers both routes, any T != T_kv, ragged
+// every entry reads q, k, v (and dO) in the reference's (B, T, H, D) layout
+// through strides, so each entry covers both routes, any T != T_kv, ragged
 // tails and any D <= 256 with D % 8 == 0, with no transpose and no padding.
 //
 // Function (as the reference's): S = scale * Q K^T in f32 with scale = 1/sqrt(D);
@@ -24,36 +24,76 @@
 // P = exp(S - LSE), dP = dO V^T, dS = P * (dP - delta) with delta =
 // rowsum(dO * O) computed by the caller; dQ = scale * dS K, dK = scale * dS^T Q,
 // dV = P^T dO. In bf16 P and dS are rounded to bf16 before their products, as
-// the reference's `.astype(v.dtype)` does; every sum is kept in f32.
+// the reference's `.astype(v.dtype)` does; every sum is kept in f32. The
+// bf16 Hopper kernels take their exponentials from ex2.approx.ftz (about 2
+// ulp of f32, subnormal results flushed to zero): far below the bf16
+// rounding of P and dS (2^-9 relative) that follows, and the dropped
+// subnormals are below bf16's own resolution next to the row's largest P.
 //
 // What bounds them on the H100: operations. At the training shape (B=2,
-// T=2048, H=16, D=128, causal) the forward does ~3.4e10 FLOP (~0.035 ms at
-// 989 TFLOP/s) against ~33 MB of q/k/v/o (~0.01 ms at 3.35 TB/s); the backward
-// does ~2.5x the forward's FLOPs. So the products go to the tensor cores.
+// T=2048, H=16, D=128, causal) the forward does 4*D*live = 3.4e10 FLOP
+// (live = B*H*T*(T+1)/2 scores; 0.0348 ms at 989 TFLOP/s) against ~33 MB of
+// q/k/v/o (~0.01 ms at 3.35 TB/s); dQ does 1.5x and dK/dV 2x the forward's
+// FLOPs (0.0521 and 0.0695 ms). So the products go to the tensor cores, and
+// the softmax between them must not leave those idle.
 //
-// What the design does about that (a right, simple kernel; wgmma, TMA and warp
-// specialisation are later work):
-//  - bf16: warp-level `mma.sync.m16n8k16` (bf16 in, f32 accumulate). One block
-//    of 4 warps per (64-row tile, head, batch); each warp owns 16 rows. The
-//    score accumulator is reused in registers as the A operand of the next
-//    product (P V, dS K, P^T dO, dS^T Q), so no score tile touches shared or
-//    device memory. Fragments come from shared memory by `ldmatrix` (its
-//    `.trans` form for the operands read k-major: V, K, Q, dO), with tile
-//    rows padded by 16 bytes so the reads are free of bank conflicts. The
-//    streamed tiles are double-buffered: the next tile's `cp.async` runs
-//    under the current tile's products.
-//  - f32: the same tiling on CUDA cores (32-row tiles, 4 threads a row, fmaf),
-//    the path that checks the algorithm to f32 precision.
-//  - blocks run in parallel and carry nothing between them: a loop inside the
-//    block walks the K/V tiles (forward, dQ) or the Q tiles (dK/dV). With
-//    causal masking the loop stops at (forward, dQ) or starts from (dK/dV)
-//    the diagonal, so dead tiles are never loaded, not only skipped.
+// Which kernel runs, a static rule by dtype and head width, decided before
+// the launch:
+//  - bf16 forward and dK/dV with D <= 128 (instantiations DM = 64, 128): the
+//    Hopper kernels `fwd_wgmma` and `dkv_wgmma` below;
+//  - bf16 forward and dK/dV with 128 < D <= 256 (DM = 256), and bf16 dQ at
+//    every width: warp-level `mma.sync` kernels (`fwd_bf16`, `dkv_bf16`,
+//    `dq_bf16`). No path of the port has D > 128; a wgmma tiling of D = 256
+//    without spills is open work;
+//  - f32: CUDA-core kernels (`*_f32`) that check the algorithm to f32
+//    precision.
+//
+// What the Hopper design does about the operation bound:
+//  - wgmma: two consumer warpgroups, each owning 64 rows (q rows in the
+//    forward, key rows in dK/dV), run m64nNk16 products with their f32
+//    accumulators in registers. S = Q K^T, S^T = K Q^T and dP^T = V dO^T
+//    read both operands from shared memory, K-major; O += P V, dV += P^T dO
+//    and dK += dS^T Q take P, P^T or dS^T from the score accumulator
+//    rounded to bf16 in registers (the m64 accumulator's per-warp layout is
+//    the A operand's) and B from shared memory MN-major (transpose-B). No
+//    score tile touches shared or device memory.
+//  - TMA: one producer thread loads every tile with cp.async.bulk.tensor
+//    from a 4-D tensor map (D, H, T, B) built on the host from the
+//    wrapper's strides, so the strided q/k/v views of the fused QKV output
+//    go in without a copy. Boxes are 64 columns wide (one 128-byte swizzled
+//    panel; D = 128 is two panels) and zero-filled past D, T and T_kv, which
+//    covers ragged tails and any D % 8 == 0 below the instantiation's
+//    width. Completion is signalled on mbarriers: Q (forward) or K and V
+//    (dK/dV) once, the streamed tiles through a 2-stage full/empty ring.
+//    The producer warpgroup gives its registers up (setmaxnreg 24) so the
+//    consumers can hold 240; ptxas reports no spills.
+//  - The softmax runs in the log2 domain: ex2.approx with scale*log2(e)
+//    folded into one multiply; LSE = m*ln(2) + log(l) is stored in natural
+//    log.
+//    The causal/edge mask (`live`) is evaluated only on tiles that cross the
+//    diagonal, T or T_kv.
+//  - Blocks run in parallel and carry nothing between them: a loop inside
+//    the block walks the K/V tiles (forward, dQ) or the Q tiles (dK/dV);
+//    with causal masking it stops at (forward, dQ) or starts from (dK/dV)
+//    the diagonal, so dead tiles are never loaded. The heaviest causal
+//    blocks are scheduled first (the last q tiles of the forward, the first
+//    key tiles of dK/dV) so that no long block is left for the tail.
 //  - dK/dV are owned by the block of their key tile: no atomics, and the
-//    result is the same from run to run.
+//    result is bitwise the same from run to run.
+//
+// The mma.sync kernels (bf16 dQ, and forward and dK/dV above D = 128): one
+// block of 4 warps per (64-row tile, head, batch), each warp owning 16
+// rows; fragments from padded shared tiles by `ldmatrix` (`.trans` for the
+// k-major operands), the streamed tiles double-buffered by `cp.async`.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <set>
+#include <utility>
 
 namespace {
 
@@ -561,6 +601,608 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(Args a) {
                  a.Tk - k0, rs, a.D, tq);
 }
 
+// ------------------------------------------------- bf16, Hopper (wgmma) ----
+// The forward and dK/dV kernels for D <= 128: TMA loads into 128-byte-swizzled
+// shared memory signalled through mbarriers, one producer warp, two consumer
+// warpgroups of 64 rows each running wgmma with f32 accumulators in registers.
+
+constexpr int kWgThreads = 384;  // warpgroups 0-1 consume, warpgroup 2 loads
+constexpr int kPanel = 64;       // bf16 columns of one 128-byte panel
+constexpr int kRowBytes = 128;   // one panel row in shared memory
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x on the special-function unit (ex2.approx.ftz: ~2 ulp, subnormal
+// results flushed to 0); faster than exp2f in these kernels (PERF.md §6,
+// measured with flash_ab.py).
+__device__ __forceinline__ float fexp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival (release: this thread's shared stores are seen by the waiters).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One arrival that also makes the phase wait for `bytes` of TMA writes.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D tensor map (D, H, rows, B) at coordinates (c0, c1, c2,
+// c3), innermost first; completion is counted on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N committed wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Ties every accumulator register to the preceding wait, so that no use of
+// it is scheduled before the asynchronous product has written it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: bits 0-13
+// start address >> 4, 16-29 leading byte offset >> 4, 32-45 stride byte
+// offset >> 4, 62-63 layout (1: 128-byte swizzle). Tiles are stored as
+// 128-byte rows (64 bf16 columns, one TMA panel), 8-row groups 1024 bytes
+// apart (the stride offset). A K-major operand steps 16 columns by adding 32
+// bytes to the start inside a panel and ignores `lead`; an MN-major one steps
+// 16 rows by adding 2048 bytes, and `lead` is the distance between panels.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lead) {
+  return static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lead >> 4) & 0x3FFFu) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The m64nNk16 accumulator of a warpgroup gives thread (warp w, lane = 4g +
+// tq) rows 16w + g and 16w + g + 8; d[4j + e] is column 8j + 2tq + (e & 1)
+// of row 16w + g + 8 * (e >> 1) — per warp exactly the m16n8 C fragments of
+// mma.sync, and the register A operand of a k16 slice takes the same
+// fragments. So `acc_as_a` packs columns 16kc..16kc+15 of a wgmma
+// accumulator, viewed as float[N/8][4], into the A operand of slice kc.
+template <int N>
+__device__ __forceinline__ float (*frags(float (&d)[N]))[4] {
+  return reinterpret_cast<float(*)[4]>(d);
+}
+
+// d (64 x 64, f32) = A (64 x 16) * B (16 x 64) + (scale_d ? d : 0), A and
+// B in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 }, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, f32) = A (64 x 16) * B (16 x 128) + (scale_d ? d : 0), A and
+// B in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 }, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared memory,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 }, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, shared memory,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 }, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Forward. One block per (q tile of 128 rows, head, batch); warpgroup wg owns
+// q rows 64wg..64wg+63 of the tile. Q is loaded once; K and V stream through
+// a ring of kStages stages (full barriers per K and per V, one empty barrier
+// that both consumer warpgroups release after their P V).
+template <int DM>
+struct FwdWg {
+  static constexpr int NP = DM / kPanel;  // 64-column panels
+  static constexpr int BM = 128, BN = 128, kStages = 2;
+  static constexpr int Q_BYTES = NP * BM * kRowBytes;
+  static constexpr int KV_BYTES = NP * BN * kRowBytes;  // one K or V tile
+  static constexpr size_t smem =
+      1024 + Q_BYTES + 2 * kStages * KV_BYTES + (1 + 3 * kStages) * 8;
+};
+
+template <int DM>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_wgmma(const __grid_constant__ CUtensorMap mq,
+              const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv, Args a) {
+  using C = FwdWg<DM>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* Ks = Qs + C::Q_BYTES;
+  unsigned char* Vs = Ks + C::kStages * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + C::kStages * C::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + C::kStages;
+  uint64_t* empty = v_full + C::kStages;
+
+  // the last q tiles carry the most causal work: they are scheduled first
+  const int n_q = (a.T + C::BM - 1) / C::BM;
+  const int bh = blockIdx.x % (a.B * a.H);
+  const int q0 = (n_q - 1 - blockIdx.x / (a.B * a.H)) * C::BM;
+  const int h = bh % a.H, b = bh / a.H;
+  int n_kv = (a.Tk + C::BN - 1) / C::BN;
+  if (a.causal) n_kv = min(n_kv, (min(q0 + C::BM, a.T) - 1) / C::BN + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer: one thread issues every load
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_tx(q_full, C::Q_BYTES);
+      for (int p = 0; p < C::NP; ++p)
+        tma_load(Qs + p * C::BM * kRowBytes, &mq, q_full, p * kPanel, h, q0, b);
+      for (int kt = 0; kt < n_kv; ++kt) {
+        const int s = kt % C::kStages, ph = (kt / C::kStages) & 1;
+        mbar_wait(empty + s, ph ^ 1);
+        unsigned char* kd = Ks + s * C::KV_BYTES;
+        unsigned char* vd = Vs + s * C::KV_BYTES;
+        mbar_arrive_tx(k_full + s, C::KV_BYTES);
+        for (int p = 0; p < C::NP; ++p)
+          tma_load(kd + p * C::BN * kRowBytes, &mk, k_full + s, p * kPanel, h,
+                   kt * C::BN, b);
+        mbar_arrive_tx(v_full + s, C::KV_BYTES);
+        for (int p = 0; p < C::NP; ++p)
+          tma_load(vd + p * C::BN * kRowBytes, &mv, v_full + s, p * kPanel, h,
+                   kt * C::BN, b);
+      }
+    }
+  } else {  // consumers
+    regs_inc<240>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane >> 2, tq = lane & 3;
+    const int r0 = wg * 64 + warp * 16 + g;  // tile rows r0 and r0 + 8
+    const float sl2 = a.scale * kLog2e;      // scores in the log2 domain
+    const uint32_t q_addr = smem_addr(Qs) + wg * 64 * kRowBytes;
+    float o[DM / 2];
+#pragma unroll
+    for (int i = 0; i < DM / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int kt = 0; kt < n_kv; ++kt) {
+      const int s = kt % C::kStages, ph = (kt / C::kStages) & 1;
+      const int k0 = kt * C::BN;
+      const uint32_t k_addr = smem_addr(Ks + s * C::KV_BYTES);
+      const uint32_t v_addr = smem_addr(Vs + s * C::KV_BYTES);
+      float sc[C::BN / 2];
+      mbar_wait(k_full + s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk) {
+        const uint32_t col = (kk / 4) * C::BM * kRowBytes + (kk % 4) * 32;
+        wgmma_ss(sc, sw128_desc(q_addr + col, 16),
+                 sw128_desc(k_addr + col, 16), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // the mask only on the tile that crosses the diagonal or an edge
+      const bool edge = (a.causal && k0 + C::BN - 1 > q0) ||
+                        k0 + C::BN > a.Tk || q0 + C::BM > a.T;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < C::BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * sl2;
+          if (edge && !live(a, q0 + r0 + (e >> 1) * 8, k0 + 8 * j + 2 * tq +
+                                                          (e & 1)))
+            x = kNegInf;
+          sc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float mn = fmaxf(m[i], mx[i]);
+        alpha[i] = fexp2(m[i] - mn);
+        m[i] = mn;
+      }
+#pragma unroll
+      for (int i = 0; i < C::BN / 2; ++i) {
+        const float p = fexp2(sc[i] - m[(i >> 1) & 1]);
+        sc[i] = p;
+        rs[(i >> 1) & 1] += p;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+      for (int i = 0; i < DM / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      uint32_t pa[C::BN / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < C::BN / 16; ++kc) acc_as_a(pa[kc], frags(sc), kc);
+
+      mbar_wait(v_full + s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < C::BN / 16; ++kc)
+        wgmma_rs(o, pa[kc],
+                 sw128_desc(v_addr + kc * 16 * kRowBytes, C::BN * kRowBytes));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(empty + s);
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const float ls = fmaxf(l[i], 1e-30f);
+      inv[i] = 1.f / ls;
+      const int tp = q0 + r0 + 8 * i;
+      if (tq == 0 && tp < a.T)
+        a.lse_out[((long long)b * a.H + h) * a.T + tp] = m[i] * kLn2 + logf(ls);
+    }
+    bf16* out = static_cast<bf16*>(a.out0) +
+                (((long long)b * a.T + q0) * a.H + h) * a.D;
+    store_rows<DM>(out, frags(o), inv[0], inv[1], r0,
+                   a.T - q0, (long long)a.H * a.D, a.D, tq);
+  }
+}
+
+// dK/dV. One block per (key tile of 128 rows, head, batch); warpgroup wg owns
+// keys 64wg..64wg+63 and their dK, dV accumulators. K and V are loaded once;
+// Q, dO and the tile's LSE (times log2 e) and delta stream through the ring:
+// lane 0 of the producer warp issues the TMA loads, all 32 lanes copy the
+// row vectors and arrive.
+template <int DM>
+struct DkvWg {
+  static constexpr int NP = DM / kPanel;
+  static constexpr int BK = 128, BQ = 64, kStages = 2;
+  static constexpr int KV_BYTES = NP * BK * kRowBytes;  // K or V
+  static constexpr int QT_BYTES = NP * BQ * kRowBytes;  // one Q or dO tile
+  static constexpr size_t smem = 1024 + 2 * KV_BYTES +
+                                 kStages * (2 * QT_BYTES + 2 * BQ * 4) +
+                                 (1 + 2 * kStages) * 8;
+};
+
+template <int DM>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dkv_wgmma(const __grid_constant__ CUtensorMap mq,
+              const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv,
+              const __grid_constant__ CUtensorMap mdo, Args a) {
+  using C = DkvWg<DM>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);
+  unsigned char* Vs = Ks + C::KV_BYTES;
+  unsigned char* Qs = Vs + C::KV_BYTES;             // kStages Q tiles
+  unsigned char* dOs = Qs + C::kStages * C::QT_BYTES;  // kStages dO tiles
+  float* lse2 = reinterpret_cast<float*>(dOs + C::kStages * C::QT_BYTES);
+  float* dls = lse2 + C::kStages * C::BQ;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dls + C::kStages * C::BQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + C::kStages;
+
+  // the first key tiles carry the most causal work: they are scheduled first
+  const int bh = blockIdx.x % (a.B * a.H);
+  const int k0 = (blockIdx.x / (a.B * a.H)) * C::BK;
+  const int h = bh % a.H, b = bh / a.H;
+  const int n_q = (a.T + C::BQ - 1) / C::BQ;
+  const int first = a.causal ? k0 / C::BQ : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer warp
+    regs_dec<24>();
+    if (threadIdx.x < 256 + 32) {
+      const int lane = threadIdx.x - 256;
+      if (lane == 0) {
+        mbar_arrive_tx(kv_full, 2 * C::KV_BYTES);
+        for (int p = 0; p < C::NP; ++p) {
+          tma_load(Ks + p * C::BK * kRowBytes, &mk, kv_full, p * kPanel, h, k0,
+                   b);
+          tma_load(Vs + p * C::BK * kRowBytes, &mv, kv_full, p * kPanel, h, k0,
+                   b);
+        }
+      }
+      for (int qt = first; qt < n_q; ++qt) {
+        const int it = qt - first;
+        const int s = it % C::kStages, ph = (it / C::kStages) & 1;
+        const int q0 = qt * C::BQ;
+        mbar_wait(empty + s, ph ^ 1);
+        for (int i = lane; i < C::BQ; i += 32) {
+          const int tp = q0 + i;
+          const long long at = ((long long)b * a.H + h) * a.T + tp;
+          lse2[s * C::BQ + i] = tp < a.T ? a.lse_in[at] * kLog2e : 0.f;
+          dls[s * C::BQ + i] = tp < a.T ? a.delta[at] : 0.f;
+        }
+        if (lane == 0) {
+          unsigned char* qd = Qs + s * C::QT_BYTES;
+          unsigned char* dd = dOs + s * C::QT_BYTES;
+          mbar_arrive_tx(full + s, 2 * C::QT_BYTES);
+          for (int p = 0; p < C::NP; ++p) {
+            tma_load(qd + p * C::BQ * kRowBytes, &mq, full + s, p * kPanel, h,
+                     q0, b);
+            tma_load(dd + p * C::BQ * kRowBytes, &mdo, full + s, p * kPanel, h,
+                     q0, b);
+          }
+        } else {
+          mbar_arrive(full + s);
+        }
+      }
+    }
+  } else {  // consumers
+    regs_inc<240>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane >> 2, tq = lane & 3;
+    const int kw0 = k0 + wg * 64;   // this warpgroup's first key
+    const int kr = warp * 16 + g;   // its key rows kr and kr + 8
+    const float sl2 = a.scale * kLog2e;
+    const uint32_t k_addr = smem_addr(Ks) + wg * 64 * kRowBytes;
+    const uint32_t v_addr = smem_addr(Vs) + wg * 64 * kRowBytes;
+    float dk[DM / 2], dv[DM / 2];
+#pragma unroll
+    for (int i = 0; i < DM / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int qt = first; qt < n_q; ++qt) {
+      const int it = qt - first;
+      const int s = it % C::kStages, ph = (it / C::kStages) & 1;
+      const int q0 = qt * C::BQ;
+      mbar_wait(full + s, ph);
+      if (a.causal && q0 + C::BQ - 1 < kw0) {  // every query before every key
+        mbar_arrive(empty + s);
+        continue;
+      }
+      const uint32_t q_addr = smem_addr(Qs + s * C::QT_BYTES);
+      const uint32_t do_addr = smem_addr(dOs + s * C::QT_BYTES);
+      const float* lse_s = lse2 + s * C::BQ;
+      const float* dl_s = dls + s * C::BQ;
+      // transposed scores: rows are this warpgroup's 64 keys, columns the
+      // tile's 64 queries
+      float st[C::BQ / 2], dpt[C::BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)  // S^T = K Q^T
+        wgmma_ss(st,
+                 sw128_desc(k_addr + (kk / 4) * C::BK * kRowBytes +
+                                (kk % 4) * 32, 16),
+                 sw128_desc(q_addr + (kk / 4) * C::BQ * kRowBytes +
+                                (kk % 4) * 32, 16),
+                 kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)  // dP^T = V dO^T
+        wgmma_ss(dpt,
+                 sw128_desc(v_addr + (kk / 4) * C::BK * kRowBytes +
+                                (kk % 4) * 32, 16),
+                 sw128_desc(do_addr + (kk / 4) * C::BQ * kRowBytes +
+                                (kk % 4) * 32, 16),
+                 kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(st);
+
+      const bool edge = (a.causal && q0 < kw0 + 63) || q0 + C::BQ > a.T ||
+                        kw0 + 64 > a.Tk;
+#pragma unroll
+      for (int j = 0; j < C::BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * j + 2 * tq + (e & 1);
+          float x = st[4 * j + e] * sl2;
+          if (edge && !live(a, q0 + qi, kw0 + kr + (e >> 1) * 8)) x = kNegInf;
+          st[4 * j + e] = fexp2(x - lse_s[qi]);  // P^T
+        }
+      uint32_t pa[C::BQ / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < C::BQ / 16; ++kc) acc_as_a(pa[kc], frags(st), kc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < C::BQ / 16; ++kc)  // dV += P^T dO
+        wgmma_rs(dv, pa[kc],
+                 sw128_desc(do_addr + kc * 16 * kRowBytes, C::BQ * kRowBytes));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(dpt);
+
+#pragma unroll
+      for (int j = 0; j < C::BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * j + 2 * tq + (e & 1);
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl_s[qi]);  // dS^T
+        }
+      uint32_t da[C::BQ / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < C::BQ / 16; ++kc) acc_as_a(da[kc], frags(dpt), kc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < C::BQ / 16; ++kc)  // dK += dS^T Q
+        wgmma_rs(dk, da[kc],
+                 sw128_desc(q_addr + kc * 16 * kRowBytes, C::BQ * kRowBytes));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(empty + s);
+    }
+
+    const long long rs = (long long)a.H * a.D;
+    const long long off = (((long long)b * a.Tk + kw0) * a.H + h) * a.D;
+    store_rows<DM>(static_cast<bf16*>(a.out0) + off,
+                   frags(dk), a.scale, a.scale, kr,
+                   a.Tk - kw0, rs, a.D, tq);
+    store_rows<DM>(static_cast<bf16*>(a.out1) + off,
+                   frags(dv), 1.f, 1.f, kr, a.Tk - kw0,
+                   rs, a.D, tq);
+  }
+}
+
 // ----------------------------------------------------------------- f32 ----
 // 32-row tiles, 4 threads a row (thread s of a row holds columns s, s+4, ...);
 // a dot product is reduced over the 4 lanes with two shuffles.
@@ -771,29 +1413,129 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(Args a) {
 
 // ------------------------------------------------------------- launch ----
 
+// Lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB), on
+// the first launch of each kernel on each device.
+template <typename K>
+int set_smem(K* kernel, size_t smem) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;  // (kernel, device)
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e) return static_cast<int>(e);
+  std::lock_guard<std::mutex> hold(mu);
+  if (done.count({reinterpret_cast<const void*>(kernel), dev})) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (!e) done.insert({reinterpret_cast<const void*>(kernel), dev});
+  return static_cast<int>(e);
+}
+
 template <typename K>
 int launch(K* kernel, int rows, int tile, size_t smem, const Args& a,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    const int e = set_smem(kernel, smem);
+    if (e) return e;
   }
   const dim3 grid((rows + tile - 1) / tile, a.H, a.B);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library needs no link against libcuda.
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map (D, H, rows, B) of a bf16 (B, rows, H, D) tensor read through
+// its element strides: boxes of 64 columns x box_rows rows of one head, the
+// 128-byte swizzle that wgmma reads, zero fill past D, rows and every other
+// edge. A size-1 axis gets a packed stride (its stride is never used).
+int make_map(CUtensorMap* map, const void* base, const Strides& s, int B,
+             int H, int rows, int D, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t ph = (cuuint64_t)D * 2, pt = ph * H, pb = pt * rows;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)rows,
+                        (cuuint64_t)B};
+  cuuint64_t strides[3] = {H > 1 ? (cuuint64_t)s.h * 2 : ph,
+                           rows > 1 ? (cuuint64_t)s.t * 2 : pt,
+                           B > 1 ? (cuuint64_t)s.b * 2 : pb};
+  cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)box_rows, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DM>
+int launch_fwd_wgmma(const Args& a, cudaStream_t stream) {
+  using C = FwdWg<DM>;
+  CUtensorMap mq, mk, mv;
+  int e = make_map(&mq, a.q, a.sq, a.B, a.H, a.T, a.D, C::BM);
+  if (!e) e = make_map(&mk, a.k, a.sk, a.B, a.H, a.Tk, a.D, C::BN);
+  if (!e) e = make_map(&mv, a.v, a.sv, a.B, a.H, a.Tk, a.D, C::BN);
+  if (!e) e = set_smem(fwd_wgmma<DM>, C::smem);
+  if (e) return e;
+  const int n_q = (a.T + C::BM - 1) / C::BM;
+  fwd_wgmma<DM><<<n_q * a.B * a.H, kWgThreads, C::smem, stream>>>(mq, mk, mv,
+                                                                   a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DM>
+int launch_dkv_wgmma(const Args& a, cudaStream_t stream) {
+  using C = DkvWg<DM>;
+  CUtensorMap mq, mk, mv, mdo;
+  int e = make_map(&mq, a.q, a.sq, a.B, a.H, a.T, a.D, C::BQ);
+  if (!e) e = make_map(&mk, a.k, a.sk, a.B, a.H, a.Tk, a.D, C::BK);
+  if (!e) e = make_map(&mv, a.v, a.sv, a.B, a.H, a.Tk, a.D, C::BK);
+  if (!e) e = make_map(&mdo, a.dout, a.sdo, a.B, a.H, a.T, a.D, C::BQ);
+  if (!e) e = set_smem(dkv_wgmma<DM>, C::smem);
+  if (e) return e;
+  const int n_k = (a.Tk + C::BK - 1) / C::BK;
+  dkv_wgmma<DM><<<n_k * a.B * a.H, kWgThreads, C::smem, stream>>>(mq, mk, mv,
+                                                                   mdo, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// bf16 forward and dK/dV: the wgmma kernels for D <= 128 (DM 64 and 128),
+// the mma.sync kernels for 128 < D <= 256; dQ is mma.sync at every width.
 template <int DM>
 int dispatch_dm(int dtype, Which w, const Args& a, cudaStream_t s) {
   using B = BfSmem<DM>;
   using F = F32Smem<DM>;
   if (dtype == 1) {
-    if (w == kFwd) return launch(fwd_bf16<DM>, a.T, kTile, B::fwd, a, s);
     if (w == kDq) return launch(dq_bf16<DM>, a.T, kTile, B::dq, a, s);
-    return launch(dkv_bf16<DM>, a.Tk, kTile, B::dkv, a, s);
+    if constexpr (DM <= 128) {
+      if (w == kFwd) return launch_fwd_wgmma<DM>(a, s);
+      return launch_dkv_wgmma<DM>(a, s);
+    } else {
+      if (w == kFwd) return launch(fwd_bf16<DM>, a.T, kTile, B::fwd, a, s);
+      return launch(dkv_bf16<DM>, a.Tk, kTile, B::dkv, a, s);
+    }
   }
   if (w == kFwd) return launch(fwd_f32<DM>, a.T, kFTile, F::fwd, a, s);
   if (w == kDq) return launch(dq_f32<DM>, a.T, kFTile, F::dq, a, s);

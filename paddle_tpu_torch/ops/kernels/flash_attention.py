@@ -13,7 +13,10 @@ Three CUDA C++ kernels in ``csrc/flash_attention.cu`` (sm_90a) compute it:
 ``flash_attention_fwd`` (O and LSE), ``flash_attention_dq`` and
 ``flash_attention_dkv``. They read q, k, v and dO through strides in the
 (B, T, H, D) layout, so the views that ``GPTAttention`` cuts out of the fused
-QKV projection go in without a copy. delta = rowsum(dO * O) is plain
+QKV projection go in without a copy. In bf16 with D <= 128 the forward and
+dK/dV are Hopper kernels (TMA loads from tensor maps built from those
+strides, ``wgmma`` products); the source's header says which kernel runs
+where. delta = rowsum(dO * O) is plain
 PyTorch, as the reference computes it in XLA outside its kernels.
 ``flash_attention_plain`` is the exact masked-softmax formula in f32 with
 autograd for its backward.
@@ -68,7 +71,7 @@ def flash_attention_plain(q, k, v, causal=False):
 
 def _strided(x):
     """x as the kernels read it: unit-stride D, every row start and stride
-    16-byte aligned; otherwise a contiguous copy."""
+    16-byte aligned (as TMA requires); otherwise a contiguous copy."""
     vec = 16 // x.element_size()
     if x.stride(-1) != 1 or x.data_ptr() % 16 \
             or any(s % vec for s in x.stride()[:-1]):

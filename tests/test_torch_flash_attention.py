@@ -28,7 +28,9 @@ from paddle_tpu_torch.ops.kernels import (flash_attention_array,
 
 # (B, T, T_kv, H, D, causal): the reference's own parity shapes, the T=200
 # causal tail (padded to a block by the reference), a D=128 head that routes
-# the reference through its native-layout `_flash_hd`, and T != T_kv
+# the reference through its native-layout `_flash_hd`, T != T_kv, and the
+# two shapes the card's checks add for the TMA-fed kernels: a D=40 head
+# (zero-filled to a 64-column panel) and a ragged non-causal T != T_kv
 CASES = [
     (2, 256, 256, 4, 64, True),
     (2, 256, 256, 4, 64, False),
@@ -36,9 +38,11 @@ CASES = [
     (1, 200, 200, 2, 64, True),
     (1, 256, 256, 2, 128, True),
     (1, 128, 256, 2, 64, False),
+    (1, 192, 192, 1, 40, True),
+    (1, 136, 200, 1, 64, False),
 ]
 IDS = ["b2t256h4d64_causal", "b2t256h4d64", "t384d32_causal", "t200_tail",
-       "hd_route_d128", "t128_tkv256"]
+       "hd_route_d128", "t128_tkv256", "d40_causal", "t136_tkv200"]
 
 
 def _inputs(B, T, Tk, H, D, seed=0):

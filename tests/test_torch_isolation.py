@@ -1,6 +1,6 @@
-"""The port stands alone: ``paddle_tpu_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor ``paddle_tpu``, and its entry points never fall back to
-the CPU quietly."""
+"""The port stands alone: ``paddle_tpu_torch``, ``chip_smoke.py`` and
+``flash_ab.py`` import neither ``jax`` nor ``paddle_tpu``, and its entry
+points never fall back to the CPU quietly."""
 import ast
 import os
 import subprocess
@@ -13,7 +13,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(str(p.relative_to(ROOT))
                     for p in (ROOT / "paddle_tpu_torch").rglob("*.py")) \
-    + ["chip_smoke.py"]
+    + ["chip_smoke.py", "flash_ab.py"]
 
 
 def _forbidden(module: str) -> bool:
