@@ -10,13 +10,19 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    with nvcc for sm_90a (one nvcc per source, started together); prints
    ptxas's registers and spill-store bytes of every kernel instantiation;
 2. kernels: each kernel against its plain PyTorch version, in float32
-   (tight tolerance: checks the algorithm) and bfloat16 (loose tolerance:
-   checks the working type): the serving kernels at the serving path's
-   shapes; the flash-attention forward (O, LSE) and backward (dQ, dK, dV)
-   at small shapes (ragged causal tails, non-causal T != T_kv, a D=40 head,
-   every head width instantiation), in bf16 at the training shape and at
-   the long-sequence shape (T=8192, D=64); at every shape dK/dV is launched
-   twice on the same inputs, and the two must agree bit for bit;
+   (tight tolerance: checks the algorithm) and bfloat16 (loose tolerance
+   and, for paged attention and the flash O and gradients, a
+   relative-norm bound: checks the working type). Paged attention at the
+   decode shape for rep 1, 2, 4 and 8, on a 128-block table with a row at
+   position 2047, and at 48 rows, so that every cluster size it launches
+   with is run (the kernel's cluster size is held against ``paged_split``'s
+   rule first); the int8 head at the serving path's shapes; the
+   flash-attention forward (O, LSE) and backward (dQ, dK, dV) at small
+   shapes (ragged causal tails, non-causal T != T_kv, causal T < T_kv, a
+   D=40 head, T=130 at D=128, every head width instantiation), in bf16 at
+   the training shape and at the long-sequence shape (T=8192, D=64); at
+   every shape dQ and dK/dV are each launched twice on the same inputs, and
+   the two must agree bit for bit;
 3. engine: GPT-3 1.3B at full width (24 layers, bf16, random weights from a
    seed) through ``serving.Engine`` over 32 greedy requests, (a) with the
    paged-attention kernel and (b) int8 weights with both kernels. Launch
@@ -35,13 +41,16 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 4. timing: each kernel (CUDA events) beside its plain version, the card's
    least time for the same work, and a one-call PyTorch yardstick where
    one exists; the flash kernels also with their TFLOP/s and the host time
-   of one call, at the training shape and at the long-sequence shape.
+   of one call, at the training shape and at the long-sequence shape; the
+   paged kernel at the three ``PAGED_SHAPES``.
 
 The last three lines of stdout are the card's name and power limit
 (``nvidia-smi``), the ``{"kernels": [...]}`` JSON line and
-``{"ok": true, "device": {...}}``; the line before them,
-``{"flash_long_shape": [...]}``, holds the flash kernels' times at the
-long-sequence shape (no launches on the main path).
+``{"ok": true, "device": {...}}``; the two lines before them are
+``{"flash_long_shape": [...]}``, the flash kernels' times at the
+long-sequence shape (no launches on the main path), and
+``{"paged_shapes": [...]}``, the paged kernel's time, bound and cluster
+size at each of ``PAGED_SHAPES``.
 """
 from __future__ import annotations
 
@@ -86,10 +95,23 @@ LOGITS_REL_TOL = 5e-2  # ||kernel - plain|| / ||plain|| of a full bf16 step
 # bf16 flash gradients: ||kernel - plain|| / ||plain||; P and dS are rounded
 # to bf16 before their products and each gradient once at the end (~0.3%)
 FLASH_GRAD_REL_TOL = 2e-2
+# bf16 flash dQ, the same norm: its own bound, tighter than the shared one
+# (measured 2.4e-3 to 2.7e-3), so a dropped or misplaced K/V tile fails
+FLASH_DQ_REL_TOL = 1e-2
 # bf16 flash O, the same norm: P rounded to bf16 before P V and O once at the
 # end (~0.3%); the elementwise O tolerance alone is loose where |O| is small
 # (|O| ~ sqrt(e / T) for unit-normal inputs)
 FLASH_O_REL_TOL = 1e-2
+# bf16 paged-attention output, the same norm and for the same reason: the
+# plain version rounds the scores and probabilities to bf16, the kernel keeps
+# them in f32 and rounds the output once
+PAGED_O_REL_TOL = 1e-2
+# the paged kernel's timing shapes (B, MB, positions; H = KV = 16, D = 128,
+# BS = 16, bf16): the engine's decode shape with ragged contexts (mean
+# ~490), 32 rows with every context near 2000, and 2 rows at 2048, where a
+# row's context is split over a cluster of thread blocks
+PAGED_SHAPES = (("decode", 32, 64, None), ("b32_ctx2000", 32, 128, "near2000"),
+                ("b2_ctx2048", 2, 128, "full"))
 # 4-layer full-width GPT, one bf16 backward through the kernels against the
 # same backward with attention on the plain version: per parameter
 # ||g_kernel - g_plain|| / ||g_plain||; bf16 rounding of activations and
@@ -111,6 +133,10 @@ FLASH_REPLACES = {  # the TPU entry points each kernel takes over
     "flash_attention_dkv": f"{_FA}:750 (_flash_hd_bwd_inner, dK/dV); "
                            f"{_FA}:1038 (_flash_bwd_inner, dK/dV)",
 }
+
+FLASH_KERNELS = {"flash_attention_fwd": "fwd_wgmma",
+                 "flash_attention_dq": "dq_wgmma",
+                 "flash_attention_dkv": "dkv_wgmma"}  # bf16, D <= 128
 
 
 def fail(msg: str) -> None:
@@ -153,18 +179,27 @@ def compare(name, dtype, out, ref):
 
 # -- kernel phase ------------------------------------------------------------
 
-def paged_inputs(dtype, rep=1, B=32, KV=16, D=128, BS=16, MB=64, seed=0):
+def paged_inputs(dtype, rep=1, B=32, KV=16, D=128, BS=16, MB=64, seed=0,
+                 pos=None):
     """One layer's pool with per-row disjoint live blocks (dead table
-    columns at trash block 0) and ragged positions that land on and across
-    block edges."""
+    columns at trash block 0) and positions: by default ragged, landing on
+    and across block edges (the first six rows) and at the table's last
+    position; ``"near2000"`` every row within [1900, MB * BS); ``"full"``
+    every row at MB * BS - 1."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.RandomState(seed)
     NB = B * MB + 1
     kpool = torch.randn(NB, BS, KV, D, generator=g, device="cuda").to(dtype)
     vpool = torch.randn(NB, BS, KV, D, generator=g, device="cuda").to(dtype)
     q = torch.randn(B, KV * rep, D, generator=g, device="cuda").to(dtype)
-    pos = rng.randint(128, MB * BS, size=B)
-    pos[:6] = [0, BS - 1, BS, 2 * BS - 1, 2 * BS, MB * BS - 1]
+    if pos == "near2000":
+        pos = rng.randint(1900, MB * BS, size=B)
+    elif pos == "full":
+        pos = np.full(B, MB * BS - 1)
+    else:
+        pos = rng.randint(128, MB * BS, size=B)
+        edges = [0, BS - 1, BS, 2 * BS - 1, 2 * BS][:B - 1] + [MB * BS - 1]
+        pos[:len(edges)] = edges
     perm = rng.permutation(np.arange(1, NB)).reshape(B, MB)
     tables = np.zeros((B, MB), np.int32)
     for b in range(B):
@@ -186,19 +221,59 @@ def int8_inputs(dtype, M, transpose_w, K=2048, N=50304, seed=0):
     return x, qw, torch.tensor(scale, dtype=torch.float32, device="cuda")
 
 
+def paged_split_check():
+    """The cluster size the paged kernel launches with, against the rule of
+    ``paged_split``, at the check and timing shapes and a few more."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import paged_attention as P
+
+    fn = _build.load("paged_attention", P._SIGS).pt_paged_split
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    got = {}
+    for B, KV, BS, MB in ((32, 16, 16, 64), (32, 16, 16, 128), (2, 16, 16, 128),
+                          (4, 16, 16, 128), (48, 16, 16, 64), (1, 1, 16, 4),
+                          (1, 8, 16, 128), (8, 16, 16, 8)):
+        want = P.paged_split(B, KV, BS, MB, n_sm)
+        got[(B, KV, BS, MB)] = fn(B, KV, BS, MB)
+        if got[(B, KV, BS, MB)] != want:
+            fail(f"paged split at B={B} KV={KV} BS={BS} MB={MB}: kernel "
+                 f"{got[(B, KV, BS, MB)]}, rule {want} ({n_sm} SMs)")
+    print(f"  paged split (B, KV, BS, MB) -> blocks per row, as the rule "
+          f"gives on {n_sm} SMs: {got}")
+
+
 def kernel_phase():
     from paddle_tpu_torch.ops import kernels as K
 
+    paged_split_check()
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for rep in (1, 2):
-            args = paged_inputs(dtype, rep=rep)
+        # rep 1..8 at the decode shape (2 blocks a row), a 128-block table
+        # with a row at 2047 (8 blocks a row), 48 rows (one block a row)
+        for rep, B, MB in ((1, 32, 64), (2, 32, 64), (4, 32, 64), (8, 32, 64),
+                           (1, 4, 128), (8, 4, 128), (1, 48, 64)):
+            args = paged_inputs(dtype, rep=rep, B=B, MB=MB)
             out = K.paged_attention_rows(*args)
             torch.cuda.synchronize()
-            e = compare("paged_attention_rows", dtype, out,
-                        K.paged_attention_rows_plain(*args))
-            if rep == 1:
+            ref = K.paged_attention_rows_plain(*args)
+            print(f"  paged B={B} MB={MB} rep={rep} max pos "
+                  f"{int(args[4].max())}:")
+            e = compare("paged_attention_rows", dtype, out, ref)
+            if dtype == torch.bfloat16:
+                rel = rel_err(out, ref)
+                ok = rel <= PAGED_O_REL_TOL
+                print(f"  paged_attention_rows bf16: rel_norm_err={rel:.3e} "
+                      f"(tol rel {PAGED_O_REL_TOL}) "
+                      f"{'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"paged_attention_rows bf16: relative error {rel:.3e}")
+            if (rep, B, MB) == (1, 32, 64):
                 errs[("paged_attention_rows", dtype)] = e
+            del args, out, ref
+        torch.cuda.empty_cache()
         for M in (4, 32):
             for tw in (True, False):
                 x, qw, s = int8_inputs(dtype, M, tw)
@@ -240,15 +315,16 @@ def rel_err(out, ref):
 
 def flash_check(B, T, Tk, H, D, causal, dtype, fused_qkv=False):
     """The three flash kernels against the plain version (f32, autograd for
-    the gradients) on the same inputs; a second dK/dV launch on the same
-    inputs must agree bit for bit. Returns the max abs error per kernel
-    (dkv: over dK and dV)."""
+    the gradients) on the same inputs; a second dQ and a second dK/dV launch
+    on the same inputs must agree bit for bit. Returns the max abs error per
+    kernel (dkv: over dK and dV)."""
     from paddle_tpu_torch.ops import kernels as K
 
     q, k, v, do = flash_inputs(B, T, Tk, H, D, dtype, fused_qkv)
     o, lse = K.flash_attention_fwd(q, k, v, causal)
     delta = flash_delta(do, o)
     dq = K.flash_attention_dq(q, k, v, do, lse, delta, causal)
+    dq2 = K.flash_attention_dq(q, k, v, do, lse, delta, causal)
     dk, dv = K.flash_attention_dkv(q, k, v, do, lse, delta, causal)
     dk2, dv2 = K.flash_attention_dkv(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
@@ -269,17 +345,21 @@ def flash_check(B, T, Tk, H, D, causal, dtype, fused_qkv=False):
             continue
         rels = [rel_err(a, b) for a, b in outs]
         errs[name] = max(float((a.float() - b).abs().max()) for a, b in outs)
-        tol = FLASH_O_REL_TOL if name == "flash_attention_fwd" \
-            else FLASH_GRAD_REL_TOL
+        tol = {"flash_attention_fwd": FLASH_O_REL_TOL,
+               "flash_attention_dq": FLASH_DQ_REL_TOL}.get(
+                   name, FLASH_GRAD_REL_TOL)
         ok = max(rels) <= tol
         print(f"  {name} bf16: rel_norm_err={max(rels):.3e} max_abs_err="
               f"{errs[name]:.3e} (tol rel {tol}) "
               f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"{name} bf16: relative error {max(rels):.3e}")
+    if not torch.equal(dq, dq2):
+        fail("flash_attention_dq: two launches on the same inputs differ")
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         fail("flash_attention_dkv: two launches on the same inputs differ")
-    print("  flash_attention_dkv: two launches bitwise equal")
+    print("  flash_attention_dq, flash_attention_dkv: two launches each "
+          "bitwise equal")
     return errs
 
 
@@ -287,14 +367,16 @@ def flash_phase():
     """Small shapes in f32 and bf16 (every head-width instantiation, a D=40
     head that TMA zero-fills to a 64-column panel, ragged causal tails at
     T=200 and T=1000, non-causal T != T_kv with ragged T_kv, causal T <
-    T_kv), then bf16 at the training shape through strided q/k/v views and
-    at the reference's long-sequence shape. Returns the max abs errors at
-    the training shape and at the long shape."""
+    T_kv, causal T=136 < T_kv=200, and T=130 at D=128, one row past a
+    128-row q tile), then bf16 at the training shape through strided q/k/v
+    views and at the reference's long-sequence shape. Returns the max abs
+    errors at the training shape and at the long shape."""
     f32, bf16 = torch.float32, torch.bfloat16
     for shape in ((1, 192, 192, 2, 64, True), (1, 200, 200, 3, 128, True),
                   (1, 128, 328, 2, 64, False), (1, 96, 160, 1, 256, True),
                   (2, 130, 130, 2, 32, True), (1, 256, 256, 2, 40, True),
-                  (1, 1000, 1000, 2, 128, True), (1, 136, 200, 2, 64, False)):
+                  (1, 1000, 1000, 2, 128, True), (1, 136, 200, 2, 64, False),
+                  (1, 136, 200, 2, 64, True), (1, 130, 130, 2, 128, True)):
         for dtype in (f32, bf16):
             flash_check(*shape, dtype)
     out = []
@@ -314,35 +396,64 @@ def bound(nbytes: float, ops: float, dtype) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def paged_timing(tag, B, MB, pos, plain=True):
+    """The paged kernel (and, with ``plain``, its plain version) at one of
+    ``PAGED_SHAPES``, beside the card's least time: each live token's K and
+    V row read once, q and the output once, the live table entries and pos;
+    4 FLOPs per live token, query head and column."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels import paged_attention as P
+
+    dt, es = torch.bfloat16, 2
+    q, kp, vp, tables, pos_t = paged_inputs(dt, B=B, MB=MB, seed=1, pos=pos)
+    H, D = q.shape[1:]
+    KV, BS = kp.shape[2], kp.shape[1]
+    live = int((pos_t.long() + 1).sum())
+    nbytes = (2 * B * H * D * es + 2 * live * KV * D * es
+              + 4 * int((pos_t.long() // BS + 1).sum()) + 4 * B)
+    b_ms, b_by = bound(nbytes, 4 * live * H * D, dt)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    row = {"tag": tag,
+           "ms": time_ms(lambda: K.paged_attention_rows(q, kp, vp, tables,
+                                                        pos_t)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "split": P.paged_split(B, KV, BS, MB, n_sm),
+           "shape": f"B={B} H={H} KV={KV} D={D} BS={BS} MB={MB} "
+                    f"mean_ctx={live / B:.1f} max_ctx={int(pos_t.max()) + 1} "
+                    "bf16"}
+    if plain:
+        row["plain_ms"] = time_ms(lambda: K.paged_attention_rows_plain(
+            q, kp, vp, tables, pos_t), iters=5)
+    del q, kp, vp
+    torch.cuda.empty_cache()
+    return row
+
+
 def timing_phase(errs, launches):
+    """The kernels line's rows, and the paged kernel at every one of
+    ``PAGED_SHAPES``."""
     from paddle_tpu_torch.ops import kernels as K
 
     rows = []
     dt = torch.bfloat16
     es = 2
-    # paged attention at the engine decode shapes
-    q, kp, vp, tables, pos = paged_inputs(dt, seed=1)
-    B, H, D = q.shape
-    KV = kp.shape[2]
-    BS = kp.shape[1]
-    live = (pos.long() + 1).sum().item()
-    nbytes = (2 * B * H * D * es + 2 * live * KV * D * es
-              + 4 * int((pos.long() // BS + 1).sum()) + 4 * B)
-    b_ms, b_by = bound(nbytes, 4 * live * H * D, dt)
+    paged = [paged_timing(*shape) for shape in PAGED_SHAPES]
+    pg = paged[0]
     rows.append({
         "name": "paged_attention_rows", "route": "cuda",
+        "kernel": "paged_attention_kernel: whole pool blocks by cp.async "
+                  "into a 2-stage ring per warp, softmax per block, cluster "
+                  "split of long contexts",
         "source": "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/kernels/paged_attention.py:134",
         "launches": launches["paged_attention_rows"],
         "max_abs_err": errs[("paged_attention_rows", dt)],
-        "ms": time_ms(lambda: K.paged_attention_rows(q, kp, vp, tables, pos)),
-        "plain_ms": time_ms(lambda: K.paged_attention_rows_plain(
-            q, kp, vp, tables, pos), iters=5),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "ms": pg["ms"], "plain_ms": pg["plain_ms"],
+        "bound_ms": pg["bound_ms"], "bound_by": pg["bound_by"],
         # no single PyTorch call reads attention through a block table
         "library_ms": None,
-        "shape": f"B={B} H={H} KV={KV} D={D} BS={BS} MB={tables.shape[1]} "
-                 f"mean_ctx={live / B:.1f} bf16",
+        "shape": f"{pg['shape']}; {pg['split']} blocks a row; the other "
+                 "shapes on the paged_shapes line",
     })
     # int8 LM head at the decode batch
     M, Kd, N = 32, 2048, 50304
@@ -358,6 +469,7 @@ def timing_phase(errs, launches):
         lib_note = f"torch._weight_int8pack_mm unavailable: {str(e)[:80]}"
     rows.append({
         "name": "int8_matmul", "route": "cuda",
+        "kernel": "int8_matmul_kernel",
         "source": "paddle_tpu_torch/ops/kernels/csrc/int8_matmul.cu",
         "replaces": "paddle_tpu/ops/kernels/int8_matmul.py:76",
         "launches": launches["int8_matmul"],
@@ -368,7 +480,7 @@ def timing_phase(errs, launches):
         "shape": f"M={M} K={Kd} N={N} transpose_w bf16; library: {lib_note}",
     })
     rows += flash_timing(errs, launches)
-    return rows
+    return rows, paged
 
 
 def host_us(fn, calls=200) -> float:
@@ -445,6 +557,8 @@ def flash_timing(errs, launches, shape=FLASH_TRAIN, fused_qkv=True):
             f"(delta {delta_ms:.4f} ms)")
         rows.append({
             "name": name, "route": "cuda",
+            "kernel": f"{FLASH_KERNELS[name]}<{64 if D <= 64 else 128}> "
+                      "(TMA + wgmma)",
             "source": "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
             "launches": launches[name],
@@ -463,11 +577,10 @@ def flash_timing(errs, launches, shape=FLASH_TRAIN, fused_qkv=True):
 
 # -- engine phase ------------------------------------------------------------
 
-def decode_profile(eng, tag, steps=16, B=32, ctx=640):
-    """Where a decode step's time goes: the engine's own decode step at
-    batch B and context ~ctx, run on this thread with the engine idle, under
-    torch.profiler (CPU + CUDA). Prints the device busy share of the step
-    window and the kernels that take the most device time."""
+def decode_step(eng, B=32, ctx=640):
+    """The engine's own decode step at batch B and context ~ctx, to run on
+    this thread with the engine idle (inside ``torch.inference_mode()``);
+    each call ends, as the engine's does, by copying the tokens back."""
     bs = eng.config.block_size
     mb = 1
     while mb * bs <= ctx:
@@ -487,7 +600,15 @@ def decode_profile(eng, tag, steps=16, B=32, ctx=640):
                                          tables, pos, toks, temps, eng._gen)
         return nxt.cpu()  # the engine reads the tokens back every step
 
+    return step
+
+
+def decode_profile(eng, tag, steps=16, B=32, ctx=640):
+    """Where a decode step's time goes: ``decode_step`` under torch.profiler
+    (CPU + CUDA). Prints the device busy share of the step window and the
+    kernels that take the most device time."""
     with torch.inference_mode():
+        step = decode_step(eng, B, ctx)
         for _ in range(3):
             step()
         torch.cuda.synchronize()
@@ -774,7 +895,7 @@ def main(argv=None) -> int:
     launches.update(train_phase(profile=args.profile))
 
     print("[4] kernel timing")
-    rows = timing_phase(errs, launches)
+    rows, paged = timing_phase(errs, launches)
     # the reference's (B*H, T, D) route shape: not on the port's main path
     long_rows = flash_timing(long_errs, dict.fromkeys(FLASH_REPLACES, 0),
                              FLASH_LONG, fused_qkv=False)
@@ -785,7 +906,12 @@ def main(argv=None) -> int:
         print(f"  {r['name']}: {r['ms']:.4f} ms{extra} (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}, library {r['library_ms']}) at {r['shape']}")
+    for r in paged:
+        print(f"  paged_attention_rows ({r['tag']}): {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, {r['split']} blocks a row) at {r['shape']}")
     print(json.dumps({"flash_long_shape": long_rows}))
+    print(json.dumps({"paged_shapes": paged}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

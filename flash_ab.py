@@ -1,46 +1,63 @@
-"""Time builds of the flash-attention source in turns on one CUDA card.
+"""Time builds of a kernel source in turns on one CUDA card.
 
     python3 flash_ab.py parent=OLD.cu change=paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu
     python3 flash_ab.py parent=OLD.cu change=NEW.cu --train  # + train steps
+    python3 flash_ab.py --lib paged_attention parent=OLD.cu \
+        change=paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu
 
-Each LABEL=PATH is a version of ``csrc/flash_attention.cu`` with the same C
-interface. All are compiled by nvcc with the port's flags (one nvcc per
-source, started together) into ``_proof/ab/`` (listed in ``.gitignore``) and
-loaded with ctypes. The port's wrappers are then pointed at each library in
-turn, in the order given and back (A B B A), so that drift of the card or the
-host reaches every build alike. Each turn measures, at the training shape
-(B=2, T=2048, H=16, D=128, causal, bf16, strided q/k/v views) and at the
-long-sequence shape (B=1, T=8192, H=16, D=64, causal, bf16), the device time
-of the forward, dQ and dK/dV kernels (CUDA events) and the host time of one
-wrapper call; with ``--train`` also 8 steps of GPT-3 1.3B (24 layers,
-b2 x s2048, as ``chip_smoke.py`` trains it) after 2 warm-up steps: step ms,
-the host's queueing ms per step, and how long the device ran on after the
-last step was queued. Prints the card's name and power limit, then one JSON
-line per turn.
+Each LABEL=PATH is a version of ``csrc/<lib>.cu`` (``--lib``, by default
+``flash_attention``) with the same C interface. All are compiled by nvcc
+with the port's flags (one nvcc per source, started together) into
+``_proof/ab/`` (listed in ``.gitignore``) and loaded with ctypes. The port's
+wrappers are then pointed at each library in turn, in the order given and
+back (A B B A), so that drift of the card or the host reaches every build
+alike. Prints the card's name and power limit, then one JSON line per turn.
+
+Flash: each turn measures, at the training shape (B=2, T=2048, H=16, D=128,
+causal, bf16, strided q/k/v views) and at the long-sequence shape (B=1,
+T=8192, H=16, D=64, causal, bf16), the device time of the forward, dQ and
+dK/dV kernels (CUDA events) and the host time of one wrapper call; with
+``--train`` also 8 steps of GPT-3 1.3B (24 layers, b2 x s2048, as
+``chip_smoke.py`` trains it) after 2 warm-up steps: step ms, the host's
+queueing ms per step, and how long the device ran on after the last step
+was queued.
+
+Paged attention: each turn measures the kernel's device time at each of
+``chip_smoke.PAGED_SHAPES`` and the engine's decode step of GPT-3 1.3B
+(bf16, paged kernel on; batch 32, context ~640, as ``chip_smoke.py
+--profile`` sets it up, without the profiler): host clock per step, each
+step ending in the engine's copy of the tokens to the host.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
 import chip_smoke as cs
 
 OUT = cs.ROOT / "_proof" / "ab"
+SIGS = {"flash_attention": "paddle_tpu_torch.ops.kernels.flash_attention",
+        "paged_attention": "paddle_tpu_torch.ops.kernels.paged_attention"}
+DECODE_STEPS = 30
 
 
-def build(variants):
-    """{label: loaded library} for {label: source path}."""
+def build(variants, lib):
+    """{label: loaded library} for {label: source path} of ``csrc/<lib>.cu``."""
+    import importlib
+
     from paddle_tpu_torch.ops.kernels import _build
-    from paddle_tpu_torch.ops.kernels.flash_attention import _SIGS
 
+    sigs = importlib.import_module(SIGS[lib])._SIGS
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for label, src in variants.items():
-        so = OUT / f"lib{label}.so"
+        so = OUT / f"lib{lib}-{label}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)]
         procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True),
@@ -50,15 +67,15 @@ def build(variants):
         text, _ = proc.communicate()
         if proc.returncode != 0:
             cs.fail(f"{label}: nvcc exited {proc.returncode}\n{text}")
-        libs[label] = _build.open_library(so, _SIGS)
+        libs[label] = _build.open_library(so, sigs)
     return libs
 
 
-def use(lib):
+def use(name, lib):
     from paddle_tpu_torch.ops.kernels import _build
 
     with _build._lock:
-        _build._libs["flash_attention"] = lib
+        _build._libs[name] = lib
 
 
 def kernel_turn(row, tag, shape, fused_qkv):
@@ -79,6 +96,44 @@ def kernel_turn(row, tag, shape, fused_qkv):
         row[f"{tag}_{name}_host_us"] = cs.host_us(fn, calls=500)
 
 
+def paged_turn(row):
+    for tag, B, MB, pos in cs.PAGED_SHAPES:
+        r = cs.paged_timing(tag, B, MB, pos, plain=False)
+        row[f"{tag}_ms"] = r["ms"]
+        row[f"{tag}_bound_ms"] = r["bound_ms"]
+
+
+def decode_setup():
+    """GPT-3 1.3B bf16 behind an idle engine with the paged kernel on, and
+    its decode step at batch 32, context ~640."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.models import GPTForPretraining, gpt3_1p3b
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = gpt3_1p3b(hidden_dropout=0.0, attention_dropout=0.0)
+    model = GPTForPretraining(cfg, dtype=torch.bfloat16, seed=0).eval()
+    set_flags({"FLAGS_serve_paged_kernel": True,
+               "FLAGS_serve_int8_kernel": False})
+    eng = Engine(model, block_size=16, num_blocks=2048, max_batch=32,
+                 prefill_batch=4, max_seq_len=2048, seed=0)
+    with torch.inference_mode():
+        step = cs.decode_step(eng)
+    return eng, step
+
+
+def decode_turn(row, step):
+    with torch.inference_mode():
+        for _ in range(3):
+            step()
+        ms = []
+        for _ in range(DECODE_STEPS):
+            t0 = time.perf_counter()
+            step()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    row["decode_step_ms_median"] = statistics.median(ms)
+    row["decode_step_ms_mean"] = statistics.fmean(ms)
+
+
 def train_turn(row, step, ids, labels):
     for _ in range(cs.TRAIN_WARMUP):
         step(ids, labels)
@@ -93,8 +148,11 @@ def train_turn(row, step, ids, labels):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("variants", nargs="+", metavar="LABEL=PATH")
+    ap.add_argument("--lib", choices=sorted(SIGS), default="flash_attention",
+                    help="the kernel source the variants are versions of")
     ap.add_argument("--train", action="store_true",
-                    help="also time GPT-3 1.3B train steps in each turn")
+                    help="flash: also time GPT-3 1.3B train steps in each "
+                         "turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False")
@@ -105,9 +163,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
-    libs = build(variants)
-    train = None
-    if args.train:
+    libs = build(variants, args.lib)
+    train = eng = None
+    if args.lib == "paged_attention":
+        eng, step = decode_setup()
+    elif args.train:
         import paddle_tpu_torch as pt
 
         model = cs.train_model()
@@ -116,14 +176,22 @@ def main(argv=None) -> int:
         step = pt.jit.compile_train_step(model, lambda m, i, l: m.loss(i, l),
                                          opt)
         train = (step, *cs.train_batch(model.config))
-    for label in list(variants) + list(reversed(variants)):
-        use(libs[label])
-        row = {"build": label}
-        kernel_turn(row, "train", cs.FLASH_TRAIN, True)
-        kernel_turn(row, "long", cs.FLASH_LONG, False)
-        if train:
-            train_turn(row, *train)
-        print(json.dumps(row), flush=True)
+    try:
+        for label in list(variants) + list(reversed(variants)):
+            use(args.lib, libs[label])
+            row = {"build": label}
+            if eng is not None:
+                paged_turn(row)
+                decode_turn(row, step)
+            else:
+                kernel_turn(row, "train", cs.FLASH_TRAIN, True)
+                kernel_turn(row, "long", cs.FLASH_LONG, False)
+                if train:
+                    train_turn(row, *train)
+            print(json.dumps(row), flush=True)
+    finally:
+        if eng is not None:
+            eng.close()
     return 0
 
 

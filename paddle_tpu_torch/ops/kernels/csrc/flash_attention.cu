@@ -39,32 +39,34 @@
 //
 // Which kernel runs, a static rule by dtype and head width, decided before
 // the launch:
-//  - bf16 forward and dK/dV with D <= 128 (instantiations DM = 64, 128): the
-//    Hopper kernels `fwd_wgmma` and `dkv_wgmma` below;
-//  - bf16 forward and dK/dV with 128 < D <= 256 (DM = 256), and bf16 dQ at
-//    every width: warp-level `mma.sync` kernels (`fwd_bf16`, `dkv_bf16`,
-//    `dq_bf16`). No path of the port has D > 128; a wgmma tiling of D = 256
-//    without spills is open work;
+//  - bf16 with D <= 128 (instantiations DM = 64, 128): the Hopper kernels
+//    `fwd_wgmma`, `dq_wgmma` and `dkv_wgmma` below;
+//  - bf16 with 128 < D <= 256 (DM = 256): warp-level `mma.sync` kernels
+//    (`fwd_bf16`, `dq_bf16`, `dkv_bf16`). No path of the port has D > 128;
+//    a wgmma tiling of D = 256 without spills is open work;
 //  - f32: CUDA-core kernels (`*_f32`) that check the algorithm to f32
 //    precision.
 //
 // What the Hopper design does about the operation bound:
 //  - wgmma: two consumer warpgroups, each owning 64 rows (q rows in the
-//    forward, key rows in dK/dV), run m64nNk16 products with their f32
-//    accumulators in registers. S = Q K^T, S^T = K Q^T and dP^T = V dO^T
-//    read both operands from shared memory, K-major; O += P V, dV += P^T dO
-//    and dK += dS^T Q take P, P^T or dS^T from the score accumulator
-//    rounded to bf16 in registers (the m64 accumulator's per-warp layout is
-//    the A operand's) and B from shared memory MN-major (transpose-B). No
-//    score tile touches shared or device memory.
+//    forward and dQ, key rows in dK/dV), run m64nNk16 products with their
+//    f32 accumulators in registers. S = Q K^T, dP = dO V^T, S^T = K Q^T and
+//    dP^T = V dO^T read both operands from shared memory, K-major; O += P V,
+//    dQ += dS K, dV += P^T dO and dK += dS^T Q take P, dS, P^T or dS^T from
+//    the score accumulator rounded to bf16 in registers (the m64
+//    accumulator's per-warp layout is the A operand's) and B from shared
+//    memory MN-major (transpose-B). No score tile touches shared or device
+//    memory.
 //  - TMA: one producer thread loads every tile with cp.async.bulk.tensor
 //    from a 4-D tensor map (D, H, T, B) built on the host from the
 //    wrapper's strides, so the strided q/k/v views of the fused QKV output
 //    go in without a copy. Boxes are 64 columns wide (one 128-byte swizzled
 //    panel; D = 128 is two panels) and zero-filled past D, T and T_kv, which
 //    covers ragged tails and any D % 8 == 0 below the instantiation's
-//    width. Completion is signalled on mbarriers: Q (forward) or K and V
-//    (dK/dV) once, the streamed tiles through a 2-stage full/empty ring.
+//    width. Completion is signalled on mbarriers: Q (forward), Q and dO
+//    (dQ) or K and V (dK/dV) once, the streamed tiles through a 2-stage
+//    full/empty ring (dQ streams 64-row K/V tiles, so S, dP and dQ fit in
+//    32 + 32 + 64 registers a thread at D = 128).
 //    The producer warpgroup gives its registers up (setmaxnreg 24) so the
 //    consumers can hold 240; ptxas reports no spills.
 //  - The softmax runs in the log2 domain: ex2.approx with scale*log2(e)
@@ -76,12 +78,14 @@
 //    the block walks the K/V tiles (forward, dQ) or the Q tiles (dK/dV);
 //    with causal masking it stops at (forward, dQ) or starts from (dK/dV)
 //    the diagonal, so dead tiles are never loaded. The heaviest causal
-//    blocks are scheduled first (the last q tiles of the forward, the first
-//    key tiles of dK/dV) so that no long block is left for the tail.
-//  - dK/dV are owned by the block of their key tile: no atomics, and the
-//    result is bitwise the same from run to run.
+//    blocks are scheduled first (the last q tiles of the forward and dQ,
+//    the first key tiles of dK/dV) so that no long block is left for the
+//    tail.
+//  - dQ is owned by the block of its q tile, dK/dV by the block of their
+//    key tile: no atomics, and the result is bitwise the same from run to
+//    run.
 //
-// The mma.sync kernels (bf16 dQ, and forward and dK/dV above D = 128): one
+// The mma.sync kernels (bf16 above D = 128): one
 // block of 4 warps per (64-row tile, head, batch), each warp owning 16
 // rows; fragments from padded shared tiles by `ldmatrix` (`.trans` for the
 // k-major operands), the streamed tiles double-buffered by `cp.async`.
@@ -602,7 +606,7 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(Args a) {
 }
 
 // ------------------------------------------------- bf16, Hopper (wgmma) ----
-// The forward and dK/dV kernels for D <= 128: TMA loads into 128-byte-swizzled
+// The forward, dQ and dK/dV kernels for D <= 128: TMA loads into 128-byte-swizzled
 // shared memory signalled through mbarriers, one producer warp, two consumer
 // warpgroups of 64 rows each running wgmma with f32 accumulators in registers.
 
@@ -1203,6 +1207,185 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// dQ. One block per (q tile of 128 rows, head, batch); warpgroup wg owns q
+// rows 64wg..64wg+63 and their dQ accumulator. Q and dO are loaded once; K
+// and V stream through the ring in 64-row tiles (full barriers per K and per
+// V, one empty barrier that both consumer warpgroups release after dS K).
+// Each consumer thread reads the LSE (times log2 e) and delta of its own
+// two rows straight into registers.
+template <int DM>
+struct DqWg {
+  static constexpr int NP = DM / kPanel;
+  static constexpr int BM = 128, BN = 64, kStages = 2;
+  static constexpr int Q_BYTES = NP * BM * kRowBytes;   // Q or dO
+  static constexpr int KV_BYTES = NP * BN * kRowBytes;  // one K or V tile
+  static constexpr size_t smem =
+      1024 + 2 * Q_BYTES + 2 * kStages * KV_BYTES + (1 + 3 * kStages) * 8;
+};
+
+template <int DM>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dq_wgmma(const __grid_constant__ CUtensorMap mq,
+             const __grid_constant__ CUtensorMap mk,
+             const __grid_constant__ CUtensorMap mv,
+             const __grid_constant__ CUtensorMap mdo, Args a) {
+  using C = DqWg<DM>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* dOs = Qs + C::Q_BYTES;
+  unsigned char* Ks = dOs + C::Q_BYTES;
+  unsigned char* Vs = Ks + C::kStages * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + C::kStages * C::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + C::kStages;
+  uint64_t* empty = v_full + C::kStages;
+
+  // the last q tiles carry the most causal work: they are scheduled first
+  const int n_q = (a.T + C::BM - 1) / C::BM;
+  const int bh = blockIdx.x % (a.B * a.H);
+  const int q0 = (n_q - 1 - blockIdx.x / (a.B * a.H)) * C::BM;
+  const int h = bh % a.H, b = bh / a.H;
+  const int n_all = (a.Tk + C::BN - 1) / C::BN;
+  // K/V tiles that rows q0 .. q0 + rows - 1 reach
+  auto tiles = [&](int rows) {
+    return a.causal ? min(n_all, (min(q0 + rows, a.T) - 1) / C::BN + 1)
+                    : n_all;
+  };
+  const int n_kv = tiles(C::BM);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer: one thread issues every load
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_tx(q_full, 2 * C::Q_BYTES);
+      for (int p = 0; p < C::NP; ++p) {
+        tma_load(Qs + p * C::BM * kRowBytes, &mq, q_full, p * kPanel, h, q0, b);
+        tma_load(dOs + p * C::BM * kRowBytes, &mdo, q_full, p * kPanel, h, q0,
+                 b);
+      }
+      for (int kt = 0; kt < n_kv; ++kt) {
+        const int s = kt % C::kStages, ph = (kt / C::kStages) & 1;
+        mbar_wait(empty + s, ph ^ 1);
+        unsigned char* kd = Ks + s * C::KV_BYTES;
+        unsigned char* vd = Vs + s * C::KV_BYTES;
+        mbar_arrive_tx(k_full + s, C::KV_BYTES);
+        for (int p = 0; p < C::NP; ++p)
+          tma_load(kd + p * C::BN * kRowBytes, &mk, k_full + s, p * kPanel, h,
+                   kt * C::BN, b);
+        mbar_arrive_tx(v_full + s, C::KV_BYTES);
+        for (int p = 0; p < C::NP; ++p)
+          tma_load(vd + p * C::BN * kRowBytes, &mv, v_full + s, p * kPanel, h,
+                   kt * C::BN, b);
+      }
+    }
+  } else {  // consumers
+    regs_inc<240>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane >> 2, tq = lane & 3;
+    const int qw0 = q0 + wg * 64;   // this warpgroup's first q row
+    const int kr = warp * 16 + g;   // its rows kr and kr + 8
+    // with causal masking warpgroup 0 reaches one tile fewer than the block
+    const int n_wg = tiles(wg * 64 + 64);
+    const float sl2 = a.scale * kLog2e;
+    const uint32_t q_addr = smem_addr(Qs) + wg * 64 * kRowBytes;
+    const uint32_t do_addr = smem_addr(dOs) + wg * 64 * kRowBytes;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int tp = qw0 + kr + 8 * i;
+      const long long at = ((long long)b * a.H + h) * a.T + tp;
+      lse2[i] = tp < a.T ? a.lse_in[at] * kLog2e : 0.f;
+      dl[i] = tp < a.T ? a.delta[at] : 0.f;
+    }
+    float dq[DM / 2];
+#pragma unroll
+    for (int i = 0; i < DM / 2; ++i) dq[i] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int kt = 0; kt < n_kv; ++kt) {
+      const int s = kt % C::kStages, ph = (kt / C::kStages) & 1;
+      const int k0 = kt * C::BN;
+      mbar_wait(k_full + s, ph);
+      if (kt >= n_wg) {  // every key of the tile follows every row
+        mbar_arrive(empty + s);
+        continue;
+      }
+      const uint32_t k_addr = smem_addr(Ks + s * C::KV_BYTES);
+      const uint32_t v_addr = smem_addr(Vs + s * C::KV_BYTES);
+      float sc[C::BN / 2], dp[C::BN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)  // S = Q K^T
+        wgmma_ss(sc,
+                 sw128_desc(q_addr + (kk / 4) * C::BM * kRowBytes +
+                                (kk % 4) * 32, 16),
+                 sw128_desc(k_addr + (kk / 4) * C::BN * kRowBytes +
+                                (kk % 4) * 32, 16),
+                 kk > 0);
+      wgmma_commit();
+      mbar_wait(v_full + s, ph);
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)  // dP = dO V^T
+        wgmma_ss(dp,
+                 sw128_desc(do_addr + (kk / 4) * C::BM * kRowBytes +
+                                (kk % 4) * 32, 16),
+                 sw128_desc(v_addr + (kk / 4) * C::BN * kRowBytes +
+                                (kk % 4) * 32, 16),
+                 kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+
+      // the mask only on the tile that crosses the diagonal or an edge
+      const bool edge = (a.causal && k0 + C::BN - 1 > qw0) ||
+                        k0 + C::BN > a.Tk || qw0 + 64 > a.T;
+#pragma unroll
+      for (int j = 0; j < C::BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * sl2;
+          if (edge && !live(a, qw0 + kr + (e >> 1) * 8,
+                            k0 + 8 * j + 2 * tq + (e & 1)))
+            x = kNegInf;
+          sc[4 * j + e] = fexp2(x - lse2[e >> 1]);  // P
+        }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < C::BN / 2; ++i)
+        dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);  // dS
+      uint32_t da[C::BN / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < C::BN / 16; ++kc) acc_as_a(da[kc], frags(dp), kc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < C::BN / 16; ++kc)  // dQ += dS K
+        wgmma_rs(dq, da[kc],
+                 sw128_desc(k_addr + kc * 16 * kRowBytes, C::BN * kRowBytes));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      mbar_arrive(empty + s);
+    }
+
+    bf16* out = static_cast<bf16*>(a.out0) +
+                (((long long)b * a.T + qw0) * a.H + h) * a.D;
+    store_rows<DM>(out, frags(dq), a.scale, a.scale, kr, a.T - qw0,
+                   (long long)a.H * a.D, a.D, tq);
+  }
+}
+
 // ----------------------------------------------------------------- f32 ----
 // 32-row tiles, 4 threads a row (thread s of a row holds columns s, s+4, ...);
 // a dot product is reduced over the 4 lanes with two shuffles.
@@ -1519,21 +1702,38 @@ int launch_dkv_wgmma(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DM>
+int launch_dq_wgmma(const Args& a, cudaStream_t stream) {
+  using C = DqWg<DM>;
+  CUtensorMap mq, mk, mv, mdo;
+  int e = make_map(&mq, a.q, a.sq, a.B, a.H, a.T, a.D, C::BM);
+  if (!e) e = make_map(&mk, a.k, a.sk, a.B, a.H, a.Tk, a.D, C::BN);
+  if (!e) e = make_map(&mv, a.v, a.sv, a.B, a.H, a.Tk, a.D, C::BN);
+  if (!e) e = make_map(&mdo, a.dout, a.sdo, a.B, a.H, a.T, a.D, C::BM);
+  if (!e) e = set_smem(dq_wgmma<DM>, C::smem);
+  if (e) return e;
+  const int n_q = (a.T + C::BM - 1) / C::BM;
+  dq_wgmma<DM><<<n_q * a.B * a.H, kWgThreads, C::smem, stream>>>(mq, mk, mv,
+                                                                 mdo, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// bf16 forward and dK/dV: the wgmma kernels for D <= 128 (DM 64 and 128),
-// the mma.sync kernels for 128 < D <= 256; dQ is mma.sync at every width.
+// bf16: the wgmma kernels for D <= 128 (DM 64 and 128), the mma.sync
+// kernels for 128 < D <= 256.
 template <int DM>
 int dispatch_dm(int dtype, Which w, const Args& a, cudaStream_t s) {
   using B = BfSmem<DM>;
   using F = F32Smem<DM>;
   if (dtype == 1) {
-    if (w == kDq) return launch(dq_bf16<DM>, a.T, kTile, B::dq, a, s);
     if constexpr (DM <= 128) {
       if (w == kFwd) return launch_fwd_wgmma<DM>(a, s);
+      if (w == kDq) return launch_dq_wgmma<DM>(a, s);
       return launch_dkv_wgmma<DM>(a, s);
     } else {
       if (w == kFwd) return launch(fwd_bf16<DM>, a.T, kTile, B::fwd, a, s);
+      if (w == kDq) return launch(dq_bf16<DM>, a.T, kTile, B::dq, a, s);
       return launch(dkv_bf16<DM>, a.Tk, kTile, B::dkv, a, s);
     }
   }

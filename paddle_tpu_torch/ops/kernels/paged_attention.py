@@ -24,7 +24,8 @@ import torch
 
 from . import _build
 
-__all__ = ["paged_attention_rows", "paged_attention_rows_plain", "launches"]
+__all__ = ["paged_attention_rows", "paged_attention_rows_plain",
+           "paged_split", "launches"]
 
 launches = 0  # kernel launches since the last reset (plain calls excluded)
 
@@ -50,6 +51,18 @@ def paged_attention_rows_plain(q, kpool, vpool, tables, pos):
     o = _grouped_attention(q[:, None], kc, vc, live[:, None, None, None, :],
                            H // KV)
     return o.reshape(B, H * D)
+
+
+def paged_split(B: int, KV: int, BS: int, MB: int, n_sm: int) -> int:
+    """Thread blocks (a cluster) the kernel splits each (row, KV head)
+    context over: doubled, up to 8, while the B * KV pairs would not give
+    4 blocks per SM and every block keeps at least 64 positions of the
+    MB * BS-position table. ``split_for`` in ``csrc/paged_attention.cu``
+    applies this rule (``pt_paged_split`` reports its choice)."""
+    split = 1
+    while split < 8 and B * KV * split < 4 * n_sm and MB * BS >= 128 * split:
+        split *= 2
+    return split
 
 
 @lru_cache(maxsize=None)
@@ -86,10 +99,10 @@ def paged_attention_rows(q, kpool, vpool, tables, pos):
             f"kpool{tuple(kpool.shape)} vpool{tuple(vpool.shape)} "
             f"tables{tuple(tables.shape)} pos{tuple(pos.shape)}")
     rep = H // KV
-    if D > 256 or rep > 8 or rep * D > 1024:
+    if D > 256 or D % 8 or rep > 8 or rep * D > 1024:
         raise ValueError(
-            f"paged_attention_rows: kernel takes D <= 256, rep <= 8 and "
-            f"rep*D <= 1024 (got D={D}, rep={rep})")
+            f"paged_attention_rows: kernel takes D <= 256 with D % 8 == 0, "
+            f"rep <= 8 and rep*D <= 1024 (got D={D}, rep={rep})")
     if not all(t.is_contiguous() for t in (q, kpool, vpool, tables, pos)):
         raise ValueError("paged_attention_rows: inputs must be contiguous")
     out = torch.empty((B, H * D), dtype=q.dtype, device=q.device)

@@ -20,16 +20,17 @@ from paddle_tpu_torch.ops import kernels as TK
 from paddle_tpu_torch.serving import int8 as tint8
 
 
-def _paged_inputs(rep, seed=1):
+def _paged_inputs(rep, seed=1, MB=4, pos=(0, 7, 8, 15, 27)):
     """Pool, disjoint tables with trash-padded dead columns, and positions
     on and across block edges (BS=8)."""
-    B, KV, D, BS, MB, NB = 5, 2, 16, 8, 4, 40
+    B, KV, D, BS = len(pos), 2, 16, 8
+    NB = B * MB + 1
     rng = np.random.RandomState(seed)
     kpool = rng.randn(NB, BS, KV, D).astype(np.float32)
     vpool = rng.randn(NB, BS, KV, D).astype(np.float32)
     q = rng.randn(B, KV * rep, D).astype(np.float32)
-    pos = np.array([0, 7, 8, 15, 27], np.int32)
-    perm = rng.permutation(np.arange(1, NB))[:B * MB].reshape(B, MB)
+    pos = np.array(pos, np.int32)
+    perm = rng.permutation(np.arange(1, NB)).reshape(B, MB)
     tables = np.zeros((B, MB), np.int32)  # dead columns at trash block 0
     for b in range(B):
         n_live = pos[b] // BS + 1
@@ -37,9 +38,19 @@ def _paged_inputs(rep, seed=1):
     return q, kpool, vpool, tables, pos
 
 
-@pytest.mark.parametrize("rep", [1, 2], ids=["mha", "gqa_rep2"])
-def test_paged_attention_plain_matches_jax(rep):
-    q, kpool, vpool, tables, pos = _paged_inputs(rep)
+# (rep, MB, positions): every grouping the kernel instantiates, and a
+# 24-block table whose positions sit on block edges (first and last token of
+# a block, the table's last position)
+PAGED_CASES = [(1, 4, (0, 7, 8, 15, 27)), (2, 4, (0, 7, 8, 15, 27)),
+               (4, 4, (0, 7, 8, 15, 27)), (8, 4, (0, 7, 8, 15, 27)),
+               (2, 24, (63, 64, 127, 128, 191))]
+
+
+@pytest.mark.parametrize("rep,MB,pos", PAGED_CASES,
+                         ids=["mha", "gqa_rep2", "gqa_rep4", "gqa_rep8",
+                              "long_table_block_edges"])
+def test_paged_attention_plain_matches_jax(rep, MB, pos):
+    q, kpool, vpool, tables, pos = _paged_inputs(rep, MB=MB, pos=pos)
     ref = np.asarray(JK.paged_attention_rows(
         jnp.asarray(q), jnp.asarray(kpool), jnp.asarray(vpool),
         jnp.asarray(tables), jnp.asarray(pos)))
@@ -47,6 +58,30 @@ def test_paged_attention_plain_matches_jax(rep):
                                        (q, kpool, vpool, tables, pos)))
     assert out.dtype == torch.float32 and out.shape == ref.shape
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,KV,BS,MB,n_sm,want", [
+    (32, 16, 16, 64, 132, 2),    # the engine's decode shape: 1024 blocks
+    (32, 16, 16, 128, 132, 2),   # contexts near 2000
+    (2, 16, 16, 128, 132, 8),    # two rows of 2048: the most a cluster takes
+    (48, 16, 16, 64, 132, 1),    # 768 pairs already fill 132 SMs
+    (5, 2, 8, 4, 132, 1),        # a 32-position table is never split
+    (1, 1, 16, 16, 132, 4),      # 256 positions: each block keeps >= 64
+    (1, 1, 16, 8, 132, 2),       # 128 positions: two blocks of 64
+])
+def test_paged_split_rule(B, KV, BS, MB, n_sm, want):
+    assert TK.paged_split(B, KV, BS, MB, n_sm) == want
+
+
+def test_paged_split_rule_bounds():
+    for B in (1, 2, 3, 8, 33, 512):
+        for MB in (1, 4, 64, 128, 4096):
+            split = TK.paged_split(B, 16, 16, MB, 132)
+            assert split in (1, 2, 4, 8)
+            # every block of a split row keeps at least 64 positions, and a
+            # split only happens while the pairs would not fill the card
+            assert split == 1 or (MB * 16 // split >= 64
+                                  and B * 16 * (split // 2) < 4 * 132)
 
 
 @pytest.mark.parametrize("transpose_w", [True, False], ids=["nk", "kn"])
