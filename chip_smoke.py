@@ -12,11 +12,13 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 2. kernels: each kernel against its plain PyTorch version, in float32
    (tight tolerance: checks the algorithm) and bfloat16 (loose tolerance
    and, for paged attention and the flash O and gradients, a
-   relative-norm bound: checks the working type). Paged attention at the
-   decode shape for rep 1, 2, 4 and 8, on a 128-block table with a row at
-   position 2047, and at 48 rows, so that every cluster size it launches
-   with is run (the kernel's cluster size is held against ``paged_split``'s
-   rule first); the int8 head at the serving path's shapes; the
+   relative-norm bound: checks the working type). Paged attention at
+   every (batch, table width) the engine phase's engine can launch it with
+   (its decode buckets by its gather widths, so every cluster size it
+   launches with is run), then for rep 2, 4 and 8 and at 48 rows; the
+   cluster size the kernel reports (``pt_paged_split``) is held against
+   ``paged_split_rule`` first, and the checks must run each of 1, 2, 4
+   and 8; the int8 head at the serving path's shapes; the
    flash-attention forward (O, LSE) and backward (dQ, dK, dV) at small
    shapes (ragged causal tails, non-causal T != T_kv, causal T < T_kv, a
    D=40 head, T=130 at D=128, every head width instantiation), in bf16 at
@@ -75,8 +77,11 @@ TOL = {
     # f32: the same math summed in another order
     ("paged_attention_rows", torch.float32): (1e-5, 1e-5),
     ("int8_matmul", torch.float32): (1e-3, 1e-4),
-    # bf16: the kernel keeps f32 inside and rounds once; the plain version
-    # rounds scores/probabilities (attention) or only the output (matmul)
+    # bf16: the kernel keeps f32 inside and rounds once; paged attention is
+    # held against the f32 plain version on the same bf16 inputs (the bf16
+    # plain version's own rounding of the probabilities reaches 1.6e-2 where
+    # a short context leaves |O| large), the matmul against the bf16 plain
+    # version, which rounds only the output
     ("paged_attention_rows", torch.bfloat16): (1e-2, 1e-2),
     ("int8_matmul", torch.bfloat16): (1e-1, 1e-2),
     # flash f32: online vs direct softmax, sums in another order; the
@@ -102,10 +107,20 @@ FLASH_DQ_REL_TOL = 1e-2
 # end (~0.3%); the elementwise O tolerance alone is loose where |O| is small
 # (|O| ~ sqrt(e / T) for unit-normal inputs)
 FLASH_O_REL_TOL = 1e-2
-# bf16 paged-attention output, the same norm and for the same reason: the
-# plain version rounds the scores and probabilities to bf16, the kernel keeps
-# them in f32 and rounds the output once
+# bf16 paged-attention output against the f32 plain version on the same
+# inputs, the same norm: the kernel rounds the output once (and takes the
+# scale rounded to bf16, as the reference does)
 PAGED_O_REL_TOL = 1e-2
+# the engine phase's engine (GPT-3 1.3B: KV = 16 heads of D = 128) and its
+# drive: 32 greedy requests, prompts of 128 to 1024 tokens, 64 new each
+ENGINE_KW = {"block_size": 16, "num_blocks": 2048, "max_batch": 32,
+             "prefill_batch": 4, "max_seq_len": 2048}
+DRIVE_REQUESTS, DRIVE_NEW = 32, 64
+# paged checks beyond the engine's own launches (rep, B, MB): every rep bound
+# the kernel instantiates at 2, 4 and 8 blocks a row, and 48 rows (one block
+# a row)
+PAGED_REP_CHECKS = ((2, 32, 64), (4, 32, 64), (8, 32, 64), (8, 16, 128),
+                    (8, 4, 128), (1, 48, 64))
 # the paged kernel's timing shapes (B, MB, positions; H = KV = 16, D = 128,
 # BS = 16, bf16): the engine's decode shape with ragged contexts (mean
 # ~490), 32 rows with every context near 2000, and 2 rows at 2048, where a
@@ -161,7 +176,7 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(name, dtype, out, ref):
+def compare(name, dtype, out, ref, note=""):
     atol, rtol = TOL[(name, dtype)]
     out, ref = out.detach().float(), ref.detach().float()
     if out.shape != ref.shape or not torch.isfinite(out).all():
@@ -171,9 +186,10 @@ def compare(name, dtype, out, ref):
     bad = int((err > atol + rtol * ref.abs()).sum())
     max_err = float(err.max())
     print(f"  {name} {str(dtype)[6:]}: max_abs_err={max_err:.3e} "
-          f"(atol={atol}, rtol={rtol}) {'ok' if not bad else 'MISMATCH'}")
+          f"(atol={atol}, rtol={rtol}) {'ok' if not bad else 'MISMATCH'}"
+          f"{note}")
     if bad:
-        fail(f"{name} {dtype}: {bad} elements outside tolerance")
+        fail(f"{name} {dtype}{note}: {bad} elements outside tolerance")
     return max_err
 
 
@@ -182,10 +198,10 @@ def compare(name, dtype, out, ref):
 def paged_inputs(dtype, rep=1, B=32, KV=16, D=128, BS=16, MB=64, seed=0,
                  pos=None):
     """One layer's pool with per-row disjoint live blocks (dead table
-    columns at trash block 0) and positions: by default ragged, landing on
-    and across block edges (the first six rows) and at the table's last
-    position; ``"near2000"`` every row within [1900, MB * BS); ``"full"``
-    every row at MB * BS - 1."""
+    columns at trash block 0) and positions: by default ragged (from 128, or
+    half the table on a short one), landing on and across block edges (the
+    first six rows) and at the table's last position; ``"near2000"`` every
+    row within [1900, MB * BS); ``"full"`` every row at MB * BS - 1."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.RandomState(seed)
     NB = B * MB + 1
@@ -197,9 +213,9 @@ def paged_inputs(dtype, rep=1, B=32, KV=16, D=128, BS=16, MB=64, seed=0,
     elif pos == "full":
         pos = np.full(B, MB * BS - 1)
     else:
-        pos = rng.randint(128, MB * BS, size=B)
+        pos = rng.randint(min(128, MB * BS // 2), MB * BS, size=B)
         edges = [0, BS - 1, BS, 2 * BS - 1, 2 * BS][:B - 1] + [MB * BS - 1]
-        pos[:len(edges)] = edges
+        pos[:len(edges)] = np.minimum(edges, MB * BS - 1)
     perm = rng.permutation(np.arange(1, NB)).reshape(B, MB)
     tables = np.zeros((B, MB), np.int32)
     for b in range(B):
@@ -221,9 +237,43 @@ def int8_inputs(dtype, M, transpose_w, K=2048, N=50304, seed=0):
     return x, qw, torch.tensor(scale, dtype=torch.float32, device="cuda")
 
 
-def paged_split_check():
-    """The cluster size the paged kernel launches with, against the rule of
-    ``paged_split``, at the check and timing shapes and a few more."""
+def engine_paged_shapes():
+    """(B, MB) of every paged-attention launch the engine phase's engine can
+    make: its decode buckets by its gather widths (the powers of two below
+    its table's most blocks, and that most)."""
+    from paddle_tpu_torch.models import gpt3_1p3b
+    from paddle_tpu_torch.serving import EngineConfig
+
+    cfg = EngineConfig(**ENGINE_KW).resolve(
+        gpt3_1p3b().max_position_embeddings)
+    most = -(-cfg.max_seq_len // cfg.block_size)
+    widths = [1 << i for i in range(most.bit_length()) if 1 << i < most]
+    return [(B, MB) for B in cfg.decode_buckets for MB in widths + [most]]
+
+
+def paged_check_shapes():
+    """(rep, B, MB) of every paged check: the engine's model (rep 1) at every
+    (B, MB) the engine can launch, then ``PAGED_REP_CHECKS``."""
+    return [(1, B, MB) for B, MB in engine_paged_shapes()] \
+        + list(PAGED_REP_CHECKS)
+
+
+def paged_split_rule(B: int, KV: int, BS: int, MB: int, n_sm: int) -> int:
+    """The thread blocks (a cluster) the paged kernel should split each
+    (row, KV head) context over: doubled, up to 8, while the B * KV pairs
+    would not give 4 blocks per SM and every block keeps at least 64
+    positions of the MB * BS-position table. The kernel's own rule is
+    ``split_for`` in ``csrc/paged_attention.cu``; ``paged_split_check``
+    holds it to this one."""
+    split = 1
+    while split < 8 and B * KV * split < 4 * n_sm and MB * BS >= 128 * split:
+        split *= 2
+    return split
+
+
+def kernel_split(B, KV, BS, MB):
+    """The cluster size the built paged kernel launches with at this shape
+    on the current card (its C entry ``pt_paged_split``)."""
     import ctypes
 
     from paddle_tpu_torch.ops.kernels import _build
@@ -231,48 +281,69 @@ def paged_split_check():
 
     fn = _build.load("paged_attention", P._SIGS).pt_paged_split
     fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    split = fn(B, KV, BS, MB)
+    if split <= 0:
+        fail(f"pt_paged_split: CUDA error {-split}")
+    return split
+
+
+def paged_split_check(shapes):
+    """The kernel's cluster size against ``paged_split_rule`` at every check
+    shape, every timing shape and a few other head counts; the checks must
+    run every cluster size, 1, 2, 4 and 8. Returns {(B, MB): split} at
+    KV = BS = 16."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    BMs = {(B, MB) for _, B, MB in shapes} | {
+        (B, MB) for _, B, MB, _ in PAGED_SHAPES}
     got = {}
-    for B, KV, BS, MB in ((32, 16, 16, 64), (32, 16, 16, 128), (2, 16, 16, 128),
-                          (4, 16, 16, 128), (48, 16, 16, 64), (1, 1, 16, 4),
-                          (1, 8, 16, 128), (8, 16, 16, 8)):
-        want = P.paged_split(B, KV, BS, MB, n_sm)
-        got[(B, KV, BS, MB)] = fn(B, KV, BS, MB)
-        if got[(B, KV, BS, MB)] != want:
+    for B, KV, BS, MB in sorted({(B, 16, 16, MB) for B, MB in BMs}
+                                | {(1, 1, 16, 4), (1, 8, 16, 128),
+                                   (8, 16, 16, 8)}):
+        got[(B, KV, BS, MB)] = split = kernel_split(B, KV, BS, MB)
+        want = paged_split_rule(B, KV, BS, MB, n_sm)
+        if split != want:
             fail(f"paged split at B={B} KV={KV} BS={BS} MB={MB}: kernel "
-                 f"{got[(B, KV, BS, MB)]}, rule {want} ({n_sm} SMs)")
-    print(f"  paged split (B, KV, BS, MB) -> blocks per row, as the rule "
-          f"gives on {n_sm} SMs: {got}")
+                 f"{split}, rule {want} ({n_sm} SMs)")
+    by_split = {}
+    for key, split in sorted(got.items()):
+        by_split.setdefault(split, []).append(key)
+    print(f"  paged split: the kernel's cluster size as the rule gives on "
+          f"{n_sm} SMs at {len(got)} shapes; (B, KV, BS, MB) by size: "
+          f"{by_split}")
+    ran = {got[(B, 16, 16, MB)] for _, B, MB in shapes}
+    if ran != {1, 2, 4, 8}:
+        fail(f"paged checks run cluster sizes {sorted(ran)}, not each of "
+             "1, 2, 4 and 8")
+    return {(B, MB): got[(B, 16, 16, MB)] for B, MB in BMs}
 
 
 def kernel_phase():
     from paddle_tpu_torch.ops import kernels as K
 
-    paged_split_check()
+    shapes = paged_check_shapes()
+    split = paged_split_check(shapes)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        # rep 1..8 at the decode shape (2 blocks a row), a 128-block table
-        # with a row at 2047 (8 blocks a row), 48 rows (one block a row)
-        for rep, B, MB in ((1, 32, 64), (2, 32, 64), (4, 32, 64), (8, 32, 64),
-                           (1, 4, 128), (8, 4, 128), (1, 48, 64)):
+        for rep, B, MB in shapes:
             args = paged_inputs(dtype, rep=rep, B=B, MB=MB)
             out = K.paged_attention_rows(*args)
             torch.cuda.synchronize()
-            ref = K.paged_attention_rows_plain(*args)
-            print(f"  paged B={B} MB={MB} rep={rep} max pos "
-                  f"{int(args[4].max())}:")
-            e = compare("paged_attention_rows", dtype, out, ref)
+            q, kp, vp, tables, pos = args
+            ref = K.paged_attention_rows_plain(q.float(), kp.float(),
+                                               vp.float(), tables, pos)
+            note = (f" at B={B} MB={MB} rep={rep} split={split[(B, MB)]} "
+                    f"max pos {int(args[4].max())}")
+            rel = rel_err(out, ref)
             if dtype == torch.bfloat16:
-                rel = rel_err(out, ref)
-                ok = rel <= PAGED_O_REL_TOL
-                print(f"  paged_attention_rows bf16: rel_norm_err={rel:.3e} "
-                      f"(tol rel {PAGED_O_REL_TOL}) "
-                      f"{'ok' if ok else 'MISMATCH'}")
-                if not ok:
-                    fail(f"paged_attention_rows bf16: relative error {rel:.3e}")
+                note += (f", rel_norm_err={rel:.3e} (tol rel "
+                         f"{PAGED_O_REL_TOL})")
+            e = compare("paged_attention_rows", dtype, out, ref, note)
+            if dtype == torch.bfloat16 and not rel <= PAGED_O_REL_TOL:
+                fail(f"paged_attention_rows bf16{note}: relative error "
+                     f"{rel:.3e}")
             if (rep, B, MB) == (1, 32, 64):
                 errs[("paged_attention_rows", dtype)] = e
-            del args, out, ref
+            del args, q, kp, vp, out, ref
         torch.cuda.empty_cache()
         for M in (4, 32):
             for tw in (True, False):
@@ -396,13 +467,13 @@ def bound(nbytes: float, ops: float, dtype) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def paged_timing(tag, B, MB, pos, plain=True):
-    """The paged kernel (and, with ``plain``, its plain version) at one of
-    ``PAGED_SHAPES``, beside the card's least time: each live token's K and
+def paged_timing(tag, B, MB, pos, plain=True, split=True):
+    """The paged kernel (and, with ``plain``, its plain version; with
+    ``split``, the cluster size it reports) at one of ``PAGED_SHAPES``,
+    beside the card's least time: each live token's K and
     V row read once, q and the output once, the live table entries and pos;
     4 FLOPs per live token, query head and column."""
     from paddle_tpu_torch.ops import kernels as K
-    from paddle_tpu_torch.ops.kernels import paged_attention as P
 
     dt, es = torch.bfloat16, 2
     q, kp, vp, tables, pos_t = paged_inputs(dt, B=B, MB=MB, seed=1, pos=pos)
@@ -412,15 +483,15 @@ def paged_timing(tag, B, MB, pos, plain=True):
     nbytes = (2 * B * H * D * es + 2 * live * KV * D * es
               + 4 * int((pos_t.long() // BS + 1).sum()) + 4 * B)
     b_ms, b_by = bound(nbytes, 4 * live * H * D, dt)
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     row = {"tag": tag,
            "ms": time_ms(lambda: K.paged_attention_rows(q, kp, vp, tables,
                                                         pos_t)),
            "bound_ms": b_ms, "bound_by": b_by,
-           "split": P.paged_split(B, KV, BS, MB, n_sm),
            "shape": f"B={B} H={H} KV={KV} D={D} BS={BS} MB={MB} "
                     f"mean_ctx={live / B:.1f} max_ctx={int(pos_t.max()) + 1} "
                     "bf16"}
+    if split:
+        row["split"] = kernel_split(B, KV, BS, MB)
     if plain:
         row["plain_ms"] = time_ms(lambda: K.paged_attention_rows_plain(
             q, kp, vp, tables, pos_t), iters=5)
@@ -646,6 +717,14 @@ def device_breakdown(step, steps, label, top=8):
         print(f"    {ns / 1e6 / steps:8.3f} ms/step  {name[:90]}")
 
 
+def drive_prompts(vocab_size, seed=0):
+    """The engine drive's prompts: ``DRIVE_REQUESTS`` of 128 to 1024 random
+    tokens, from a seed."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(128, 1025, size=DRIVE_REQUESTS)
+    return [rng.randint(0, vocab_size, size=n).tolist() for n in lens]
+
+
 def engine_phase(profile=False):
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.models import GPTForPretraining, gpt3_1p3b
@@ -659,16 +738,13 @@ def engine_phase(profile=False):
     print(f"  model: gpt3_1p3b bf16, "
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params, "
           f"built in {time.monotonic() - t0:.1f}s")
-    rng = np.random.RandomState(0)
-    lens = rng.randint(128, 1025, size=32)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
-    new = 64
+    prompts = drive_prompts(cfg.vocab_size)
+    new = DRIVE_NEW
     total = {"paged_attention_rows": 0, "int8_matmul": 0}
     for tag, int8 in (("a", False), ("b", True)):
         set_flags({"FLAGS_serve_paged_kernel": True,
                    "FLAGS_serve_int8_kernel": int8})
-        eng = Engine(model, block_size=16, num_blocks=2048, max_batch=32,
-                     prefill_batch=4, max_seq_len=2048, int8=int8, seed=0)
+        eng = Engine(model, **ENGINE_KW, int8=int8, seed=0)
         try:
             K.reset_launch_counts()
             t0 = time.monotonic()

@@ -1,4 +1,5 @@
-"""Time builds of a kernel source in turns on one CUDA card.
+"""Time builds of a kernel source in turns on one CUDA card (the flash
+source by default, as the name says, or the paged-attention source).
 
     python3 flash_ab.py parent=OLD.cu change=paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu
     python3 flash_ab.py parent=OLD.cu change=NEW.cu --train  # + train steps
@@ -23,10 +24,15 @@ queueing ms per step, and how long the device ran on after the last step
 was queued.
 
 Paged attention: each turn measures the kernel's device time at each of
-``chip_smoke.PAGED_SHAPES`` and the engine's decode step of GPT-3 1.3B
-(bf16, paged kernel on; batch 32, context ~640, as ``chip_smoke.py
---profile`` sets it up, without the profiler): host clock per step, each
-step ending in the engine's copy of the tokens to the host.
+``chip_smoke.PAGED_SHAPES``; the engine's decode step of GPT-3 1.3B (bf16,
+paged kernel on; batch 32, context ~640, as ``chip_smoke.py --profile``
+sets it up, without the profiler): host clock per step, each step ending
+in the engine's copy of the tokens to the host; and the engine phase's
+drive (a) (32 requests, prompts of 128 to 1024 tokens, 64 new each: ragged
+contexts over every decode bucket) under torch.profiler: the paged
+kernel's device time per decode step and per launch. An untimed drive
+before the first turn brings every bucket's table width to its high-water
+mark, so that every turn's drive launches the same shapes.
 """
 from __future__ import annotations
 
@@ -98,7 +104,7 @@ def kernel_turn(row, tag, shape, fused_qkv):
 
 def paged_turn(row):
     for tag, B, MB, pos in cs.PAGED_SHAPES:
-        r = cs.paged_timing(tag, B, MB, pos, plain=False)
+        r = cs.paged_timing(tag, B, MB, pos, plain=False, split=False)
         row[f"{tag}_ms"] = r["ms"]
         row[f"{tag}_bound_ms"] = r["bound_ms"]
 
@@ -114,11 +120,46 @@ def decode_setup():
     model = GPTForPretraining(cfg, dtype=torch.bfloat16, seed=0).eval()
     set_flags({"FLAGS_serve_paged_kernel": True,
                "FLAGS_serve_int8_kernel": False})
-    eng = Engine(model, block_size=16, num_blocks=2048, max_batch=32,
-                 prefill_batch=4, max_seq_len=2048, seed=0)
+    eng = Engine(model, **cs.ENGINE_KW, seed=0)
     with torch.inference_mode():
         step = cs.decode_step(eng)
-    return eng, step
+    return eng, step, cs.drive_prompts(cfg.vocab_size)
+
+
+def drive(eng, prompts):
+    handles = [eng.submit(p, max_new_tokens=cs.DRIVE_NEW) for p in prompts]
+    for h in handles:
+        h.result(timeout=900)
+    deadline = time.monotonic() + 30  # the scheduler ends its last step
+    while eng.stats()["running"] and time.monotonic() < deadline:
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+
+
+def drive_turn(row, eng, prompts):
+    """The engine drive under torch.profiler: the paged kernel's device
+    time per decode step and per launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import kernels as K
+
+    steps = eng.stats()["decode_steps"]
+    K.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        drive(eng, prompts)
+    steps = eng.stats()["decode_steps"] - steps
+    launches = K.launch_counts()["paged_attention_rows"]
+    ns = [e.end_ns() - e.start_ns()
+          for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA
+          and "paged_attention_kernel" in e.name()]
+    row["drive_decode_steps"] = steps
+    row["drive_paged_launches"] = launches
+    row["drive_paged_traced"] = len(ns)  # 0: the trace missed the kernels
+    row["drive_paged_ms_per_step"] = sum(ns) / 1e6 / steps if ns else None
+    row["drive_paged_us_per_launch"] = sum(ns) / 1e3 / len(ns) if ns else None
 
 
 def decode_turn(row, step):
@@ -166,7 +207,9 @@ def main(argv=None) -> int:
     libs = build(variants, args.lib)
     train = eng = None
     if args.lib == "paged_attention":
-        eng, step = decode_setup()
+        eng, step, prompts = decode_setup()
+        use(args.lib, libs[next(iter(variants))])
+        drive(eng, prompts)
     elif args.train:
         import paddle_tpu_torch as pt
 
@@ -183,6 +226,7 @@ def main(argv=None) -> int:
             if eng is not None:
                 paged_turn(row)
                 decode_turn(row, step)
+                drive_turn(row, eng, prompts)
             else:
                 kernel_turn(row, "train", cs.FLASH_TRAIN, True)
                 kernel_turn(row, "long", cs.FLASH_LONG, False)

@@ -12,8 +12,7 @@ from .flash_attention import (flash_attention_array, flash_attention_dkv,
                               flash_attention_dq, flash_attention_fwd,
                               flash_attention_plain)
 from .int8_matmul import int8_matmul, int8_matmul_plain
-from .paged_attention import (paged_attention_rows, paged_attention_rows_plain,
-                              paged_split)
+from .paged_attention import paged_attention_rows, paged_attention_rows_plain
 
 _MODULES = {"paged_attention_rows": _paged_mod, "int8_matmul": _int8_mod}
 
@@ -32,7 +31,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["build", "int8_matmul", "int8_matmul_plain",
-           "paged_attention_rows", "paged_attention_rows_plain", "paged_split",
+           "paged_attention_rows", "paged_attention_rows_plain",
            "flash_attention_array", "flash_attention_plain",
            "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
            "launch_counts", "reset_launch_counts"]

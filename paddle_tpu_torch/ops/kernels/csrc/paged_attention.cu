@@ -35,8 +35,8 @@
 //    every warp of the cluster are merged through distributed shared memory
 //    in (block, warp) order (no scratch in device memory, no second launch,
 //    deterministic). The host picks the split from B * KV, MB * BS and the
-//    SM count (`split_for`, mirrored by `paged_split` in
-//    paged_attention.py), never from pos, which lives on the device;
+//    SM count (`split_for`; `pt_paged_split` reports it), never from pos,
+//    which lives on the device;
 //  - the K/V of a group is read once whatever rep is: the scores and the
 //    running output of every query head of the group share each tile.
 // q.k is taken in f32 and the scale applied after the product, as
@@ -51,9 +51,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <map>
 #include <mutex>
-#include <utility>
+#include <set>
 
 namespace cg = cooperative_groups;
 
@@ -66,6 +65,7 @@ constexpr int kStageBytes = 8192;    // K + V of one tile at most
 constexpr int kMaxTile = 64;         // tokens of one tile at most
 constexpr int kMaxSplit = 8;         // thread blocks of a cluster
 constexpr int kMaxRepD = 1024;       // rep * D bound of the merge buffer
+constexpr int kMaxSmem = 227 * 1024; // dynamic shared memory of a block at most
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -401,39 +401,27 @@ int split_for(int B, int KV, int BS, int MB, int n_sm) {
 }
 
 int sm_count(int* n) {
-  static std::mutex mu;
-  static std::map<int, int> known;  // device -> SMs
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e) return static_cast<int>(e);
-  std::lock_guard<std::mutex> hold(mu);
-  auto it = known.find(dev);
-  if (it == known.end()) {
-    int v = 0;
-    e = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    if (e) return static_cast<int>(e);
-    it = known.emplace(dev, v).first;
-  }
-  *n = it->second;
-  return 0;
+  if (!e) e = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(e);
 }
 
-// Lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB).
-// The size grows with MB (the block ids), so the attribute is raised
-// whenever a launch needs more than it was last set to on that device.
-template <typename K>
-int set_smem(K* kernel, size_t smem) {
+// Lets this instantiation take up to kMaxSmem of dynamic shared memory, set
+// once per device (an allowance only: each launch asks for what it needs,
+// and the blocks an SM holds follow that).
+template <typename T, int REP>
+int allow_smem() {
   static std::mutex mu;
-  static std::map<std::pair<const void*, int>, size_t> set;  // -> bytes
+  static std::set<int> done;  // devices
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e) return static_cast<int>(e);
   std::lock_guard<std::mutex> hold(mu);
-  size_t& have = set[{reinterpret_cast<const void*>(kernel), dev}];
-  if (smem <= have) return 0;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (!e) have = smem;
+  if (done.count(dev)) return 0;
+  e = cudaFuncSetAttribute(paged_attention_kernel<T, REP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (!e) done.insert(dev);
   return static_cast<int>(e);
 }
 
@@ -444,10 +432,11 @@ int launch(const void* q, const void* kpool, const void* vpool,
   auto* kernel = paged_attention_kernel<T, REP>;
   const int TT = tile_tokens<REP>(BS, D, sizeof(T));
   const size_t smem = smem_bytes<T, REP>(TT, D, MB);
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
   int n_sm = 0;
   int e = sm_count(&n_sm);
-  if (!e && smem > 48 * 1024) e = set_smem(kernel, smem);
+  if (!e && smem > 48 * 1024) e = allow_smem<T, REP>();
   if (e) return e;
   const int split = split_for(B, KV, BS, MB, n_sm);
   cudaLaunchConfig_t cfg = {};

@@ -24,8 +24,7 @@ import torch
 
 from . import _build
 
-__all__ = ["paged_attention_rows", "paged_attention_rows_plain",
-           "paged_split", "launches"]
+__all__ = ["paged_attention_rows", "paged_attention_rows_plain", "launches"]
 
 launches = 0  # kernel launches since the last reset (plain calls excluded)
 
@@ -51,18 +50,6 @@ def paged_attention_rows_plain(q, kpool, vpool, tables, pos):
     o = _grouped_attention(q[:, None], kc, vc, live[:, None, None, None, :],
                            H // KV)
     return o.reshape(B, H * D)
-
-
-def paged_split(B: int, KV: int, BS: int, MB: int, n_sm: int) -> int:
-    """Thread blocks (a cluster) the kernel splits each (row, KV head)
-    context over: doubled, up to 8, while the B * KV pairs would not give
-    4 blocks per SM and every block keeps at least 64 positions of the
-    MB * BS-position table. ``split_for`` in ``csrc/paged_attention.cu``
-    applies this rule (``pt_paged_split`` reports its choice)."""
-    split = 1
-    while split < 8 and B * KV * split < 4 * n_sm and MB * BS >= 128 * split:
-        split *= 2
-    return split
 
 
 @lru_cache(maxsize=None)

@@ -4,7 +4,9 @@ On the CPU each wrapper of ``paddle_tpu_torch.ops.kernels`` runs its plain
 version; the JAX kernels run in Pallas interpret mode, as
 ``tests/test_paged_kernel.py`` runs them. Every input is made with numpy
 from a seed and handed to both packages. The CUDA kernels themselves are
-held against these plain versions on the card by ``chip_smoke.py``.
+held against these plain versions on the card by ``chip_smoke.py``; the
+paged kernel's cluster-split rule and the shapes that script checks it at
+are plain Python there, and are tested here.
 
 Tolerances: f32 attention and matmul differ only by summation order
 (atol/rtol 1e-5); the int8 rounding must be bit-equal.
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import jax.numpy as jnp
 from paddle_tpu.ops import kernels as JK
 from paddle_tpu.serving import int8 as jint8
@@ -70,18 +73,31 @@ def test_paged_attention_plain_matches_jax(rep, MB, pos):
     (1, 1, 16, 8, 132, 2),       # 128 positions: two blocks of 64
 ])
 def test_paged_split_rule(B, KV, BS, MB, n_sm, want):
-    assert TK.paged_split(B, KV, BS, MB, n_sm) == want
+    assert chip_smoke.paged_split_rule(B, KV, BS, MB, n_sm) == want
 
 
 def test_paged_split_rule_bounds():
     for B in (1, 2, 3, 8, 33, 512):
         for MB in (1, 4, 64, 128, 4096):
-            split = TK.paged_split(B, 16, 16, MB, 132)
+            split = chip_smoke.paged_split_rule(B, 16, 16, MB, 132)
             assert split in (1, 2, 4, 8)
             # every block of a split row keeps at least 64 positions, and a
             # split only happens while the pairs would not fill the card
             assert split == 1 or (MB * 16 // split >= 64
                                   and B * 16 * (split // 2) < 4 * 132)
+
+
+@pytest.mark.parametrize("n_sm", [132, 114], ids=["h100_sxm", "h100_pcie"])
+def test_paged_checks_cover_every_engine_launch_and_split(n_sm):
+    grid = chip_smoke.engine_paged_shapes()
+    # decode buckets 1..32 by gather widths 1..128 blocks
+    assert len(grid) == 6 * 8 and (16, 64) in grid and (32, 128) in grid
+    shapes = chip_smoke.paged_check_shapes()
+    assert {(B, MB) for rep, B, MB in shapes if rep == 1} >= set(grid)
+    assert {rep for rep, _, _ in shapes} == {1, 2, 4, 8}
+    splits = {chip_smoke.paged_split_rule(B, 16, 16, MB, n_sm)
+              for _, B, MB in shapes}
+    assert splits == {1, 2, 4, 8}
 
 
 @pytest.mark.parametrize("transpose_w", [True, False], ids=["nk", "kn"])
