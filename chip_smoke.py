@@ -9,6 +9,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 1. build: every CUDA kernel source in ``paddle_tpu_torch/ops/kernels/csrc``
    with nvcc for sm_90a (one nvcc per source, started together); prints
    ptxas's registers and spill-store bytes of every kernel instantiation;
+   ``cuobjdump -sass`` must find no int-to-float conversion (I2F, I2FP) in
+   the bf16 int8 kernel;
 2. kernels: each kernel against its plain PyTorch version, in float32
    (tight tolerance: checks the algorithm) and bfloat16 (loose tolerance
    and, for paged attention and the flash O and gradients, a
@@ -18,7 +20,11 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    launches with is run), then for rep 2, 4 and 8 and at 48 rows; the
    cluster size the kernel reports (``pt_paged_split``) is held against
    ``paged_split_rule`` first, and the checks must run each of 1, 2, 4
-   and 8; the int8 head at the serving path's shapes; the
+   and 8; the int8 head at every row count the engine phase's engine can
+   launch it with (decode buckets and prefill width), then two passes (48
+   rows), a ragged N and a ragged K, in both weight layouts (bf16 also by
+   relative norm against the f32 plain version), and one-hot and two-hot
+   rows whose output must be the reference's dequant bit for bit; the
    flash-attention forward (O, LSE) and backward (dQ, dK, dV) at small
    shapes (ragged causal tails, non-causal T != T_kv, causal T < T_kv, a
    D=40 head, T=130 at D=128, every head width instantiation), in bf16 at
@@ -44,7 +50,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    least time for the same work, and a one-call PyTorch yardstick where
    one exists; the flash kernels also with their TFLOP/s and the host time
    of one call, at the training shape and at the long-sequence shape; the
-   paged kernel at the three ``PAGED_SHAPES``.
+   paged kernel at the three ``PAGED_SHAPES``; the int8 head at M = 1, 4 and
+   32 beside the dense bf16 head (``dense_bf16_ms``).
 
 The last three lines of stdout are the card's name and power limit
 (``nvidia-smi``), the ``{"kernels": [...]}`` JSON line and
@@ -116,6 +123,22 @@ PAGED_O_REL_TOL = 1e-2
 ENGINE_KW = {"block_size": 16, "num_blocks": 2048, "max_batch": 32,
              "prefill_batch": 4, "max_seq_len": 2048}
 DRIVE_REQUESTS, DRIVE_NEW = 32, 64
+# the int8 LM head of the engine phase's model: GPT-3 1.3B's hidden size and
+# padded vocabulary (K, N), weight stored (N, K) (the tied embedding)
+INT8_HEAD = (2048, 50304)
+# int8 head checks beyond the engine's own launches (M, K, N): two passes
+# over the weight, a ragged N, a K that is not a multiple of the kernel's
+# 128-byte chunk, and both at a row count that is not a multiple of 8
+INT8_EXTRA_CHECKS = ((48, 2048, 50304), (32, 2048, 50257), (32, 1000, 50304),
+                     (5, 1000, 50257))
+# bf16 int8 head against the f32 plain version on the same bf16 inputs and
+# dequantized weight, ||kernel - plain|| / ||plain||: only the output
+# rounding (~2^-9 relative) separates them
+INT8_REL_TOL = 1e-2
+# the int8 head's timing rows (M at K, N = INT8_HEAD, (N, K)): one stream,
+# the prefill width and the full decode batch
+INT8_TIMING_ROWS = (1, 4, 32)
+INT8_MMA = "int8_matmul_mma"  # the bf16 tensor-core kernel's name
 # paged checks beyond the engine's own launches (rep, B, MB): every rep bound
 # the kernel instantiates at 2, 4 and 8 blocks a row, and 48 rows (one block
 # a row)
@@ -193,6 +216,40 @@ def compare(name, dtype, out, ref, note=""):
     return max_err
 
 
+# -- build phase -------------------------------------------------------------
+
+def ptxas_functions(text):
+    """(function, spill-store bytes, registers) of every kernel
+    instantiation in nvcc's ``-Xptxas -v`` report."""
+    return [(fn, int(st), int(reg)) for fn, st, reg in re.findall(
+        r"Function properties for (\S+)\n.*?(\d+) bytes spill stores"
+        r".*?\n.*?Used (\d+) registers", text)]
+
+
+def int8_sass_check():
+    """No int8 -> float conversion instruction (I2F, I2FP) in any
+    instantiation of the bf16 int8 kernel: its dequant goes through byte
+    permutes and one FADD (``cuobjdump -sass`` of the built library)."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        fail(f"int8_matmul SASS: no cuobjdump beside nvcc ({tool}); I2F "
+             "cannot be checked")
+    res = subprocess.run([str(tool), "-sass", str(_build._target("int8_matmul"))],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass int8_matmul: {res.stderr.strip()[:400]}")
+    funcs = [f for f in res.stdout.split("Function : ")[1:]
+             if INT8_MMA in f.split(None, 1)[0]]
+    conv = sum(len(re.findall(r"\bI2FP?\.", f)) for f in funcs)
+    print(f"  int8_matmul SASS: {len(funcs)} {INT8_MMA} instantiations, "
+          f"{conv} I2F/I2FP instructions {'ok' if funcs and not conv else 'MISMATCH'}")
+    if not funcs or conv:
+        fail(f"int8_matmul SASS: {len(funcs)} {INT8_MMA} functions, {conv} "
+             "int-to-float conversions")
+
+
 # -- kernel phase ------------------------------------------------------------
 
 def paged_inputs(dtype, rep=1, B=32, KV=16, D=128, BS=16, MB=64, seed=0,
@@ -225,16 +282,38 @@ def paged_inputs(dtype, rep=1, B=32, KV=16, D=128, BS=16, MB=64, seed=0,
             torch.from_numpy(pos.astype(np.int32)).cuda())
 
 
-def int8_inputs(dtype, M, transpose_w, K=2048, N=50304, seed=0):
+def int8_weight(K, N, seed=0):
+    """An int8 head weight ``(N, K)`` quantized from a seeded normal weight
+    (std 0.02) by the port's own rounding, and its f32 scale on the card."""
     from paddle_tpu_torch.serving.int8 import quantize_to_int8
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    w = torch.randn(N, K, generator=g, device="cuda") * 0.02
-    qw, scale = quantize_to_int8(w)
-    if not transpose_w:
-        qw = qw.T.contiguous()
-    x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
-    return x, qw, torch.tensor(scale, dtype=torch.float32, device="cuda")
+    qw, scale = quantize_to_int8(
+        torch.randn(N, K, generator=g, device="cuda") * 0.02)
+    return qw, torch.tensor(scale, dtype=torch.float32, device="cuda")
+
+
+def int8_x(M, K, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return torch.randn(M, K, generator=g, device="cuda").to(dtype)
+
+
+def engine_int8_rows():
+    """Every row count the engine phase's engine can launch the int8 head
+    with: its decode buckets and its prefill width."""
+    from paddle_tpu_torch.models import gpt3_1p3b
+    from paddle_tpu_torch.serving import EngineConfig
+
+    cfg = EngineConfig(**ENGINE_KW).resolve(
+        gpt3_1p3b().max_position_embeddings)
+    return sorted(set(cfg.decode_buckets) | {cfg.prefill_batch})
+
+
+def int8_check_shapes():
+    """(M, K, N) of every int8 head check: the engine's head at every row
+    count it launches, then ``INT8_EXTRA_CHECKS``."""
+    K, N = INT8_HEAD
+    return [(M, K, N) for M in engine_int8_rows()] + list(INT8_EXTRA_CHECKS)
 
 
 def engine_paged_shapes():
@@ -345,15 +424,104 @@ def kernel_phase():
                 errs[("paged_attention_rows", dtype)] = e
             del args, q, kp, vp, out, ref
         torch.cuda.empty_cache()
-        for M in (4, 32):
-            for tw in (True, False):
-                x, qw, s = int8_inputs(dtype, M, tw)
-                out = K.int8_matmul(x, qw, s, transpose_w=tw)
-                torch.cuda.synchronize()
-                e = compare("int8_matmul", dtype, out,
-                            K.int8_matmul_plain(x, qw, s, transpose_w=tw))
-                if M == 32 and tw:
-                    errs[("int8_matmul", dtype)] = e
+    errs.update(int8_phase())
+    return errs
+
+
+def int8_exact_rows(K):
+    """The rows of ``int8_exact_check`` for a K-wide x: 32 one-hot picks k_m
+    spread over K (the first and last column included), and 32 two-hot
+    pairs (a_m, b_m) of distinct picks."""
+    ks = np.round(np.linspace(0, K - 1, 32)).astype(np.int64)
+    return ks, np.stack([ks, np.roll(ks, -11)], axis=1)
+
+
+def int8_exact_check(qw, s, tw, dtype):
+    """Rows whose output is fixed bit for bit by the reference's dequant
+    (+0 and -0 count as equal). One-hot rows x[m] = e_{k_m} must give the
+    dequantized weight's columns k_m: an inexact int8 -> float conversion
+    or a lane on the wrong k fails. Two-hot rows x[m] = e_a + e_b must give
+    the sum of columns a and b, exact in f32, rounded once to the output
+    dtype: a scale folded in after the sum, ``s127 * (q_a + q_b)`` rounded,
+    fails, and in bf16 the check fails unless such a kernel would differ
+    somewhere on these rows."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels.int8_matmul import int8_dequant
+
+    Kd = qw.shape[1] if tw else qw.shape[0]
+    ks, pairs = (torch.from_numpy(v).cuda() for v in int8_exact_rows(Kd))
+    a, b = pairs[:, 0], pairs[:, 1]
+    rows = torch.arange(32, device="cuda")
+    wd = int8_dequant(qw, s, dtype)
+    wd, q = (wd.T, qw.T) if tw else (wd, qw)  # both (K, N)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+
+    def differ(out, want):
+        return int((~((out.view(bits) == want.view(bits))
+                      | ((out == 0) & (want == 0)))).sum())
+
+    x1 = torch.zeros(32, Kd, device="cuda", dtype=dtype)
+    x1[rows, ks] = 1
+    x2 = torch.zeros(32, Kd, device="cuda", dtype=dtype)
+    x2[rows, a] = 1
+    x2[rows, b] = 1
+    want2 = (wd[a].float() + wd[b].float()).to(dtype)
+    folded = ((q[a].float() + q[b].float()) * (s / s.new_tensor(127.0))).to(dtype)
+    bad1 = differ(K.int8_matmul(x1, qw, s, transpose_w=tw), wd[ks])
+    bad2 = differ(K.int8_matmul(x2, qw, s, transpose_w=tw), want2)
+    sens = differ(folded, want2)
+    n = 32 * wd.shape[1]
+    ok = not bad1 and not bad2 and (sens or dtype != torch.bfloat16)
+    print(f"  int8_matmul {str(dtype)[6:]} exact rows at K={Kd} "
+          f"{'(N, K)' if tw else '(K, N)'}: one-hot {n - bad1}/{n}, two-hot "
+          f"{n - bad2}/{n} bit-equal (a scale folded after the sum would "
+          f"differ at {sens}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"int8_matmul {dtype} exact rows: {bad1} one-hot and {bad2} "
+             f"two-hot elements differ from the reference's dequant; a folded "
+             f"scale would differ at {sens}")
+
+
+def int8_phase():
+    """The int8 head against its plain version at every ``int8_check_shapes``
+    shape, in both weight layouts, f32 and bf16; bf16 also by relative norm
+    against the f32 plain version on the same bf16 inputs, and every weight
+    through ``int8_exact_check``. Returns the max abs errors at the decode
+    batch (M = 32, (N, K))."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels.int8_matmul import int8_dequant
+
+    errs = {}
+    shapes = int8_check_shapes()
+    for Kd, N in sorted({(k, n) for _, k, n in shapes}, reverse=True):
+        qw_nk, s = int8_weight(Kd, N)
+        for tw in (True, False):
+            qw = qw_nk if tw else qw_nk.T.contiguous()
+            for dtype in (torch.float32, torch.bfloat16):
+                wd = int8_dequant(qw, s, dtype).float()
+                wd = wd.T if tw else wd
+                for M in [m for m, k, n in shapes if (k, n) == (Kd, N)]:
+                    x = int8_x(M, Kd, dtype)
+                    out = K.int8_matmul(x, qw, s, transpose_w=tw)
+                    torch.cuda.synchronize()
+                    note = f" at M={M} K={Kd} N={N} {'(N, K)' if tw else '(K, N)'}"
+                    rel = rel_err(out, x.float() @ wd)
+                    if dtype == torch.bfloat16:
+                        note += (f", rel_norm_err={rel:.3e} against the f32 "
+                                 f"plain version (tol rel {INT8_REL_TOL})")
+                    e = compare("int8_matmul", dtype, out,
+                                K.int8_matmul_plain(x, qw, s, transpose_w=tw),
+                                note)
+                    if dtype == torch.bfloat16 and not rel <= INT8_REL_TOL:
+                        fail(f"int8_matmul bf16{note}: relative error {rel:.3e}")
+                    if (M, Kd, N, tw) == (32, *INT8_HEAD, True):
+                        errs[("int8_matmul", dtype)] = e
+                    del x, out
+                int8_exact_check(qw, s, tw, dtype)
+                del wd
+            del qw
+        del qw_nk
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -500,7 +668,72 @@ def paged_timing(tag, B, MB, pos, plain=True, split=True):
     return row
 
 
-def timing_phase(errs, launches):
+def int8_timing(errs, launches, ptxas):
+    """The int8 head's row: (N, K) bf16 at K, N = ``INT8_HEAD``, timed at
+    every ``INT8_TIMING_ROWS`` (``ms`` at M = 32, the decode batch; the
+    same weight stored (K, N), the Llama head's layout, in ``kn_ms_by_m``), beside
+    the card's least time at M = 32 (the int8 weight read once, x and the
+    output once; 2 M N K operations), the plain version, one PyTorch call
+    for an int8-weight matmul, and ``dense_bf16_ms``: ``x @ wd.T`` on the
+    weight dequantized to bf16 ahead of time, what the head costs without
+    int8. ``ptxas``: [(function, spill-store bytes, registers)] of the bf16
+    kernel's instantiation at this shape, when this run built it."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels.int8_matmul import int8_dequant
+
+    dt, es = torch.bfloat16, 2
+    Kd, N = INT8_HEAD
+    qw, s = int8_weight(Kd, N, seed=1)
+    wd = int8_dequant(qw, s, dt)
+    qkn = qw.T.contiguous()
+    ms, kn, dense = {}, {}, {}
+    for M in INT8_TIMING_ROWS:
+        x = int8_x(M, Kd, dt, seed=1)
+        ms[M] = time_ms(lambda: K.int8_matmul(x, qw, s, transpose_w=True),
+                        iters=50)
+        kn[M] = time_ms(lambda: K.int8_matmul(x, qkn, s, transpose_w=False),
+                        iters=50)
+        dense[M] = time_ms(lambda: x @ wd.T, iters=50)
+    del qkn
+    M = INT8_TIMING_ROWS[-1]
+    b_ms, b_by = bound(N * Kd + M * Kd * es + M * N * es + 4, 2 * M * N * Kd,
+                       dt)
+    lib_ms, lib_note = None, "none"
+    try:  # one PyTorch call for an int8-weight matmul, where the build has one
+        scales = (s.repeat(N) / 127.0).to(dt)
+        torch._weight_int8pack_mm(x, qw, scales)
+        lib_ms = time_ms(lambda: torch._weight_int8pack_mm(x, qw, scales))
+        lib_note = "torch._weight_int8pack_mm"
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        lib_note = f"torch._weight_int8pack_mm unavailable: {str(e)[:80]}"
+    row = {
+        "name": "int8_matmul", "route": "cuda",
+        "kernel": "int8_matmul_mma: cp.async ring of 128-byte K chunks, "
+                  "exact byte-permute dequant in registers, mma.sync "
+                  "m16n8k16 with the weight as the tall operand",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/int8_matmul.cu",
+        "replaces": "paddle_tpu/ops/kernels/int8_matmul.py:76",
+        "launches": launches["int8_matmul"],
+        "max_abs_err": errs[("int8_matmul", dt)],
+        "ms": ms[M],
+        "plain_ms": time_ms(lambda: K.int8_matmul_plain(x, qw, s, True),
+                            iters=5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "ms_by_m": ms, "kn_ms_by_m": kn,
+        "dense_bf16_ms": dense[M], "dense_bf16_ms_by_m": dense,
+        "bytes_bound_ms_by_m": {m: (N * Kd + m * Kd * es + m * N * es + 4)
+                                / HBM_BYTES_PER_S * 1e3 for m in ms},
+        # ptxas's report of the instantiation this shape runs
+        "registers": ptxas[0][2] if ptxas else None,
+        "spill_bytes": ptxas[0][1] if ptxas else None,
+        "shape": f"M={M} K={Kd} N={N} transpose_w bf16; library: {lib_note}",
+    }
+    del qw, wd
+    torch.cuda.empty_cache()
+    return row
+
+
+def timing_phase(errs, launches, int8_ptxas=()):
     """The kernels line's rows, and the paged kernel at every one of
     ``PAGED_SHAPES``."""
     from paddle_tpu_torch.ops import kernels as K
@@ -526,30 +759,7 @@ def timing_phase(errs, launches):
         "shape": f"{pg['shape']}; {pg['split']} blocks a row; the other "
                  "shapes on the paged_shapes line",
     })
-    # int8 LM head at the decode batch
-    M, Kd, N = 32, 2048, 50304
-    x, qw, s = int8_inputs(dt, M, True, seed=1)
-    b_ms, b_by = bound(N * Kd + M * Kd * es + M * N * es + 4, 2 * M * N * Kd, dt)
-    lib_ms, lib_note = None, "none"
-    try:  # one PyTorch call for an int8-weight matmul, where the build has one
-        scales = s.repeat(N) / 127.0
-        torch._weight_int8pack_mm(x, qw, scales.to(dt))
-        lib_ms = time_ms(lambda: torch._weight_int8pack_mm(x, qw, scales.to(dt)))
-        lib_note = "torch._weight_int8pack_mm"
-    except (RuntimeError, NotImplementedError, AttributeError) as e:
-        lib_note = f"torch._weight_int8pack_mm unavailable: {str(e)[:80]}"
-    rows.append({
-        "name": "int8_matmul", "route": "cuda",
-        "kernel": "int8_matmul_kernel",
-        "source": "paddle_tpu_torch/ops/kernels/csrc/int8_matmul.cu",
-        "replaces": "paddle_tpu/ops/kernels/int8_matmul.py:76",
-        "launches": launches["int8_matmul"],
-        "max_abs_err": errs[("int8_matmul", dt)],
-        "ms": time_ms(lambda: K.int8_matmul(x, qw, s, transpose_w=True)),
-        "plain_ms": time_ms(lambda: K.int8_matmul_plain(x, qw, s, True), iters=5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        "shape": f"M={M} K={Kd} N={N} transpose_w bf16; library: {lib_note}",
-    })
+    rows.append(int8_timing(errs, launches, int8_ptxas))
     rows += flash_timing(errs, launches)
     return rows, paged
 
@@ -683,13 +893,15 @@ def decode_profile(eng, tag, steps=16, B=32, ctx=640):
         for _ in range(3):
             step()
         torch.cuda.synchronize()
-        device_breakdown(step, steps, f"profile ({tag}) B={B} ctx~{ctx}")
+        device_breakdown(step, steps, f"profile ({tag}) B={B} ctx~{ctx}",
+                         watch=("paged_attention_kernel", INT8_MMA))
 
 
-def device_breakdown(step, steps, label, top=8):
+def device_breakdown(step, steps, label, top=8, watch=()):
     """Run ``step`` ``steps`` times under torch.profiler (CPU + CUDA) and
-    print the device busy share of the window and the kernels that take the
-    most device time."""
+    print the device busy share of the window, the kernels that take the
+    most device time and, below them, any other kernel whose name holds one
+    of ``watch``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -713,7 +925,10 @@ def device_breakdown(step, steps, label, top=8):
           f"{window / 1e6 / steps:.3f} "
           f"ms/step, busy {busy / 1e6 / steps:.3f} ms/step, idle share "
           f"{1 - busy / window:.3f}, {len(ev) / steps:.0f} device ops/step")
-    for name, ns in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    shown = ranked[:top] + [(n, ns) for n, ns in ranked[top:]
+                            if any(w in n for w in watch)]
+    for name, ns in shown:
         print(f"    {ns / 1e6 / steps:8.3f} ms/step  {name[:90]}")
 
 
@@ -953,11 +1168,16 @@ def main(argv=None) -> int:
         print(f"  {name}: {len(regs)} instantiations, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, "
               f"spill-store bytes {spills}")
-        for fn, st, reg in re.findall(
-                r"Function properties for (\S+)\n.*?(\d+) bytes spill stores"
-                r".*?\n.*?Used (\d+) registers", entry["ptxas"]):
+        for fn, st, reg in ptxas_functions(entry["ptxas"]):
             print(f"    {fn}: {reg} registers at entry, {st} spill-store "
                   "bytes")
+    main_fn = f"{INT8_MMA}ILi4ELb1E"  # <NT = 4, trans>
+    int8_ptxas = [f for f in ptxas_functions(log["int8_matmul"]["ptxas"])
+                  if main_fn in f[0]]
+    print(f"  the decode batch runs {INT8_MMA}<4, trans>: " + (
+              f"{int8_ptxas[0][2]} registers, {int8_ptxas[0][1]} spill-store "
+              "bytes" if int8_ptxas else "no ptxas report (cached build)"))
+    int8_sass_check()
 
     print("[2] kernels against their plain versions")
     errs = kernel_phase()
@@ -971,7 +1191,7 @@ def main(argv=None) -> int:
     launches.update(train_phase(profile=args.profile))
 
     print("[4] kernel timing")
-    rows, paged = timing_phase(errs, launches)
+    rows, paged = timing_phase(errs, launches, int8_ptxas)
     # the reference's (B*H, T, D) route shape: not on the port's main path
     long_rows = flash_timing(long_errs, dict.fromkeys(FLASH_REPLACES, 0),
                              FLASH_LONG, fused_qkv=False)

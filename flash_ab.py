@@ -1,10 +1,13 @@
 """Time builds of a kernel source in turns on one CUDA card (the flash
-source by default, as the name says, or the paged-attention source).
+source by default, as the name says, the paged-attention source or the int8
+head's source).
 
     python3 flash_ab.py parent=OLD.cu change=paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu
     python3 flash_ab.py parent=OLD.cu change=NEW.cu --train  # + train steps
     python3 flash_ab.py --lib paged_attention parent=OLD.cu \
         change=paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu
+    python3 flash_ab.py --lib int8_matmul parent=OLD.cu \
+        change=paddle_tpu_torch/ops/kernels/csrc/int8_matmul.cu
 
 Each LABEL=PATH is a version of ``csrc/<lib>.cu`` (``--lib``, by default
 ``flash_attention``) with the same C interface. All are compiled by nvcc
@@ -32,7 +35,17 @@ drive (a) (32 requests, prompts of 128 to 1024 tokens, 64 new each: ragged
 contexts over every decode bucket) under torch.profiler: the paged
 kernel's device time per decode step and per launch. An untimed drive
 before the first turn brings every bucket's table width to its high-water
-mark, so that every turn's drive launches the same shapes.
+mark, so that every turn's drive launches the same shapes. Each turn also
+times one drive without the profiler (tokens/s on the host clock).
+
+The int8 head: each turn measures the kernel's device time at each of
+``chip_smoke.INT8_TIMING_ROWS`` (bf16, K = 2048, N = 50304), with the weight
+stored (N, K) (``m<M>_ms``, the GPT head) and (K, N) (``kn_m<M>_ms``, the
+Llama head's layout);
+and, as for paged attention, the decode step and the drives, on an engine
+with int8 weights and both kernels on (the engine phase's drive (b)): the
+int8 head's device time per decode step and per launch (prefill launches
+included).
 """
 from __future__ import annotations
 
@@ -49,7 +62,13 @@ import chip_smoke as cs
 
 OUT = cs.ROOT / "_proof" / "ab"
 SIGS = {"flash_attention": "paddle_tpu_torch.ops.kernels.flash_attention",
-        "paged_attention": "paddle_tpu_torch.ops.kernels.paged_attention"}
+        "paged_attention": "paddle_tpu_torch.ops.kernels.paged_attention",
+        "int8_matmul": "paddle_tpu_torch.ops.kernels.int8_matmul"}
+# the engine libraries: (their wrapper's launch count, a name every build's
+# kernel carries in the trace, the drive keys' tag)
+ENGINE_LIBS = {"paged_attention": ("paged_attention_rows",
+                                   "paged_attention_kernel", "paged"),
+               "int8_matmul": ("int8_matmul", "int8_matmul", "int8")}
 DECODE_STEPS = 30
 
 
@@ -109,9 +128,25 @@ def paged_turn(row):
         row[f"{tag}_bound_ms"] = r["bound_ms"]
 
 
-def decode_setup():
-    """GPT-3 1.3B bf16 behind an idle engine with the paged kernel on, and
-    its decode step at batch 32, context ~640."""
+def int8_turn(row):
+    from paddle_tpu_torch.ops import kernels as K
+
+    qw, s = cs.int8_weight(*cs.INT8_HEAD, seed=1)
+    qkn = qw.T.contiguous()
+    for M in cs.INT8_TIMING_ROWS:
+        x = cs.int8_x(M, cs.INT8_HEAD[0], torch.bfloat16, seed=1)
+        row[f"m{M}_ms"] = cs.time_ms(
+            lambda: K.int8_matmul(x, qw, s, transpose_w=True), iters=50)
+        row[f"kn_m{M}_ms"] = cs.time_ms(
+            lambda: K.int8_matmul(x, qkn, s, transpose_w=False), iters=50)
+    del qw, qkn
+    torch.cuda.empty_cache()
+
+
+def decode_setup(int8=False):
+    """GPT-3 1.3B bf16 behind an idle engine with the paged kernel on (and
+    with ``int8``, int8 weights and the int8 head kernel), and its decode
+    step at batch 32, context ~640."""
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.models import GPTForPretraining, gpt3_1p3b
     from paddle_tpu_torch.serving import Engine
@@ -119,8 +154,8 @@ def decode_setup():
     cfg = gpt3_1p3b(hidden_dropout=0.0, attention_dropout=0.0)
     model = GPTForPretraining(cfg, dtype=torch.bfloat16, seed=0).eval()
     set_flags({"FLAGS_serve_paged_kernel": True,
-               "FLAGS_serve_int8_kernel": False})
-    eng = Engine(model, **cs.ENGINE_KW, seed=0)
+               "FLAGS_serve_int8_kernel": int8})
+    eng = Engine(model, **cs.ENGINE_KW, int8=int8, seed=0)
     with torch.inference_mode():
         step = cs.decode_step(eng)
     return eng, step, cs.drive_prompts(cfg.vocab_size)
@@ -136,30 +171,34 @@ def drive(eng, prompts):
     torch.cuda.synchronize()
 
 
-def drive_turn(row, eng, prompts):
-    """The engine drive under torch.profiler: the paged kernel's device
-    time per decode step and per launch."""
+def drive_turn(row, eng, prompts, lib):
+    """One engine drive on the host clock (tokens/s), then one under
+    torch.profiler: ``lib``'s kernel's device time per decode step and per
+    launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.ops import kernels as K
 
+    count, kernel, tag = ENGINE_LIBS[lib]
+    t0 = time.monotonic()
+    drive(eng, prompts)
+    row["drive_tok_s"] = len(prompts) * cs.DRIVE_NEW / (time.monotonic() - t0)
     steps = eng.stats()["decode_steps"]
     K.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         drive(eng, prompts)
     steps = eng.stats()["decode_steps"] - steps
-    launches = K.launch_counts()["paged_attention_rows"]
+    launches = K.launch_counts()[count]
     ns = [e.end_ns() - e.start_ns()
           for e in prof.profiler.kineto_results.events()
-          if e.device_type() == DeviceType.CUDA
-          and "paged_attention_kernel" in e.name()]
+          if e.device_type() == DeviceType.CUDA and kernel in e.name()]
     row["drive_decode_steps"] = steps
-    row["drive_paged_launches"] = launches
-    row["drive_paged_traced"] = len(ns)  # 0: the trace missed the kernels
-    row["drive_paged_ms_per_step"] = sum(ns) / 1e6 / steps if ns else None
-    row["drive_paged_us_per_launch"] = sum(ns) / 1e3 / len(ns) if ns else None
+    row[f"drive_{tag}_launches"] = launches
+    row[f"drive_{tag}_traced"] = len(ns)  # 0: the trace missed the kernels
+    row[f"drive_{tag}_ms_per_step"] = sum(ns) / 1e6 / steps if ns else None
+    row[f"drive_{tag}_us_per_launch"] = sum(ns) / 1e3 / len(ns) if ns else None
 
 
 def decode_turn(row, step):
@@ -194,6 +233,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true",
                     help="flash: also time GPT-3 1.3B train steps in each "
                          "turn")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="paged attention, int8 head: time the kernel only, "
+                         "with no engine")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False")
@@ -206,8 +248,8 @@ def main(argv=None) -> int:
     print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
     libs = build(variants, args.lib)
     train = eng = None
-    if args.lib == "paged_attention":
-        eng, step, prompts = decode_setup()
+    if args.lib in ENGINE_LIBS and not args.kernels_only:
+        eng, step, prompts = decode_setup(int8=args.lib == "int8_matmul")
         use(args.lib, libs[next(iter(variants))])
         drive(eng, prompts)
     elif args.train:
@@ -223,10 +265,11 @@ def main(argv=None) -> int:
         for label in list(variants) + list(reversed(variants)):
             use(args.lib, libs[label])
             row = {"build": label}
-            if eng is not None:
-                paged_turn(row)
-                decode_turn(row, step)
-                drive_turn(row, eng, prompts)
+            if args.lib in ENGINE_LIBS:
+                (int8_turn if args.lib == "int8_matmul" else paged_turn)(row)
+                if eng is not None:
+                    decode_turn(row, step)
+                    drive_turn(row, eng, prompts, args.lib)
             else:
                 kernel_turn(row, "train", cs.FLASH_TRAIN, True)
                 kernel_turn(row, "long", cs.FLASH_LONG, False)

@@ -5,9 +5,12 @@
 ``(N, K)``) or ``x @ dequant(qw)`` (the Llama head, ``(K, N)``), where
 ``dequant`` is exactly ``(q.float() * (scale / 127)).to(x.dtype)`` with one
 per-tensor f32 scale — the expression ``serving/int8.dequantize_tree`` uses.
-The kernel is ``csrc/int8_matmul.cu`` (CUDA C++, sm_90a): it streams the
-int8 weight and dequantizes in registers, so no dense copy of the weight is
-ever written. ``int8_matmul_plain`` is dequantize-then-matmul.
+The kernels are in ``csrc/int8_matmul.cu`` (CUDA C++, sm_90a). In bf16
+(the serving head) ``int8_matmul_mma`` streams the int8 weight through a
+``cp.async`` ring in shared memory, dequantizes it exactly in registers and
+multiplies on the tensor cores (``mma.sync``, f32 sums); f32 runs a CUDA-core
+kernel. No dense copy of the weight is ever written. ``int8_matmul_plain``
+is dequantize-then-matmul (``int8_dequant``, then ``@``).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel (and counts the launch in ``launches``) or raises.
@@ -20,7 +23,7 @@ import torch
 
 from . import _build
 
-__all__ = ["int8_matmul", "int8_matmul_plain", "launches"]
+__all__ = ["int8_matmul", "int8_matmul_plain", "int8_dequant", "launches"]
 
 launches = 0  # kernel launches since the last reset (plain calls excluded)
 
@@ -29,9 +32,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"pt_int8_matmul": ((_I, _I, _P, _P, _P, _P, _I, _I, _I, _P), _I)}
 
 
+def int8_dequant(qw, scale, dtype):
+    """``(qw.float() * (scale / 127)).to(dtype)``, the reference's dequant;
+    a tensor divisor keeps scale/127 a true f32 division on every device."""
+    return (qw.float() * (scale / scale.new_tensor(127.0))).to(dtype)
+
+
 def int8_matmul_plain(x, qw, scale, transpose_w=True):
-    # a tensor divisor keeps scale/127 a true f32 division on every device
-    wd = (qw.float() * (scale / scale.new_tensor(127.0))).to(x.dtype)
+    wd = int8_dequant(qw, scale, x.dtype)
     return x @ (wd.T if transpose_w else wd)
 
 

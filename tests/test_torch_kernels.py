@@ -9,7 +9,9 @@ paged kernel's cluster-split rule and the shapes that script checks it at
 are plain Python there, and are tested here.
 
 Tolerances: f32 attention and matmul differ only by summation order
-(atol/rtol 1e-5); the int8 rounding must be bit-equal.
+(atol/rtol 1e-5); the int8 rounding must be bit-equal, and so must the
+bf16 dequantized weight that one-hot rows read out and the once-rounded sums
+of two of its columns that two-hot rows read out.
 """
 import numpy as np
 import pytest
@@ -100,23 +102,132 @@ def test_paged_checks_cover_every_engine_launch_and_split(n_sm):
     assert splits == {1, 2, 4, 8}
 
 
-@pytest.mark.parametrize("transpose_w", [True, False], ids=["nk", "kn"])
-def test_int8_matmul_plain_matches_jax(transpose_w):
-    rng = np.random.RandomState(2)
-    M, K, N = 3, 32, 64
+def _int8_inputs(M, K, N, transpose_w, seed=2):
+    """x (M, K) f32 and the quantized weight, (N, K) or (K, N), with its
+    f32 scale, rounded as the reference's quantizer rounds."""
+    rng = np.random.RandomState(seed)
     w = rng.randn(N, K).astype(np.float32)
     scale = np.float32(np.abs(w).max())
     qw = np.clip(np.round(w / (scale / 127.0)), -127, 127).astype(np.int8)
     if not transpose_w:
         qw = np.ascontiguousarray(qw.T)
-    x = rng.randn(M, K).astype(np.float32)
+    return rng.randn(M, K).astype(np.float32), qw, scale
+
+
+# (transpose_w, M, K, N, atol): the first two are the original cases; then
+# the row counts the serving engine launches (1, 4, 32) and two passes of
+# the CUDA kernel (48), at N that is no multiple of 8 or of its 128-row
+# blocks and K that is no multiple of 16 or of its 128-byte chunks. atol:
+# the f32 sums differ only in order, by up to ~K * 2^-24 * sum|x w| (~3e-6
+# at K = 48 with unit-scale x and w), so the wider cases take the 1e-5 this
+# file states for f32 matmuls; the original K = 32 cases keep 1e-6
+INT8_CASES = [(True, 3, 32, 64, 1e-6), (False, 3, 32, 64, 1e-6)] + [
+    (tw, M, K, N, 1e-5) for tw in (True, False)
+    for M, K, N in ((1, 64, 130), (4, 40, 128), (32, 48, 72), (48, 40, 130))]
+
+
+@pytest.mark.parametrize(
+    "transpose_w,M,K,N,atol", INT8_CASES,
+    ids=["nk", "kn"] + [f"{'nk' if c[0] else 'kn'}-M{c[1]}-K{c[2]}-N{c[3]}"
+                        for c in INT8_CASES[2:]])
+def test_int8_matmul_plain_matches_jax(transpose_w, M, K, N, atol):
+    x, qw, scale = _int8_inputs(M, K, N, transpose_w)
     ref = np.asarray(JK.int8_matmul(jnp.asarray(x), jnp.asarray(qw),
                                     jnp.asarray(scale, jnp.float32),
                                     transpose_w=transpose_w))
     out = TK.int8_matmul(torch.from_numpy(x), torch.from_numpy(qw),
                          torch.tensor(scale), transpose_w=transpose_w)
     assert out.shape == (M, N)
-    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("transpose_w", [True, False], ids=["nk", "kn"])
+def test_int8_matmul_plain_matches_jax_bf16(transpose_w):
+    """bf16 activations: both dequantize to bf16 with the same rounding and
+    round the f32 sums once to bf16, so they differ by at most the output's
+    rounding (2^-8 relative) where the sums are taken in another order."""
+    x, qw, scale = _int8_inputs(32, 72, 130, transpose_w, seed=3)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    ref = np.asarray(JK.int8_matmul(jx, jnp.asarray(qw),
+                                    jnp.asarray(scale, jnp.float32),
+                                    transpose_w=transpose_w).astype(jnp.float32))
+    out = TK.int8_matmul(torch.from_numpy(x).to(torch.bfloat16),
+                         torch.from_numpy(qw), torch.tensor(scale),
+                         transpose_w=transpose_w)
+    assert out.dtype == torch.bfloat16 and out.shape == (32, 130)
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=2 ** -7,
+                               atol=2 ** -7)
+
+
+@pytest.mark.parametrize("transpose_w", [True, False], ids=["nk", "kn"])
+def test_int8_matmul_onehot_rows_are_reference_dequant_bits(transpose_w):
+    """One-hot bf16 rows pick single columns of the dequantized weight: the
+    port's output must be the reference's ``dequantize_tree`` values bit for
+    bit (the check ``chip_smoke.py`` makes of the CUDA kernel against this
+    plain version). One-hot rows cannot tell a scale folded in after the
+    sum from the reference's rounding; the two-hot test below can."""
+    K, N = 72, 130
+    _, qw, scale = _int8_inputs(1, K, N, transpose_w, seed=4)
+    ks = np.round(np.linspace(0, K - 1, 32)).astype(np.int64)
+    x = np.zeros((32, K), np.float32)
+    x[np.arange(32), ks] = 1.0
+    out = TK.int8_matmul(torch.from_numpy(x).to(torch.bfloat16),
+                         torch.from_numpy(qw), torch.tensor(scale),
+                         transpose_w=transpose_w)
+    wd = jint8.dequantize_tree(
+        {jint8._TAG: jnp.asarray(qw), "scale": jnp.asarray(scale, jnp.float32)},
+        jnp.bfloat16)
+    want = np.asarray(wd.T if transpose_w else wd)[ks]
+    np.testing.assert_array_equal(out.view(torch.int16).numpy(),
+                                  want.view(np.int16))
+
+
+@pytest.mark.parametrize("transpose_w", [True, False], ids=["nk", "kn"])
+def test_int8_matmul_twohot_rows_are_reference_dequant_sums(transpose_w):
+    """Two-hot bf16 rows e_a + e_b (the pairs ``chip_smoke.py``'s exact check
+    uses) give the sum of two columns of the reference's ``dequantize_tree``
+    values, exact in f32 and rounded once to bf16: the port's output must
+    equal it bit for bit, and a scale folded in after the sum,
+    bf16(s127 * (q_a + q_b)), must differ from it on these rows, or the
+    check could not tell the two apart."""
+    K, N = 72, 130
+    _, qw, scale = _int8_inputs(1, K, N, transpose_w, seed=5)
+    _, pairs = chip_smoke.int8_exact_rows(K)
+    a, b = pairs[:, 0], pairs[:, 1]
+    assert (a != b).all()
+    x = np.zeros((32, K), np.float32)
+    x[np.arange(32), a] = 1.0
+    x[np.arange(32), b] = 1.0
+    out = TK.int8_matmul(torch.from_numpy(x).to(torch.bfloat16),
+                         torch.from_numpy(qw), torch.tensor(scale),
+                         transpose_w=transpose_w)
+    wd = jint8.dequantize_tree(
+        {jint8._TAG: jnp.asarray(qw), "scale": jnp.asarray(scale, jnp.float32)},
+        jnp.bfloat16)
+    wd = np.asarray(wd.T if transpose_w else wd).astype(np.float32)  # (K, N)
+    want = torch.from_numpy(wd[a] + wd[b]).to(torch.bfloat16)
+    np.testing.assert_array_equal(out.view(torch.int16).numpy(),
+                                  want.view(torch.int16).numpy())
+    q = (qw.T if transpose_w else qw).astype(np.float32)
+    s127 = np.float32(scale) / np.float32(127.0)
+    folded = torch.from_numpy((q[a] + q[b]) * s127).to(torch.bfloat16)
+    assert (folded.view(torch.int16) != want.view(torch.int16)).any()
+
+
+def test_int8_checks_cover_every_engine_launch():
+    """``chip_smoke.py`` checks the int8 head at every row count the engine
+    phase's engine launches it with (decode buckets, prefill width), and at
+    two passes, a ragged N and a ragged K."""
+    rows = chip_smoke.engine_int8_rows()
+    assert rows == [1, 2, 4, 8, 16, 32]
+    assert chip_smoke.ENGINE_KW["prefill_batch"] in rows
+    shapes = chip_smoke.int8_check_shapes()
+    K, N = chip_smoke.INT8_HEAD
+    assert {(M, K, N) for M in rows} <= set(shapes)
+    assert any(M > 32 for M, _, _ in shapes)
+    assert any(n % 8 for _, _, n in shapes)
+    assert any(k % 128 for _, k, _ in shapes)
+    assert 32 in chip_smoke.INT8_TIMING_ROWS
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
