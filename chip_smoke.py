@@ -15,16 +15,19 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    (tight tolerance: checks the algorithm) and bfloat16 (loose tolerance
    and, for paged attention and the flash O and gradients, a
    relative-norm bound: checks the working type). Paged attention at
-   every (batch, table width) the engine phase's engine can launch it with
-   (its decode buckets by its gather widths, so every cluster size it
-   launches with is run), then for rep 2, 4 and 8 and at 48 rows; the
-   cluster size the kernel reports (``pt_paged_split``) is held against
-   ``paged_split_rule`` first, and the checks must run each of 1, 2, 4
-   and 8; the int8 head at every row count the engine phase's engine can
-   launch it with (decode buckets and prefill width), then two passes (48
-   rows), a ragged N and a ragged K, in both weight layouts (bf16 also by
+   every (batch, table width) each of the engine phase's engines can launch
+   it with (its decode buckets by its gather widths, so every cluster size
+   it launches with is run), at GPT's KV = 16 and at Llama's KV = 32, then
+   for rep 2, 4 and 8 and at 48 rows; the cluster size the kernel reports
+   (``pt_paged_split``) is held against ``paged_split_rule`` first at every
+   checked (batch, table width, KV), and the checks must run each of 1, 2,
+   4 and 8; the int8 head at every row count the engines can launch it with
+   (decode buckets and prefill width), at GPT's head (K = 2048, N = 50304)
+   and at Llama's (K = 4096, N = 32000), then two passes (48 rows), a
+   ragged N and a ragged K, each in both weight layouts (bf16 also by
    relative norm against the f32 plain version), and one-hot and two-hot
-   rows whose output must be the reference's dequant bit for bit; the
+   rows whose output must be the reference's dequant bit for bit, at every
+   (K, N) (so at K = 4096 too); the
    flash-attention forward (O, LSE) and backward (dQ, dK, dV) at small
    shapes (ragged causal tails, non-causal T != T_kv, causal T < T_kv, a
    D=40 head, T=130 at D=128, every head width instantiation), in bf16 at
@@ -33,11 +36,14 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    the two must agree bit for bit;
 3. engine: GPT-3 1.3B at full width (24 layers, bf16, random weights from a
    seed) through ``serving.Engine`` over 32 greedy requests, (a) with the
-   paged-attention kernel and (b) int8 weights with both kernels. Launch
-   counts are zeroed just before each drive and read just after it; every
-   output must have exactly prompt + 64 tokens and the pool must drain.
-   One decode step built with the kernels is held against the same step
-   built with the plain versions on the same pool state;
+   paged-attention kernel and (b) int8 weights with both kernels; then
+   Llama-7B at full width and depth (32 layers, 32 heads, KV = 32, FFN
+   11008, vocab 32000, untied head, bf16, random weights from a seed) the
+   same way, (c) and (d). Launch counts are zeroed just before each drive
+   and read just after it; every output must have exactly prompt + 64
+   tokens and the pool must drain. One decode step built with the kernels
+   is held against the same step built with the plain versions on the same
+   pool state. Each model and its engines are freed before the next;
 5. train: GPT-3 1.3B at full width and depth (bf16, seed 0, dropout 0,
    flash attention, fused LM-head loss, AdamW lr 1e-4) through
    ``jit.compile_train_step`` on one fixed b2 x s2048 batch: 2 warm-up and
@@ -50,16 +56,20 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    least time for the same work, and a one-call PyTorch yardstick where
    one exists; the flash kernels also with their TFLOP/s and the host time
    of one call, at the training shape and at the long-sequence shape; the
-   paged kernel at the three ``PAGED_SHAPES``; the int8 head at M = 1, 4 and
-   32 beside the dense bf16 head (``dense_bf16_ms``).
+   paged kernel at the four ``PAGED_SHAPES`` (Llama's decode shape among
+   them); the int8 head at M = 1, 4 and 32 beside the dense bf16 head
+   (``dense_bf16_ms``), GPT's in both layouts and Llama's in (K, N)
+   (``llama_head``).
 
 The last three lines of stdout are the card's name and power limit
 (``nvidia-smi``), the ``{"kernels": [...]}`` JSON line and
-``{"ok": true, "device": {...}}``; the two lines before them are
+``{"ok": true, "device": {...}}``; the three lines before them are
 ``{"flash_long_shape": [...]}``, the flash kernels' times at the
-long-sequence shape (no launches on the main path), and
+long-sequence shape (no launches on the main path),
 ``{"paged_shapes": [...]}``, the paged kernel's time, bound and cluster
-size at each of ``PAGED_SHAPES``.
+size at each of ``PAGED_SHAPES``, and ``{"engine_drives": [...]}``, each
+engine drive's tok/s, decode steps, mean decode-step ms, launches and
+kernel-vs-plain logits error.
 """
 from __future__ import annotations
 
@@ -118,14 +128,20 @@ FLASH_O_REL_TOL = 1e-2
 # inputs, the same norm: the kernel rounds the output once (and takes the
 # scale rounded to bf16, as the reference does)
 PAGED_O_REL_TOL = 1e-2
-# the engine phase's engine (GPT-3 1.3B: KV = 16 heads of D = 128) and its
-# drive: 32 greedy requests, prompts of 128 to 1024 tokens, 64 new each
+# the engine phase's engines (GPT-3 1.3B: KV = 16 heads of D = 128; Llama-7B:
+# KV = 32 heads of D = 128) and their drive: 32 greedy requests, prompts of
+# 128 to 1024 tokens, 64 new each
 ENGINE_KW = {"block_size": 16, "num_blocks": 2048, "max_batch": 32,
              "prefill_batch": 4, "max_seq_len": 2048}
 DRIVE_REQUESTS, DRIVE_NEW = 32, 64
-# the int8 LM head of the engine phase's model: GPT-3 1.3B's hidden size and
-# padded vocabulary (K, N), weight stored (N, K) (the tied embedding)
+# the int8 LM heads of the engine phase's models (K, N): GPT-3 1.3B's hidden
+# size and padded vocabulary, weight stored (N, K) (the tied embedding), and
+# Llama-7B's, weight stored (K, N) (the untied head, ``transpose_w=False``)
 INT8_HEAD = (2048, 50304)
+LLAMA_HEAD = (4096, 32000)
+# the weight layouts every int8 check runs (``transpose_w``): (N, K), GPT's
+# tied head, and (K, N), Llama's untied head
+INT8_LAYOUTS = (True, False)
 # int8 head checks beyond the engine's own launches (M, K, N): two passes
 # over the weight, a ragged N, a K that is not a multiple of the kernel's
 # 128-byte chunk, and both at a row count that is not a multiple of 8
@@ -135,21 +151,24 @@ INT8_EXTRA_CHECKS = ((48, 2048, 50304), (32, 2048, 50257), (32, 1000, 50304),
 # dequantized weight, ||kernel - plain|| / ||plain||: only the output
 # rounding (~2^-9 relative) separates them
 INT8_REL_TOL = 1e-2
-# the int8 head's timing rows (M at K, N = INT8_HEAD, (N, K)): one stream,
-# the prefill width and the full decode batch
+# the int8 heads' timing rows (M at INT8_HEAD in both layouts, and at
+# LLAMA_HEAD in (K, N)): one stream, the prefill width and the full decode
+# batch
 INT8_TIMING_ROWS = (1, 4, 32)
 INT8_MMA = "int8_matmul_mma"  # the bf16 tensor-core kernel's name
-# paged checks beyond the engine's own launches (rep, B, MB): every rep bound
-# the kernel instantiates at 2, 4 and 8 blocks a row, and 48 rows (one block
-# a row)
-PAGED_REP_CHECKS = ((2, 32, 64), (4, 32, 64), (8, 32, 64), (8, 16, 128),
-                    (8, 4, 128), (1, 48, 64))
-# the paged kernel's timing shapes (B, MB, positions; H = KV = 16, D = 128,
-# BS = 16, bf16): the engine's decode shape with ragged contexts (mean
-# ~490), 32 rows with every context near 2000, and 2 rows at 2048, where a
-# row's context is split over a cluster of thread blocks
-PAGED_SHAPES = (("decode", 32, 64, None), ("b32_ctx2000", 32, 128, "near2000"),
-                ("b2_ctx2048", 2, 128, "full"))
+# paged checks beyond the engines' own launches (rep, B, MB, KV): every rep
+# bound the kernel instantiates at 2, 4 and 8 blocks a row, and 48 rows (one
+# block a row)
+PAGED_REP_CHECKS = ((2, 32, 64, 16), (4, 32, 64, 16), (8, 32, 64, 16),
+                    (8, 16, 128, 16), (8, 4, 128, 16), (1, 48, 64, 16))
+# the paged kernel's timing shapes (B, MB, positions, KV; H = KV, D = 128,
+# BS = 16, bf16): GPT's decode shape with ragged contexts (mean ~490), 32
+# rows with every context near 2000, 2 rows at 2048, where a row's context
+# is split over a cluster of thread blocks, and Llama-7B's decode shape
+PAGED_SHAPES = (("decode", 32, 64, None, 16),
+                ("b32_ctx2000", 32, 128, "near2000", 16),
+                ("b2_ctx2048", 2, 128, "full", 16),
+                ("llama_decode", 32, 64, None, 32))
 # 4-layer full-width GPT, one bf16 backward through the kernels against the
 # same backward with attention on the plain version: per parameter
 # ||g_kernel - g_plain|| / ||g_plain||; bf16 rounding of activations and
@@ -298,42 +317,62 @@ def int8_x(M, K, dtype, seed=0):
     return torch.randn(M, K, generator=g, device="cuda").to(dtype)
 
 
-def engine_int8_rows():
-    """Every row count the engine phase's engine can launch the int8 head
-    with: its decode buckets and its prefill width."""
-    from paddle_tpu_torch.models import gpt3_1p3b
+def engine_models():
+    """(name, config, KV heads, int8 head (K, N)) of the engine phase's
+    models, in the order they are driven: GPT-3 1.3B (drives a, b), then
+    Llama-7B (drives c, d)."""
+    from paddle_tpu_torch.models import gpt3_1p3b, llama_7b
+
+    gpt = gpt3_1p3b(hidden_dropout=0.0, attention_dropout=0.0)
+    llama = llama_7b()
+    return [("gpt3_1p3b", gpt, gpt.num_heads, INT8_HEAD),
+            ("llama_7b", llama, llama.kv_heads, LLAMA_HEAD)]
+
+
+def engine_config(cfg):
+    """``ENGINE_KW`` resolved against a model config, as its engine does."""
     from paddle_tpu_torch.serving import EngineConfig
 
-    cfg = EngineConfig(**ENGINE_KW).resolve(
-        gpt3_1p3b().max_position_embeddings)
-    return sorted(set(cfg.decode_buckets) | {cfg.prefill_batch})
+    return EngineConfig(**ENGINE_KW).resolve(cfg.max_position_embeddings)
+
+
+def engine_int8_rows():
+    """Every row count the engine phase's engines can launch the int8 head
+    with: their decode buckets and their prefill width."""
+    rows = set()
+    for _, cfg, _, _ in engine_models():
+        ec = engine_config(cfg)
+        rows |= set(ec.decode_buckets) | {ec.prefill_batch}
+    return sorted(rows)
 
 
 def int8_check_shapes():
-    """(M, K, N) of every int8 head check: the engine's head at every row
-    count it launches, then ``INT8_EXTRA_CHECKS``."""
-    K, N = INT8_HEAD
-    return [(M, K, N) for M in engine_int8_rows()] + list(INT8_EXTRA_CHECKS)
+    """(M, K, N) of every int8 head check: each engine's head at every row
+    count it launches, then ``INT8_EXTRA_CHECKS``; each (K, N) is checked in
+    both weight layouts."""
+    return [(M, K, N) for _, _, _, (K, N) in engine_models()
+            for M in engine_int8_rows()] + list(INT8_EXTRA_CHECKS)
 
 
 def engine_paged_shapes():
-    """(B, MB) of every paged-attention launch the engine phase's engine can
-    make: its decode buckets by its gather widths (the powers of two below
-    its table's most blocks, and that most)."""
-    from paddle_tpu_torch.models import gpt3_1p3b
-    from paddle_tpu_torch.serving import EngineConfig
-
-    cfg = EngineConfig(**ENGINE_KW).resolve(
-        gpt3_1p3b().max_position_embeddings)
-    most = -(-cfg.max_seq_len // cfg.block_size)
-    widths = [1 << i for i in range(most.bit_length()) if 1 << i < most]
-    return [(B, MB) for B in cfg.decode_buckets for MB in widths + [most]]
+    """(B, MB, KV) of every paged-attention launch the engine phase's engines
+    can make: each model's KV heads, by its engine's decode buckets, by its
+    gather widths (the powers of two below its table's most blocks, and that
+    most)."""
+    out = []
+    for _, cfg, kv, _ in engine_models():
+        ec = engine_config(cfg)
+        most = -(-ec.max_seq_len // ec.block_size)
+        widths = [1 << i for i in range(most.bit_length()) if 1 << i < most]
+        out += [(B, MB, kv) for B in ec.decode_buckets
+                for MB in widths + [most]]
+    return out
 
 
 def paged_check_shapes():
-    """(rep, B, MB) of every paged check: the engine's model (rep 1) at every
-    (B, MB) the engine can launch, then ``PAGED_REP_CHECKS``."""
-    return [(1, B, MB) for B, MB in engine_paged_shapes()] \
+    """(rep, B, MB, KV) of every paged check: the engines' models (rep 1) at
+    every (B, MB, KV) they can launch, then ``PAGED_REP_CHECKS``."""
+    return [(1, B, MB, kv) for B, MB, kv in engine_paged_shapes()] \
         + list(PAGED_REP_CHECKS)
 
 
@@ -368,14 +407,14 @@ def kernel_split(B, KV, BS, MB):
 
 def paged_split_check(shapes):
     """The kernel's cluster size against ``paged_split_rule`` at every check
-    shape, every timing shape and a few other head counts; the checks must
-    run every cluster size, 1, 2, 4 and 8. Returns {(B, MB): split} at
-    KV = BS = 16."""
+    shape (GPT's KV = 16 and Llama's KV = 32), every timing shape and a few
+    other head counts; the checks must run every cluster size, 1, 2, 4 and
+    8. Returns {(B, MB, KV): split} at BS = 16."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    BMs = {(B, MB) for _, B, MB in shapes} | {
-        (B, MB) for _, B, MB, _ in PAGED_SHAPES}
+    BMs = {(B, MB, KV) for _, B, MB, KV in shapes} | {
+        (B, MB, KV) for _, B, MB, _, KV in PAGED_SHAPES}
     got = {}
-    for B, KV, BS, MB in sorted({(B, 16, 16, MB) for B, MB in BMs}
+    for B, KV, BS, MB in sorted({(B, KV, 16, MB) for B, MB, KV in BMs}
                                 | {(1, 1, 16, 4), (1, 8, 16, 128),
                                    (8, 16, 16, 8)}):
         got[(B, KV, BS, MB)] = split = kernel_split(B, KV, BS, MB)
@@ -389,11 +428,11 @@ def paged_split_check(shapes):
     print(f"  paged split: the kernel's cluster size as the rule gives on "
           f"{n_sm} SMs at {len(got)} shapes; (B, KV, BS, MB) by size: "
           f"{by_split}")
-    ran = {got[(B, 16, 16, MB)] for _, B, MB in shapes}
+    ran = {got[(B, KV, 16, MB)] for _, B, MB, KV in shapes}
     if ran != {1, 2, 4, 8}:
         fail(f"paged checks run cluster sizes {sorted(ran)}, not each of "
              "1, 2, 4 and 8")
-    return {(B, MB): got[(B, 16, 16, MB)] for B, MB in BMs}
+    return {(B, MB, KV): got[(B, KV, 16, MB)] for B, MB, KV in BMs}
 
 
 def kernel_phase():
@@ -403,15 +442,15 @@ def kernel_phase():
     split = paged_split_check(shapes)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for rep, B, MB in shapes:
-            args = paged_inputs(dtype, rep=rep, B=B, MB=MB)
+        for rep, B, MB, KV in shapes:
+            args = paged_inputs(dtype, rep=rep, B=B, KV=KV, MB=MB)
             out = K.paged_attention_rows(*args)
             torch.cuda.synchronize()
             q, kp, vp, tables, pos = args
             ref = K.paged_attention_rows_plain(q.float(), kp.float(),
                                                vp.float(), tables, pos)
-            note = (f" at B={B} MB={MB} rep={rep} split={split[(B, MB)]} "
-                    f"max pos {int(args[4].max())}")
+            note = (f" at B={B} MB={MB} KV={KV} rep={rep} "
+                    f"split={split[(B, MB, KV)]} max pos {int(args[4].max())}")
             rel = rel_err(out, ref)
             if dtype == torch.bfloat16:
                 note += (f", rel_norm_err={rel:.3e} (tol rel "
@@ -420,7 +459,7 @@ def kernel_phase():
             if dtype == torch.bfloat16 and not rel <= PAGED_O_REL_TOL:
                 fail(f"paged_attention_rows bf16{note}: relative error "
                      f"{rel:.3e}")
-            if (rep, B, MB) == (1, 32, 64):
+            if (rep, B, MB, KV) == (1, 32, 64, 16):
                 errs[("paged_attention_rows", dtype)] = e
             del args, q, kp, vp, out, ref
         torch.cuda.empty_cache()
@@ -495,7 +534,7 @@ def int8_phase():
     shapes = int8_check_shapes()
     for Kd, N in sorted({(k, n) for _, k, n in shapes}, reverse=True):
         qw_nk, s = int8_weight(Kd, N)
-        for tw in (True, False):
+        for tw in INT8_LAYOUTS:
             qw = qw_nk if tw else qw_nk.T.contiguous()
             for dtype in (torch.float32, torch.bfloat16):
                 wd = int8_dequant(qw, s, dtype).float()
@@ -635,7 +674,7 @@ def bound(nbytes: float, ops: float, dtype) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def paged_timing(tag, B, MB, pos, plain=True, split=True):
+def paged_timing(tag, B, MB, pos, KV=16, plain=True, split=True):
     """The paged kernel (and, with ``plain``, its plain version; with
     ``split``, the cluster size it reports) at one of ``PAGED_SHAPES``,
     beside the card's least time: each live token's K and
@@ -644,7 +683,8 @@ def paged_timing(tag, B, MB, pos, plain=True, split=True):
     from paddle_tpu_torch.ops import kernels as K
 
     dt, es = torch.bfloat16, 2
-    q, kp, vp, tables, pos_t = paged_inputs(dt, B=B, MB=MB, seed=1, pos=pos)
+    q, kp, vp, tables, pos_t = paged_inputs(dt, B=B, KV=KV, MB=MB, seed=1,
+                                            pos=pos)
     H, D = q.shape[1:]
     KV, BS = kp.shape[2], kp.shape[1]
     live = int((pos_t.long() + 1).sum())
@@ -668,34 +708,63 @@ def paged_timing(tag, B, MB, pos, plain=True, split=True):
     return row
 
 
-def int8_timing(errs, launches, ptxas):
-    """The int8 head's row: (N, K) bf16 at K, N = ``INT8_HEAD``, timed at
-    every ``INT8_TIMING_ROWS`` (``ms`` at M = 32, the decode batch; the
-    same weight stored (K, N), the Llama head's layout, in ``kn_ms_by_m``), beside
-    the card's least time at M = 32 (the int8 weight read once, x and the
-    output once; 2 M N K operations), the plain version, one PyTorch call
-    for an int8-weight matmul, and ``dense_bf16_ms``: ``x @ wd.T`` on the
-    weight dequantized to bf16 ahead of time, what the head costs without
-    int8. ``ptxas``: [(function, spill-store bytes, registers)] of the bf16
-    kernel's instantiation at this shape, when this run built it."""
+def int8_head_times(Kd, N, layouts):
+    """The bf16 int8 head at (K, N) = (Kd, N), stored in each of ``layouts``
+    (``transpose_w``: True is (N, K), ``ms_by_m``; False is (K, N),
+    ``kn_ms_by_m``), at every ``INT8_TIMING_ROWS``, beside
+    ``dense_bf16_ms_by_m``: the same product on the weight dequantized to
+    bf16 ahead of time and stored in ``layouts[0]``, what the head costs
+    without int8, and the bytes bound of each row count (the int8 weight
+    read once, x and the output once)."""
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels.int8_matmul import int8_dequant
 
     dt, es = torch.bfloat16, 2
-    Kd, N = INT8_HEAD
     qw, s = int8_weight(Kd, N, seed=1)
-    wd = int8_dequant(qw, s, dt)
-    qkn = qw.T.contiguous()
-    ms, kn, dense = {}, {}, {}
-    for M in INT8_TIMING_ROWS:
-        x = int8_x(M, Kd, dt, seed=1)
-        ms[M] = time_ms(lambda: K.int8_matmul(x, qw, s, transpose_w=True),
-                        iters=50)
-        kn[M] = time_ms(lambda: K.int8_matmul(x, qkn, s, transpose_w=False),
-                        iters=50)
-        dense[M] = time_ms(lambda: x @ wd.T, iters=50)
-    del qkn
+    out = {"shape": f"K={Kd} N={N} bf16"}
+    for tw in layouts:
+        w = qw if tw else qw.T.contiguous()
+        times = out["ms_by_m" if tw else "kn_ms_by_m"] = {}
+        for M in INT8_TIMING_ROWS:
+            x = int8_x(M, Kd, dt, seed=1)
+            times[M] = time_ms(lambda: K.int8_matmul(x, w, s, transpose_w=tw),
+                               iters=50)
+        if tw == layouts[0]:
+            wd = int8_dequant(w, s, dt)
+            wd = wd.T if tw else wd  # (K, N), a view of the stored layout
+            dense = out["dense_bf16_ms_by_m"] = {}
+            for M in INT8_TIMING_ROWS:
+                x = int8_x(M, Kd, dt, seed=1)
+                dense[M] = time_ms(lambda: x @ wd, iters=50)
+            del wd
+        del w
+    out["bytes_bound_ms_by_m"] = {
+        m: (N * Kd + m * Kd * es + m * N * es + 4) / HBM_BYTES_PER_S * 1e3
+        for m in INT8_TIMING_ROWS}
+    del qw
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_timing(errs, launches, ptxas):
+    """The int8 head's row: (N, K) bf16 at K, N = ``INT8_HEAD``, timed at
+    every ``INT8_TIMING_ROWS`` (``ms`` at M = 32, the decode batch; the same
+    weight stored (K, N) in ``kn_ms_by_m``), beside the card's least time at
+    M = 32 (the int8 weight read once, x and the output once; 2 M N K
+    operations), the plain version, one PyTorch call for an int8-weight
+    matmul and the dense bf16 head (``int8_head_times``); Llama-7B's head,
+    stored (K, N) at ``LLAMA_HEAD``, in ``llama_head``. ``ptxas``:
+    [(function, spill-store bytes, registers)] of the bf16 kernel's
+    instantiation at this shape, when this run built it."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    dt, es = torch.bfloat16, 2
+    Kd, N = INT8_HEAD
+    times = int8_head_times(Kd, N, INT8_LAYOUTS)
+    llama = int8_head_times(*LLAMA_HEAD, (False,))
     M = INT8_TIMING_ROWS[-1]
+    qw, s = int8_weight(Kd, N, seed=1)
+    x = int8_x(M, Kd, dt, seed=1)
     b_ms, b_by = bound(N * Kd + M * Kd * es + M * N * es + 4, 2 * M * N * Kd,
                        dt)
     lib_ms, lib_note = None, "none"
@@ -715,20 +784,21 @@ def int8_timing(errs, launches, ptxas):
         "replaces": "paddle_tpu/ops/kernels/int8_matmul.py:76",
         "launches": launches["int8_matmul"],
         "max_abs_err": errs[("int8_matmul", dt)],
-        "ms": ms[M],
+        "ms": times["ms_by_m"][M],
         "plain_ms": time_ms(lambda: K.int8_matmul_plain(x, qw, s, True),
                             iters=5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        "ms_by_m": ms, "kn_ms_by_m": kn,
-        "dense_bf16_ms": dense[M], "dense_bf16_ms_by_m": dense,
-        "bytes_bound_ms_by_m": {m: (N * Kd + m * Kd * es + m * N * es + 4)
-                                / HBM_BYTES_PER_S * 1e3 for m in ms},
+        "ms_by_m": times["ms_by_m"], "kn_ms_by_m": times["kn_ms_by_m"],
+        "dense_bf16_ms": times["dense_bf16_ms_by_m"][M],
+        "dense_bf16_ms_by_m": times["dense_bf16_ms_by_m"],
+        "bytes_bound_ms_by_m": times["bytes_bound_ms_by_m"],
+        "llama_head": llama,
         # ptxas's report of the instantiation this shape runs
         "registers": ptxas[0][2] if ptxas else None,
         "spill_bytes": ptxas[0][1] if ptxas else None,
         "shape": f"M={M} K={Kd} N={N} transpose_w bf16; library: {lib_note}",
     }
-    del qw, wd
+    del qw
     torch.cuda.empty_cache()
     return row
 
@@ -736,11 +806,7 @@ def int8_timing(errs, launches, ptxas):
 def timing_phase(errs, launches, int8_ptxas=()):
     """The kernels line's rows, and the paged kernel at every one of
     ``PAGED_SHAPES``."""
-    from paddle_tpu_torch.ops import kernels as K
-
     rows = []
-    dt = torch.bfloat16
-    es = 2
     paged = [paged_timing(*shape) for shape in PAGED_SHAPES]
     pg = paged[0]
     rows.append({
@@ -751,7 +817,7 @@ def timing_phase(errs, launches, int8_ptxas=()):
         "source": "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/kernels/paged_attention.py:134",
         "launches": launches["paged_attention_rows"],
-        "max_abs_err": errs[("paged_attention_rows", dt)],
+        "max_abs_err": errs[("paged_attention_rows", torch.bfloat16)],
         "ms": pg["ms"], "plain_ms": pg["plain_ms"],
         "bound_ms": pg["bound_ms"], "bound_by": pg["bound_by"],
         # no single PyTorch call reads attention through a block table
@@ -940,72 +1006,113 @@ def drive_prompts(vocab_size, seed=0):
     return [rng.randint(0, vocab_size, size=n).tolist() for n in lens]
 
 
-def engine_phase(profile=False):
+def build_engine_model(name, cfg):
+    """One of ``engine_models()`` in bf16 on the card, random weights from
+    seed 0, in eval mode."""
+    from paddle_tpu_torch.models import GPTForPretraining, LlamaForCausalLM
+
+    cls = {"gpt3_1p3b": GPTForPretraining, "llama_7b": LlamaForCausalLM}[name]
+    return cls(cfg, dtype=torch.bfloat16, seed=0).eval()
+
+
+def engine_drive(model, vocab_size, tag, int8, prompts, profile=False):
+    """One drive: a fresh ``serving.Engine`` over ``model`` with the paged
+    kernel (and, with ``int8``, int8 weights with the int8 head kernel)
+    serves ``prompts`` greedily, ``DRIVE_NEW`` tokens each. Launch counts
+    are zeroed just before the drive and read just after it; every output
+    must be its prompt and ``DRIVE_NEW`` in-vocabulary tokens, the pool must
+    drain, and one decode step built with the kernels must hold to the same
+    step built with the plain versions within ``LOGITS_REL_TOL``. Returns
+    the drive's row (launch counts, tok/s, decode steps and step ms)."""
     from paddle_tpu_torch.framework.flags import set_flags
-    from paddle_tpu_torch.models import GPTForPretraining, gpt3_1p3b
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.serving import Engine
 
-    cfg = gpt3_1p3b(hidden_dropout=0.0, attention_dropout=0.0)
-    t0 = time.monotonic()
-    model = GPTForPretraining(cfg, dtype=torch.bfloat16, seed=0).eval()
-    torch.cuda.synchronize()
-    print(f"  model: gpt3_1p3b bf16, "
-          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params, "
-          f"built in {time.monotonic() - t0:.1f}s")
-    prompts = drive_prompts(cfg.vocab_size)
     new = DRIVE_NEW
+    set_flags({"FLAGS_serve_paged_kernel": True,
+               "FLAGS_serve_int8_kernel": int8})
+    eng = Engine(model, **ENGINE_KW, int8=int8, seed=0)
+    try:
+        K.reset_launch_counts()
+        t0 = time.monotonic()
+        handles = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        outs = [h.result(timeout=900) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = K.launch_counts()
+        for p, o in zip(prompts, outs):
+            if len(o) != len(p) + new or o[:len(p)] != p \
+                    or not all(0 <= t < vocab_size for t in o):
+                fail(f"engine ({tag}): output of {len(o)} tokens for a "
+                     f"{len(p)}-token prompt")
+        deadline = time.monotonic() + 30
+        while eng.stats()["pages_used"] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        st = eng.stats()
+        if st["pages_used"] != 0:
+            fail(f"engine ({tag}): {st['pages_used']} pages still used")
+        want = ("paged_attention_rows", "int8_matmul") if int8 \
+            else ("paged_attention_rows",)
+        if any(counts[k] == 0 for k in want):
+            fail(f"engine ({tag}): kernel launches {counts}")
+        if profile:
+            decode_profile(eng, tag)
+        kl, pl = eng._debug_step_logits(prompts[:8])
+        if not (np.isfinite(kl).all() and kl.shape == (8, vocab_size)):
+            fail(f"engine ({tag}): debug logits {kl.shape} non-finite")
+        rel = float(np.linalg.norm(kl - pl) / np.linalg.norm(pl))
+        agree = float((kl.argmax(-1) == pl.argmax(-1)).mean())
+        row = {"drive": tag, "int8": int8, "tok_s": len(outs) * new / wall,
+               "wall_s": wall, "decode_steps": st["decode_steps"],
+               "decode_step_ms_mean": st["decode_step_ms_mean"],
+               "launches": {k: counts[k] for k in
+                            ("paged_attention_rows", "int8_matmul")},
+               "logits_rel_err": rel, "argmax_agree": agree,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"  engine ({tag}) int8={int8}: {len(outs) * new} tokens in "
+              f"{wall:.2f}s = {row['tok_s']:.1f} tok/s, "
+              f"decode steps {st['decode_steps']}, mean decode step "
+              f"{st['decode_step_ms_mean']:.2f} ms, launches {counts}; "
+              f"kernel-vs-plain step logits rel_err={rel:.3e} "
+              f"max_abs={float(np.abs(kl - pl).max()):.3e} "
+              f"argmax_agree={agree:.3f} (tol rel {LOGITS_REL_TOL}); peak "
+              f"memory {row['peak_gib']:.2f} GiB")
+        if rel > LOGITS_REL_TOL:
+            fail(f"engine ({tag}): kernel step logits rel_err {rel:.3e}")
+    finally:
+        eng.close()
+    return row
+
+
+def engine_phase(profile=False):
+    """Each of ``engine_models()`` at full width and depth through two
+    drives: GPT-3 1.3B (a) paged kernel, (b) int8 weights with both kernels;
+    then Llama-7B (c), (d) the same. Each model and its engines are freed
+    before the next model is built. Returns the launch counts summed over
+    the drives, and the drives' rows."""
+    drives = {"gpt3_1p3b": (("a", False), ("b", True)),
+              "llama_7b": (("c", False), ("d", True))}
     total = {"paged_attention_rows": 0, "int8_matmul": 0}
-    for tag, int8 in (("a", False), ("b", True)):
-        set_flags({"FLAGS_serve_paged_kernel": True,
-                   "FLAGS_serve_int8_kernel": int8})
-        eng = Engine(model, **ENGINE_KW, int8=int8, seed=0)
-        try:
-            K.reset_launch_counts()
-            t0 = time.monotonic()
-            handles = [eng.submit(p, max_new_tokens=new) for p in prompts]
-            outs = [h.result(timeout=900) for h in handles]
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-            counts = K.launch_counts()
-            for k in total:
-                total[k] += counts[k]
-            for p, o in zip(prompts, outs):
-                if len(o) != len(p) + new or o[:len(p)] != p \
-                        or not all(0 <= t < cfg.vocab_size for t in o):
-                    fail(f"engine ({tag}): output of {len(o)} tokens for a "
-                         f"{len(p)}-token prompt")
-            deadline = time.monotonic() + 30
-            while eng.stats()["pages_used"] and time.monotonic() < deadline:
-                time.sleep(0.01)
-            st = eng.stats()
-            if st["pages_used"] != 0:
-                fail(f"engine ({tag}): {st['pages_used']} pages still used")
-            want = ("paged_attention_rows", "int8_matmul") if int8 \
-                else ("paged_attention_rows",)
-            if any(counts[k] == 0 for k in want):
-                fail(f"engine ({tag}): kernel launches {counts}")
-            if profile:
-                decode_profile(eng, tag)
-            kl, pl = eng._debug_step_logits(prompts[:8])
-            if not (np.isfinite(kl).all() and kl.shape == (8, cfg.vocab_size)):
-                fail(f"engine ({tag}): debug logits {kl.shape} non-finite")
-            rel = float(np.linalg.norm(kl - pl) / np.linalg.norm(pl))
-            agree = float((kl.argmax(-1) == pl.argmax(-1)).mean())
-            print(f"  engine ({tag}) int8={int8}: {len(outs) * new} tokens in "
-                  f"{wall:.2f}s = {len(outs) * new / wall:.1f} tok/s, "
-                  f"decode steps {st['decode_steps']}, mean decode step "
-                  f"{st['decode_step_ms_mean']:.2f} ms, launches {counts}; "
-                  f"kernel-vs-plain step logits rel_err={rel:.3e} "
-                  f"max_abs={float(np.abs(kl - pl).max()):.3e} "
-                  f"argmax_agree={agree:.3f} (tol rel {LOGITS_REL_TOL})")
-            if rel > LOGITS_REL_TOL:
-                fail(f"engine ({tag}): kernel step logits rel_err {rel:.3e}")
-        finally:
-            eng.close()
-        del eng
+    rows = []
+    for name, cfg, _, _ in engine_models():
+        t0 = time.monotonic()
+        model = build_engine_model(name, cfg)
+        torch.cuda.synchronize()
+        print(f"  model: {name} bf16, {cfg.num_layers} layers, "
+              f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
+              f"params, built in {time.monotonic() - t0:.1f}s")
+        prompts = drive_prompts(cfg.vocab_size)
+        for tag, int8 in drives[name]:
+            torch.cuda.reset_peak_memory_stats()
+            row = engine_drive(model, cfg.vocab_size, tag, int8, prompts,
+                               profile)
+            rows.append({"model": name, **row})
+            for k, n in row["launches"].items():
+                total[k] += n
+            torch.cuda.empty_cache()
+        del model
         torch.cuda.empty_cache()
-    return total
+    return total, rows
 
 
 # -- train phase -------------------------------------------------------------
@@ -1184,8 +1291,8 @@ def main(argv=None) -> int:
     train_errs, long_errs = flash_phase()
     errs.update(train_errs)
 
-    print("[3] engine: gpt3_1p3b through serving.Engine")
-    launches = engine_phase(profile=args.profile)
+    print("[3] engine: gpt3_1p3b, then llama_7b, through serving.Engine")
+    launches, drives = engine_phase(profile=args.profile)
 
     print("[5] train: gpt3_1p3b through jit.compile_train_step")
     launches.update(train_phase(profile=args.profile))
@@ -1208,6 +1315,7 @@ def main(argv=None) -> int:
               f"{r['bound_by']}, {r['split']} blocks a row) at {r['shape']}")
     print(json.dumps({"flash_long_shape": long_rows}))
     print(json.dumps({"paged_shapes": paged}))
+    print(json.dumps({"engine_drives": drives}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -122,8 +122,8 @@ def kernel_turn(row, tag, shape, fused_qkv):
 
 
 def paged_turn(row):
-    for tag, B, MB, pos in cs.PAGED_SHAPES:
-        r = cs.paged_timing(tag, B, MB, pos, plain=False, split=False)
+    for tag, B, MB, pos, kv in cs.PAGED_SHAPES:
+        r = cs.paged_timing(tag, B, MB, pos, kv, plain=False, split=False)
         row[f"{tag}_ms"] = r["ms"]
         row[f"{tag}_bound_ms"] = r["bound_ms"]
 

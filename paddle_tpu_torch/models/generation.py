@@ -1,9 +1,12 @@
 """Paged prefill/decode over the KV block pool (port of the serving half of
 ``paddle_tpu/models/generation.py``).
 
-``gpt_decode_state`` extracts a GPT model's weight tree and its architecture
-plug; the builders return plain functions over tensors that the serving
-engine calls once per scheduler step:
+``gpt_decode_state`` and ``llama_decode_state`` extract a model's weight
+tree and its architecture plug (GPT: LayerNorm, learned positions, fused
+qkv, GELU, tied head; Llama: RMSNorm, RoPE at absolute positions, GQA
+against the un-repeated KV cache, SwiGLU, untied head); the builders return
+plain functions over tensors that the serving engine calls once per
+scheduler step:
 
 * ``build_paged_prefill`` — dense causal pass over a length-bucketed prompt
   batch, K/V scattered blockwise into the pool, logits at each row's last
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 
 from ..nn.layer.norm import layer_norm
 from ..ops.kernels import int8_matmul, paged_attention_rows
+from .llama import rope_angles, rotate_pairs
 
 
 def _grouped_attention(q, kc, vc, live, rep):
@@ -110,9 +114,10 @@ def _gpt_arch(H, D):
             @ w["down_w"] + w["down_b"]
         return x + ff
 
-    def qkv_rows(w, x):
+    def qkv_rows(w, x, pos):
         # the projection half of block_rows: x (B,1,H·D) -> q, k_new, v_new
-        # each (B,H,D)
+        # each (B,H,D); pos (the rows' positions) is unused: GPT's positions
+        # entered with the embedding
         B = x.shape[0]
         h = _ln(x, w["ln1_w"], w["ln1_b"])
         qkv = (h @ w["qkv_w"] + w["qkv_b"]).reshape(B, 3, H, D)
@@ -128,7 +133,7 @@ def _gpt_arch(H, D):
         # live (B,Tp) masks positions <= pos. The caller scatters
         # (k_new, v_new) back into the pool.
         rows = torch.arange(x.shape[0], device=x.device)
-        q, k_new, v_new = qkv_rows(w, x)
+        q, k_new, v_new = qkv_rows(w, x, pos)
         k_ctx[rows, pos] = k_new
         v_ctx[rows, pos] = v_new
         o = _grouped_attention(q[:, None], k_ctx, v_ctx,
@@ -176,6 +181,148 @@ def gpt_decode_state(model, device=None):
     }
     arch_key = ("gpt", H, D, len(params["layers"]))
     return arch_key, _gpt_arch(H, D), params, cfg.max_position_embeddings
+
+
+# ---------------------------------------------------------------------------
+# Llama architecture plug
+# ---------------------------------------------------------------------------
+
+def _llama_layer_weights(layer, device):
+    a, m = layer.self_attn, layer.mlp
+
+    def t(p):
+        return p.detach().to(device)
+
+    return {
+        "ln1_w": t(layer.input_layernorm.weight),
+        "q_w": t(a.q_proj.weight), "k_w": t(a.k_proj.weight),
+        "v_w": t(a.v_proj.weight), "o_w": t(a.o_proj.weight),
+        "ln2_w": t(layer.post_attention_layernorm.weight),
+        "gate_w": t(m.gate_proj.weight), "up_w": t(m.up_proj.weight),
+        "down_w": t(m.down_proj.weight),
+    }
+
+
+def _rms(x, w, eps):
+    """The serving plug's RMS norm: the f32 rsqrt is cast to x's dtype
+    BEFORE the product, which is then taken in x's dtype (the model's
+    ``RMSNorm`` multiplies in f32 and casts after; the two round differently
+    in bf16, and each is the reference's in its place)."""
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * w
+
+
+def _rotate(x, ang):
+    """Interleaved-pair rotation with cos/sin cast to x's dtype before the
+    products (the serving plug's rounding)."""
+    cos, sin = torch.cos(ang).to(x.dtype), torch.sin(ang).to(x.dtype)
+    return rotate_pairs(x, cos, sin)
+
+
+def _rope_at(x, pos0, theta):
+    """Rotary embedding of x (B, T, H, D) at absolute positions
+    pos0 + [0..T)."""
+    T, D = x.shape[1], x.shape[-1]
+    pos = pos0 + torch.arange(T, dtype=torch.float32, device=x.device)
+    return _rotate(x, rope_angles(pos, D, theta)[None, :, None, :])
+
+
+def _rope_rows(x, pos, theta):
+    """Rotary embedding of ONE token per row at per-row absolute positions
+    (packed decode): x (B, 1, H, D), pos (B,) int."""
+    ang = rope_angles(pos.float(), x.shape[-1], theta)  # (B, D/2)
+    return _rotate(x, ang[:, None, None, :])
+
+
+def _llama_arch(H, KV, D, theta, eps):
+    rep = H // KV
+
+    def embed_prompt(params, ids, T0):
+        return _rows(params, "wte", ids)
+
+    def embed_rows(params, toks, pos):
+        return _rows(params, "wte", toks)[:, None]
+
+    def head_rows(params, x, idx):
+        # the norm is per row, so picking the rows first gives the
+        # reference's values
+        rows = x[torch.arange(x.shape[0], device=x.device), idx]
+        return _head_mm(params, _rms(rows, params["lnf_w"], eps), "head_w",
+                        False)
+
+    def mlp_out(w, x):
+        h2 = _rms(x, w["ln2_w"], eps)
+        return x + (F.silu(h2 @ w["gate_w"]) * (h2 @ w["up_w"])) @ w["down_w"]
+
+    def qkv_rows(w, x, pos):
+        # the projection half of block_rows: RoPE at each row's own absolute
+        # position, un-repeated KV heads: q (B,H,D), k_new/v_new (B,KV,D)
+        B = x.shape[0]
+        h = _rms(x, w["ln1_w"], eps)
+        q = _rope_rows((h @ w["q_w"]).reshape(B, 1, H, D), pos, theta)
+        k = _rope_rows((h @ w["k_w"]).reshape(B, 1, KV, D), pos, theta)
+        v = (h @ w["v_w"]).reshape(B, 1, KV, D)
+        return q[:, 0], k[:, 0], v[:, 0]
+
+    def attn_out_rows(w, x, o):
+        return mlp_out(w, x + o @ w["o_w"])
+
+    def block_rows(w, x, k_ctx, v_ctx, live, pos):
+        # see the GPT plug for the contract; GQA against the un-repeated
+        # gathered cache
+        rows = torch.arange(x.shape[0], device=x.device)
+        q, k_new, v_new = qkv_rows(w, x, pos)
+        k_ctx[rows, pos] = k_new
+        v_ctx[rows, pos] = v_new
+        o = _grouped_attention(q[:, None], k_ctx, v_ctx,
+                               live[:, None, None, None, :], rep)
+        return attn_out_rows(w, x, o), k_new, v_new
+
+    def block(w, x):
+        # dense causal pass over a prompt batch x (B,T,H·D), RoPE at
+        # positions 0..T-1; returns the KV heads, never the repeats
+        B, T = x.shape[0], x.shape[1]
+        h = _rms(x, w["ln1_w"], eps)
+        q = _rope_at((h @ w["q_w"]).reshape(B, T, H, D), 0.0, theta)
+        k = _rope_at((h @ w["k_w"]).reshape(B, T, KV, D), 0.0, theta)
+        v = (h @ w["v_w"]).reshape(B, T, KV, D)
+        live = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+        o = _grouped_attention(q, k, v, live[None, None, None], rep)
+        return attn_out_rows(w, x, o), (k, v)
+
+    def head(params, x):
+        return _head_mm(params, _rms(x[:, -1], params["lnf_w"], eps),
+                        "head_w", False)  # untied head, (h, V)
+
+    return {"embed_prompt": embed_prompt, "embed_rows": embed_rows,
+            "head_rows": head_rows, "block_rows": block_rows,
+            "qkv_rows": qkv_rows, "attn_out_rows": attn_out_rows,
+            "block": block, "head": head, "kv_heads": KV, "head_dim": D}
+
+
+def llama_decode_state(model, device=None):
+    """(arch_key, arch, params, max_positions) for a ``LlamaForCausalLM``;
+    the weight tree is detached and placed on ``device`` (the model's own
+    when None)."""
+    lm, cfg = model.model, model.model.config
+    H, KV = cfg.num_heads, cfg.kv_heads
+    D = cfg.hidden_size // H
+    wte = lm.embed_tokens.weight
+    device = wte.device if device is None else device
+
+    def t(p):
+        return p.detach().to(device)
+
+    params = {
+        "wte": t(wte),
+        "lnf_w": t(lm.norm.weight),
+        "head_w": t(model.lm_head.weight),
+        "layers": [_llama_layer_weights(l, device) for l in lm.layers],
+    }
+    theta, eps = float(cfg.rope_theta), float(cfg.rms_norm_eps)
+    arch_key = ("llama", H, KV, D, len(params["layers"]), theta, eps)
+    return (arch_key, _llama_arch(H, KV, D, theta, eps), params,
+            cfg.max_position_embeddings)
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +422,7 @@ def build_paged_decode_kernel(arch, B, block_size, max_blocks):
         bids = tl.gather(1, (pl // block_size)[:, None])[:, 0]
         offs = pl % block_size
         for li, w in enumerate(params["layers"]):
-            q, k_new, v_new = arch["qkv_rows"](w, x)
+            q, k_new, v_new = arch["qkv_rows"](w, x, pl)
             kpool[li][bids, offs] = k_new
             vpool[li][bids, offs] = v_new
             o = paged_attention_rows(q.contiguous(), kpool[li], vpool[li],

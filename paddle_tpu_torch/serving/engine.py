@@ -216,22 +216,28 @@ class RequestHandle:
 class Engine:
     """Continuous-batching serving engine over a paged KV cache.
 
-    ``model`` is a ``GPTForPretraining``. The scheduler thread owns all
-    scheduler state; only the submission queue and stop flag cross threads.
+    ``model`` is a ``GPTForPretraining`` or a ``LlamaForCausalLM``. The
+    scheduler thread owns all scheduler state; only the submission queue and
+    stop flag cross threads.
     """
 
     def __init__(self, model, config: Optional[EngineConfig] = None,
                  **overrides):
-        if not hasattr(model, "gpt"):
+        if hasattr(model, "gpt"):
+            decode_state = G.gpt_decode_state
+        elif hasattr(model, "lm_head") and hasattr(model, "model"):
+            decode_state = G.llama_decode_state
+        else:
             raise TypeError(f"serving.Engine: unsupported model "
-                            f"{type(model).__name__} (expected GPTForPretraining)")
+                            f"{type(model).__name__} (expected "
+                            "GPTForPretraining or LlamaForCausalLM)")
         if config is not None and overrides:
             raise ValueError("pass EngineConfig OR keyword overrides, not both")
-        cfg = copy.copy(config or EngineConfig(**overrides)).resolve(
-            model.config.max_position_embeddings)
-        self.config = cfg
-        self._device = resolve_device(cfg.device)
-        _, arch, params, _ = G.gpt_decode_state(model, self._device)
+        cfg = copy.copy(config or EngineConfig(**overrides))
+        device = resolve_device(cfg.device)
+        _, arch, params, max_pos = decode_state(model, device)
+        self.config = cfg.resolve(max_pos)
+        self._device = device
         self._arch = arch
         self._dtype = params["wte"].dtype
         if cfg.int8:

@@ -64,3 +64,15 @@ def test_engine_without_device_raises_when_cuda_missing(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(model, block_size=8, num_blocks=8, max_batch=2)
+
+
+def test_llama_engine_without_device_raises_when_cuda_missing(monkeypatch):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine
+
+    model = LlamaForCausalLM(LlamaConfig(
+        vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
+        num_kv_heads=1, max_position_embeddings=32), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(model, block_size=8, num_blocks=8, max_batch=2)

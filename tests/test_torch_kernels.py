@@ -25,10 +25,10 @@ from paddle_tpu_torch.ops import kernels as TK
 from paddle_tpu_torch.serving import int8 as tint8
 
 
-def _paged_inputs(rep, seed=1, MB=4, pos=(0, 7, 8, 15, 27)):
+def _paged_inputs(rep, seed=1, MB=4, pos=(0, 7, 8, 15, 27), KV=2, D=16):
     """Pool, disjoint tables with trash-padded dead columns, and positions
     on and across block edges (BS=8)."""
-    B, KV, D, BS = len(pos), 2, 16, 8
+    B, BS = len(pos), 8
     NB = B * MB + 1
     rng = np.random.RandomState(seed)
     kpool = rng.randn(NB, BS, KV, D).astype(np.float32)
@@ -43,26 +43,43 @@ def _paged_inputs(rep, seed=1, MB=4, pos=(0, 7, 8, 15, 27)):
     return q, kpool, vpool, tables, pos
 
 
-# (rep, MB, positions): every grouping the kernel instantiates, and a
+# (rep, MB, positions, KV, D): every grouping the kernel instantiates, a
 # 24-block table whose positions sit on block edges (first and last token of
-# a block, the table's last position)
-PAGED_CASES = [(1, 4, (0, 7, 8, 15, 27)), (2, 4, (0, 7, 8, 15, 27)),
-               (4, 4, (0, 7, 8, 15, 27)), (8, 4, (0, 7, 8, 15, 27)),
-               (2, 24, (63, 64, 127, 128, 191))]
+# a block, the table's last position), and Llama-7B's heads (KV = 32 heads of
+# D = 128, rep 1)
+PAGED_CASES = [(rep, 4, (0, 7, 8, 15, 27), 2, 16) for rep in (1, 2, 4, 8)] + [
+    (2, 24, (63, 64, 127, 128, 191), 2, 16),
+    (1, 8, (0, 15, 16, 40, 63), 32, 128)]
+PAGED_IDS = ["mha", "gqa_rep2", "gqa_rep4", "gqa_rep8",
+             "long_table_block_edges", "kv32_d128"]
+# bf16: the reference kernel and the plain version round at different points
+# (the plain version rounds the scores and probabilities to bf16, the kernel
+# sums in f32), so they agree within one bf16 ulp of the output's scale
+# (2^(floor(log2 max|out|) - 7)); bit-equal shares measured on these inputs,
+# in PAGED_IDS order: 53.8%, 55.6%, 57.7%, 55.7%, 39.1%, 53.9%
+PAGED_PARAMS = [pytest.param(*c, "float32", id=i)
+                for c, i in zip(PAGED_CASES, PAGED_IDS)] + [
+    pytest.param(*c, "bfloat16", id=f"bf16-{i}")
+    for c, i in zip(PAGED_CASES, PAGED_IDS)]
 
 
-@pytest.mark.parametrize("rep,MB,pos", PAGED_CASES,
-                         ids=["mha", "gqa_rep2", "gqa_rep4", "gqa_rep8",
-                              "long_table_block_edges"])
-def test_paged_attention_plain_matches_jax(rep, MB, pos):
-    q, kpool, vpool, tables, pos = _paged_inputs(rep, MB=MB, pos=pos)
+@pytest.mark.parametrize("rep,MB,pos,KV,D,dtype", PAGED_PARAMS)
+def test_paged_attention_plain_matches_jax(rep, MB, pos, KV, D, dtype):
+    q, kpool, vpool, tables, pos = _paged_inputs(rep, MB=MB, pos=pos, KV=KV,
+                                                 D=D)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     ref = np.asarray(JK.paged_attention_rows(
-        jnp.asarray(q), jnp.asarray(kpool), jnp.asarray(vpool),
-        jnp.asarray(tables), jnp.asarray(pos)))
-    out = TK.paged_attention_rows(*map(torch.from_numpy,
-                                       (q, kpool, vpool, tables, pos)))
-    assert out.dtype == torch.float32 and out.shape == ref.shape
-    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+        *(jnp.asarray(a, jd) for a in (q, kpool, vpool)),
+        jnp.asarray(tables), jnp.asarray(pos)).astype(jnp.float32))
+    out = TK.paged_attention_rows(
+        *(torch.from_numpy(a).to(td) for a in (q, kpool, vpool)),
+        torch.from_numpy(tables), torch.from_numpy(pos))
+    assert out.dtype == td and out.shape == ref.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+        np.testing.assert_allclose(out.float().numpy(), ref, atol=ulp, rtol=0)
 
 
 @pytest.mark.parametrize("B,KV,BS,MB,n_sm,want", [
@@ -73,6 +90,9 @@ def test_paged_attention_plain_matches_jax(rep, MB, pos):
     (5, 2, 8, 4, 132, 1),        # a 32-position table is never split
     (1, 1, 16, 16, 132, 4),      # 256 positions: each block keeps >= 64
     (1, 1, 16, 8, 132, 2),       # 128 positions: two blocks of 64
+    (32, 32, 16, 64, 132, 1),    # Llama-7B's decode shape: 1024 pairs
+    (16, 32, 16, 128, 132, 2),   # Llama, 16 rows: 512 pairs, GPT's get 4
+    (1, 32, 16, 128, 132, 8),    # Llama, one row of 2048
 ])
 def test_paged_split_rule(B, KV, BS, MB, n_sm, want):
     assert chip_smoke.paged_split_rule(B, KV, BS, MB, n_sm) == want
@@ -92,14 +112,28 @@ def test_paged_split_rule_bounds():
 @pytest.mark.parametrize("n_sm", [132, 114], ids=["h100_sxm", "h100_pcie"])
 def test_paged_checks_cover_every_engine_launch_and_split(n_sm):
     grid = chip_smoke.engine_paged_shapes()
-    # decode buckets 1..32 by gather widths 1..128 blocks
-    assert len(grid) == 6 * 8 and (16, 64) in grid and (32, 128) in grid
+    # each engine's decode buckets 1..32 by gather widths 1..128 blocks, at
+    # GPT-3 1.3B's 16 KV heads and Llama-7B's 32
+    by_kv = {kv: {(B, MB) for B, MB, k in grid if k == kv} for kv in (16, 32)}
+    assert len(grid) == 2 * 6 * 8 and {kv for _, _, kv in grid} == {16, 32}
+    assert by_kv[16] == by_kv[32]
+    assert (16, 64) in by_kv[32] and (32, 128) in by_kv[32]
     shapes = chip_smoke.paged_check_shapes()
-    assert {(B, MB) for rep, B, MB in shapes if rep == 1} >= set(grid)
-    assert {rep for rep, _, _ in shapes} == {1, 2, 4, 8}
-    splits = {chip_smoke.paged_split_rule(B, 16, 16, MB, n_sm)
-              for _, B, MB in shapes}
+    assert {(B, MB, kv) for rep, B, MB, kv in shapes if rep == 1} >= set(grid)
+    assert {rep for rep, _, _, _ in shapes} == {1, 2, 4, 8}
+    splits = {chip_smoke.paged_split_rule(B, kv, 16, MB, n_sm)
+              for _, B, MB, kv in shapes}
     assert splits == {1, 2, 4, 8}
+    # the rule at KV = 32 is its own: fewer (row, head) pairs are needed to
+    # fill the card, so some launches split less than GPT's at the same
+    # (B, MB), and the Llama launches alone still run more than one size
+    llama = {(B, MB): chip_smoke.paged_split_rule(B, 32, 16, MB, n_sm)
+             for B, MB in by_kv[32]}
+    assert len(set(llama.values())) > 1
+    assert any(s < chip_smoke.paged_split_rule(B, 16, 16, MB, n_sm)
+               for (B, MB), s in llama.items())
+    # the timing shapes include Llama's decode shape
+    assert ("llama_decode", 32, 64, None, 32) in chip_smoke.PAGED_SHAPES
 
 
 def _int8_inputs(M, K, N, transpose_w, seed=2):
@@ -224,6 +258,16 @@ def test_int8_checks_cover_every_engine_launch():
     shapes = chip_smoke.int8_check_shapes()
     K, N = chip_smoke.INT8_HEAD
     assert {(M, K, N) for M in rows} <= set(shapes)
+    # Llama-7B's untied head (hidden 4096, vocab 32000), stored (K, N): every
+    # row count at its shape, and every check runs the (K, N) layout
+    # (transpose_w=False) as well as (N, K)
+    models = {name: (cfg, head) for name, cfg, _, head in
+              chip_smoke.engine_models()}
+    cfg, head = models["llama_7b"]
+    assert head == chip_smoke.LLAMA_HEAD == (cfg.hidden_size,
+                                             cfg.vocab_size) == (4096, 32000)
+    assert {(M, 4096, 32000) for M in rows} <= set(shapes)
+    assert set(chip_smoke.INT8_LAYOUTS) == {True, False}
     assert any(M > 32 for M, _, _ in shapes)
     assert any(n % 8 for _, _, n in shapes)
     assert any(k % 128 for _, k, _ in shapes)

@@ -104,7 +104,7 @@ def test_compile_train_step_without_device_raises_when_cuda_missing(
 @pytest.mark.parametrize("impl,err", [("ring", NotImplementedError),
                                       ("bogus", ValueError)])
 def test_attention_impl_checked(impl, err):
-    with pytest.raises(err, match="A18" if impl == "ring" else "auto"):
+    with pytest.raises(err, match="A11" if impl == "ring" else "auto"):
         GPTForPretraining(gpt_tiny(attention_impl=impl), device="cpu")
 
 

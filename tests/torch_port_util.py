@@ -1,8 +1,11 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py): the
 JAX model's weights exported as numpy, and the port model built from them."""
+import dataclasses
+
 import numpy as np
 
 from paddle_tpu_torch.models import (GPTConfig, GPTForPretraining,
+                                     LlamaConfig, LlamaForCausalLM,
                                      load_reference_state_dict)
 
 
@@ -20,5 +23,15 @@ def port_of(jmodel, **config):
         "max_position_embeddings")}, hidden_dropout=0.0,
         attention_dropout=0.0, **config)
     m = GPTForPretraining(cfg, device="cpu").eval()
+    load_reference_state_dict(m, reference_state(jmodel))
+    return m
+
+
+def port_of_llama(jmodel):
+    """A CPU ``paddle_tpu_torch`` Llama (eval) carrying the JAX Llama's
+    weights, loaded by parameter name; its config copies the reference's."""
+    cfg = LlamaConfig(**{f.name: getattr(jmodel.model.config, f.name)
+                         for f in dataclasses.fields(LlamaConfig)})
+    m = LlamaForCausalLM(cfg, device="cpu").eval()
     load_reference_state_dict(m, reference_state(jmodel))
     return m
