@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py            # the whole run; needs one CUDA card
     python3 chip_smoke.py --profile  # + device breakdowns of a decode step
-                                     #   and of a train step
+                                     #   (the verify step of drive f) and
+                                     #   of a train step
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -22,7 +23,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    (``pt_paged_split``) is held against ``paged_split_rule`` first at every
    checked (batch, table width, KV), and the checks must run each of 1, 2,
    4 and 8; the int8 head at every row count the engines can launch it with
-   (decode buckets and prefill width), at GPT's head (K = 2048, N = 50304)
+   (decode buckets, prefill width, and each bucket's speculative verify of
+   bucket x (SPEC_K + 1) rows, up to 160), at GPT's head (K = 2048, N = 50304)
    and at Llama's (K = 4096, N = 32000), then two passes (48 rows), a
    ragged N and a ragged K, each in both weight layouts (bf16 also by
    relative norm against the f32 plain version), and one-hot and two-hot
@@ -36,14 +38,25 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    the two must agree bit for bit;
 3. engine: GPT-3 1.3B at full width (24 layers, bf16, random weights from a
    seed) through ``serving.Engine`` over 32 greedy requests, (a) with the
-   paged-attention kernel and (b) int8 weights with both kernels; then
+   paged-attention kernel and (b) int8 weights with both kernels; (e) the
+   prefix cache and chunked prefill (chunks of 256) with the paged kernel:
+   one request, then 32 at once whose prompts share a 512-token prefix,
+   each of which must hit the cache for its 32 blocks; (f) speculative
+   decoding (4 n-gram drafts a row) with int8 weights and the int8 head,
+   then once with a 2-layer GPT at 1.3B's width as a model drafter; then
    Llama-7B at full width and depth (32 layers, 32 heads, KV = 32, FFN
-   11008, vocab 32000, untied head, bf16, random weights from a seed) the
-   same way, (c) and (d). Launch counts are zeroed just before each drive
-   and read just after it; every output must have exactly prompt + 64
-   tokens and the pool must drain. One decode step built with the kernels
-   is held against the same step built with the plain versions on the same
-   pool state. Each model and its engines are freed before the next;
+   11008, vocab 32000, untied head, bf16, random weights from a seed) as
+   (a) and (b), (c) and (d). Launch counts are zeroed just before each
+   drive and read just after it; every output must have exactly prompt +
+   64 tokens and the pool must drain (to the prefix index's own blocks in
+   (e), and to none after its ``close()``). One decode step built with the
+   kernels is held against the same step built with the plain versions on
+   the same pool state; the tail-prefill (over the cached prefix) and last
+   chunk's logits against the monolithic prefill's (e), and the verify
+   step's logits at each fed position j against j + 1 sequential decode
+   steps (f), all within ``LOGITS_REL_TOL``; (c)'s engine holds the same
+   three builders at Llama's shapes (RoPE on a position grid, GQA). Each
+   model and its engines are freed before the next;
 5. train: GPT-3 1.3B at full width and depth (bf16, seed 0, dropout 0,
    flash attention, fused LM-head loss, AdamW lr 1e-4) through
    ``jit.compile_train_step`` on one fixed b2 x s2048 batch: 2 warm-up and
@@ -57,7 +70,7 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    one exists; the flash kernels also with their TFLOP/s and the host time
    of one call, at the training shape and at the long-sequence shape; the
    paged kernel at the four ``PAGED_SHAPES`` (Llama's decode shape among
-   them); the int8 head at M = 1, 4 and 32 beside the dense bf16 head
+   them); the int8 head at M = 1, 4, 32 and 160 beside the dense bf16 head
    (``dense_bf16_ms``), GPT's in both layouts and Llama's in (K, N)
    (``llama_head``).
 
@@ -69,7 +82,8 @@ long-sequence shape (no launches on the main path),
 ``{"paged_shapes": [...]}``, the paged kernel's time, bound and cluster
 size at each of ``PAGED_SHAPES``, and ``{"engine_drives": [...]}``, each
 engine drive's tok/s, decode steps, mean decode-step ms, launches and
-kernel-vs-plain logits error.
+logits errors, with (e)'s prefix hits, shared blocks, tail prefills and
+chunk steps and (f)'s drafts proposed and accepted.
 """
 from __future__ import annotations
 
@@ -134,6 +148,23 @@ PAGED_O_REL_TOL = 1e-2
 ENGINE_KW = {"block_size": 16, "num_blocks": 2048, "max_batch": 32,
              "prefill_batch": 4, "max_seq_len": 2048}
 DRIVE_REQUESTS, DRIVE_NEW = 32, 64
+# drive (e), GPT-3 1.3B: the prefix cache and chunked prefill on the paged
+# kernel; its prompts share one PREFIX_LEN-token prefix (a system prompt, 32
+# blocks), then a tail of TAIL_LENS tokens each, from PREFIX_SEED
+PREFIX_KW = {"prefix_cache": True, "prefill_chunk": 256}
+PREFIX_LEN, TAIL_LENS, PREFIX_SEED = 512, (64, 512), 1
+# the wave-2 prompts whose tail and chunked prefill logits (e) holds to the
+# monolithic prefill's
+PREFILL_CHECKS = 4
+# drive (f), GPT-3 1.3B: speculative decoding, SPEC_K drafts a row by the
+# n-gram drafter, int8 weights with the int8 head kernel; then once with a
+# WINDOW_DRAFTER_LAYERS-layer GPT at 1.3B's width as the model drafter over
+# WINDOW_REQUESTS requests
+SPEC_K = 4
+WINDOW_DRAFTER_LAYERS, WINDOW_REQUESTS = 2, 4
+# the verify check's rows: one engine state, the verify step's logits at each
+# j = 0..SPEC_K against j+1 sequential decode steps fed the same tokens
+SPEC_CHECK_ROWS = 8
 # the int8 LM heads of the engine phase's models (K, N): GPT-3 1.3B's hidden
 # size and padded vocabulary, weight stored (N, K) (the tied embedding), and
 # Llama-7B's, weight stored (K, N) (the untied head, ``transpose_w=False``)
@@ -152,9 +183,9 @@ INT8_EXTRA_CHECKS = ((48, 2048, 50304), (32, 2048, 50257), (32, 1000, 50304),
 # rounding (~2^-9 relative) separates them
 INT8_REL_TOL = 1e-2
 # the int8 heads' timing rows (M at INT8_HEAD in both layouts, and at
-# LLAMA_HEAD in (K, N)): one stream, the prefill width and the full decode
-# batch
-INT8_TIMING_ROWS = (1, 4, 32)
+# LLAMA_HEAD in (K, N)): one stream, the prefill width, the full decode
+# batch, and the full batch's speculative verify (32 rows of SPEC_K + 1)
+INT8_TIMING_ROWS = (1, 4, 32, 160)
 INT8_MMA = "int8_matmul_mma"  # the bf16 tensor-core kernel's name
 # paged checks beyond the engines' own launches (rep, B, MB, KV): every rep
 # bound the kernel instantiates at 2, 4 and 8 blocks a row, and 48 rows (one
@@ -338,11 +369,13 @@ def engine_config(cfg):
 
 def engine_int8_rows():
     """Every row count the engine phase's engines can launch the int8 head
-    with: their decode buckets and their prefill width."""
+    with: their decode buckets, their prefill width, and each bucket's
+    speculative verify, ``bucket * (SPEC_K + 1)`` rows (drive (f))."""
     rows = set()
     for _, cfg, _, _ in engine_models():
         ec = engine_config(cfg)
         rows |= set(ec.decode_buckets) | {ec.prefill_batch}
+        rows |= {b * (SPEC_K + 1) for b in ec.decode_buckets}
     return sorted(rows)
 
 
@@ -762,7 +795,7 @@ def int8_timing(errs, launches, ptxas):
     Kd, N = INT8_HEAD
     times = int8_head_times(Kd, N, INT8_LAYOUTS)
     llama = int8_head_times(*LLAMA_HEAD, (False,))
-    M = INT8_TIMING_ROWS[-1]
+    M = ENGINE_KW["max_batch"]  # the decode batch
     qw, s = int8_weight(Kd, N, seed=1)
     x = int8_x(M, Kd, dt, seed=1)
     b_ms, b_by = bound(N * Kd + M * Kd * es + M * N * es + 4, 2 * M * N * Kd,
@@ -925,8 +958,9 @@ def flash_timing(errs, launches, shape=FLASH_TRAIN, fused_qkv=True):
 # -- engine phase ------------------------------------------------------------
 
 def decode_step(eng, B=32, ctx=640):
-    """The engine's own decode step at batch B and context ~ctx, to run on
-    this thread with the engine idle (inside ``torch.inference_mode()``);
+    """The engine's own decode step at batch B and context ~ctx (its
+    speculative verify, k + 1 tokens a row, on a speculative engine), to run
+    on this thread with the engine idle (inside ``torch.inference_mode()``);
     each call ends, as the engine's does, by copying the tokens back."""
     bs = eng.config.block_size
     mb = 1
@@ -938,14 +972,17 @@ def decode_step(eng, B=32, ctx=640):
     tab[:, :live] = np.arange(1, 1 + B * live).reshape(B, live)
     tables = dev(tab)
     pos = dev((ctx - np.arange(B)).astype(np.int32))
-    toks = dev(np.arange(B, dtype=np.int32))
+    k = eng._spec_k
+    toks = np.arange(B * (k + 1), dtype=np.int32).reshape(B, k + 1)
+    toks = dev(toks if k else toks[:, 0])
     temps = dev(np.zeros(B, np.float32))
-    fn = eng._get_fn("decode", B, mb)
+    fn = eng._get_fn("spec" if k else "decode", B, mb)
 
     def step():
-        eng._kpool, eng._vpool, nxt = fn(eng._params, eng._kpool, eng._vpool,
-                                         tables, pos, toks, temps, eng._gen)
-        return nxt.cpu()  # the engine reads the tokens back every step
+        out = fn(eng._params, eng._kpool, eng._vpool, tables, pos, toks,
+                 temps, eng._gen)
+        eng._kpool, eng._vpool = out[:2]
+        return out[2].cpu()  # the engine reads the tokens back every step
 
     return step
 
@@ -1006,6 +1043,16 @@ def drive_prompts(vocab_size, seed=0):
     return [rng.randint(0, vocab_size, size=n).tolist() for n in lens]
 
 
+def prefix_prompts(vocab_size):
+    """Drive (e)'s prompts: one shared ``PREFIX_LEN``-token prefix, then a
+    tail of ``TAIL_LENS`` random tokens each, from ``PREFIX_SEED``; the first
+    is wave 1's, the other ``DRIVE_REQUESTS`` wave 2's."""
+    rng = np.random.RandomState(PREFIX_SEED)
+    prefix = rng.randint(0, vocab_size, size=PREFIX_LEN).tolist()
+    lens = rng.randint(TAIL_LENS[0], TAIL_LENS[1] + 1, size=DRIVE_REQUESTS + 1)
+    return [prefix + rng.randint(0, vocab_size, size=n).tolist() for n in lens]
+
+
 def build_engine_model(name, cfg):
     """One of ``engine_models()`` in bf16 on the card, random weights from
     seed 0, in eval mode."""
@@ -1015,42 +1062,112 @@ def build_engine_model(name, cfg):
     return cls(cfg, dtype=torch.bfloat16, seed=0).eval()
 
 
-def engine_drive(model, vocab_size, tag, int8, prompts, profile=False):
+def serve(eng, prompts, vocab_size, tag):
+    """Greedy ``DRIVE_NEW`` tokens for each prompt, submitted at once; every
+    output must be its prompt and ``DRIVE_NEW`` in-vocabulary tokens.
+    Returns the outputs and the seconds until the card had finished."""
+    t0 = time.monotonic()
+    handles = [eng.submit(p, max_new_tokens=DRIVE_NEW) for p in prompts]
+    outs = [h.result(timeout=900) for h in handles]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + DRIVE_NEW or o[:len(p)] != p \
+                or not all(0 <= t < vocab_size for t in o):
+            fail(f"engine ({tag}): output of {len(o)} tokens for a "
+                 f"{len(p)}-token prompt")
+    return outs, wall
+
+
+def drain(eng, tag, cached=False):
+    """The engine's stats once its pool holds only what the prefix index
+    holds (nothing without one), or ``fail``."""
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        st = eng.stats()
+        if st["pages_used"] == st["pages_cached"]:
+            break
+        time.sleep(0.01)
+    st = eng.stats()
+    if st["pages_used"] != st["pages_cached"] or (st["pages_cached"] > 0) \
+            != cached:
+        fail(f"engine ({tag}): {st['pages_used']} pages used, "
+             f"{st['pages_cached']} cached after the drive")
+    return st
+
+
+def counter_delta(c0):
+    from paddle_tpu_torch import profiler
+
+    c1 = profiler.counters()
+    return {k: c1.get(k, 0) - c0.get(k, 0) for k in set(c0) | set(c1)}
+
+
+def logits_rel(tag, what, got, want):
+    """The largest ||got - want|| / ||want|| over the rows of two float32
+    (rows, V) logits arrays, and their argmax agreement; fails when a row is
+    beyond ``LOGITS_REL_TOL`` or a value is not finite."""
+    if not (np.isfinite(got).all() and got.shape == want.shape):
+        fail(f"engine ({tag}): {what} logits {got.shape} non-finite")
+    rel = float((np.linalg.norm(got - want, axis=-1)
+                 / np.linalg.norm(want, axis=-1)).max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    print(f"  engine ({tag}): {what} logits rel_err={rel:.3e} "
+          f"argmax_agree={agree:.3f} (tol rel {LOGITS_REL_TOL})")
+    if not rel <= LOGITS_REL_TOL:
+        fail(f"engine ({tag}): {what} logits rel_err {rel:.3e}")
+    return rel, agree
+
+
+def prefill_checks(eng, prompts, tag, head=None):
+    """The tail-prefill (over ``head`` cached blocks) and last chunk's logits
+    of each of ``prompts`` against the monolithic prefill's
+    (``Engine._debug_prefill_paths``, chunks of ``PREFIX_KW``'s size), each
+    within ``LOGITS_REL_TOL``."""
+    mono, tail, chunk = eng._debug_prefill_paths(
+        prompts, head=head, chunk=PREFIX_KW["prefill_chunk"])
+    return {"tail_rel_err": logits_rel(tag, "tail-prefill vs monolithic",
+                                       tail, mono)[0],
+            "chunk_rel_err": logits_rel(tag, "last chunk vs monolithic",
+                                        chunk, mono)[0]}
+
+
+def verify_checks(eng, prompts, tag):
+    """The speculative verify's logits at each j = 0..SPEC_K against j+1
+    sequential decode steps fed the same tokens, over the first
+    ``SPEC_CHECK_ROWS`` of ``prompts`` (``Engine._debug_spec_logits``), each
+    within ``LOGITS_REL_TOL``."""
+    ver, seq = eng._debug_spec_logits(prompts[:SPEC_CHECK_ROWS], SPEC_K)
+    rel, agree = zip(*(logits_rel(tag, f"verify j={j} vs {j + 1} decode "
+                                  "steps", ver[:, j], seq[:, j])
+                       for j in range(SPEC_K + 1)))
+    return {"verify_rel_err": rel, "verify_argmax_agree": agree}
+
+
+def engine_drive(model, vocab_size, tag, int8, prompts, profile=False,
+                 checks=False):
     """One drive: a fresh ``serving.Engine`` over ``model`` with the paged
     kernel (and, with ``int8``, int8 weights with the int8 head kernel)
     serves ``prompts`` greedily, ``DRIVE_NEW`` tokens each. Launch counts
     are zeroed just before the drive and read just after it; every output
     must be its prompt and ``DRIVE_NEW`` in-vocabulary tokens, the pool must
     drain, and one decode step built with the kernels must hold to the same
-    step built with the plain versions within ``LOGITS_REL_TOL``. Returns
-    the drive's row (launch counts, tok/s, decode steps and step ms)."""
+    step built with the plain versions within ``LOGITS_REL_TOL``; with
+    ``checks``, the tail, chunk and verify builders too (``prefill_checks``
+    on one prompt, ``verify_checks``). Returns the drive's row (launch
+    counts, tok/s, decode steps and step ms)."""
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.serving import Engine
 
-    new = DRIVE_NEW
     set_flags({"FLAGS_serve_paged_kernel": True,
                "FLAGS_serve_int8_kernel": int8})
     eng = Engine(model, **ENGINE_KW, int8=int8, seed=0)
     try:
         K.reset_launch_counts()
-        t0 = time.monotonic()
-        handles = [eng.submit(p, max_new_tokens=new) for p in prompts]
-        outs = [h.result(timeout=900) for h in handles]
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
+        outs, wall = serve(eng, prompts, vocab_size, tag)
         counts = K.launch_counts()
-        for p, o in zip(prompts, outs):
-            if len(o) != len(p) + new or o[:len(p)] != p \
-                    or not all(0 <= t < vocab_size for t in o):
-                fail(f"engine ({tag}): output of {len(o)} tokens for a "
-                     f"{len(p)}-token prompt")
-        deadline = time.monotonic() + 30
-        while eng.stats()["pages_used"] and time.monotonic() < deadline:
-            time.sleep(0.01)
-        st = eng.stats()
-        if st["pages_used"] != 0:
-            fail(f"engine ({tag}): {st['pages_used']} pages still used")
+        st = drain(eng, tag)
         want = ("paged_attention_rows", "int8_matmul") if int8 \
             else ("paged_attention_rows",)
         if any(counts[k] == 0 for k in want):
@@ -1062,15 +1179,16 @@ def engine_drive(model, vocab_size, tag, int8, prompts, profile=False):
             fail(f"engine ({tag}): debug logits {kl.shape} non-finite")
         rel = float(np.linalg.norm(kl - pl) / np.linalg.norm(pl))
         agree = float((kl.argmax(-1) == pl.argmax(-1)).mean())
-        row = {"drive": tag, "int8": int8, "tok_s": len(outs) * new / wall,
+        row = {"drive": tag, "int8": int8,
+               "tok_s": len(outs) * DRIVE_NEW / wall,
                "wall_s": wall, "decode_steps": st["decode_steps"],
                "decode_step_ms_mean": st["decode_step_ms_mean"],
                "launches": {k: counts[k] for k in
                             ("paged_attention_rows", "int8_matmul")},
                "logits_rel_err": rel, "argmax_agree": agree,
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        print(f"  engine ({tag}) int8={int8}: {len(outs) * new} tokens in "
-              f"{wall:.2f}s = {row['tok_s']:.1f} tok/s, "
+        print(f"  engine ({tag}) int8={int8}: {len(outs) * DRIVE_NEW} tokens "
+              f"in {wall:.2f}s = {row['tok_s']:.1f} tok/s, "
               f"decode steps {st['decode_steps']}, mean decode step "
               f"{st['decode_step_ms_mean']:.2f} ms, launches {counts}; "
               f"kernel-vs-plain step logits rel_err={rel:.3e} "
@@ -1079,17 +1197,175 @@ def engine_drive(model, vocab_size, tag, int8, prompts, profile=False):
               f"memory {row['peak_gib']:.2f} GiB")
         if rel > LOGITS_REL_TOL:
             fail(f"engine ({tag}): kernel step logits rel_err {rel:.3e}")
+        if checks:
+            row["builder_checks"] = {**prefill_checks(eng, prompts[:1], tag),
+                                     **verify_checks(eng, prompts, tag)}
     finally:
         eng.close()
     return row
 
 
+def prefix_drive(model, vocab_size):
+    """Drive (e): ``ENGINE_KW`` with ``PREFIX_KW`` (the prefix cache, chunks
+    of 256 tokens) and the paged kernel over ``prefix_prompts``: wave 1 is
+    one request run to its end, which fills the cache; wave 2 the other
+    ``DRIVE_REQUESTS`` at once, each of which must hit the cache for the
+    whole shared prefix (``PREFIX_LEN / block_size`` blocks). Launch counts
+    and the engine's counters are read around wave 2. Checks as
+    ``engine_drive``'s, with the pool holding only the index's blocks once
+    drained and none after ``close()``; chunk steps and paged launches must
+    happen; the tail and chunked prefill logits of ``PREFILL_CHECKS`` wave-2
+    prompts (the tail over the cached prefix) within ``LOGITS_REL_TOL`` of
+    the monolithic prefill's."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import Engine
+
+    tag, prompts = "e", prefix_prompts(vocab_size)
+    head = PREFIX_LEN // ENGINE_KW["block_size"]
+    set_flags({"FLAGS_serve_paged_kernel": True,
+               "FLAGS_serve_int8_kernel": False})
+    eng = Engine(model, **ENGINE_KW, **PREFIX_KW, int8=False, seed=0)
+    try:
+        serve(eng, prompts[:1], vocab_size, tag)
+        st0 = drain(eng, tag, cached=True)
+        K.reset_launch_counts()
+        c0 = profiler.counters()
+        outs, wall = serve(eng, prompts[1:], vocab_size, tag)
+        counts = K.launch_counts()
+        d = counter_delta(c0)
+        st = drain(eng, tag, cached=True)
+        steps = st["decode_steps"] - st0["decode_steps"]
+        step_ms = (st["decode_step_ms_mean"] * st["decode_steps"]
+                   - st0["decode_step_ms_mean"] * st0["decode_steps"]) / steps
+        row = {"drive": tag, "int8": False,
+               "tok_s": len(outs) * DRIVE_NEW / wall, "wall_s": wall,
+               "decode_steps": steps, "decode_step_ms_mean": step_ms,
+               "launches": {k: counts[k] for k in
+                            ("paged_attention_rows", "int8_matmul")},
+               "prefix_hits": d["serve_prefix_hits"],
+               "prefix_misses": d["serve_prefix_misses"],
+               "prefix_blocks_shared": d["serve_prefix_blocks_shared"],
+               "tail_prefills": d["serve_tail_prefills"],
+               "prefill_chunks": d["serve_prefill_chunks"],
+               "pages_cached": st["pages_cached"],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"  engine ({tag}) prefix cache + chunks of "
+              f"{PREFIX_KW['prefill_chunk']}: wave 2 {len(outs) * DRIVE_NEW} "
+              f"tokens in {wall:.2f}s = {row['tok_s']:.1f} tok/s, decode "
+              f"steps {steps}, mean decode step {step_ms:.2f} ms, prefix hits "
+              f"{row['prefix_hits']} (misses {row['prefix_misses']}), blocks "
+              f"shared {row['prefix_blocks_shared']}, tail prefills "
+              f"{row['tail_prefills']}, chunk steps {row['prefill_chunks']}, "
+              f"launches {counts}, {st['pages_cached']} pages cached; peak "
+              f"memory {row['peak_gib']:.2f} GiB")
+        if row["prefix_hits"] != len(outs) or row["prefix_blocks_shared"] \
+                != len(outs) * head:
+            fail(f"engine ({tag}): {row['prefix_hits']} prefix hits sharing "
+                 f"{row['prefix_blocks_shared']} blocks, want {len(outs)} "
+                 f"of {head} blocks each")
+        if not row["prefill_chunks"] or not counts["paged_attention_rows"]:
+            fail(f"engine ({tag}): {row['prefill_chunks']} chunk steps, "
+                 f"launches {counts}")
+        row.update(prefill_checks(eng, prompts[1:1 + PREFILL_CHECKS], tag,
+                                  head=head))
+    finally:
+        eng.close()
+    if eng.stats()["pages_used"] != 0:
+        fail(f"engine ({tag}): {eng.stats()['pages_used']} pages used after "
+             "close()")
+    eng._pool.check()
+    return row
+
+
+def spec_drive(model, cfg, prompts, profile=False):
+    """Drive (f): ``ENGINE_KW`` with ``spec_k=SPEC_K`` and the n-gram
+    drafter, int8 weights with the int8 head kernel (the verify's head runs
+    ``bucket * (SPEC_K + 1)`` rows), over the drive prompts of (a). Launch
+    counts and the draft counters are read around the drive; outputs well
+    formed, the pool drained, int8 launches and proposals must happen; the
+    verify step's logits at each j held to j+1 sequential decode steps
+    (``verify_checks``). Then a ``WINDOW_DRAFTER_LAYERS``-layer
+    GPT at the target's width (random weights from seed 1) drafts for
+    ``WINDOW_REQUESTS`` requests through ``build_window_draft``: outputs
+    well formed, the pool drained."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.models import GPTForPretraining
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import Engine
+
+    tag, vocab_size = "f", cfg.vocab_size
+    set_flags({"FLAGS_serve_paged_kernel": True,
+               "FLAGS_serve_int8_kernel": True})
+    eng = Engine(model, **ENGINE_KW, int8=True, spec_k=SPEC_K, seed=0)
+    try:
+        K.reset_launch_counts()
+        c0 = profiler.counters()
+        outs, wall = serve(eng, prompts, vocab_size, tag)
+        counts = K.launch_counts()
+        d = counter_delta(c0)
+        st = drain(eng, tag)
+        prop, acc = d["serve_draft_proposed"], d["serve_draft_accepted"]
+        row = {"drive": tag, "int8": True, "spec_k": SPEC_K,
+               "tok_s": len(outs) * DRIVE_NEW / wall, "wall_s": wall,
+               "decode_steps": st["decode_steps"],
+               "decode_step_ms_mean": st["decode_step_ms_mean"],
+               "launches": {k: counts[k] for k in
+                            ("paged_attention_rows", "int8_matmul")},
+               "drafts_proposed": prop, "drafts_accepted": acc,
+               "acceptance": acc / prop if prop else None,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"  engine ({tag}) int8 + spec_k={SPEC_K} (n-gram): "
+              f"{len(outs) * DRIVE_NEW} tokens in {wall:.2f}s = "
+              f"{row['tok_s']:.1f} tok/s, decode steps {st['decode_steps']}, "
+              f"mean decode step {st['decode_step_ms_mean']:.2f} ms, drafts "
+              f"proposed {prop}, accepted {acc} (rate {row['acceptance']}), "
+              f"launches {counts}; peak memory {row['peak_gib']:.2f} GiB")
+        if not counts["int8_matmul"] or not prop:
+            fail(f"engine ({tag}): launches {counts}, {prop} drafts proposed")
+        if profile:
+            decode_profile(eng, tag)
+        row.update(verify_checks(eng, prompts, tag))
+    finally:
+        eng.close()
+    drafter = GPTForPretraining(
+        dataclasses.replace(cfg, num_layers=WINDOW_DRAFTER_LAYERS),
+        dtype=torch.bfloat16, seed=1).eval()
+    eng = Engine(model, **ENGINE_KW, int8=True, spec_k=SPEC_K,
+                 drafter=drafter, seed=0)
+    try:
+        c0 = profiler.counters()
+        outs, wall = serve(eng, prompts[:WINDOW_REQUESTS], vocab_size,
+                           f"{tag}, window drafter")
+        d = counter_delta(c0)
+        st = drain(eng, f"{tag}, window drafter")
+        row["window_drafter"] = {
+            "layers": WINDOW_DRAFTER_LAYERS, "requests": len(outs),
+            "tok_s": len(outs) * DRIVE_NEW / wall,
+            "decode_steps": st["decode_steps"],
+            "drafts_proposed": d["serve_draft_proposed"],
+            "drafts_accepted": d["serve_draft_accepted"]}
+        print(f"  engine ({tag}) window drafter ({WINDOW_DRAFTER_LAYERS} "
+              f"layers, random weights): {row['window_drafter']}")
+        if not d["serve_draft_proposed"]:
+            fail(f"engine ({tag}): the window drafter proposed nothing")
+    finally:
+        eng.close()
+    del drafter
+    return row
+
+
 def engine_phase(profile=False):
-    """Each of ``engine_models()`` at full width and depth through two
-    drives: GPT-3 1.3B (a) paged kernel, (b) int8 weights with both kernels;
-    then Llama-7B (c), (d) the same. Each model and its engines are freed
-    before the next model is built. Returns the launch counts summed over
-    the drives, and the drives' rows."""
+    """Each of ``engine_models()`` at full width and depth through its
+    drives: GPT-3 1.3B (a) paged kernel, (b) int8 weights with both kernels,
+    (e) the prefix cache and chunked prefill, (f) speculative decoding with
+    int8 weights; then Llama-7B (c), (d) as (a), (b), with the tail,
+    chunked and verify builders checked on (c)'s engine after its drive.
+    Each model and its engines are freed before the next model is built.
+    Returns the launch counts summed over the drives, and the drives'
+    rows."""
     drives = {"gpt3_1p3b": (("a", False), ("b", True)),
               "llama_7b": (("c", False), ("d", True))}
     total = {"paged_attention_rows": 0, "int8_matmul": 0}
@@ -1102,15 +1378,20 @@ def engine_phase(profile=False):
               f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
               f"params, built in {time.monotonic() - t0:.1f}s")
         prompts = drive_prompts(cfg.vocab_size)
-        for tag, int8 in drives[name]:
+        runs = [lambda tag=tag, int8=int8: engine_drive(
+                    model, cfg.vocab_size, tag, int8, prompts, profile,
+                    checks=tag == "c") for tag, int8 in drives[name]]
+        if name == "gpt3_1p3b":
+            runs += [lambda: prefix_drive(model, cfg.vocab_size),
+                     lambda: spec_drive(model, cfg, prompts, profile)]
+        for run in runs:
             torch.cuda.reset_peak_memory_stats()
-            row = engine_drive(model, cfg.vocab_size, tag, int8, prompts,
-                               profile)
+            row = run()
             rows.append({"model": name, **row})
             for k, n in row["launches"].items():
                 total[k] += n
             torch.cuda.empty_cache()
-        del model
+        del model, runs
         torch.cuda.empty_cache()
     return total, rows
 
@@ -1291,7 +1572,8 @@ def main(argv=None) -> int:
     train_errs, long_errs = flash_phase()
     errs.update(train_errs)
 
-    print("[3] engine: gpt3_1p3b, then llama_7b, through serving.Engine")
+    print("[3] engine: gpt3_1p3b (a, b, e, f), then llama_7b (c, d), "
+          "through serving.Engine")
     launches, drives = engine_phase(profile=args.profile)
 
     print("[5] train: gpt3_1p3b through jit.compile_train_step")

@@ -29,6 +29,22 @@ _FLAGS: Dict[str, object] = {
     # quantized end to end through the fused int8 matmul kernel.
     "FLAGS_serve_paged_kernel": False,
     "FLAGS_serve_int8_kernel": False,
+    # Throughput features, all off by default (an engine with every one off
+    # takes the plain path): FLAGS_serve_prefix_cache keeps prompts' full KV
+    # blocks in a refcounted prefix index, so admission shares the longest
+    # cached prefix and prefills only the tail; FLAGS_serve_spec_k > 0 arms
+    # speculative decoding (a drafter proposes k tokens a row, one step
+    # verifies them all, greedy output unchanged); FLAGS_serve_drafter is
+    # the proposer ("ngram", host-side prompt lookup; a small same-family
+    # model goes to Engine(drafter=...)); FLAGS_serve_draft_window bounds a
+    # model drafter's window in tokens; FLAGS_serve_prefill_chunk > 0 (a
+    # multiple of the block size) prefills long prompts one chunk per
+    # scheduler step between decode steps.
+    "FLAGS_serve_prefix_cache": False,
+    "FLAGS_serve_spec_k": 0,
+    "FLAGS_serve_drafter": "ngram",
+    "FLAGS_serve_draft_window": 64,
+    "FLAGS_serve_prefill_chunk": 0,
 }
 
 for _k, _cur in list(_FLAGS.items()):

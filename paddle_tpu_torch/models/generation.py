@@ -14,7 +14,14 @@ scheduler step:
 * ``build_paged_decode`` — one packed decode step that gathers each row's
   context through its block table and attends densely (the plain path);
 * ``build_paged_decode_kernel`` — the same step with the attention read done
-  by the paged-attention kernel straight out of the pool.
+  by the paged-attention kernel straight out of the pool;
+* ``build_paged_tail_prefill`` — a multi-token "tail" feed at absolute
+  positions against the gathered context: the prompt tail after a cached
+  prefix, or one chunk of a chunked prefill;
+* ``build_paged_spec_decode`` — the speculative verify: k+1 tokens a row in
+  one step, the greedy continuation at every fed position;
+* ``build_window_draft`` — a small model drafter's k greedy proposals over
+  a dense window of each row's newest tokens.
 
 Where the reference rebuilt the pools functionally (``kpool.at[...].set``),
 these functions update ``kpool``/``vpool`` **in place** (``index_put_``) and
@@ -33,6 +40,27 @@ import torch.nn.functional as F
 from ..nn.layer.norm import layer_norm
 from ..ops.kernels import int8_matmul, paged_attention_rows
 from .llama import rope_angles, rotate_pairs
+
+
+def _table_cols(tables, cols, max_blocks):
+    """``tables``' block ids at columns ``cols`` (B, n); columns past the
+    table give the trash block 0."""
+    bids = tables.gather(1, cols.clamp(max=max_blocks - 1))
+    return torch.where(cols < max_blocks, bids, torch.zeros_like(bids))
+
+
+def _write_feeds(k_ctx, v_ctx, k_new, v_new, starts):
+    """Overwrite the gathered context's slots ``starts + [0..T)`` of each row
+    with the T fed tokens' fresh K/V (B, T, KV, D), in place. Feeds past the
+    context (only padding reaches them) are dropped, as the reference's
+    scatter drops them: each is sent to the context's last slot carrying
+    the value that slot's own feed writes, so every write there agrees."""
+    B, T = k_new.shape[:2]
+    rows = torch.arange(B, device=k_new.device)[:, None]
+    jj = torch.arange(T, device=k_new.device)[None, :].minimum(
+        k_ctx.shape[1] - 1 - starts[:, None])
+    k_ctx[rows, starts[:, None] + jj] = k_new[rows, jj]
+    v_ctx[rows, starts[:, None] + jj] = v_new[rows, jj]
 
 
 def _grouped_attention(q, kc, vc, live, rep):
@@ -91,7 +119,7 @@ def _gpt_layer_weights(layer, device):
     }
 
 
-def _gpt_arch(H, D):
+def _gpt_arch(H, D, n_pos):
     def embed_prompt(params, ids, T0):
         wpe = _rows(params, "wpe", torch.arange(T0, device=ids.device))
         return _rows(params, "wte", ids) + wpe[None]
@@ -101,11 +129,24 @@ def _gpt_arch(H, D):
         # toks (B,), pos (B,) -> (B, 1, H·D)
         return (_rows(params, "wte", toks) + _rows(params, "wpe", pos))[:, None]
 
+    def embed_tail(params, ids, starts):
+        # T tokens a row at absolute positions starts + [0..T); a position
+        # past the table reads its last row, as the reference's gather
+        # clamps (only padding and feeds past a sequence's budget reach it)
+        pos = starts[:, None] + torch.arange(ids.shape[1], device=ids.device)
+        return _rows(params, "wte", ids) + _rows(params, "wpe",
+                                                 pos.clamp(max=n_pos - 1))
+
     def head_rows(params, x, idx):
         # logits at each row's own position; the norm is per row, so picking
         # the rows first gives the reference's values
         rows = x[torch.arange(x.shape[0], device=x.device), idx]
         return _head_mm(params, _ln(rows, params["lnf_w"], params["lnf_b"]),
+                        "wte", True)
+
+    def head_all(params, x):
+        # logits at EVERY fed position (the speculative verify reads all k+1)
+        return _head_mm(params, _ln(x, params["lnf_w"], params["lnf_b"]),
                         "wte", True)
 
     def mlp_out(w, x):
@@ -140,6 +181,21 @@ def _gpt_arch(H, D):
                                live[:, None, None, None, :], rep=1)
         return attn_out_rows(w, x, o), k_new, v_new
 
+    def block_tail(w, x, k_ctx, v_ctx, live, starts):
+        # T consecutive tokens a row, x (B,T,H·D), at absolute positions
+        # starts + [0..T) against a GATHERED paged context (the step's
+        # private copy): their fresh K/V overwrite the in-context slots
+        # before the joint causal attention, so feed j sees the cached
+        # context plus feeds <= j; live (B,T,Tp) masks per (row, feed). The
+        # caller scatters (k_new, v_new) (B,T,KV,D) into the pool.
+        B, T = x.shape[0], x.shape[1]
+        h = _ln(x, w["ln1_w"], w["ln1_b"])
+        qkv = (h @ w["qkv_w"] + w["qkv_b"]).reshape(B, T, 3, H, D)
+        q, k_new, v_new = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        _write_feeds(k_ctx, v_ctx, k_new, v_new, starts)
+        o = _grouped_attention(q, k_ctx, v_ctx, live[:, None, None], rep=1)
+        return attn_out_rows(w, x, o), k_new, v_new
+
     def block(w, x):
         # dense causal pass over a prompt batch x (B,T,H·D)
         B, T = x.shape[0], x.shape[1]
@@ -155,9 +211,11 @@ def _gpt_arch(H, D):
                         "wte", True)  # tied head
 
     return {"embed_prompt": embed_prompt, "embed_rows": embed_rows,
-            "head_rows": head_rows, "block_rows": block_rows,
-            "qkv_rows": qkv_rows, "attn_out_rows": attn_out_rows,
-            "block": block, "head": head, "kv_heads": H, "head_dim": D}
+            "embed_tail": embed_tail, "head_rows": head_rows,
+            "head_all": head_all, "block_rows": block_rows,
+            "block_tail": block_tail, "qkv_rows": qkv_rows,
+            "attn_out_rows": attn_out_rows, "block": block, "head": head,
+            "kv_heads": H, "head_dim": D}
 
 
 def gpt_decode_state(model, device=None):
@@ -180,7 +238,8 @@ def gpt_decode_state(model, device=None):
         "layers": [_gpt_layer_weights(l, device) for l in gpt.layers],
     }
     arch_key = ("gpt", H, D, len(params["layers"]))
-    return arch_key, _gpt_arch(H, D), params, cfg.max_position_embeddings
+    n_pos = cfg.max_position_embeddings
+    return arch_key, _gpt_arch(H, D, n_pos), params, n_pos
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +293,13 @@ def _rope_rows(x, pos, theta):
     return _rotate(x, ang[:, None, None, :])
 
 
+def _rope_grid(x, pos, theta):
+    """Rotary embedding at a per-(row, token) position grid (tail prefill,
+    speculative verify): x (B, T, H, D), pos (B, T) int."""
+    ang = rope_angles(pos.float(), x.shape[-1], theta)  # (B, T, D/2)
+    return _rotate(x, ang[:, :, None, :])
+
+
 def _llama_arch(H, KV, D, theta, eps):
     rep = H // KV
 
@@ -243,11 +309,18 @@ def _llama_arch(H, KV, D, theta, eps):
     def embed_rows(params, toks, pos):
         return _rows(params, "wte", toks)[:, None]
 
+    def embed_tail(params, ids, starts):
+        return _rows(params, "wte", ids)
+
     def head_rows(params, x, idx):
         # the norm is per row, so picking the rows first gives the
         # reference's values
         rows = x[torch.arange(x.shape[0], device=x.device), idx]
         return _head_mm(params, _rms(rows, params["lnf_w"], eps), "head_w",
+                        False)
+
+    def head_all(params, x):
+        return _head_mm(params, _rms(x, params["lnf_w"], eps), "head_w",
                         False)
 
     def mlp_out(w, x):
@@ -278,6 +351,19 @@ def _llama_arch(H, KV, D, theta, eps):
                                live[:, None, None, None, :], rep)
         return attn_out_rows(w, x, o), k_new, v_new
 
+    def block_tail(w, x, k_ctx, v_ctx, live, starts):
+        # see the GPT plug for the contract; RoPE at each (row, feed)'s own
+        # absolute position, GQA against the un-repeated gathered cache
+        B, T = x.shape[0], x.shape[1]
+        posm = starts[:, None] + torch.arange(T, device=x.device)[None, :]
+        h = _rms(x, w["ln1_w"], eps)
+        q = _rope_grid((h @ w["q_w"]).reshape(B, T, H, D), posm, theta)
+        k_new = _rope_grid((h @ w["k_w"]).reshape(B, T, KV, D), posm, theta)
+        v_new = (h @ w["v_w"]).reshape(B, T, KV, D)
+        _write_feeds(k_ctx, v_ctx, k_new, v_new, starts)
+        o = _grouped_attention(q, k_ctx, v_ctx, live[:, None, None], rep)
+        return attn_out_rows(w, x, o), k_new, v_new
+
     def block(w, x):
         # dense causal pass over a prompt batch x (B,T,H·D), RoPE at
         # positions 0..T-1; returns the KV heads, never the repeats
@@ -295,9 +381,11 @@ def _llama_arch(H, KV, D, theta, eps):
                         "head_w", False)  # untied head, (h, V)
 
     return {"embed_prompt": embed_prompt, "embed_rows": embed_rows,
-            "head_rows": head_rows, "block_rows": block_rows,
-            "qkv_rows": qkv_rows, "attn_out_rows": attn_out_rows,
-            "block": block, "head": head, "kv_heads": KV, "head_dim": D}
+            "embed_tail": embed_tail, "head_rows": head_rows,
+            "head_all": head_all, "block_rows": block_rows,
+            "block_tail": block_tail, "qkv_rows": qkv_rows,
+            "attn_out_rows": attn_out_rows, "block": block, "head": head,
+            "kv_heads": KV, "head_dim": D}
 
 
 def llama_decode_state(model, device=None):
@@ -431,3 +519,136 @@ def build_paged_decode_kernel(arch, B, block_size, max_blocks):
         return arch["head"](params, x)
 
     return _decode_step(logits_fn)
+
+
+def build_paged_tail_prefill(arch, B, T_bucket, block_size, max_blocks):
+    """Tail prefill: each row's prompt head already lives in pool blocks (a
+    shared prefix-cache chain, or earlier chunks of a chunked prefill), and
+    only its tail runs the forward pass.
+
+    ``prefill(params, ids, starts, lens, tables, kpool, vpool)`` feeds each
+    row's tail ``ids`` (B, T_bucket, padded) at absolute positions
+    ``starts + [0..T)`` (``starts`` a multiple of ``block_size``), gathers
+    the row's context through its table (``tables`` (B, max_blocks)),
+    overwrites the tail's in-context slots with fresh K/V before the joint
+    causal attention (tail token j sees the cached head plus tail tokens
+    <= j), scatters the tail's blocks into the pool IN PLACE at table
+    columns ``starts // block_size + j`` (columns past the table go to the
+    trash block 0) and returns ``(kpool, vpool, logits)`` at each row's last
+    tail token (``lens - 1``). Each layer's context is gathered before that
+    layer's scatter; the head's blocks lie below every written column, so a
+    tail never writes a block another table shares."""
+    KV, D = arch["kv_heads"], arch["head_dim"]
+    if T_bucket % block_size:
+        raise ValueError(f"tail-prefill bucket {T_bucket} must be a multiple "
+                         f"of block_size {block_size}")
+    nb = T_bucket // block_size
+    T_pad = block_size * max_blocks
+
+    def prefill(params, ids, starts, lens, tables, kpool, vpool):
+        tl, st = tables.long(), starts.long()
+        dev = st.device
+        x = arch["embed_tail"](params, ids.long(), st)
+        posm = st[:, None] + torch.arange(T_bucket, device=dev)[None, :]
+        live = torch.arange(T_pad, device=dev)[None, None, :] \
+            <= posm[:, :, None]  # (B, T, Tp)
+        bids = _table_cols(tl, (st // block_size)[:, None]
+                           + torch.arange(nb, device=dev)[None, :], max_blocks)
+        for li, w in enumerate(params["layers"]):
+            k_ctx = kpool[li][tl].reshape(B, T_pad, KV, D)
+            v_ctx = vpool[li][tl].reshape(B, T_pad, KV, D)
+            x, k_new, v_new = arch["block_tail"](w, x, k_ctx, v_ctx, live, st)
+            kpool[li][bids] = k_new.reshape(B, nb, block_size, KV, D)
+            vpool[li][bids] = v_new.reshape(B, nb, block_size, KV, D)
+        return kpool, vpool, arch["head_rows"](params, x, lens.long() - 1)
+
+    return prefill
+
+
+def build_paged_spec_decode(arch, B, k, block_size, max_blocks):
+    """Speculative verify: ONE packed decode step that feeds k+1 tokens a
+    row — the row's pending next-input token, then k drafted tokens — and
+    returns the greedy continuation at EVERY fed position.
+
+    ``step(params, kpool, vpool, tables, pos, toks, temps, generator)``
+    takes ``toks`` (B, k+1) fed at absolute positions ``pos + [0..k]``,
+    gathers each row's context through its table (the plain paged read, as
+    the reference keeps it for this step), overwrites the k+1 in-context
+    slots with fresh K/V before the joint causal attention (feed j attends
+    to the cache plus feeds <= j: the logits at j are those of j sequential
+    decode steps), scatters all k+1 into the pool IN PLACE (slots past the
+    table go to the trash block) and returns ``(kpool, vpool, greedy,
+    sampled)``: ``greedy`` (B, k+1) the argmax at each feed, ``sampled``
+    (B,) the j = 0 token drawn at ``temps`` from ``generator`` as the decode
+    step draws (greedy where ``temps == 0``; sampling rows accept no
+    drafts). K/V written for a rejected feed is overwritten by a later step
+    before any feed reads it. ``step.logits`` is the step before sampling,
+    (B, k+1, V)."""
+    KV, D = arch["kv_heads"], arch["head_dim"]
+    T = k + 1
+    T_pad = block_size * max_blocks
+
+    def logits_fn(params, kpool, vpool, tables, pos, toks):
+        tl, pl = tables.long(), pos.long()
+        x = arch["embed_tail"](params, toks.long(), pl)
+        posm = pl[:, None] + torch.arange(T, device=pl.device)[None, :]
+        live = torch.arange(T_pad, device=pl.device)[None, None, :] \
+            <= posm[:, :, None]
+        bids = _table_cols(tl, posm // block_size, max_blocks)
+        offs = posm % block_size
+        for li, w in enumerate(params["layers"]):
+            k_ctx = kpool[li][tl].reshape(B, T_pad, KV, D)
+            v_ctx = vpool[li][tl].reshape(B, T_pad, KV, D)
+            x, k_new, v_new = arch["block_tail"](w, x, k_ctx, v_ctx, live, pl)
+            kpool[li][bids, offs] = k_new
+            vpool[li][bids, offs] = v_new
+        return arch["head_all"](params, x)
+
+    def step(params, kpool, vpool, tables, pos, toks, temps, generator=None):
+        logits = logits_fn(params, kpool, vpool, tables, pos, toks)
+        greedy = logits.argmax(-1).to(torch.int32)
+        return kpool, vpool, greedy, _sample(logits[:, 0], temps, generator)
+
+    step.logits = logits_fn
+    return step
+
+
+def build_window_draft(arch, B, W, k):
+    """Model drafter: k greedy proposals a row from a SMALL same-family
+    model over a dense window of each row's newest ``W`` tokens.
+
+    ``draft(params, ids, lens)`` prefills the window (``ids`` (B, W)
+    left-aligned, ``lens`` the real lengths in [1, W]) at window-relative
+    positions — past the window a position-embedding drafter is only
+    approximate, which costs acceptance, never correctness: the target
+    verifies every proposal — then runs k single-token greedy steps against
+    a dense per-row cache (``block_rows`` writes each fresh K/V into it in
+    place) and returns the proposals (B, k) int32."""
+    T_max = W + k
+
+    def draft(params, ids, lens):
+        ll = lens.long()
+        x = arch["embed_prompt"](params, ids.long(), W)
+        caches = []
+        for w in params["layers"]:
+            x, (kk, vv) = arch["block"](w, x)
+            kc = kk.new_zeros((B, T_max) + kk.shape[2:])
+            vc = vv.new_zeros((B, T_max) + vv.shape[2:])
+            kc[:, :W] = kk
+            vc[:, :W] = vv
+            caches.append((kc, vc))
+        logits = arch["head_rows"](params, x, ll - 1)
+        out = torch.zeros((B, k), dtype=torch.int32, device=ids.device)
+        for j in range(k):
+            nxt = logits.argmax(-1)
+            out[:, j] = nxt
+            pos = ll + j  # each row's write position of the new token
+            x = arch["embed_rows"](params, nxt, pos)
+            live = torch.arange(T_max, device=pos.device)[None, :] \
+                <= pos[:, None]
+            for w, (kc, vc) in zip(params["layers"], caches):
+                x, _, _ = arch["block_rows"](w, x, kc, vc, live, pos)
+            logits = arch["head"](params, x)
+        return out
+
+    return draft

@@ -13,7 +13,15 @@ main path of ``paddle_tpu/serving/engine.py``).
 * ``FLAGS_serve_paged_kernel`` routes decode attention through the
   paged-attention kernel; ``int8=True`` serves weight-only int8 weights
   (``int8.py``) and ``FLAGS_serve_int8_kernel`` keeps the LM head int8
-  through the int8 matmul kernel.
+  through the int8 matmul kernel;
+* ``prefix_cache=True`` keeps prompts' full KV blocks in a refcounted index
+  (``_PrefixCache``): admission shares the longest cached prefix and
+  prefills only the tail; ``spec_k=k`` drafts k tokens a row (the n-gram
+  prompt lookup, or a small same-family ``drafter`` model over a window)
+  and verifies them in one step, greedy output unchanged;
+  ``prefill_chunk=n`` prefills a prompt whose uncached tail exceeds n
+  tokens one n-token chunk per scheduler step, between decode steps. With
+  all three off the engine takes the plain path.
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; without CUDA
 and without that request it raises. The scheduler thread enters
@@ -59,7 +67,9 @@ class EngineConfig:
 
     def __init__(self, block_size=None, num_blocks=None, max_batch=None,
                  max_seq_len=None, prefill_batch=None, int8=None,
-                 decode_buckets=None, seed=0, device=None):
+                 decode_buckets=None, seed=0, device=None, prefix_cache=None,
+                 spec_k=None, drafter=None, draft_window=None,
+                 prefill_chunk=None):
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.max_batch = max_batch
@@ -69,6 +79,14 @@ class EngineConfig:
         self.decode_buckets = decode_buckets
         self.seed = seed
         self.device = device
+        # prefix-cache KV sharing and speculative decoding: ``drafter`` is
+        # "ngram" or a small same-family model (the target's vocabulary)
+        self.prefix_cache = prefix_cache
+        self.spec_k = spec_k
+        self.drafter = drafter
+        self.draft_window = draft_window
+        # chunked prefill grain in tokens (0 = monolithic prefill)
+        self.prefill_chunk = prefill_chunk
 
     def resolve(self, model_max_positions: int) -> "EngineConfig":
         def pick(v, name):
@@ -83,6 +101,27 @@ class EngineConfig:
         self.max_seq_len = min(max_seq, int(model_max_positions))
         if self.int8 is None:
             self.int8 = bool(flags.flag("FLAGS_serve_int8", False))
+        if self.prefix_cache is None:
+            self.prefix_cache = bool(flags.flag("FLAGS_serve_prefix_cache",
+                                                False))
+        self.spec_k = pick(self.spec_k, "FLAGS_serve_spec_k")
+        if self.drafter is None:
+            self.drafter = flags.flag("FLAGS_serve_drafter", "ngram")
+        self.draft_window = pick(self.draft_window, "FLAGS_serve_draft_window")
+        self.prefill_chunk = pick(self.prefill_chunk,
+                                  "FLAGS_serve_prefill_chunk")
+        if self.prefill_chunk < 0:
+            raise ValueError("serving: prefill_chunk must be >= 0 "
+                             "(0 = monolithic prefill)")
+        if self.prefill_chunk and self.block_size \
+                and self.prefill_chunk % self.block_size:
+            raise ValueError(
+                "serving: prefill_chunk must be a multiple of block_size "
+                "(chunk boundaries write K/V through the paged scatter)")
+        if self.spec_k < 0:
+            raise ValueError("serving: spec_k must be >= 0")
+        if self.spec_k and self.draft_window < 2:
+            raise ValueError("serving: draft_window must be >= 2")
         if self.block_size < 1 or self.num_blocks < 2 or self.max_batch < 1 \
                 or self.prefill_batch < 1 or self.max_seq_len < 1:
             raise ValueError(
@@ -138,18 +177,142 @@ def _finish(req: _Request, tokens=None, error=None) -> bool:
     return True
 
 
+def _ngram_propose(tokens, k: int, max_n: int = 3) -> List[int]:
+    """Prompt-lookup drafting (the drafter that needs no model): find the
+    most recent EARLIER occurrence of the longest suffix n-gram
+    (n = max_n..1) and propose the up-to-k tokens that followed it; [] when
+    nothing recurs (the verify step then emits one token for the row)."""
+    L = len(tokens)
+    for n in range(min(max_n, L - 1), 0, -1):
+        pat = tokens[L - n:]
+        for i in range(L - n - 1, -1, -1):
+            if tokens[i:i + n] == pat:
+                fol = tokens[i + n:i + n + k]
+                if fol:
+                    return fol
+    return []
+
+
+class _PrefixCache:
+    """Index of shared prompt-prefix KV blocks (scheduler thread only, like
+    the pool it feeds). Chained block-granularity keys: block j's key is
+    ``(parent block id, tuple of chunk-j tokens)``, so the parent link pins
+    everything before the chunk and two prefixes can never alias (dict
+    hashing is the fast path, equality is exact). The index holds its OWN
+    reference on every cached block (``PagePool.share``), so the KV outlives
+    the sequence that wrote it; :meth:`evict` drops LRU LEAF entries whose
+    block nobody else maps (refcount 1), never a block a table still
+    holds."""
+
+    __slots__ = ("_pool", "_bs", "_entries", "_by_bid", "_tick")
+
+    def __init__(self, pool: PagePool, block_size: int):
+        self._pool = pool
+        self._bs = block_size
+        # key -> [block id, last-use tick, cached-child count]
+        self._entries: Dict[tuple, list] = {}
+        self._by_bid: Dict[int, tuple] = {}  # block id -> its key
+        self._tick = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def blocks(self) -> int:
+        """Pool blocks the index holds."""
+        return len(self._entries)
+
+    def match(self, tokens, limit: int) -> List[int]:
+        """Block ids of the longest cached chain over the full block-size
+        chunks of ``tokens``, at most ``limit``; refcounts are NOT bumped
+        (the caller shares them once admission is sure)."""
+        self._tick += 1
+        bids: List[int] = []
+        parent = -1
+        for j in range(limit):
+            ent = self._entries.get(
+                (parent, tuple(tokens[j * self._bs:(j + 1) * self._bs])))
+            if ent is None:
+                break
+            ent[1] = self._tick
+            bids.append(ent[0])
+            parent = ent[0]
+        return bids
+
+    def insert(self, tokens, blocks, start: int, full: int) -> int:
+        """Index ``blocks[start:full]`` of a freshly prefilled sequence
+        (chunk j's parent is ``blocks[j-1]``, cached or fresh). Stops at the
+        first key already present: that content is cached under ANOTHER
+        block id, and chaining ours beside it would orphan its children.
+        Takes one index reference per inserted block."""
+        inserted = 0
+        for j in range(start, full):
+            parent = -1 if j == 0 else blocks[j - 1]
+            key = (parent, tuple(tokens[j * self._bs:(j + 1) * self._bs]))
+            if key in self._entries:
+                break
+            self._pool.share([blocks[j]])
+            self._tick += 1
+            self._entries[key] = [blocks[j], self._tick, 0]
+            self._by_bid[blocks[j]] = key
+            pk = self._by_bid.get(parent)
+            if pk is not None:
+                self._entries[pk][2] += 1
+            inserted += 1
+        return inserted
+
+    def evict(self, need: int) -> int:
+        """Free up to ``need`` blocks by dropping LRU leaves only the index
+        maps; dropping a leaf may expose its parent next. Returns the blocks
+        returned to the free list (0 when everything left is pinned)."""
+        freed = 0
+        while freed < need:
+            leaves = [(ent[1], key) for key, ent in self._entries.items()
+                      if ent[2] == 0 and self._pool.refcount(ent[0]) == 1]
+            if not leaves:
+                break
+            freed += self._drop(min(leaves)[1])
+        if freed:
+            counter_inc("serve_prefix_evicted", freed)
+        return freed
+
+    def _drop(self, key) -> int:
+        bid = self._entries.pop(key)[0]
+        del self._by_bid[bid]
+        pk = self._by_bid.get(key[0])
+        if pk is not None:
+            self._entries[pk][2] -= 1
+        self._pool.free([bid])
+        return 1
+
+    def release_all(self) -> None:
+        """Drop every index reference (engine shutdown)."""
+        bids = [ent[0] for ent in self._entries.values()]
+        self._entries.clear()
+        self._by_bid.clear()
+        if bids:
+            self._pool.free(bids)
+
+
 class _Seq:
     """Scheduler-side state of one admitted sequence. ``tokens`` holds
     prompt + generated ids; the newest id's KV is NOT yet in cache — its
-    write position is ``pos = len(tokens) - 1``."""
+    write position is ``pos = len(tokens) - 1``. ``cached_blocks`` counts
+    the leading blocks admission matched in the prefix cache (shared and
+    filled: prefill runs only the tail); ``chunk_pos`` is the chunked
+    prefill's cursor (tokens below it have K/V in cache; 0 off that
+    path)."""
 
-    __slots__ = ("req", "tokens", "blocks", "prompt_len")
+    __slots__ = ("req", "tokens", "blocks", "prompt_len", "cached_blocks",
+                 "chunk_pos")
 
     def __init__(self, req: _Request, tokens: List[int]):
         self.req = req
         self.tokens = tokens
         self.blocks: List[int] = []
         self.prompt_len = len(req.prompt)
+        self.cached_blocks = 0
+        self.chunk_pos = 0
 
     @property
     def pos(self) -> int:
@@ -250,7 +413,11 @@ class Engine:
             self._params = self._plain_params = params
         del params
         self._n_layers = len(self._params["layers"])
-        self._max_blocks = -(-cfg.max_seq_len // cfg.block_size)
+        self._spec_k = cfg.spec_k
+        # the speculative verify writes reach pos + spec_k: widen the block
+        # tables so a real write never lands past them
+        self._max_blocks = -(-(cfg.max_seq_len + self._spec_k)
+                             // cfg.block_size)
         # zeros, never empty: padding rows read trash block 0 under a -inf
         # mask on the plain path, and 0 * NaN would poison it
         shape = (self._n_layers, cfg.num_blocks, cfg.block_size,
@@ -259,6 +426,17 @@ class Engine:
         self._vpool = torch.zeros(shape, dtype=self._dtype, device=self._device)
         self._pool = PagePool(cfg.num_blocks)
         self._prefill_buckets = self._make_prefill_buckets()
+        self._prefix = (_PrefixCache(self._pool, cfg.block_size)
+                        if cfg.prefix_cache else None)
+        # None when spec is off, True for the n-gram proposer, or (arch,
+        # params, window) of a small model drafter on the engine's device
+        self._drafter = None
+        if self._spec_k:
+            self._drafter = self._make_drafter(cfg.drafter)
+        # 0 = monolithic prefill; else the chunk grain, and the sequences
+        # whose prompt is being prefilled one chunk per scheduler step
+        self._chunk = cfg.prefill_chunk
+        self._prefilling: List[_Seq] = []
 
         # scheduler-thread-only state
         self._fns: Dict[tuple, object] = {}
@@ -303,7 +481,9 @@ class Engine:
             raise ValueError(
                 f"serving: prompt + max_new_tokens = {total} exceeds "
                 f"max_seq_len {self.config.max_seq_len}")
-        if -(-total // self.config.block_size) > self._pool.num_blocks - 1:
+        # the speculative verify maps up to spec_k slots past the last token
+        if -(-(total + self._spec_k) // self.config.block_size) \
+                > self._pool.num_blocks - 1:
             raise ValueError(
                 "serving: request needs more KV blocks than the whole pool; "
                 "raise FLAGS_serve_num_blocks")
@@ -335,6 +515,8 @@ class Engine:
             "pages_total": self._pool.num_blocks - 1,
             "pages_used": self._pool.used_blocks,
             "pages_free": self._pool.free_blocks,
+            "pages_cached": (self._prefix.blocks
+                             if self._prefix is not None else 0),
             "compiles": len(self._fns),
             "decode_steps": steps,
             "decode_step_ms_mean": (1e3 * self._decode_s / steps
@@ -357,7 +539,8 @@ class Engine:
                     waiting = list(self._waiting)
                     self._waiting.clear()
                 for req in waiting + [s.req for s in self._running
-                                      + self._resume + self._admitting]:
+                                      + self._resume + self._admitting
+                                      + self._prefilling]:
                     _finish(req, error=ServeError(str(self._broken)))
 
     def __enter__(self):
@@ -377,12 +560,14 @@ class Engine:
     def _run_once(self) -> bool:
         """One scheduler iteration (bounded idle wait). True = stopped."""
         with self._cv:
-            idle = not (self._waiting or self._running or self._resume)
+            idle = not (self._waiting or self._running or self._resume
+                        or self._prefilling)
             if not self._stop and idle:
                 self._cv.wait(timeout=0.5)
             if self._stop:
                 return True
-            has_work = bool(self._waiting or self._running or self._resume)
+            has_work = bool(self._waiting or self._running or self._resume
+                            or self._prefilling)
         if has_work:
             self._step_impl()
         return False
@@ -392,11 +577,18 @@ class Engine:
             self._drain_cancels()
             # tracked so a crash mid-prefill fails their handles too
             self._admitting = self._admit()
+            if self._admitting and self._chunk:
+                self._admitting = self._chunk_divert(self._admitting)
             if self._admitting:
                 self._prefill(self._admitting)
             self._admitting = []
+            if self._prefilling:
+                self._chunk_step()
             if self._running:
-                self._decode()
+                if self._spec_k:
+                    self._decode_spec()
+                else:
+                    self._decode()
 
     # -- admission ----------------------------------------------------------
     def _make_prefill_buckets(self):
@@ -421,26 +613,68 @@ class Engine:
         # just packed in
         return self._pool.free_blocks - need >= len(self._running) + extra_running
 
-    def _grant(self, n_tokens: int, extra_running: int):
-        need = -(-n_tokens // self.config.block_size)
-        return self._pool.alloc(need) if self._headroom_ok(
-            need, extra_running) else None
+    def _alloc_with_reclaim(self, need: int, extra_running: int):
+        """Block grant under the headroom rule; unpinned prefix-cache
+        entries are free headroom in disguise, so LRU entries are evicted
+        before admission declares backpressure."""
+        if self._headroom_ok(need, extra_running):
+            got = self._pool.alloc(need)
+            if got is not None:
+                return got
+        if self._prefix is not None and len(self._prefix):
+            want = (need + len(self._running) + extra_running
+                    - self._pool.free_blocks)
+            if self._prefix.evict(max(want, 1)) \
+                    and self._headroom_ok(need, extra_running):
+                return self._pool.alloc(need)
+        return None
+
+    def _match_prefix(self, tokens) -> List[int]:
+        """Longest cached prefix of an admission candidate; the matched
+        blocks are shared here (callers free them if admission then fails).
+        Capped one token short of the whole sequence: prefill must always
+        produce the first-token logits."""
+        bids = self._prefix.match(tokens,
+                                  (len(tokens) - 1) // self.config.block_size)
+        if bids:
+            self._pool.share(bids)
+            counter_inc("serve_prefix_hits")
+            counter_inc("serve_prefix_blocks_shared", len(bids))
+        else:
+            counter_inc("serve_prefix_misses")
+        return bids
+
+    def _grant(self, tokens, extra_running: int):
+        """(matched cached blocks, fresh blocks) covering ``tokens``, or
+        None with nothing held."""
+        matched = (self._match_prefix(tokens) if self._prefix is not None
+                   else [])
+        need = -(-len(tokens) // self.config.block_size) - len(matched)
+        blocks = self._alloc_with_reclaim(need, extra_running)
+        if blocks is None:
+            if matched:
+                self._pool.free(matched)
+            return None
+        return matched, blocks
 
     def _admit(self) -> List[_Seq]:
         """Preempted sequences first, then the queue in FIFO order; stops at
-        the first request the pool's headroom cannot take."""
+        the first request the pool's headroom cannot take. Each admitted
+        sequence owns its cached prefix blocks (shared) and fresh blocks for
+        the rest."""
         admitted: List[_Seq] = []
         max_batch = self.config.max_batch
         with span("admit") as sp:
             still_resume = []
             for seq in self._resume:
-                blocks = (self._grant(len(seq.tokens), len(admitted) + 1)
-                          if len(self._running) + len(admitted) < max_batch
-                          else None)
-                if blocks is None:
+                got = (self._grant(seq.tokens, len(admitted) + 1)
+                       if len(self._running) + len(admitted) < max_batch
+                       else None)
+                if got is None:
                     still_resume.append(seq)
                     continue
-                seq.blocks = blocks
+                seq.blocks = got[0] + got[1]
+                seq.cached_blocks = len(got[0])
                 admitted.append(seq)
             self._resume = still_resume
             with self._cv:
@@ -449,17 +683,18 @@ class Engine:
                 if len(self._running) + len(admitted) >= max_batch:
                     break
                 with self._cv:
-                    blocks = self._grant(len(req.prompt), len(admitted) + 1)
-                    if blocks is None:
+                    got = self._grant(req.prompt, len(admitted) + 1)
+                    if got is None:
                         counter_inc("serve_backpressure")
                         break
                     try:
                         self._waiting.remove(req)
                     except ValueError:  # raced away mid-pass — undo the grant
-                        self._pool.free(blocks)
+                        self._pool.free(got[0] + got[1])
                         continue
                 seq = _Seq(req, list(req.prompt))
-                seq.blocks = blocks
+                seq.blocks = got[0] + got[1]
+                seq.cached_blocks = len(got[0])
                 admitted.append(seq)
             if admitted:
                 counter_inc("serve_admitted", len(admitted))
@@ -467,39 +702,116 @@ class Engine:
         return admitted
 
     # -- prefill -------------------------------------------------------------
-    def _prefill(self, seqs: List[_Seq]):
+    def _prefill_call(self, kind: str, feeds):
+        """One prefill call at the fixed prefill width over ``feeds``, one
+        ``(tokens, start, blocks)`` a row: ``"prefill"`` runs the dense pass
+        over whole prompts (start 0), ``"prefill_tail"`` feeds the tokens at
+        absolute positions ``start + [0..len)`` against the blocks already
+        in the row's table. Returns the logits at each row's last fed token,
+        on the device."""
         bw = self.config.prefill_batch
-        groups: Dict[int, List[_Seq]] = {}
+        t_bucket = self._bucket_for(max(len(t) for t, _, _ in feeds))
+        ids = np.zeros((bw, t_bucket), np.int32)
+        starts = np.zeros((bw,), np.int32)
+        lens = np.ones((bw,), np.int32)
+        tables = np.full((bw, self._max_blocks), TRASH_BLOCK, np.int32)
+        for r, (toks, start, blocks) in enumerate(feeds):
+            ids[r, :len(toks)] = toks
+            starts[r] = start
+            lens[r] = len(toks)
+            tables[r, :len(blocks)] = blocks
+        fn = self._get_fn(kind, bw, t_bucket)
+        args = (ids, lens, tables) if kind == "prefill" \
+            else (ids, starts, lens, tables)
+        self._kpool, self._vpool, logits = fn(
+            self._params, *map(self._dev, args), self._kpool, self._vpool)
+        return logits
+
+    def _prefill(self, seqs: List[_Seq]):
+        """Prefill by length bucket at the fixed prefill width: rows that
+        matched the prefix cache run the tail program (bucketed by tail
+        length, reading the shared prefix from the pool), misses the dense
+        whole-prompt program."""
+        bw, bs = self.config.prefill_batch, self.config.block_size
+        groups: Dict[tuple, List[_Seq]] = {}
         for s in seqs:
-            groups.setdefault(self._bucket_for(len(s.tokens)), []).append(s)
-        for t_bucket in sorted(groups):
-            group = groups[t_bucket]
+            n = len(s.tokens) - s.cached_blocks * bs
+            groups.setdefault((s.cached_blocks > 0, self._bucket_for(n)),
+                              []).append(s)
+        for tail, t_bucket in sorted(groups):
+            group = groups[(tail, t_bucket)]
             for i in range(0, len(group), bw):
                 chunk = group[i:i + bw]
                 with span("prefill", bucket_t=t_bucket, bucket_b=bw,
-                          rows=len(chunk)):
-                    fn = self._get_fn("prefill", bw, t_bucket)
-                    ids = np.zeros((bw, t_bucket), np.int32)
-                    lens = np.ones((bw,), np.int32)
-                    tables = np.full((bw, self._max_blocks), TRASH_BLOCK,
-                                     np.int32)
-                    for r, s in enumerate(chunk):
-                        ids[r, :len(s.tokens)] = s.tokens
-                        lens[r] = len(s.tokens)
-                        tables[r, :len(s.blocks)] = s.blocks
-                    self._kpool, self._vpool, logits = fn(
-                        self._params, self._dev(ids), self._dev(lens),
-                        self._dev(tables), self._kpool, self._vpool)
+                          rows=len(chunk), shared=tail):
+                    feeds = [(s.tokens[s.cached_blocks * bs:],
+                              s.cached_blocks * bs, s.blocks) for s in chunk]
+                    logits = self._prefill_call(
+                        "prefill_tail" if tail else "prefill", feeds)
                     counter_inc("serve_prefills")
+                    if tail:
+                        counter_inc("serve_tail_prefills")
                     self._land_prefill(chunk, logits.float().cpu().numpy())
 
     def _land_prefill(self, chunk: List[_Seq], rows: np.ndarray):
-        """Sample each row's first generated token and move the sequence
-        into the running set."""
+        """Index the prompt's full blocks in the prefix cache (while the
+        sequence still owns them: the index takes its own reference, so a
+        first-token retirement keeps the KV), then sample each row's first
+        generated token and move the sequence into the running set."""
         for r, s in enumerate(chunk):
+            if self._prefix is not None:
+                full = s.prompt_len // self.config.block_size
+                if full > s.cached_blocks:
+                    self._prefix.insert(s.tokens, s.blocks, s.cached_blocks,
+                                        full)
             self._append_token(s, self._sample_host(rows[r], s.req))
             if not s.req.done.is_set():
                 self._running.append(s)
+
+    # -- chunked prefill ------------------------------------------------------
+    def _chunk_divert(self, seqs: List[_Seq]) -> List[_Seq]:
+        """Move admitted sequences whose uncached tail exceeds one chunk to
+        the chunked queue; the rest keep the monolithic path. A diverted
+        sequence already owns ALL its prompt blocks: only the K/V writes
+        are spread over steps."""
+        keep: List[_Seq] = []
+        bs = self.config.block_size
+        for s in seqs:
+            if len(s.tokens) - s.cached_blocks * bs > self._chunk:
+                s.chunk_pos = s.cached_blocks * bs
+                self._prefilling.append(s)
+            else:
+                keep.append(s)
+        return keep
+
+    def _chunk_step(self):
+        """Advance chunked prefill by ONE tail-prefill call (at most
+        prefill_batch rows, one chunk each), then the scheduler goes on to
+        the decode step, so a long prompt never stalls the live streams for
+        a whole prefill. Chunk boundaries are block-aligned (the chunk is a
+        multiple of the block size, a cached prefix is whole blocks); the
+        earlier chunks' K/V is read back through the table. Intermediate
+        logits are dropped; the last chunk lands the sequence as a
+        monolithic prefill would."""
+        bw = self.config.prefill_batch
+        batch = self._prefilling[:bw]
+        feeds = [min(self._chunk, len(s.tokens) - s.chunk_pos) for s in batch]
+        with span("prefill", bucket_b=bw, rows=len(batch), chunked=True):
+            logits = self._prefill_call("prefill_tail", [
+                (s.tokens[s.chunk_pos:s.chunk_pos + n], s.chunk_pos, s.blocks)
+                for s, n in zip(batch, feeds)])
+            counter_inc("serve_prefill_chunks")
+            for s, n in zip(batch, feeds):
+                s.chunk_pos += n
+            done = [r for r, s in enumerate(batch)
+                    if s.chunk_pos >= len(s.tokens)]
+            if done:
+                finished = [batch[r] for r in done]
+                self._prefilling = [s for s in self._prefilling
+                                    if s not in finished]
+                counter_inc("serve_prefills", len(finished))
+                self._land_prefill(finished,
+                                   logits[done].float().cpu().numpy())
 
     def _sample_host(self, logits_row: np.ndarray, req: _Request) -> int:
         """The first generated token (prefill output) is sampled host-side."""
@@ -513,16 +825,23 @@ class Engine:
 
     # -- decode --------------------------------------------------------------
     def _grow_blocks(self):
-        """Every live sequence needs block ``pos // block_size`` mapped
-        before the step; pool exhaustion preempts the youngest peer (evict →
-        requeue for re-prefill) — backpressure, never failure."""
+        """Every live sequence needs block ``(pos + spec_k) // block_size``
+        mapped before the step (the verify writes spec_k slots past pos);
+        pool exhaustion first reclaims unpinned prefix-cache entries, then
+        preempts the youngest peer (evict → requeue for re-prefill) —
+        backpressure, never failure."""
         for seq in list(self._running):
             if seq not in self._running:
                 continue  # evicted by an earlier iteration
-            need = seq.pos // self.config.block_size + 1 - len(seq.blocks)
+            need = ((seq.pos + self._spec_k) // self.config.block_size + 1
+                    - len(seq.blocks))
             while need > 0:
                 with span("page_alloc", request=seq.req.id, blocks=need):
                     got = self._pool.alloc(need)
+                    if got is None and self._prefix is not None \
+                            and len(self._prefix):
+                        self._prefix.evict(need - self._pool.free_blocks)
+                        got = self._pool.alloc(need)
                 if got is not None:
                     seq.blocks.extend(got)
                     break
@@ -555,27 +874,67 @@ class Engine:
             old = self._decode_mb.get(bb)
             if old is not None:
                 self._fns.pop(("decode", bb, old), None)
+                self._fns.pop(("spec", bb, old), None)
             self._decode_mb[bb] = mb
         return mb
 
-    def _decode(self):
+    def _cow_guard(self, seq: _Seq):
+        """Copy-on-write: a write-range block still shared with the prefix
+        index or a peer is copied into a private block before the step
+        writes it (the copy is queued on the device ahead of the step's
+        scatters). Admission keeps shared blocks strictly below every write
+        column (matching stops at full prompt blocks, writes start at the
+        prompt's end), so this is defense in depth."""
+        bs = self.config.block_size
+        lo, hi = seq.pos // bs, (seq.pos + self._spec_k) // bs
+        for col in range(lo, min(hi + 1, len(seq.blocks))):
+            bid = seq.blocks[col]
+            if self._pool.refcount(bid) <= 1:
+                continue
+            repl = self._alloc_with_reclaim(1, 0)
+            if repl is None:
+                raise ServeError(f"page pool exhausted during copy-on-write "
+                                 f"(request {seq.req.id})")
+            new = repl[0]
+            self._kpool[:, new].copy_(self._kpool[:, bid])
+            self._vpool[:, new].copy_(self._vpool[:, bid])
+            seq.blocks[col] = new
+            self._pool.free([bid])
+            counter_inc("serve_cow_copies")
+
+    def _decode_batch(self):
+        """Map every live sequence's write blocks (copy-on-write guarded in
+        a prefix-cache engine) and lay out the decode batch: (live rows,
+        bucket, tables (bucket, gather width), write positions,
+        temperatures), padding rows at the trash block and pos 0; None when
+        no sequence is left."""
         self._grow_blocks()
         if not self._running:
-            return
+            return None
+        if self._prefix is not None:
+            for s in self._running:
+                self._cow_guard(s)
         n = len(self._running)
         bb = next(b for b in self.config.decode_buckets if b >= n)
-        mb = self._gather_width(bb)
-        tables = np.full((bb, mb), TRASH_BLOCK, np.int32)
+        tables = np.full((bb, self._gather_width(bb)), TRASH_BLOCK, np.int32)
         pos = np.zeros((bb,), np.int32)
-        toks = np.zeros((bb,), np.int32)
         temps = np.zeros((bb,), np.float32)
         for r, s in enumerate(self._running):
             tables[r, :len(s.blocks)] = s.blocks
             pos[r] = s.pos
-            toks[r] = s.tokens[-1]
             temps[r] = s.req.temperature
+        return n, bb, tables, pos, temps
+
+    def _decode(self):
+        batch = self._decode_batch()
+        if batch is None:
+            return
+        n, bb, tables, pos, temps = batch
+        toks = np.zeros((bb,), np.int32)
+        for r, s in enumerate(self._running):
+            toks[r] = s.tokens[-1]
         with span("decode_step", bucket=bb, rows=n, step=self._step_i):
-            fn = self._get_fn("decode", bb, mb)
+            fn = self._get_fn("decode", bb, tables.shape[1])
             t0 = time.monotonic()
             self._kpool, self._vpool, nxt = fn(
                 self._params, self._kpool, self._vpool, self._dev(tables),
@@ -588,6 +947,104 @@ class Engine:
         counter_inc("serve_decode_steps")
         for r, s in enumerate(list(self._running)):
             self._append_token(s, int(nxt[r]))
+
+    # -- speculative decode ---------------------------------------------------
+    def _make_drafter(self, d):
+        """The drafter of a speculative engine: True for the n-gram
+        proposer, or (arch, params on the engine's device, window) of a
+        ``GPTForPretraining`` / ``LlamaForCausalLM`` drafter."""
+        if d is None or d == "ngram":
+            return True
+        if isinstance(d, str):
+            raise ValueError(f"serving: unknown drafter {d!r}")
+        if hasattr(d, "gpt"):
+            state = G.gpt_decode_state
+        elif hasattr(d, "lm_head") and hasattr(d, "model"):
+            state = G.llama_decode_state
+        else:
+            raise TypeError(f"serving: unsupported drafter {type(d).__name__}")
+        _, darch, dparams, dmax = state(d, self._device)
+        return darch, dparams, max(2, min(self.config.draft_window,
+                                          int(dmax) - self._spec_k))
+
+    def _propose(self, bb: int) -> np.ndarray:
+        """Draft proposals (bb, spec_k) for the greedy rows, -1 padded (a -1
+        never equals a verify argmax, so an unproposed slot accepts nothing
+        and the row emits one token)."""
+        k = self._spec_k
+        drafts = np.full((bb, k), -1, np.int32)
+        greedy_rows = [(r, s) for r, s in enumerate(self._running)
+                       if s.req.temperature <= 0.0]
+        if not greedy_rows:
+            return drafts
+        if self._drafter is True:  # host-side n-gram prompt lookup
+            for r, s in greedy_rows:
+                got = _ngram_propose(s.tokens, k)
+                drafts[r, :len(got)] = got
+            return drafts
+        _, dparams, W = self._drafter
+        ids = np.zeros((bb, W), np.int32)
+        lens = np.ones((bb,), np.int32)
+        for r, s in greedy_rows:
+            tl = min(len(s.tokens), W)
+            ids[r, :tl] = s.tokens[-tl:]
+            lens[r] = tl
+        with span("draft", bucket=bb, rows=len(greedy_rows)):
+            out = self._get_fn("draft", bb)(
+                dparams, self._dev(ids), self._dev(lens)).cpu().numpy()
+        for r, _ in greedy_rows:
+            drafts[r] = out[r]
+        return drafts
+
+    def _decode_spec(self):
+        """One speculative scheduler step: draft k tokens a row, verify them
+        and the pending next-input token in ONE step, accept the longest
+        agreeing prefix. Greedy rows emit 1..k+1 tokens a step, the tokens
+        plain decode would give; sampling rows take the j = 0 sampled token
+        and accept no drafts."""
+        k = self._spec_k
+        batch = self._decode_batch()
+        if batch is None:
+            return
+        n, bb, tables, pos, temps = batch
+        drafts = self._propose(bb)
+        toks = np.zeros((bb, k + 1), np.int32)
+        for r, s in enumerate(self._running):
+            toks[r, 0] = s.tokens[-1]
+            toks[r, 1:] = drafts[r]
+        with span("decode_step", bucket=bb, rows=n, step=self._step_i,
+                  spec_k=k) as sp:
+            fn = self._get_fn("spec", bb, tables.shape[1])
+            t0 = time.monotonic()
+            self._kpool, self._vpool, greedy, sampled = fn(
+                self._params, self._kpool, self._vpool, self._dev(tables),
+                self._dev(pos), self._dev(toks), self._dev(temps), self._gen)
+            greedy, sampled = greedy.cpu().numpy(), sampled.cpu().numpy()
+            self._decode_s += time.monotonic() - t0
+            proposed = accepted = 0
+            for r, s in enumerate(list(self._running)):
+                if temps[r] > 0.0:
+                    self._append_token(s, int(sampled[r]))
+                    continue
+                nprop = int(np.sum(drafts[r] >= 0))
+                m = 0
+                while m < nprop and drafts[r, m] == greedy[r, m]:
+                    m += 1
+                proposed += nprop
+                accepted += m
+                # the m accepted drafts come back as the target's own argmax
+                # continuations, then the token after the last of them
+                for j in range(m + 1):
+                    if s.req.done.is_set():
+                        break
+                    self._append_token(s, int(greedy[r, j]))
+            sp.set(drafted=proposed, accepted=accepted)
+        self._step_i += 1
+        self._occ_live += n
+        self._occ_slots += bb
+        counter_inc("serve_decode_steps")
+        counter_inc("serve_draft_proposed", proposed)
+        counter_inc("serve_draft_accepted", accepted)
 
     def _append_token(self, seq: _Seq, tok: int):
         """Record one generated token; retire the sequence when it hits eos,
@@ -625,6 +1082,14 @@ class Engine:
             self._resume.remove(seq)
             _finish(seq.req, error=RequestCancelled(
                 f"request {seq.req.id} cancelled"))
+        # a cancel mid-chunked-prefill frees its (fully granted) prompt
+        # blocks at once; the chunks already written are abandoned
+        for seq in [s for s in self._prefilling if s.req.cancelled]:
+            self._prefilling.remove(seq)
+            self._pool.free(seq.blocks)
+            seq.blocks = []
+            _finish(seq.req, error=RequestCancelled(
+                f"request {seq.req.id} cancelled"))
         with self._cv:
             cancelled = [r for r in self._waiting if r.cancelled]
             for req in cancelled:
@@ -634,6 +1099,11 @@ class Engine:
 
     def _shutdown(self):
         err = self._broken or ServeError("serving engine closed")
+        if self._prefix is not None:
+            try:
+                self._prefix.release_all()
+            except RuntimeError:  # a corrupt pool must not stop the sweep
+                pass
         with self._cv:
             waiting = list(self._waiting)
             self._waiting.clear()
@@ -641,7 +1111,8 @@ class Engine:
             _finish(req, error=ServeError(str(err)))
         # _admitting covers sequences a crash caught mid-prefill; _finish
         # dedupes any that already made it to _running
-        for seq in self._running + self._resume + self._admitting:
+        for seq in (self._running + self._resume + self._admitting
+                    + self._prefilling):
             if seq.blocks:
                 try:
                     self._pool.free(seq.blocks)
@@ -650,6 +1121,7 @@ class Engine:
                 seq.blocks = []
             _finish(seq.req, error=ServeError(str(err)))
         self._running, self._resume, self._admitting = [], [], []
+        self._prefilling = []
 
     # -- step-function cache -------------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -666,6 +1138,20 @@ class Engine:
                 bw, t_bucket = bucket
                 fn = G.build_paged_prefill(self._arch, bw, t_bucket, bs,
                                            self._max_blocks)
+            elif kind == "prefill_tail":
+                bw, t_bucket = bucket
+                fn = G.build_paged_tail_prefill(self._arch, bw, t_bucket, bs,
+                                                self._max_blocks)
+            elif kind == "spec":
+                # the verify keeps the gather path, as the reference does
+                bb, mb = bucket
+                fn = G.build_paged_spec_decode(self._arch, bb, self._spec_k,
+                                               bs, mb)
+            elif kind == "draft":
+                # over the drafter's own weights, never the target's
+                (bb,) = bucket
+                darch, _, W = self._drafter
+                fn = G.build_window_draft(darch, bb, W, self._spec_k)
             else:
                 bb, mb = bucket
                 build = (G.build_paged_decode_kernel
@@ -685,44 +1171,122 @@ class Engine:
         freshly granted blocks that are freed afterwards. The engine must be
         idle; this runs on the calling thread. Returns
         ``(kernel_logits, plain_logits)`` as float32 numpy arrays."""
-        bs, bw = self.config.block_size, self.config.prefill_batch
-        grants = [self._pool.alloc(len(p) // bs + 1) for p in prompts]
+        bs, B = self.config.block_size, len(prompts)
+        grants = self._debug_grants([len(p) // bs + 1 for p in prompts],
+                                    "_debug_step_logits")
         try:
-            if any(g is None for g in grants):
-                raise ServeError("_debug_step_logits: pool too small")
-            B = len(prompts)
-            mb = 1
-            while mb < max(len(g) for g in grants):
-                mb *= 2
-            tables = np.full((B, mb), TRASH_BLOCK, np.int32)
-            pos = np.array([len(p) for p in prompts], np.int32)
-            toks = np.zeros((B,), np.int32)
             with torch.inference_mode():
-                for r, (p, g) in enumerate(zip(prompts, grants)):
-                    tables[r, :len(g)] = g
-                    t_bucket = self._bucket_for(len(p))
-                    ids = np.zeros((bw, t_bucket), np.int32)
-                    ids[0, :len(p)] = p
-                    lens = np.ones((bw,), np.int32)
-                    lens[0] = len(p)
-                    ptab = np.full((bw, self._max_blocks), TRASH_BLOCK, np.int32)
-                    ptab[0, :len(g)] = g
-                    fn = G.build_paged_prefill(self._arch, bw, t_bucket, bs,
-                                               self._max_blocks)
-                    _, _, logits = fn(self._params, self._dev(ids),
-                                      self._dev(lens), self._dev(ptab),
-                                      self._kpool, self._vpool)
-                    toks[r] = int(logits[0].float().argmax())
+                tables, pos, toks = self._debug_prefill_rows(prompts, grants)
                 out = []
                 for build, params in ((G.build_paged_decode_kernel, self._params),
                                       (G.build_paged_decode, self._plain_params)):
-                    logits = build(self._arch, B, bs, mb).logits(
+                    logits = build(self._arch, B, bs, tables.shape[1]).logits(
                         params, self._kpool.clone(), self._vpool.clone(),
-                        self._dev(tables), self._dev(pos), self._dev(toks))
+                        tables, self._dev(pos), self._dev(toks))
                     out.append(logits.float().cpu().numpy())
             return out[0], out[1]
         finally:
-            self._pool.free([b for g in grants if g is not None for b in g])
+            self._pool.free([b for g in grants for b in g])
+
+    def _debug_grants(self, sizes, who):
+        """Fresh blocks of the given counts for a debug hook (freed by the
+        caller); raises when the pool cannot give them all."""
+        grants = []
+        for n in sizes:
+            g = self._pool.alloc(n)
+            if g is None:
+                self._pool.free([b for g in grants for b in g])
+                raise ServeError(f"{who}: pool too small")
+            grants.append(g)
+        return grants
+
+    def _debug_prefill_rows(self, prompts, grants):
+        """Each prompt prefilled into its granted blocks: the rows' block
+        table (B, a power of two of blocks) on the device, their next write
+        positions and their first generated (greedy) tokens."""
+        mb = 1
+        while mb < max(len(g) for g in grants):
+            mb *= 2
+        tables = np.full((len(prompts), mb), TRASH_BLOCK, np.int32)
+        toks = np.zeros((len(prompts),), np.int32)
+        for r, (p, g) in enumerate(zip(prompts, grants)):
+            tables[r, :len(g)] = g
+            toks[r] = int(self._prefill_call("prefill", [(p, 0, g)])[0]
+                          .float().argmax())
+        return (self._dev(tables), np.array([len(p) for p in prompts],
+                                            np.int32), toks)
+
+    def _debug_prefill_paths(self, prompts, head=None, chunk=None):
+        """Logits at each prompt's last token by three prefill paths: the
+        monolithic prefill; a tail prefill over a cached head of ``head``
+        blocks (half the prompt's full blocks by default; the prefix
+        index's chain for the prompt where the engine has one and it
+        matches, else the monolithic pass's blocks); and a chunked prefill
+        from position 0 in ``chunk``-token chunks (the engine's
+        ``prefill_chunk``, else two blocks), whose last chunk gives the
+        logits. Each path writes its own fresh blocks, freed after each
+        prompt. The engine must be idle; this runs on the calling thread.
+        Returns ``(monolithic, tail, chunked)``, float32 (n, V)."""
+        bs = self.config.block_size
+        chunk = chunk or self._chunk or 2 * bs
+        out = ([], [], [])
+        with torch.inference_mode():
+            for p in prompts:
+                grants = self._debug_grants([-(-len(p) // bs)] * 3,
+                                            "_debug_prefill_paths")
+                mono, tail, chunked = grants
+                try:
+                    out[0].append(self._prefill_call(
+                        "prefill", [(p, 0, mono)])[0])
+                    n = (len(p) - 1) // bs // 2 if head is None \
+                        else min(head, (len(p) - 1) // bs)
+                    cached = (self._prefix.match(p, n) if self._prefix
+                              is not None else []) or mono[:n]
+                    start = len(cached) * bs
+                    out[1].append(self._prefill_call("prefill_tail", [
+                        (p[start:], start, cached + tail[len(cached):])])[0])
+                    for start in range(0, len(p), chunk):
+                        last = self._prefill_call("prefill_tail", [
+                            (p[start:start + chunk], start, chunked)])[0]
+                    out[2].append(last)
+                finally:
+                    self._pool.free([b for g in grants for b in g])
+        return tuple(torch.stack(o).float().cpu().numpy() for o in out)
+
+    def _debug_spec_logits(self, prompts, k):
+        """Speculative-verify logits against sequential decode. Each prompt
+        is prefilled into fresh blocks; then k+1 plain (gather) decode steps
+        feed one token a row at a time — the first generated token, then
+        each step's own argmax — and one verify step feeds the same k+1
+        tokens a row at ``pos + [0..k]``. Both overwrite each fed slot
+        before any feed reads it, so they run on one pool state. Blocks are
+        freed afterwards. The engine must be idle; this runs on the calling
+        thread. Returns ``(verify, sequential)``, float32 (B, k+1, V)."""
+        bs, B = self.config.block_size, len(prompts)
+        grants = self._debug_grants([-(-(len(p) + k + 1) // bs)
+                                     for p in prompts], "_debug_spec_logits")
+        try:
+            with torch.inference_mode():
+                tables, pos, first = self._debug_prefill_rows(prompts, grants)
+                mb = tables.shape[1]
+                toks = np.zeros((B, k + 1), np.int32)
+                toks[:, 0] = first
+                step = G.build_paged_decode(self._arch, B, bs, mb).logits
+                seq = []
+                for j in range(k + 1):
+                    seq.append(step(self._params, self._kpool, self._vpool,
+                                    tables, self._dev(pos + j),
+                                    self._dev(toks[:, j])).float())
+                    if j < k:
+                        toks[:, j + 1] = seq[-1].argmax(-1).cpu().numpy()
+                ver = G.build_paged_spec_decode(
+                    self._arch, B, k, bs, mb).logits(
+                        self._params, self._kpool, self._vpool, tables,
+                        self._dev(pos), self._dev(toks))
+            return (ver.float().cpu().numpy(),
+                    torch.stack(seq, 1).cpu().numpy())
+        finally:
+            self._pool.free([b for g in grants for b in g])
 
 
 def _engine_loop(wr, device):

@@ -250,10 +250,15 @@ def test_int8_matmul_twohot_rows_are_reference_dequant_sums(transpose_w):
 
 def test_int8_checks_cover_every_engine_launch():
     """``chip_smoke.py`` checks the int8 head at every row count the engine
-    phase's engine launches it with (decode buckets, prefill width), and at
-    two passes, a ragged N and a ragged K."""
+    phase's engine launches it with (decode buckets, prefill width, and
+    each bucket's speculative verify of bucket x (k + 1) rows), and at two
+    passes, a ragged N and a ragged K."""
     rows = chip_smoke.engine_int8_rows()
-    assert rows == [1, 2, 4, 8, 16, 32]
+    k = chip_smoke.SPEC_K
+    assert k == 4
+    assert rows == sorted({1, 2, 4, 8, 16, 32}
+                          | {b * (k + 1) for b in (1, 2, 4, 8, 16, 32)})
+    assert max(rows) == 160 in chip_smoke.INT8_TIMING_ROWS
     assert chip_smoke.ENGINE_KW["prefill_batch"] in rows
     shapes = chip_smoke.int8_check_shapes()
     K, N = chip_smoke.INT8_HEAD

@@ -1,6 +1,9 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py): the
-JAX model's weights exported as numpy, and the port model built from them."""
+JAX model's weights exported as numpy, the port model built from them, and
+the serving tests' flag, wave and drain helpers."""
+import contextlib
 import dataclasses
+import time
 
 import numpy as np
 
@@ -35,3 +38,44 @@ def port_of_llama(jmodel):
     m = LlamaForCausalLM(cfg, device="cpu").eval()
     load_reference_state_dict(m, reference_state(jmodel))
     return m
+
+
+@contextlib.contextmanager
+def serve_flags(**fl):
+    """The same ``FLAGS_*`` values in the reference's and the port's
+    registries for the block; both are restored after it."""
+    from paddle_tpu.framework import flags as jflags
+    from paddle_tpu_torch.framework import flags as tflags
+
+    old_j = {k: jflags._FLAGS.get(k) for k in fl}
+    old_t = tflags.get_flags(list(fl))
+    jflags._FLAGS.update(fl)
+    tflags.set_flags(fl)
+    try:
+        yield
+    finally:
+        jflags._FLAGS.update(old_j)
+        tflags.set_flags(old_t)
+
+
+def serve_waves(eng, waves, **submit_kw):
+    """Outputs of each wave of prompts (the prompts of a wave are submitted
+    at once, and the next wave waits for them)."""
+    out = []
+    for wave in waves:
+        handles = [eng.submit(p, **submit_kw) for p in wave]
+        out.append([h.result(timeout=300) for h in handles])
+    return out
+
+
+def drained(eng, timeout=30.0):
+    """``eng.stats()`` once only the prefix index holds pages (or after
+    ``timeout``), with the pool's conservation checked."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        st = eng.stats()
+        if st["pages_used"] == st["pages_cached"]:
+            break
+        time.sleep(0.01)
+    eng._pool.check()
+    return eng.stats()
