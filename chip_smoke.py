@@ -35,7 +35,9 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    D=40 head, T=130 at D=128, every head width instantiation), in bf16 at
    the training shape and at the long-sequence shape (T=8192, D=64); at
    every shape dQ and dK/dV are each launched twice on the same inputs, and
-   the two must agree bit for bit;
+   the two must agree bit for bit; in bf16 O, dQ, dK and dV are also held by
+   relative norm to the bf16 plain versions, which round P and dS to bf16
+   where the reference's kernels do;
 3. engine: GPT-3 1.3B at full width (24 layers, bf16, random weights from a
    seed) through ``serving.Engine`` over 32 greedy requests, (a) with the
    paged-attention kernel and (b) int8 weights with both kernels; (e) the
@@ -43,11 +45,26 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    one request, then 32 at once whose prompts share a 512-token prefix,
    each of which must hit the cache for its 32 blocks; (f) speculative
    decoding (4 n-gram drafts a row) with int8 weights and the int8 head,
-   then once with a 2-layer GPT at 1.3B's width as a model drafter; then
-   Llama-7B at full width and depth (32 layers, 32 heads, KV = 32, FFN
-   11008, vocab 32000, untied head, bf16, random weights from a seed) as
-   (a) and (b), (c) and (d). Launch counts are zeroed just before each
-   drive and read just after it; every output must have exactly prompt +
+   then once with a 2-layer GPT at 1.3B's width as a model drafter; (g)
+   serving-state durability and resilience on the paged kernel, each
+   sub-drive's 32 requests queued before the first admission: g0 the
+   uninterrupted run twice (the two must agree token for token), g1 a
+   handoff after 16 decode steps (``new.adopt(old.handoff())`` must
+   re-attach with no token re-prefilled and give g0's tokens; the ms of
+   ``handoff()``, ``adopt()`` and the KV checksums are printed), g2 a
+   ``ServingSupervisor`` (snapshot on) over a crash at decode step 24 (one
+   restart, a re-attach, g0's tokens), g3 a handoff whose capture is torn
+   (``serve.snapshot_corrupt``: adopt falls back to re-prefill, every
+   request completes), g4 a synthesized out-of-memory at step 8 (blocks
+   parked, nothing fails), g5 ``max_queue=8, shed=True`` (32 at once: some
+   ``Overloaded`` with a positive ``retry_after_s``, the accepted ones
+   complete), a 1 ms deadline (``DeadlineExceeded``) and
+   ``close(drain=True)`` with work in flight (``ready()`` False with reason
+   "draining" meanwhile, every request completes); then Llama-7B at full
+   width and depth (32 layers, 32 heads, KV = 32, FFN 11008, vocab 32000,
+   untied head, bf16, random weights from a seed) as (a) and (b), (c) and
+   (d), and (h) as g0 and g1. Launch counts are zeroed just before each
+   drive (each sub-drive of (g) and (h)) and read just after it; every output must have exactly prompt +
    64 tokens and the pool must drain (to the prefix index's own blocks in
    (e), and to none after its ``close()``). One decode step built with the
    kernels is held against the same step built with the plain versions on
@@ -83,7 +100,8 @@ long-sequence shape (no launches on the main path),
 size at each of ``PAGED_SHAPES``, and ``{"engine_drives": [...]}``, each
 engine drive's tok/s, decode steps, mean decode-step ms, launches and
 logits errors, with (e)'s prefix hits, shared blocks, tail prefills and
-chunk steps and (f)'s drafts proposed and accepted.
+chunk steps, (f)'s drafts proposed and accepted, and (g)'s and (h)'s
+sub-drives with their adopt info.
 """
 from __future__ import annotations
 
@@ -93,6 +111,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -138,6 +157,13 @@ FLASH_DQ_REL_TOL = 1e-2
 # end (~0.3%); the elementwise O tolerance alone is loose where |O| is small
 # (|O| ~ sqrt(e / T) for unit-normal inputs)
 FLASH_O_REL_TOL = 1e-2
+# bf16 flash O, dQ, dK and dV against the bf16 plain versions on the same
+# inputs (``flash_attention_plain`` and ``flash_attention_bwd_plain``, which
+# round P and dS to bf16 where the reference's kernels do), the same norm:
+# what is left is the kernels' ex2.approx and their summation order
+# (measured up to 1.9e-3); a rounding point off the reference's reads more
+# (dS rounded before dK's scale, D = 128: 3.1e-3 to 3.3e-3)
+FLASH_BF16_PLAIN_REL_TOL = 2.5e-3
 # bf16 paged-attention output against the f32 plain version on the same
 # inputs, the same norm: the kernel rounds the output once (and takes the
 # scale rounded to bf16, as the reference does)
@@ -165,6 +191,22 @@ WINDOW_DRAFTER_LAYERS, WINDOW_REQUESTS = 2, 4
 # the verify check's rows: one engine state, the verify step's logits at each
 # j = 0..SPEC_K against j+1 sequential decode steps fed the same tokens
 SPEC_CHECK_ROWS = 8
+# drives (g), GPT-3 1.3B, and (h), Llama-7B: serving-state durability and
+# resilience on the paged kernel, over the drive prompts of (a) and (c). Every
+# sub-drive arms FIRST_STEP_WAITS with its own chaos point: the first step
+# that has work sleeps before it admits, so all the requests are queued
+# before the first admission and every sub-drive admits them alike
+FIRST_STEP_WAITS = "serve.slow_step:at=1,ms=500"
+# g1 and h1: the handoff after this many decode steps; g2: the crash (the
+# replacement engine counts its steps from 0, so it fires once); g4: the
+# synthesized out-of-memory at the serving step
+HANDOFF_AFTER_STEPS = 16
+CRASH_SPEC = "serve.crash:step=24,times=1"
+OOM_SPEC = "hbm.oom:op=serve.step,at=8"
+# g5: the shed policy, a supervisor's watchdog for g2, and g5's drain wave
+SHED_KW = {"max_queue": 8, "shed": True}
+SUPERVISOR_WATCHDOG_S = 2.0
+DRAIN_REQUESTS = 8
 # the int8 LM heads of the engine phase's models (K, N): GPT-3 1.3B's hidden
 # size and padded vocabulary, weight stored (N, K) (the tied embedding), and
 # Llama-7B's, weight stored (K, N) (the untied head, ``transpose_w=False``)
@@ -626,9 +668,10 @@ def rel_err(out, ref):
 
 def flash_check(B, T, Tk, H, D, causal, dtype, fused_qkv=False):
     """The three flash kernels against the plain version (f32, autograd for
-    the gradients) on the same inputs; a second dQ and a second dK/dV launch
-    on the same inputs must agree bit for bit. Returns the max abs error per
-    kernel (dkv: over dK and dV)."""
+    the gradients) on the same inputs, and in bf16 also against the bf16
+    plain versions (the reference's rounding points) by relative norm; a
+    second dQ and a second dK/dV launch on the same inputs must agree bit for
+    bit. Returns the max abs error per kernel (dkv: over dK and dV)."""
     from paddle_tpu_torch.ops import kernels as K
 
     q, k, v, do = flash_inputs(B, T, Tk, H, D, dtype, fused_qkv)
@@ -642,6 +685,9 @@ def flash_check(B, T, Tk, H, D, causal, dtype, fused_qkv=False):
     qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
     po, plse = K.flash_attention_plain(qf, kf, vf, causal)
     gq, gk, gv = torch.autograd.grad(po, (qf, kf, vf), do.float())
+    if dtype == torch.bfloat16:  # the plain versions in bf16 too
+        bo, blse = K.flash_attention_plain(q, k, v, causal)
+        bgrads = K.flash_attention_bwd_plain(q, k, v, do, bo, blse, causal)
     print(f"  flash B={B} T={T} T_kv={Tk} H={H} D={D} causal={causal} "
           f"{str(dtype)[6:]}{' (strided q/k/v views)' if fused_qkv else ''}:")
     errs = {"flash_attention_fwd": compare("flash_attention_fwd", dtype, o, po)}
@@ -665,6 +711,17 @@ def flash_check(B, T, Tk, H, D, causal, dtype, fused_qkv=False):
               f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"{name} bf16: relative error {max(rels):.3e}")
+    if dtype == torch.bfloat16:
+        rels = {n: rel_err(a, b) for n, a, b in zip(
+            ("O", "dQ", "dK", "dV"), (o, dq, dk, dv), (bo, *bgrads))}
+        ok = max(rels.values()) <= FLASH_BF16_PLAIN_REL_TOL
+        print("  flash bf16 against the bf16 plain versions: rel_norm_err "
+              + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+              + f" (tol rel {FLASH_BF16_PLAIN_REL_TOL}) "
+              + ("ok" if ok else "MISMATCH"))
+        if not ok:
+            fail(f"flash bf16 against the bf16 plain versions: {rels}")
+        del bo, blse, bgrads
     if not torch.equal(dq, dq2):
         fail("flash_attention_dq: two launches on the same inputs differ")
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
@@ -1062,6 +1119,16 @@ def build_engine_model(name, cfg):
     return cls(cfg, dtype=torch.bfloat16, seed=0).eval()
 
 
+def well_formed(tag, prompts, outs, vocab_size):
+    """Every output must be its prompt and ``DRIVE_NEW`` in-vocabulary
+    tokens, or ``fail``."""
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + DRIVE_NEW or o[:len(p)] != p \
+                or not all(0 <= t < vocab_size for t in o):
+            fail(f"engine ({tag}): output of {len(o)} tokens for a "
+                 f"{len(p)}-token prompt")
+
+
 def serve(eng, prompts, vocab_size, tag):
     """Greedy ``DRIVE_NEW`` tokens for each prompt, submitted at once; every
     output must be its prompt and ``DRIVE_NEW`` in-vocabulary tokens.
@@ -1071,11 +1138,7 @@ def serve(eng, prompts, vocab_size, tag):
     outs = [h.result(timeout=900) for h in handles]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    for p, o in zip(prompts, outs):
-        if len(o) != len(p) + DRIVE_NEW or o[:len(p)] != p \
-                or not all(0 <= t < vocab_size for t in o):
-            fail(f"engine ({tag}): output of {len(o)} tokens for a "
-                 f"{len(p)}-token prompt")
+    well_formed(tag, prompts, outs, vocab_size)
     return outs, wall
 
 
@@ -1357,12 +1420,303 @@ def spec_drive(model, cfg, prompts, profile=False):
     return row
 
 
+class _Launches:
+    """Paged-kernel launch counts zeroed just before each sub-drive of (g)
+    and (h) and summed just after it; a sub-drive that decodes without a
+    launch fails."""
+
+    def __init__(self):
+        self.total = {"paged_attention_rows": 0, "int8_matmul": 0}
+
+    def __call__(self, tag, run):
+        from paddle_tpu_torch.ops import kernels as K
+
+        K.reset_launch_counts()
+        out = run()
+        counts = K.launch_counts()
+        if not counts["paged_attention_rows"]:
+            fail(f"engine ({tag}): kernel launches {counts}")
+        for k in self.total:
+            self.total[k] += counts[k]
+        return out
+
+
+def chaos_wave(submit, prompts, spec=None, **submit_kw):
+    """Arm ``FIRST_STEP_WAITS`` (with ``spec`` joined to it by the grammar's
+    ``;``) and submit every prompt for ``DRIVE_NEW`` greedy tokens; returns
+    the handles. The caller disarms."""
+    from paddle_tpu_torch.fault import inject
+
+    inject.arm(FIRST_STEP_WAITS + (f";{spec}" if spec else ""))
+    return [submit(p, max_new_tokens=DRIVE_NEW, **submit_kw) for p in prompts]
+
+
+def same_share(outs, ref):
+    return sum(a == b for a, b in zip(outs, ref)) / len(ref)
+
+
+def wait_until(tag, cond, what, timeout=300):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"engine ({tag}): {what} not within {timeout}s")
+        time.sleep(0.002)
+
+
+def handoff_run(model, prompts, vocab_size, tag, launches, corrupt=False):
+    """One handoff: an engine serves ``prompts`` until ``HANDOFF_AFTER_STEPS``
+    decode steps, then ``new.adopt(old.handoff())`` on a fresh engine
+    (``serve.snapshot_corrupt`` armed around the capture when ``corrupt``);
+    the original handles finish on the successor. Returns (outputs, adopt
+    info, handoff ms, adopt ms, checksum ms, successor's pages used after its
+    close())."""
+    from paddle_tpu_torch.fault import inject
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.serving import Engine
+
+    def run():
+        old = Engine(model, **ENGINE_KW, int8=False, seed=0)
+        new = None
+        try:
+            handles = chaos_wave(old.submit, prompts,
+                                 "serve.snapshot_corrupt" if corrupt else None)
+            wait_until(tag, lambda: old.stats()["decode_steps"]
+                       >= HANDOFF_AFTER_STEPS, "the decode steps")
+            t0 = time.monotonic()
+            snap = old.handoff()
+            t_handoff = time.monotonic() - t0
+            inject.disarm()
+            new = Engine(model, **ENGINE_KW, int8=False, seed=0)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            info = new.adopt(snap)
+            t_adopt = time.monotonic() - t0
+            t0 = time.monotonic()
+            with torch.inference_mode():
+                G.kv_block_checksums(snap["kpool"], snap["vpool"],
+                                     snap["fingerprint"]["bids"])
+            t_sums = time.monotonic() - t0
+            del snap
+            outs = [h.result(timeout=900) for h in handles]
+        finally:
+            inject.disarm()
+            old.close()
+            if new is not None:
+                new.close()
+        return outs, info, t_handoff, t_adopt, t_sums, \
+            new.stats()["pages_used"]
+
+    outs, info, t_h, t_a, t_s, used = launches(tag, run)
+    well_formed(tag, prompts, outs, vocab_size)
+    print(f"  engine ({tag}): handoff() {t_h * 1e3:.1f} ms, adopt() "
+          f"{t_a * 1e3:.1f} ms, kv_block_checksums over "
+          f"{info['blocks_reattached'] or 'the'} blocks {t_s * 1e3:.1f} ms; "
+          f"adopt {({k: v for k, v in info.items() if k != 'installed'})}")
+    if used:
+        fail(f"engine ({tag}): the successor holds {used} pages after close()")
+    return outs, info, {"handoff_ms": t_h * 1e3, "adopt_ms": t_a * 1e3,
+                        "checksums_ms": t_s * 1e3}
+
+
+def reattach_check(tag, info, outs, ref):
+    """A clean handoff or crash must re-attach with nothing re-prefilled and
+    give the uninterrupted run's tokens; a ``reprefill`` here is a failure,
+    not a fallback."""
+    if info.get("mode") != "reattach" or info.get("reprefill_tokens", 0) \
+            or not info.get("reattached"):
+        fail(f"engine ({tag}): recovery {info}")
+    if outs != ref:
+        fail(f"engine ({tag}): {same_share(outs, ref):.3f} of the outputs "
+             "equal the uninterrupted run's")
+
+
+def g0_runs(model, prompts, vocab_size, tag, launches):
+    """g0 / h0: an uninterrupted engine, twice; the two runs must agree token
+    for token (the control of every identity check after it)."""
+    from paddle_tpu_torch.fault import inject
+    from paddle_tpu_torch.serving import Engine
+
+    def run():
+        eng = Engine(model, **ENGINE_KW, int8=False, seed=0)
+        try:
+            outs = [h.result(timeout=900) for h in chaos_wave(eng.submit,
+                                                              prompts)]
+        finally:
+            inject.disarm()
+            eng.close()
+        well_formed(tag, prompts, outs, vocab_size)
+        return outs
+
+    first = launches(f"{tag}0", run)
+    if launches(f"{tag}0", run) != first:
+        fail(f"engine ({tag}0): two uninterrupted runs differ")
+    print(f"  engine ({tag}0): two uninterrupted runs agree token for token")
+    return first
+
+
+def durability_drive(model, cfg, prompts, tag, full=True):
+    """Drive (g) (``full``, GPT-3 1.3B) or (h) (Llama-7B): ``ENGINE_KW`` with
+    the paged kernel over ``prompts``, each sub-drive's wave queued before
+    the first admission (``FIRST_STEP_WAITS``). 0: the uninterrupted run,
+    twice. 1: a handoff after ``HANDOFF_AFTER_STEPS`` decode steps must
+    re-attach with no token re-prefilled and finish with 0's tokens. With
+    ``full``: 2, a ``ServingSupervisor`` (snapshot on) over a crash at decode
+    step 24 must restart once, re-attach and give 0's tokens; 3, a handoff
+    whose capture is torn must fall back to re-prefill and complete; 4, a
+    synthesized out-of-memory must park blocks and complete; 5, the shed
+    policy, a deadline and a drain. Injection is disarmed after each
+    sub-drive. Returns the drive's row."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.fault import inject
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.serving import (DeadlineExceeded, Engine,
+                                          Overloaded, ServingSupervisor)
+
+    set_flags({"FLAGS_serve_paged_kernel": True,
+               "FLAGS_serve_int8_kernel": False})
+    V = cfg.vocab_size
+    launches = _Launches()
+    row = {"drive": tag, "int8": False}
+    ref = g0_runs(model, prompts, V, tag, launches)
+    outs, info, ms = handoff_run(model, prompts, V, f"{tag}1", launches)
+    reattach_check(f"{tag}1", info, outs, ref)
+    row[f"{tag}1"] = {"adopt": info, **ms}
+    if not full:
+        row["launches"] = launches.total
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return row
+
+    def g2():
+        sup = ServingSupervisor(model, snapshot=True,
+                                watchdog_s=SUPERVISOR_WATCHDOG_S,
+                                **ENGINE_KW, int8=False, seed=0)
+        try:
+            outs = [h.result(timeout=900) for h in
+                    chaos_wave(sup.submit, prompts, CRASH_SPEC)]
+            return outs, sup.restarts, sup.health()["last_recovery"]
+        finally:
+            inject.disarm()
+            sup.close()
+
+    outs, restarts, rec = launches("g2", g2)
+    well_formed("g2", prompts, outs, V)
+    print(f"  engine (g2): crash at decode step 24 under ServingSupervisor "
+          f"(snapshot on, watchdog {SUPERVISOR_WATCHDOG_S}s): restarts "
+          f"{restarts}, recovery {rec}")
+    if restarts != 1:
+        fail(f"engine (g2): {restarts} restarts")
+    reattach_check("g2", {**rec, "reprefill_tokens": 0}, outs, ref)
+    row["g2"] = {"restarts": restarts, "recovery": rec}
+
+    outs, info, ms = handoff_run(model, prompts, V, "g3", launches,
+                                 corrupt=True)
+    if info["mode"] != "reprefill" or "CRC" not in info.get(
+            "reject_reason", ""):
+        fail(f"engine (g3): a torn capture adopted as {info}")
+    share = same_share(outs, ref)
+    print(f"  engine (g3): torn capture rejected ({info['reject_reason']}); "
+          f"{info['reprefill_tokens']} tokens re-prefilled; {share:.3f} of "
+          "the outputs equal g0's")
+    row["g3"] = {"adopt": info, "equal_share": share, **ms}
+
+    def g4():
+        eng = Engine(model, **ENGINE_KW, int8=False, seed=0)
+        c0 = profiler.counters()
+        try:
+            outs = [h.result(timeout=900) for h in
+                    chaos_wave(eng.submit, prompts, OOM_SPEC)]
+            parked = eng.stats()["pages_parked"]
+        finally:
+            inject.disarm()
+            eng.close()
+        return outs, counter_delta(c0), parked
+
+    outs, d, parked = launches("g4", g4)
+    well_formed("g4", prompts, outs, V)
+    share = same_share(outs, ref)
+    print(f"  engine (g4): out-of-memory at step 8: serve_pool_shrunk "
+          f"{d.get('serve_pool_shrunk', 0)}, hbm_oom_trips "
+          f"{d.get('hbm_oom_trips', 0)}, {parked} pages parked at the end; "
+          f"{share:.3f} of the outputs equal g0's")
+    if not d.get("serve_pool_shrunk", 0) > 0 or d.get("serve_failed", 0):
+        fail(f"engine (g4): counters {d}")
+    row["g4"] = {"pool_shrunk": d["serve_pool_shrunk"],
+                 "oom_trips": d.get("hbm_oom_trips", 0),
+                 "equal_share": share}
+
+    def g5():
+        eng = Engine(model, **ENGINE_KW, **SHED_KW, int8=False, seed=0)
+        shed, handles, drain_seen = [], [], []
+        try:
+            inject.arm(FIRST_STEP_WAITS)
+            for p in prompts:
+                try:
+                    handles.append((p, eng.submit(p,
+                                                  max_new_tokens=DRIVE_NEW)))
+                except Overloaded as e:
+                    shed.append(e.retry_after_s)
+            accepted = [(p, h.result(timeout=900)) for p, h in handles]
+            inject.disarm()
+            late = eng.submit(prompts[0], max_new_tokens=DRIVE_NEW,
+                              deadline_s=1e-3)
+            try:
+                late.result(timeout=900)
+                expired = None
+            except DeadlineExceeded as e:
+                expired = str(e)
+            wave = [(p, eng.submit(p, max_new_tokens=DRIVE_NEW))
+                    for p in prompts[:DRAIN_REQUESTS]]
+            closer = threading.Thread(
+                target=lambda: eng.close(drain=True, timeout=900),
+                daemon=True)
+            closer.start()
+            while closer.is_alive():
+                r = eng.ready()
+                if r["reason"] == "draining" and not r \
+                        and not all(h.done for _, h in wave):
+                    drain_seen.append(r["queue_depth"])
+                time.sleep(0.002)
+            closer.join()
+            drained = [(p, h.result(timeout=5)) for p, h in wave]
+        finally:
+            inject.disarm()
+            eng.close()
+        return shed, accepted, expired, drain_seen, drained
+
+    shed, accepted, expired, drain_seen, drained = launches("g5", g5)
+    for what, pairs in (("accepted", accepted), ("drained", drained)):
+        well_formed(f"g5 {what}", [p for p, _ in pairs],
+                    [o for _, o in pairs], V)
+    print(f"  engine (g5): max_queue {SHED_KW['max_queue']} with shed: "
+          f"{len(accepted)} accepted and completed, {len(shed)} Overloaded "
+          f"(retry_after_s {min(shed, default=0):.3f}-"
+          f"{max(shed, default=0):.3f}); deadline 1 ms: {expired}; "
+          f"drain: {len(drained)} completed, ready() False with reason "
+          f"'draining' in {len(drain_seen)} probes")
+    if not shed or not all(r > 0 for r in shed) or not accepted:
+        fail(f"engine (g5): {len(shed)} shed {shed}, {len(accepted)} "
+             "accepted")
+    if expired is None:
+        fail("engine (g5): the 1 ms deadline did not expire")
+    if not drain_seen or len(drained) != DRAIN_REQUESTS:
+        fail(f"engine (g5): drain probes {drain_seen}, {len(drained)} "
+             "completed")
+    row["g5"] = {"accepted": len(accepted), "overloaded": len(shed),
+                 "retry_after_s": [min(shed), max(shed)],
+                 "deadline": expired, "drained": len(drained),
+                 "draining_probes": len(drain_seen)}
+    row["launches"] = launches.total
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return row
+
+
 def engine_phase(profile=False):
     """Each of ``engine_models()`` at full width and depth through its
     drives: GPT-3 1.3B (a) paged kernel, (b) int8 weights with both kernels,
     (e) the prefix cache and chunked prefill, (f) speculative decoding with
-    int8 weights; then Llama-7B (c), (d) as (a), (b), with the tail,
-    chunked and verify builders checked on (c)'s engine after its drive.
+    int8 weights, (g) durability and resilience; then Llama-7B (c), (d) as
+    (a), (b), with the tail, chunked and verify builders checked on (c)'s
+    engine after its drive, and (h) as (g)'s g0 and g1.
     Each model and its engines are freed before the next model is built.
     Returns the launch counts summed over the drives, and the drives'
     rows."""
@@ -1383,7 +1737,11 @@ def engine_phase(profile=False):
                     checks=tag == "c") for tag, int8 in drives[name]]
         if name == "gpt3_1p3b":
             runs += [lambda: prefix_drive(model, cfg.vocab_size),
-                     lambda: spec_drive(model, cfg, prompts, profile)]
+                     lambda: spec_drive(model, cfg, prompts, profile),
+                     lambda: durability_drive(model, cfg, prompts, "g")]
+        else:
+            runs.append(lambda: durability_drive(model, cfg, prompts, "h",
+                                                 full=False))
         for run in runs:
             torch.cuda.reset_peak_memory_stats()
             row = run()
@@ -1572,7 +1930,7 @@ def main(argv=None) -> int:
     train_errs, long_errs = flash_phase()
     errs.update(train_errs)
 
-    print("[3] engine: gpt3_1p3b (a, b, e, f), then llama_7b (c, d), "
+    print("[3] engine: gpt3_1p3b (a, b, e, f, g), then llama_7b (c, d, h), "
           "through serving.Engine")
     launches, drives = engine_phase(profile=args.profile)
 

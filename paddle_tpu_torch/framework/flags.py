@@ -1,4 +1,5 @@
-"""Global flag registry (the ``FLAGS_serve_*`` entries the serving slice reads).
+"""Global flag registry (the ``FLAGS_serve_*`` entries the serving engine and
+its supervisor read).
 
 Same names, defaults and ``FLAGS_*`` environment pickup as the reference's
 ``paddle_tpu/framework/flags.py``; ``set_flags`` rejects unknown names with a
@@ -45,6 +46,19 @@ _FLAGS: Dict[str, object] = {
     "FLAGS_serve_drafter": "ngram",
     "FLAGS_serve_draft_window": 64,
     "FLAGS_serve_prefill_chunk": 0,
+    # Resilience: FLAGS_serve_max_queue is the queue depth at which the shed
+    # policy engages (0 = never), enforced only with FLAGS_serve_shed, when a
+    # submit past the cap fast-fails with Overloaded (a retry_after_s hint)
+    # instead of queueing without bound; FLAGS_serve_watchdog_s is the
+    # ServingSupervisor's liveness deadline (a crashed or wedged scheduler
+    # thread is detected within it); FLAGS_serve_snapshot makes the
+    # supervisor's crash recovery capture the dead engine's serving state and
+    # re-attach it in the replacement (zero re-prefilled tokens), falling
+    # back to re-prefill when the capture fails validation.
+    "FLAGS_serve_max_queue": 0,
+    "FLAGS_serve_shed": False,
+    "FLAGS_serve_watchdog_s": 10.0,
+    "FLAGS_serve_snapshot": False,
 }
 
 for _k, _cur in list(_FLAGS.items()):
@@ -54,6 +68,8 @@ for _k, _cur in list(_FLAGS.items()):
             _FLAGS[_k] = _v.lower() in ("1", "true", "yes")
         elif isinstance(_cur, int):
             _FLAGS[_k] = int(_v)
+        elif isinstance(_cur, float):
+            _FLAGS[_k] = float(_v)
         else:
             _FLAGS[_k] = _v
 

@@ -21,7 +21,10 @@ scheduler step:
 * ``build_paged_spec_decode`` — the speculative verify: k+1 tokens a row in
   one step, the greedy continuation at every fed position;
 * ``build_window_draft`` — a small model drafter's k greedy proposals over
-  a dense window of each row's newest tokens.
+  a dense window of each row's newest tokens;
+* ``kv_block_checksums`` — per-block content fingerprints of the pools, the
+  check a serving snapshot's adoption runs before it resumes sequences on
+  the captured blocks.
 
 Where the reference rebuilt the pools functionally (``kpool.at[...].set``),
 these functions update ``kpool``/``vpool`` **in place** (``index_put_``) and
@@ -519,6 +522,37 @@ def build_paged_decode_kernel(arch, B, block_size, max_blocks):
         return arch["head"](params, x)
 
     return _decode_step(logits_fn)
+
+
+# blocks a checksum gathers at once: bounds the temporary copy (a block of
+# GPT-3 1.3B's pools is 1.5 MB, of Llama-7B's 4 MB)
+_CHECKSUM_CHUNK = 64
+
+
+def kv_block_checksums(kpool, vpool, bids):
+    """Per-block content fingerprints of paged KV state: for each block id in
+    ``bids``, ``(sum |K|, sum |V|)`` over that block's rows in every layer,
+    summed in f32. Returns float64 numpy of shape ``(len(bids), 2)``.
+
+    ``Engine.snapshot`` records them for every owned block and
+    ``Engine.adopt`` recomputes them over the handed-over pools: a mismatch
+    is a rejected snapshot, never a wrong-KV serve. The reduction gathers a
+    fixed chunk of blocks and sums each block's row in one f32 reduction
+    (no atomics), so the same pools and ids give the same bits on the card,
+    as a clean handoff needs. Reads the pools on the device they live on;
+    the caller synchronizes with any work still writing them."""
+    if not len(bids):
+        return np.zeros((0, 2), dtype=np.float64)
+    idx = torch.as_tensor(np.asarray(bids, dtype=np.int64),
+                          device=kpool.device)
+    out = []
+    for lo in range(0, len(idx), _CHECKSUM_CHUNK):
+        part = idx[lo:lo + _CHECKSUM_CHUNK]
+        sums = [pool.index_select(1, part).abs_().transpose(0, 1)
+                .reshape(len(part), -1).sum(1, dtype=torch.float32)
+                for pool in (kpool, vpool)]
+        out.append(torch.stack(sums, 1))
+    return torch.cat(out).cpu().numpy().astype(np.float64)
 
 
 def build_paged_tail_prefill(arch, B, T_bucket, block_size, max_blocks):

@@ -10,6 +10,7 @@ from . import paged_attention as _paged_mod
 from ._build import build
 from .flash_attention import (flash_attention_array, flash_attention_dkv,
                               flash_attention_dq, flash_attention_fwd,
+                              flash_attention_bwd_plain,
                               flash_attention_plain)
 from .int8_matmul import int8_matmul, int8_matmul_plain
 from .paged_attention import paged_attention_rows, paged_attention_rows_plain
@@ -33,5 +34,6 @@ def reset_launch_counts() -> None:
 __all__ = ["build", "int8_matmul", "int8_matmul_plain",
            "paged_attention_rows", "paged_attention_rows_plain",
            "flash_attention_array", "flash_attention_plain",
+           "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
            "launch_counts", "reset_launch_counts"]

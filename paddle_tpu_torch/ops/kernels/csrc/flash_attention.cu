@@ -22,9 +22,11 @@
 // also when T != T_kv) are set to -1e30; O = softmax(S) V with the row sum
 // floored at 1e-30; LSE = max + log(sum) in f32, stored (B, H, T). Backward:
 // P = exp(S - LSE), dP = dO V^T, dS = P * (dP - delta) with delta =
-// rowsum(dO * O) computed by the caller; dQ = scale * dS K, dK = scale * dS^T Q,
-// dV = P^T dO. In bf16 P and dS are rounded to bf16 before their products, as
-// the reference's `.astype(v.dtype)` does; every sum is kept in f32. The
+// rowsum(dO * O) computed by the caller; dQ = scale * dS K, dK = (scale *
+// dS)^T Q, dV = P^T dO. In bf16 P and dS are rounded to bf16 before their
+// products, as the reference's `.astype(v.dtype)` does, and where it does: dQ
+// takes dS rounded and scales the sum, dK takes scale * dS rounded (its
+// `_dkv_kernel_hd`); every sum is kept in f32. The
 // bf16 Hopper kernels take their exponentials from ex2.approx.ftz (about 2
 // ulp of f32, subnormal results flushed to zero): far below the bf16
 // rounding of P and dS (2^-9 relative) that follows, and the dropped
@@ -591,15 +593,15 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qi = nt * 8 + 2 * tq + (e & 1);
-        ds[nt][e] = p[nt][e] * (ds[nt][e] - dl_s[qi]);
+        ds[nt][e] = p[nt][e] * (ds[nt][e] - dl_s[qi]) * a.scale;
       }
-    mm_acc<DM>(dk, ds, Qs, S::LD, lane);  // dK += dS^T Q
+    mm_acc<DM>(dk, ds, Qs, S::LD, lane);  // dK += (scale dS)^T Q
     __syncthreads();
   }
   cp_wait<0>();
   const long long rs = (long long)a.H * a.D;
   const long long off = (((long long)b * a.Tk + k0) * a.H + h) * a.D;
-  store_rows<DM>(static_cast<bf16*>(a.out0) + off, dk, a.scale, a.scale, r0,
+  store_rows<DM>(static_cast<bf16*>(a.out0) + off, dk, 1.f, 1.f, r0,
                  a.Tk - k0, rs, a.D, tq);
   store_rows<DM>(static_cast<bf16*>(a.out1) + off, dv, 1.f, 1.f, r0,
                  a.Tk - k0, rs, a.D, tq);
@@ -1179,14 +1181,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = 8 * j + 2 * tq + (e & 1);
-          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl_s[qi]);  // dS^T
+          // scale dS^T, rounded to bf16 below
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl_s[qi]) *
+                           a.scale;
         }
       uint32_t da[C::BQ / 16][4];
 #pragma unroll
       for (int kc = 0; kc < C::BQ / 16; ++kc) acc_as_a(da[kc], frags(dpt), kc);
       wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < C::BQ / 16; ++kc)  // dK += dS^T Q
+      for (int kc = 0; kc < C::BQ / 16; ++kc)  // dK += (scale dS)^T Q
         wgmma_rs(dk, da[kc],
                  sw128_desc(q_addr + kc * 16 * kRowBytes, C::BQ * kRowBytes));
       wgmma_commit();
@@ -1199,7 +1203,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const long long rs = (long long)a.H * a.D;
     const long long off = (((long long)b * a.Tk + kw0) * a.H + h) * a.D;
     store_rows<DM>(static_cast<bf16*>(a.out0) + off,
-                   frags(dk), a.scale, a.scale, kr,
+                   frags(dk), 1.f, 1.f, kr,
                    a.Tk - kw0, rs, a.D, tq);
     store_rows<DM>(static_cast<bf16*>(a.out1) + off,
                    frags(dv), 1.f, 1.f, kr, a.Tk - kw0,

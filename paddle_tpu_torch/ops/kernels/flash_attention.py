@@ -18,12 +18,15 @@ dK/dV are Hopper kernels (TMA loads from tensor maps built from those
 strides, ``wgmma`` products); the source's header says which kernel runs
 where. delta = rowsum(dO * O) is plain
 PyTorch, as the reference computes it in XLA outside its kernels.
-``flash_attention_plain`` is the exact masked-softmax formula in f32 with
-autograd for its backward.
+``flash_attention_plain`` and ``flash_attention_bwd_plain`` are the exact
+masked-softmax formula and its gradients with every sum in f32; on bf16
+inputs they round where the reference's kernels round (P before P V in the
+forward; P before dV = P^T dO, and dS before dQ = dS K and dK = dS^T Q in
+the backward).
 
-On a CPU tensor ``flash_attention_array`` runs the plain version; on a CUDA
-tensor it launches the kernels (each launch counted in ``launches``) or
-raises.
+On a CPU tensor ``flash_attention_array`` runs the plain versions (a
+``torch.autograd.Function`` over the two); on a CUDA tensor it launches the
+kernels (each launch counted in ``launches``) or raises.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_array", "flash_attention_plain",
-           "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+           "flash_attention_bwd_plain", "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
            "launches"]
 
 # kernel launches per kernel since the last reset (plain calls excluded)
@@ -53,20 +56,77 @@ _SIGS = {
 }
 
 
-def flash_attention_plain(q, k, v, causal=False):
-    """The exact formula in f32: returns (O in q's dtype, LSE (B, H, T) f32)."""
-    D = q.shape[-1]
+def _scores(q, k, causal):
+    """scale * Q K^T in f32, (B, H, T, T_kv), masked entries at -1e30 (top
+    left aligned)."""
     T, Tk = q.shape[1], k.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * (1.0 / math.sqrt(q.shape[-1]))
     if causal:
         keep = torch.ones(T, Tk, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~keep, _NEG_INF)
+    return s
+
+
+def _rounded(x, dtype):
+    """x rounded to ``dtype`` and back to f32 (the identity in f32)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def flash_attention_plain(q, k, v, causal=False):
+    """The exact formula: returns (O in q's dtype, LSE (B, H, T) f32). In f32
+    the probabilities are normalised before P V. Otherwise, as the
+    reference's kernels (``_fwd_kernel_hd``): P = exp(s - m) is rounded to
+    q's dtype before P V, and the f32 product is divided by the f32 row sum
+    of the unrounded P."""
+    s = _scores(q, k, causal)
     m = s.amax(-1)
-    l = torch.exp(s - m[..., None]).sum(-1)
-    lse = m + torch.log(l.clamp_min(1e-30))
-    p = torch.exp(s - lse[..., None])
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1).clamp_min(1e-30)
+    lse = m + torch.log(l)
+    if q.dtype == torch.float32:
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]),
+                         v.float())
+    else:
+        o = torch.einsum("bhqk,bkhd->bqhd", _rounded(p, q.dtype),
+                         v.float()) / l.transpose(1, 2)[..., None]
     return o.to(q.dtype), lse
+
+
+def flash_attention_bwd_plain(q, k, v, do, o, lse, causal=False):
+    """(dQ, dK, dV) in q's dtype from the forward's O and LSE, as the
+    reference's ``_flash_hd_bwd_inner`` computes them: delta = rowsum(dO O)
+    and P = exp(s - LSE) in f32; dV = P^T dO with P rounded to q's dtype;
+    dS = P (dO V^T - delta); dQ = scale (dS K) with dS rounded, and
+    dK = (scale dS)^T Q with scale dS rounded; every sum in f32."""
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)
+    dv = torch.einsum("bhqk,bqhd->bkhd", _rounded(p, dt), dof)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+              - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", _rounded(ds, dt), k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", _rounded(ds * scale, dt), q.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+class _PlainFlashAttention(torch.autograd.Function):
+    """The plain forward with the plain backward (the CPU route)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_plain(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd_plain(q, k, v, do.to(q.dtype), o, lse,
+                                           ctx.causal), None)
 
 
 def _strided(x):
@@ -205,7 +265,7 @@ def flash_attention_array(q, k, v, causal=False):
     k = k.to(q.dtype)
     v = v.to(q.dtype)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)[0]
+        return _PlainFlashAttention.apply(q, k, v, bool(causal))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_array: unsupported device {q.device}")
     return _FlashAttention.apply(q, k, v, bool(causal))

@@ -1,7 +1,12 @@
-"""Serving: continuous batching over a paged KV cache (``Engine``)."""
-from .engine import (Engine, EngineConfig, RequestCancelled, RequestHandle,
-                     ServeError)
-from .pool import TRASH_BLOCK, PagePool
+"""Serving: continuous batching over a paged KV cache (``Engine``), its
+resilience layer (deadlines, priorities, shedding, probes, drain, the
+out-of-memory ladder), serving-state durability (``snapshot``/``adopt``/
+``handoff``) and crash/wedge supervision (``ServingSupervisor``)."""
+from .engine import (DeadlineExceeded, Engine, EngineConfig, Overloaded,
+                     Readiness, RequestCancelled, RequestHandle, ServeError)
+from .pool import TRASH_BLOCK, PagePool, SnapshotError
+from .supervisor import ServingSupervisor
 
 __all__ = ["Engine", "EngineConfig", "RequestHandle", "ServeError",
-           "RequestCancelled", "PagePool", "TRASH_BLOCK"]
+           "RequestCancelled", "DeadlineExceeded", "Overloaded", "Readiness",
+           "ServingSupervisor", "PagePool", "SnapshotError", "TRASH_BLOCK"]

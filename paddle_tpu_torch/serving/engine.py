@@ -21,7 +21,34 @@ main path of ``paddle_tpu/serving/engine.py``).
   and verifies them in one step, greedy output unchanged;
   ``prefill_chunk=n`` prefills a prompt whose uncached tail exceeds n
   tokens one n-token chunk per scheduler step, between decode steps. With
-  all three off the engine takes the plain path.
+  all three off the engine takes the plain path;
+* deadlines, priorities and load shedding: ``submit(deadline_s=,
+  priority=)``; the scheduler sheds expired and doomed requests with
+  ``DeadlineExceeded`` at every step boundary, eviction is
+  priority-then-youngest, and ``max_queue`` with ``shed`` turns a full queue
+  into a fast ``Overloaded`` with a ``retry_after_s`` hint. Unconfigured,
+  each costs a flag probe;
+* liveness and drain: the scheduler thread heartbeats every iteration
+  (``health()``/``ready()`` read it, a ``ServingSupervisor`` watches it),
+  and ``close(drain=True)`` stops admission and completes the queued and
+  running work first;
+* device-memory pressure (``fault/memory.py``): an out-of-memory error
+  inside a step parks free KV blocks (``PagePool.park``, admission headroom
+  shrinks) and the next iteration retries; a streak that parking cannot
+  break falls through to the crash path. ``request_pool_shrink`` asks for
+  the same from any thread;
+* durability: ``snapshot()`` captures the whole serving state at a step
+  boundary (pool bookkeeping, the KV pools, block tables, the prefix chain,
+  per-block checksums), ``adopt()`` installs it in a fresh engine (the
+  sequences resume mid-decode with no token re-prefilled; a capture that
+  fails validation falls back whole to re-prefill), and ``handoff()``
+  quiesces the engine and exports the snapshot with the queue and the
+  in-flight handles.
+
+Chaos points ``serve.crash``/``serve.wedge``/``serve.slow_step``/
+``serve.pool_corrupt``/``hbm.oom``/``hbm.pressure`` (``fault/inject.py``)
+fire at the scheduler step boundary while armed; ``serve.snapshot_corrupt``
+tears a capture inside ``snapshot``.
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; without CUDA
 and without that request it raises. The scheduler thread enters
@@ -31,6 +58,7 @@ thread-local in PyTorch).
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import itertools
 import queue as _queue
@@ -43,14 +71,21 @@ import numpy as np
 import torch
 
 from ..core.place import resolve_device
+from ..fault import inject as _inject
+from ..fault import memory as _fmem
 from ..framework import flags
 from ..models import generation as G
 from ..profiler import counter_inc, span
 from .int8 import attach_int8_head, dequantize_tree, quantize_params
-from .pool import TRASH_BLOCK, PagePool
+from .pool import TRASH_BLOCK, PagePool, SnapshotError
 
-__all__ = ["Engine", "EngineConfig", "RequestHandle", "ServeError",
-           "RequestCancelled"]
+__all__ = ["Engine", "EngineConfig", "RequestHandle", "Readiness",
+           "ServeError", "RequestCancelled", "DeadlineExceeded",
+           "Overloaded", "SnapshotError"]
+
+SNAPSHOT_VERSION = 1  # engine-level snapshot format (the pool has its own)
+
+_engine_ids = itertools.count(1)
 
 
 class ServeError(RuntimeError):
@@ -61,6 +96,33 @@ class RequestCancelled(ServeError):
     pass
 
 
+class DeadlineExceeded(ServeError):
+    """The request's ``deadline_s`` passed (or provably cannot be met) before
+    completion: shed by the scheduler at admission or a step boundary."""
+
+    def __init__(self, msg: str, request_id: Optional[int] = None):
+        super().__init__(msg)
+        self.request_id = request_id
+
+
+class Overloaded(ServeError):
+    """Fast-fail load shed: the queue reached ``max_queue`` with ``shed``
+    on. ``retry_after_s`` is the backoff hint (the estimated time for one
+    queue slot to drain)."""
+
+    def __init__(self, msg: str, retry_after_s: float = 0.0):
+        super().__init__(msg)
+        self.retry_after_s = float(retry_after_s)
+
+
+class Readiness(dict):
+    """``ready()``'s answer: a JSON-able dict whose truth value is the ready
+    bit, so ``if eng.ready():`` keeps its boolean meaning."""
+
+    def __bool__(self) -> bool:
+        return bool(self.get("ready"))
+
+
 class EngineConfig:
     """Serving knobs. ``None`` fields resolve from the ``FLAGS_serve_*``
     registry at engine construction; ``device`` None means ``cuda``."""
@@ -69,7 +131,7 @@ class EngineConfig:
                  max_seq_len=None, prefill_batch=None, int8=None,
                  decode_buckets=None, seed=0, device=None, prefix_cache=None,
                  spec_k=None, drafter=None, draft_window=None,
-                 prefill_chunk=None):
+                 prefill_chunk=None, max_queue=None, shed=None):
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.max_batch = max_batch
@@ -87,6 +149,10 @@ class EngineConfig:
         self.draft_window = draft_window
         # chunked prefill grain in tokens (0 = monolithic prefill)
         self.prefill_chunk = prefill_chunk
+        # the queue depth at which a submit is shed (0 = unbounded), enforced
+        # only with ``shed``
+        self.max_queue = max_queue
+        self.shed = shed
 
     def resolve(self, model_max_positions: int) -> "EngineConfig":
         def pick(v, name):
@@ -101,6 +167,10 @@ class EngineConfig:
         self.max_seq_len = min(max_seq, int(model_max_positions))
         if self.int8 is None:
             self.int8 = bool(flags.flag("FLAGS_serve_int8", False))
+        # 0 is the meaningful default (unbounded), so only None falls back
+        self.max_queue = pick(self.max_queue, "FLAGS_serve_max_queue")
+        if self.shed is None:
+            self.shed = bool(flags.flag("FLAGS_serve_shed", False))
         if self.prefix_cache is None:
             self.prefix_cache = bool(flags.flag("FLAGS_serve_prefix_cache",
                                                 False))
@@ -127,6 +197,8 @@ class EngineConfig:
             raise ValueError(
                 "serving: block_size/max_batch/prefill_batch/max_seq_len "
                 ">= 1 and num_blocks >= 2 required")
+        if self.max_queue < 0:
+            raise ValueError("serving: max_queue must be >= 0 (0 = unbounded)")
         if self.decode_buckets is None:
             b, buckets = 1, []
             while b < self.max_batch:
@@ -147,10 +219,10 @@ class EngineConfig:
 class _Request:
     __slots__ = ("id", "prompt", "max_new_tokens", "eos_token_id",
                  "temperature", "tokens", "error", "done", "stream_q",
-                 "cancelled")
+                 "cancelled", "t_submit", "t_done", "priority", "deadline")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id, temperature,
-                 stream):
+                 stream, priority=0, deadline=None):
         self.id = rid
         self.prompt = prompt  # list[int]
         self.max_new_tokens = int(max_new_tokens)
@@ -161,16 +233,27 @@ class _Request:
         self.done = threading.Event()
         self.stream_q = _queue.Queue() if stream else None
         self.cancelled = False
+        self.t_submit = time.monotonic()
+        self.t_done: Optional[float] = None
+        self.priority = int(priority)  # higher = more important
+        self.deadline = deadline  # absolute monotonic time, or None
 
 
-def _finish(req: _Request, tokens=None, error=None) -> bool:
-    """Terminal state for a request (first writer wins)."""
+def _finish(req: _Request, tokens=None, error=None, count=True) -> bool:
+    """Terminal state for a request (first writer wins: crash sweeps,
+    supervisor relays and the scheduler may race). The supervisor finishes
+    orphaned requests with it too; ``count=False`` skips the lifecycle
+    counters when a relay completes the original of a requeued request
+    whose continuation the new engine already counted."""
     if req.done.is_set():
         return False
     req.tokens = list(tokens) if tokens is not None else None
     req.error = error
-    counter_inc("serve_cancelled" if isinstance(error, RequestCancelled)
-                else "serve_failed" if error is not None else "serve_retired")
+    req.t_done = time.monotonic()
+    if count:
+        counter_inc("serve_cancelled" if isinstance(error, RequestCancelled)
+                    else "serve_failed" if error is not None
+                    else "serve_retired")
     if req.stream_q is not None:
         req.stream_q.put(None)
     req.done.set()
@@ -339,6 +422,11 @@ class RequestHandle:
     def done(self) -> bool:
         return self._req.done.is_set()
 
+    @property
+    def latency_s(self) -> Optional[float]:
+        t = self._req.t_done
+        return None if t is None else t - self._req.t_submit
+
     def result(self, timeout: Optional[float] = None) -> List[int]:
         """Full token ids (prompt + generated). Raises the request's
         failure (``RequestCancelled`` after ``cancel()``)."""
@@ -450,32 +538,85 @@ class Engine:
         self._occ_live = 0
         self._occ_slots = 0
         self._decode_s = 0.0  # host time of decode steps, each ending in a sync
+        # the shed ETA's per-step floor while the decode EMA is cold (the
+        # reference's tensor-parallel collective term: 0 on one card)
+        self._step_floor_s = 0.0
+        # resilience gauges (scheduler-thread writes, racy reads by design):
+        # the warm decode-step time EMA (deadline feasibility), the finished
+        # request latency EMA (Retry-After hints), and the heartbeat that
+        # health() and the supervisor read
+        self._ema_step_s = 0.0
+        self._ema_req_s = 0.0
+        self._beat = time.monotonic()
+        # True while a step function's first call runs (it may build a
+        # kernel): the supervisor's staleness limit widens 10x meanwhile
+        self._compiling = False
+        # memory pressure: the cross-thread shrink request applied at the
+        # next step boundary (-1 = a quarter of the free list), the streak
+        # of out-of-memory steps, and the clean-step countdown before parked
+        # blocks start coming back
+        self._shrink_req = 0  # guarded_by: _cv
+        self._oom_streak = 0
+        self._unpark_countdown = 0
+        self._t_start = time.monotonic()
 
         # cross-thread state
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._waiting: "collections.deque[_Request]" = collections.deque()  # guarded_by: _cv
         self._stop = False  # guarded_by: _cv
+        self._draining = False  # guarded_by: _cv
+        # handoff() sets the request and the scheduler quiesces at its next
+        # step boundary: it exits WITHOUT failing handles (the exported
+        # snapshot owns them). _last_recovery is the latest adopt() outcome
+        # for health().
+        self._handoff_req = False  # guarded_by: _cv
+        self._quiesced = threading.Event()
+        self._last_recovery: Optional[dict] = None
         self._broken: Optional[BaseException] = None
         self._ids = itertools.count(1)
+        # once-true latches (set under _cv, read lock-free by the scheduler):
+        # the deadline sweep and the priority order run only once a request
+        # with a deadline or a priority was submitted
+        self._deadline_seen = False
+        self._has_prio = False
+        # set by ServingSupervisor: a supervised crash leaves the scheduler
+        # state for the supervisor to harvest instead of failing every handle
+        self._supervised = False
+        self._failed = threading.Event()
+        self._provider = f"paddle_tpu_torch_serving_{next(_engine_ids)}"
+        # the pressure-relief rung of fault/memory.free_pressure, weakly
+        # bound (a collected engine drops out of the registry by itself)
+        _fmem.register_pressure_handler(
+            self._provider, lambda eng: eng.request_pool_shrink(), owner=self)
         # the thread holds the engine only through a weakref, so an
         # abandoned engine stays collectable (__del__ closes it)
         self._thread = threading.Thread(
             target=_engine_loop, args=(weakref.ref(self), self._device),
-            daemon=True, name="paddle_tpu_torch_serving")
+            daemon=True, name=self._provider)
         self._thread.start()
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt_ids, max_new_tokens: int = 32,
                eos_token_id: Optional[int] = None, temperature: float = 0.0,
-               stream: bool = False) -> RequestHandle:
+               stream: bool = False, deadline_s: Optional[float] = None,
+               priority: int = 0, _shed_exempt: bool = False) -> RequestHandle:
         """Enqueue one request (any thread). ``temperature == 0`` is greedy.
-        ``stream=True`` additionally feeds the handle's iterator per token."""
+        ``stream=True`` additionally feeds the handle's iterator per token.
+        ``deadline_s`` (seconds from now) attaches a completion deadline: the
+        scheduler fails the request with :class:`DeadlineExceeded` once it
+        expires or provably cannot finish in time. ``priority`` (higher =
+        more important, default 0) orders admission and inverts eviction.
+        With ``max_queue`` and ``shed``, a full queue fails this call with
+        :class:`Overloaded` instead of queueing, except for ``_shed_exempt``
+        submissions (the supervisor's requeue of work already accepted)."""
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt:
             raise ValueError("serving: empty prompt")
         if int(max_new_tokens) < 1:
             raise ValueError("serving: max_new_tokens must be >= 1")
+        if deadline_s is not None and float(deadline_s) <= 0.0:
+            raise ValueError("serving: deadline_s must be positive")
         total = len(prompt) + int(max_new_tokens)
         if total > self.config.max_seq_len:
             raise ValueError(
@@ -487,11 +628,33 @@ class Engine:
             raise ValueError(
                 "serving: request needs more KV blocks than the whole pool; "
                 "raise FLAGS_serve_num_blocks")
+        cfg = self.config
         with self._cv:
             if self._stop or self._broken is not None:
                 raise ServeError("serving engine is closed") from self._broken
+            if self._draining:
+                raise ServeError("serving engine is draining "
+                                 "(close(drain=True)); submit to its "
+                                 "replacement")
+            if cfg.shed and not _shed_exempt and cfg.max_queue > 0 \
+                    and len(self._waiting) >= cfg.max_queue:
+                counter_inc("serve_shed")
+                hint = round(max(0.05, len(self._waiting)
+                                 * (self._ema_req_s or 0.1) / cfg.max_batch),
+                             3)
+                raise Overloaded(
+                    f"serving queue full ({len(self._waiting)} >= "
+                    f"max_queue={cfg.max_queue}); retry after ~{hint}s",
+                    retry_after_s=hint)
             req = _Request(next(self._ids), prompt, max_new_tokens,
-                           eos_token_id, temperature, stream)
+                           eos_token_id, temperature, stream,
+                           priority=priority,
+                           deadline=(time.monotonic() + float(deadline_s))
+                           if deadline_s is not None else None)
+            if req.deadline is not None:
+                self._deadline_seen = True
+            if req.priority != 0:
+                self._has_prio = True
             self._waiting.append(req)
             counter_inc("serve_requests")
             self._cv.notify()
@@ -515,6 +678,7 @@ class Engine:
             "pages_total": self._pool.num_blocks - 1,
             "pages_used": self._pool.used_blocks,
             "pages_free": self._pool.free_blocks,
+            "pages_parked": self._pool.parked_blocks,
             "pages_cached": (self._prefix.blocks
                              if self._prefix is not None else 0),
             "compiles": len(self._fns),
@@ -523,25 +687,524 @@ class Engine:
                                     if steps else 0.0),
         }
 
-    def close(self, timeout: float = 30.0) -> None:
-        """Stop the scheduler thread and fail outstanding requests with
-        ``ServeError``. Idempotent."""
+    def debug_requests(self) -> List[dict]:
+        """The in-flight request table: phase, age, priority, prompt length,
+        tokens generated and blocks held (any thread; a racy snapshot, as
+        :meth:`stats`)."""
+        now = time.monotonic()
+        with self._lock:
+            waiting = list(self._waiting)
+        rows = [{"id": req.id, "phase": "queued",
+                 "age_s": round(now - req.t_submit, 3),
+                 "priority": req.priority, "prompt_len": len(req.prompt),
+                 "generated": 0, "blocks": 0} for req in waiting]
+        for phase, seqs in (("prefilling", self._admitting),
+                            ("chunk_prefill", self._prefilling),
+                            ("running", self._running),
+                            ("preempted", self._resume)):
+            for s in list(seqs):
+                rows.append({"id": s.req.id, "phase": phase,
+                             "age_s": round(now - s.req.t_submit, 3),
+                             "priority": s.req.priority,
+                             "prompt_len": s.prompt_len,
+                             "generated": s.generated,
+                             "blocks": len(s.blocks)})
+        return rows
+
+    def health(self) -> dict:
+        """Liveness probe (any thread): the scheduler thread's aliveness,
+        heartbeat age and failure state; ``ok`` is the one bit to alarm on.
+        A heartbeat older than ``FLAGS_serve_watchdog_s`` (10x while a step
+        function's first call runs) clears ``ok``."""
+        alive = self._thread.is_alive()
+        with self._lock:
+            depth = len(self._waiting)
+            draining = self._draining
+            stopped = self._stop
+        beat_age = time.monotonic() - self._beat
+        thr = max(1.0, float(flags.flag("FLAGS_serve_watchdog_s", 10.0)
+                             or 10.0))
+        stale = beat_age > thr * (10.0 if self._compiling else 1.0)
+        # the latest adopt() outcome, its monotonic stamp turned into an age
+        lr = (dict(self._last_recovery) if self._last_recovery
+              else {"mode": "none"})
+        t_rec = lr.pop("t", None)
+        if t_rec is not None:
+            lr["age_s"] = round(time.monotonic() - t_rec, 3)
+        return {
+            "ok": alive and self._broken is None and not stopped
+            and not stale,
+            "thread_alive": alive,
+            "beat_age_s": round(beat_age, 3),
+            "stale": stale,
+            "broken": repr(self._broken) if self._broken is not None
+            else None,
+            "draining": draining,
+            "queue_depth": depth,
+            "running": len(self._running),
+            "pages_free": self._pool.free_blocks,
+            "uptime_s": round(time.monotonic() - self._t_start, 3),
+            "last_recovery": lr,
+        }
+
+    def ready(self) -> Readiness:
+        """Readiness probe: accepting submissions now (healthy, not
+        draining, and under the shed policy the queue below its cap). A
+        rolling restart moves traffic away when this goes False, then calls
+        ``close(drain=True)``."""
+        h = self.health()
+        ready, reason = True, None
+        if not h["ok"]:
+            ready, reason = False, "unhealthy"
+        elif h["draining"]:
+            ready, reason = False, "draining"
+        else:
+            cfg = self.config
+            if cfg.shed and cfg.max_queue > 0 \
+                    and h["queue_depth"] >= cfg.max_queue:
+                ready, reason = False, "queue_full"
+        return Readiness(ready=ready, reason=reason,
+                         queue_depth=h["queue_depth"],
+                         uptime_s=h["uptime_s"],
+                         last_recovery=h["last_recovery"])
+
+    def close(self, timeout: float = 30.0, drain: bool = False) -> None:
+        """Stop the scheduler thread. Plain ``close()`` fails outstanding
+        requests with ``ServeError``; ``close(drain=True)`` first stops
+        admission (``submit`` raises, ``ready()`` goes False) and lets the
+        queued and running work complete within ``timeout``. A join that
+        times out (a wedged scheduler thread) marks the engine broken and
+        fails every outstanding handle. Idempotent."""
+        deadline = time.monotonic() + max(0.0, float(timeout))
+        on_sched_thread = threading.current_thread() is self._thread
+        if drain:
+            with self._cv:
+                self._draining = True
+                self._cv.notify()
+            if not on_sched_thread:
+                self._thread.join(max(0.0, deadline - time.monotonic()))
         with self._cv:
             self._stop = True
             self._cv.notify()
-        if threading.current_thread() is not self._thread:
-            self._thread.join(timeout)
+        _fmem.unregister_pressure_handler(self._provider)
+        if not on_sched_thread:
+            # a drain may have used the whole budget on real work: the
+            # post-stop join gets a floor (a healthy thread exits within a
+            # step of _stop), so a slow drain is not taken for a wedge
+            self._thread.join(max(2.0 if drain else 0.1,
+                                  deadline - time.monotonic()))
             if self._thread.is_alive():
+                counter_inc("serve_wedged_close")
                 self._broken = self._broken or ServeError(
-                    f"serving scheduler thread did not stop within {timeout}s")
-                # handle state only: a live thread may still own the pool
-                with self._cv:
-                    waiting = list(self._waiting)
-                    self._waiting.clear()
-                for req in waiting + [s.req for s in self._running
-                                      + self._resume + self._admitting
-                                      + self._prefilling]:
-                    _finish(req, error=ServeError(str(self._broken)))
+                    f"serving engine scheduler thread wedged: close() join "
+                    f"timed out after {timeout}s")
+        # a wedged join, a supervised crash nobody harvested, or __del__ on
+        # the scheduler thread leave handles pending: fail them (handle
+        # state only, the pool untouched); a no-op after a clean shutdown
+        self._fail_outstanding(self._broken
+                               or ServeError("serving engine closed"))
+
+    def _fail_outstanding(self, err: BaseException) -> None:
+        """Fail every pending handle without touching the page pool (any
+        thread; idempotent per request through ``_finish``)."""
+        with self._cv:
+            waiting = list(self._waiting)
+            self._waiting.clear()
+        seqs = list(self._running) + list(self._resume) \
+            + list(self._admitting) + list(self._prefilling)
+        for req in waiting + [s.req for s in seqs]:
+            self._finish_request(req, error=ServeError(str(err)))
+
+    # -- durability: snapshot / adopt / handoff -------------------------------
+    def _device_scope(self):
+        """Grad mode and the current CUDA device are thread-local: work on
+        the pools from a caller's thread runs under inference mode on the
+        engine's device."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.inference_mode())
+        if self._device.type == "cuda":
+            stack.enter_context(torch.cuda.device(self._device))
+        return stack
+
+    def _compat_key(self) -> tuple:
+        """The geometry an adopted snapshot must match exactly: the KV pools
+        and block tables mean something only against the same paged-cache
+        shape. The tensor-parallel fields keep the reference's tuple shape
+        (degree 0, replicated: this engine runs on one card)."""
+        cfg = self.config
+        return (self._n_layers, int(cfg.num_blocks), int(cfg.block_size),
+                int(self._arch["kv_heads"]), int(self._arch["head_dim"]),
+                str(self._dtype), 0, "replicated")
+
+    def snapshot(self) -> dict:
+        """O(blocks) capture of the live serving state: the pool bookkeeping
+        (with its CRC), the KV pools, every in-flight sequence's tokens and
+        block table, the prefix-cache chain, and per-block checksums of the
+        owned blocks' KV.
+
+        The scheduler must be quiesced (``handoff``) or dead (a supervised
+        crash): a live one would tear the capture, so this refuses it. The
+        capture SHARES the engine's pool tensors, which the engine writes in
+        place: it is a true capture only while this engine never steps
+        again, which holds after a handoff (stopped) and after a crash (the
+        thread is dead). Copying them instead would cost 6.4 GB at GPT-3
+        1.3B and 17.2 GB at Llama-7B. The device is synchronized before the
+        checksums, so launches still queued are in them."""
+        if self._thread.is_alive() and not self._quiesced.is_set() \
+                and not self._failed.is_set():
+            raise ServeError(
+                "snapshot requires a quiesced or dead scheduler thread "
+                "(use handoff(), or capture after a supervised crash)")
+        with span("serve_snapshot", step=self._step_i,
+                  running=len(self._running)) as sp:
+            pool_snap = self._pool.snapshot()
+            seqs, seen = [], set()
+            for phase, group in (("running", self._running),
+                                 ("resume", self._resume),
+                                 ("admitting", self._admitting),
+                                 ("prefilling", self._prefilling)):
+                for s in group:
+                    if s.req.id in seen:
+                        continue  # landed mid-prefill: _running's view wins
+                    seen.add(s.req.id)
+                    seqs.append({"phase": phase, "req": s.req,
+                                 "tokens": list(s.tokens),
+                                 "blocks": list(s.blocks),
+                                 "prompt_len": s.prompt_len,
+                                 "cached_blocks": s.cached_blocks})
+            prefix = None
+            if self._prefix is not None:
+                prefix = {"entries": {k: list(v) for k, v
+                                      in self._prefix._entries.items()},
+                          "tick": self._prefix._tick}
+            owned = sorted(self._pool._ref)
+            with self._device_scope():
+                if self._device.type == "cuda":
+                    torch.cuda.synchronize(self._device)
+                sums = G.kv_block_checksums(self._kpool, self._vpool, owned)
+            snap = {"version": SNAPSHOT_VERSION, "compat": self._compat_key(),
+                    "pool": pool_snap, "kpool": self._kpool,
+                    "vpool": self._vpool, "seqs": seqs, "prefix": prefix,
+                    "step_i": self._step_i,
+                    "fingerprint": {"bids": owned, "sums": sums}}
+            if _inject.should_fire("serve.snapshot_corrupt"):
+                # chaos: tear the pool capture mid-write; the CRC no longer
+                # matches and adopt()'s validation must reject it whole
+                if pool_snap["free"]:
+                    pool_snap["free"].pop()
+                else:
+                    pool_snap["ref"] = dict(pool_snap["ref"],
+                                            **{TRASH_BLOCK: 1})
+            sp.set(seqs=len(seqs), owned_blocks=len(owned))
+            counter_inc("serve_snapshots")
+            return snap
+
+    def adopt(self, snap: dict, only=None, fallback: str = "reprefill"):
+        """Adopt a :meth:`snapshot` into THIS fresh, traffic-free engine.
+
+        Validation first, mutation after: the geometry key, the pool restore
+        (conservation and CRC), every sequence's block-table coverage, the
+        prefix chain, the exact refcount-to-mapping agreement and the KV
+        checksums must all hold before anything is installed. Then the
+        snapshot's pool tensors replace this engine's own (which are freed)
+        and the survivors' ORIGINAL requests go straight into the running
+        set: they resume mid-decode with no token re-prefilled, and their
+        handles and streams keep working. A capture that fails validation
+        raises :class:`SnapshotError` with ``fallback="raise"``; with the
+        default ``"reprefill"`` every in-flight record is re-admitted whole
+        through the preemption path instead (re-prefilled from its tokens).
+
+        ``only`` (a set of request ids, or None for all) filters the records
+        adopted. Returns an info dict: ``mode`` (reattach|reprefill),
+        ``installed`` (the request ids now owned here), block and token
+        counts, and ``duration_s``."""
+        t0 = time.monotonic()
+        with span("serve_adopt", seqs=len(snap.get("seqs", ()))) as sp:
+            try:
+                pool = self._validate_snapshot(snap)
+                info = self._attach(snap, pool, only)
+            except SnapshotError as e:
+                counter_inc("serve_snapshot_rejected")
+                if fallback != "reprefill":
+                    raise
+                info = self._adopt_reprefill(snap, only)
+                info["reject_reason"] = str(e)
+            info["duration_s"] = round(time.monotonic() - t0, 6)
+            sp.set(mode=info["mode"])
+        # a stamped copy: health() turns "t" into an age
+        self._last_recovery = dict(info, t=time.monotonic())
+        counter_inc("serve_adoptions")
+        return info
+
+    def _validate_snapshot(self, snap: dict) -> PagePool:
+        """Everything that must hold before adoption; raises SnapshotError
+        and changes no engine state."""
+        try:
+            version = snap.get("version")
+            compat = tuple(snap.get("compat", ()))
+            seqs = snap["seqs"]
+            prefix = snap.get("prefix")
+            kpool, vpool = snap["kpool"], snap["vpool"]
+            fp = snap["fingerprint"]
+        except Exception as e:
+            raise SnapshotError(f"malformed engine snapshot: {e!r}") from e
+        if version != SNAPSHOT_VERSION:
+            raise SnapshotError(
+                f"engine snapshot version {version!r} != {SNAPSHOT_VERSION}")
+        if compat != self._compat_key():
+            raise SnapshotError(
+                f"snapshot geometry {compat} does not match this engine's "
+                f"{self._compat_key()} — cross-config adoption refused")
+        if any(p.shape != self._kpool.shape or p.dtype != self._dtype
+               or p.device != self._device for p in (kpool, vpool)):
+            raise SnapshotError("KV pool shape/dtype/device mismatch")
+        pool = PagePool.restore(snap["pool"])
+        bs = self.config.block_size
+        refs: Dict[int, int] = {}
+        for rec in seqs:
+            blocks, tokens = rec["blocks"], rec["tokens"]
+            rid = rec["req"].id
+            if not tokens or len(tokens) < rec["prompt_len"]:
+                raise SnapshotError(f"seq {rid}: empty/short token record")
+            for b in blocks:
+                if b == TRASH_BLOCK or pool.refcount(b) < 1:
+                    raise SnapshotError(f"seq {rid} maps unowned block {b}")
+                refs[b] = refs.get(b, 0) + 1
+            if rec["phase"] == "running":
+                # written KV covers positions [0, pos): so must the table
+                if len(blocks) * bs < len(tokens) - 1:
+                    raise SnapshotError(
+                        f"seq {rid}: block table covers {len(blocks) * bs} "
+                        f"positions < written {len(tokens) - 1}")
+                if len(blocks) > self._max_blocks:
+                    raise SnapshotError(f"seq {rid}: table too wide")
+        if prefix is not None:
+            by_bid: Dict[int, tuple] = {}
+            kids: Dict[int, int] = {}
+            for key, ent in prefix["entries"].items():
+                bid = ent[0]
+                if bid in by_bid:
+                    raise SnapshotError(f"prefix index maps block {bid} twice")
+                if pool.refcount(bid) < 1:
+                    raise SnapshotError(
+                        f"prefix index holds unowned block {bid}")
+                by_bid[bid] = key
+                refs[bid] = refs.get(bid, 0) + 1
+            for key, ent in prefix["entries"].items():
+                parent = key[0]
+                if parent != -1:
+                    if parent not in by_bid:
+                        raise SnapshotError(
+                            f"prefix chain parent {parent} not in index")
+                    kids[parent] = kids.get(parent, 0) + 1
+                hops = 0
+                while parent != -1:
+                    parent = by_bid[parent][0]
+                    hops += 1
+                    if hops > len(by_bid):
+                        raise SnapshotError("prefix chain cycle")
+            for key, ent in prefix["entries"].items():
+                if ent[2] != kids.get(ent[0], 0):
+                    raise SnapshotError(
+                        f"prefix child-count diverged on block {ent[0]}")
+        # every owned block must be referenced exactly refcount times by the
+        # sequences and the index: a torn mid-mutation state lands here
+        for b in sorted(pool._ref):
+            if pool.refcount(b) != refs.get(b, 0):
+                raise SnapshotError(
+                    f"block {b}: pool refcount {pool.refcount(b)} != "
+                    f"{refs.get(b, 0)} mapped references")
+        # the bytes the survivors will read must be the bytes that were
+        # written: never a wrong-KV serve
+        if list(fp["bids"]) != sorted(pool._ref):
+            raise SnapshotError("fingerprint block set diverged from pool")
+        with self._device_scope():
+            sums = G.kv_block_checksums(kpool, vpool, fp["bids"])
+        if not np.array_equal(sums, fp["sums"]):
+            raise SnapshotError("KV content fingerprint mismatch")
+        return pool
+
+    def _attach(self, snap: dict, pool: PagePool, only) -> dict:
+        """Install a validated snapshot (re-attach): everything is built off
+        the lock against the restored pool, then installed under _cv with
+        one notify; the idle scheduler picks the survivors up next
+        iteration."""
+        running, resume, installed = [], [], []
+        blocks_attached = tokens_saved = 0
+        max_id = 0
+        any_deadline = any_prio = False
+        for rec in snap["seqs"]:
+            req = rec["req"]
+            max_id = max(max_id, req.id)
+            if (only is not None and req.id not in only) \
+                    or req.done.is_set():
+                if rec["blocks"]:
+                    pool.free(rec["blocks"])
+                continue
+            s = _Seq(req, list(rec["tokens"]))
+            s.prompt_len = rec["prompt_len"]
+            if rec["phase"] == "running":
+                s.blocks = list(rec["blocks"])
+                s.cached_blocks = rec["cached_blocks"]
+                running.append(s)
+                blocks_attached += len(s.blocks)
+                tokens_saved += len(s.tokens)
+            else:
+                # resume/admitting rows re-prefill from their tokens through
+                # the preemption path, as the old engine would have
+                if rec["blocks"]:
+                    pool.free(rec["blocks"])
+                resume.append(s)
+            installed.append(req.id)
+            any_deadline |= req.deadline is not None
+            any_prio |= req.priority != 0
+        queue = []
+        for req in snap.get("queue", ()):
+            max_id = max(max_id, req.id)
+            if (only is not None and req.id not in only) \
+                    or req.done.is_set():
+                continue
+            queue.append(req)
+            installed.append(req.id)
+            any_deadline |= req.deadline is not None
+            any_prio |= req.priority != 0
+        # the prefix chain rebinds to the restored pool when this engine has
+        # an index; otherwise its references are released
+        new_prefix = (None if self._prefix is None
+                      else _PrefixCache(pool, self.config.block_size))
+        if snap.get("prefix") is not None:
+            ps = snap["prefix"]
+            if new_prefix is not None:
+                new_prefix._entries = {k: list(v)
+                                       for k, v in ps["entries"].items()}
+                new_prefix._by_bid = {ent[0]: k for k, ent
+                                      in new_prefix._entries.items()}
+                new_prefix._tick = int(ps["tick"])
+            else:
+                bids = [ent[0] for ent in ps["entries"].values()]
+                if bids:
+                    pool.free(bids)
+        with self._cv:
+            if self._stop or self._draining or self._broken is not None:
+                raise ServeError("adopt: engine is stopped/draining/broken")
+            if self._step_i or self._running or self._resume \
+                    or self._admitting or self._waiting:
+                raise ServeError("adopt requires a fresh engine (no traffic)")
+            self._pool = pool
+            # this engine's own pools go (the snapshot's replace them)
+            self._kpool = snap["kpool"]
+            self._vpool = snap["vpool"]
+            self._prefix = new_prefix
+            self._running.extend(running)
+            self._resume.extend(resume)
+            self._waiting.extend(queue)
+            if any_deadline:
+                self._deadline_seen = True
+            if any_prio:
+                self._has_prio = True
+            if max_id:
+                # adopted ids stay unique against later submissions
+                self._ids = itertools.count(max_id + 1)
+            self._cv.notify()
+        counter_inc("serve_reattached", len(running))
+        counter_inc("serve_reattached_blocks", blocks_attached)
+        counter_inc("serve_reprefill_tokens_saved", tokens_saved)
+        return {"mode": "reattach", "installed": sorted(installed),
+                "reattached": len(running), "resumed": len(resume),
+                "queued": len(queue), "blocks_reattached": blocks_attached,
+                "reprefill_tokens_saved": tokens_saved,
+                "reprefill_tokens": 0}
+
+    def _adopt_reprefill(self, snap: dict, only) -> dict:
+        """The whole-state fallback for a rejected snapshot: every in-flight
+        record becomes a resume entry (re-prefilled from its tokens into the
+        ORIGINAL request), and the queue re-queues. Nothing of the
+        snapshot's pool or KV is trusted or touched."""
+        resume, queue, installed = [], [], []
+        tokens_reprefilled = 0
+        max_id = 0
+        any_deadline = any_prio = False
+        for rec in snap.get("seqs", ()):
+            req = rec["req"]
+            max_id = max(max_id, req.id)
+            if (only is not None and req.id not in only) \
+                    or req.done.is_set():
+                continue
+            s = _Seq(req, list(rec["tokens"]))
+            s.prompt_len = rec["prompt_len"]
+            resume.append(s)
+            installed.append(req.id)
+            tokens_reprefilled += len(s.tokens)
+            any_deadline |= req.deadline is not None
+            any_prio |= req.priority != 0
+        for req in snap.get("queue", ()):
+            max_id = max(max_id, req.id)
+            if (only is not None and req.id not in only) \
+                    or req.done.is_set():
+                continue
+            queue.append(req)
+            installed.append(req.id)
+            any_deadline |= req.deadline is not None
+            any_prio |= req.priority != 0
+        with self._cv:
+            if self._stop or self._draining or self._broken is not None:
+                raise ServeError("adopt: engine is stopped/draining/broken")
+            self._resume.extend(resume)
+            self._waiting.extend(queue)
+            if any_deadline:
+                self._deadline_seen = True
+            if any_prio:
+                self._has_prio = True
+            if max_id:
+                self._ids = itertools.count(max_id + 1)
+            self._cv.notify()
+        counter_inc("serve_reprefill_tokens", tokens_reprefilled)
+        return {"mode": "reprefill", "installed": sorted(installed),
+                "reattached": 0, "resumed": len(resume),
+                "queued": len(queue), "blocks_reattached": 0,
+                "reprefill_tokens_saved": 0,
+                "reprefill_tokens": tokens_reprefilled}
+
+    def handoff(self, timeout: float = 30.0) -> dict:
+        """Planned handoff: quiesce the scheduler at its next step boundary,
+        then export the snapshot with the queue and the in-flight handles.
+
+        After this returns THIS engine is stopped for good (``submit``
+        raises, ``close()`` releases only plumbing: the handles live in the
+        returned snapshot), and a successor adopts it:
+        ``new.adopt(old.handoff())``. If the engine crashes before the
+        quiesce lands, this raises ``ServeError`` and the crash path owns the
+        handles (failed, or recovered by a supervisor)."""
+        if threading.current_thread() is self._thread:
+            raise ServeError("handoff() cannot run on the scheduler thread")
+        with self._cv:
+            if self._stop or self._draining or self._broken is not None:
+                raise ServeError("handoff: engine is stopped/draining/broken")
+            if self._handoff_req:
+                raise ServeError("handoff already in progress")
+            self._handoff_req = True
+            self._cv.notify()
+        deadline = time.monotonic() + max(0.0, float(timeout))
+        while not self._quiesced.wait(timeout=0.05):
+            if self._broken is not None or self._failed.is_set() \
+                    or not self._thread.is_alive():
+                raise ServeError(
+                    "engine failed before handoff quiesce") from self._broken
+            if time.monotonic() > deadline:
+                raise ServeError(f"handoff quiesce timed out after {timeout}s")
+        # the loop exits right after signalling: join, so the state is frozen
+        self._thread.join(max(1.0, deadline - time.monotonic()))
+        with span("serve_handoff", step=self._step_i):
+            snap = self.snapshot()
+            with self._cv:
+                snap["queue"] = list(self._waiting)
+                self._waiting.clear()
+            # the snapshot owns every handle now: clear the scheduler lists
+            # so close() cannot fail adopted streams
+            self._running, self._resume, self._admitting = [], [], []
+            self._prefilling = []
+        counter_inc("serve_handoffs")
+        return snap
 
     def __enter__(self):
         return self
@@ -557,11 +1220,23 @@ class Engine:
             pass
 
     # ------------------------------------------------------- engine thread
-    def _run_once(self) -> bool:
-        """One scheduler iteration (bounded idle wait). True = stopped."""
+    def _run_once(self):
+        """One scheduler iteration (bounded idle wait). Truthy = stopped; the
+        ``"handoff"`` sentinel also tells the loop to exit WITHOUT
+        ``_shutdown`` (the handoff snapshot owns the handles)."""
+        self._beat = time.monotonic()  # heartbeat: health(), the supervisor
         with self._cv:
+            if self._handoff_req and not self._stop:
+                # a step boundary: the capture is consistent by construction;
+                # _stop flips under the same lock, so submit() raises and a
+                # supervisor sees a closed engine, never a crash
+                self._stop = True
+                self._quiesced.set()
+                return "handoff"
             idle = not (self._waiting or self._running or self._resume
                         or self._prefilling)
+            if self._draining and idle:
+                self._stop = True  # drain complete
             if not self._stop and idle:
                 self._cv.wait(timeout=0.5)
             if self._stop:
@@ -569,12 +1244,28 @@ class Engine:
             has_work = bool(self._waiting or self._running or self._resume
                             or self._prefilling)
         if has_work:
-            self._step_impl()
+            self._step()
         return False
+
+    def _step(self):
+        self._apply_pool_shrink()
+        try:
+            if _inject._armed and not self._chaos_step():
+                return  # a bounded wedge woke on a stopped engine
+            self._step_impl()
+        except Exception as e:
+            if not _fmem.is_oom(e):
+                raise
+            # out of device memory inside a step: park free blocks (headroom
+            # shrinks, admission backs off) and let the next iteration retry;
+            # a streak parking cannot break falls through to the crash path
+            self._on_oom(e)
 
     def _step_impl(self):
         with span("schedule", step=self._step_i, running=len(self._running)):
             self._drain_cancels()
+            if self._deadline_seen:
+                self._shed_sweep()
             # tracked so a crash mid-prefill fails their handles too
             self._admitting = self._admit()
             if self._admitting and self._chunk:
@@ -589,6 +1280,169 @@ class Engine:
                     self._decode_spec()
                 else:
                     self._decode()
+            self._oom_streak = 0
+            self._maybe_unpark()
+
+    # clean scheduler steps before parked blocks start coming back (half at
+    # a time, so a recurrence re-parks quickly); a class attribute so tests
+    # can shorten the window
+    _UNPARK_AFTER = 64
+
+    def _maybe_unpark(self):
+        """Pressure decay: after a clean-step window, return half the parked
+        blocks to the free list, so a transient out-of-memory does not
+        shrink the pool for good."""
+        if not self._pool.parked_blocks:
+            return
+        if self._unpark_countdown > 0:
+            self._unpark_countdown -= 1
+            return
+        self._pool.unpark(max(self._pool.parked_blocks // 2, 1))
+        self._unpark_countdown = self._UNPARK_AFTER
+
+    def _apply_pool_shrink(self):
+        """Apply a cross-thread shrink request (the scheduler is the pool's
+        only owner; the request word is read and cleared under _cv)."""
+        with self._cv:
+            req = self._shrink_req
+            self._shrink_req = 0
+        if not req:
+            return
+        n = req if req > 0 else max(self._pool.free_blocks // 4, 1)
+        parked = self._pool.park(n)
+        if parked:
+            counter_inc("serve_pool_shrunk", parked)
+            self._unpark_countdown = self._UNPARK_AFTER
+
+    def request_pool_shrink(self, blocks: Optional[int] = None) -> dict:
+        """(any thread) Ask the scheduler to park KV blocks at its next step
+        boundary: admission headroom shrinks, nothing fails. ``None`` parks
+        a quarter of the free list. ``fault.memory.free_pressure`` calls
+        this."""
+        with self._cv:
+            self._shrink_req = int(blocks) if blocks else -1
+            self._cv.notify()
+        return {"requested_blocks": blocks or "free/4",
+                "pages_free": self._pool.free_blocks,
+                "pages_parked": self._pool.parked_blocks}
+
+    def _on_oom(self, exc: BaseException) -> None:
+        self._oom_streak += 1
+        if self._oom_streak > 8:
+            raise exc  # parking does not help: contain, do not loop
+        _fmem.note_oom("serve.step", exc)
+        # sequences caught mid-prefill hold blocks whose KV was never (or
+        # only partly) written: free them and re-prefill through the
+        # preemption path, as an evicted peer would
+        for seq in self._admitting + self._prefilling:
+            try:
+                if seq.blocks:
+                    self._pool.free(seq.blocks)
+            except RuntimeError:  # the pool may be what broke
+                pass
+            seq.blocks = []
+            seq.chunk_pos = 0
+            if not seq.req.done.is_set() and seq not in self._resume:
+                self._resume.append(seq)
+        self._admitting, self._prefilling = [], []
+        if self._prefix is not None and len(self._prefix):
+            # cached prefixes are the most expendable resident state
+            self._prefix.evict(max(len(self._prefix) // 2, 1))
+        parked = self._pool.park(max(self._pool.free_blocks // 4, 1))
+        if parked:
+            counter_inc("serve_pool_shrunk", parked)
+        self._unpark_countdown = self._UNPARK_AFTER
+        if self._device.type == "cuda":
+            # the pools are preallocated, so parking frees no device memory;
+            # the failed step's cached activations go back to the device
+            # here (XLA releases a failed program's buffers the same way)
+            torch.cuda.empty_cache()
+
+    def _chaos_step(self) -> bool:
+        """The ``serve.*`` and ``hbm.*`` chaos points, consulted once a step
+        while injection is armed. ``serve.crash`` raises out of the loop,
+        ``serve.wedge`` hangs the scheduler thread (forever unless ``ms=``
+        bounds it), ``serve.slow_step`` delays the step, and
+        ``serve.pool_corrupt`` breaks pool conservation. Returns False when a
+        bounded wedge wakes on an engine that was stopped or abandoned
+        meanwhile: the step must then touch neither the pool nor the
+        device."""
+        step = self._step_i
+        if _inject.should_fire("serve.slow_step", step=step):
+            time.sleep(_inject.point_cfg("serve.slow_step").get("ms", 100)
+                       / 1000.0)
+        if _inject.should_fire("serve.pool_corrupt", step=step):
+            self._pool.damage()
+        if _inject.should_fire("serve.wedge", step=step):
+            ms = _inject.point_cfg("serve.wedge").get("ms")
+            if ms:
+                time.sleep(ms / 1000.0)
+            else:
+                _inject._hang("serve.wedge")
+            if self._stop or self._broken is not None:
+                return False
+        if _inject.should_fire("serve.crash", step=step):
+            raise ServeError(f"injected serve.crash at engine step {step}")
+        if _inject.should_fire("hbm.pressure", step=step):
+            blocks = _inject.point_cfg("hbm.pressure").get("blocks")
+            if blocks:
+                self.request_pool_shrink(blocks)
+        # a synthesized out-of-memory at the step's dispatch site: raises
+        # into _step's handler (park + backpressure, no crash)
+        _inject.maybe_hbm_oom("serve.step", step=step)
+        return True
+
+    def _shed_sweep(self):
+        """Deadline enforcement at the step boundary (only once a request
+        with a deadline was submitted). Expired requests fail wherever they
+        sit; a queued request that cannot meet its deadline even if admitted
+        now (prefill plus its whole token budget at the decode-step EMA) is
+        shed before its prefill is paid."""
+        now = time.monotonic()
+        ema = max(self._ema_step_s, self._step_floor_s)
+        shed = []
+        with self._cv:
+            for req in [r for r in self._waiting if r.deadline is not None]:
+                eta = (1 + req.max_new_tokens) * ema
+                if now >= req.deadline:
+                    self._waiting.remove(req)
+                    shed.append((req, f"expired in queue "
+                                 f"({now - req.deadline:.3f}s late)"))
+                elif now + eta > req.deadline:
+                    self._waiting.remove(req)
+                    shed.append((req, f"doomed at admission: needs "
+                                 f"~{eta:.3f}s but the deadline is in "
+                                 f"{req.deadline - now:.3f}s"))
+        for req, why in shed:
+            counter_inc("serve_deadline_shed")
+            self._finish_request(req, error=DeadlineExceeded(
+                f"request {req.id} {why}", request_id=req.id))
+        for seq in [s for s in self._running if s.req.deadline is not None
+                    and now >= s.req.deadline]:
+            counter_inc("serve_deadline_expired")
+            self._retire(seq, error=DeadlineExceeded(
+                f"request {seq.req.id} deadline expired mid-decode "
+                f"({seq.generated}/{seq.req.max_new_tokens} generated)",
+                request_id=seq.req.id))
+        for seq in [s for s in self._resume if s.req.deadline is not None
+                    and now >= s.req.deadline]:
+            self._resume.remove(seq)
+            counter_inc("serve_deadline_expired")
+            self._finish_request(seq.req, error=DeadlineExceeded(
+                f"request {seq.req.id} deadline expired while preempted "
+                f"({seq.generated}/{seq.req.max_new_tokens} generated)",
+                request_id=seq.req.id))
+        for seq in [s for s in self._prefilling if s.req.deadline is not None
+                    and now >= s.req.deadline]:
+            self._prefilling.remove(seq)
+            if seq.blocks:
+                self._pool.free(seq.blocks)
+                seq.blocks = []
+            counter_inc("serve_deadline_expired")
+            self._finish_request(seq.req, error=DeadlineExceeded(
+                f"request {seq.req.id} deadline expired mid-chunked-prefill "
+                f"({seq.chunk_pos}/{len(seq.tokens)} tokens cached)",
+                request_id=seq.req.id))
 
     # -- admission ----------------------------------------------------------
     def _make_prefill_buckets(self):
@@ -658,10 +1512,11 @@ class Engine:
         return matched, blocks
 
     def _admit(self) -> List[_Seq]:
-        """Preempted sequences first, then the queue in FIFO order; stops at
-        the first request the pool's headroom cannot take. Each admitted
-        sequence owns its cached prefix blocks (shared) and fresh blocks for
-        the rest."""
+        """Preempted sequences first, then the queue: by priority (higher
+        first) once a prioritized request was submitted, FIFO within a
+        class; stops at the first request the pool's headroom cannot take,
+        so nothing behind it bypasses it. Each admitted sequence owns its
+        cached prefix blocks (shared) and fresh blocks for the rest."""
         admitted: List[_Seq] = []
         max_batch = self.config.max_batch
         with span("admit") as sp:
@@ -678,11 +1533,23 @@ class Engine:
                 admitted.append(seq)
             self._resume = still_resume
             with self._cv:
-                cand = list(self._waiting)
+                if self._has_prio and len(self._waiting) > 1:
+                    cand = sorted(self._waiting,
+                                  key=lambda r: (-r.priority, r.id))
+                else:
+                    cand = list(self._waiting)
             for req in cand:
                 if len(self._running) + len(admitted) >= max_batch:
                     break
                 with self._cv:
+                    if req.cancelled:
+                        try:
+                            self._waiting.remove(req)
+                        except ValueError:
+                            continue  # already drained elsewhere
+                        self._finish_request(req, error=RequestCancelled(
+                            f"request {req.id} cancelled"))
+                        continue
                     got = self._grant(req.prompt, len(admitted) + 1)
                     if got is None:
                         counter_inc("serve_backpressure")
@@ -720,11 +1587,16 @@ class Engine:
             starts[r] = start
             lens[r] = len(toks)
             tables[r, :len(blocks)] = blocks
+        # heartbeat before a possibly long first call (a kernel build): the
+        # supervisor's staleness clock starts here
+        self._beat = time.monotonic()
+        self._compiling = (kind, bw, t_bucket) not in self._fns
         fn = self._get_fn(kind, bw, t_bucket)
         args = (ids, lens, tables) if kind == "prefill" \
             else (ids, starts, lens, tables)
         self._kpool, self._vpool, logits = fn(
             self._params, *map(self._dev, args), self._kpool, self._vpool)
+        self._compiling = False
         return logits
 
     def _prefill(self, seqs: List[_Seq]):
@@ -751,7 +1623,9 @@ class Engine:
                     counter_inc("serve_prefills")
                     if tail:
                         counter_inc("serve_tail_prefills")
-                    self._land_prefill(chunk, logits.float().cpu().numpy())
+                    rows = logits.float().cpu().numpy()
+                    self._beat = time.monotonic()
+                    self._land_prefill(chunk, rows)
 
     def _land_prefill(self, chunk: List[_Seq], rows: np.ndarray):
         """Index the prompt's full blocks in the prefix cache (while the
@@ -801,6 +1675,7 @@ class Engine:
                 (s.tokens[s.chunk_pos:s.chunk_pos + n], s.chunk_pos, s.blocks)
                 for s, n in zip(batch, feeds)])
             counter_inc("serve_prefill_chunks")
+            self._beat = time.monotonic()
             for s, n in zip(batch, feeds):
                 s.chunk_pos += n
             done = [r for r, s in enumerate(batch)
@@ -828,8 +1703,10 @@ class Engine:
         """Every live sequence needs block ``(pos + spec_k) // block_size``
         mapped before the step (the verify writes spec_k slots past pos);
         pool exhaustion first reclaims unpinned prefix-cache entries, then
-        preempts the youngest peer (evict → requeue for re-prefill) —
-        backpressure, never failure."""
+        preempts a peer (evict → requeue for re-prefill) — backpressure,
+        never failure. The victim is priority-then-youngest: the lowest
+        priority first, the youngest among equals; a grower never evicts a
+        higher-priority peer, it preempts itself instead."""
         for seq in list(self._running):
             if seq not in self._running:
                 continue  # evicted by an earlier iteration
@@ -850,7 +1727,12 @@ class Engine:
                     # a lone sequence always fits (submit() bounds it)
                     raise ServeError(f"page pool exhausted by a single "
                                      f"sequence (request {seq.req.id})")
-                self._evict(max(victims, key=lambda s: s.req.id))
+                victim = min(victims,
+                             key=lambda s: (s.req.priority, -s.req.id))
+                if victim.req.priority > seq.req.priority:
+                    self._evict(seq)
+                    break
+                self._evict(victim)
 
     def _evict(self, seq: _Seq):
         with span("evict", request=seq.req.id, generated=seq.generated):
@@ -933,14 +1815,22 @@ class Engine:
         toks = np.zeros((bb,), np.int32)
         for r, s in enumerate(self._running):
             toks[r] = s.tokens[-1]
+        # a width upgrade pops the old entry: compare by key
+        warm = ("decode", bb, tables.shape[1]) in self._fns
         with span("decode_step", bucket=bb, rows=n, step=self._step_i):
+            self._beat = time.monotonic()  # the staleness clock covers this
             fn = self._get_fn("decode", bb, tables.shape[1])
+            self._compiling = not warm
             t0 = time.monotonic()
             self._kpool, self._vpool, nxt = fn(
                 self._params, self._kpool, self._vpool, self._dev(tables),
                 self._dev(pos), self._dev(toks), self._dev(temps), self._gen)
             nxt = nxt.cpu().numpy()
-            self._decode_s += time.monotonic() - t0
+            dt = time.monotonic() - t0
+            self._decode_s += dt
+        self._beat = time.monotonic()  # beat before dropping the grace
+        self._compiling = False
+        self._note_step_time(warm, dt)
         self._step_i += 1
         self._occ_live += n
         self._occ_slots += bb
@@ -1012,15 +1902,22 @@ class Engine:
         for r, s in enumerate(self._running):
             toks[r, 0] = s.tokens[-1]
             toks[r, 1:] = drafts[r]
+        warm = ("spec", bb, tables.shape[1]) in self._fns
         with span("decode_step", bucket=bb, rows=n, step=self._step_i,
                   spec_k=k) as sp:
+            self._beat = time.monotonic()
             fn = self._get_fn("spec", bb, tables.shape[1])
+            self._compiling = not warm
             t0 = time.monotonic()
             self._kpool, self._vpool, greedy, sampled = fn(
                 self._params, self._kpool, self._vpool, self._dev(tables),
                 self._dev(pos), self._dev(toks), self._dev(temps), self._gen)
             greedy, sampled = greedy.cpu().numpy(), sampled.cpu().numpy()
-            self._decode_s += time.monotonic() - t0
+            dt = time.monotonic() - t0
+            self._decode_s += dt
+            self._beat = time.monotonic()
+            self._compiling = False
+            self._note_step_time(warm, dt)
             proposed = accepted = 0
             for r, s in enumerate(list(self._running)):
                 if temps[r] > 0.0:
@@ -1046,6 +1943,14 @@ class Engine:
         counter_inc("serve_draft_proposed", proposed)
         counter_inc("serve_draft_accepted", accepted)
 
+    def _note_step_time(self, warm: bool, dt: float):
+        """The decode-step time EMA behind deadline feasibility and the
+        Retry-After hint; a step function's first call (which may build a
+        kernel) is left out, or every early deadline would look doomed."""
+        if warm:
+            self._ema_step_s = (dt if not self._ema_step_s
+                                else 0.8 * self._ema_step_s + 0.2 * dt)
+
     def _append_token(self, seq: _Seq, tok: int):
         """Record one generated token; retire the sequence when it hits eos,
         its budget, or a cancel flag."""
@@ -1066,7 +1971,14 @@ class Engine:
         seq.blocks = []
         if seq in self._running:
             self._running.remove(seq)
-        _finish(seq.req, tokens=seq.tokens, error=error)
+        self._finish_request(seq.req, tokens=seq.tokens, error=error)
+
+    def _finish_request(self, req: _Request, tokens=None, error=None):
+        if _finish(req, tokens=tokens, error=error) and error is None:
+            # the finished-request latency EMA behind the Overloaded hint
+            lat = req.t_done - req.t_submit
+            self._ema_req_s = (lat if not self._ema_req_s
+                               else 0.8 * self._ema_req_s + 0.2 * lat)
 
     # -- cancellation / teardown ---------------------------------------------
     def _cancel(self, req: _Request):
@@ -1080,7 +1992,7 @@ class Engine:
                 f"request {seq.req.id} cancelled"))
         for seq in [s for s in self._resume if s.req.cancelled]:
             self._resume.remove(seq)
-            _finish(seq.req, error=RequestCancelled(
+            self._finish_request(seq.req, error=RequestCancelled(
                 f"request {seq.req.id} cancelled"))
         # a cancel mid-chunked-prefill frees its (fully granted) prompt
         # blocks at once; the chunks already written are abandoned
@@ -1088,14 +2000,15 @@ class Engine:
             self._prefilling.remove(seq)
             self._pool.free(seq.blocks)
             seq.blocks = []
-            _finish(seq.req, error=RequestCancelled(
+            self._finish_request(seq.req, error=RequestCancelled(
                 f"request {seq.req.id} cancelled"))
         with self._cv:
             cancelled = [r for r in self._waiting if r.cancelled]
             for req in cancelled:
                 self._waiting.remove(req)
         for req in cancelled:
-            _finish(req, error=RequestCancelled(f"request {req.id} cancelled"))
+            self._finish_request(req, error=RequestCancelled(
+                f"request {req.id} cancelled"))
 
     def _shutdown(self):
         err = self._broken or ServeError("serving engine closed")
@@ -1108,7 +2021,7 @@ class Engine:
             waiting = list(self._waiting)
             self._waiting.clear()
         for req in waiting:
-            _finish(req, error=ServeError(str(err)))
+            self._finish_request(req, error=ServeError(str(err)))
         # _admitting covers sequences a crash caught mid-prefill; _finish
         # dedupes any that already made it to _running
         for seq in (self._running + self._resume + self._admitting
@@ -1119,7 +2032,7 @@ class Engine:
                 except RuntimeError:  # a corrupt pool must not stop the sweep
                     pass
                 seq.blocks = []
-            _finish(seq.req, error=ServeError(str(err)))
+            self._finish_request(seq.req, error=ServeError(str(err)))
         self._running, self._resume, self._admitting = [], [], []
         self._prefilling = []
 
@@ -1304,12 +2217,27 @@ def _engine_loop(wr, device):
                 stopped = eng._run_once()
             except Exception as e:
                 # fail loudly into every pending handle rather than leave
-                # clients blocked on events that will never fire
+                # clients blocked on events that will never fire; an
+                # exhaustion that defeated the parking ladder lands here too
+                if _fmem.is_oom(e):
+                    _fmem.note_oom("serve.loop", e)
                 eng._broken = e
                 counter_inc("serve_engine_errors")
-                eng._shutdown()
+                if eng._supervised:
+                    # leave the queued and in-flight state for the supervisor
+                    # to harvest (requeue or re-attach on the restarted
+                    # engine); the event wakes its monitor at once
+                    eng._failed.set()
+                else:
+                    eng._shutdown()
                 return
             if stopped:
-                eng._shutdown()
+                # a handoff exits without failing handles (the snapshot owns
+                # them), and so does an engine that someone else stopped and
+                # marked broken (a wedged close, a supervisor's quarantine):
+                # they already resolved its handles, and a late-waking
+                # thread must not touch its pool
+                if stopped != "handoff" and eng._broken is None:
+                    eng._shutdown()
                 return
             del eng

@@ -40,8 +40,18 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_walk_covers_the_fault_package_and_the_supervisor():
+    for path in ("paddle_tpu_torch/fault/__init__.py",
+                 "paddle_tpu_torch/fault/inject.py",
+                 "paddle_tpu_torch/fault/memory.py",
+                 "paddle_tpu_torch/serving/supervisor.py"):
+        assert path in PORT_FILES
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.serving.supervisor, paddle_tpu_torch.fault, "
+            "paddle_tpu_torch.fault.inject, paddle_tpu_torch.fault.memory, "
             "paddle_tpu_torch.models, paddle_tpu_torch.ops.kernels, "
             "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.nn.functional, paddle_tpu_torch.ops.fused_ce\n"
@@ -76,3 +86,16 @@ def test_llama_engine_without_device_raises_when_cuda_missing(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(model, block_size=8, num_blocks=8, max_batch=2)
+
+
+def test_supervisor_without_device_raises_when_cuda_missing(monkeypatch):
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.serving import ServingSupervisor
+
+    model = GPTForPretraining(GPTConfig(
+        vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
+        max_position_embeddings=32), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingSupervisor(model, watchdog_s=1.0, block_size=8, num_blocks=8,
+                          max_batch=2)

@@ -1,6 +1,6 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py): the
 JAX model's weights exported as numpy, the port model built from them, and
-the serving tests' flag, wave and drain helpers."""
+the serving tests' flag, chaos, wave, wait and drain helpers."""
 import contextlib
 import dataclasses
 import time
@@ -79,3 +79,29 @@ def drained(eng, timeout=30.0):
         time.sleep(0.01)
     eng._pool.check()
     return eng.stats()
+
+
+@contextlib.contextmanager
+def chaos(spec):
+    """The same fault-injection spec armed in the reference's and the port's
+    ``fault.inject`` for the block; both are disarmed after it."""
+    from paddle_tpu.fault import inject as jinject
+    from paddle_tpu_torch.fault import inject as tinject
+
+    jinject.arm(spec)
+    tinject.arm(spec)
+    try:
+        yield
+    finally:
+        jinject.disarm()
+        tinject.disarm()
+
+
+def wait_for(cond, timeout, what):
+    """Poll ``cond()`` every 5 ms until it holds; fails with ``what`` after
+    ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout}s: {what}")
+        time.sleep(0.005)
