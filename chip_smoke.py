@@ -3,7 +3,8 @@
     python3 chip_smoke.py            # the whole run; needs one CUDA card
     python3 chip_smoke.py --profile  # + device breakdowns of a decode step
                                      #   (the verify step of drive f) and
-                                     #   of a train step
+                                     #   of a train step, through the
+                                     #   port's profiler
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -63,7 +64,26 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    "draining" meanwhile, every request completes); then Llama-7B at full
    width and depth (32 layers, 32 heads, KV = 32, FFN 11008, vocab 32000,
    untied head, bf16, random weights from a seed) as (a) and (b), (c) and
-   (d), and (h) as g0 and g1. Launch counts are zeroed just before each
+   (d), and (h) as g0 and g1. g2 must also leave two parseable flight
+   dumps (the scheduler's ``serving_loop_error``, the supervisor's
+   ``serving_supervisor_crash``) that carry the engine's 32 running rows,
+   the supervisor's context and, last, the crash step's decode step; g4
+   takes ``fault.memory.post_mortem`` with the engine alive, which must carry
+   the allocator's census. (i), after (g): (a)'s engine with ``trace=True``
+   and the telemetry endpoint on a free local port serves (a)'s wave queued
+   before the first admission, and must give the tokens of the same engine
+   with tracing off, 32 closed timelines (``queue``, ``prefill``, decode
+   steps), TTFT, end-to-end and queue-wait histograms of 32 and an
+   inter-token one of 32 x 63, valid Prometheus text on ``/metrics`` with
+   the same counts, the live trace ids on ``/debug/requests``, ``/healthz``
+   200, and ``/readyz`` 200 then 503 after ``close(drain=True)``; it prints
+   p50/p99 TTFT and inter-token gap; then the port's profiler with a device
+   timeline over 8 of the engine's decode steps must name the paged kernel
+   24 times a step, as many as its wrapper counts, and the observability
+   tax is measured (trace-off and trace-on engines, 6 alternating pairs of
+   32 x 16-token waves, median ratio; reported, not held to a bound), then
+   a trace-off engine serves with every ``serving.observe`` hook made to
+   raise. Launch counts are zeroed just before each
    drive (each sub-drive of (g) and (h)) and read just after it; every output must have exactly prompt +
    64 tokens and the pool must drain (to the prefix index's own blocks in
    (e), and to none after its ``close()``). One decode step built with the
@@ -77,8 +97,13 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 5. train: GPT-3 1.3B at full width and depth (bf16, seed 0, dropout 0,
    flash attention, fused LM-head loss, AdamW lr 1e-4) through
    ``jit.compile_train_step`` on one fixed b2 x s2048 batch: 2 warm-up and
-   8 timed steps; the flash counters, zeroed just before the timed steps,
-   must each read 24 x 8; losses finite and falling. A 4-layer full-width
+   8 timed steps, under the port's profiler with the memory census, whose
+   ``train_step`` spans must each carry ``live_bytes`` and ``delta_bytes``
+   and whose ``peak_live_bytes`` must be within 1% of
+   ``torch.cuda.max_memory_allocated()``; the flash counters, zeroed just
+   before the timed steps, must each read 24 x 8; losses finite and
+   falling; a device timeline of one more step must name ``fwd_wgmma``,
+   ``dq_wgmma`` and ``dkv_wgmma`` 24 times each. A 4-layer full-width
    model's gradients through the kernels are held against the same
    backward with attention on the plain version. Runs before phase 4, so
    the timing rows carry its launch counts;
@@ -93,7 +118,9 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
 The last three lines of stdout are the card's name and power limit
 (``nvidia-smi``), the ``{"kernels": [...]}`` JSON line and
-``{"ok": true, "device": {...}}``; the three lines before them are
+``{"ok": true, "device": {...}}``; the four lines before them are
+``{"device_timeline": {...}}``, each kernel's launches, µs a launch and
+ms a step in the profiled windows (printed beside its CUDA-event time),
 ``{"flash_long_shape": [...]}``, the flash kernels' times at the
 long-sequence shape (no launches on the main path),
 ``{"paged_shapes": [...]}``, the paged kernel's time, bound and cluster
@@ -106,11 +133,16 @@ sub-drives with their adopt info.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
+import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -201,12 +233,26 @@ FIRST_STEP_WAITS = "serve.slow_step:at=1,ms=500"
 # replacement engine counts its steps from 0, so it fires once); g4: the
 # synthesized out-of-memory at the serving step
 HANDOFF_AFTER_STEPS = 16
-CRASH_SPEC = "serve.crash:step=24,times=1"
+CRASH_STEP = 24
+CRASH_SPEC = f"serve.crash:step={CRASH_STEP},times=1"
 OOM_SPEC = "hbm.oom:op=serve.step,at=8"
 # g5: the shed policy, a supervisor's watchdog for g2, and g5's drain wave
 SHED_KW = {"max_queue": 8, "shed": True}
 SUPERVISOR_WATCHDOG_S = 2.0
 DRAIN_REQUESTS = 8
+# observability: drive (i) serves (a)'s wave traced, with the telemetry
+# endpoint; the tax runs TAX_PAIRS alternating pairs of trace-off/trace-on
+# waves of TAX_NEW tokens; each device timeline covers TIMELINE_STEPS decode
+# steps (B = 32, contexts ~640) or one train step. Flight dumps land under
+# FLIGHT_DIR: $PADDLE_TPU_FLIGHT_DIR when the caller sets it (and keeps the
+# dumps), else a temporary directory removed at exit (main sets it)
+TAX_PAIRS, TAX_NEW = 6, 16
+TIMELINE_STEPS = 8
+FLIGHT_DIR = None
+SLO_FAMILIES = ("paddle_tpu_serve_ttft_seconds",
+                "paddle_tpu_serve_inter_token_seconds",
+                "paddle_tpu_serve_e2e_seconds",
+                "paddle_tpu_serve_queue_seconds")
 # the int8 LM heads of the engine phase's models (K, N): GPT-3 1.3B's hidden
 # size and padded vocabulary, weight stored (N, K) (the tied embedding), and
 # Llama-7B's, weight stored (K, N) (the untied head, ``transpose_w=False``)
@@ -1057,24 +1103,42 @@ def decode_profile(eng, tag, steps=16, B=32, ctx=640):
                          watch=("paged_attention_kernel", INT8_MMA))
 
 
-def device_breakdown(step, steps, label, top=8, watch=()):
-    """Run ``step`` ``steps`` times under torch.profiler (CPU + CUDA) and
-    print the device busy share of the window, the kernels that take the
-    most device time and, below them, any other kernel whose name holds one
-    of ``watch``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_timeline(step, steps, label):
+    """The device activity of ``steps`` calls of ``step`` under the port's
+    ``profiler.Profiler(targets=[ProfilerTarget.GPU])`` (torch.profiler,
+    CUPTI through Kineto): ``(start_ns, end_ns, name)``, time-ordered; fails
+    on an empty timeline."""
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with Profiler(targets=[ProfilerTarget.GPU]) as prof:
         for _ in range(steps):
             step()
-        torch.cuda.synchronize()
-    ev = sorted((e.start_ns(), e.end_ns(), e.name())
-                for e in prof.profiler.kineto_results.events()
-                if e.device_type() == DeviceType.CUDA)
+    ev = [(e["start_ns"], e["end_ns"], e["name"])
+          for e in prof.device_events()]
     if not ev:
-        fail(f"{label}: the trace holds no device activity")
+        fail(f"{label}: the device timeline holds no activity")
+    return ev
+
+
+def timeline_kernels(ev, names, steps):
+    """Launches, device ms per step and µs per launch of every kernel in
+    the timeline ``ev`` whose name holds each of ``names``."""
+    out = {}
+    for want in names:
+        durs = [b - a for a, b, n in ev if want in n]
+        out[want] = {"launches": len(durs),
+                     "ms_per_step": sum(durs) / 1e6 / steps,
+                     "us_per_launch": (sum(durs) / 1e3 / len(durs)
+                                       if durs else 0.0)}
+    return out
+
+
+def device_breakdown(step, steps, label, top=8, watch=()):
+    """Run ``step`` ``steps`` times under the port's profiler with a device
+    timeline and print the device busy share of the window, the kernels
+    that take the most device time and, below them, any other kernel whose
+    name holds one of ``watch``."""
+    ev = device_timeline(step, steps, label)
     busy, end, by_name = 0, 0, {}
     for a, b, name in ev:
         busy += max(0, b - max(a, end))
@@ -1518,6 +1582,59 @@ def handoff_run(model, prompts, vocab_size, tag, launches, corrupt=False):
                         "checksums_ms": t_s * 1e3}
 
 
+def flight_dir(sub):
+    """A fresh flight-dump directory for one sub-drive, set as
+    ``PADDLE_TPU_FLIGHT_DIR``."""
+    d = FLIGHT_DIR / sub
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    os.environ["PADDLE_TPU_FLIGHT_DIR"] = str(d)
+    return d
+
+
+def read_dump(tag, path):
+    """(bytes, document) of one flight dump, or ``fail`` if it does not
+    parse."""
+    try:
+        return path.stat().st_size, json.loads(path.read_text())
+    except (OSError, ValueError) as e:
+        fail(f"engine ({tag}): flight dump {path.name} unreadable: {e!r}")
+
+
+def crash_dumps_check(d):
+    """g2's post-mortems: the engine loop's ``serving_loop_error`` and the
+    supervisor's ``serving_supervisor_crash`` dump must each parse, carry
+    the engine's in-flight table (``DRIVE_REQUESTS`` running rows at the
+    crash step) and the supervisor's context (no restart yet in the loop's,
+    one in the supervisor's), and their recent spans must
+    end in the last decode step before the crash (step ``CRASH_STEP - 1``,
+    all rows) and its ``schedule`` span. Returns the dump sizes."""
+    sizes = {}
+    # the loop's dump precedes the supervisor's detection: 0 restarts yet
+    for reason, restarts in (("serving_loop_error", 0),
+                             ("serving_supervisor_crash", 1)):
+        paths = sorted(d.glob(f"*_{reason}.json"))
+        if len(paths) != 1:
+            fail(f"engine (g2): {len(paths)} {reason} flight dumps")
+        size, doc = read_dump("g2", paths[0])
+        ctx = doc["context"]
+        engines = [v for k, v in ctx.items() if "running" in v
+                   and v.get("step") == CRASH_STEP]
+        sups = [v for k, v in ctx.items()
+                if k.startswith("paddle_tpu_torch_serving_supervisor_")]
+        if len(engines) != 1 \
+                or len(engines[0]["running"]) != DRIVE_REQUESTS \
+                or len(sups) != 1 or sups[0].get("restarts") != restarts:
+            fail(f"engine (g2): {reason} dump context {sorted(ctx)}")
+        tail = [(s["name"], s["attrs"].get("step"), s["attrs"].get("rows"))
+                for s in doc["recent_spans"][-2:]]
+        if tail != [("decode_step", CRASH_STEP - 1, DRIVE_REQUESTS),
+                    ("schedule", CRASH_STEP - 1, None)]:
+            fail(f"engine (g2): {reason} dump's recent spans end in {tail}")
+        sizes[reason] = size
+    return sizes
+
+
 def reattach_check(tag, info, outs, ref):
     """A clean handoff or crash must re-attach with nothing re-prefilled and
     give the uninterrupted run's tokens; a ``reprefill`` here is a failure,
@@ -1568,6 +1685,7 @@ def durability_drive(model, cfg, prompts, tag, full=True):
     sub-drive. Returns the drive's row."""
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.fault import inject
+    from paddle_tpu_torch.fault import memory as fmem
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.serving import (DeadlineExceeded, Engine,
                                           Overloaded, ServingSupervisor)
@@ -1585,6 +1703,8 @@ def durability_drive(model, cfg, prompts, tag, full=True):
         row["launches"] = launches.total
         row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         return row
+
+    dumps = flight_dir("g2")
 
     def g2():
         sup = ServingSupervisor(model, snapshot=True,
@@ -1606,7 +1726,11 @@ def durability_drive(model, cfg, prompts, tag, full=True):
     if restarts != 1:
         fail(f"engine (g2): {restarts} restarts")
     reattach_check("g2", {**rec, "reprefill_tokens": 0}, outs, ref)
-    row["g2"] = {"restarts": restarts, "recovery": rec}
+    sizes = crash_dumps_check(dumps)
+    print(f"  engine (g2): flight dumps parse, carry the {DRIVE_REQUESTS} "
+          f"running rows at step {CRASH_STEP} and the supervisor's context, "
+          f"and end in decode step {CRASH_STEP - 1}; bytes {sizes}")
+    row["g2"] = {"restarts": restarts, "recovery": rec, "dump_bytes": sizes}
 
     outs, info, ms = handoff_run(model, prompts, V, "g3", launches,
                                  corrupt=True)
@@ -1626,12 +1750,32 @@ def durability_drive(model, cfg, prompts, tag, full=True):
             outs = [h.result(timeout=900) for h in
                     chaos_wave(eng.submit, prompts, OOM_SPEC)]
             parked = eng.stats()["pages_parked"]
+            # the post-mortem of the exhaustion, taken while the engine
+            # holds its pool
+            ev = fmem.recent_ooms()[-1]
+            dump = fmem.post_mortem(
+                ev["where"], [dict(ev, action="park", pages_parked=parked)])
         finally:
             inject.disarm()
             eng.close()
-        return outs, counter_delta(c0), parked
+        return outs, counter_delta(c0), parked, dump
 
-    outs, d, parked = launches("g4", g4)
+    flight_dir("g4")
+    outs, d, parked, dump = launches("g4", g4)
+    size, doc = read_dump("g4", Path(dump))
+    census = doc["extra"]["census"]
+    hbm = doc["context"].get("hbm", {}).get("recent_oom", [{}])[-1]
+    if not (census.get("device", "").startswith("cuda")
+            and 0 < census["allocated_bytes"] <= census["reserved_bytes"]
+            and census["allocated_bytes"] <= census["peak_allocated_bytes"]
+            and doc["allocator"] and hbm.get("where") == "serve.step"):
+        fail(f"engine (g4): post-mortem census {census}, allocator "
+             f"{doc['allocator']}, hbm context {hbm}")
+    print(f"  engine (g4): hbm_exhausted post-mortem of {size} bytes: "
+          f"allocated {census['allocated_bytes'] / 2**30:.2f} GiB, reserved "
+          f"{census['reserved_bytes'] / 2**30:.2f} GiB, peak allocated "
+          f"{census['peak_allocated_bytes'] / 2**30:.2f} GiB, the OOM event "
+          "in its hbm context")
     well_formed("g4", prompts, outs, V)
     share = same_share(outs, ref)
     print(f"  engine (g4): out-of-memory at step 8: serve_pool_shrunk "
@@ -1642,7 +1786,7 @@ def durability_drive(model, cfg, prompts, tag, full=True):
         fail(f"engine (g4): counters {d}")
     row["g4"] = {"pool_shrunk": d["serve_pool_shrunk"],
                  "oom_trips": d.get("hbm_oom_trips", 0),
-                 "equal_share": share}
+                 "equal_share": share, "dump_bytes": size}
 
     def g5():
         eng = Engine(model, **ENGINE_KW, **SHED_KW, int8=False, seed=0)
@@ -1709,12 +1853,295 @@ def durability_drive(model, cfg, prompts, tag, full=True):
     row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return row
 
+# -- observability (drive i) ---------------------------------------------------
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(port, path):
+    """(status, body) of a GET to the local telemetry endpoint."""
+    from urllib.error import HTTPError
+    from urllib.request import urlopen
+
+    try:
+        with urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+            return r.status, r.read().decode()
+    except HTTPError as e:
+        return e.code, e.read().decode()
+
+
+_SAMPLE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^{}]*\})? "
+    r"(NaN|[-+]?Inf|[-+]?(\d+(\.\d*)?|\.\d+)([eE][-+]?\d+)?)$")
+
+
+def check_prometheus(tag, body):
+    """``body`` must parse as Prometheus text: every sample line
+    ``name{labels} value``, every histogram's buckets non-decreasing and
+    ending in ``+Inf`` equal to its ``_count``, with the four SLO histogram
+    families and the ``paddle_tpu_serve_e2e_latency`` summary present.
+    Returns {(family, labels): count} of the histograms."""
+    types, buckets, counts = {}, {}, {}
+    for line in body.splitlines():
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, typ = line.split()
+            types[name] = typ
+            continue
+        if line.startswith("#"):
+            continue
+        m = _SAMPLE.match(line)
+        if not m:
+            fail(f"engine ({tag}): /metrics line {line!r} is not "
+                 "name{labels} value")
+        name, labels, val = m.group(1), m.group(2) or "", float(m.group(3))
+        lab = dict(re.findall(r'(\w+)="([^"]*)"', labels))
+        for suffix, into in (("_bucket", buckets), ("_count", counts)):
+            fam = name[:-len(suffix)]
+            if name.endswith(suffix) and types.get(fam) == "histogram":
+                le = lab.pop("le", None)
+                key = (fam, tuple(sorted(lab.items())))
+                if suffix == "_bucket":
+                    into.setdefault(key, []).append((le, val))
+                else:
+                    into[key] = val
+    for fam in SLO_FAMILIES:
+        if types.get(fam) != "histogram":
+            fail(f"engine ({tag}): /metrics lacks the {fam} histogram")
+    if types.get("paddle_tpu_serve_e2e_latency") != "summary":
+        fail(f"engine ({tag}): /metrics lacks the e2e latency summary")
+    for key, seq in buckets.items():
+        vals = [v for _, v in seq]
+        if vals != sorted(vals) or seq[-1][0] != "+Inf" \
+                or vals[-1] != counts.get(key):
+            fail(f"engine ({tag}): /metrics histogram {key} buckets {seq}, "
+                 f"count {counts.get(key)}")
+    return {k: int(v) for k, v in counts.items()}
+
+
+def observe_tax(model, prompts):
+    """The reference's ``bench_observe_overhead`` at GPT-3 1.3B: two warm
+    engines of (a)'s setting, trace off and trace on, serve the same wave of
+    ``TAX_NEW`` tokens a request in alternating order, ``TAX_PAIRS`` pairs;
+    the median of the per-pair on/off ratios, minus 1, is the tax. Then the
+    inert tripwire: with every ``serving.observe`` hook made to raise, a
+    trace-off engine must still serve a wave. Host-clock waves spread
+    between runs, so the tax is reported, not held to a bound."""
+    from paddle_tpu_torch.serving import Engine, observe
+
+    def wave(eng, n=None):
+        t0 = time.monotonic()
+        hs = [eng.submit(p, max_new_tokens=TAX_NEW)
+              for p in prompts[:n or len(prompts)]]
+        outs = [h.result(timeout=900) for h in hs]
+        torch.cuda.synchronize()
+        return time.monotonic() - t0, outs
+
+    observe.reset()
+    off = Engine(model, **ENGINE_KW, int8=False, seed=0, trace=False)
+    on = Engine(model, **ENGINE_KW, int8=False, seed=0, trace=True)
+    try:
+        wave(off)
+        wave(on)  # warm both engines' step functions
+        ratios, pairs = [], []
+        for i in range(TAX_PAIRS):
+            if i % 2 == 0:
+                t_on, t_off = wave(on)[0], wave(off)[0]
+            else:
+                t_off, t_on = wave(off)[0], wave(on)[0]
+            ratios.append(t_on / t_off)
+            pairs.append((t_off, t_on))
+    finally:
+        off.close()
+        on.close()
+    tax = sorted(ratios)[len(ratios) // 2] - 1.0
+    hooks = [n for n in dir(observe) if n.startswith("on_")] \
+        + ["drift", "drift_value", "trace_book", "start_endpoint"]
+    saved = {n: getattr(observe, n) for n in hooks}
+
+    def explode(*a, **k):
+        raise AssertionError("observe hook reached from a trace-off engine")
+
+    try:
+        for n in hooks:
+            setattr(observe, n, explode)
+        eng = Engine(model, **ENGINE_KW, int8=False, seed=0)
+        try:
+            _, outs = wave(eng, n=4)
+        finally:
+            eng.close()
+    finally:
+        for n, f in saved.items():
+            setattr(observe, n, f)
+    if any(len(o) != len(p) + TAX_NEW for o, p in zip(outs, prompts)):
+        fail("engine (i): the inert tripwire's wave is malformed")
+    observe.reset()
+    print(f"  engine (i): observability tax {tax * 100:+.2f}% (median of "
+          f"{TAX_PAIRS} alternating pairs of {len(prompts)} x {TAX_NEW} "
+          f"token waves; wave s off/on "
+          f"{[(round(a, 4), round(b, 4)) for a, b in pairs]}); the "
+          f"reference's acceptance is < 2% a step; inert tripwire: a "
+          f"trace-off engine served {len(outs)} requests with every hook "
+          "raising")
+    return {"tax_pct": tax * 100, "ratios": ratios, "pairs_s": pairs,
+            "inert_ok": True}
+
+
+def traced_drive(model, cfg, prompts):
+    """Drive (i): (a)'s engine (paged kernel) with ``trace=True`` and the
+    telemetry endpoint on a free local port serves (a)'s wave, queued before
+    the first admission (``FIRST_STEP_WAITS``), as does a trace-off engine
+    first, whose tokens it must equal. Fatal checks: one closed timeline per
+    request (unique trace ids, outcome ok, none left open; ``queue``, then
+    ``prefill``, then decode steps), the TTFT, end-to-end and queue-wait
+    histograms counting ``DRIVE_REQUESTS`` and the inter-token one
+    ``DRIVE_REQUESTS * (DRIVE_NEW - 1)``, ``/metrics`` valid Prometheus text
+    with the same counts, ``/debug/requests`` listing the live trace ids
+    mid-drive, ``/healthz`` 200 during the drive, ``/readyz`` 200 before and
+    503 after ``close(drain=True)``. Then, on the idle engine, a device
+    timeline of ``TIMELINE_STEPS`` decode steps must name the paged kernel
+    at ``num_layers`` launches a step, as many as its wrapper counted; and
+    the observability tax (``observe_tax``). Launch counts are zeroed just
+    before the traced wave and read just after it."""
+    from paddle_tpu_torch.fault import inject
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import Engine, observe
+
+    tag, V = "i", cfg.vocab_size
+    set_flags({"FLAGS_serve_paged_kernel": True,
+               "FLAGS_serve_int8_kernel": False})
+    eng = Engine(model, **ENGINE_KW, int8=False, seed=0)
+    try:
+        ref = [h.result(timeout=900) for h in chaos_wave(eng.submit, prompts)]
+    finally:
+        inject.disarm()
+        eng.close()
+    observe.reset()
+    port = free_port()
+    eng = Engine(model, **ENGINE_KW, int8=False, seed=0, trace=True,
+                 metrics_port=port)
+    if eng._endpoint is None:
+        fail(f"engine ({tag}): the endpoint did not bind port {port}")
+    prober = observe.start_endpoint(eng, 0)  # an outside readiness probe
+    try:
+        K.reset_launch_counts()
+        t0 = time.monotonic()
+        handles = chaos_wave(eng.submit, prompts)
+        code, body = http_get(port, "/debug/requests")
+        live = {r["trace"] for r in json.loads(body)} if code == 200 else set()
+        health = http_get(port, "/healthz")[0]
+        outs = [h.result(timeout=900) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = K.launch_counts()
+        inject.disarm()
+        well_formed(tag, prompts, outs, V)
+        if outs != ref:
+            fail(f"engine ({tag}): {same_share(outs, ref):.3f} of the traced "
+                 "outputs equal the trace-off engine's")
+        if not counts["paged_attention_rows"]:
+            fail(f"engine ({tag}): kernel launches {counts}")
+        book = observe.trace_book()
+        done, still = book.completed(), book.open_traces()
+        ids = {tl["trace"] for tl in done}
+        bad = [tl["trace"] for tl in done if tl["outcome"] != "ok"]
+        for tl in done:
+            names = [ev["name"] for ev in tl["events"]]
+            if names[:2] != ["queue", "prefill"] or "decode_step" not in names \
+                    or set(names[2:]) != {"decode_step"}:
+                bad.append((tl["trace"], names[:4]))
+        if len(done) != len(prompts) or len(ids) != len(prompts) or still \
+                or bad:
+            fail(f"engine ({tag}): {len(done)} closed timelines, "
+                 f"{len(ids)} ids, {len(still)} open, bad {bad[:4]}")
+        if code != 200 or not live or not live <= ids:
+            fail(f"engine ({tag}): /debug/requests {code}, live ids {live}")
+        if health != 200:
+            fail(f"engine ({tag}): /healthz {health} during the drive")
+        snap = observe.slo().snapshot()
+        want = {"serve_ttft_seconds": len(prompts),
+                "serve_e2e_seconds": len(prompts),
+                "serve_queue_seconds": len(prompts),
+                "serve_inter_token_seconds": len(prompts) * (DRIVE_NEW - 1)}
+        got = {m: sum(h["count"] for h in snap.get(m, {}).values())
+               for m in want}
+        if got != want:
+            fail(f"engine ({tag}): histogram counts {got}, want {want}")
+        code, body = http_get(port, "/metrics")
+        if code != 200:
+            fail(f"engine ({tag}): /metrics {code}")
+        prom = check_prometheus(tag, body)
+        prom_counts = {}
+        for (fam, _), n in prom.items():
+            key = "serve_" + fam.split("_serve_")[1]
+            prom_counts[key] = prom_counts.get(key, 0) + n
+        if prom_counts != got:
+            fail(f"engine ({tag}): /metrics counts {prom_counts}, the "
+                 f"histograms' {got}")
+        pct = {f"{m}_p{q}": observe.percentile(f"serve_{m}_seconds", q / 100)
+               for m in ("ttft", "inter_token") for q in (50, 99)}
+        ready_before = http_get(prober.port, "/readyz")[0]
+        # the device timeline on the idle engine: its own decode step
+        with torch.inference_mode():
+            step = decode_step(eng)
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            ev = device_timeline(step, TIMELINE_STEPS, f"timeline ({tag})")
+            wrapped = K.launch_counts()["paged_attention_rows"]
+        tl = timeline_kernels(ev, ("paged_attention_kernel",), TIMELINE_STEPS)
+        n_tl = tl["paged_attention_kernel"]["launches"]
+        if n_tl != cfg.num_layers * TIMELINE_STEPS or n_tl != wrapped:
+            fail(f"engine ({tag}): the device timeline names the paged "
+                 f"kernel {n_tl} times, its wrapper counted {wrapped}, want "
+                 f"{cfg.num_layers} x {TIMELINE_STEPS}")
+        eng.close(drain=True)
+        ready_after, body = http_get(prober.port, "/readyz")
+        if ready_before != 200 or ready_after != 503:
+            fail(f"engine ({tag}): /readyz {ready_before} before and "
+                 f"{ready_after} after close(drain=True): {body}")
+    finally:
+        inject.disarm()
+        prober.close()
+        eng.close()
+    tok_s = len(outs) * DRIVE_NEW / wall
+    print(f"  engine ({tag}) traced, endpoint on port {port}: "
+          f"{len(outs) * DRIVE_NEW} tokens in {wall:.2f}s = {tok_s:.1f} tok/s "
+          f"(the first step waits {FIRST_STEP_WAITS}), launches {counts}; "
+          f"{len(done)} closed timelines, tokens equal the trace-off "
+          f"engine's; TTFT p50 {pct['ttft_p50'] * 1e3:.1f} ms, p99 "
+          f"{pct['ttft_p99'] * 1e3:.1f} ms; inter-token p50 "
+          f"{pct['inter_token_p50'] * 1e3:.2f} ms, p99 "
+          f"{pct['inter_token_p99'] * 1e3:.2f} ms (bucket estimates); "
+          f"histogram counts {got}; /metrics valid, /debug/requests listed "
+          f"{len(live)} live ids, /readyz {ready_before} then {ready_after}")
+    t = tl["paged_attention_kernel"]
+    print(f"  timeline ({tag}): {TIMELINE_STEPS} decode steps at B=32, "
+          f"ctx~640: paged_attention_kernel {t['launches']} launches "
+          f"({t['launches'] // TIMELINE_STEPS} a step, the wrapper counted "
+          f"{wrapped}), {t['ms_per_step']:.4f} ms a step, "
+          f"{t['us_per_launch']:.2f} us a launch")
+    tax = observe_tax(model, prompts)
+    return {"drive": tag, "int8": False, "tok_s": tok_s, "wall_s": wall,
+            "launches": {k: counts[k] for k in
+                         ("paged_attention_rows", "int8_matmul")},
+            "timelines": len(done), "histogram_counts": got,
+            **{k + "_s": v for k, v in pct.items()},
+            "device_timeline": tl, "tax": tax}
+
 
 def engine_phase(profile=False):
     """Each of ``engine_models()`` at full width and depth through its
     drives: GPT-3 1.3B (a) paged kernel, (b) int8 weights with both kernels,
     (e) the prefix cache and chunked prefill, (f) speculative decoding with
-    int8 weights, (g) durability and resilience; then Llama-7B (c), (d) as
+    int8 weights, (g) durability and resilience, (i) tracing, the endpoint,
+    the decode timeline and the observability tax; then Llama-7B (c), (d) as
     (a), (b), with the tail, chunked and verify builders checked on (c)'s
     engine after its drive, and (h) as (g)'s g0 and g1.
     Each model and its engines are freed before the next model is built.
@@ -1738,7 +2165,8 @@ def engine_phase(profile=False):
         if name == "gpt3_1p3b":
             runs += [lambda: prefix_drive(model, cfg.vocab_size),
                      lambda: spec_drive(model, cfg, prompts, profile),
-                     lambda: durability_drive(model, cfg, prompts, "g")]
+                     lambda: durability_drive(model, cfg, prompts, "g"),
+                     lambda: traced_drive(model, cfg, prompts)]
         else:
             runs.append(lambda: durability_drive(model, cfg, prompts, "h",
                                                  full=False))
@@ -1823,7 +2251,9 @@ def time_steps(step, ids, labels, n):
 def train_phase(profile=False):
     """GPT-3 1.3B bf16, 24 layers, b2 x s2048 through compile_train_step."""
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch import profiler
     from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
 
     grad_check()
     t0 = time.monotonic()
@@ -1842,10 +2272,28 @@ def train_phase(profile=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    timed, queued, wall = time_steps(step, ids, labels, TRAIN_STEPS)
+    # host spans with the memory census on every train_step span
+    with Profiler(targets=[ProfilerTarget.CPU], profile_memory=True):
+        timed, queued, wall = time_steps(step, ids, labels, TRAIN_STEPS)
     losses += timed
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    census = profiler.memory_stats()
+    spans = [sp for sp in profiler.span_events() if sp["name"] == "train_step"]
+    if len(spans) != TRAIN_STEPS or not all(
+            "live_bytes" in sp["attrs"] and "delta_bytes" in sp["attrs"]
+            for sp in spans):
+        fail(f"train: {len(spans)} train_step spans, census attrs "
+             f"{[sorted(sp['attrs']) for sp in spans[:2]]}")
+    print(f"  census: {TRAIN_STEPS} train_step spans, live_bytes "
+          f"{[round(sp['attrs']['live_bytes'] / 2**30, 3) for sp in spans]} "
+          f"GiB, delta_bytes "
+          f"{[sp['attrs']['delta_bytes'] for sp in spans]}; peak_live_bytes "
+          f"{census['peak_live_bytes']} against "
+          f"torch.cuda.max_memory_allocated() {peak} in the same window")
+    if abs(census["peak_live_bytes"] - peak) > 0.01 * peak:
+        fail(f"train: peak_live_bytes {census['peak_live_bytes']} vs "
+             f"max_memory_allocated {peak}")
     vals = [x.item() for x in losses]
     want = cfg.num_layers * TRAIN_STEPS
     step_ms = wall / TRAIN_STEPS * 1e3
@@ -1870,12 +2318,22 @@ def train_phase(profile=False):
         fail(f"train: launches {counts}, want {want} for each flash kernel")
     if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
         fail(f"train: losses {vals}")
+    ev = device_timeline(lambda: step(ids, labels), 1, "timeline (train)")
+    tl = timeline_kernels(ev, tuple(FLASH_KERNELS.values()), 1)
+    bad = {k: v["launches"] for k, v in tl.items()
+           if v["launches"] != cfg.num_layers}
+    if bad:
+        fail(f"train: the device timeline of one step names {bad}, want "
+             f"{cfg.num_layers} launches each")
+    print(f"  timeline (train): one step: " + ", ".join(
+        f"{k} {v['launches']} launches, {v['ms_per_step']:.4f} ms, "
+        f"{v['us_per_launch']:.2f} us a launch" for k, v in tl.items()))
     if profile:
         device_breakdown(lambda: step(ids, labels), 2,
                          f"profile (train) b{B}xs{T}", top=14)
     del step, opt, model
     torch.cuda.empty_cache()
-    return {k: counts[k] for k in FLASH_REPLACES}
+    return {k: counts[k] for k in FLASH_REPLACES}, tl
 
 
 def main(argv=None) -> int:
@@ -1889,6 +2347,13 @@ def main(argv=None) -> int:
     if not (ROOT / "paddle_tpu_torch" / "ops" / "kernels" / "csrc").is_dir():
         fail(f"paddle_tpu_torch is not beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
+    global FLIGHT_DIR
+    if os.environ.get("PADDLE_TPU_FLIGHT_DIR"):
+        FLIGHT_DIR = Path(os.environ["PADDLE_TPU_FLIGHT_DIR"])
+    else:
+        FLIGHT_DIR = Path(tempfile.mkdtemp(prefix="paddle_tpu_torch_flight_"))
+        atexit.register(shutil.rmtree, FLIGHT_DIR, True)
+        os.environ["PADDLE_TPU_FLIGHT_DIR"] = str(FLIGHT_DIR)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from paddle_tpu_torch.ops import kernels as K
@@ -1930,12 +2395,13 @@ def main(argv=None) -> int:
     train_errs, long_errs = flash_phase()
     errs.update(train_errs)
 
-    print("[3] engine: gpt3_1p3b (a, b, e, f, g), then llama_7b (c, d, h), "
-          "through serving.Engine")
+    print("[3] engine: gpt3_1p3b (a, b, e, f, g, i), then llama_7b (c, d, "
+          "h), through serving.Engine")
     launches, drives = engine_phase(profile=args.profile)
 
     print("[5] train: gpt3_1p3b through jit.compile_train_step")
-    launches.update(train_phase(profile=args.profile))
+    train_launches, train_tl = train_phase(profile=args.profile)
+    launches.update(train_launches)
 
     print("[4] kernel timing")
     rows, paged = timing_phase(errs, launches, int8_ptxas)
@@ -1953,6 +2419,20 @@ def main(argv=None) -> int:
         print(f"  paged_attention_rows ({r['tag']}): {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}, {r['split']} blocks a row) at {r['shape']}")
+    # each kernel's device time from the profiled windows (drive (i)'s decode
+    # steps, one train step) beside its CUDA-event time at the timing shape
+    traced = next(d for d in drives if d["drive"] == "i")
+    timeline = {"paged_attention_rows":
+                traced["device_timeline"]["paged_attention_kernel"],
+                **{k: train_tl[v] for k, v in FLASH_KERNELS.items()}}
+    for r in rows:
+        t = timeline.get(r["name"])
+        if t is not None:
+            print(f"  {r['name']}: device timeline {t['us_per_launch']:.2f} "
+                  f"us a launch, {t['ms_per_step']:.4f} ms a step "
+                  f"({t['launches']} launches); CUDA events "
+                  f"{r['ms'] * 1e3:.2f} us at {r['shape']}")
+    print(json.dumps({"device_timeline": timeline}))
     print(json.dumps({"flash_long_shape": long_rows}))
     print(json.dumps({"paged_shapes": paged}))
     print(json.dumps({"engine_drives": drives}))

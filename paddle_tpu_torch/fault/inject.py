@@ -181,6 +181,12 @@ def check(point: str, **ctx) -> None:
         raise InjectedFault(point, ctx)
 
 
+def fired_counts() -> Dict[str, int]:
+    """How many times each armed point fired since it was armed."""
+    with _lock:
+        return dict(_fired)
+
+
 def point_cfg(point: str) -> dict:
     """The armed config of ``point`` ({} when not armed): payload keys such
     as ``ms=`` or ``blocks=``."""

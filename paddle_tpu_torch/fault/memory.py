@@ -12,7 +12,14 @@
   owner); the serving engine's parks KV blocks, which shrinks admission
   headroom.
 * :func:`note_oom` counts (``hbm_oom_trips``) and records one classified
-  exhaustion in a bounded event ring (:func:`recent_ooms`).
+  exhaustion in a bounded event ring (:func:`recent_ooms`); the first one
+  registers the ``hbm`` flight-recorder context provider, so every later
+  post-mortem carries the event tail and the allocator census.
+* :func:`post_mortem` writes the flight dump of an exhaustion recovery could
+  not absorb (``hbm_exhausted``), with the recovery attempts and the
+  device's allocator census (:func:`census`) where the reference carries its
+  live-array census. The reference's admission budget and per-executable
+  attributions belong to its cost model, which is not ported.
 """
 from __future__ import annotations
 
@@ -23,11 +30,11 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from ..profiler import counter_inc
+from ..profiler import counter_inc, flight, memory_stats
 
 __all__ = ["HbmExhausted", "classify", "is_oom", "note_oom", "recent_ooms",
            "register_pressure_handler", "unregister_pressure_handler",
-           "free_pressure"]
+           "free_pressure", "census", "post_mortem"]
 
 # the status-text markers the reference matches on its runtime error types,
 # and the unambiguous subset it accepts on any other exception ("Failed to
@@ -43,6 +50,7 @@ _OOM_MARKERS_STRONG = (
 
 _lock = threading.Lock()
 _events: "collections.deque" = collections.deque(maxlen=32)  # guarded_by: _lock
+_provider_installed = False  # guarded_by: _lock
 
 
 class HbmExhausted(RuntimeError):
@@ -131,6 +139,7 @@ def note_oom(where: str, exc: BaseException) -> dict:
     counter_inc("hbm_oom_trips")
     with _lock:
         _events.append(dict(info))
+    _ensure_provider()
     return info
 
 
@@ -138,3 +147,57 @@ def recent_ooms() -> List[dict]:
     """The recorded exhaustions, oldest first (at most 32)."""
     with _lock:
         return [dict(e) for e in _events]
+
+
+def census(device=None) -> dict:
+    """The device-memory census a post-mortem carries: on an initialized
+    CUDA device its entry of ``flight.allocator_census()`` (the caching
+    allocator's current and peak allocated bytes, which are
+    ``max_memory_allocated``, reserved bytes, which are
+    ``memory_reserved``, active blocks, allocation retries and OOMs), read
+    on the host without waiting on the device; elsewhere the profiler's
+    last memory gauges. ``device=None`` is the current CUDA device."""
+    by_dev = flight.allocator_census()
+    if by_dev:
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda":
+            idx = torch.cuda.current_device() if dev.index is None \
+                else dev.index
+            return dict(by_dev[str(idx)], device=f"cuda:{idx}")
+    return dict(memory_stats(), device="cpu")
+
+
+def post_mortem(where: str, attempts: List[dict],
+                exc: Optional[BaseException] = None,
+                device=None) -> Optional[str]:
+    """Flight dump (``hbm_exhausted``) for an exhaustion recovery did not
+    absorb: the device's :func:`census` and every recovery attempt made.
+    Returns the dump's path (None when the recorder is off)."""
+    try:
+        c = census(device)
+    except Exception as e:  # a post-mortem must not raise over the failure
+        c = {"error": repr(e)}
+    return flight.dump("hbm_exhausted", extra={
+        "where": where,
+        "census": c,
+        "attempts": list(attempts),
+        "exception": repr(exc) if exc is not None else None,
+    })
+
+
+def _context() -> dict:
+    with _lock:
+        events = list(_events)
+    return {"recent_oom": events[-8:], "census": census()}
+
+
+def _ensure_provider() -> None:
+    """Register the flight context provider on the first classified
+    exhaustion: every dump from then on carries the event tail and the
+    census. Never registered by a process that met none."""
+    global _provider_installed
+    with _lock:
+        if _provider_installed:
+            return
+        _provider_installed = True
+    flight.add_context_provider("hbm", _context)

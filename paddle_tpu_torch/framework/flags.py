@@ -1,5 +1,5 @@
 """Global flag registry (the ``FLAGS_serve_*`` entries the serving engine and
-its supervisor read).
+its supervisor read, and ``FLAGS_profile_memory``).
 
 Same names, defaults and ``FLAGS_*`` environment pickup as the reference's
 ``paddle_tpu/framework/flags.py``; ``set_flags`` rejects unknown names with a
@@ -12,6 +12,11 @@ import os
 from typing import Dict
 
 _FLAGS: Dict[str, object] = {
+    # Per-step memory census (the caching allocator's counters feeding the
+    # profiler's live_bytes/peak gauges and the train_step span's attrs)
+    # without a running Profiler; Profiler(profile_memory=True) turns it on
+    # per session.
+    "FLAGS_profile_memory": False,
     # Serving engine defaults: KV block size in tokens, total preallocated
     # blocks in the pool (block 0 is the reserved trash block), the decode
     # batch-width ceiling (bucketed in powers of two up to this), the fixed
@@ -59,6 +64,17 @@ _FLAGS: Dict[str, object] = {
     "FLAGS_serve_shed": False,
     "FLAGS_serve_watchdog_s": 10.0,
     "FLAGS_serve_snapshot": False,
+    # Serving SLO observability (serving/observe.py): FLAGS_serve_trace arms
+    # request tracing (a trace id per request, a per-request timeline of its
+    # queue wait, prefills, decode steps, evictions and relays, kept in a
+    # bounded ring of FLAGS_serve_trace_ring completed timelines) and the
+    # TTFT / inter-token / end-to-end / queue-wait histograms per priority
+    # class. Off (default): the engine never touches the observe module.
+    # FLAGS_serve_metrics_port > 0 starts the stdlib http.server telemetry
+    # thread (/metrics, /healthz, /readyz, /debug/requests); 0 = no thread.
+    "FLAGS_serve_trace": False,
+    "FLAGS_serve_trace_ring": 256,
+    "FLAGS_serve_metrics_port": 0,
 }
 
 for _k, _cur in list(_FLAGS.items()):

@@ -7,13 +7,20 @@ only here: one call clears the gradients, runs ``loss_fn(model, *batch)``,
 its ``backward()`` and the optimizer update, and returns the loss tensor
 without a host sync, so consecutive steps queue on the card's stream.
 Capturing the step in a CUDA graph is later work.
+
+Each call is one ``train_step`` span. Under ``Profiler(profile_memory=True)``
+or ``FLAGS_profile_memory`` the step ends with a memory census
+(``profiler.memory_census``) whose ``live_bytes``, ``live_arrays``,
+``peak_live_bytes`` and ``delta_bytes`` become the span's attrs, as the
+reference's lazy flush sets them; on the card the census reads the caching
+allocator's counters and adds no host sync.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import profiler
 from ..core.place import resolve_device
-from ..profiler import span
 
 __all__ = ["CompiledTrainStep", "compile_train_step"]
 
@@ -35,13 +42,19 @@ class CompiledTrainStep:
             else torch.as_tensor(b, device=self._device)
 
     def __call__(self, *batch):
-        with span("train_step", step=self._step_count):
+        with profiler.span("train_step", step=self._step_count) as sp:
             self.optimizer.clear_grad(set_to_zero=False)
             loss = self.loss_fn(self.model,
                                 *(self._as_tensor(b) for b in batch))
             loss.backward()
             self.optimizer.step()
             self._step_count += 1
+            if profiler._memory_active():
+                mem = profiler.memory_census(self._device)
+                sp.set(live_bytes=mem["live_bytes"],
+                       live_arrays=mem["live_arrays"],
+                       peak_live_bytes=mem["peak_live_bytes"],
+                       delta_bytes=mem["last_delta_bytes"])
             return loss.detach()
 
 

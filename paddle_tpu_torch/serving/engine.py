@@ -43,7 +43,16 @@ main path of ``paddle_tpu/serving/engine.py``).
   sequences resume mid-decode with no token re-prefilled; a capture that
   fails validation falls back whole to re-prefill), and ``handoff()``
   quiesces the engine and exports the snapshot with the queue and the
-  in-flight handles.
+  in-flight handles;
+* observability (``serving/observe.py``): ``trace=True`` (or
+  ``FLAGS_serve_trace``) gives each request a trace id and a timeline (queue
+  wait, prefills, decode steps, evictions, copy-on-write copies) and feeds
+  the TTFT, inter-token, end-to-end and queue-wait histograms;
+  ``metrics_port`` (or ``FLAGS_serve_metrics_port``) serves ``/metrics``,
+  ``/healthz``, ``/readyz`` and ``/debug/requests``. Unarmed, each hook site
+  is one ``is not None`` probe. Every engine registers a flight-recorder
+  context provider (its in-flight table rides every post-mortem), and the
+  scheduler's crash path writes a ``serving_loop_error`` dump.
 
 Chaos points ``serve.crash``/``serve.wedge``/``serve.slow_step``/
 ``serve.pool_corrupt``/``hbm.oom``/``hbm.pressure`` (``fault/inject.py``)
@@ -75,7 +84,8 @@ from ..fault import inject as _inject
 from ..fault import memory as _fmem
 from ..framework import flags
 from ..models import generation as G
-from ..profiler import counter_inc, span
+from ..profiler import counter_inc, flight, span
+from ..profiler.spans import update_attrs
 from .int8 import attach_int8_head, dequantize_tree, quantize_params
 from .pool import TRASH_BLOCK, PagePool, SnapshotError
 
@@ -131,7 +141,8 @@ class EngineConfig:
                  max_seq_len=None, prefill_batch=None, int8=None,
                  decode_buckets=None, seed=0, device=None, prefix_cache=None,
                  spec_k=None, drafter=None, draft_window=None,
-                 prefill_chunk=None, max_queue=None, shed=None):
+                 prefill_chunk=None, max_queue=None, shed=None, trace=None,
+                 metrics_port=None):
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.max_batch = max_batch
@@ -153,6 +164,10 @@ class EngineConfig:
         # only with ``shed``
         self.max_queue = max_queue
         self.shed = shed
+        # request tracing + SLO histograms, and the telemetry endpoint's
+        # port (0 = no endpoint thread)
+        self.trace = trace
+        self.metrics_port = metrics_port
 
     def resolve(self, model_max_positions: int) -> "EngineConfig":
         def pick(v, name):
@@ -199,6 +214,11 @@ class EngineConfig:
                 ">= 1 and num_blocks >= 2 required")
         if self.max_queue < 0:
             raise ValueError("serving: max_queue must be >= 0 (0 = unbounded)")
+        if self.trace is None:
+            self.trace = bool(flags.flag("FLAGS_serve_trace", False))
+        self.metrics_port = pick(self.metrics_port, "FLAGS_serve_metrics_port")
+        if self.metrics_port < 0:
+            raise ValueError("serving: metrics_port must be >= 0 (0 = off)")
         if self.decode_buckets is None:
             b, buckets = 1, []
             while b < self.max_batch:
@@ -219,7 +239,10 @@ class EngineConfig:
 class _Request:
     __slots__ = ("id", "prompt", "max_new_tokens", "eos_token_id",
                  "temperature", "tokens", "error", "done", "stream_q",
-                 "cancelled", "t_submit", "t_done", "priority", "deadline")
+                 "cancelled", "t_submit", "t_done", "priority", "deadline",
+                 # observability: the trace id rides the request object, so
+                 # it survives snapshot, harvest and handoff unchanged
+                 "trace", "t_submit_ns", "t_first_tok", "t_last_tok")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id, temperature,
                  stream, priority=0, deadline=None):
@@ -237,6 +260,10 @@ class _Request:
         self.t_done: Optional[float] = None
         self.priority = int(priority)  # higher = more important
         self.deadline = deadline  # absolute monotonic time, or None
+        self.trace: Optional[str] = None  # set by observe.on_submit
+        self.t_submit_ns = 0  # span-clock submit stamp
+        self.t_first_tok = 0.0  # first-token time (TTFT)
+        self.t_last_tok = 0.0  # last-token time (gaps)
 
 
 def _finish(req: _Request, tokens=None, error=None, count=True) -> bool:
@@ -559,6 +586,17 @@ class Engine:
         self._oom_streak = 0
         self._unpark_countdown = 0
         self._t_start = time.monotonic()
+        # observability: when armed, `_obs` is the serving.observe module and
+        # the scheduler tags spans, feeds the histograms and scores the step
+        # estimate; unarmed, the module is never imported and every hook site
+        # is one `is not None` probe
+        self._obs = None
+        self._endpoint = None
+        if cfg.trace:
+            from . import observe as _observe
+
+            _observe.trace_book()  # create it and register the span observer
+            self._obs = _observe
 
         # cross-thread state
         self._lock = threading.Lock()
@@ -585,6 +623,14 @@ class Engine:
         self._supervised = False
         self._failed = threading.Event()
         self._provider = f"paddle_tpu_torch_serving_{next(_engine_ids)}"
+        # the flight registry holds the engine only through a weakref: an
+        # abandoned engine stays collectable, and the provider then reports
+        # itself gone
+        wr = weakref.ref(self)
+        flight.add_context_provider(
+            self._provider,
+            lambda _wr=wr: (e._flight_context() if (e := _wr()) is not None
+                            else {"closed": True}))
         # the pressure-relief rung of fault/memory.free_pressure, weakly
         # bound (a collected engine drops out of the registry by itself)
         _fmem.register_pressure_handler(
@@ -592,15 +638,23 @@ class Engine:
         # the thread holds the engine only through a weakref, so an
         # abandoned engine stays collectable (__del__ closes it)
         self._thread = threading.Thread(
-            target=_engine_loop, args=(weakref.ref(self), self._device),
+            target=_engine_loop, args=(wr, self._device),
             daemon=True, name=self._provider)
         self._thread.start()
+        # the endpoint last: its handlers probe health() on a whole engine;
+        # it holds the engine through a weakref, and a failed bind is a
+        # counter, never a serving failure
+        if cfg.metrics_port:
+            from . import observe as _observe
+
+            self._endpoint = _observe.start_endpoint(self, cfg.metrics_port)
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt_ids, max_new_tokens: int = 32,
                eos_token_id: Optional[int] = None, temperature: float = 0.0,
                stream: bool = False, deadline_s: Optional[float] = None,
-               priority: int = 0, _shed_exempt: bool = False) -> RequestHandle:
+               priority: int = 0, _shed_exempt: bool = False,
+               _trace: Optional[str] = None) -> RequestHandle:
         """Enqueue one request (any thread). ``temperature == 0`` is greedy.
         ``stream=True`` additionally feeds the handle's iterator per token.
         ``deadline_s`` (seconds from now) attaches a completion deadline: the
@@ -609,7 +663,8 @@ class Engine:
         more important, default 0) orders admission and inverts eviction.
         With ``max_queue`` and ``shed``, a full queue fails this call with
         :class:`Overloaded` instead of queueing, except for ``_shed_exempt``
-        submissions (the supervisor's requeue of work already accepted)."""
+        submissions (the supervisor's requeue of work already accepted),
+        which also carry the original's trace id in ``_trace``."""
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt:
             raise ValueError("serving: empty prompt")
@@ -655,6 +710,10 @@ class Engine:
                 self._deadline_seen = True
             if req.priority != 0:
                 self._has_prio = True
+            if self._obs is not None:
+                # the timeline exists before the scheduler can see the
+                # request; a requeue re-attaches the original's trace id
+                self._obs.on_submit(req, trace=_trace)
             self._waiting.append(req)
             counter_inc("serve_requests")
             self._cv.notify()
@@ -688,16 +747,17 @@ class Engine:
         }
 
     def debug_requests(self) -> List[dict]:
-        """The in-flight request table: phase, age, priority, prompt length,
-        tokens generated and blocks held (any thread; a racy snapshot, as
-        :meth:`stats`)."""
+        """The in-flight request table (``/debug/requests``): phase, age,
+        priority, prompt length, tokens generated, blocks held and trace id
+        (any thread; a racy snapshot, as :meth:`stats`)."""
         now = time.monotonic()
         with self._lock:
             waiting = list(self._waiting)
         rows = [{"id": req.id, "phase": "queued",
                  "age_s": round(now - req.t_submit, 3),
                  "priority": req.priority, "prompt_len": len(req.prompt),
-                 "generated": 0, "blocks": 0} for req in waiting]
+                 "generated": 0, "blocks": 0, "trace": req.trace}
+                for req in waiting]
         for phase, seqs in (("prefilling", self._admitting),
                             ("chunk_prefill", self._prefilling),
                             ("running", self._running),
@@ -708,7 +768,8 @@ class Engine:
                              "priority": s.req.priority,
                              "prompt_len": s.prompt_len,
                              "generated": s.generated,
-                             "blocks": len(s.blocks)})
+                             "blocks": len(s.blocks),
+                             "trace": s.req.trace})
         return rows
 
     def health(self) -> dict:
@@ -786,6 +847,11 @@ class Engine:
         with self._cv:
             self._stop = True
             self._cv.notify()
+        # before the join: close() can run ON the scheduler thread (__del__)
+        flight.remove_context_provider(self._provider)
+        if self._endpoint is not None:
+            self._endpoint.close()
+            self._endpoint = None
         _fmem.unregister_pressure_handler(self._provider)
         if not on_sched_thread:
             # a drain may have used the whole budget on real work: the
@@ -1415,6 +1481,9 @@ class Engine:
                                  f"{req.deadline - now:.3f}s"))
         for req, why in shed:
             counter_inc("serve_deadline_shed")
+            if self._obs is not None:
+                self._obs.on_shed(
+                    req, "expired" if now >= req.deadline else "doomed")
             self._finish_request(req, error=DeadlineExceeded(
                 f"request {req.id} {why}", request_id=req.id))
         for seq in [s for s in self._running if s.req.deadline is not None
@@ -1531,6 +1600,10 @@ class Engine:
                 seq.blocks = got[0] + got[1]
                 seq.cached_blocks = len(got[0])
                 admitted.append(seq)
+                if self._obs is not None and got[0]:
+                    self._obs.on_prefix_match(
+                        seq.req, len(got[0]) * self.config.block_size,
+                        len(got[0]))
             self._resume = still_resume
             with self._cv:
                 if self._has_prio and len(self._waiting) > 1:
@@ -1563,6 +1636,12 @@ class Engine:
                 seq.blocks = got[0] + got[1]
                 seq.cached_blocks = len(got[0])
                 admitted.append(seq)
+                if self._obs is not None:
+                    self._obs.on_admit(req)
+                    if got[0]:
+                        self._obs.on_prefix_match(
+                            req, len(got[0]) * self.config.block_size,
+                            len(got[0]))
             if admitted:
                 counter_inc("serve_admitted", len(admitted))
             sp.set(admitted=len(admitted), resume_waiting=len(self._resume))
@@ -1615,7 +1694,9 @@ class Engine:
             for i in range(0, len(group), bw):
                 chunk = group[i:i + bw]
                 with span("prefill", bucket_t=t_bucket, bucket_b=bw,
-                          rows=len(chunk), shared=tail):
+                          rows=len(chunk), shared=tail) as sp:
+                    if self._obs is not None:
+                        sp.set(traces=tuple(s.req.trace for s in chunk))
                     feeds = [(s.tokens[s.cached_blocks * bs:],
                               s.cached_blocks * bs, s.blocks) for s in chunk]
                     logits = self._prefill_call(
@@ -1641,6 +1722,10 @@ class Engine:
             self._append_token(s, self._sample_host(rows[r], s.req))
             if not s.req.done.is_set():
                 self._running.append(s)
+        if self._obs is not None:
+            # ONE host clock read for the landed group: a prefill emits each
+            # row's first token (TTFT)
+            self._obs.on_tokens([s.req for s in chunk], time.monotonic())
 
     # -- chunked prefill ------------------------------------------------------
     def _chunk_divert(self, seqs: List[_Seq]) -> List[_Seq]:
@@ -1670,7 +1755,10 @@ class Engine:
         bw = self.config.prefill_batch
         batch = self._prefilling[:bw]
         feeds = [min(self._chunk, len(s.tokens) - s.chunk_pos) for s in batch]
-        with span("prefill", bucket_b=bw, rows=len(batch), chunked=True):
+        with span("prefill", bucket_b=bw, rows=len(batch),
+                  chunked=True) as sp:
+            if self._obs is not None:
+                sp.set(traces=tuple(s.req.trace for s in batch))
             logits = self._prefill_call("prefill_tail", [
                 (s.tokens[s.chunk_pos:s.chunk_pos + n], s.chunk_pos, s.blocks)
                 for s, n in zip(batch, feeds)])
@@ -1735,7 +1823,9 @@ class Engine:
                 self._evict(victim)
 
     def _evict(self, seq: _Seq):
-        with span("evict", request=seq.req.id, generated=seq.generated):
+        with span("evict", request=seq.req.id, generated=seq.generated) as sp:
+            if self._obs is not None:
+                sp.set(traces=(seq.req.trace,))
             self._pool.free(seq.blocks)
             seq.blocks = []
             self._running.remove(seq)
@@ -1783,6 +1873,8 @@ class Engine:
             seq.blocks[col] = new
             self._pool.free([bid])
             counter_inc("serve_cow_copies")
+            if self._obs is not None:
+                self._obs.on_cow(seq.req.trace, 1)
 
     def _decode_batch(self):
         """Map every live sequence's write blocks (copy-on-write guarded in
@@ -1817,7 +1909,9 @@ class Engine:
             toks[r] = s.tokens[-1]
         # a width upgrade pops the old entry: compare by key
         warm = ("decode", bb, tables.shape[1]) in self._fns
-        with span("decode_step", bucket=bb, rows=n, step=self._step_i):
+        with span("decode_step", bucket=bb, rows=n, step=self._step_i) as sp:
+            if self._obs is not None:
+                sp.set(traces=tuple(s.req.trace for s in self._running))
             self._beat = time.monotonic()  # the staleness clock covers this
             fn = self._get_fn("decode", bb, tables.shape[1])
             self._compiling = not warm
@@ -1830,13 +1924,18 @@ class Engine:
             self._decode_s += dt
         self._beat = time.monotonic()  # beat before dropping the grace
         self._compiling = False
-        self._note_step_time(warm, dt)
+        self._note_step_time(warm, dt, sp)
         self._step_i += 1
         self._occ_live += n
         self._occ_slots += bb
         counter_inc("serve_decode_steps")
-        for r, s in enumerate(list(self._running)):
+        rows_live = list(self._running)
+        for r, s in enumerate(rows_live):
             self._append_token(s, int(nxt[r]))
+        if self._obs is not None:
+            # one host clock read at step retire, for every row that
+            # emitted a token (TTFT / inter-token gap)
+            self._obs.on_tokens([s.req for s in rows_live], time.monotonic())
 
     # -- speculative decode ---------------------------------------------------
     def _make_drafter(self, d):
@@ -1903,8 +2002,11 @@ class Engine:
             toks[r, 0] = s.tokens[-1]
             toks[r, 1:] = drafts[r]
         warm = ("spec", bb, tables.shape[1]) in self._fns
+        rows_live = list(self._running)
         with span("decode_step", bucket=bb, rows=n, step=self._step_i,
                   spec_k=k) as sp:
+            if self._obs is not None:
+                sp.set(traces=tuple(s.req.trace for s in rows_live))
             self._beat = time.monotonic()
             fn = self._get_fn("spec", bb, tables.shape[1])
             self._compiling = not warm
@@ -1917,9 +2019,9 @@ class Engine:
             self._decode_s += dt
             self._beat = time.monotonic()
             self._compiling = False
-            self._note_step_time(warm, dt)
+            self._note_step_time(warm, dt, sp)
             proposed = accepted = 0
-            for r, s in enumerate(list(self._running)):
+            for r, s in enumerate(rows_live):
                 if temps[r] > 0.0:
                     self._append_token(s, int(sampled[r]))
                     continue
@@ -1936,6 +2038,10 @@ class Engine:
                         break
                     self._append_token(s, int(greedy[r, j]))
             sp.set(drafted=proposed, accepted=accepted)
+        if self._obs is not None:
+            # every live row emits at least its j = 0 token a verify step:
+            # one gap sample a row a step
+            self._obs.on_tokens([s.req for s in rows_live], time.monotonic())
         self._step_i += 1
         self._occ_live += n
         self._occ_slots += bb
@@ -1943,11 +2049,18 @@ class Engine:
         counter_inc("serve_draft_proposed", proposed)
         counter_inc("serve_draft_accepted", accepted)
 
-    def _note_step_time(self, warm: bool, dt: float):
+    def _note_step_time(self, warm: bool, dt: float, sp):
         """The decode-step time EMA behind deadline feasibility and the
         Retry-After hint; a step function's first call (which may build a
-        kernel) is left out, or every early deadline would look doomed."""
+        kernel) is left out, or every early deadline would look doomed. A
+        traced engine first scores the estimate the shed sweep would have
+        used for this step against its measured time (``step_eta`` drift,
+        the step span's ``cost_drift`` attr)."""
         if warm:
+            if self._obs is not None and self._ema_step_s:
+                rel = self._obs.drift(
+                    "step_eta", max(self._ema_step_s, self._step_floor_s), dt)
+                update_attrs(sp, cost_drift=round(rel, 6))
             self._ema_step_s = (dt if not self._ema_step_s
                                 else 0.8 * self._ema_step_s + 0.2 * dt)
 
@@ -1974,7 +2087,11 @@ class Engine:
         self._finish_request(seq.req, tokens=seq.tokens, error=error)
 
     def _finish_request(self, req: _Request, tokens=None, error=None):
-        if _finish(req, tokens=tokens, error=error) and error is None:
+        if not _finish(req, tokens=tokens, error=error):
+            return
+        if self._obs is not None:
+            self._obs.on_done(req, error)
+        if error is None:
             # the finished-request latency EMA behind the Overloaded hint
             lat = req.t_done - req.t_submit
             self._ema_req_s = (lat if not self._ema_req_s
@@ -2074,6 +2191,36 @@ class Engine:
             self._fns[key] = fn
             counter_inc("serve_compiles")
         return fn
+
+    # -- flight-recorder context ----------------------------------------------
+    def _flight_context(self) -> dict:
+        """What every post-mortem carries of this engine (any thread; racy
+        reads by design): queue and chunk backlog, pool gauges and the
+        running table."""
+        with self._lock:
+            depth = len(self._waiting)
+        return {
+            "queue_depth": depth,
+            "step": self._step_i,
+            "spec_k": self._spec_k,
+            "tp": 0,  # the reference's tensor-parallel degree: one card
+            "prefill_chunk": self._chunk,
+            "chunk_queue_depth": len(self._prefilling),
+            "pending_chunks": sum(
+                -(-(len(s.tokens) - s.chunk_pos) // max(self._chunk, 1))
+                for s in list(self._prefilling)),
+            "prefix_cached_blocks": (self._prefix.blocks
+                                     if self._prefix is not None else 0),
+            "pages": {"used": self._pool.used_blocks,
+                      "free": self._pool.free_blocks,
+                      "parked": self._pool.parked_blocks},
+            "running": [
+                {"id": s.req.id, "prompt_len": s.prompt_len,
+                 "generated": s.generated, "pos": s.pos,
+                 "blocks": len(s.blocks)}
+                for s in list(self._running)
+            ],
+        }
 
     # -- debug hook ----------------------------------------------------------
     def _debug_step_logits(self, prompts):
@@ -2217,19 +2364,25 @@ def _engine_loop(wr, device):
                 stopped = eng._run_once()
             except Exception as e:
                 # fail loudly into every pending handle rather than leave
-                # clients blocked on events that will never fire; an
-                # exhaustion that defeated the parking ladder lands here too
+                # clients blocked on events that will never fire, and let
+                # nothing (not even a failing post-mortem) stand between the
+                # crash and that sweep; an exhaustion that defeated the
+                # parking ladder lands here too
                 if _fmem.is_oom(e):
                     _fmem.note_oom("serve.loop", e)
                 eng._broken = e
-                counter_inc("serve_engine_errors")
-                if eng._supervised:
-                    # leave the queued and in-flight state for the supervisor
-                    # to harvest (requeue or re-attach on the restarted
-                    # engine); the event wakes its monitor at once
-                    eng._failed.set()
-                else:
-                    eng._shutdown()
+                try:
+                    counter_inc("serve_engine_errors")
+                    flight.dump("serving_loop_error",
+                                extra={"exception": repr(e)})
+                finally:
+                    if eng._supervised:
+                        # leave the queued and in-flight state for the
+                        # supervisor to harvest (requeue or re-attach on the
+                        # restarted engine); the event wakes its monitor
+                        eng._failed.set()
+                    else:
+                        eng._shutdown()
                 return
             if stopped:
                 # a handoff exits without failing handles (the snapshot owns

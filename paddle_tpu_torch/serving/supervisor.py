@@ -25,14 +25,21 @@ engine restart (port of ``paddle_tpu/serving/supervisor.py``).
   everything and marks the supervisor broken;
 * **probes and drain** — ``health()``/``ready()`` join the engine's probes
   with the supervisor's state; ``close(drain=True)`` completes the
-  outstanding work before stopping.
+  outstanding work before stopping;
+* **telemetry** — the supervisor registers a flight-recorder context
+  provider and writes a ``serving_supervisor_crash``/``_wedge`` post-mortem
+  before each recovery (while the failed engine's provider still reports
+  its in-flight table); with ``metrics_port`` it owns the telemetry
+  endpoint, which keeps its port across restarts (engines are built with
+  ``metrics_port=0``); a requeued continuation keeps the original's trace
+  id, and its relay is the timeline's last hop.
 
-The reference's flight-recorder context, metrics endpoint and distributed
-watchdog progress records are not part of this module.
+The distributed watchdog's progress records are not part of this module.
 """
 from __future__ import annotations
 
 import copy
+import itertools
 import queue as _queue
 import threading
 import time
@@ -41,11 +48,13 @@ from typing import List, Optional, Tuple
 
 from ..fault import memory as _fmem
 from ..framework import flags
-from ..profiler import counter_inc, span
+from ..profiler import counter_inc, flight, span
 from .engine import (DeadlineExceeded, Engine, Readiness, RequestHandle,
                      ServeError, SnapshotError, _finish)
 
 __all__ = ["ServingSupervisor"]
+
+_sup_ids = itertools.count(1)
 
 
 def _drain_stream(req, inner) -> None:
@@ -87,6 +96,15 @@ def _relay_many(pairs) -> None:
                 else:
                     _finish(req, tokens=inner.tokens, count=False)
                 counter_inc("serve_relayed")
+                if req.trace is not None:
+                    # a recovered request's timeline: the relay is its last
+                    # hop
+                    from . import observe as _observe
+
+                    _observe.on_relay(
+                        req, len(inner.tokens or ()),
+                        None if inner.error is None
+                        else type(inner.error).__name__)
             else:
                 still.append((req, handle))
         pending = still
@@ -174,6 +192,20 @@ class ServingSupervisor:
         self._config = copy.copy(config) if config is not None else None
         self._overrides = dict(overrides)
         self._t_start = time.monotonic()
+        # the SUPERVISOR owns the telemetry port: the probes must survive
+        # engine restarts, and a replacement re-binding the port mid-recovery
+        # would race the dying engine, so engines are built with port 0
+        if self._config is not None:
+            self._metrics_port = self._config.metrics_port
+            self._config.metrics_port = 0
+        else:
+            self._metrics_port = self._overrides.pop("metrics_port", None)
+            self._overrides["metrics_port"] = 0
+        if self._metrics_port is None:
+            self._metrics_port = flags.flag("FLAGS_serve_metrics_port", 0)
+        self._metrics_port = int(self._metrics_port or 0)
+        if self._metrics_port < 0:
+            raise ValueError("supervisor: metrics_port must be >= 0 (0 = off)")
         self._lock = threading.Lock()
         self._engine: Optional[Engine] = self._spawn()  # guarded_by: _lock
         self._restarts = 0  # guarded_by: _lock
@@ -182,10 +214,21 @@ class ServingSupervisor:
         # the latest recovery: mode "none" | "reattach" | "reprefill"
         self._last_recovery = {"mode": "none"}  # guarded_by: _lock
         self._stop = threading.Event()
+        self._provider = f"paddle_tpu_torch_serving_supervisor_{next(_sup_ids)}"
+        wr = weakref.ref(self)
+        flight.add_context_provider(
+            self._provider,
+            lambda _wr=wr: (s._flight_context() if (s := _wr()) is not None
+                            else {"closed": True}))
         self._monitor = threading.Thread(
-            target=_monitor_loop, args=(weakref.ref(self),), daemon=True,
-            name="paddle_tpu_torch_serving_supervisor")
+            target=_monitor_loop, args=(wr,), daemon=True,
+            name=self._provider)
         self._monitor.start()
+        self._endpoint = None
+        if self._metrics_port:
+            from . import observe as _observe
+
+            self._endpoint = _observe.start_endpoint(self, self._metrics_port)
 
     def _spawn(self) -> Engine:
         eng = Engine(self._model, config=self._config, **self._overrides)
@@ -285,6 +328,10 @@ class ServingSupervisor:
             relays = list(self._relays)
         for t in relays:  # their continuation handles just resolved
             t.join(timeout=2.0)
+        if self._endpoint is not None:
+            self._endpoint.close()
+            self._endpoint = None
+        flight.remove_context_provider(self._provider)
 
     def __enter__(self):
         return self
@@ -315,11 +362,20 @@ class ServingSupervisor:
             restarts = self._restarts
         counter_inc("serve_wedge_detected" if kind == "wedge"
                     else "serve_crash_detected")
+        # the post-mortem BEFORE the quarantine: the failed engine's context
+        # provider still reports its in-flight table
+        try:
+            flight.dump(f"serving_supervisor_{kind}",
+                        extra={"reason": str(err), "restarts": restarts,
+                               "exhausted": exhausted})
+        except Exception:
+            pass  # a failed dump must not stop the recovery
         # quarantine: a bounded wedge that wakes later must exit at its next
         # check instead of driving a restarted request's stream
         old._broken = old._broken or err
         with old._cv:
             old._stop = True
+        flight.remove_context_provider(old._provider)
         _fmem.unregister_pressure_handler(old._provider)
         # capture BEFORE the harvest empties the dead loop's lists; crash
         # only (a live wedged thread could tear it). A failed capture falls
@@ -502,13 +558,15 @@ class ServingSupervisor:
         dl = (None if req.deadline is None
               else max(1e-3, req.deadline - time.monotonic()))
         try:
-            # _shed_exempt: the old engine already accepted this work
+            # _shed_exempt: the old engine already accepted this work;
+            # _trace: the continuation keeps the original's trace id, so the
+            # recovered request has ONE timeline across engines
             h = new.submit(prompt, max_new_tokens=remaining,
                            eos_token_id=req.eos_token_id,
                            temperature=req.temperature,
                            stream=req.stream_q is not None,
                            deadline_s=dl, priority=req.priority,
-                           _shed_exempt=True)
+                           _shed_exempt=True, _trace=req.trace)
         except Exception as e:
             _finish(req, error=e if isinstance(e, ServeError)
                     else ServeError(f"requeue after restart failed: {e!r}"))
@@ -525,3 +583,19 @@ class ServingSupervisor:
             eng = self._engine
         if eng is not None:
             eng._fail_outstanding(err)
+
+    # -- flight-recorder context ----------------------------------------------
+    def _flight_context(self) -> dict:
+        with self._lock:
+            eng, restarts, broken = self._engine, self._restarts, self._broken
+        return {
+            "restarts": restarts,
+            "max_restarts": self.max_restarts,
+            "watchdog_s": self.watchdog_s,
+            "supervisor_ok": broken is None,
+            "engine": None if eng is None else {
+                "thread_alive": eng._thread.is_alive(),
+                "beat_age_s": round(time.monotonic() - eng._beat, 3),
+                "broken": repr(eng._broken) if eng._broken else None,
+            },
+        }

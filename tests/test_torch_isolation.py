@@ -48,13 +48,25 @@ def test_walk_covers_the_fault_package_and_the_supervisor():
         assert path in PORT_FILES
 
 
+def test_walk_covers_the_profiler_and_serving_observability():
+    for path in ("paddle_tpu_torch/profiler/__init__.py",
+                 "paddle_tpu_torch/profiler/spans.py",
+                 "paddle_tpu_torch/profiler/flight.py",
+                 "paddle_tpu_torch/profiler/export.py",
+                 "paddle_tpu_torch/serving/observe.py",
+                 "paddle_tpu_torch/framework/io.py"):
+        assert path in PORT_FILES
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.serving.supervisor, paddle_tpu_torch.fault, "
             "paddle_tpu_torch.fault.inject, paddle_tpu_torch.fault.memory, "
             "paddle_tpu_torch.models, paddle_tpu_torch.ops.kernels, "
             "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer, "
-            "paddle_tpu_torch.nn.functional, paddle_tpu_torch.ops.fused_ce\n"
+            "paddle_tpu_torch.nn.functional, paddle_tpu_torch.ops.fused_ce, "
+            "paddle_tpu_torch.profiler.export, "
+            "paddle_tpu_torch.serving.observe, paddle_tpu_torch.framework.io\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "assert not bad, bad\n")
