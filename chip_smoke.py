@@ -12,7 +12,7 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    with nvcc for sm_90a (one nvcc per source, started together); prints
    ptxas's registers and spill-store bytes of every kernel instantiation;
    ``cuobjdump -sass`` must find no int-to-float conversion (I2F, I2FP) in
-   the bf16 int8 kernel;
+   the bf16 int8 kernel (both its block widths, 384 and 192 weight rows);
 2. kernels: each kernel against its plain PyTorch version, in float32
    (tight tolerance: checks the algorithm) and bfloat16 (loose tolerance
    and, for paged attention and the flash O and gradients, a
@@ -38,7 +38,13 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    every shape dQ and dK/dV are each launched twice on the same inputs, and
    the two must agree bit for bit; in bf16 O, dQ, dK and dV are also held by
    relative norm to the bf16 plain versions, which round P and dS to bf16
-   where the reference's kernels do;
+   where the reference's kernels do. Every config of the kernel registry's
+   axes runs too: at every paged check shape each explicit cluster size
+   (``split`` 1, 2, 4, 8 where every block keeps >= 64 positions) against
+   the plain version with the same tolerances, the rule's size bit for bit
+   the default launch; at every int8 check shape ``block_n = 192`` against
+   the plain version (counted bit-equal to 384's output or not), and the
+   one-hot and two-hot rows at both widths;
 3. engine: GPT-3 1.3B at full width (24 layers, bf16, random weights from a
    seed) through ``serving.Engine`` over 32 greedy requests, (a) with the
    paged-attention kernel and (b) int8 weights with both kernels; (e) the
@@ -107,6 +113,24 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    model's gradients through the kernels are held against the same
    backward with attention on the plain version. Runs before phase 4, so
    the timing rows carry its launch counts;
+6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
+   it (it must be empty; the DB is kept there) or a fresh temporary one:
+   phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
+   ``kernel_tune*`` counter may have moved and the dir must be empty; then
+   ``search`` at each of ``tune_keys`` (the paged kernel at GPT's and
+   Llama's KV heads, the int8 head at GPT's and Llama's shapes, the flash
+   kernels and the fused CE at the training shape; budget
+   ``TUNE_BUDGET_S``, ``TUNE_SAMPLES`` samples): one search each, zero
+   candidate errors and verify failures, the winner persisted, a line each
+   with the winner, default and best ms, candidates tried and cost drift
+   (a winner that is not the default timed again beside it by CUDA
+   events);
+   ``ondemand`` after ``autotune.clear_cache()`` must resolve every winner
+   from the DB (one hit each, no search); drive (a)'s setting, its wave
+   queued before the first admission, runs off then ``ondemand`` on the
+   tuned DB (the share of equal outputs is reported, and must be 1.0 when
+   every winner is the default); the wrappers' host µs a call with the
+   config resolved (off) against named;
 4. timing: each kernel (CUDA events) beside its plain version, the card's
    least time for the same work, and a one-call PyTorch yardstick where
    one exists; the flash kernels also with their TFLOP/s and the host time
@@ -117,8 +141,9 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    (``llama_head``).
 
 The last three lines of stdout are the card's name and power limit
-(``nvidia-smi``), the ``{"kernels": [...]}`` JSON line and
-``{"ok": true, "device": {...}}``; the four lines before them are
+(``nvidia-smi``), the ``{"kernels": [...]}`` JSON line (each row also with
+its resolved ``config`` and the search's ``tuned`` winners) and
+``{"ok": true, "device": {...}}``; the five lines before them are
 ``{"device_timeline": {...}}``, each kernel's launches, µs a launch and
 ms a step in the profiled windows (printed beside its CUDA-event time),
 ``{"flash_long_shape": [...]}``, the flash kernels' times at the
@@ -128,7 +153,8 @@ size at each of ``PAGED_SHAPES``, and ``{"engine_drives": [...]}``, each
 engine drive's tok/s, decode steps, mean decode-step ms, launches and
 logits errors, with (e)'s prefix hits, shared blocks, tail prefills and
 chunk steps, (f)'s drafts proposed and accepted, and (g)'s and (h)'s
-sub-drives with their adopt info.
+sub-drives with their adopt info, and ``{"registry": {...}}``, phase 6's
+searches, persistence, tuned drive, host µs and the 192-row int8 checks.
 """
 from __future__ import annotations
 
@@ -313,6 +339,16 @@ FLASH_REPLACES = {  # the TPU entry points each kernel takes over
 FLASH_KERNELS = {"flash_attention_fwd": "fwd_wgmma",
                  "flash_attention_dq": "dq_wgmma",
                  "flash_attention_dkv": "dkv_wgmma"}  # bf16, D <= 128
+# the kernel registry phase: a search at each shape of the main path in the
+# kernel table (``tune_keys``), each with this budget and these timing
+# samples; the wrapper's host time per call with the config resolved (off)
+# against the config named, over HOST_US_CHUNKS runs of interleaved calls
+TUNE_BUDGET_S, TUNE_SAMPLES = 20.0, 5
+HOST_US_CHUNKS = 8
+# the registry kernel each row of the kernels line launches under
+REGISTRY_NAME = {"paged_attention_rows": "paged_attention",
+                 "int8_matmul": "int8_matmul",
+                 **dict.fromkeys(FLASH_KERNELS, "flash_attention")}
 
 
 def fail(msg: str) -> None:
@@ -337,15 +373,21 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(name, dtype, out, ref, note=""):
+def within(name, dtype, out, ref, note=""):
+    """(elements outside ``TOL[(name, dtype)]``, max abs error) of ``out``
+    against ``ref``; fails on another shape or a non-finite output."""
     atol, rtol = TOL[(name, dtype)]
     out, ref = out.detach().float(), ref.detach().float()
     if out.shape != ref.shape or not torch.isfinite(out).all():
-        fail(f"{name} {dtype}: shape {tuple(out.shape)} vs {tuple(ref.shape)} "
-             "or non-finite output")
+        fail(f"{name} {dtype}{note}: shape {tuple(out.shape)} vs "
+             f"{tuple(ref.shape)} or non-finite output")
     err = (out - ref).abs()
-    bad = int((err > atol + rtol * ref.abs()).sum())
-    max_err = float(err.max())
+    return int((err > atol + rtol * ref.abs()).sum()), float(err.max())
+
+
+def compare(name, dtype, out, ref, note=""):
+    atol, rtol = TOL[(name, dtype)]
+    bad, max_err = within(name, dtype, out, ref, note)
     print(f"  {name} {str(dtype)[6:]}: max_abs_err={max_err:.3e} "
           f"(atol={atol}, rtol={rtol}) {'ok' if not bad else 'MISMATCH'}"
           f"{note}")
@@ -556,6 +598,36 @@ def paged_split_check(shapes):
     return {(B, MB, KV): got[(B, KV, 16, MB)] for B, MB, KV in BMs}
 
 
+def paged_split_configs(shape, split, dtype, args, ref, out, seen):
+    """Every other cluster size of the registry's ``split`` axis that is
+    valid at this shape, launched as an explicit config on the same inputs:
+    each held to the plain version with the default's tolerances (and, in
+    bf16, ``PAGED_O_REL_TOL``), and the one equal to the rule's size bit for
+    bit equal to the default launch. ``seen``: split -> [shapes, max abs
+    error], updated."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels.paged_attention import _split_valid
+
+    rep, B, MB, KV = shape
+    for sp in K.get_kernel("paged_attention").space["split"][1:]:
+        if not _split_valid(sp, 16, MB):
+            continue
+        got = K.paged_attention_rows(*args, config={"split": sp})
+        torch.cuda.synchronize()
+        note = f" at B={B} MB={MB} KV={KV} rep={rep} split={sp}"
+        bad, err = within("paged_attention_rows", dtype, got, ref, note)
+        rel = rel_err(got, ref)
+        if bad or (dtype == torch.bfloat16 and not rel <= PAGED_O_REL_TOL):
+            fail(f"paged_attention_rows {dtype}{note}: {bad} elements outside "
+                 f"tolerance, max abs {err:.3e}, rel_norm_err {rel:.3e}")
+        if sp == split and not torch.equal(got, out):
+            fail(f"paged_attention_rows {dtype}{note}: the rule's cluster "
+                 "size named explicitly differs from the default launch")
+        s = seen.setdefault(sp, [0, 0.0])
+        s[0], s[1] = s[0] + 1, max(s[1], err)
+        del got
+
+
 def kernel_phase():
     from paddle_tpu_torch.ops import kernels as K
 
@@ -563,6 +635,7 @@ def kernel_phase():
     split = paged_split_check(shapes)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
+        seen = {}
         for rep, B, MB, KV in shapes:
             args = paged_inputs(dtype, rep=rep, B=B, KV=KV, MB=MB)
             out = K.paged_attention_rows(*args)
@@ -582,7 +655,16 @@ def kernel_phase():
                      f"{rel:.3e}")
             if (rep, B, MB, KV) == (1, 32, 64, 16):
                 errs[("paged_attention_rows", dtype)] = e
+            paged_split_configs((rep, B, MB, KV), split[(B, MB, KV)], dtype,
+                                args, ref, out, seen)
             del args, q, kp, vp, out, ref
+        by_size = {k: [n, round(e, 6)] for k, (n, e) in sorted(seen.items())}
+        print(f"  paged_attention_rows {str(dtype)[6:]}, every explicit "
+              "cluster size of the registry's split axis where valid (>= 64 "
+              f"positions a block), [shapes, max_abs_err] by size: {by_size} "
+              "ok")
+        if set(seen) != {1, 2, 4, 8}:
+            fail(f"paged explicit splits ran {sorted(seen)}, not 1, 2, 4, 8")
         torch.cuda.empty_cache()
     errs.update(int8_phase())
     return errs
@@ -596,7 +678,7 @@ def int8_exact_rows(K):
     return ks, np.stack([ks, np.roll(ks, -11)], axis=1)
 
 
-def int8_exact_check(qw, s, tw, dtype):
+def int8_exact_check(qw, s, tw, dtype, block_n):
     """Rows whose output is fixed bit for bit by the reference's dequant
     (+0 and -0 count as equal). One-hot rows x[m] = e_{k_m} must give the
     dequantized weight's columns k_m: an inexact int8 -> float conversion
@@ -627,13 +709,16 @@ def int8_exact_check(qw, s, tw, dtype):
     x2[rows, b] = 1
     want2 = (wd[a].float() + wd[b].float()).to(dtype)
     folded = ((q[a].float() + q[b].float()) * (s / s.new_tensor(127.0))).to(dtype)
-    bad1 = differ(K.int8_matmul(x1, qw, s, transpose_w=tw), wd[ks])
-    bad2 = differ(K.int8_matmul(x2, qw, s, transpose_w=tw), want2)
+    cfg = {"block_n": block_n}
+    bad1 = differ(K.int8_matmul(x1, qw, s, transpose_w=tw, config=cfg),
+                  wd[ks])
+    bad2 = differ(K.int8_matmul(x2, qw, s, transpose_w=tw, config=cfg), want2)
     sens = differ(folded, want2)
     n = 32 * wd.shape[1]
     ok = not bad1 and not bad2 and (sens or dtype != torch.bfloat16)
     print(f"  int8_matmul {str(dtype)[6:]} exact rows at K={Kd} "
-          f"{'(N, K)' if tw else '(K, N)'}: one-hot {n - bad1}/{n}, two-hot "
+          f"{'(N, K)' if tw else '(K, N)'} block_n={block_n}: one-hot "
+          f"{n - bad1}/{n}, two-hot "
           f"{n - bad2}/{n} bit-equal (a scale folded after the sum would "
           f"differ at {sens}) {'ok' if ok else 'MISMATCH'}")
     if not ok:
@@ -646,11 +731,18 @@ def int8_phase():
     """The int8 head against its plain version at every ``int8_check_shapes``
     shape, in both weight layouts, f32 and bf16; bf16 also by relative norm
     against the f32 plain version on the same bf16 inputs, and every weight
-    through ``int8_exact_check``. Returns the max abs errors at the decode
-    batch (M = 32, (N, K))."""
+    through ``int8_exact_check``. The default launch resolves its config
+    (384 weight rows a block); each check runs again with the registry's
+    other ``block_n`` (192), held to the same tolerances and, since a
+    column's sums do not depend on the block width, counted bit-equal to the
+    default's or not. Returns the max abs errors at the decode batch
+    (M = 32, (N, K)), and under ``"int8_widths"`` the 192-row checks: their
+    count, how many were bit-equal, their max abs error."""
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels.int8_matmul import int8_dequant
 
+    widths = K.get_kernel("int8_matmul").space["block_n"]
+    other = {"checks": 0, "bit_equal": 0, "max_abs_err": 0.0}
     errs = {}
     shapes = int8_check_shapes()
     for Kd, N in sorted({(k, n) for _, k, n in shapes}, reverse=True):
@@ -669,19 +761,39 @@ def int8_phase():
                     if dtype == torch.bfloat16:
                         note += (f", rel_norm_err={rel:.3e} against the f32 "
                                  f"plain version (tol rel {INT8_REL_TOL})")
-                    e = compare("int8_matmul", dtype, out,
-                                K.int8_matmul_plain(x, qw, s, transpose_w=tw),
-                                note)
+                    plain = K.int8_matmul_plain(x, qw, s, transpose_w=tw)
+                    e = compare("int8_matmul", dtype, out, plain, note)
                     if dtype == torch.bfloat16 and not rel <= INT8_REL_TOL:
                         fail(f"int8_matmul bf16{note}: relative error {rel:.3e}")
                     if (M, Kd, N, tw) == (32, *INT8_HEAD, True):
                         errs[("int8_matmul", dtype)] = e
-                    del x, out
-                int8_exact_check(qw, s, tw, dtype)
+                    for bn in widths[1:]:
+                        got = K.int8_matmul(x, qw, s, transpose_w=tw,
+                                            config={"block_n": bn})
+                        torch.cuda.synchronize()
+                        wn = f"{note} block_n={bn}"
+                        bad, err = within("int8_matmul", dtype, got, plain, wn)
+                        rel = rel_err(got, x.float() @ wd)
+                        if bad or (dtype == torch.bfloat16
+                                   and not rel <= INT8_REL_TOL):
+                            fail(f"int8_matmul {dtype}{wn}: {bad} elements "
+                                 f"outside tolerance, rel_norm_err {rel:.3e}")
+                        other["checks"] += 1
+                        other["bit_equal"] += bool(torch.equal(got, out))
+                        other["max_abs_err"] = max(other["max_abs_err"], err)
+                        del got
+                    del x, out, plain
+                for bn in widths:
+                    int8_exact_check(qw, s, tw, dtype, bn)
                 del wd
             del qw
         del qw_nk
         torch.cuda.empty_cache()
+    print(f"  int8_matmul block_n={widths[1:]}: {other['checks']} checks within "
+          f"the plain version's tolerances (max_abs_err "
+          f"{other['max_abs_err']:.3e}), {other['bit_equal']} of them bit for "
+          f"bit equal to block_n={widths[0]}'s output ok")
+    errs["int8_widths"] = other
     return errs
 
 
@@ -836,6 +948,12 @@ def paged_timing(tag, B, MB, pos, KV=16, plain=True, split=True):
                     "bf16"}
     if split:
         row["split"] = kernel_split(B, KV, BS, MB)
+    # every cluster size of the registry's axis valid here, named explicitly
+    row["ms_by_split"] = {
+        sp: time_ms(lambda sp=sp: K.paged_attention_rows(
+            q, kp, vp, tables, pos_t, config={"split": sp}))
+        for sp in K.get_kernel("paged_attention").space["split"][1:]
+        if MB * BS >= 64 * sp}
     if plain:
         row["plain_ms"] = time_ms(lambda: K.paged_attention_rows_plain(
             q, kp, vp, tables, pos_t), iters=5)
@@ -844,18 +962,20 @@ def paged_timing(tag, B, MB, pos, KV=16, plain=True, split=True):
     return row
 
 
-def int8_head_times(Kd, N, layouts):
+def int8_head_times(Kd, N, layouts, block_n=None):
     """The bf16 int8 head at (K, N) = (Kd, N), stored in each of ``layouts``
     (``transpose_w``: True is (N, K), ``ms_by_m``; False is (K, N),
     ``kn_ms_by_m``), at every ``INT8_TIMING_ROWS``, beside
     ``dense_bf16_ms_by_m``: the same product on the weight dequantized to
     bf16 ahead of time and stored in ``layouts[0]``, what the head costs
     without int8, and the bytes bound of each row count (the int8 weight
-    read once, x and the output once)."""
+    read once, x and the output once). ``block_n``: the kernel's weight rows
+    a block as an explicit config (no dense row then); None resolves it."""
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels.int8_matmul import int8_dequant
 
     dt, es = torch.bfloat16, 2
+    cfg = None if block_n is None else {"block_n": block_n}
     qw, s = int8_weight(Kd, N, seed=1)
     out = {"shape": f"K={Kd} N={N} bf16"}
     for tw in layouts:
@@ -863,9 +983,9 @@ def int8_head_times(Kd, N, layouts):
         times = out["ms_by_m" if tw else "kn_ms_by_m"] = {}
         for M in INT8_TIMING_ROWS:
             x = int8_x(M, Kd, dt, seed=1)
-            times[M] = time_ms(lambda: K.int8_matmul(x, w, s, transpose_w=tw),
-                               iters=50)
-        if tw == layouts[0]:
+            times[M] = time_ms(lambda: K.int8_matmul(
+                x, w, s, transpose_w=tw, config=cfg), iters=50)
+        if tw == layouts[0] and block_n is None:
             wd = int8_dequant(w, s, dt)
             wd = wd.T if tw else wd  # (K, N), a view of the stored layout
             dense = out["dense_bf16_ms_by_m"] = {}
@@ -898,6 +1018,9 @@ def int8_timing(errs, launches, ptxas):
     Kd, N = INT8_HEAD
     times = int8_head_times(Kd, N, INT8_LAYOUTS)
     llama = int8_head_times(*LLAMA_HEAD, (False,))
+    # the registry's other block width, timed beside the default in this run
+    times_192 = int8_head_times(Kd, N, INT8_LAYOUTS, block_n=192)
+    llama_192 = int8_head_times(*LLAMA_HEAD, (False,), block_n=192)
     M = ENGINE_KW["max_batch"]  # the decode batch
     qw, s = int8_weight(Kd, N, seed=1)
     x = int8_x(M, Kd, dt, seed=1)
@@ -929,6 +1052,9 @@ def int8_timing(errs, launches, ptxas):
         "dense_bf16_ms_by_m": times["dense_bf16_ms_by_m"],
         "bytes_bound_ms_by_m": times["bytes_bound_ms_by_m"],
         "llama_head": llama,
+        "block_n_192": {"ms_by_m": times_192["ms_by_m"],
+                        "kn_ms_by_m": times_192["kn_ms_by_m"],
+                        "llama_kn_ms_by_m": llama_192["kn_ms_by_m"]},
         # ptxas's report of the instantiation this shape runs
         "registers": ptxas[0][2] if ptxas else None,
         "spill_bytes": ptxas[0][1] if ptxas else None,
@@ -2336,6 +2462,311 @@ def train_phase(profile=False):
     return {k: counts[k] for k in FLASH_REPLACES}, tl
 
 
+# -- registry phase ----------------------------------------------------------
+
+def tune_keys():
+    """(kernel, key) of each search: the main path's shapes in the kernel
+    table. The paged kernel at the engine's decode batch and a 64-block
+    gather width, at GPT-3 1.3B's and Llama-7B's KV heads; the int8 head at
+    GPT's (decode batch, (N, K)) and Llama's (one row, (K, N)); the flash
+    kernels at the training shape; the fused CE at the train step's rows."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    bf16 = torch.bfloat16
+    keys = []
+    for _, cfg, kv, _ in engine_models():
+        keys.append(("paged_attention", K.paged_attention_key(
+            ENGINE_KW["max_batch"], 64, ENGINE_KW["block_size"], kv,
+            cfg.num_heads // kv, cfg.hidden_size // cfg.num_heads, bf16)))
+    keys.append(("int8_matmul", K.int8_matmul_key(
+        ENGINE_KW["max_batch"], *INT8_HEAD, True, bf16)))
+    keys.append(("int8_matmul", K.int8_matmul_key(1, *LLAMA_HEAD, False,
+                                                  bf16)))
+    B, T, Tk, H, D, causal = FLASH_TRAIN
+    keys.append(("flash_attention", K.flash_attention_key(
+        B, H, T, Tk, D, bf16, causal)))
+    gpt = engine_models()[0][1]
+    keys.append(("fused_ce", K.fused_ce_key(B * T, gpt.hidden_size,
+                                            gpt.vocab_size, bf16)))
+    return keys
+
+
+def tune_counters_delta(c0):
+    return {k: v for k, v in counter_delta(c0).items()
+            if k.startswith("kernel_tune") and v}
+
+
+def registry_off_check(c0, tune_dir):
+    """After the engine and train phases ran with ``FLAGS_kernel_autotune``
+    off: no ``kernel_tune*`` counter moved and the tune dir holds nothing."""
+    from paddle_tpu_torch.framework import flags
+
+    moved = tune_counters_delta(c0)
+    files = sorted(os.listdir(tune_dir)) if os.path.isdir(tune_dir) else []
+    mode = flags.flag("FLAGS_kernel_autotune")
+    print(f"  off: FLAGS_kernel_autotune={mode!r} through the engine and "
+          f"train phases: kernel_tune counters moved {moved}, tune dir "
+          f"{tune_dir} holds {len(files)} files "
+          f"{'ok' if mode == 'off' and not moved and not files else 'MISMATCH'}")
+    if mode != "off" or moved or files:
+        fail(f"registry off: mode {mode!r}, counters {moved}, files {files}")
+
+
+def registry_search():
+    """``search`` at each of ``tune_keys``: one search a key, zero candidate
+    errors and zero verify failures, and the winner persisted. Returns a row
+    a key: the winner, the defaults' and the winner's median ms, the
+    candidates tried, the budget stops and the cost-drift fraction (the
+    discordant share of the estimated and measured orderings; None when
+    fewer than two configs ran); where the winner is not the default, both
+    timed again on the runner's inputs by CUDA events (``event_ms``)."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels import autotune, db
+    from paddle_tpu_torch.serving import observe
+    from paddle_tpu_torch import profiler
+
+    set_flags({"FLAGS_kernel_autotune": "search",
+               "FLAGS_kernel_tune_budget_s": TUNE_BUDGET_S,
+               "FLAGS_kernel_tune_samples": TUNE_SAMPLES})
+    autotune.clear_cache()
+    rows = []
+    for name, key in tune_keys():
+        c0 = profiler.counters()
+        g0 = observe.drift_gauges().get("kernel_estimate", {}).get("samples", 0)
+        t0 = time.monotonic()
+        won = K.resolve_config(name, key)
+        secs = time.monotonic() - t0
+        torch.cuda.synchronize()
+        d = counter_delta(c0)
+        path = db.entry_path(name, key)
+        if d.get("kernel_tune_searches", 0) != 1 or not os.path.isfile(path):
+            fail(f"registry search {name} {key}: {d}, entry {path}")
+        with open(path) as f:
+            entry = json.load(f)
+        g = observe.drift_gauges().get("kernel_estimate", {})
+        row = {"kernel": name, "key": list(key), "winner": won,
+               "default": dict(K.get_kernel(name).defaults),
+               "default_ms": entry["default_ms"], "best_ms": entry["best_ms"],
+               "candidates": d.get("kernel_tune_candidates", 0),
+               "budget_stops": d.get("kernel_tune_budget_stops", 0),
+               "cost_drift": g.get("last_rel_err")
+               if g.get("samples", 0) > g0 else None,
+               "seconds": secs}
+        if won != row["default"]:
+            # the device's view of the two on the runner's inputs (CUDA
+            # events), beside the search's host-clock medians
+            make = K.get_kernel(name).runner(key)
+            row["event_ms"] = {"default": time_ms(make(row["default"])),
+                               "winner": time_ms(make(won))}
+            del make
+            torch.cuda.empty_cache()
+        ev = (f"; by CUDA events {row['event_ms']}" if "event_ms" in row
+              else "")
+        print(f"  search {name} {tuple(key)}: winner {won} (default "
+              f"{row['default']}{ev}), default_ms {row['default_ms']:.4f}, "
+              f"best_ms {row['best_ms']:.4f}, {row['candidates']} candidates "
+              f"tried, {row['budget_stops']} budget stops, cost drift "
+              f"{row['cost_drift']}, {secs:.1f}s; candidate errors "
+              f"{d.get('kernel_tune_candidate_errors', 0)}, verify fails "
+              f"{d.get('kernel_tune_verify_fails', 0)}")
+        if d.get("kernel_tune_candidate_errors") or \
+                d.get("kernel_tune_verify_fails") or entry["config"] != won:
+            fail(f"registry search {name} {key}: {d}, entry {entry}")
+        rows.append(row)
+    return rows
+
+
+def registry_persistence(rows):
+    """A cleared memo under ``ondemand`` resolves every searched key from the
+    tuning DB: one hit each, the search's winner, and no search."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels import autotune
+
+    autotune.clear_cache()
+    set_flags({"FLAGS_kernel_autotune": "ondemand"})
+    c0 = profiler.counters()
+    got = [K.resolve_config(r["kernel"], tuple(r["key"])) for r in rows]
+    d = counter_delta(c0)
+    ok = got == [r["winner"] for r in rows] \
+        and d.get("kernel_tune_hits", 0) == len(rows) \
+        and not d.get("kernel_tune_searches") \
+        and not d.get("kernel_tune_misses")
+    print(f"  ondemand after clear_cache(): {d.get('kernel_tune_hits', 0)} "
+          f"hits of {len(rows)} keys, searches "
+          f"{d.get('kernel_tune_searches', 0)}, misses "
+          f"{d.get('kernel_tune_misses', 0)}; configs equal the winners "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"registry persistence: {got} vs winners, counters {d}")
+    return {"hits": d.get("kernel_tune_hits", 0),
+            "searches": d.get("kernel_tune_searches", 0)}
+
+
+def tuned_drive(rows):
+    """GPT-3 1.3B at drive (a)'s setting (``ENGINE_KW``, the paged kernel,
+    bf16, (a)'s prompts), the wave queued before the first admission
+    (``FIRST_STEP_WAITS``) so two runs batch alike: once with
+    ``FLAGS_kernel_autotune`` off, then with ``ondemand`` on the DB the
+    search wrote. Both well-formed with paged launches; the tuned run never
+    searches; the share of its outputs equal to the off run's is reported,
+    and must be 1.0 when every winner is the default."""
+    from paddle_tpu_torch.fault import inject
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels import autotune
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.serving import Engine
+
+    name, cfg, _, _ = engine_models()[0]
+    model = build_engine_model(name, cfg)
+    prompts = drive_prompts(cfg.vocab_size)
+    set_flags({"FLAGS_serve_paged_kernel": True,
+               "FLAGS_serve_int8_kernel": False})
+
+    def run(mode):
+        set_flags({"FLAGS_kernel_autotune": mode})
+        autotune.clear_cache()
+        eng = Engine(model, **ENGINE_KW, int8=False, seed=0)
+        K.reset_launch_counts()
+        c0 = profiler.counters()
+        try:
+            t0 = time.monotonic()
+            outs = [h.result(timeout=900) for h in chaos_wave(eng.submit,
+                                                              prompts)]
+            wall = time.monotonic() - t0
+        finally:
+            inject.disarm()
+            eng.close()
+        counts = K.launch_counts()
+        well_formed(f"a, {mode}", prompts, outs, cfg.vocab_size)
+        if not counts["paged_attention_rows"]:
+            fail(f"engine (a, {mode}): kernel launches {counts}")
+        return outs, counts, tune_counters_delta(c0), wall
+
+    off, off_counts, off_d, off_wall = run("off")
+    tuned, counts, d, wall = run("ondemand")
+    used = {f"{k[0]}{tuple(k[1])}": v for k, v in autotune._MEM.items()}
+    set_flags({"FLAGS_kernel_autotune": "off"})
+    autotune.clear_cache()
+    share = same_share(tuned, off)
+    defaults = all(r["winner"] == r["default"] for r in rows)
+    row = {"drive": "a_tuned", "same_share_as_off": share,
+           "every_winner_default": defaults, "launches": counts,
+           "off_launches": off_counts, "tune_counters": d,
+           "tok_s": len(tuned) * DRIVE_NEW / wall,
+           "off_tok_s": len(off) * DRIVE_NEW / off_wall,
+           "configs_resolved": used}
+    print(f"  engine (a) with ondemand on the tuned DB: launches {counts} "
+          f"(off: {off_counts}), tune counters {d} (off: {off_d}), configs "
+          f"resolved {used}; {share:.3f} of the outputs equal the off run's "
+          f"(every winner the default: {defaults}); {row['tok_s']:.1f} tok/s "
+          f"against {row['off_tok_s']:.1f} off, both with the first step's "
+          "500 ms wait")
+    if off_d or d.get("kernel_tune_searches") or (defaults and share != 1.0):
+        fail(f"engine (a) tuned: off counters {off_d}, ondemand {d}, share "
+             f"{share}")
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def host_us_ab(fa, fb, chunks=HOST_US_CHUNKS, per_chunk=256):
+    """Host µs of one call of ``fa`` and of ``fb``, interleaved call by
+    call (a, b, a, b, ...) so host drift falls on both alike, each call on
+    the host clock: ``chunks`` runs of ``per_chunk`` calls, each run queued
+    behind a sleep kernel and drained (untimed) after it, so no launch
+    waits for the device. Returns the two medians."""
+    fa()
+    fb()
+    ta, tb = [], []
+    clock = time.perf_counter_ns
+    for _ in range(chunks):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2e8))
+        for i in range(per_chunk):
+            fn, acc = (fa, ta) if i % 2 == 0 else (fb, tb)
+            t0 = clock()
+            fn()
+            acc.append(clock() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(ta)) / 1e3, float(np.median(tb)) / 1e3
+
+
+def registry_host_us():
+    """The wrapper's host µs per call with ``FLAGS_kernel_autotune`` off:
+    the config resolved through the registry (the main path's call) against
+    the config named (the registry bypassed), interleaved call by call
+    (``host_us_ab``): the paged kernel at the decode shape, the int8 head at
+    GPT's decode batch, ``flash_attention_array``'s forward at the training
+    shape; and, alone in a loop, the ``launch_config`` call that the
+    resolved call adds."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    bf16 = torch.bfloat16
+    q, kp, vp, tables, pos = paged_inputs(bf16)
+    qw, s = int8_weight(*INT8_HEAD)
+    x = int8_x(ENGINE_KW["max_batch"], INT8_HEAD[0], bf16)
+    B, T, Tk, H, D, causal = FLASH_TRAIN
+    fq, fk, fv, _ = flash_inputs(B, T, Tk, H, D, bf16, fused_qkv=True)
+    M, (Kd, N) = ENGINE_KW["max_batch"], INT8_HEAD
+    calls = {
+        "paged_attention_rows": (
+            lambda: K.paged_attention_rows(q, kp, vp, tables, pos),
+            lambda: K.paged_attention_rows(q, kp, vp, tables, pos,
+                                           config={"split": 0}),
+            lambda: K.launch_config("paged_attention", K.paged_attention_key,
+                                    32, 64, 16, 16, 1, 128, bf16)),
+        "int8_matmul": (
+            lambda: K.int8_matmul(x, qw, s, True),
+            lambda: K.int8_matmul(x, qw, s, True, config={"block_n": 384}),
+            lambda: K.launch_config("int8_matmul", K.int8_matmul_key, M, Kd,
+                                    N, True, bf16)),
+        "flash_attention_array": (
+            lambda: K.flash_attention_array(fq, fk, fv, causal),
+            lambda: K.flash_attention_array(fq, fk, fv, causal, block_q=128,
+                                            block_k=128),
+            lambda: K.launch_config("flash_attention", K.flash_attention_key,
+                                    B, H, T, Tk, D, bf16, causal)),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (resolved, named, lookup) in calls.items():
+            r, n = host_us_ab(resolved, named)
+            t0 = time.perf_counter()
+            for _ in range(20000):
+                lookup()
+            alone = (time.perf_counter() - t0) / 20000 * 1e6
+            out[name] = {"resolved_us": r, "named_us": n, "rise_us": r - n,
+                         "launch_config_us": alone}
+            print(f"  host us a call, {name}: config resolved (off) {r:.2f}, "
+                  f"config named {n:.2f}, rise {r - n:+.2f} (medians of "
+                  f"{HOST_US_CHUNKS * 128} calls each, interleaved); "
+                  f"launch_config alone {alone:.3f}")
+    del q, kp, vp, qw, x, fq, fk, fv
+    torch.cuda.empty_cache()
+    return out
+
+
+def registry_phase(c0, tune_dir):
+    """The kernel registry over the main path: the off check, a search at
+    each of ``tune_keys``, their persistence, the tuned drive and the
+    wrappers' host µs; ``FLAGS_kernel_autotune`` is off again after it."""
+    from paddle_tpu_torch.framework.flags import set_flags
+
+    registry_off_check(c0, tune_dir)
+    try:
+        rows = registry_search()
+        persisted = registry_persistence(rows)
+        drive = tuned_drive(rows)
+    finally:
+        set_flags({"FLAGS_kernel_autotune": "off"})
+    return {"searches": rows, "persistence": persisted, "tuned_drive": drive,
+            "host_us": registry_host_us()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2356,7 +2787,25 @@ def main(argv=None) -> int:
         os.environ["PADDLE_TPU_FLIGHT_DIR"] = str(FLIGHT_DIR)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.ops import kernels as K
+
+    # the registry phase's tuning DB: $FLAGS_kernel_tune_dir when the caller
+    # sets it (kept; it must be empty at the start), else a fresh directory
+    # removed at exit; the phases before it run with FLAGS_kernel_autotune
+    # off and must leave it empty
+    tune_dir = os.environ.get("FLAGS_kernel_tune_dir")
+    if tune_dir:
+        os.makedirs(tune_dir, exist_ok=True)
+        if os.listdir(tune_dir):
+            fail(f"FLAGS_kernel_tune_dir={tune_dir} is not empty")
+    else:
+        tune_dir = tempfile.mkdtemp(prefix="paddle_tpu_torch_tune_")
+        atexit.register(shutil.rmtree, tune_dir, True)
+    set_flags({"FLAGS_kernel_autotune": "off",
+               "FLAGS_kernel_tune_dir": tune_dir})
+    tune_c0 = profiler.counters()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2382,12 +2831,19 @@ def main(argv=None) -> int:
         for fn, st, reg in ptxas_functions(entry["ptxas"]):
             print(f"    {fn}: {reg} registers at entry, {st} spill-store "
                   "bytes")
-    main_fn = f"{INT8_MMA}ILi4ELb1E"  # <NT = 4, trans>
-    int8_ptxas = [f for f in ptxas_functions(log["int8_matmul"]["ptxas"])
-                  if main_fn in f[0]]
-    print(f"  the decode batch runs {INT8_MMA}<4, trans>: " + (
+    main_fn = f"{INT8_MMA}ILi4ELb1ELi2E"  # <NT = 4, trans, KR = 2>
+    int8_fns = [f for f in ptxas_functions(log["int8_matmul"]["ptxas"])
+                if INT8_MMA in f[0]]
+    int8_ptxas = [f for f in int8_fns if main_fn in f[0]]
+    print(f"  the decode batch runs {INT8_MMA}<4, trans, 2> (384 rows a "
+          "block): " + (
               f"{int8_ptxas[0][2]} registers, {int8_ptxas[0][1]} spill-store "
               "bytes" if int8_ptxas else "no ptxas report (cached build)"))
+    narrow = [f for f in int8_fns if "ELi1E" in f[0]]
+    print(f"  {INT8_MMA} at 192 rows a block (KR = 1): {len(narrow)} "
+          f"instantiations, registers "
+          f"{sorted({r for _, _, r in narrow})}, spill-store bytes "
+          f"{sum(st for _, st, _ in narrow)}")
     int8_sass_check()
 
     print("[2] kernels against their plain versions")
@@ -2403,8 +2859,20 @@ def main(argv=None) -> int:
     train_launches, train_tl = train_phase(profile=args.profile)
     launches.update(train_launches)
 
+    print("[6] kernel registry: off through phases 3 and 5, then search, "
+          "ondemand from the DB, and drive (a) on the tuned configs")
+    registry = registry_phase(tune_c0, tune_dir)
+    registry["int8_widths"] = errs.pop("int8_widths")
+
     print("[4] kernel timing")
     rows, paged = timing_phase(errs, launches, int8_ptxas)
+    # each row's config as its main path resolves it (off) at the row's
+    # shape, and the search's winners of its registry kernel
+    for r in rows:
+        reg = REGISTRY_NAME[r["name"]]
+        r["config"] = K.resolve_config(reg, ())
+        r["tuned"] = [{"key": t["key"], "winner": t["winner"]}
+                      for t in registry["searches"] if t["kernel"] == reg]
     # the reference's (B*H, T, D) route shape: not on the port's main path
     long_rows = flash_timing(long_errs, dict.fromkeys(FLASH_REPLACES, 0),
                              FLASH_LONG, fused_qkv=False)
@@ -2418,7 +2886,9 @@ def main(argv=None) -> int:
     for r in paged:
         print(f"  paged_attention_rows ({r['tag']}): {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}, {r['split']} blocks a row) at {r['shape']}")
+              f"{r['bound_by']}, {r['split']} blocks a row; by explicit split "
+              + ", ".join(f"{k}: {v:.4f}" for k, v in r["ms_by_split"].items())
+              + f") at {r['shape']}")
     # each kernel's device time from the profiled windows (drive (i)'s decode
     # steps, one train step) beside its CUDA-event time at the timing shape
     traced = next(d for d in drives if d["drive"] == "i")
@@ -2436,6 +2906,7 @@ def main(argv=None) -> int:
     print(json.dumps({"flash_long_shape": long_rows}))
     print(json.dumps({"paged_shapes": paged}))
     print(json.dumps({"engine_drives": drives}))
+    print(json.dumps({"registry": registry}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

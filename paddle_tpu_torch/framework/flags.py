@@ -1,5 +1,6 @@
 """Global flag registry (the ``FLAGS_serve_*`` entries the serving engine and
-its supervisor read, and ``FLAGS_profile_memory``).
+its supervisor read, ``FLAGS_profile_memory`` and the kernel registry's
+``FLAGS_kernel_*``).
 
 Same names, defaults and ``FLAGS_*`` environment pickup as the reference's
 ``paddle_tpu/framework/flags.py``; ``set_flags`` rejects unknown names with a
@@ -75,6 +76,20 @@ _FLAGS: Dict[str, object] = {
     "FLAGS_serve_trace": False,
     "FLAGS_serve_trace_ring": 256,
     "FLAGS_serve_metrics_port": 0,
+    # Kernel autotuning (ops/kernels/). FLAGS_kernel_autotune: "off" makes
+    # resolve_config a dict probe returning each kernel's pinned defaults
+    # (the launches of the call sites before the registry existed);
+    # "ondemand" reads persisted winners from the tuning DB but never
+    # searches; "search" runs a measured-timing search on a DB miss and
+    # persists the verified winner. FLAGS_kernel_tune_dir overrides the DB
+    # location (default ~/.cache/paddle_tpu_torch/tune). Per-kernel search
+    # budget and timing samples: FLAGS_kernel_tune_budget_s (monotonic
+    # deadline), FLAGS_kernel_tune_samples (median-of-k, first call
+    # excluded).
+    "FLAGS_kernel_autotune": "off",
+    "FLAGS_kernel_tune_dir": "",
+    "FLAGS_kernel_tune_budget_s": 20.0,
+    "FLAGS_kernel_tune_samples": 5,
 }
 
 for _k, _cur in list(_FLAGS.items()):

@@ -27,11 +27,13 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     return loss
 
 
-def fused_linear_cross_entropy(x, weight, label, block_rows=2048,
+def fused_linear_cross_entropy(x, weight, label, block_rows=None,
                                ignore_index=-100):
     """LM-head projection + softmax cross-entropy without the (N, vocab)
     logits tensor (``ops/fused_ce.py``). x (..., d); weight (V, d); label
-    int (...). Returns the mean loss over non-ignored rows."""
+    int (...). Returns the mean loss over non-ignored rows.
+    ``block_rows=None`` resolves the row block through the kernel registry
+    (2048 with autotune off)."""
     d = x.shape[-1]
     return _fce(x.reshape(-1, d), weight, label.reshape(-1), block_rows,
                 ignore_index)

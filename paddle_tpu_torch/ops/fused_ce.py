@@ -12,12 +12,15 @@ so the products here are ``torch.matmul``. Its logits are bf16 x bf16 -> f32
 to bf16, so the operands are upcast to f32; bf16 values are exact in TF32,
 so on the card those f32 products may run on the TF32 tensor cores
 (``_mm``) and still equal bf16 x bf16 -> f32. An f32 model keeps full f32.
-The row block is pinned at 2048, the reference's default when its kernel
-registry does not autotune.
+The row block resolves through the kernel registry (``fused_ce``: 2048 with
+``FLAGS_kernel_autotune=off``, as the reference's).
 """
 from __future__ import annotations
 
 import torch
+
+from .kernels.builtin import fused_ce_key
+from .kernels.registry import launch_config
 
 __all__ = ["fused_linear_cross_entropy"]
 
@@ -87,15 +90,20 @@ class _FusedLinearCE(torch.autograd.Function):
         return dx, dw.to(w.dtype), None, None, None
 
 
-def fused_linear_cross_entropy(x, w, labels, block_rows=2048,
+def fused_linear_cross_entropy(x, w, labels, block_rows=None,
                                ignore_index=-100):
     """x (N, d); w (V, d), the tied LM-head weight; labels (N,) int. Rows
     whose label is ``ignore_index`` (or negative) are left out of the sum
-    and of the mean's denominator."""
+    and of the mean's denominator. ``block_rows=None`` resolves through the
+    kernel registry (``fused_ce``); an explicit value bypasses it."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1] \
             or labels.shape != (x.shape[0],):
         raise ValueError(f"fused_linear_cross_entropy: x{tuple(x.shape)} "
                          f"w{tuple(w.shape)} labels{tuple(labels.shape)}")
+    if block_rows is None:
+        block_rows = launch_config("fused_ce", fused_ce_key, x.shape[0],
+                                   x.shape[1], w.shape[0],
+                                   x.dtype)["block_rows"]
     if int(block_rows) <= 0:
         raise ValueError(f"block_rows must be positive, got {block_rows}")
     return _FusedLinearCE.apply(x, w, labels.long(), int(block_rows),

@@ -1,19 +1,34 @@
-"""Hand-written Hopper kernels of the port and their launch counts.
+"""Hand-written Hopper kernels of the port, their launch counts and the
+kernel registry.
 
 Each kernel module keeps a plain PyTorch version beside its wrapper; the
 wrapper runs the plain version for CPU tensors and the CUDA kernel (built
 from ``csrc/`` at first use, see ``_build``) for CUDA tensors.
+
+The registry (``registry.py``, port of ``paddle_tpu/ops/kernels``):
+:func:`register_kernel` / :func:`get_kernel` / :func:`kernel_names` /
+:func:`resolve_config` (and :func:`launch_config`, the call sites' form of
+it), and each kernel's ``*_key`` helper. Importing this
+package registers every spec (``flash_attention`` and ``fused_ce`` in
+``builtin``, ``paged_attention`` and ``int8_matmul`` in their modules). It
+does NOT import ``autotune`` or ``db``: ``resolve_config`` imports them only
+when ``FLAGS_kernel_autotune`` is ``ondemand`` or ``search``.
 """
+from . import builtin  # noqa: F401  (registers flash_attention, fused_ce)
 from . import flash_attention as _flash_mod
 from . import int8_matmul as _int8_mod
 from . import paged_attention as _paged_mod
 from ._build import build
+from .builtin import flash_attention_key, fused_ce_key
 from .flash_attention import (flash_attention_array, flash_attention_dkv,
                               flash_attention_dq, flash_attention_fwd,
                               flash_attention_bwd_plain,
                               flash_attention_plain)
-from .int8_matmul import int8_matmul, int8_matmul_plain
-from .paged_attention import paged_attention_rows, paged_attention_rows_plain
+from .int8_matmul import int8_matmul, int8_matmul_key, int8_matmul_plain
+from .paged_attention import (paged_attention_key, paged_attention_rows,
+                              paged_attention_rows_plain)
+from .registry import (KernelSpec, get_kernel, kernel_names, launch_config,
+                       register_kernel, resolve_config)
 
 _MODULES = {"paged_attention_rows": _paged_mod, "int8_matmul": _int8_mod}
 
@@ -31,7 +46,10 @@ def reset_launch_counts() -> None:
         _flash_mod.launches[name] = 0
 
 
-__all__ = ["build", "int8_matmul", "int8_matmul_plain",
+__all__ = ["KernelSpec", "register_kernel", "get_kernel", "kernel_names",
+           "resolve_config", "launch_config", "paged_attention_key", "int8_matmul_key",
+           "flash_attention_key", "fused_ce_key",
+           "build", "int8_matmul", "int8_matmul_plain",
            "paged_attention_rows", "paged_attention_rows_plain",
            "flash_attention_array", "flash_attention_plain",
            "flash_attention_bwd_plain",

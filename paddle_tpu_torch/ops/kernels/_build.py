@@ -41,10 +41,17 @@ def _nvcc() -> str:
         "the CUDA kernels are built from source at first use")
 
 
-def _target(name: str) -> Path:
+def source_digest(name: str) -> str:
+    """sha1 (12 hex digits) of ``csrc/<name>.cu`` and the nvcc flags: the
+    library's file name carries it, and the tuning DB keys its entries on
+    it, so an edited kernel is rebuilt and never takes an old build's
+    tuned config."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

@@ -25,7 +25,9 @@
 //    output directly, in any k order (see below); `wgmma` would read x from
 //    shared memory in its fixed k order.
 //  - each block owns 384 contiguous weight rows (12 warps of two 16-row
-//    tiles: 131 blocks at N = 50304, one wave of one block per SM) and
+//    tiles: 131 blocks at N = 50304, one wave of one block per SM), or 192
+//    (12 warps of one tile: the kernel registry's `block_n` axis, for a
+//    head whose N leaves SMs idle at 384, e.g. 84 blocks at N = 32000), and
 //    walks K outermost, so x is read from L2 once per block. The weight and
 //    x stream through a 4-stage ring of 128-byte K chunks filled by 16-byte
 //    `cp.async` (zero-filled past N and K), so each weight row is read in
@@ -42,14 +44,19 @@
 //    one FADD removes 2^23 + 128, leaving float(q) exactly, one FMUL by
 //    scale / 127 and a paired round to bf16 (`__floats2bfloat162_rn`), which
 //    is bit for bit the reference's rounding. No I2F conversion is issued.
-//  - trans = 0 (W stored (K, N)) gives each lane four adjacent weight rows
-//    as its A rows (the row a fragment slot stands for is free, as long as
-//    a quad agrees), so one 4-byte shared load of a k row holds all four,
-//    and a 4 x 4 byte transpose (8 `__byte_perm`) of four such loads gives
-//    each row 4 consecutive k: the same shared-memory wavefronts as
-//    trans = 1's 16-byte loads, plus 0.5 PRMT a weight. The 16-byte pieces
-//    of a k row are XOR-swizzled by k so the four lanes of a quad read
+//  - trans = 0 (W stored (K, N)) gives each lane its 2 * KR adjacent
+//    weight rows as its A rows (the row a fragment slot stands for is free,
+//    as long as a quad agrees), so one 4-byte (KR = 2) or 2-byte (KR = 1)
+//    shared load of a k row holds all of them, and a byte transpose
+//    (`__byte_perm`) of four such loads gives each row 4 consecutive k: at
+//    KR = 2 the same shared-memory wavefronts as trans = 1's 16-byte loads,
+//    plus 0.5 PRMT a weight. The 16-byte pieces of a k row are swizzled by k
+//    (XOR at 384 rows, a rotation by 3 pieces at 192, whose 12 pieces a row
+//    do not split into groups of 8) so the four lanes of a quad read
 //    different banks.
+//  - the sums of an output column do not depend on the block width: the
+//    same warp code takes its K chunks in the same order and the same MMA
+//    k order either way, so 384 and 192 give the same bits.
 //  - the accumulators are rounded to bf16 and staged through shared memory,
 //    so each output row is written as contiguous 16-byte runs.
 // f32 (checks only; a tensor-core f32 product would be TF32) keeps the CUDA
@@ -177,14 +184,22 @@ constexpr int kC = 128;            // K bytes (and x elements) per ring stage
 static_assert(kC % 128 == 0, "a lane owns 16-byte pieces t + 4v of a row");
 constexpr int kXPitch = kC + 8;    // x elements per row in a stage
 constexpr int kMP = 32;            // x rows per pass
-constexpr int kR = 2;              // 16-row tiles per warp
-constexpr int kBN = 16 * kWarps * kR;  // weight rows per block
 constexpr float kMagic = 8388736.0f;  // 2^23 + 128
-constexpr int kStageBytes = kBN * kC + kMP * kXPitch * 2;
-constexpr int kSmemBytes = kStages * kStageBytes;
-static_assert(kSmemBytes <= 232448,
+// KR (16-row tiles per warp, 1 or 2) sets the weight rows a block owns and
+// with them a ring stage's bytes and the block's shared memory
+__host__ __device__ constexpr int block_rows(int kr) { return 16 * kWarps * kr; }
+__host__ __device__ constexpr int stage_bytes(int bn) {
+  return bn * kC + kMP * kXPitch * 2;
+}
+__host__ __device__ constexpr int smem_bytes(int bn) {
+  return kStages * stage_bytes(bn);
+}
+static_assert(smem_bytes(block_rows(2)) <= 232448 &&
+                  smem_bytes(block_rows(1)) <= 232448,
               "the ring must fit the shared memory a block can take");
-static_assert(kBN % 128 == 0, "trans = 0 swizzles groups of 8 pieces of 16");
+static_assert(block_rows(2) % 128 == 0 && block_rows(1) % 64 == 0,
+              "trans = 0 swizzles a row's pieces of 16 in groups of 8 (384) "
+              "or rotates 12 of them (192)");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -235,28 +250,32 @@ __host__ __device__ constexpr int wpiece(int p, int r) {
   return p ^ ((r & 1) << 2);
 }
 
-// Where 16-byte piece p of k row kr sits in a stage (trans = 0): the four
-// lanes t of a quad read k rows 16t + ..; XOR-ing the piece by 2t puts them
-// on different banks.
+// Where 16-byte piece p of k row kr sits in a stage of BN-byte k rows
+// (trans = 0): the four lanes t of a quad read k rows 16t + .. at the same
+// bank offset; XOR-ing the piece by 2t (BN a multiple of 128) or rotating
+// it by 3t of the row's 12 pieces (BN = 192, where the four then land on 4
+// distinct pieces mod 8) puts them on different banks.
+template <int BN>
 __host__ __device__ constexpr int kpiece(int p, int kr) {
-  return p ^ (((kr >> 4) & 3) << 1);
+  return BN % 128 == 0 ? p ^ (((kr >> 4) & 3) << 1)
+                       : (p + 3 * ((kr >> 4) & 3)) % (BN / 16);
 }
 
 __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// One ring stage: the block's weight rows x kC bytes of K from k0, and the
-// pass's x rows x kC elements. 16-byte copies where the rows allow them
+// One ring stage: the block's BN weight rows x kC bytes of K from k0, and
+// the pass's x rows x kC elements. 16-byte copies where the rows allow them
 // (wvec / xvec), else plain loads; zeros past N, K and M.
-template <int NT, bool TRANS>
+template <int NT, bool TRANS, int BN>
 __device__ __forceinline__ void load_stage(
     uint8_t* ws, bf16* xs, const int8_t* __restrict__ w,
     const bf16* __restrict__ x, int n0, int k0, int M, int N, int K,
     bool wvec, bool xvec) {
   const int tid = threadIdx.x;
   if (TRANS) {  // W (N, K): each row's chunk is kC contiguous bytes
-    for (int p = tid; p < kBN * (kC / 16); p += kTThreads) {
+    for (int p = tid; p < BN * (kC / 16); p += kTThreads) {
       const int r = p / (kC / 16), pc = p % (kC / 16);
       const int n = n0 + r, k = k0 + pc * 16;
       uint8_t* dst = ws + r * kC + wpiece(pc, r) * 16;
@@ -271,11 +290,11 @@ __device__ __forceinline__ void load_stage(
         *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(b);
       }
     }
-  } else {  // W (K, N): kC rows of kBN contiguous bytes, pieces swizzled
-    for (int p = tid; p < kC * (kBN / 16); p += kTThreads) {
-      const int kr = p / (kBN / 16), pc = p % (kBN / 16);
+  } else {  // W (K, N): kC rows of BN contiguous bytes, pieces swizzled
+    for (int p = tid; p < kC * (BN / 16); p += kTThreads) {
+      const int kr = p / (BN / 16), pc = p % (BN / 16);
       const int k = k0 + kr, n = n0 + pc * 16;
-      uint8_t* dst = ws + kr * kBN + kpiece(pc, kr) * 16;
+      uint8_t* dst = ws + kr * BN + kpiece<BN>(pc, kr) * 16;
       if (wvec) {
         const bool ok = k < K && n < N;
         cp_async16(dst, ok ? w + (size_t)k * N + n : w, ok ? 16 : 0);
@@ -306,11 +325,12 @@ __device__ __forceinline__ void load_stage(
   }
 }
 
-// trans = 0: the 16 weight bytes at the chunk's k offsets [kk, kk + 16) of
-// the 4 adjacent rows n, n + 1, n + 2, n + 3 (n a multiple of 4), one uint4
-// a row (byte i of the uint4 is k offset kk + i). Each 4-byte read takes the
-// four rows at one k; a 4 x 4 byte transpose of four such reads gives each
-// row 4 consecutive k.
+// trans = 0, KR = 2: the 16 weight bytes at the chunk's k offsets
+// [kk, kk + 16) of the 4 adjacent rows n, n + 1, n + 2, n + 3 (n a multiple
+// of 4), one uint4 a row (byte i of the uint4 is k offset kk + i). Each
+// 4-byte read takes the four rows at one k; a 4 x 4 byte transpose of four
+// such reads gives each row 4 consecutive k.
+template <int BN>
 __device__ __forceinline__ void gather_kn(const uint8_t* ws, int n, int kk,
                                           uint4 (&rows)[4]) {
   uint32_t v[4][4];  // [row][word]
@@ -321,7 +341,7 @@ __device__ __forceinline__ void gather_kn(const uint8_t* ws, int n, int kk,
     for (int i = 0; i < 4; ++i) {
       const int kr = kk + 4 * s + i;
       l[i] = *reinterpret_cast<const uint32_t*>(
-          ws + kr * kBN + kpiece(n >> 4, kr) * 16 + (n & 15));
+          ws + kr * BN + kpiece<BN>(n >> 4, kr) * 16 + (n & 15));
     }
     const uint32_t t0 = __byte_perm(l[0], l[1], 0x5140);
     const uint32_t t1 = __byte_perm(l[0], l[1], 0x7362);
@@ -337,21 +357,47 @@ __device__ __forceinline__ void gather_kn(const uint8_t* ws, int n, int kk,
     rows[j] = make_uint4(v[j][0], v[j][1], v[j][2], v[j][3]);
 }
 
+// trans = 0, KR = 1: the same for the 2 adjacent rows n, n + 1 (n even):
+// each 2-byte read takes the two rows at one k; a 2 x 4 byte transpose of
+// four such reads gives each row 4 consecutive k.
+template <int BN>
+__device__ __forceinline__ void gather_kn(const uint8_t* ws, int n, int kk,
+                                          uint4 (&rows)[2]) {
+  uint32_t v[2][4];  // [row][word]
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    uint32_t l[4];  // byte 0: row n at k, byte 1: row n + 1 at k
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kr = kk + 4 * s + i;
+      l[i] = *reinterpret_cast<const uint16_t*>(
+          ws + kr * BN + kpiece<BN>(n >> 4, kr) * 16 + (n & 15));
+    }
+    const uint32_t t01 = l[0] | (l[1] << 16);  // n@k0, n+1@k0, n@k1, n+1@k1
+    const uint32_t t23 = l[2] | (l[3] << 16);
+    v[0][s] = __byte_perm(t01, t23, 0x6420);
+    v[1][s] = __byte_perm(t01, t23, 0x7531);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    rows[j] = make_uint4(v[j][0], v[j][1], v[j][2], v[j][3]);
+}
+
 // The block row that the lane's A fragment row g + 8h of tile r stands for.
-// trans = 1: row wrow + 16r + 8h + g. trans = 0: the lane's four rows are
-// adjacent, wrow + 4g + 2r + h, so one 4-byte read of a k row serves all.
+// trans = 1: row wrow + 16r + 8h + g. trans = 0: the lane's 2 * KR rows are
+// adjacent, wrow + 2 KR g + 2r + h, so one read of a k row serves all.
 // Either way it depends on g, not t, so a quad agrees on its rows.
-template <bool TRANS>
+template <bool TRANS, int KR>
 __device__ __forceinline__ int frag_row(int wrow, int g, int r, int h) {
-  return TRANS ? wrow + 16 * r + 8 * h + g : wrow + 4 * g + 2 * r + h;
+  return TRANS ? wrow + 16 * r + 8 * h + g : wrow + 2 * KR * g + 2 * r + h;
 }
 
 // One pass: out rows [0, M) (M <= 32, NT = ceil(M / 8)) for the block's
-// weight rows. Lane (g, t) = (lane / 4, lane % 4): in the chunk's k-step
-// (v, s), MMA k slots {2t, 2t+1, 2t+8, 2t+9} hold the chunk's bytes
-// 16t + 64v + 4s + {0, 1, 2, 3}, for A (the rows `frag_row` names) and for
-// B (x row 8j + g) alike.
-template <int NT, bool TRANS>
+// 16 * kWarps * KR weight rows. Lane (g, t) = (lane / 4, lane % 4): in the
+// chunk's k-step (v, s), MMA k slots {2t, 2t+1, 2t+8, 2t+9} hold the chunk's
+// bytes 16t + 64v + 4s + {0, 1, 2, 3}, for A (the rows `frag_row` names)
+// and for B (x row 8j + g) alike.
+template <int NT, bool TRANS, int KR>
 __global__ void __launch_bounds__(kTThreads, 1) int8_matmul_mma(
     const bf16* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ scale, bf16* __restrict__ out, int M, int N,
@@ -359,19 +405,20 @@ __global__ void __launch_bounds__(kTThreads, 1) int8_matmul_mma(
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * kBN;
-  const int wrow = warp * 16 * kR;  // the warp's first row in the block
+  constexpr int BN = block_rows(KR), SB = stage_bytes(BN);
+  const int n0 = blockIdx.x * BN;
+  const int wrow = warp * 16 * KR;  // the warp's first row in the block
   const float s127 = scale[0] / 127.0f;
   const int chunks = (K + kC - 1) / kC;
 
-  auto stage_w = [&](int s) { return smem + s * kStageBytes; };
+  auto stage_w = [&](int s) { return smem + s * SB; };
   auto stage_x = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + s * kStageBytes + kBN * kC);
+    return reinterpret_cast<bf16*>(smem + s * SB + BN * kC);
   };
 
-  float acc[kR][NT][4];
+  float acc[KR][NT][4];
 #pragma unroll
-  for (int r = 0; r < kR; ++r)
+  for (int r = 0; r < KR; ++r)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -380,8 +427,8 @@ __global__ void __launch_bounds__(kTThreads, 1) int8_matmul_mma(
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) {
     if (c < chunks)
-      load_stage<NT, TRANS>(stage_w(c), stage_x(c), w, x, n0, c * kC, M, N,
-                            K, wvec, xvec);
+      load_stage<NT, TRANS, BN>(stage_w(c), stage_x(c), w, x, n0, c * kC,
+                                M, N, K, wvec, xvec);
     cp_commit();
   }
 
@@ -391,8 +438,9 @@ __global__ void __launch_bounds__(kTThreads, 1) int8_matmul_mma(
     __syncthreads();  // stage c landed for all; stage c - 1 is free again
     const int cn = c + kStages - 1;
     if (cn < chunks)
-      load_stage<NT, TRANS>(stage_w(cn % kStages), stage_x(cn % kStages), w,
-                            x, n0, cn * kC, M, N, K, wvec, xvec);
+      load_stage<NT, TRANS, BN>(stage_w(cn % kStages),
+                                stage_x(cn % kStages), w, x, n0, cn * kC, M,
+                                N, K, wvec, xvec);
     cp_commit();
 
     const uint8_t* ws = stage_w(c % kStages);
@@ -407,20 +455,19 @@ __global__ void __launch_bounds__(kTThreads, 1) int8_matmul_mma(
         xb[j][0] = *reinterpret_cast<const uint4*>(xr);
         xb[j][1] = *reinterpret_cast<const uint4*>(xr + 8);
       }
-      uint4 wr[2 * kR];  // [2r + h]: the 16 bytes of row frag_row(.., r, h)
+      uint4 wr[2 * KR];  // [2r + h]: the 16 bytes of row frag_row(.., r, h)
       if (TRANS) {
 #pragma unroll
-        for (int i = 0; i < 2 * kR; ++i) {
-          const int row = frag_row<TRANS>(wrow, g, i >> 1, i & 1);
+        for (int i = 0; i < 2 * KR; ++i) {
+          const int row = frag_row<TRANS, KR>(wrow, g, i >> 1, i & 1);
           wr[i] = *reinterpret_cast<const uint4*>(
               ws + row * kC + wpiece(kk / 16, row) * 16);
         }
       } else {
-        static_assert(2 * kR == 4, "gather_kn reads 4 adjacent rows");
-        gather_kn(ws, frag_row<TRANS>(wrow, g, 0, 0), kk, wr);
+        gather_kn<BN>(ws, frag_row<TRANS, KR>(wrow, g, 0, 0), kk, wr);
       }
 #pragma unroll
-      for (int r = 0; r < kR; ++r) {
+      for (int r = 0; r < KR; ++r) {
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
           const uint32_t qa = word(wr[2 * r], s) ^ 0x80808080u;
@@ -437,15 +484,15 @@ __global__ void __launch_bounds__(kTThreads, 1) int8_matmul_mma(
   }
 
   // epilogue: bf16 accumulators through shared memory, then each output
-  // row's kBN columns as contiguous 16-byte runs
+  // row's BN columns as contiguous 16-byte runs
   cp_wait<0>();
   __syncthreads();
-  constexpr int OP = kBN + 8;  // output pitch (elements) in shared memory
+  constexpr int OP = BN + 8;  // output pitch (elements) in shared memory
   bf16* os = reinterpret_cast<bf16*>(smem);
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const int row0 = frag_row<TRANS>(wrow, g, r, 0);
-    const int row1 = frag_row<TRANS>(wrow, g, r, 1);
+  for (int r = 0; r < KR; ++r) {
+    const int row0 = frag_row<TRANS, KR>(wrow, g, r, 0);
+    const int row1 = frag_row<TRANS, KR>(wrow, g, r, 1);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int m = 8 * j + 2 * t;
@@ -456,8 +503,8 @@ __global__ void __launch_bounds__(kTThreads, 1) int8_matmul_mma(
     }
   }
   __syncthreads();
-  for (int p = tid; p < M * (kBN / 8); p += kTThreads) {
-    const int m = p / (kBN / 8), pc = p % (kBN / 8);
+  for (int p = tid; p < M * (BN / 8); p += kTThreads) {
+    const int m = p / (BN / 8), pc = p % (BN / 8);
     const int n = n0 + pc * 8;
     const bf16* src = os + m * OP + pc * 8;
     bf16* dst = out + (size_t)m * N + n;
@@ -470,7 +517,7 @@ __global__ void __launch_bounds__(kTThreads, 1) int8_matmul_mma(
 }
 
 // Lets this instantiation take its dynamic shared memory, set once per device.
-template <int NT, bool TRANS>
+template <int NT, bool TRANS, int KR>
 int allow_smem() {
   static std::mutex mu;
   static std::set<int> done;  // devices
@@ -479,29 +526,30 @@ int allow_smem() {
   if (e) return static_cast<int>(e);
   std::lock_guard<std::mutex> hold(mu);
   if (done.count(dev)) return 0;
-  e = cudaFuncSetAttribute(int8_matmul_mma<NT, TRANS>,
+  e = cudaFuncSetAttribute(int8_matmul_mma<NT, TRANS, KR>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kSmemBytes);
+                           smem_bytes(block_rows(KR)));
   if (!e) done.insert(dev);
   return static_cast<int>(e);
 }
 
-template <int NT, bool TRANS>
+template <int NT, bool TRANS, int KR>
 int launch_pass(const bf16* x, const int8_t* w, const float* scale, bf16* out,
                 int M, int N, int K, cudaStream_t stream) {
-  int e = allow_smem<NT, TRANS>();
+  constexpr int BN = block_rows(KR);
+  int e = allow_smem<NT, TRANS, KR>();
   if (e) return e;
   const bool wvec = (TRANS ? K : N) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const bool xvec = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool ovec = N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int grid = (N + kBN - 1) / kBN;
-  int8_matmul_mma<NT, TRANS><<<grid, kTThreads, kSmemBytes, stream>>>(
+  const int grid = (N + BN - 1) / BN;
+  int8_matmul_mma<NT, TRANS, KR><<<grid, kTThreads, smem_bytes(BN), stream>>>(
       x, w, scale, out, M, N, K, wvec, xvec, ovec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool TRANS>
+template <bool TRANS, int KR>
 int launch_bf16(const void* x, const void* w, const void* scale, void* out,
                 int M, int N, int K, cudaStream_t s) {
   const auto* wp = static_cast<const int8_t*>(w);
@@ -512,10 +560,10 @@ int launch_bf16(const void* x, const void* w, const void* scale, void* out,
     bf16* op = static_cast<bf16*>(out) + (size_t)m0 * N;
     int e;
     switch ((mp + 7) / 8) {
-      case 1: e = launch_pass<1, TRANS>(xp, wp, sp, op, mp, N, K, s); break;
-      case 2: e = launch_pass<2, TRANS>(xp, wp, sp, op, mp, N, K, s); break;
-      case 3: e = launch_pass<3, TRANS>(xp, wp, sp, op, mp, N, K, s); break;
-      default: e = launch_pass<4, TRANS>(xp, wp, sp, op, mp, N, K, s); break;
+      case 1: e = launch_pass<1, TRANS, KR>(xp, wp, sp, op, mp, N, K, s); break;
+      case 2: e = launch_pass<2, TRANS, KR>(xp, wp, sp, op, mp, N, K, s); break;
+      case 3: e = launch_pass<3, TRANS, KR>(xp, wp, sp, op, mp, N, K, s); break;
+      default: e = launch_pass<4, TRANS, KR>(xp, wp, sp, op, mp, N, K, s); break;
     }
     if (e) return e;
   }
@@ -528,18 +576,24 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. x (M, K); w int8 (N, K) if trans else
 // (K, N); scale: one f32 on the device; out (M, N). All contiguous on the
-// current device.
+// current device. block_n: the bf16 kernel's weight rows a block, 384 or 192
+// (the f32 kernel takes either and ignores it).
 int pt_int8_matmul(int dtype, int trans, const void* x, const void* w,
                    const void* scale, void* out, int M, int N, int K,
-                   void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                   void* stream, int block_n) {
+  if (M <= 0 || N <= 0 || K <= 0 ||
+      (block_n != block_rows(2) && block_n != block_rows(1)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return trans ? launch_f32<true>(x, w, scale, out, M, N, K, s)
                  : launch_f32<false>(x, w, scale, out, M, N, K, s);
+  if (dtype == 1 && block_n == block_rows(2))
+    return trans ? launch_bf16<true, 2>(x, w, scale, out, M, N, K, s)
+                 : launch_bf16<false, 2>(x, w, scale, out, M, N, K, s);
   if (dtype == 1)
-    return trans ? launch_bf16<true>(x, w, scale, out, M, N, K, s)
-                 : launch_bf16<false>(x, w, scale, out, M, N, K, s);
+    return trans ? launch_bf16<true, 1>(x, w, scale, out, M, N, K, s)
+                 : launch_bf16<false, 1>(x, w, scale, out, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

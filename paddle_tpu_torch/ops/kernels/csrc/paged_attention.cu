@@ -36,7 +36,9 @@
 //    in (block, warp) order (no scratch in device memory, no second launch,
 //    deterministic). The host picks the split from B * KV, MB * BS and the
 //    SM count (`split_for`; `pt_paged_split` reports it), never from pos,
-//    which lives on the device;
+//    which lives on the device, unless the caller names one (the kernel
+//    registry's `split` axis: 1, 2, 4 or 8, each block of the cluster
+//    keeping at least 64 positions of the table);
 //  - the K/V of a group is read once whatever rep is: the scores and the
 //    running output of every query head of the group share each tile.
 // q.k is taken in f32 and the scale applied after the product, as
@@ -425,10 +427,20 @@ int allow_smem() {
   return static_cast<int>(e);
 }
 
+// A cluster size the caller may name: 0 (split_for's choice), 1, or 2, 4, 8
+// where every block of the cluster keeps at least 64 positions of the table
+// (split_for's own floor).
+bool split_ok(int split, int BS, int MB) {
+  if (split == 0 || split == 1) return true;
+  if (split != 2 && split != 4 && split != kMaxSplit) return false;
+  return (long long)MB * BS >= 64LL * split;
+}
+
 template <typename T, int REP>
 int launch(const void* q, const void* kpool, const void* vpool,
            const int* tables, const int* pos, void* out, int B, int KV,
-           int rep, int D, int BS, int MB, float scale, cudaStream_t stream) {
+           int rep, int D, int BS, int MB, float scale, cudaStream_t stream,
+           int req_split) {
   auto* kernel = paged_attention_kernel<T, REP>;
   const int TT = tile_tokens<REP>(BS, D, sizeof(T));
   const size_t smem = smem_bytes<T, REP>(TT, D, MB);
@@ -438,7 +450,7 @@ int launch(const void* q, const void* kpool, const void* vpool,
   int e = sm_count(&n_sm);
   if (!e && smem > 48 * 1024) e = allow_smem<T, REP>();
   if (e) return e;
-  const int split = split_for(B, KV, BS, MB, n_sm);
+  const int split = req_split ? req_split : split_for(B, KV, BS, MB, n_sm);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * KV * split);
   cfg.blockDim = dim3(kThreads);
@@ -462,11 +474,12 @@ int launch(const void* q, const void* kpool, const void* vpool,
 template <typename T>
 int dispatch(const void* q, const void* kpool, const void* vpool,
              const int* tables, const int* pos, void* out, int B, int KV,
-             int rep, int D, int BS, int MB, float scale, cudaStream_t s) {
-  if (rep <= 1) return launch<T, 1>(q, kpool, vpool, tables, pos, out, B, KV, rep, D, BS, MB, scale, s);
-  if (rep <= 2) return launch<T, 2>(q, kpool, vpool, tables, pos, out, B, KV, rep, D, BS, MB, scale, s);
-  if (rep <= 4) return launch<T, 4>(q, kpool, vpool, tables, pos, out, B, KV, rep, D, BS, MB, scale, s);
-  return launch<T, 8>(q, kpool, vpool, tables, pos, out, B, KV, rep, D, BS, MB, scale, s);
+             int rep, int D, int BS, int MB, float scale, cudaStream_t s,
+             int split) {
+  if (rep <= 1) return launch<T, 1>(q, kpool, vpool, tables, pos, out, B, KV, rep, D, BS, MB, scale, s, split);
+  if (rep <= 2) return launch<T, 2>(q, kpool, vpool, tables, pos, out, B, KV, rep, D, BS, MB, scale, s, split);
+  if (rep <= 4) return launch<T, 4>(q, kpool, vpool, tables, pos, out, B, KV, rep, D, BS, MB, scale, s, split);
+  return launch<T, 8>(q, kpool, vpool, tables, pos, out, B, KV, rep, D, BS, MB, scale, s, split);
 }
 
 }  // namespace
@@ -476,18 +489,20 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. q (B, KV*rep, D); kpool/vpool
 // (NB, BS, KV, D) of one layer; tables (B, MB) int32; pos (B,) int32;
 // out (B, KV*rep*D). All contiguous on the current device; D % 8 == 0.
+// split: the cluster size, 0 for split_for's (see split_ok).
 int pt_paged_attention(int dtype, const void* q, const void* kpool,
                        const void* vpool, const void* tables, const void* pos,
                        void* out, int B, int KV, int rep, int D, int BS,
-                       int MB, float scale, void* stream) {
+                       int MB, float scale, void* stream, int split) {
   if (B <= 0 || KV <= 0 || rep <= 0 || rep > 8 || D <= 0 || D > 256 ||
-      D % 8 || rep * D > kMaxRepD || BS <= 0 || MB <= 0)
+      D % 8 || rep * D > kMaxRepD || BS <= 0 || MB <= 0 ||
+      !split_ok(split, BS, MB))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* t = static_cast<const int*>(tables);
   const int* p = static_cast<const int*>(pos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, kpool, vpool, t, p, out, B, KV, rep, D, BS, MB, scale, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, kpool, vpool, t, p, out, B, KV, rep, D, BS, MB, scale, s);
+  if (dtype == 0) return dispatch<float>(q, kpool, vpool, t, p, out, B, KV, rep, D, BS, MB, scale, s, split);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(q, kpool, vpool, t, p, out, B, KV, rep, D, BS, MB, scale, s, split);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

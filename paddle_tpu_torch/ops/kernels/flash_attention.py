@@ -26,7 +26,9 @@ the backward).
 
 On a CPU tensor ``flash_attention_array`` runs the plain versions (a
 ``torch.autograd.Function`` over the two); on a CUDA tensor it launches the
-kernels (each launch counted in ``launches``) or raises.
+kernels (each launch counted in ``launches``) or raises. On the CUDA route
+its tile resolves through the kernel registry (``flash_attention``, whose
+one choice is the forward's compile-time 128 x 128 tile).
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ import math
 import torch
 
 from . import _build
+from .builtin import flash_attention_key
+from .registry import launch_config
 
 __all__ = ["flash_attention_array", "flash_attention_plain",
            "flash_attention_bwd_plain", "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
@@ -259,13 +263,28 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def flash_attention_array(q, k, v, causal=False):
+_TILE = (128, 128)  # FwdWg's BM x BN in csrc/flash_attention.cu
+
+
+def flash_attention_array(q, k, v, causal=False, block_q=None, block_k=None):
     """q (B, T, H, D), k/v (B, T_kv, H, D) → O (B, T, H, D), differentiable.
-    k and v are cast to q's dtype, as the reference does."""
+    k and v are cast to q's dtype, as the reference does. On the card
+    ``block_q``/``block_k`` default to the registry's resolved config; the
+    kernels' tile is fixed by their ``wgmma`` design, so 128 x 128 is the
+    one value they take. The plain versions take no tile."""
     k = k.to(q.dtype)
     v = v.to(q.dtype)
     if q.device.type == "cpu":
         return _PlainFlashAttention.apply(q, k, v, bool(causal))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_array: unsupported device {q.device}")
+    if block_q is None or block_k is None:
+        B, T, H, D = q.shape
+        cfg = launch_config("flash_attention", flash_attention_key, B, H, T,
+                            k.shape[1], D, q.dtype, causal)
+        block_q = cfg["block_q"] if block_q is None else block_q
+        block_k = cfg["block_k"] if block_k is None else block_k
+    if (int(block_q), int(block_k)) != _TILE:
+        raise ValueError(f"flash_attention_array: the kernels' tile is "
+                         f"{_TILE[0]} x {_TILE[1]}, got {block_q} x {block_k}")
     return _FlashAttention.apply(q, k, v, bool(causal))

@@ -13,23 +13,37 @@ kernel. No dense copy of the weight is ever written. ``int8_matmul_plain``
 is dequantize-then-matmul (``int8_dequant``, then ``@``).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel (and counts the launch in ``launches``) or raises.
+launches the kernel (and counts the launch in ``launches``) or raises. On
+the CUDA route the bf16 kernel's weight rows a block resolve through the
+kernel registry (``int8_matmul``: ``block_n`` 384 with
+``FLAGS_kernel_autotune=off``, or 192); the plain version takes no config.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
+from .registry import dtype_name, launch_config, pow2, register_kernel
 
-__all__ = ["int8_matmul", "int8_matmul_plain", "int8_dequant", "launches"]
+__all__ = ["int8_matmul", "int8_matmul_plain", "int8_dequant",
+           "int8_matmul_key", "launches"]
 
 launches = 0  # kernel launches since the last reset (plain calls excluded)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGS = {"pt_int8_matmul": ((_I, _I, _P, _P, _P, _P, _I, _I, _I, _P), _I)}
+_SIGS = {"pt_int8_matmul": ((_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I),
+                             _I)}
+_BLOCK_N = (384, 192)  # the bf16 kernel's weight rows a block (KR = 2, 1)
+
+
+def int8_matmul_key(M, K, N, transpose_w, dtype) -> tuple:
+    """Shape bucket: M (the decode batch) rounded up to a power of two; K
+    and N are weight dims and exact."""
+    return (pow2(M), int(K), int(N), bool(transpose_w), dtype_name(dtype))
 
 
 def int8_dequant(qw, scale, dtype):
@@ -43,9 +57,11 @@ def int8_matmul_plain(x, qw, scale, transpose_w=True):
     return x @ (wd.T if transpose_w else wd)
 
 
-def int8_matmul(x, qw, scale, transpose_w=True):
+def int8_matmul(x, qw, scale, transpose_w=True, config=None):
     """x (..., K); qw int8 ``(N, K)`` if transpose_w else ``(K, N)``; scale a
-    0-d f32 tensor. Leading dims of x are flattened into rows and restored."""
+    0-d f32 tensor. Leading dims of x are flattened into rows and restored.
+    ``config``: the kernel's ``{"block_n": 384 or 192}``; None resolves it
+    through the registry."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, qw, scale, transpose_w)
     if x.device.type != "cuda":
@@ -67,14 +83,57 @@ def int8_matmul(x, qw, scale, transpose_w=True):
                          f"qw{tuple(qw.shape)} transpose_w={transpose_w}")
     if not (x2.is_contiguous() and qw.is_contiguous()):
         raise ValueError("int8_matmul: x and qw must be contiguous")
+    if config is None:
+        config = launch_config("int8_matmul", int8_matmul_key, M, K, N,
+                               transpose_w, x.dtype)
+    block_n = int(config["block_n"])
+    if block_n not in _BLOCK_N:
+        raise ValueError(f"int8_matmul: block_n {block_n} not one of "
+                         f"{_BLOCK_N}")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _build.load("int8_matmul", _SIGS)
     with torch.cuda.device(x.device):
         rc = lib.pt_int8_matmul(
             _DTYPES[x.dtype], int(bool(transpose_w)), x2.data_ptr(),
             qw.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N, K,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream, block_n)
     _build.check(rc, lib, "int8_matmul")
     global launches
     launches += 1
     return out.reshape(*lead, N)
+
+
+# -- registry ----------------------------------------------------------------
+
+def _valid(config, key):
+    # the f32 CUDA-core kernel ignores block_n: only its default is a config
+    return key[4] == "bfloat16" or int(config["block_n"]) == _BLOCK_N[0]
+
+
+def _runner(key):
+    """x, an int8 weight quantized from a normal one and its scale at the
+    bucketed shape, on the card, as the reference's runner builds them."""
+    M, K, N, transpose_w, dtype = key
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(
+        "cuda", getattr(torch, dtype))
+    w = rng.randn(*((N, K) if transpose_w else (K, N))).astype(np.float32)
+    s = np.float32(np.abs(w).max())
+    qw = torch.from_numpy(np.clip(np.round(w / (s / np.float32(127.0))),
+                                  -127, 127).astype(np.int8)).cuda()
+    scale = torch.tensor(s, dtype=torch.float32, device="cuda")
+
+    def make(config):
+        return lambda: int8_matmul(x, qw, scale, transpose_w, config=config)
+
+    return make
+
+
+register_kernel(
+    "int8_matmul",
+    defaults={"block_n": _BLOCK_N[0]},
+    space={"block_n": _BLOCK_N},
+    runner=_runner,
+    valid=_valid,
+    source="int8_matmul",
+)

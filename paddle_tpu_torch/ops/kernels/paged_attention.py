@@ -12,7 +12,10 @@ the pool BEFORE this read. Dead table columns point at the trash block and
 padding rows carry ``pos = 0``; only positions ``<= pos`` count.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel (and counts the launch in ``launches``) or raises.
+launches the kernel (and counts the launch in ``launches``) or raises. On
+the CUDA route the kernel's cluster size resolves through the kernel
+registry (``paged_attention``: ``split`` 0, the kernel's own rule, with
+``FLAGS_kernel_autotune=off``); the plain version takes no config.
 """
 from __future__ import annotations
 
@@ -23,15 +26,32 @@ import numpy as np
 import torch
 
 from . import _build
+from .registry import dtype_name, launch_config, register_kernel
 
-__all__ = ["paged_attention_rows", "paged_attention_rows_plain", "launches"]
+__all__ = ["paged_attention_rows", "paged_attention_rows_plain",
+           "paged_attention_key", "launches"]
 
 launches = 0  # kernel launches since the last reset (plain calls excluded)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {"pt_paged_attention": (
-    (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P), _I)}
+    (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _I), _I)}
+_SPLITS = (0, 1, 2, 4, 8)  # 0: the kernel's own rule (split_for)
+
+
+def paged_attention_key(B, MB, BS, KV, rep, D, dtype) -> tuple:
+    """Shape bucket: B and MB arrive bucketed (the engine's decode bucket
+    and power-of-two gather width), so the key is exact."""
+    return (int(B), int(MB), int(BS), int(KV), int(rep), int(D),
+            dtype_name(dtype))
+
+
+def _split_valid(split: int, BS: int, MB: int) -> bool:
+    """A cluster size the kernel takes: its own rule (0), 1, or a larger
+    one that leaves every block of the cluster at least 64 positions of the
+    table, ``split_for``'s own floor."""
+    return split in _SPLITS and (split <= 1 or MB * BS >= 64 * split)
 
 
 def paged_attention_rows_plain(q, kpool, vpool, tables, pos):
@@ -58,9 +78,10 @@ def _scale(D: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(1.0 / np.sqrt(D), dtype=dtype))
 
 
-def paged_attention_rows(q, kpool, vpool, tables, pos):
+def paged_attention_rows(q, kpool, vpool, tables, pos, config=None):
     """q (B, H, D); kpool/vpool (NB, BS, KV, D) for one layer; tables (B, MB)
-    int32; pos (B,) int32 → (B, H*D) in q's dtype."""
+    int32; pos (B,) int32 → (B, H*D) in q's dtype. ``config``: the kernel's
+    ``{"split": n}``; None resolves it through the registry."""
     if q.device.type == "cpu":
         return paged_attention_rows_plain(q, kpool, vpool, tables, pos)
     if q.device.type != "cuda":
@@ -92,6 +113,14 @@ def paged_attention_rows(q, kpool, vpool, tables, pos):
             f"rep <= 8 and rep*D <= 1024 (got D={D}, rep={rep})")
     if not all(t.is_contiguous() for t in (q, kpool, vpool, tables, pos)):
         raise ValueError("paged_attention_rows: inputs must be contiguous")
+    if config is None:
+        config = launch_config("paged_attention", paged_attention_key, B, MB,
+                               BS, KV, rep, D, q.dtype)
+    split = int(config["split"])
+    if not _split_valid(split, BS, MB):
+        raise ValueError(f"paged_attention_rows: split {split} not one of "
+                         f"{_SPLITS} with >= 64 positions a block (MB={MB}, "
+                         f"BS={BS})")
     out = torch.empty((B, H * D), dtype=q.dtype, device=q.device)
     lib = _build.load("paged_attention", _SIGS)
     with torch.cuda.device(q.device):
@@ -99,8 +128,56 @@ def paged_attention_rows(q, kpool, vpool, tables, pos):
             _DTYPES[q.dtype], q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
             tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, KV, rep, D,
             BS, MB, _scale(D, q.dtype),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream, split)
     _build.check(rc, lib, "paged_attention_rows")
     global launches
     launches += 1
     return out
+
+
+# -- registry ----------------------------------------------------------------
+
+def _valid(config, key):
+    return _split_valid(int(config["split"]), key[2], key[1])
+
+
+def _runner(key):
+    """A pool, tables and positions at the bucketed shape, on the card, as
+    the reference's runner builds them: row b holds 1 + b % MB live blocks,
+    its position at the last of them."""
+    B, MB, BS, KV, rep, D, dtype = key
+    rng = np.random.RandomState(0)
+    dt = getattr(torch, dtype)
+    NB = max(B * MB + 1, 2)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            "cuda", dt)
+
+    kpool = rnd(NB, BS, KV, D)
+    vpool = rnd(NB, BS, KV, D)
+    tables = np.zeros((B, MB), np.int32)
+    pos = np.zeros((B,), np.int32)
+    for b in range(B):
+        n_live = 1 + (b % MB)
+        pos[b] = n_live * BS - 1
+        tables[b, :n_live] = 1 + b * MB + np.arange(n_live)
+    tables = torch.from_numpy(tables).cuda()
+    pos = torch.from_numpy(pos).cuda()
+    q = rnd(B, KV * rep, D)
+
+    def make(config):
+        return lambda: paged_attention_rows(q, kpool, vpool, tables, pos,
+                                            config=config)
+
+    return make
+
+
+register_kernel(
+    "paged_attention",
+    defaults={"split": 0},
+    space={"split": _SPLITS},
+    runner=_runner,
+    valid=_valid,
+    source="paged_attention",
+)

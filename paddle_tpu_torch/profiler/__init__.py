@@ -101,7 +101,13 @@ def counters() -> Dict[str, int]:
     Serving observability: ``serve_trace_evicted`` (completed timelines
     dropped from the bounded trace ring), ``serve_http_requests`` (telemetry
     endpoint GETs served), ``serve_http_bind_failed`` (endpoint start-ups
-    that lost the port). Telemetry: ``flight_dumps``."""
+    that lost the port). Telemetry: ``flight_dumps``.
+
+    Kernel registry (``ops/kernels``, only with ``FLAGS_kernel_autotune``
+    ``ondemand`` or ``search``): ``kernel_tune_hits`` / ``_misses`` (tuning
+    DB), ``kernel_tune_searches``, ``kernel_tune_candidates``,
+    ``kernel_tune_candidate_errors``, ``kernel_tune_verify_fails``,
+    ``kernel_tune_budget_stops``, ``kernel_tune_db_rejects``."""
     with _lock:
         return dict(_counters)
 

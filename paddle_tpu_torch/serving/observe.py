@@ -29,10 +29,13 @@ Four layers, each inert until armed:
   200/503) and ``/debug/requests`` (the in-flight table with trace ids).
   Port 0 (the default) starts no thread.
 * **cost-model drift**: predicted against measured, as |relative error| EMA
-  gauges and a ``cost_drift`` span attr. The port's engine scores one
-  predictor, the shed sweep's step-time estimate (``step_eta``) against each
-  warm decode step; the reference's other two (``hbm_admission``,
-  ``kernel_estimate``) have no call site in the port yet, and :func:`drift`
+  gauges and a ``cost_drift`` span attr. The port scores two predictors:
+  the engine's shed-sweep step-time estimate (``step_eta``) against each
+  warm decode step, and ``kernel_estimate``, the kernel autotuner's
+  cost-model ordering against its measured timings (the discordant-pair
+  fraction, through :func:`drift_value`, once a search has timed two
+  configs; ``ops/kernels/autotune.py``). The reference's third,
+  ``hbm_admission``, has no call site in the port yet, and :func:`drift`
   takes any name.
 
 Everything here is O(1) per scheduler step (per emitted token for the gap

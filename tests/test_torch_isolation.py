@@ -58,6 +58,15 @@ def test_walk_covers_the_profiler_and_serving_observability():
         assert path in PORT_FILES
 
 
+def test_walk_covers_the_kernel_registry_and_the_cost_model():
+    for path in ("paddle_tpu_torch/ops/kernels/registry.py",
+                 "paddle_tpu_torch/ops/kernels/autotune.py",
+                 "paddle_tpu_torch/ops/kernels/db.py",
+                 "paddle_tpu_torch/ops/kernels/builtin.py",
+                 "paddle_tpu_torch/cost_model/__init__.py"):
+        assert path in PORT_FILES
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.serving.supervisor, paddle_tpu_torch.fault, "
@@ -66,7 +75,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.nn.functional, paddle_tpu_torch.ops.fused_ce, "
             "paddle_tpu_torch.profiler.export, "
-            "paddle_tpu_torch.serving.observe, paddle_tpu_torch.framework.io\n"
+            "paddle_tpu_torch.serving.observe, paddle_tpu_torch.framework.io, "
+            "paddle_tpu_torch.ops.kernels.autotune, "
+            "paddle_tpu_torch.ops.kernels.db, paddle_tpu_torch.cost_model\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "assert not bad, bad\n")
