@@ -113,6 +113,29 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    model's gradients through the kernels are held against the same
    backward with attention on the plain version. Runs before phase 4, so
    the timing rows carry its launch counts;
+7. Paddle-API train: the same model written against the port's Paddle API
+   alone (``import paddle_tpu_torch as paddle``): built f32 from seed 0 as
+   an ``nn.Layer``, then ``bfloat16()``, ids through ``paddle.to_tensor``,
+   and the eager loop ``model.loss`` → ``loss.backward()`` → ``opt.step()``
+   → ``opt.clear_grad()`` → ``sched.step()``. (7a) with ``AdamW(1e-4)``
+   alone, its first 3 losses must equal phase 5's first 3 compiled-step
+   losses within ``API_LOSS_REL_TOL``; (7b) with AdamW, a
+   ``LinearWarmup(CosineAnnealingDecay)`` schedule, ``ClipGradByGlobalNorm
+   (1.0)`` and a decay gate on ``p.name``, 2 warm-up and 8 timed steps: the
+   flash counters, zeroed before the timed steps, must read 24 x 8 each,
+   the lrs equal the schedule's closed form, the clipped global norm of the
+   first 3 steps be <= 1.0 x (1 + 1e-2) where the unclipped one (f32, from
+   a copy taken before ``step()``) exceeds 1, the gate be 0 exactly on the
+   parameters outside the decay list, the losses finite and falling, and a
+   device timeline of one more step name ``fwd_wgmma``, ``dq_wgmma`` and
+   ``dkv_wgmma`` 24 times each; it prints the step ms, tokens/s, MFU and
+   peak memory beside phase 5's; (7c) the state captured after step 5
+   (``model.state_dict()`` and ``opt.state_dict()``, copied to the CPU)
+   goes into a fresh model, optimizer and schedule through
+   ``set_state_dict``, and steps 6-8 must give the uninterrupted losses
+   within ``API_LOSS_REL_TOL``. It prints a ``{"paddle_api_train": ...}``
+   line; the flash rows of the ``kernels`` line carry its launches as
+   ``launches_paddle_api``. Runs after phase 5, whose model is freed first;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -2310,11 +2333,23 @@ def engine_phase(profile=False):
 
 # -- train phase -------------------------------------------------------------
 
-def train_batch(cfg, B=2, T=2048, seed=0):
+def train_arrays(cfg, B=2, T=2048, seed=0):
+    """The training batch as int64 numpy (ids, labels)."""
     rng = np.random.RandomState(seed)
-    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T))).cuda()
-    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T))).cuda()
+    ids = rng.randint(0, cfg.vocab_size, (B, T)).astype(np.int64)
+    labels = rng.randint(0, cfg.vocab_size, (B, T)).astype(np.int64)
     return ids, labels
+
+
+def train_batch(cfg, B=2, T=2048, seed=0):
+    ids, labels = train_arrays(cfg, B, T, seed)
+    return torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda()
+
+
+def train_flops_per_token(cfg, n_params, T):
+    """bench.py's count: 6N (forward + backward matmuls) + 6 L d T
+    (attention)."""
+    return 6.0 * n_params + 6.0 * cfg.num_layers * cfg.hidden_size * T
 
 
 def train_model(layers=None):
@@ -2424,8 +2459,7 @@ def train_phase(profile=False):
     want = cfg.num_layers * TRAIN_STEPS
     step_ms = wall / TRAIN_STEPS * 1e3
     tok_s = B * T * TRAIN_STEPS / wall
-    # bench.py's count: 6N (forward + backward matmuls) + 6 L d T (attention)
-    flops_tok = 6.0 * n_params + 6.0 * cfg.num_layers * cfg.hidden_size * T
+    flops_tok = train_flops_per_token(cfg, n_params, T)
     print(f"  train: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, step "
           f"{step_ms:.2f} ms (host clock, one sync at the end), "
           f"{tok_s:.1f} tokens/s, MFU {tok_s * flops_tok / 989e12:.4f} "
@@ -2459,7 +2493,354 @@ def train_phase(profile=False):
                          f"profile (train) b{B}xs{T}", top=14)
     del step, opt, model
     torch.cuda.empty_cache()
-    return {k: counts[k] for k in FLASH_REPLACES}, tl
+    compiled = {"losses": vals, "step_ms": step_ms, "tokens_per_s": tok_s,
+                "mfu": tok_s * flops_tok / 989e12, "peak_gib": peak / 2**30}
+    return {k: counts[k] for k in FLASH_REPLACES}, tl, compiled
+
+
+# -- Paddle-API train phase ---------------------------------------------------
+
+API_LR, API_T_MAX, API_WARMUP_STEPS, API_CLIP = 1e-4, 16, 4, 1.0
+API_EAGER_STEPS = 3  # (7a): eager steps held to phase 5's compiled losses
+API_CLIP_STEPS = 3  # (7b): steps whose clipped global norm is checked
+API_RESUME_AT = 5  # (7c): the step after which the state is captured
+API_RESUME_STEPS = 3
+API_LOSS_REL_TOL = 1e-3
+
+
+def api_model(paddle):
+    """GPT-3 1.3B as the Paddle-API user builds it: f32 from seed 0, then
+    ``bfloat16()``; under ``unique_name.guard()`` so two builds carry the
+    same parameter names (the optimizer's state keys)."""
+    from paddle_tpu_torch.models import GPTForPretraining, gpt3_1p3b
+
+    paddle.seed(0)
+    with paddle.utils.unique_name.guard():
+        model = GPTForPretraining(gpt3_1p3b(
+            hidden_dropout=0.0, attention_dropout=0.0, remat=False,
+            attention_impl="flash", fused_lm_loss=True))
+    model.bfloat16()
+    return model.train()
+
+
+def api_lr_closed_form(epoch):
+    """LinearWarmup(CosineAnnealingDecay(lr, T_max), warmup, 0, lr) at the
+    scheduler's ``last_epoch``: linear up to ``API_WARMUP_STEPS``, then the
+    cosine, whose own epoch is one at the first step after the warm-up."""
+    import math
+
+    if epoch < API_WARMUP_STEPS:
+        return API_LR * epoch / API_WARMUP_STEPS
+    inner = epoch - API_WARMUP_STEPS + 1
+    return API_LR * (1 + math.cos(math.pi * inner / API_T_MAX)) / 2
+
+
+def api_optimizer(paddle, model, clip):
+    """The slice's loop's AdamW, schedule and decay list."""
+    decay = [p.name for n, p in model.named_parameters()
+             if not n.endswith("bias") and "ln" not in n]
+    sched = paddle.optimizer.lr.LinearWarmup(
+        paddle.optimizer.lr.CosineAnnealingDecay(API_LR, T_max=API_T_MAX),
+        warmup_steps=API_WARMUP_STEPS, start_lr=0.0, end_lr=API_LR)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=sched, parameters=model.parameters(),
+        weight_decay=0.01, apply_decay_param_fun=lambda n: n in decay,
+        grad_clip=clip)
+    return opt, sched, decay
+
+
+def rel_diff(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def api_eager_check(paddle, np_ids, np_labels, compiled):
+    """(7a): a fresh model, AdamW(1e-4), no clip, no scheduler: the first
+    eager steps' losses against phase 5's compiled steps' on one batch."""
+    model = api_model(paddle)
+    opt = paddle.optimizer.AdamW(learning_rate=API_LR,
+                                 parameters=model.parameters())
+    ids, labels = paddle.to_tensor(np_ids), paddle.to_tensor(np_labels)
+    losses = []
+    for i in range(API_EAGER_STEPS):
+        loss = model.loss(ids, labels)
+        loss.backward()
+        if i == 0:
+            exact = api_clip_exact(paddle, model.parameters())
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+    got = [x.item() for x in losses]
+    want = compiled["losses"][:API_EAGER_STEPS]
+    err = rel_diff(got, want)
+    print(f"  (7a) the global-norm clip's flat f32 multiply equals the "
+          f"per-tensor f32 round trip bit for bit on {exact} bf16 gradients "
+          "of the first step")
+    print(f"  (7a) eager AdamW({API_LR}) losses {got} against phase 5's "
+          f"compiled {want}: largest relative difference {err:.3e} (tol "
+          f"{API_LOSS_REL_TOL})")
+    if not err <= API_LOSS_REL_TOL:
+        fail(f"paddle api (7a): eager losses {got} vs compiled {want}")
+    del opt, model, loss
+    torch.cuda.empty_cache()
+    return {"losses": got, "compiled_losses": want, "max_rel_diff": err}
+
+
+def api_clip_exact(paddle, params):
+    """``ClipGradByGlobalNorm`` scales bf16 gradients by a float32 0-d scale
+    in float32 (one flat multiply with a bf16 output); on the card that must
+    equal the reference's arithmetic, ``(g.float() * scale).to(bf16)``
+    tensor by tensor, bit for bit (the scale must not be rounded to bf16
+    first). Returns the count held; fails on a mismatch."""
+    from paddle_tpu_torch.nn.clip import _global_norm
+
+    pairs = [(p, p.grad) for p in params]
+    grads = [g for _, g in pairs]
+    scale = API_CLIP / torch.clamp_min(_global_norm(grads), API_CLIP)
+    out = paddle.nn.ClipGradByGlobalNorm(API_CLIP)(pairs)
+    bad = [p.name for (p, g), (_, c) in zip(pairs, out)
+           if not torch.equal(c, (g.float() * scale).to(g.dtype))]
+    if bad or grads[0].dtype != torch.bfloat16:
+        fail(f"paddle api (7a): the clip's bf16 products differ from the f32 "
+             f"round trip on {len(bad)} gradients ({bad[:3]}), dtype "
+             f"{grads[0].dtype}")
+    return len(pairs)
+
+
+def snapshot(state):
+    """Tensors copied on their device, the rest deep-copied: a capture the
+    training that goes on does not change, with no host sync. The copies
+    are one multi-tensor multiply by 1.0 (exact, -0.0 and NaN kept), so the
+    capture inside the timed window costs a few launches, not one a
+    tensor."""
+    import copy
+
+    keys = [k for k, v in state.items() if isinstance(v, torch.Tensor)]
+    copies = torch._foreach_mul([state[k].detach() for k in keys], 1.0)
+    out = {k: copy.deepcopy(v) for k, v in state.items() if k not in keys}
+    out.update(zip(keys, copies))
+    return out
+
+
+def to_cpu(state):
+    import copy
+
+    return copy.deepcopy({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                          for k, v in state.items()})
+
+
+def api_resume(paddle, ids, labels, model_sd, opt_sd, want):
+    """(7c): a fresh model, optimizer and schedule take the captured state
+    through ``set_state_dict`` and run the next steps."""
+    model = api_model(paddle)
+    missing, unexpected = model.set_state_dict(model_sd)
+    opt, sched, _ = api_optimizer(
+        paddle, model, paddle.nn.ClipGradByGlobalNorm(API_CLIP))
+    opt.set_state_dict(opt_sd)
+    restored = sum(1 for n in opt._names if n in opt._accumulators)
+    if missing or unexpected or restored != len(opt._names) \
+            or sched.last_epoch != API_RESUME_AT:
+        fail(f"paddle api (7c): missing {missing}, unexpected {unexpected}, "
+             f"{restored}/{len(opt._names)} optimizer states restored, "
+             f"schedule at epoch {sched.last_epoch}")
+    losses = []
+    for _ in range(API_RESUME_STEPS):
+        loss = model.loss(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        losses.append(loss.detach())
+    got = [x.item() for x in losses]
+    err = rel_diff(got, want)
+    print(f"  (7c) resumed after step {API_RESUME_AT}: steps "
+          f"{API_RESUME_AT + 1}-{API_RESUME_AT + API_RESUME_STEPS} losses "
+          f"{got} against the uninterrupted {want}: largest relative "
+          f"difference {err:.3e} (tol {API_LOSS_REL_TOL}; the embedding "
+          "backward's atomics may reorder bf16 sums)")
+    if not err <= API_LOSS_REL_TOL:
+        fail(f"paddle api (7c): resumed losses {got} vs {want}")
+    del opt, model, loss
+    torch.cuda.empty_cache()
+    return {"losses": got, "uninterrupted": want, "max_rel_diff": err}
+
+
+def paddle_api_phase(compiled):
+    """GPT-3 1.3B bf16, 24 layers, b2 x s2048 through the Paddle API:
+    ``to_tensor`` ids, ``model.loss``, ``loss.backward()``, ``opt.step()``,
+    ``opt.clear_grad()``, ``sched.step()`` with AdamW, a warm-up/cosine
+    schedule and global-norm clipping."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn.clip import _global_norm
+    from paddle_tpu_torch.ops import kernels as K
+
+    class ProbeClip(paddle.nn.ClipGradByGlobalNorm):
+        """The slice's clip; also keeps the global norm (f32, on the card)
+        of its output at its first calls, and the host time of each call."""
+
+        def __init__(self, clip_norm, calls):
+            super().__init__(clip_norm)
+            self.calls, self.norms, self.host_s = calls, [], []
+
+        def __call__(self, params_grads):
+            t0 = time.perf_counter()
+            out = super().__call__(params_grads)
+            self.host_s.append(time.perf_counter() - t0)
+            if len(self.norms) < self.calls:
+                self.norms.append(_global_norm([g for _, g in out]))
+            return out
+
+    from paddle_tpu_torch.models import gpt3_1p3b
+
+    np_ids, np_labels = train_arrays(gpt3_1p3b())  # phase 5's batch
+    eager = api_eager_check(paddle, np_ids, np_labels, compiled)
+
+    t0 = time.monotonic()
+    model = api_model(paddle)
+    cfg = model.config
+    clip = ProbeClip(API_CLIP, API_CLIP_STEPS)
+    opt, sched, decay = api_optimizer(paddle, model, clip)
+    params = model.parameters()
+    n_params = sum(p.numel() for p in params)
+    gates = [opt._wd_on(n) for n in opt._gate_names]
+    bad = [p.name for p, w in zip(params, gates)
+           if (w == 1.0) != (p.name in decay)]
+    if opt._gate_names != [p.name for p in params] or bad:
+        fail(f"paddle api (7b): the decay gate reads {opt._gate_names[:3]}..., "
+             f"wrong on {bad[:5]}")
+    ids, labels = paddle.to_tensor(np_ids), paddle.to_tensor(np_labels)
+    if ids.dtype != paddle.int64 or ids.device != params[0].device:
+        fail(f"paddle api: to_tensor gave {ids.dtype} on {ids.device}, the "
+             f"model is on {params[0].device}")
+    B, T = ids.shape
+    torch.cuda.synchronize()
+    print(f"  (7b) model: {n_params / 1e9:.3f}B params as nn.Layer, built "
+          f"f32 then bfloat16() in {time.monotonic() - t0:.1f}s; "
+          f"{len(decay)} of {len(params)} parameters in the decay list, the "
+          f"gate reads p.name")
+    lrs, losses, unclipped = [], [], []
+    captured = {}
+    host = {"forward_backward": [], "opt_step": [], "clear_grad_sched": []}
+
+    def one_step(i):
+        lrs.append(opt.get_lr())
+        t0 = time.perf_counter()
+        loss = model.loss(ids, labels)
+        loss.backward()
+        t1 = time.perf_counter()
+        if i < API_CLIP_STEPS:  # a copy of the gradients before step()
+            grads = torch._foreach_mul([p.grad for p in params], 1.0)
+            unclipped.append(_global_norm(grads))
+            del grads
+        t2 = time.perf_counter()
+        opt.step()
+        t3 = time.perf_counter()
+        opt.clear_grad()
+        sched.step()
+        t4 = time.perf_counter()
+        for k, dt in zip(host, (t1 - t0, t3 - t2, t4 - t3)):
+            host[k].append(dt)
+        losses.append(loss.detach())
+        if i + 1 == API_RESUME_AT:
+            # the peak of the loop alone: the capture holds ~8 GB more
+            captured["peak"] = torch.cuda.max_memory_allocated()
+            captured["model"] = snapshot(model.state_dict())
+            captured["opt"] = snapshot(opt.state_dict())
+
+    for i in range(TRAIN_WARMUP):
+        one_step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    mem0 = torch.cuda.memory_stats()
+    t0 = time.monotonic()
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+        one_step(i)
+    queued = time.monotonic() - t0
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = K.launch_counts()
+    mem1 = torch.cuda.memory_stats()
+    # cudaMalloc calls (new segments) and allocator retries (a cudaFree of
+    # the cache, which waits for the card) inside the window
+    allocator = {k: mem1.get(k, 0) - mem0.get(k, 0) for k in
+                 ("segment.all.allocated", "num_alloc_retries")}
+    peak, peak_all = captured["peak"], torch.cuda.max_memory_allocated()
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = B * T * TRAIN_STEPS / wall
+    mfu = tok_s * train_flops_per_token(cfg, n_params, T) / 989e12
+    vals = [x.item() for x in losses]
+    norms = [(u.item(), c.item()) for u, c in zip(unclipped, clip.norms)]
+    timed = slice(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
+    host_ms = {k: float(np.mean(v[timed])) * 1e3 for k, v in host.items()}
+    host_ms["clip"] = float(np.mean(clip.host_s[timed])) * 1e3
+    per_step = {"opt_step": [round(v * 1e3, 2) for v in
+                             host["opt_step"][timed]],
+                "clip": [round(v * 1e3, 2) for v in clip.host_s[timed]]}
+    print(f"  (7b) {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, step "
+          f"{step_ms:.2f} ms (host clock, one sync at the end; the clip "
+          f"check's gradient copy runs in step {API_CLIP_STEPS} and the "
+          f"capture after step {API_RESUME_AT}, both on the card), "
+          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f}, peak memory "
+          f"{peak / 2**30:.2f} GiB over steps {TRAIN_WARMUP + 1}-"
+          f"{API_RESUME_AT} ({peak_all / 2**30:.2f} GiB with the capture), "
+          f"launches {counts}; the host queued the "
+          f"steps in {queued * 1e3:.1f} ms; phase 5's compiled step "
+          f"{compiled['step_ms']:.2f} ms, {compiled['tokens_per_s']:.1f} "
+          f"tokens/s, MFU {compiled['mfu']:.4f}, peak "
+          f"{compiled['peak_gib']:.2f} GiB")
+    print(f"  (7b) host ms a timed step (queueing, no sync): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in host_ms.items()) + " (the clip inside "
+        f"opt_step); by step {per_step}; the allocator in the window: "
+        f"{allocator}")
+    print(f"  (7b) losses {[round(v, 4) for v in vals]}; lrs {lrs}")
+    print(f"  (7b) global norm of the gradients, unclipped -> clipped: "
+          + ", ".join(f"{u:.4f} -> {c:.4f}" for u, c in norms))
+    want = cfg.num_layers * TRAIN_STEPS
+    bad = [k for k in ("flash_attention_fwd", "flash_attention_dq",
+                       "flash_attention_dkv") if counts[k] != want]
+    if bad:
+        fail(f"paddle api (7b): launches {counts}, want {want} for each "
+             "flash kernel")
+    wrong = [(e, lr) for e, lr in enumerate(lrs)
+             if abs(lr - api_lr_closed_form(e)) > 1e-12 * API_LR]
+    if wrong:
+        fail(f"paddle api (7b): lr at (epoch, lr) {wrong} is not the "
+             "closed form")
+    if len(norms) != API_CLIP_STEPS or any(
+            u > API_CLIP and not c <= API_CLIP * (1 + 1e-2)
+            for u, c in norms):
+        fail(f"paddle api (7b): clipped norms {norms}")
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"paddle api (7b): losses {vals}")
+    ev = device_timeline(lambda: one_step(TRAIN_WARMUP + TRAIN_STEPS), 1,
+                         "timeline (paddle api)")
+    tl = timeline_kernels(ev, tuple(FLASH_KERNELS.values()), 1)
+    bad = {k: v["launches"] for k, v in tl.items()
+           if v["launches"] != cfg.num_layers}
+    if bad:
+        fail(f"paddle api (7b): the device timeline of one step names {bad}, "
+             f"want {cfg.num_layers} launches each")
+    print(f"  (7b) timeline: one step: " + ", ".join(
+        f"{k} {v['launches']} launches, {v['ms_per_step']:.4f} ms"
+        for k, v in tl.items()))
+    del opt, sched, model, params, clip
+    torch.cuda.empty_cache()
+    model_sd, opt_sd = to_cpu(captured["model"]), to_cpu(captured["opt"])
+    del captured
+    resume = api_resume(paddle, ids, labels, model_sd, opt_sd,
+                        vals[API_RESUME_AT:API_RESUME_AT + API_RESUME_STEPS])
+    out = {"eager_check": eager, "step_ms": step_ms, "tokens_per_s": tok_s,
+           "mfu": mfu, "peak_gib": peak / 2**30,
+           "peak_gib_with_capture": peak_all / 2**30, "queued_ms": queued * 1e3,
+           "host_ms": host_ms, "host_ms_by_step": per_step,
+           "allocator": allocator,
+           "compiled": {k: v for k, v in compiled.items() if k != "losses"},
+           "launches": {k: counts[k] for k in FLASH_REPLACES},
+           "lrs": lrs, "losses": vals,
+           "clip_norms": [{"unclipped": u, "clipped": c} for u, c in norms],
+           "device_timeline": tl, "resume": resume}
+    print(json.dumps({"paddle_api_train": out}))
+    return out
 
 
 # -- registry phase ----------------------------------------------------------
@@ -2856,8 +3237,12 @@ def main(argv=None) -> int:
     launches, drives = engine_phase(profile=args.profile)
 
     print("[5] train: gpt3_1p3b through jit.compile_train_step")
-    train_launches, train_tl = train_phase(profile=args.profile)
+    train_launches, train_tl, compiled = train_phase(profile=args.profile)
     launches.update(train_launches)
+
+    print("[7] Paddle-API train: gpt3_1p3b through to_tensor, nn.Layer, "
+          "AdamW with a warm-up/cosine schedule and global-norm clipping")
+    api = paddle_api_phase(compiled)
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -2873,6 +3258,8 @@ def main(argv=None) -> int:
         r["config"] = K.resolve_config(reg, ())
         r["tuned"] = [{"key": t["key"], "winner": t["winner"]}
                       for t in registry["searches"] if t["kernel"] == reg]
+        if r["name"] in api["launches"]:  # phase 7's path runs them too
+            r["launches_paddle_api"] = api["launches"][r["name"]]
     # the reference's (B*H, T, D) route shape: not on the port's main path
     long_rows = flash_timing(long_errs, dict.fromkeys(FLASH_REPLACES, 0),
                              FLASH_LONG, fused_qkv=False)

@@ -1,0 +1,93 @@
+"""paddle.autograd (port of ``paddle_tpu/autograd/__init__.py``): ``grad``
+and ``PyLayer`` over torch's autograd.
+
+``grad`` takes Paddle's signature and returns a list; ``PyLayer`` subclasses
+write static ``forward(ctx, ...)`` and ``backward(ctx, ...)`` and run as a
+``torch.autograd.Function`` made once per subclass.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
+         create_graph=False, only_inputs=True, allow_unused=False,
+         no_grad_vars=None):
+    """Gradients of ``outputs`` with respect to ``inputs``, without touching
+    ``.grad``; an input that ``outputs`` do not reach raises unless
+    ``allow_unused`` (then its entry is None)."""
+    if no_grad_vars is not None:
+        raise NotImplementedError("grad(no_grad_vars=...) is not ported")
+    outputs = [outputs] if isinstance(outputs, torch.Tensor) else list(outputs)
+    inputs = [inputs] if isinstance(inputs, torch.Tensor) else list(inputs)
+    if isinstance(grad_outputs, torch.Tensor):
+        grad_outputs = [grad_outputs]
+    return list(torch.autograd.grad(
+        outputs, inputs, grad_outputs,
+        retain_graph=bool(retain_graph) or create_graph,
+        create_graph=create_graph, allow_unused=allow_unused))
+
+
+class PyLayerContext:
+    """The ``ctx`` a PyLayer's forward and backward share; other attributes
+    may be set on it freely."""
+
+    def __init__(self, fctx=None):
+        self._fctx = fctx
+        self.not_inplace_tensors = ()
+
+    def save_for_backward(self, *tensors):
+        self._fctx.save_for_backward(*tensors)
+
+    def saved_tensor(self):
+        return list(self._fctx.saved_tensors)
+
+    saved_tensors = saved_tensor
+
+
+def _function_for(layer_cls):
+    """The ``torch.autograd.Function`` running ``layer_cls``'s forward and
+    backward; keyword arguments ride in as the first (non-tensor) input."""
+    fn = layer_cls.__dict__.get("_torch_function")
+    if fn is not None:
+        return fn
+
+    def forward(fctx, kwargs, *args):
+        fctx.pyctx = PyLayerContext(fctx)
+        fctx.tensor_args = [isinstance(a, torch.Tensor) for a in args]
+        return layer_cls.forward(fctx.pyctx, *args, **kwargs)
+
+    def backward(fctx, *grads):
+        out = layer_cls.backward(fctx.pyctx, *grads)
+        if out is None or isinstance(out, torch.Tensor):
+            out = (out,)
+        it = iter(out)
+        # one gradient per tensor input, in order; None for the others
+        return (None,) + tuple(next(it, None) if is_t else None
+                               for is_t in fctx.tensor_args)
+
+    fn = type(f"{layer_cls.__name__}Function", (torch.autograd.Function,),
+              {"forward": staticmethod(forward),
+               "backward": staticmethod(backward)})
+    layer_cls._torch_function = fn
+    return fn
+
+
+class PyLayer:
+    """Custom autograd op: subclass with static ``forward(ctx, *args)`` and
+    ``backward(ctx, *grads)``, call ``apply``."""
+
+    @staticmethod
+    def forward(ctx, *args, **kwargs):
+        raise NotImplementedError
+
+    @staticmethod
+    def backward(ctx, *args):
+        raise NotImplementedError
+
+    @classmethod
+    def apply(cls, *args, **kwargs):
+        return _function_for(cls).apply(kwargs, *args)
+
+
+__all__ = ["grad", "PyLayer", "PyLayerContext"]

@@ -8,6 +8,14 @@ its ``backward()`` and the optimizer update, and returns the loss tensor
 without a host sync, so consecutive steps queue on the card's stream.
 Capturing the step in a CUDA graph is later work.
 
+The update is the reference's compiled one, which differs from its eager
+``Optimizer.step()``: the reference's ``CompiledTrainStep`` calls
+``_functional_update`` without the parameters, so it applies no
+``grad_clip``, decays every parameter whatever ``apply_decay_param_fun``
+says, and ignores the per-parameter lr scale. The port keeps both
+behaviours, since each is held against the reference: ``step()`` for the
+eager loop, ``Optimizer._step(functional=True)`` here.
+
 Each call is one ``train_step`` span. Under ``Profiler(profile_memory=True)``
 or ``FLAGS_profile_memory`` the step ends with a memory census
 (``profiler.memory_census``) whose ``live_bytes``, ``live_arrays``,
@@ -47,7 +55,7 @@ class CompiledTrainStep:
             loss = self.loss_fn(self.model,
                                 *(self._as_tensor(b) for b in batch))
             loss.backward()
-            self.optimizer.step()
+            self.optimizer._step(functional=True)
             self._step_count += 1
             if profiler._memory_active():
                 mem = profiler.memory_census(self._device)

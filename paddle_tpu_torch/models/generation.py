@@ -40,7 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..nn.layer.norm import layer_norm
+from ..nn.functional.norm import layer_norm
 from ..ops.kernels import int8_matmul, paged_attention_rows
 from .llama import rope_angles, rotate_pairs
 
@@ -81,7 +81,8 @@ def _grouped_attention(q, kc, vc, live, rep):
     return o.reshape(B, T, H * D)
 
 
-_ln = layer_norm
+def _ln(x, w, b, eps=1e-5):
+    return layer_norm(x, w.shape, w, b, eps)
 
 
 def _rows(params, key, idx):

@@ -4,7 +4,10 @@ Parameter names and shapes equal the reference's ``state_dict()``: e.g.
 ``gpt.layers.0.attn.qkv.weight`` is (h, 3h) in Paddle's (in, out) layout and
 ``gpt.embeddings.word_embeddings.weight`` is (V, h), so the reference's
 weights load by name (``models/convert.py``). The LM head is tied to the
-word embedding. Attention in ``forward`` goes through
+word embedding. Every class is an ``nn.Layer`` (a ``torch.nn.Module`` with
+Paddle's API), so the Paddle-API loop (``to_tensor`` ids, ``loss.backward()``,
+``opt.step()``, ``opt.clear_grad()``) runs on it as it does on the reference's.
+Attention in ``forward`` goes through
 ``nn.functional.scaled_dot_product_attention`` (the flash kernels on the card
 when eligible, the exact masked softmax otherwise); dropout draws from the
 port's generators (``core/random``) and applies only in ``train()`` mode,
@@ -18,14 +21,13 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-import torch.nn.functional as TF
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core import random as random_state
 from ..core.place import resolve_device
-from ..nn import Dropout, Embedding, LayerNorm, Linear
+from ..nn import Dropout, Embedding, Layer, LayerList, LayerNorm, Linear
 from ..nn import functional as F
+from ..nn.initializer import Normal
 
 
 @dataclass
@@ -51,7 +53,7 @@ class GPTConfig:
         return self.intermediate_size or 4 * self.hidden_size
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
         h = config.hidden_size
@@ -80,7 +82,7 @@ class GPTAttention(nn.Module):
         return self.proj(out.reshape(B, T, -1))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
         h = config.hidden_size
@@ -88,10 +90,10 @@ class GPTMLP(nn.Module):
         self.down = Linear(config.ffn_size, h, **kw)
 
     def forward(self, x):
-        return self.down(TF.gelu(self.up(x), approximate="tanh"))
+        return self.down(F.gelu(self.up(x), approximate=True))
 
 
-class GPTDecoderLayer(nn.Module):
+class GPTDecoderLayer(Layer):
     """Pre-LN decoder block."""
 
     def __init__(self, config: GPTConfig, **kw):
@@ -108,14 +110,15 @@ class GPTDecoderLayer(nn.Module):
         return x + self.dropout(self.mlp(self.ln2(x)))
 
 
-class GPTEmbeddings(nn.Module):
+class GPTEmbeddings(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
-        std = config.initializer_range
+        init = Normal(std=config.initializer_range)
         self.word_embeddings = Embedding(config.vocab_size, config.hidden_size,
-                                         std=std, **kw)
+                                         weight_attr=init, **kw)
         self.position_embeddings = Embedding(
-            config.max_position_embeddings, config.hidden_size, std=std, **kw)
+            config.max_position_embeddings, config.hidden_size,
+            weight_attr=init, **kw)
         self.dropout = Dropout(config.hidden_dropout)
 
     def forward(self, input_ids, position_ids=None):
@@ -126,12 +129,12 @@ class GPTEmbeddings(nn.Module):
         return self.dropout(x)
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
         self.config = config
         self.embeddings = GPTEmbeddings(config, **kw)
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [GPTDecoderLayer(config, **kw) for _ in range(config.num_layers)])
         fk = {k: v for k, v in kw.items() if k != "generator"}
         self.final_ln = LayerNorm(config.hidden_size, epsilon=1e-5, **fk)
@@ -170,16 +173,16 @@ def _remat(layer, x):
                             _generator_state(gen, state)))
 
 
-class GPTForPretraining(nn.Module):
+class GPTForPretraining(Layer):
     """LM head tied to the word embedding.
 
-    Built on ``device`` (``cuda`` unless the caller passes ``"cpu"``) in
-    ``dtype``, with random weights drawn from a ``torch.Generator`` seeded
-    with ``seed``."""
+    Built on ``device`` (default ``get_device()``: the card unless the CPU
+    was asked for) in ``dtype``, with random weights drawn from a
+    ``torch.Generator`` seeded with ``seed``."""
 
     def __init__(self, config: GPTConfig, device=None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0):
-        super().__init__()
+        super().__init__(dtype=dtype)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         self.config = config

@@ -6,7 +6,7 @@ reference's ``state_dict()``: e.g. ``model.layers.0.self_attn.q_proj.weight``
 is (h, h) in Paddle's (in, out) layout and ``lm_head.weight`` is (h, V), so
 the reference's weights load by name (``models/convert.py``). Attention in
 ``forward`` goes through ``nn.functional.scaled_dot_product_attention``, as
-GPT's does.
+GPT's does. Every class is an ``nn.Layer``, as GPT's.
 """
 from __future__ import annotations
 
@@ -15,11 +15,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as TF
-from torch import nn
 
 from ..core.place import resolve_device
-from ..nn import Embedding, Linear
+from ..nn import Embedding, Layer, LayerList, Linear
 from ..nn import functional as F
+from ..nn.initializer import Constant, Normal
 
 
 @dataclass
@@ -46,14 +46,14 @@ class LlamaConfig:
         return self.num_kv_heads or self.num_heads
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """x times an f32 rsqrt of its mean square, cast back to x's dtype, then
     times the gain (the reference's order of rounding)."""
 
     def __init__(self, hidden_size, eps=1e-6, device=None, dtype=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(
-            hidden_size, device=resolve_device(device), dtype=dtype))
+        super().__init__(dtype=dtype)
+        self.weight = self.create_parameter(
+            [hidden_size], default_initializer=Constant(1.0), device=device)
         self.eps = eps
 
     def forward(self, x):
@@ -87,7 +87,7 @@ def apply_rope(q, k, theta=10000.0):
             rotate_pairs(k, cos, sin).to(k.dtype))
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
         h = config.hidden_size
@@ -95,10 +95,10 @@ class LlamaAttention(nn.Module):
         self.kv_heads = config.kv_heads
         self.head_dim = h // config.num_heads
         kvd = self.kv_heads * self.head_dim
-        self.q_proj = Linear(h, h, bias=False, **kw)
-        self.k_proj = Linear(h, kvd, bias=False, **kw)
-        self.v_proj = Linear(h, kvd, bias=False, **kw)
-        self.o_proj = Linear(h, h, bias=False, **kw)
+        self.q_proj = Linear(h, h, bias_attr=False, **kw)
+        self.k_proj = Linear(h, kvd, bias_attr=False, **kw)
+        self.v_proj = Linear(h, kvd, bias_attr=False, **kw)
+        self.o_proj = Linear(h, h, bias_attr=False, **kw)
         self.theta = config.rope_theta
 
     def forward(self, x, attn_mask=None):
@@ -117,21 +117,21 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.reshape(B, T, -1))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
 
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
         h, f = config.hidden_size, config.ffn_size
-        self.gate_proj = Linear(h, f, bias=False, **kw)
-        self.up_proj = Linear(h, f, bias=False, **kw)
-        self.down_proj = Linear(f, h, bias=False, **kw)
+        self.gate_proj = Linear(h, f, bias_attr=False, **kw)
+        self.up_proj = Linear(h, f, bias_attr=False, **kw)
+        self.down_proj = Linear(f, h, bias_attr=False, **kw)
 
     def forward(self, x):
         return self.down_proj(TF.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
         nk = {k: v for k, v in kw.items() if k != "generator"}
@@ -147,13 +147,14 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
         self.config = config
-        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      std=config.initializer_range, **kw)
-        self.layers = nn.ModuleList(
+        self.embed_tokens = Embedding(
+            config.vocab_size, config.hidden_size,
+            weight_attr=Normal(std=config.initializer_range), **kw)
+        self.layers = LayerList(
             [LlamaDecoderLayer(config, **kw) for _ in range(config.num_layers)])
         nk = {k: v for k, v in kw.items() if k != "generator"}
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **nk)
@@ -165,24 +166,24 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """Untied LM head over ``LlamaModel``.
 
-    Built on ``device`` (``cuda`` unless the caller passes ``"cpu"``) in
-    ``dtype``, with random weights drawn from a ``torch.Generator`` seeded
-    with ``seed``; every parameter is created on the device. ``generate``
-    (dense KV-cached decode) is not ported yet (ROADMAP A9); serve through
-    ``serving.Engine``."""
+    Built on ``device`` (default ``get_device()``: the card unless the CPU
+    was asked for) in ``dtype``, with random weights drawn from a
+    ``torch.Generator`` seeded with ``seed``; every parameter is created on
+    the device. ``generate`` (dense KV-cached decode) is not ported yet
+    (ROADMAP A9); serve through ``serving.Engine``."""
 
     def __init__(self, config: LlamaConfig, device=None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0):
-        super().__init__()
+        super().__init__(dtype=dtype)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         kw = {"device": dev, "dtype": dtype, "generator": gen}
         self.model = LlamaModel(config, **kw)
         self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                              bias=False, **kw)
+                              bias_attr=False, **kw)
 
     def forward(self, input_ids, attn_mask=None):
         return self.lm_head(self.model(input_ids, attn_mask))

@@ -1,4 +1,11 @@
-from . import functional
-from .layer import Dropout, Embedding, LayerNorm, Linear, layer_norm
+from . import functional, initializer
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   clip_grad_norm_)
+from .layer import (GELU, Dropout, Embedding, Layer, LayerList, LayerNorm,
+                    Linear)
+from .param_attr import ParamAttr
 
-__all__ = ["functional", "Dropout", "Embedding", "LayerNorm", "Linear", "layer_norm"]
+__all__ = ["functional", "initializer", "Layer", "LayerList", "Dropout",
+           "Embedding", "LayerNorm", "Linear", "GELU", "ParamAttr",
+           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           "clip_grad_norm_"]

@@ -1,6 +1,9 @@
+from .activation import gelu
 from .attention import flash_attention, scaled_dot_product_attention
-from .common import dropout
+from .common import dropout, linear
 from .loss import cross_entropy, fused_linear_cross_entropy
+from .norm import layer_norm
 
 __all__ = ["scaled_dot_product_attention", "flash_attention", "dropout",
-           "cross_entropy", "fused_linear_cross_entropy"]
+           "linear", "gelu", "layer_norm", "cross_entropy",
+           "fused_linear_cross_entropy"]

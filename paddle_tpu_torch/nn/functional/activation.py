@@ -1,0 +1,14 @@
+"""Activation functionals (port of the subset of
+``paddle_tpu/nn/functional/activation.py`` the models call)."""
+from __future__ import annotations
+
+import torch.nn.functional as TF
+
+
+def gelu(x, approximate=False, name=None):
+    """Exact (erf) GELU, or the tanh form when ``approximate``, as
+    ``jax.nn.gelu``'s two forms."""
+    return TF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+__all__ = ["gelu"]

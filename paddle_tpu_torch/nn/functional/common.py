@@ -1,9 +1,16 @@
-"""Dropout drawn from the port's own generators (``core/random.py``)."""
+"""linear (port of ``paddle_tpu/nn/functional/common.py:19``) and dropout,
+drawn from the port's own generators (``core/random.py``)."""
 from __future__ import annotations
 
 import torch
 
 from ...core import random as random_state
+
+
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight (+ bias)`` with Paddle's (in, out) weight."""
+    y = x @ weight
+    return y if bias is None else y + bias
 
 
 def keep_mask(shape, p: float, device) -> torch.Tensor:
@@ -24,4 +31,4 @@ def dropout(x, p: float = 0.5, training: bool = True):
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
-__all__ = ["dropout", "keep_mask"]
+__all__ = ["linear", "dropout", "keep_mask"]

@@ -1,4 +1,7 @@
+from .activation import GELU
 from .common import Dropout, Embedding, Linear
-from .norm import LayerNorm, layer_norm
+from .layers import Layer, LayerList
+from .norm import LayerNorm
 
-__all__ = ["Dropout", "Embedding", "Linear", "LayerNorm", "layer_norm"]
+__all__ = ["Layer", "LayerList", "Dropout", "Embedding", "Linear",
+           "LayerNorm", "GELU"]

@@ -1,0 +1,28 @@
+"""ParamAttr (port of ``paddle_tpu/nn/param_attr.py``)."""
+from __future__ import annotations
+
+
+class ParamAttr:
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, do_model_average=True,
+                 need_clip=True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.do_model_average = do_model_average
+        self.need_clip = need_clip
+
+    @staticmethod
+    def _to_attr(arg):
+        """None, a ParamAttr, False (no parameter), a name or an
+        initializer, as a ParamAttr (or None/False)."""
+        if arg is None or arg is False or isinstance(arg, ParamAttr):
+            return arg
+        if isinstance(arg, str):
+            return ParamAttr(name=arg)
+        return ParamAttr(initializer=arg)
+
+
+__all__ = ["ParamAttr"]

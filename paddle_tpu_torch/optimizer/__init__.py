@@ -1,5 +1,6 @@
-"""Optimizers (port of ``paddle_tpu/optimizer/__init__.py``: ``L2Decay``,
-``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``).
+"""Optimizers (port of ``paddle_tpu/optimizer/__init__.py``: ``L1Decay``,
+``L2Decay``, ``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``, and the
+schedulers of ``optimizer/lr.py``).
 
 Each class's update is the reference's ``_rule`` written as tensor code over
 the parameter list, with ``torch._foreach_*`` ops so one launch covers many
@@ -14,8 +15,19 @@ is not ``torch.optim.AdamW``, which adds epsilon after dividing by
 sqrt(bias correction 2) and keeps its own rounding.
 
 Parameters are given as tensors or as ``(name, tensor)`` pairs (e.g.
-``model.named_parameters()``); names key ``state_dict()`` and are what
-``apply_decay_param_fun`` sees. Unnamed parameters are ``param_<i>``.
+``model.named_parameters()``). ``state_dict()`` is keyed by the pair's name,
+else by ``p.name`` (a ``Parameter``'s), else ``param_<i>``.
+``apply_decay_param_fun`` sees ``p.name`` when the parameter has one, as the
+reference's does, else the pair's name.
+
+``step()`` is the reference's eager step: the parameters with a gradient
+and ``stop_gradient`` off, through ``grad_clip`` (the updates take the
+clipped gradients; ``p.grad`` keeps its own), ``regularization`` (``L2Decay``
+or ``L1Decay``), the decay gate and each parameter's lr scale
+``optimize_attr["learning_rate"]``. ``learning_rate`` may be an
+``LRScheduler``, read by ``get_lr()`` at each step and carried in
+``state_dict()`` as ``"LR_Scheduler"``. ``clear_grad()`` drops the gradients
+(``p.grad = None``), as the reference's does.
 """
 from __future__ import annotations
 
@@ -24,10 +36,19 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-__all__ = ["L2Decay", "Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
+from . import lr
+from .lr import LRScheduler
+
+__all__ = ["L1Decay", "L2Decay", "Optimizer", "SGD", "Momentum", "Adam",
+           "AdamW", "lr", "LRScheduler"]
 
 
 class L2Decay:
+    def __init__(self, coeff=0.0):
+        self.coeff = float(coeff)
+
+
+class L1Decay:
     def __init__(self, coeff=0.0):
         self.coeff = float(coeff)
 
@@ -39,35 +60,42 @@ def _rounded(x: float, dtype: torch.dtype) -> float:
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None):
+                 weight_decay=None, grad_clip=None, name=None):
         if parameters is None:
             raise ValueError("parameters are required")
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "grad_clip needs nn/clip.py, which is not ported yet "
-                "(ROADMAP queue A)")
-        if not isinstance(learning_rate, (int, float)):
-            raise TypeError("learning_rate must be a number: optimizer/lr.py "
-                            "(LR schedulers) is not ported yet (ROADMAP queue A)")
-        self._names: List[str] = []
+        if not isinstance(learning_rate, (int, float, LRScheduler)):
+            raise TypeError("learning_rate must be a number or an LRScheduler")
+        self._names: List[str] = []  # state keys
+        self._gate_names: List[str] = []  # what apply_decay_param_fun sees
         self._parameter_list: List[torch.Tensor] = []
         for i, p in enumerate(parameters):
-            name, p = p if isinstance(p, tuple) else (f"param_{i}", p)
-            self._names.append(name)
+            name, p = p if isinstance(p, tuple) else (None, p)
+            own = getattr(p, "name", None)
+            own = own if isinstance(own, str) else None
+            self._names.append(name or own or f"param_{i}")
+            self._gate_names.append(own or name or f"param_{i}")
             self._parameter_list.append(p)
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = (learning_rate
+                               if isinstance(learning_rate, LRScheduler)
+                               else float(learning_rate))
         self.regularization = (L2Decay(weight_decay)
                                if isinstance(weight_decay, (int, float))
                                else weight_decay)
+        self._grad_clip = grad_clip
         self._accumulators: Dict[str, Dict[str, torch.Tensor]] = {}
         self._step_count = 0
 
     # -- lr ---------------------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
         return self._learning_rate
 
     def set_lr(self, value) -> None:
         self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler) -> None:
+        self._learning_rate = scheduler
 
     # -- rule (subclasses) --------------------------------------------------
     def _init_accums(self, p) -> Dict[str, torch.Tensor]:
@@ -87,48 +115,82 @@ class Optimizer:
         if isinstance(reg, L2Decay) and reg.coeff:
             return torch._foreach_add(gs, ps,
                                       alpha=_rounded(reg.coeff, ps[0].dtype))
+        if isinstance(reg, L1Decay) and reg.coeff:
+            return torch._foreach_add(gs, torch._foreach_sign(ps),
+                                      alpha=_rounded(reg.coeff, ps[0].dtype))
         return gs
 
-    @torch.no_grad()
     def step(self) -> None:
-        """One update of every parameter that has a gradient."""
+        """One eager update of every parameter that has a gradient."""
+        self._step(functional=False)
+
+    @torch.no_grad()
+    def _step(self, functional: bool) -> None:
+        """``functional=True`` is the reference's compiled-step update
+        (``_functional_update``, called without the parameters): no grad
+        clip, the decay on every parameter and no per-parameter lr scale."""
         self._step_count += 1
+        live = [i for i, p in enumerate(self._parameter_list)
+                if p.requires_grad and p.grad is not None]
+        pg = [(self._parameter_list[i], self._parameter_list[i].grad)
+              for i in live]
+        if self._grad_clip is not None and not functional:
+            pg = self._grad_clip(pg)
+        lr = self.get_lr()
         groups: Dict[tuple, list] = {}
-        for name, p in zip(self._names, self._parameter_list):
-            if not p.requires_grad or p.grad is None:
-                continue
+        for i, (p, g) in zip(live, pg):
+            name = self._names[i]
             st = self._accumulators.get(name)
             if st is None:
                 st = self._accumulators[name] = self._init_accums(p)
-            g = p.grad if p.grad.dtype == p.dtype else p.grad.to(p.dtype)
-            key = (p.device, p.dtype, self._wd_on(name))
+            if g.dtype != p.dtype:
+                g = g.to(p.dtype)
+            if functional:
+                wd, scale = 1.0, 1.0
+            else:
+                wd = self._wd_on(self._gate_names[i])
+                scale = float(getattr(p, "optimize_attr", {}).get(
+                    "learning_rate", 1.0))
+            key = (p.device, p.dtype, wd, scale)
             groups.setdefault(key, []).append((p, g, st))
-        for (_, _, wd), items in groups.items():
+        for (_, _, wd, scale), items in groups.items():
             ps = [p for p, _, _ in items]
             gs = self._regularized(ps, [g for _, g, _ in items])
-            self._update(ps, gs, [st for _, _, st in items],
-                         self.get_lr(), self._step_count, wd)
+            # the reference's f32 lr times the scale, in f32
+            p_lr = (lr if scale == 1.0
+                    else float(np.float32(lr) * np.float32(scale)))
+            self._update(ps, gs, [st for _, _, st in items], p_lr,
+                         self._step_count, wd)
 
     def clear_grad(self, set_to_zero: bool = True) -> None:
-        """Zero every gradient in place, or drop it (``set_to_zero=False``:
-        the next backward then writes fresh gradients instead of adding)."""
+        """Drop every gradient (``p.grad = None``), whatever ``set_to_zero``
+        says, as the reference does: the next backward writes fresh
+        gradients instead of adding to zeroed ones."""
         for p in self._parameter_list:
-            if p.grad is None:
-                continue
-            if set_to_zero:
-                p.grad.zero_()
-            else:
-                p.grad = None
+            p.grad = None
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        loss.backward()
+        self.step()
+        return None, None
 
     # -- state ---------------------------------------------------------------
     def state_dict(self) -> dict:
         out = {f"{name}.{k}": v for name in self._names
                for k, v in self._accumulators.get(name, {}).items()}
         out["@step"] = self._step_count
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
         return out
 
     def set_state_dict(self, state_dict: dict) -> None:
         self._step_count = int(state_dict.get("@step", 0))
+        if "LR_Scheduler" in state_dict and isinstance(self._learning_rate,
+                                                       LRScheduler):
+            self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
         for name, p in zip(self._names, self._parameter_list):
             prefix = f"{name}."
             st = {k[len(prefix):]: torch.as_tensor(v).to(p.device, p.dtype)
@@ -206,7 +268,8 @@ class AdamW(Adam):
                  grad_clip=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip)
-        self._wd = (weight_decay.coeff if isinstance(weight_decay, L2Decay)
+        self._wd = (weight_decay.coeff
+                    if isinstance(weight_decay, (L1Decay, L2Decay))
                     else float(weight_decay))
         self._apply_decay_param_fun = apply_decay_param_fun
 

@@ -67,6 +67,26 @@ def test_walk_covers_the_kernel_registry_and_the_cost_model():
         assert path in PORT_FILES
 
 
+def test_walk_covers_the_paddle_api_surface():
+    for path in ("paddle_tpu_torch/core/dtype.py",
+                 "paddle_tpu_torch/core/tensor.py",
+                 "paddle_tpu_torch/core/engine.py",
+                 "paddle_tpu_torch/autograd/__init__.py",
+                 "paddle_tpu_torch/ops/creation.py",
+                 "paddle_tpu_torch/ops/math.py",
+                 "paddle_tpu_torch/ops/manipulation.py",
+                 "paddle_tpu_torch/nn/layer/layers.py",
+                 "paddle_tpu_torch/nn/layer/activation.py",
+                 "paddle_tpu_torch/nn/initializer.py",
+                 "paddle_tpu_torch/nn/param_attr.py",
+                 "paddle_tpu_torch/nn/clip.py",
+                 "paddle_tpu_torch/nn/functional/activation.py",
+                 "paddle_tpu_torch/nn/functional/norm.py",
+                 "paddle_tpu_torch/optimizer/lr.py",
+                 "paddle_tpu_torch/utils/unique_name.py"):
+        assert path in PORT_FILES
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.serving.supervisor, paddle_tpu_torch.fault, "
@@ -77,7 +97,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "paddle_tpu_torch.profiler.export, "
             "paddle_tpu_torch.serving.observe, paddle_tpu_torch.framework.io, "
             "paddle_tpu_torch.ops.kernels.autotune, "
-            "paddle_tpu_torch.ops.kernels.db, paddle_tpu_torch.cost_model\n"
+            "paddle_tpu_torch.ops.kernels.db, paddle_tpu_torch.cost_model, "
+            "paddle_tpu_torch.autograd, paddle_tpu_torch.nn.clip, "
+            "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.ops.math, "
+            "paddle_tpu_torch.ops.manipulation, paddle_tpu_torch.utils\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "assert not bad, bad\n")

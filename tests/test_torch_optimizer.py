@@ -1,5 +1,8 @@
 """Port parity: ``paddle_tpu_torch.optimizer`` update rules against the JAX
-package's ``_functional_update`` (the rule its compiled train step runs).
+package's ``_functional_update`` (the rule its compiled train step runs), and
+the eager ``step()`` with a scheduler, a grad clip, ``L1Decay``, per-parameter
+lr scales and the decay gate on ``p.name`` against the reference's eager
+``step()``.
 
 Both packages start from the same parameters and see the same gradient
 sequence, made with numpy from a seed; k steps later the parameters must
@@ -126,6 +129,8 @@ def test_state_dict_round_trip_continues_the_same_trajectory():
 
 
 def test_step_skips_parameters_without_grad_and_clear_grad():
+    """``clear_grad()`` drops the gradients whatever ``set_to_zero`` says,
+    as the reference's does (``paddle_tpu/core/tensor.py:162``)."""
     p0, grads = _data()
     ps = _port_params(p0, torch.float32)
     opt = topt.SGD(LR, parameters=ps)
@@ -134,14 +139,173 @@ def test_step_skips_parameters_without_grad_and_clear_grad():
     opt.step()
     assert torch.equal(ps[1], before)
     opt.clear_grad()
-    assert torch.count_nonzero(ps[0].grad) == 0
+    assert ps[0].grad is None
+    ps[0].grad = torch.from_numpy(grads[0][0])
     opt.clear_grad(set_to_zero=False)
     assert ps[0].grad is None
 
 
 def test_unported_options_raise():
+    """``grad_clip`` and an ``LRScheduler`` learning rate, which raised until
+    ``nn/clip.py`` and ``optimizer/lr.py`` were ported, are accepted:
+    ``get_lr()`` reads the scheduler and ``step()`` calls the clip."""
     p = torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="clip"):
-        topt.SGD(LR, parameters=[p], grad_clip=object())
-    with pytest.raises(TypeError, match="lr.py"):
-        topt.SGD(object(), parameters=[p])
+    calls = []
+
+    def clip(params_grads):
+        calls.append(len(params_grads))
+        return params_grads
+
+    sched = topt.lr.StepDecay(0.5, step_size=1, gamma=0.1)
+    opt = topt.SGD(sched, parameters=[p], grad_clip=clip)
+    assert opt.get_lr() == 0.5
+    p.grad = torch.ones(2)
+    opt.step()
+    assert calls == [1]
+    sched.step()
+    assert opt.get_lr() == sched() == 0.5 * 0.1
+
+
+# -- the eager step against the reference's -----------------------------------
+def _sched(o):
+    return o.lr.LinearWarmup(o.lr.CosineAnnealingDecay(LR, T_max=4),
+                             warmup_steps=2, start_lr=0.0, end_lr=LR)
+
+
+def _clip(pkg, kind, *a):
+    return getattr(pkg.nn, kind)(*a)
+
+
+def _tpkg():
+    import paddle_tpu_torch
+    return paddle_tpu_torch
+
+
+EAGER = {
+    # name: (make(optimizer module, package, parameters) -> (opt, sched),
+    #        per-parameter attributes)
+    "scheduler": (lambda o, pk, ps: (lambda s: (o.AdamW(s, parameters=ps),
+                                                s))(_sched(o)), {}),
+    "clip_global": (lambda o, pk, ps: (o.AdamW(
+        LR, parameters=ps,
+        grad_clip=_clip(pk, "ClipGradByGlobalNorm", 0.5)), None), {}),
+    "clip_global_sgd": (lambda o, pk, ps: (o.SGD(
+        LR, parameters=ps,
+        grad_clip=_clip(pk, "ClipGradByGlobalNorm", 0.5)), None), {}),
+    "clip_norm_sgd": (lambda o, pk, ps: (o.SGD(
+        LR, parameters=ps, grad_clip=_clip(pk, "ClipGradByNorm", 0.5)),
+        None), {}),
+    "clip_value_sgd": (lambda o, pk, ps: (o.SGD(
+        LR, parameters=ps, grad_clip=_clip(pk, "ClipGradByValue", 0.5)),
+        None), {}),
+    "need_clip_off": (lambda o, pk, ps: (o.SGD(
+        LR, parameters=ps,
+        grad_clip=_clip(pk, "ClipGradByGlobalNorm", 0.5)), None),
+        {"w0": {"need_clip": False}}),
+    "l1_decay": (lambda o, pk, ps: (o.Momentum(
+        LR, parameters=ps, weight_decay=o.L1Decay(0.05)), None), {}),
+    "param_lr": (lambda o, pk, ps: (o.Adam(LR, parameters=ps), None),
+                 {"b0": {"learning_rate": 0.5}, "w1": {"learning_rate": 0.1}}),
+    "decay_gate": (lambda o, pk, ps: (o.AdamW(
+        LR, parameters=ps, weight_decay=0.5,
+        apply_decay_param_fun=lambda n: n.startswith("w")), None), {}),
+}
+
+
+def _apply_attrs(p, attrs):
+    for k, v in attrs.items():
+        if k == "learning_rate":
+            p.optimize_attr["learning_rate"] = v
+        else:
+            setattr(p, k, v)
+
+
+def _reference_eager(case, p0, grads):
+    from paddle_tpu.core.tensor import Parameter as JParameter
+
+    make, attrs = EAGER[case]
+    ps = [JParameter(p, name=n) for n, p in zip(NAMES, p0)]
+    for n, p in zip(NAMES, ps):
+        _apply_attrs(p, attrs.get(n, {}))
+    opt, sched = make(paddle.optimizer, paddle, ps)
+    lrs = []
+    for gs in grads:
+        for p, g in zip(ps, gs):
+            p.grad = paddle.to_tensor(g)
+        lrs.append(opt.get_lr())
+        opt.step()
+        if sched is not None:
+            sched.step()
+    return [np.asarray(p.numpy()) for p in ps], lrs
+
+
+@pytest.mark.parametrize("case", sorted(EAGER))
+def test_eager_step_matches_reference(case):
+    """The port's parameters are ``Parameter``s named as the reference's and
+    given as ``(structured name, parameter)`` pairs, so the decay gate must
+    read ``p.name`` (``w0``, ...), not the pair's name (``layer.w0``)."""
+    from paddle_tpu_torch.core.tensor import Parameter
+
+    p0, grads = _data(seed=4)
+    want, want_lrs = _reference_eager(case, p0, grads)
+    make, attrs = EAGER[case]
+    ps = [Parameter(torch.from_numpy(p.copy()), name=n)
+          for n, p in zip(NAMES, p0)]
+    for n, p in zip(NAMES, ps):
+        _apply_attrs(p, attrs.get(n, {}))
+    opt, sched = make(topt, _tpkg(), [(f"layer.{p.name}", p) for p in ps])
+    lrs = []
+    for gs in grads:
+        for p, g in zip(ps, gs):
+            p.grad = torch.from_numpy(g)
+        lrs.append(opt.get_lr())
+        opt.step()
+        if sched is not None:
+            sched.step()
+    assert lrs == want_lrs
+    for name, p, w in zip(NAMES, ps, want):
+        np.testing.assert_allclose(p.detach().numpy(), w, atol=1e-6,
+                                   rtol=1e-5, err_msg=name)
+    # the clip leaves p.grad unclipped, as the reference's step does
+    np.testing.assert_array_equal(ps[0].grad.numpy(), grads[-1][0])
+
+
+def test_scheduler_state_rides_in_the_optimizer_state_dict():
+    ps = _port_params(_data()[0], torch.float32)
+    sched = _sched(topt)
+    opt = topt.AdamW(sched, parameters=ps)
+    for _ in range(3):
+        sched.step()
+    sd = opt.state_dict()
+    assert sd["LR_Scheduler"]["last_epoch"] == 3
+    sched2 = _sched(topt)
+    opt2 = topt.AdamW(sched2, parameters=ps)
+    opt2.set_state_dict(sd)
+    assert sched2.last_epoch == 3 and opt2.get_lr() == opt.get_lr()
+
+
+def test_param_attr_lr_scale_and_minimize_match_reference():
+    """``ParamAttr(learning_rate=...)`` reaches the update as the
+    parameter's lr scale, and ``minimize(loss)`` is backward then step."""
+    import paddle_tpu_torch as tp
+
+    rng = np.random.RandomState(6)
+    w0 = rng.randn(3, 2).astype(np.float32)
+    x = rng.randn(4, 3).astype(np.float32)
+
+    def run(pkg, to_np):
+        lin = pkg.nn.Linear(3, 2, weight_attr=pkg.ParamAttr(
+            learning_rate=0.5, initializer=pkg.nn.initializer.Assign(w0)))
+        opt = pkg.optimizer.SGD(LR, parameters=lin.parameters())
+        for _ in range(2):
+            opt.minimize(pkg.sum(pkg.square(lin(pkg.to_tensor(x)))))
+            opt.clear_grad()
+        return to_np(lin.weight), to_np(lin.bias)
+
+    want = run(paddle, lambda t: np.asarray(t.numpy()))
+    from torch_port_util import cpu_device
+    with cpu_device():
+        got = run(tp, lambda t: t.detach().numpy())
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-7)
+    assert not np.allclose(got[0], w0)

@@ -12,6 +12,24 @@ from paddle_tpu_torch.models import (GPTConfig, GPTForPretraining,
                                      load_reference_state_dict)
 
 
+@contextlib.contextmanager
+def cpu_device():
+    """``paddle_tpu_torch.set_device("cpu")`` for the block, then the
+    thread's previous choice (or none) back."""
+    from paddle_tpu_torch.core import place
+
+    had = hasattr(place._state, "place")
+    old = getattr(place._state, "place", None)
+    place.set_device("cpu")
+    try:
+        yield
+    finally:
+        if had:
+            place._state.place = old
+        else:
+            place._state.__dict__.pop("place", None)
+
+
 def reference_state(jmodel):
     """The JAX model's ``state_dict()`` as float32 numpy arrays."""
     return {k: np.asarray(v, np.float32) for k, v in jmodel.state_dict().items()}
