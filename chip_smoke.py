@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py            # the whole run; needs one CUDA card
     python3 chip_smoke.py --profile  # + device breakdowns of a decode step
-                                     #   (the verify step of drive f) and
-                                     #   of a train step, through the
-                                     #   port's profiler
+                                     #   (the verify step of drive f), of
+                                     #   a GPT, a Llama-7B and an ERNIE
+                                     #   train step, through the port's
+                                     #   profiler
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -34,7 +35,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    flash-attention forward (O, LSE) and backward (dQ, dK, dV) at small
    shapes (ragged causal tails, non-causal T != T_kv, causal T < T_kv, a
    D=40 head, T=130 at D=128, every head width instantiation), in bf16 at
-   the training shape and at the long-sequence shape (T=8192, D=64); at
+   the training shape, at the long-sequence shape (T=8192, D=64) and at
+   Llama-7B's training shape (B=1, T=2048, H=32, D=128); at
    every shape dQ and dK/dV are each launched twice on the same inputs, and
    the two must agree bit for bit; in bf16 O, dQ, dK and dV are also held by
    relative norm to the bf16 plain versions, which round P and dS to bf16
@@ -136,6 +138,50 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    within ``API_LOSS_REL_TOL``. It prints a ``{"paddle_api_train": ...}``
    line; the flash rows of the ``kernels`` line carry its launches as
    ``launches_paddle_api``. Runs after phase 5, whose model is freed first;
+8. Llama-7B train: ``llama_7b()`` at full width and depth (32 layers, hidden
+   4096, 32 heads, FFN 11008, vocab 32000, untied head; bf16, seed 0, no
+   dropout) through ``jit.compile_train_step`` with ``AdamW(1e-4)`` on one
+   fixed b1 x s2048 batch: 2 warm-up and 8 timed steps under the memory
+   census (``peak_live_bytes`` within 1% of
+   ``torch.cuda.max_memory_allocated()``), the flash counters, zeroed just
+   before the timed steps, must each read 32 x 8, losses finite and
+   falling, and a device timeline of one more step must name
+   ``fwd_wgmma``, ``dq_wgmma`` and ``dkv_wgmma`` 32 times each; first a
+   2-layer full-width model's gradients through the kernels are held
+   against the same backward on the plain attention within
+   ``FLASH_GRAD_REL_TOL``. Step ms, tokens/s, MFU and peak memory are
+   printed; the flash rows of the ``kernels`` line carry the launches as
+   ``launches_llama_train``;
+9. ERNIE-3.0 base: ``ernie_3_base()`` (vocab 40000, hidden 768, 12 layers,
+   12 heads, FFN 3072, dropout 0.1) in f32 through the eager Paddle loop
+   with ``Lamb(lamb_weight_decay=0.01)``, the LayerNorms' weights and
+   biases excluded through ``exclude_from_weight_decay_fn``, on synthetic
+   MLM data (b8 x s512, 15% of the positions masked and labelled, the rest
+   -100) and NSP labels: 2 warm-up and 8 timed steps, losses finite and
+   falling. Then each of ``Adamax``, ``RMSProp`` (centered, momentum 0.9),
+   ``Adagrad``, ``Adadelta``, ``Lamb`` and ``LarsMomentum`` takes 3 f32
+   steps and one bf16 step on a 2-layer full-width ERNIE (dropout 0) on the
+   card and on the CPU from the same weights, each step on the card's
+   gradients of the same batch (b2 x s128, a slice of the training batch);
+   parameters and accumulators must agree: f32 within
+   ``OPT_F32_TOL`` x (1 + |cpu|), bf16 within one bf16 ulp of each tensor's
+   largest value, in the same dtypes;
+10. dense generation: GPT-3 1.3B (phase 3's model and seed) on 4 prompts of
+   128 tokens through ``model.generate``, greedy, ``num_beams=4`` and
+   sampled (``top_k=50, top_p=0.9`` on a seeded generator), 32 new tokens
+   each; Llama-7B greedy on 2 prompts. Every output must be its prompt and
+   32 in-vocabulary ids; the dense prefill's last-position logits are held
+   to the engine's monolithic prefill's within ``LOGITS_REL_TOL``; each
+   row's first generated token must equal the engine's greedy one (unless
+   the engine's top two logits are within ``GEN_TIE_GAP``, printed); an eos
+   run must stop early (``last_decode_steps()`` below 32, the tail eos). It
+   prints each call's tokens/s and ms a step, the share of greedy tokens
+   equal to the engine's, and the beam's and greedy's f32 sum log-probs;
+11. the nan/inf scan: with ``FLAGS_check_nan_inf`` set, a 2-layer full-width
+   GPT-3 1.3B forward with one weight NaN must raise ``FloatingPointError``
+   naming the ATen op, write a ``naninf`` flight dump and count one
+   ``naninf_trips``; cleared, the same forward runs and no dispatch mode is
+   left; the forward's ms with the flag off and on are printed;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -166,11 +212,14 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 The last three lines of stdout are the card's name and power limit
 (``nvidia-smi``), the ``{"kernels": [...]}`` JSON line (each row also with
 its resolved ``config`` and the search's ``tuned`` winners) and
-``{"ok": true, "device": {...}}``; the five lines before them are
+``{"ok": true, "device": {...}}``; the lines before them are
 ``{"device_timeline": {...}}``, each kernel's launches, µs a launch and
 ms a step in the profiled windows (printed beside its CUDA-event time),
 ``{"flash_long_shape": [...]}``, the flash kernels' times at the
 long-sequence shape (no launches on the main path),
+``{"flash_llama_shape": [...]}``, their times at Llama-7B's training shape
+with phase 8's launches, ``{"train_models": {...}}``, phases 8 and 9,
+``{"generate": {...}}``, phase 10, ``{"naninf": {...}}``, phase 11,
 ``{"paged_shapes": [...]}``, the paged kernel's time, bound and cluster
 size at each of ``PAGED_SHAPES``, and ``{"engine_drives": [...]}``, each
 engine drive's tok/s, decode steps, mean decode-step ms, launches and
@@ -349,6 +398,10 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 # 16 heads, T=8192), where the reference takes its (B*H, T, D) route
 FLASH_TRAIN = (2, 2048, 2048, 16, 128, True)
 FLASH_LONG = (1, 8192, 8192, 16, 64, True)
+# Llama-7B's training batch and its flash shape (B, T, T_kv, H, D, causal)
+LLAMA_TRAIN_B, LLAMA_TRAIN_T = 1, 2048
+LLAMA_GRAD_LAYERS = 2  # the full-width model of the kernels-vs-plain check
+FLASH_LLAMA = (LLAMA_TRAIN_B, LLAMA_TRAIN_T, LLAMA_TRAIN_T, 32, 128, True)
 _FA = "paddle_tpu/ops/pallas/flash_attention.py"
 FLASH_REPLACES = {  # the TPU entry points each kernel takes over
     "flash_attention_fwd": f"{_FA}:719 (_flash_hd_fwd_inner); {_FA}:321 "
@@ -918,8 +971,8 @@ def flash_phase():
     T=200 and T=1000, non-causal T != T_kv with ragged T_kv, causal T <
     T_kv, causal T=136 < T_kv=200, and T=130 at D=128, one row past a
     128-row q tile), then bf16 at the training shape through strided q/k/v
-    views and at the reference's long-sequence shape. Returns the max abs
-    errors at the training shape and at the long shape."""
+    views, at the reference's long-sequence shape and at Llama-7B's training
+    shape. Returns the max abs errors at those three shapes."""
     f32, bf16 = torch.float32, torch.bfloat16
     for shape in ((1, 192, 192, 2, 64, True), (1, 200, 200, 3, 128, True),
                   (1, 128, 328, 2, 64, False), (1, 96, 160, 1, 256, True),
@@ -929,7 +982,8 @@ def flash_phase():
         for dtype in (f32, bf16):
             flash_check(*shape, dtype)
     out = []
-    for shape, fused in ((FLASH_TRAIN, True), (FLASH_LONG, False)):
+    for shape, fused in ((FLASH_TRAIN, True), (FLASH_LONG, False),
+                         (FLASH_LLAMA, False)):
         out.append({(n, bf16): e for n, e in
                     flash_check(*shape, bf16, fused_qkv=fused).items()})
         torch.cuda.empty_cache()
@@ -2362,15 +2416,14 @@ def train_model(layers=None):
     return GPTForPretraining(cfg, dtype=torch.bfloat16, seed=0).train()
 
 
-def grad_check():
-    """One bf16 backward of a full-width 4-layer model through the flash
-    kernels against the same backward with attention on the plain
-    version (the module's ``flash_attention_array`` swapped for it)."""
+def grad_check_against_plain(model, ids, labels, tol, label):
+    """One bf16 backward of ``model.loss`` through the flash kernels against
+    the same backward with attention on the plain version (the attention
+    module's ``flash_attention_array`` swapped for it); fails when a
+    parameter's gradient is beyond ``tol`` by relative norm."""
     import paddle_tpu_torch.nn.functional.attention as A
     from paddle_tpu_torch.ops import kernels as K
 
-    model = train_model(TRAIN_LAYERS_CHECK)
-    ids, labels = train_batch(model.config)
     grads, losses = [], []
     kernel_fn = A.flash_attention_array
     for plain in (False, True):
@@ -2388,14 +2441,26 @@ def grad_check():
         grads.append({n: p.grad.float() for n, p in model.named_parameters()})
     worst = max(((rel_err(grads[0][n], grads[1][n]), n) for n in grads[0]),
                 key=lambda t: t[0])
-    print(f"  grad check ({TRAIN_LAYERS_CHECK} layers, full width, bf16): "
-          f"loss kernel {losses[0]:.5f} plain {losses[1]:.5f}; worst "
-          f"per-parameter rel_norm_err {worst[0]:.3e} ({worst[1]}), tol "
-          f"{GRAD_REL_TOL}")
-    if not worst[0] <= GRAD_REL_TOL or abs(losses[0] - losses[1]) > 1e-2:
-        fail(f"train grad check: {worst[1]} rel_err {worst[0]:.3e}, "
+    print(f"  grad check ({label}): loss kernel {losses[0]:.5f} plain "
+          f"{losses[1]:.5f}; worst per-parameter rel_norm_err "
+          f"{worst[0]:.3e} ({worst[1]}), tol {tol}")
+    if not worst[0] <= tol or abs(losses[0] - losses[1]) > 1e-2:
+        fail(f"grad check ({label}): {worst[1]} rel_err {worst[0]:.3e}, "
              f"losses {losses}")
-    del model, grads
+    return {"worst_rel_err": worst[0], "worst_param": worst[1],
+            "losses": losses}
+
+
+def grad_check():
+    """One bf16 backward of a full-width 4-layer model through the flash
+    kernels against the same backward with attention on the plain
+    version."""
+    model = train_model(TRAIN_LAYERS_CHECK)
+    ids, labels = train_batch(model.config)
+    grad_check_against_plain(
+        model, ids, labels, GRAD_REL_TOL,
+        f"{TRAIN_LAYERS_CHECK} layers, full width, bf16")
+    del model
     torch.cuda.empty_cache()
 
 
@@ -2843,6 +2908,507 @@ def paddle_api_phase(compiled):
     return out
 
 
+# -- Llama-7B train phase ------------------------------------------------------
+
+
+
+def llama_train_model(layers=None):
+    """Llama-7B (32 layers, hidden 4096, 32 heads, FFN 11008, vocab 32000,
+    untied head) in bf16 on the card, random weights from seed 0; Llama has
+    no dropout."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b
+
+    cfg = llama_7b()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return LlamaForCausalLM(cfg, dtype=torch.bfloat16, seed=0).train()
+
+
+def llama_train_phase(profile=False):
+    """Llama-7B bf16 at full width and depth, b1 x s2048 through
+    ``jit.compile_train_step`` with AdamW(1e-4): 2 warm-up and 8 timed
+    steps under the memory census, the flash counters, a device timeline of
+    one more step; a 2-layer full-width model's gradients through the
+    kernels against the plain attention first."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
+
+    small = llama_train_model(LLAMA_GRAD_LAYERS)
+    ids, labels = train_batch(small.model.config, LLAMA_TRAIN_B,
+                              LLAMA_TRAIN_T, seed=1)
+    gcheck = grad_check_against_plain(
+        small, ids, labels, FLASH_GRAD_REL_TOL,
+        f"llama_7b, {LLAMA_GRAD_LAYERS} layers, full width, bf16")
+    del small
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    model = llama_train_model()
+    cfg = model.model.config
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.named_parameters())
+    step = pt.jit.compile_train_step(model, lambda m, i, l: m.loss(i, l), opt)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  model: llama_7b bf16 train, {n_params / 1e9:.3f}B params, "
+          f"{cfg.num_layers} layers, hidden {cfg.hidden_size}, FFN "
+          f"{cfg.ffn_size}, built in {time.monotonic() - t0:.1f}s")
+    losses = [step(ids, labels) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with Profiler(targets=[ProfilerTarget.CPU], profile_memory=True):
+        timed, queued, wall = time_steps(step, ids, labels, TRAIN_STEPS)
+    losses += timed
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    census = profiler.memory_stats()
+    print(f"  census: peak_live_bytes {census['peak_live_bytes']} against "
+          f"torch.cuda.max_memory_allocated() {peak} in the same window")
+    if abs(census["peak_live_bytes"] - peak) > 0.01 * peak:
+        fail(f"llama train: peak_live_bytes {census['peak_live_bytes']} vs "
+             f"max_memory_allocated {peak}")
+    vals = [x.item() for x in losses]
+    B, T = ids.shape
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = B * T * TRAIN_STEPS / wall
+    flops_tok = train_flops_per_token(cfg, n_params, T)
+    mfu = tok_s * flops_tok / 989e12
+    print(f"  llama train: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, "
+          f"step {step_ms:.2f} ms (host clock, one sync at the end), "
+          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (6N + 6*L*d*T = "
+          f"{flops_tok:.4e} FLOP/token against 989 TFLOP/s bf16), peak "
+          f"memory {peak / 2**30:.2f} GiB, launches {counts}; queued in "
+          f"{queued * 1e3:.1f} ms")
+    print(f"  losses: {[round(v, 4) for v in vals]}")
+    want = cfg.num_layers * TRAIN_STEPS
+    bad = [k for k in FLASH_REPLACES if counts[k] != want]
+    if bad:
+        fail(f"llama train: launches {counts}, want {want} for each flash "
+             "kernel")
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"llama train: losses {vals}")
+    ev = device_timeline(lambda: step(ids, labels), 1,
+                         "timeline (llama train)")
+    tl = timeline_kernels(ev, tuple(FLASH_KERNELS.values()), 1)
+    bad = {k: v["launches"] for k, v in tl.items()
+           if v["launches"] != cfg.num_layers}
+    if bad:
+        fail(f"llama train: the device timeline of one step names {bad}, "
+             f"want {cfg.num_layers} launches each")
+    print(f"  timeline (llama train): one step: " + ", ".join(
+        f"{k} {v['launches']} launches, {v['ms_per_step']:.4f} ms, "
+        f"{v['us_per_launch']:.2f} us a launch" for k, v in tl.items()))
+    if profile:
+        device_breakdown(lambda: step(ids, labels), 2,
+                         f"profile (llama train) b{B}xs{T}", top=14)
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return {"model": "llama_7b", "layers": cfg.num_layers,
+            "batch": [B, T], "params": n_params, "step_ms": step_ms,
+            "tokens_per_s": tok_s, "mfu": mfu, "peak_gib": peak / 2**30,
+            "queued_ms": queued * 1e3, "losses": vals,
+            "launches": {k: counts[k] for k in FLASH_REPLACES},
+            "device_timeline": tl, "grad_check": gcheck}
+
+
+# -- ERNIE and optimizers phase -------------------------------------------------
+
+ERNIE_B, ERNIE_T, ERNIE_MASK_ID = 8, 512, 3
+ERNIE_LR = 1e-3
+OPT_STEPS = 3
+OPT_LAYERS = 2
+OPT_F32_TOL = 1e-6  # |card - cpu| <= tol * (1 + |cpu|), params and state
+
+
+def ernie_arrays(vocab, B=ERNIE_B, T=ERNIE_T, seed=0):
+    """Synthetic MLM data: 15% of the positions labelled with their token
+    and masked in the input, the rest -100; NSP labels 0/1."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(5, vocab, (B, T)).astype(np.int64)
+    pick = rng.rand(B, T) < 0.15
+    labels = np.where(pick, ids, -100).astype(np.int64)
+    ids = np.where(pick, ERNIE_MASK_ID, ids)
+    nsp = rng.randint(0, 2, (B,)).astype(np.int64)
+    return ids, labels, nsp
+
+
+def ln_excluder(model):
+    """``exclude_from_weight_decay_fn`` that is true on the LayerNorms'
+    weights and biases (it receives the parameter)."""
+    from paddle_tpu_torch.nn import LayerNorm
+
+    ln = {id(p) for m in model.sublayers() if isinstance(m, LayerNorm)
+          for p in m.parameters()}
+    return lambda p: id(p) in ln
+
+
+OPTIMIZERS = {
+    "Adamax": lambda o, ps: o.Adamax(1e-3, parameters=ps),
+    "RMSProp": lambda o, ps: o.RMSProp(1e-3, momentum=0.9, centered=True,
+                                       parameters=ps),
+    "Adagrad": lambda o, ps: o.Adagrad(1e-2, parameters=ps),
+    "Adadelta": lambda o, ps: o.Adadelta(1.0, parameters=ps),
+    "Lamb": lambda o, ps: o.Lamb(1e-3, lamb_weight_decay=0.01, parameters=ps),
+    "LarsMomentum": lambda o, ps: o.LarsMomentum(0.1, parameters=ps),
+}
+
+
+def opt_state_diff(card, cpu, opt_card, opt_cpu, bf16):
+    """The largest disagreement between the card's and the CPU's
+    parameters and optimizer state: f32 as |d| / (1 + |cpu|); bf16 in bf16
+    ulps of each tensor's largest |cpu| value (Lamb's and LARS's bf16
+    trust ratio and local lr may round one ulp apart from f32 norms summed
+    in another order, and a parameter that the update nearly cancels would
+    read that as many ulps of its own); and whether every dtype agrees."""
+    pairs = [(a.detach(), b.detach()) for a, b in zip(card, cpu)]
+    sa, sb = opt_card.state_dict(), opt_cpu.state_dict()
+    if set(sa) != set(sb):
+        fail(f"optimizers: state keys differ {sorted(set(sa) ^ set(sb))[:4]}")
+    pairs += [(sa[k], sb[k]) for k in sa if isinstance(sa[k], torch.Tensor)]
+    worst, dtypes_ok = 0.0, True
+    for a, b in pairs:
+        dtypes_ok &= a.dtype == b.dtype
+        a, b = a.float().cpu(), b.float()
+        d = (a - b).abs()
+        if bf16:
+            e = torch.floor(torch.log2(b.abs().max().clamp_min(2.0 ** -126)))
+            d = d / torch.exp2(e - 7)
+        else:
+            d = d / (1 + b.abs())
+        worst = max(worst, float(d.max()))
+    return worst, dtypes_ok
+
+
+def optimizer_checks(ids, labels, nsp):
+    """Each new rule's steps on the card and on the CPU from the same
+    weights, on the card's gradients of the same batch (copied to the CPU
+    before each step): ``OPT_STEPS`` steps in f32, then one in bf16."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_3_base
+
+    cfg = ernie_3_base(num_layers=OPT_LAYERS, hidden_dropout=0.0,
+                       attention_dropout=0.0)
+    base = ErnieForPretraining(cfg, seed=0).train()
+    base_sd = {k: v.detach().cpu().clone() for k, v in base.state_dict().items()}
+    del base
+    out = {}
+    for name, make in OPTIMIZERS.items():
+        for dtype, steps in ((torch.float32, OPT_STEPS), (torch.bfloat16, 1)):
+            card = ErnieForPretraining(cfg, seed=0).train()
+            card.load_state_dict(base_sd)
+            card.to(dtype=dtype)
+            cpu = [p.detach().cpu().clone().requires_grad_()
+                   for p in card.parameters()]
+            names = [n for n, _ in card.named_parameters()]
+            oc = make(pt.optimizer, list(zip(names, card.parameters())))
+            oh = make(pt.optimizer, list(zip(names, cpu)))
+            worst = []
+            for _ in range(steps):
+                card.zero_grad(set_to_none=True)
+                card.loss(ids, labels, nsp).backward()
+                for p, q in zip(card.parameters(), cpu):
+                    q.grad = p.grad.detach().cpu().to(q.dtype)
+                oc.step()
+                oh.step()
+                w, same_dt = opt_state_diff(list(card.parameters()), cpu, oc,
+                                            oh, dtype == torch.bfloat16)
+                if not same_dt:
+                    fail(f"optimizers ({name}, {dtype}): the card's and the "
+                         "CPU's dtypes differ")
+                worst.append(w)
+            tol = 1.0 if dtype == torch.bfloat16 else OPT_F32_TOL
+            key = f"{name}_{str(dtype)[6:]}"
+            out[key] = {"worst": worst, "tol": tol,
+                        "param_dtype": str(card.parameters()[0].dtype)[6:]}
+            print(f"  {key}: {steps} step(s), worst card-vs-CPU disagreement "
+                  f"{['%.3e' % w for w in worst]} "
+                  f"({'bf16 ulps' if tol == 1.0 else 'rel'}; tol {tol}); "
+                  f"parameters now {out[key]['param_dtype']}")
+            if max(worst) > tol:
+                fail(f"optimizers ({key}): card and CPU disagree by "
+                     f"{max(worst):.3e}")
+            del card, cpu, oc, oh
+            torch.cuda.empty_cache()
+    return out
+
+
+def ernie_phase(profile=False):
+    """ERNIE-3.0 base f32 (dropout 0.1) in the eager Paddle loop with Lamb,
+    LayerNorm parameters excluded from the decay, on synthetic MLM + NSP
+    data; then the six new optimizers card against CPU."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_3_base
+
+    cfg = ernie_3_base()
+    t0 = time.monotonic()
+    model = ErnieForPretraining(cfg, seed=0).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = pt.optimizer.Lamb(learning_rate=ERNIE_LR, lamb_weight_decay=0.01,
+                            parameters=model.parameters(),
+                            exclude_from_weight_decay_fn=ln_excluder(model))
+    np_ids, np_labels, np_nsp = ernie_arrays(cfg.vocab_size)
+    ids, labels, nsp = (pt.to_tensor(a) for a in (np_ids, np_labels, np_nsp))
+    torch.cuda.synchronize()
+    print(f"  model: ernie_3_base f32 train, {n_params / 1e6:.1f}M params, "
+          f"{cfg.num_layers} layers, hidden {cfg.hidden_size}, dropout "
+          f"{cfg.hidden_dropout}, built in {time.monotonic() - t0:.1f}s; "
+          f"{int((np_labels != -100).sum())} labelled positions of "
+          f"{np_labels.size}")
+
+    def one_step():
+        loss = model.loss(ids, labels, nsp)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    losses = [one_step() for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed, queued, wall = time_steps(lambda *_: one_step(), None, None,
+                                     TRAIN_STEPS)
+    vals = [x.item() for x in losses + timed]
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = ERNIE_B * ERNIE_T * TRAIN_STEPS / wall
+    print(f"  ernie train: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up "
+          f"(eager loop, Lamb lr {ERNIE_LR}), step {step_ms:.2f} ms, "
+          f"{tok_s:.1f} tokens/s, queued in {queued * 1e3:.1f} ms, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  losses: {[round(v, 4) for v in vals]}")
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"ernie train: losses {vals}")
+    if profile:
+        device_breakdown(one_step, 2,
+                         f"profile (ernie train) b{ERNIE_B}xs{ERNIE_T}",
+                         top=10)
+    del model, opt
+    torch.cuda.empty_cache()
+    # the optimizer checks take a slice of the batch (b2 x s128)
+    checks = optimizer_checks(pt.to_tensor(np_ids[:2, :128]),
+                              pt.to_tensor(np_labels[:2, :128]),
+                              pt.to_tensor(np_nsp[:2]))
+    return {"model": "ernie_3_base", "params": n_params,
+            "batch": [ERNIE_B, ERNIE_T], "step_ms": step_ms,
+            "tokens_per_s": tok_s, "queued_ms": queued * 1e3,
+            "losses": vals, "optimizers": checks}
+
+
+# -- dense generation phase ------------------------------------------------------
+
+GEN_PROMPTS, GEN_LLAMA_PROMPTS, GEN_T0, GEN_NEW = 4, 2, 128, 32
+GEN_TIE_GAP = 1e-2  # top-two logits this close may break either way
+
+
+def gen_timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def gen_well_formed(tag, prompts, out, vocab):
+    o = out.cpu().numpy()
+    if o.shape != (prompts.shape[0], GEN_T0 + GEN_NEW) or not (
+            o[:, :GEN_T0] == prompts).all() or not (
+            (o >= 0) & (o < vocab)).all():
+        fail(f"generate ({tag}): output {o.shape} malformed")
+    return o
+
+
+def gen_engine_oracle(tag, model, prompts, dense, vocab):
+    """The dense prefill's last-position logits against the engine's
+    monolithic prefill's, and the first generated token of each row against
+    the engine's greedy one (rows whose engine logits have their top two
+    within ``GEN_TIE_GAP`` may differ; they are printed); returns the share
+    of all greedy tokens equal to the engine's."""
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.serving import Engine
+
+    from paddle_tpu_torch.framework.flags import set_flags
+
+    plist = [p.tolist() for p in prompts]
+    # the serving main path's decode: the paged kernel, dense weights
+    set_flags({"FLAGS_serve_paged_kernel": True,
+               "FLAGS_serve_int8_kernel": False})
+    with Engine(model, **ENGINE_KW) as eng:
+        handles = [eng.submit(p, max_new_tokens=GEN_NEW) for p in plist]
+        served = np.asarray([h.result(timeout=900) for h in handles])
+        mono, _, _ = eng._debug_prefill_paths(plist)
+    state = (G.gpt_decode_state if tag.startswith("gpt")
+             else G.llama_decode_state)(model)
+    with torch.inference_mode():
+        ids = torch.from_numpy(prompts).cuda()
+        _, logits = G._prefill_dense(state[1], state[2], ids, GEN_T0,
+                                     GEN_T0 + GEN_NEW)
+    rel = logits_rel(tag, "dense prefill vs engine prefill",
+                     logits.float().cpu().numpy(), mono)[0]
+    ties = []
+    for r in range(len(plist)):
+        if dense[r, GEN_T0] != served[r, GEN_T0]:
+            top2 = np.sort(mono[r])[-2:]
+            gap = float(top2[1] - top2[0])
+            ties.append({"row": r, "gap": gap})
+            print(f"  generate ({tag}): row {r} first token {dense[r, GEN_T0]}"
+                  f" vs engine {served[r, GEN_T0]}, engine top-two gap {gap:.3e}")
+            if gap > GEN_TIE_GAP:
+                fail(f"generate ({tag}): row {r}'s first token differs from "
+                     "the engine's")
+    share = float((dense[:, GEN_T0:] == served[:, GEN_T0:]).mean())
+    print(f"  generate ({tag}): share of greedy tokens equal to the engine's "
+          f"{share:.4f}")
+    return {"prefill_rel_err": rel, "first_token_ties": ties,
+            "engine_equal_share": share}
+
+
+def seq_logprob(model, seqs):
+    """Sum of the f32 log-probs of each row's generated tokens."""
+    with torch.inference_mode():
+        ids = torch.from_numpy(seqs).cuda()
+        logp = torch.log_softmax(model(ids).float(), -1)
+        tok = ids[:, GEN_T0:]
+        got = logp[:, GEN_T0 - 1:-1].gather(-1, tok[..., None])[..., 0]
+        return got.sum(-1).cpu().numpy()
+
+
+def generation_phase():
+    """GPT-3 1.3B: greedy, beam 4 and sampled dense generation of 4 prompts
+    of 128 tokens; an eos run; Llama-7B greedy on 2 prompts."""
+    from paddle_tpu_torch.models import generation as G
+
+    out = {}
+    for name, cfg, _, _ in engine_models():
+        t0 = time.monotonic()
+        model = build_engine_model(name, cfg)
+        n = GEN_PROMPTS if name == "gpt3_1p3b" else GEN_LLAMA_PROMPTS
+        prompts = np.random.RandomState(7).randint(
+            0, cfg.vocab_size, (n, GEN_T0)).astype(np.int64)
+        print(f"  model: {name} bf16 eval, built in "
+              f"{time.monotonic() - t0:.1f}s; {n} prompts of {GEN_T0}")
+        calls = {"greedy": dict(do_sample=False)}
+        if name == "gpt3_1p3b":
+            g = torch.Generator(device="cuda").manual_seed(0)
+            calls["beam4"] = dict(do_sample=False, num_beams=4)
+            calls["sampled"] = dict(do_sample=True, top_k=50, top_p=0.9,
+                                    generator=g)
+        res, outs = {}, {}
+        for tag, kw in calls.items():
+            gen, wall = gen_timed(lambda: model.generate(
+                prompts, max_new_tokens=GEN_NEW, **kw))
+            steps = G.last_decode_steps()
+            outs[tag] = gen_well_formed(f"{name} {tag}", prompts, gen,
+                                        cfg.vocab_size)
+            res[tag] = {"tokens_per_s": n * GEN_NEW / wall,
+                        "step_ms": wall / steps * 1e3, "steps": steps}
+            print(f"  generate ({name} {tag}): {n} x {GEN_NEW} tokens in "
+                  f"{wall * 1e3:.1f} ms, {res[tag]['tokens_per_s']:.1f} "
+                  f"tokens/s, {res[tag]['step_ms']:.2f} ms a step (prefill "
+                  f"included), {steps} steps")
+        res["engine"] = gen_engine_oracle(name, model, prompts,
+                                          outs["greedy"], cfg.vocab_size)
+        if name == "gpt3_1p3b":
+            eos = int(outs["greedy"][0, GEN_T0 + 2])
+            e = model.generate(prompts[:1], max_new_tokens=GEN_NEW,
+                               do_sample=False, eos_token_id=eos).cpu().numpy()
+            steps = G.last_decode_steps()
+            first = list(outs["greedy"][0, GEN_T0:]).index(eos)
+            print(f"  generate ({name} eos {eos}): {steps} steps of "
+                  f"{GEN_NEW}, tail all eos: "
+                  f"{bool((e[0, GEN_T0 + first:] == eos).all())}")
+            if not steps == first + 1 < GEN_NEW or not (
+                    e[0, GEN_T0 + first:] == eos).all():
+                fail(f"generate ({name}): eos run took {steps} steps")
+            res["eos"] = {"steps": steps, "max_new_tokens": GEN_NEW}
+            model.float()
+            lp_beam = seq_logprob(model, outs["beam4"])
+            lp_greedy = seq_logprob(model, outs["greedy"])
+            print(f"  generate ({name}): f32 sum log-prob of the generated "
+                  f"tokens, beam 4 {np.round(lp_beam, 3).tolist()} vs greedy "
+                  f"{np.round(lp_greedy, 3).tolist()}")
+            res["logprob"] = {"beam4": lp_beam.tolist(),
+                              "greedy": lp_greedy.tolist()}
+        out[name] = res
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- nan/inf scan phase --------------------------------------------------------
+
+def naninf_phase():
+    """``FLAGS_check_nan_inf`` on a 2-layer full-width GPT-3 1.3B forward:
+    with one weight NaN it must raise naming the op, write a ``naninf``
+    flight dump and count one trip; cleared, the forward runs and no
+    dispatch mode is left; the forward's ms with the flag on and off."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.core import dispatch
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.models import gpt3_1p3b
+    from paddle_tpu_torch.profiler import flight
+
+    cfg = dataclasses.replace(gpt3_1p3b(hidden_dropout=0.0,
+                                        attention_dropout=0.0), num_layers=2)
+    model = build_engine_model("gpt3_1p3b", cfg)
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 512))).cuda()
+    w = model.gpt.layers[0].mlp.up.weight
+
+    def forward():
+        with torch.no_grad():
+            return model(ids)
+
+    def ms(n=5):
+        forward()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(n):
+            forward()
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) / n * 1e3
+
+    off_ms = ms()
+    set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        on_ms = ms()
+    finally:
+        set_flags({"FLAGS_check_nan_inf": False})
+    saved = w[0, 0].item()
+    with torch.no_grad():  # poisoned with the flag off: the write is an op
+        w[0, 0] = float("nan")
+    c0 = profiler.counters().get("naninf_trips", 0)
+    set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        forward()
+    except FloatingPointError as e:
+        msg = str(e)
+    else:
+        fail("nan/inf scan: a NaN weight did not raise")
+    finally:
+        set_flags({"FLAGS_check_nan_inf": False})
+    trips = profiler.counters().get("naninf_trips", 0) - c0
+    dump = flight.last_dump()
+    if dispatch.scan_active():
+        fail("nan/inf scan: a dispatch mode is left with the flag cleared")
+    print(f"  raised: {msg}")
+    doc = json.load(open(dump)) if dump and os.path.exists(dump) else {}
+    if not msg.startswith("Operator 'aten.") or trips != 1 or \
+            doc.get("reason") != "naninf" or doc.get("extra", {}).get(
+                "message") != msg:
+        fail(f"nan/inf scan: trips {trips}, dump {dump}")
+    bad = forward()  # the flag off: the same forward runs, NaN and all
+    with torch.no_grad():
+        w[0, 0] = saved
+    print(f"  dump {Path(dump).name}, naninf_trips +{trips}; flag cleared: "
+          f"forward ran (non-finite logits {int((~torch.isfinite(bad)).sum())}"
+          f"), dispatch mode left: {dispatch.scan_active()}; forward "
+          f"b2 x s512 {off_ms:.2f} ms with the flag off, {on_ms:.2f} ms on")
+    del model, bad
+    torch.cuda.empty_cache()
+    return {"message": msg, "trips": trips, "off_ms": off_ms, "on_ms": on_ms}
+
+
 # -- registry phase ----------------------------------------------------------
 
 def tune_keys():
@@ -3229,7 +3795,7 @@ def main(argv=None) -> int:
 
     print("[2] kernels against their plain versions")
     errs = kernel_phase()
-    train_errs, long_errs = flash_phase()
+    train_errs, long_errs, llama_errs = flash_phase()
     errs.update(train_errs)
 
     print("[3] engine: gpt3_1p3b (a, b, e, f, g, i), then llama_7b (c, d, "
@@ -3243,6 +3809,17 @@ def main(argv=None) -> int:
     print("[7] Paddle-API train: gpt3_1p3b through to_tensor, nn.Layer, "
           "AdamW with a warm-up/cosine schedule and global-norm clipping")
     api = paddle_api_phase(compiled)
+
+    print("[8] Llama-7B train: llama_7b through jit.compile_train_step")
+    llama = llama_train_phase(profile=args.profile)
+    print("[9] ERNIE-3.0 base train (eager loop, Lamb), then the six new "
+          "optimizers card against CPU")
+    ernie = ernie_phase(profile=args.profile)
+    print("[10] dense generation: gpt3_1p3b greedy, beam 4, sampled, eos; "
+          "llama_7b greedy")
+    gen = generation_phase()
+    print("[11] FLAGS_check_nan_inf on the card")
+    naninf = naninf_phase()
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -3260,10 +3837,15 @@ def main(argv=None) -> int:
                       for t in registry["searches"] if t["kernel"] == reg]
         if r["name"] in api["launches"]:  # phase 7's path runs them too
             r["launches_paddle_api"] = api["launches"][r["name"]]
+        if r["name"] in llama["launches"]:  # and phase 8's
+            r["launches_llama_train"] = llama["launches"][r["name"]]
     # the reference's (B*H, T, D) route shape: not on the port's main path
     long_rows = flash_timing(long_errs, dict.fromkeys(FLASH_REPLACES, 0),
                              FLASH_LONG, fused_qkv=False)
-    for r in rows + long_rows:
+    # Llama-7B's training shape, with phase 8's launches
+    llama_rows = flash_timing(llama_errs, llama["launches"], FLASH_LLAMA,
+                              fused_qkv=False)
+    for r in rows + long_rows + llama_rows:
         extra = (f", {r['tflop_s']:.1f} TFLOP/s, host "
                  f"{r['host_us_per_call']:.1f} us/call" if "tflop_s" in r
                  else "")
@@ -3291,6 +3873,11 @@ def main(argv=None) -> int:
                   f"{r['ms'] * 1e3:.2f} us at {r['shape']}")
     print(json.dumps({"device_timeline": timeline}))
     print(json.dumps({"flash_long_shape": long_rows}))
+    print(json.dumps({"flash_llama_shape": llama_rows}))
+    print(json.dumps({"train_models": {"llama_7b": llama,
+                                       "ernie_3_base": ernie}}))
+    print(json.dumps({"generate": gen}))
+    print(json.dumps({"naninf": naninf}))
     print(json.dumps({"paged_shapes": paged}))
     print(json.dumps({"engine_drives": drives}))
     print(json.dumps({"registry": registry}))

@@ -52,6 +52,10 @@ from .ops.math import (abs, add, allclose, argmax, argmin, cast, clip, cumsum,
                        min, minimum, multiply, not_equal, pow, prod, rsqrt,
                        scale, sigmoid, sqrt, square, subtract, sum, tanh)
 
+from .core import dispatch as _dispatch
+
+_dispatch._sync_scan()  # FLAGS_check_nan_inf from the environment
+
 bool = bool_  # noqa: A001 (paddle.bool)
 is_grad_enabled = grad_enabled
 

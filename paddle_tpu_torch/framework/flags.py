@@ -1,6 +1,6 @@
 """Global flag registry (the ``FLAGS_serve_*`` entries the serving engine and
-its supervisor read, ``FLAGS_profile_memory`` and the kernel registry's
-``FLAGS_kernel_*``).
+its supervisor read, ``FLAGS_profile_memory``, the kernel registry's
+``FLAGS_kernel_*`` and the nan/inf scan's ``FLAGS_check_nan_inf*``).
 
 Same names, defaults and ``FLAGS_*`` environment pickup as the reference's
 ``paddle_tpu/framework/flags.py``; ``set_flags`` rejects unknown names with a
@@ -13,6 +13,12 @@ import os
 from typing import Dict
 
 _FLAGS: Dict[str, object] = {
+    # The nan/inf scan (core/dispatch.py): while FLAGS_check_nan_inf is set,
+    # every floating output of every op is checked and the first non-finite
+    # one raises FloatingPointError. FLAGS_check_nan_inf_per_op is accepted;
+    # the port already checks op by op, so it changes nothing.
+    "FLAGS_check_nan_inf": False,
+    "FLAGS_check_nan_inf_per_op": False,
     # Per-step memory census (the caching allocator's counters feeding the
     # profiler's live_bytes/peak gauges and the train_step span's attrs)
     # without a running Profiler; Profiler(profile_memory=True) turns it on
@@ -113,6 +119,10 @@ def set_flags(flags: dict) -> None:
                 f"unknown flag {k!r}"
                 + (f"; did you mean {hint[0]!r}?" if hint else ""))
         _FLAGS[k] = v
+    if "FLAGS_check_nan_inf" in flags:
+        from ..core import dispatch
+
+        dispatch._sync_scan()
 
 
 def get_flags(flags) -> dict:

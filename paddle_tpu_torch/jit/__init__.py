@@ -16,6 +16,9 @@ says, and ignores the per-parameter lr scale. The port keeps both
 behaviours, since each is held against the reference: ``step()`` for the
 eager loop, ``Optimizer._step(functional=True)`` here.
 
+With ``FLAGS_check_nan_inf`` set, a call raises ``TypeError``, as the
+reference's traced step does (``core/dispatch.py``).
+
 Each call is one ``train_step`` span. Under ``Profiler(profile_memory=True)``
 or ``FLAGS_profile_memory`` the step ends with a memory census
 (``profiler.memory_census``) whose ``live_bytes``, ``live_arrays``,
@@ -29,6 +32,7 @@ import torch
 
 from .. import profiler
 from ..core.place import resolve_device
+from ..framework.flags import flag
 
 __all__ = ["CompiledTrainStep", "compile_train_step"]
 
@@ -50,6 +54,14 @@ class CompiledTrainStep:
             else torch.as_tensor(b, device=self._device)
 
     def __call__(self, *batch):
+        if flag("FLAGS_check_nan_inf", False):
+            # the reference's step is traced, and its nan/inf scan cannot
+            # read a traced value: every call raises jax's
+            # TracerBoolConversionError (a TypeError) while the flag is set
+            raise TypeError(
+                "compile_train_step: FLAGS_check_nan_inf cannot scan a "
+                "compiled train step, whose values are traced in the "
+                "reference; clear the flag or run the eager loop")
         with profiler.span("train_step", step=self._step_count) as sp:
             self.optimizer.clear_grad(set_to_zero=False)
             loss = self.loss_fn(self.model,

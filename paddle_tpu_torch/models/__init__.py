@@ -1,4 +1,6 @@
 from .convert import load_reference_state_dict
+from .ernie import (ErnieConfig, ErnieForPretraining, ErnieLayer, ErnieModel,
+                    ErnieSelfAttention, ernie_3_base)
 from .gpt import (GPTConfig, GPTForPretraining, GPTModel, gpt3_13b, gpt3_1p3b,
                   gpt_tiny)
 from .llama import (LlamaAttention, LlamaConfig, LlamaDecoderLayer,
@@ -9,4 +11,6 @@ __all__ = ["GPTConfig", "GPTForPretraining", "GPTModel", "gpt_tiny",
            "gpt3_1p3b", "gpt3_13b", "load_reference_state_dict",
            "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP", "RMSNorm",
-           "apply_rope", "llama_tiny", "llama_7b"]
+           "apply_rope", "llama_tiny", "llama_7b", "ErnieConfig",
+           "ErnieForPretraining", "ErnieModel", "ErnieLayer",
+           "ErnieSelfAttention", "ernie_3_base"]

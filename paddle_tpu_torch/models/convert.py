@@ -1,4 +1,6 @@
-"""Load the reference model's weights into a port model by parameter name."""
+"""Load the reference model's weights into a port model by parameter name
+(GPT, Llama and ERNIE alike: their parameter names, the mp layers' included,
+equal the reference's ``state_dict()`` names)."""
 from __future__ import annotations
 
 from typing import Mapping

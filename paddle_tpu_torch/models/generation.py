@@ -1,5 +1,14 @@
-"""Paged prefill/decode over the KV block pool (port of the serving half of
+"""Dense and paged KV-cached decode (port of
 ``paddle_tpu/models/generation.py``).
+
+``generate`` (GPT, greedy, sampled or beam search) and ``generate_llama``
+run the reference's dense decode: a prefill into a dense (B, T_max, KV, D)
+cache per layer, then one token a row a step through the plugs'
+``embed_token`` and ``block(w, x, kv, pos)``. The reference jits each
+decode into one program; the port runs the loop eagerly on the card, like
+the engine's steps (see ``_build_decode`` for where it syncs).
+``last_decode_steps()`` gives the last loop's trip count and
+``top_k_top_p_filtering`` the sampling filter.
 
 ``gpt_decode_state`` and ``llama_decode_state`` extract a model's weight
 tree and its architecture plug (GPT: LayerNorm, learned positions, fused
@@ -35,6 +44,8 @@ rows only. Weight trees may be plain dicts of tensors or the lazy
 dequantizing view of ``serving/int8.py`` (``take`` gathers int8 rows first).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -79,6 +90,23 @@ def _grouped_attention(q, kc, vc, live, rep):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bkgd->bqgrd", p, vc)
     return o.reshape(B, T, H * D)
+
+
+def _dense_attention(q, k, v, kv, pos, rep):
+    """The attention of a plug's ``block``: causal over the T fed tokens
+    (``kv`` None: returns their K/V), or the fed tokens' K/V written into
+    the dense cache ``kv`` at ``pos`` (in place) and attention over its
+    positions <= pos (returns the cache)."""
+    if kv is None:
+        T = q.shape[1]
+        live = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        return _grouped_attention(q, k, v, live[None, None, None], rep), \
+            (k, v)
+    kc, vc = kv
+    kc[:, pos:pos + k.shape[1]] = k
+    vc[:, pos:pos + v.shape[1]] = v
+    live = torch.arange(kc.shape[1], device=q.device) <= pos
+    return _grouped_attention(q, kc, vc, live, rep), (kc, vc)
 
 
 def _ln(x, w, b, eps=1e-5):
@@ -200,21 +228,29 @@ def _gpt_arch(H, D, n_pos):
         o = _grouped_attention(q, k_ctx, v_ctx, live[:, None, None], rep=1)
         return attn_out_rows(w, x, o), k_new, v_new
 
-    def block(w, x):
-        # dense causal pass over a prompt batch x (B,T,H·D)
+    def embed_token(params, tok, pos):
+        # one token a row at the shared position pos (dense decode)
+        wpe = _rows(params, "wpe", torch.full((1,), pos, device=tok.device))
+        return (_rows(params, "wte", tok) + wpe)[:, None]
+
+    def block(w, x, kv=None, pos=None):
+        # dense causal pass over x (B,T,H·D): a prompt batch (kv None,
+        # returns its K/V), or T tokens at positions pos.. against the dense
+        # cache kv = (kc, vc) (B,T_max,KV,D), whose slots pos..pos+T-1 it
+        # writes in place before attending over positions <= pos
         B, T = x.shape[0], x.shape[1]
         h = _ln(x, w["ln1_w"], w["ln1_b"])
         qkv = (h @ w["qkv_w"] + w["qkv_b"]).reshape(B, T, 3, H, D)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        live = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-        o = _grouped_attention(q, k, v, live[None, None, None], rep=1)
-        return mlp_out(w, x + (o @ w["proj_w"] + w["proj_b"])), (k, v)
+        o, new_kv = _dense_attention(q, k, v, kv, pos, rep=1)
+        return mlp_out(w, x + (o @ w["proj_w"] + w["proj_b"])), new_kv
 
     def head(params, x):
         return _head_mm(params, _ln(x[:, -1], params["lnf_w"], params["lnf_b"]),
                         "wte", True)  # tied head
 
-    return {"embed_prompt": embed_prompt, "embed_rows": embed_rows,
+    return {"embed_prompt": embed_prompt, "embed_token": embed_token,
+            "embed_rows": embed_rows,
             "embed_tail": embed_tail, "head_rows": head_rows,
             "head_all": head_all, "block_rows": block_rows,
             "block_tail": block_tail, "qkv_rows": qkv_rows,
@@ -368,23 +404,27 @@ def _llama_arch(H, KV, D, theta, eps):
         o = _grouped_attention(q, k_ctx, v_ctx, live[:, None, None], rep)
         return attn_out_rows(w, x, o), k_new, v_new
 
-    def block(w, x):
-        # dense causal pass over a prompt batch x (B,T,H·D), RoPE at
-        # positions 0..T-1; returns the KV heads, never the repeats
+    def embed_token(params, tok, pos):
+        return _rows(params, "wte", tok)[:, None]
+
+    def block(w, x, kv=None, pos=None):
+        # see the GPT plug for the contract; RoPE at positions pos.. (0..
+        # for a prompt); the cache holds the KV heads, never the repeats
         B, T = x.shape[0], x.shape[1]
+        pos0 = 0.0 if kv is None else float(pos)
         h = _rms(x, w["ln1_w"], eps)
-        q = _rope_at((h @ w["q_w"]).reshape(B, T, H, D), 0.0, theta)
-        k = _rope_at((h @ w["k_w"]).reshape(B, T, KV, D), 0.0, theta)
+        q = _rope_at((h @ w["q_w"]).reshape(B, T, H, D), pos0, theta)
+        k = _rope_at((h @ w["k_w"]).reshape(B, T, KV, D), pos0, theta)
         v = (h @ w["v_w"]).reshape(B, T, KV, D)
-        live = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-        o = _grouped_attention(q, k, v, live[None, None, None], rep)
-        return attn_out_rows(w, x, o), (k, v)
+        o, new_kv = _dense_attention(q, k, v, kv, pos, rep)
+        return attn_out_rows(w, x, o), new_kv
 
     def head(params, x):
         return _head_mm(params, _rms(x[:, -1], params["lnf_w"], eps),
                         "head_w", False)  # untied head, (h, V)
 
-    return {"embed_prompt": embed_prompt, "embed_rows": embed_rows,
+    return {"embed_prompt": embed_prompt, "embed_token": embed_token,
+            "embed_rows": embed_rows,
             "embed_tail": embed_tail, "head_rows": head_rows,
             "head_all": head_all, "block_rows": block_rows,
             "block_tail": block_tail, "qkv_rows": qkv_rows,
@@ -687,3 +727,236 @@ def build_window_draft(arch, B, W, k):
         return out
 
     return draft
+
+
+# ---------------------------------------------------------------------------
+# Dense KV-cached decode: generate / generate_llama
+# ---------------------------------------------------------------------------
+
+_LAST_DECODE_STEPS: Optional[int] = None
+
+
+def last_decode_steps() -> Optional[int]:
+    """Trip count of the most recent ``generate``/``generate_llama`` decode
+    loop in this process (None before the first call): below
+    ``max_new_tokens`` when eos finished every row early; a beam search
+    runs them all. A diagnostic, not thread-safe."""
+    return _LAST_DECODE_STEPS
+
+
+def top_k_top_p_filtering(logits, top_k=0, top_p=1.0):
+    """Logits outside the top ``top_k`` and outside the smallest prefix of
+    the sorted distribution whose mass reaches ``top_p`` set to -inf (the
+    reference's ``top_k_top_p_filtering``; ties at the k-th value are
+    kept)."""
+    V = logits.shape[-1]
+    if top_k and top_k > 0:
+        k = min(int(top_k), V)  # top_k beyond the vocab keeps everything
+        kth = torch.sort(logits, dim=-1).values[..., V - k, None]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p is not None and top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        cutoff_idx = (cum < top_p).sum(-1, keepdim=True)
+        cutoff = sorted_logits.gather(-1, cutoff_idx)
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    return logits
+
+
+def _prefill_dense(arch, params, ids, T0, T_max):
+    """The prompt's forward: each layer's K/V copied into a zeroed dense
+    cache (B, T_max, KV, D), and the last position's logits."""
+    KV, D = arch["kv_heads"], arch["head_dim"]
+    x = arch["embed_prompt"](params, ids, T0)
+    caches = []
+    for w in params["layers"]:
+        x, (k, v) = arch["block"](w, x)
+        kc = k.new_zeros((ids.shape[0], T_max, KV, D))
+        vc = v.new_zeros((ids.shape[0], T_max, KV, D))
+        kc[:, :T0] = k
+        vc[:, :T0] = v
+        caches.append((kc, vc))
+    return caches, arch["head"](params, x)
+
+
+def _forward_token(arch, params, caches, tok, pos):
+    """One token a row at position ``pos`` through every layer against the
+    dense caches (written in place); the next logits."""
+    x = arch["embed_token"](params, tok, pos)
+    for w, kv in zip(params["layers"], caches):
+        x, _ = arch["block"](w, x, kv=kv, pos=pos)
+    return arch["head"](params, x)
+
+
+def _build_decode(arch, T0, T_max, max_new_tokens, temperature, top_k, top_p,
+                  eos_token_id, do_sample):
+    """The reference's one-program decode, run eagerly: prefill, then one
+    token a row a step. The output's tail is pre-filled with eos, finished
+    rows are frozen to eos, and the loop ends once every row is finished:
+    with ``eos_token_id`` set each step reads ``finished.all()`` on the host
+    (one sync a step, after the token is written and before the next
+    forward is queued); without it the loop never syncs. The forward after
+    the last token is skipped (the reference computes and drops it), which
+    changes no output and no trip count."""
+
+    def sample_from(logits, generator):
+        if do_sample:
+            logits = top_k_top_p_filtering(
+                logits.float() / max(temperature, 1e-6), top_k, top_p)
+            u = torch.rand(logits.shape, generator=generator,
+                           device=logits.device)
+            return (logits - torch.log(-torch.log(u))).argmax(-1)
+        return logits.argmax(-1)
+
+    def decode(params, ids, generator):
+        B = ids.shape[0]
+        caches, logits = _prefill_dense(arch, params, ids, T0, T_max)
+        fill = 0 if eos_token_id is None else int(eos_token_id)
+        out = torch.full((B, T_max), fill, dtype=torch.int64,
+                         device=ids.device)
+        out[:, :T0] = ids
+        finished = torch.zeros(B, dtype=torch.bool, device=ids.device)
+        steps = 0
+        while steps < max_new_tokens:
+            nxt = sample_from(logits, generator)
+            if eos_token_id is not None:
+                # frozen rows re-write the eos their slot already holds
+                nxt = torch.where(finished, eos_token_id, nxt)
+                finished = finished | (nxt == eos_token_id)
+            pos = T0 + steps
+            out[:, pos] = nxt
+            steps += 1
+            if steps == max_new_tokens or (eos_token_id is not None
+                                           and bool(finished.all())):
+                break
+            logits = _forward_token(arch, params, caches, nxt, pos)
+        return out, steps
+
+    return decode
+
+
+def _stable_top_k(x, k):
+    """``lax.top_k``: the k largest along the last axis, ties in index
+    order (``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _build_beam_decode(arch, T0, T_max, max_new_tokens, num_beams,
+                       eos_token_id, length_penalty):
+    """Beam search (the reference's ``_build_beam_decode``): the prompt's
+    caches tiled across the K beams, beam 0 live first (the others start at
+    -1e30, so step 1 draws K distinct tokens), the top K of K·V summed f32
+    log-probs each step, rows (tokens and caches) re-gathered along the beam
+    axis, finished beams extended by eos at no cost, and the best beam by
+    the GNMT length penalty ``score / (T0 + max_new_tokens) **
+    length_penalty``."""
+    K = int(num_beams)
+
+    def decode(params, ids):
+        B = ids.shape[0]
+        dev = ids.device
+        caches, logits = _prefill_dense(arch, params, ids, T0, T_max)
+        caches = [(kc.repeat_interleave(K, 0), vc.repeat_interleave(K, 0))
+                  for kc, vc in caches]
+        logits = logits.repeat_interleave(K, 0)  # (B*K, V)
+        out = torch.zeros((B * K, T_max), dtype=torch.int64, device=dev)
+        out[:, :T0] = ids.repeat_interleave(K, 0)
+        scores = torch.tensor([0.0] + [-1e30] * (K - 1), device=dev).repeat(
+            B, 1)
+        finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
+        base = (torch.arange(B, device=dev) * K)[:, None]
+        for i in range(max_new_tokens):
+            V = logits.shape[-1]
+            logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+            if eos_token_id is not None:
+                eos_only = torch.full((V,), float("-inf"), device=dev)
+                eos_only[eos_token_id] = 0.0
+                logp = torch.where(finished[..., None], eos_only, logp)
+            scores, idx = _stable_top_k(
+                (scores[..., None] + logp).reshape(B, K * V), K)
+            beam_idx, token = idx // V, idx % V
+            rows = (beam_idx + base).reshape(-1)
+            out = out[rows]
+            caches = [(kc[rows], vc[rows]) for kc, vc in caches]
+            finished = finished.gather(1, beam_idx)
+            if eos_token_id is not None:
+                finished = finished | (token == eos_token_id)
+            pos = T0 + i
+            out[:, pos] = token.reshape(-1)
+            if i + 1 < max_new_tokens:  # the last forward's logits go unused
+                logits = _forward_token(arch, params, caches,
+                                        token.reshape(-1), pos)
+        norm = scores / (float(T0 + max_new_tokens) ** float(length_penalty))
+        best = norm.argmax(1)
+        return out[best + base[:, 0]]
+
+    return decode
+
+
+def _run(arch, params, ids, T0, max_new_tokens, temperature, top_k, top_p,
+         eos_token_id, do_sample, num_beams=1, length_penalty=0.0,
+         generator=None):
+    global _LAST_DECODE_STEPS
+    T_max = T0 + int(max_new_tokens)
+    if num_beams and int(num_beams) > 1:
+        out = _build_beam_decode(arch, T0, T_max, int(max_new_tokens),
+                                 int(num_beams), eos_token_id,
+                                 float(length_penalty))(params, ids)
+        _LAST_DECODE_STEPS = int(max_new_tokens)  # no early exit
+        return out
+    if generator is None and do_sample:
+        from ..core import random as random_state
+
+        generator = random_state.default_generator(ids.device)
+    out, steps = _build_decode(
+        arch, T0, T_max, int(max_new_tokens), float(temperature), int(top_k),
+        float(top_p), eos_token_id, bool(do_sample))(params, ids, generator)
+    _LAST_DECODE_STEPS = steps
+    return out
+
+
+def _prompt_ids(input_ids, device, max_pos, max_new_tokens):
+    ids = torch.as_tensor(np.asarray(input_ids) if not isinstance(
+        input_ids, torch.Tensor) else input_ids).to(device, torch.int64)
+    if ids.dim() != 2:
+        raise ValueError(f"generate: input_ids must be (B, T), got "
+                         f"{tuple(ids.shape)}")
+    T0 = ids.shape[1]
+    if T0 + int(max_new_tokens) > max_pos:
+        raise ValueError(f"generate: {T0 + int(max_new_tokens)} exceeds "
+                         f"max_position_embeddings {max_pos}")
+    return ids, T0
+
+
+@torch.inference_mode()
+def generate(model, input_ids, max_new_tokens: int = 32,
+             temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+             eos_token_id: Optional[int] = None, do_sample: bool = True,
+             num_beams: int = 1, length_penalty: float = 0.0,
+             generator: Optional[torch.Generator] = None):
+    """Continuations of (B, T0) prompts for a ``GPTForPretraining``: (B, T0
+    + max_new_tokens) int64 ids on the model's device (slots after a row's
+    eos hold eos). Greedy (``do_sample=False``), sampled (temperature,
+    top-k, top-p; uniforms from ``generator``, else the port's generator of
+    the device, never torch's global one) or beam search
+    (``num_beams > 1``)."""
+    _, arch, params, max_pos = gpt_decode_state(model)
+    ids, T0 = _prompt_ids(input_ids, params["wte"].device, max_pos,
+                          max_new_tokens)
+    return _run(arch, params, ids, T0, max_new_tokens, temperature, top_k,
+                top_p, eos_token_id, do_sample, num_beams=num_beams,
+                length_penalty=length_penalty, generator=generator)
+
+
+@torch.inference_mode()
+def generate_llama(model, input_ids, max_new_tokens=32, temperature=1.0,
+                   top_k=0, top_p=1.0, eos_token_id=None, do_sample=True,
+                   generator: Optional[torch.Generator] = None):
+    """``generate`` for a ``LlamaForCausalLM``: RoPE at absolute cache
+    positions, grouped-query attention against the un-repeated KV cache."""
+    _, arch, params, max_pos = llama_decode_state(model)
+    ids, T0 = _prompt_ids(input_ids, params["wte"].device, max_pos,
+                          max_new_tokens)
+    return _run(arch, params, ids, T0, max_new_tokens, temperature, top_k,
+                top_p, eos_token_id, do_sample, generator=generator)

@@ -12,7 +12,8 @@ Attention in ``forward`` goes through
 when eligible, the exact masked softmax otherwise); dropout draws from the
 port's generators (``core/random``) and applies only in ``train()`` mode,
 serving runs ``eval()``. ``GPTForPretraining.loss`` is the training loss,
-fused (``ops/fused_ce.py``) or through full logits.
+fused (``ops/fused_ce.py``) or through full logits; ``generate`` the dense
+KV-cached decode (``models/generation.py``).
 """
 from __future__ import annotations
 
@@ -201,6 +202,23 @@ class GPTForPretraining(Layer):
         logits = self(input_ids)
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                labels.reshape(-1))
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=0, top_p=1.0, eos_token_id=None, do_sample=True,
+                 num_beams=1, length_penalty=0.0,
+                 generator: Optional[torch.Generator] = None):
+        """KV-cached dense decode (``models/generation.py`` ``generate``):
+        greedy, sampled (uniforms from ``generator``, else the port's
+        generator of the device) or, with ``num_beams > 1``, beam search
+        under the GNMT ``length_penalty``."""
+        from .generation import generate as _generate
+
+        return _generate(
+            self, input_ids, max_new_tokens=max_new_tokens,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            eos_token_id=eos_token_id, do_sample=do_sample,
+            num_beams=num_beams, length_penalty=length_penalty,
+            generator=generator)
 
 
 # -- standard configs --------------------------------------------------------

@@ -4,9 +4,14 @@ RMSNorm, rotary embeddings on interleaved pairs, grouped-query attention and
 a SwiGLU MLP, with an untied LM head. Parameter names and shapes equal the
 reference's ``state_dict()``: e.g. ``model.layers.0.self_attn.q_proj.weight``
 is (h, h) in Paddle's (in, out) layout and ``lm_head.weight`` is (h, V), so
-the reference's weights load by name (``models/convert.py``). Attention in
-``forward`` goes through ``nn.functional.scaled_dot_product_attention``, as
-GPT's does. Every class is an ``nn.Layer``, as GPT's.
+the reference's weights load by name (``models/convert.py``). The projections,
+the embedding and the head are the port's single-device model-parallel
+layers, as the reference's are (``distributed/fleet/meta_parallel``).
+Attention in ``forward`` goes through
+``nn.functional.scaled_dot_product_attention`` (the flash kernels on the
+card for the causal training pass), with grouped-query attention's K/V
+heads repeated before it, so the backward sums each KV head's gradient over
+its query heads. Every class is an ``nn.Layer``, as GPT's.
 """
 from __future__ import annotations
 
@@ -14,10 +19,12 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-import torch.nn.functional as TF
 
 from ..core.place import resolve_device
-from ..nn import Embedding, Layer, LayerList, Linear
+from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
+                                               RowParallelLinear,
+                                               VocabParallelEmbedding)
+from ..nn import Layer, LayerList
 from ..nn import functional as F
 from ..nn.initializer import Constant, Normal
 
@@ -95,10 +102,12 @@ class LlamaAttention(Layer):
         self.kv_heads = config.kv_heads
         self.head_dim = h // config.num_heads
         kvd = self.kv_heads * self.head_dim
-        self.q_proj = Linear(h, h, bias_attr=False, **kw)
-        self.k_proj = Linear(h, kvd, bias_attr=False, **kw)
-        self.v_proj = Linear(h, kvd, bias_attr=False, **kw)
-        self.o_proj = Linear(h, h, bias_attr=False, **kw)
+        col = {"has_bias": False, "gather_output": False, **kw}
+        self.q_proj = ColumnParallelLinear(h, h, **col)
+        self.k_proj = ColumnParallelLinear(h, kvd, **col)
+        self.v_proj = ColumnParallelLinear(h, kvd, **col)
+        self.o_proj = RowParallelLinear(h, h, has_bias=False,
+                                        input_is_parallel=True, **kw)
         self.theta = config.rope_theta
 
     def forward(self, x, attn_mask=None):
@@ -123,12 +132,14 @@ class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
         h, f = config.hidden_size, config.ffn_size
-        self.gate_proj = Linear(h, f, bias_attr=False, **kw)
-        self.up_proj = Linear(h, f, bias_attr=False, **kw)
-        self.down_proj = Linear(f, h, bias_attr=False, **kw)
+        col = {"has_bias": False, "gather_output": False, **kw}
+        self.gate_proj = ColumnParallelLinear(h, f, **col)
+        self.up_proj = ColumnParallelLinear(h, f, **col)
+        self.down_proj = RowParallelLinear(f, h, has_bias=False,
+                                           input_is_parallel=True, **kw)
 
     def forward(self, x):
-        return self.down_proj(TF.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaDecoderLayer(Layer):
@@ -151,7 +162,7 @@ class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
         self.config = config
-        self.embed_tokens = Embedding(
+        self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size,
             weight_attr=Normal(std=config.initializer_range), **kw)
         self.layers = LayerList(
@@ -172,8 +183,9 @@ class LlamaForCausalLM(Layer):
     Built on ``device`` (default ``get_device()``: the card unless the CPU
     was asked for) in ``dtype``, with random weights drawn from a
     ``torch.Generator`` seeded with ``seed``; every parameter is created on
-    the device. ``generate`` (dense KV-cached decode) is not ported yet
-    (ROADMAP A9); serve through ``serving.Engine``."""
+    the device. ``loss`` trains it, eagerly or through
+    ``jit.compile_train_step``; ``generate`` is the dense KV-cached decode
+    (``models/generation.py``), ``serving.Engine`` the paged one."""
 
     def __init__(self, config: LlamaConfig, device=None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0):
@@ -182,8 +194,9 @@ class LlamaForCausalLM(Layer):
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         kw = {"device": dev, "dtype": dtype, "generator": gen}
         self.model = LlamaModel(config, **kw)
-        self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                              bias_attr=False, **kw)
+        self.lm_head = ColumnParallelLinear(config.hidden_size,
+                                            config.vocab_size, has_bias=False,
+                                            gather_output=True, **kw)
 
     def forward(self, input_ids, attn_mask=None):
         return self.lm_head(self.model(input_ids, attn_mask))
@@ -193,6 +206,21 @@ class LlamaForCausalLM(Layer):
         logits = self(input_ids)
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                labels.reshape(-1))
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=0, top_p=1.0, eos_token_id=None, do_sample=True,
+                 generator: Optional[torch.Generator] = None):
+        """KV-cached dense decode (``models/generation.py``
+        ``generate_llama``: RoPE at absolute cache positions, the cache
+        holding the KV heads only). Sampled calls draw from ``generator``
+        (a seeded one on the model's device when None)."""
+        from .generation import generate_llama
+
+        return generate_llama(
+            self, input_ids, max_new_tokens=max_new_tokens,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            eos_token_id=eos_token_id, do_sample=do_sample,
+            generator=generator)
 
 
 def llama_tiny(**kw):

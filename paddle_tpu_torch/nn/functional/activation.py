@@ -2,6 +2,7 @@
 ``paddle_tpu/nn/functional/activation.py`` the models call)."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as TF
 
 
@@ -11,4 +12,13 @@ def gelu(x, approximate=False, name=None):
     return TF.gelu(x, approximate="tanh" if approximate else "none")
 
 
-__all__ = ["gelu"]
+def tanh(x, name=None):
+    return torch.tanh(x)
+
+
+def silu(x, name=None):
+    """``x * sigmoid(x)`` (``jax.nn.silu``)."""
+    return TF.silu(x)
+
+
+__all__ = ["gelu", "tanh", "silu"]

@@ -1,5 +1,6 @@
-"""linear (port of ``paddle_tpu/nn/functional/common.py:19``) and dropout,
-drawn from the port's own generators (``core/random.py``)."""
+"""linear (port of ``paddle_tpu/nn/functional/common.py:19``), embedding
+(:96) and dropout, drawn from the port's own generators
+(``core/random.py``)."""
 from __future__ import annotations
 
 import torch
@@ -11,6 +12,16 @@ def linear(x, weight, bias=None, name=None):
     """``x @ weight (+ bias)`` with Paddle's (in, out) weight."""
     y = x @ weight
     return y if bias is None else y + bias
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at the integer ids ``x``. The ``padding_idx`` row
+    is zeroed before the lookup, as the reference does, so it reads 0 and
+    gets no gradient."""
+    if padding_idx is not None:
+        weight = weight.index_fill(
+            0, torch.tensor([int(padding_idx)], device=weight.device), 0.0)
+    return weight[x]
 
 
 def keep_mask(shape, p: float, device) -> torch.Tensor:
@@ -31,4 +42,4 @@ def dropout(x, p: float = 0.5, training: bool = True):
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
-__all__ = ["linear", "dropout", "keep_mask"]
+__all__ = ["linear", "embedding", "dropout", "keep_mask"]

@@ -1,6 +1,7 @@
 """Optimizers (port of ``paddle_tpu/optimizer/__init__.py``: ``L1Decay``,
-``L2Decay``, ``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``, and the
-schedulers of ``optimizer/lr.py``).
+``L2Decay``, ``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``,
+``Adamax``, ``RMSProp``, ``Adagrad``, ``Adadelta``, ``Lamb``,
+``LarsMomentum``, and the schedulers of ``optimizer/lr.py``).
 
 Each class's update is the reference's ``_rule`` written as tensor code over
 the parameter list, with ``torch._foreach_*`` ops so one launch covers many
@@ -13,6 +14,21 @@ weak typing before it multiplies. The port does the same, so a bf16 model
 keeps bf16 moments and, e.g., beta2 = 0.999 acts as bf16(0.999) = 1.0. This
 is not ``torch.optim.AdamW``, which adds epsilon after dividing by
 sqrt(bias correction 2) and keeps its own rounding.
+
+Each constant and each product rounds where the reference's XLA program
+rounds it: after every op, in the dtype JAX's promotion gives (XLA keeps
+no excess precision between bf16 ops, but keeps a bf16 product that is
+promoted to f32 at once in f32, which only ``Lamb`` meets), so the
+elementwise rules write one ``torch._foreach_*`` op for each of the
+reference's ops. ``Lamb`` and ``LarsMomentum`` need each parameter's f32
+norm and run parameter by parameter. ``Lamb`` follows the reference's promotion: its bias corrections
+are f32 arrays, so a bf16 parameter comes out of the first step as float32
+(the port rebinds ``p.data``), and its moments follow it on the next step.
+
+``_elementwise_rule`` marks the rules that are elementwise maps over
+(parameter, gradient, state), which a flat shard of the parameters can run
+(the reference's ZeRO-1 update reads it); the base class and the two
+norm-based rules leave it False.
 
 Parameters are given as tensors or as ``(name, tensor)`` pairs (e.g.
 ``model.named_parameters()``). ``state_dict()`` is keyed by the pair's name,
@@ -40,7 +56,8 @@ from . import lr
 from .lr import LRScheduler
 
 __all__ = ["L1Decay", "L2Decay", "Optimizer", "SGD", "Momentum", "Adam",
-           "AdamW", "lr", "LRScheduler"]
+           "AdamW", "Adamax", "RMSProp", "Adagrad", "Adadelta", "Lamb",
+           "LarsMomentum", "lr", "LRScheduler"]
 
 
 class L2Decay:
@@ -59,6 +76,8 @@ def _rounded(x: float, dtype: torch.dtype) -> float:
 
 
 class Optimizer:
+    _elementwise_rule = False
+
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
         if parameters is None:
@@ -104,6 +123,11 @@ class Optimizer:
     def _wd_on(self, name: str) -> float:
         return 1.0
 
+    def _gate(self, i: int) -> float:
+        """Parameter i's decay gate in the eager step: ``_wd_on`` of the name
+        the reference's gate sees (``Lamb`` reads the parameter itself)."""
+        return self._wd_on(self._gate_names[i])
+
     def _update(self, ps, gs, states, lr: float, t: int, wd: float) -> None:
         """In place over one group of parameters that share device, dtype and
         decay gate: ``states[i]`` holds parameter i's accumulators."""
@@ -148,7 +172,7 @@ class Optimizer:
             if functional:
                 wd, scale = 1.0, 1.0
             else:
-                wd = self._wd_on(self._gate_names[i])
+                wd = self._gate(i)
                 scale = float(getattr(p, "optimize_attr", {}).get(
                     "learning_rate", 1.0))
             key = (p.device, p.dtype, wd, scale)
@@ -193,19 +217,27 @@ class Optimizer:
             self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
         for name, p in zip(self._names, self._parameter_list):
             prefix = f"{name}."
-            st = {k[len(prefix):]: torch.as_tensor(v).to(p.device, p.dtype)
-                  for k, v in state_dict.items()
-                  if isinstance(k, str) and k.startswith(prefix)}
+            # a tensor keeps its dtype (Lamb's moments may differ from the
+            # parameter's); arrays take the parameter's
+            st = {k[len(prefix):]: (
+                v.to(p.device) if isinstance(v, torch.Tensor)
+                else torch.as_tensor(v).to(p.device, p.dtype))
+                for k, v in state_dict.items()
+                if isinstance(k, str) and k.startswith(prefix)}
             if st:
                 self._accumulators[name] = st
 
 
 class SGD(Optimizer):
+    _elementwise_rule = True
+
     def _update(self, ps, gs, states, lr, t, wd):
         torch._foreach_add_(ps, gs, alpha=-_rounded(lr, ps[0].dtype))
 
 
 class Momentum(Optimizer):
+    _elementwise_rule = True
+
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
@@ -227,6 +259,8 @@ class Momentum(Optimizer):
 
 
 class Adam(Optimizer):
+    _elementwise_rule = True
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,
                  grad_clip=None):
@@ -288,3 +322,241 @@ class AdamW(Adam):
         if factor != 1.0:
             torch._foreach_mul_(ps, factor)
         super()._update(ps, gs, states, lr, t, wd)
+
+
+def _f32_pow(base: float, t: int) -> np.float32:
+    """``jnp.power(base, t)`` with the reference's f32 step ``t``."""
+    return np.power(np.float32(base), np.float32(t))
+
+
+class Adamax(Optimizer):
+    _elementwise_rule = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _init_accums(self, p):
+        return {"moment": torch.zeros_like(p), "inf_norm": torch.zeros_like(p)}
+
+    def _update(self, ps, gs, states, lr, t, wd):
+        dt = ps[0].dtype
+        b1, b2 = self._beta1, self._beta2
+        ms = [st["moment"] for st in states]
+        us = [st["inf_norm"] for st in states]
+        torch._foreach_mul_(ms, _rounded(b1, dt))
+        torch._foreach_add_(ms, torch._foreach_mul(gs, _rounded(1 - b1, dt)))
+        torch._foreach_mul_(us, _rounded(b2, dt))
+        torch._foreach_maximum_(us, torch._foreach_abs(gs))
+        # lr / (1 - b1^t) in f32, then cast to the parameter's dtype
+        lr_t = np.float32(lr) / (np.float32(1) - _f32_pow(b1, t))
+        step = torch._foreach_mul(ms, _rounded(float(lr_t), dt))
+        torch._foreach_div_(step, torch._foreach_add(us, _rounded(
+            self._epsilon, dt)))
+        torch._foreach_sub_(ps, step)
+
+
+class RMSProp(Optimizer):
+    """``centered`` divides by the variance (mean square less the squared
+    mean gradient); the uncentered rule leaves ``mean_grad`` as it is."""
+
+    _elementwise_rule = True
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-06, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _init_accums(self, p):
+        return {"mean_square": torch.zeros_like(p),
+                "momentum": torch.zeros_like(p),
+                "mean_grad": torch.zeros_like(p)}
+
+    def _update(self, ps, gs, states, lr, t, wd):
+        dt = ps[0].dtype
+        rho = self._rho
+        mss = [st["mean_square"] for st in states]
+        moms = [st["momentum"] for st in states]
+        torch._foreach_mul_(mss, _rounded(rho, dt))
+        torch._foreach_add_(mss, torch._foreach_mul(
+            torch._foreach_mul(gs, gs), _rounded(1 - rho, dt)))
+        denom = mss
+        if self._centered:
+            mgs = [st["mean_grad"] for st in states]
+            torch._foreach_mul_(mgs, _rounded(rho, dt))
+            torch._foreach_add_(mgs, torch._foreach_mul(gs, _rounded(1 - rho,
+                                                                     dt)))
+            denom = torch._foreach_sub(mss, torch._foreach_mul(mgs, mgs))
+        denom = torch._foreach_sqrt(torch._foreach_add(denom, _rounded(
+            self._epsilon, dt)))
+        step = torch._foreach_mul(gs, _rounded(lr, dt))
+        torch._foreach_div_(step, denom)
+        torch._foreach_mul_(moms, _rounded(self._momentum, dt))
+        torch._foreach_add_(moms, step)
+        torch._foreach_sub_(ps, moms)
+
+
+class Adagrad(Optimizer):
+    _elementwise_rule = True
+
+    def __init__(self, learning_rate, epsilon=1e-06, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _init_accums(self, p):
+        return {"moment": torch.full_like(p, self._init_acc)}
+
+    def _update(self, ps, gs, states, lr, t, wd):
+        dt = ps[0].dtype
+        ms = [st["moment"] for st in states]
+        torch._foreach_add_(ms, torch._foreach_mul(gs, gs))
+        denom = torch._foreach_sqrt(ms)
+        torch._foreach_add_(denom, _rounded(self._epsilon, dt))
+        step = torch._foreach_mul(gs, _rounded(lr, dt))
+        torch._foreach_div_(step, denom)
+        torch._foreach_sub_(ps, step)
+
+
+class Adadelta(Optimizer):
+    """The update reads the accumulated squared update of the step before
+    (``avg_squared_update`` is refreshed after it)."""
+
+    _elementwise_rule = True
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-06, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _init_accums(self, p):
+        return {"avg_squared_grad": torch.zeros_like(p),
+                "avg_squared_update": torch.zeros_like(p)}
+
+    def _update(self, ps, gs, states, lr, t, wd):
+        dt = ps[0].dtype
+        rho, eps = _rounded(self._rho, dt), _rounded(self._epsilon, dt)
+        one_rho = _rounded(1 - self._rho, dt)
+        asgs = [st["avg_squared_grad"] for st in states]
+        asus = [st["avg_squared_update"] for st in states]
+        torch._foreach_mul_(asgs, rho)
+        torch._foreach_add_(asgs, torch._foreach_mul(
+            torch._foreach_mul(gs, gs), one_rho))
+        upd = torch._foreach_sqrt(torch._foreach_add(asus, eps))
+        torch._foreach_div_(upd, torch._foreach_sqrt(
+            torch._foreach_add(asgs, eps)))
+        torch._foreach_mul_(upd, gs)
+        torch._foreach_mul_(asus, rho)
+        torch._foreach_add_(asus, torch._foreach_mul(
+            torch._foreach_mul(upd, upd), one_rho))
+        torch._foreach_sub_(ps, torch._foreach_mul(upd, _rounded(lr, dt)))
+
+
+def _weak_mul(x: float, t: torch.Tensor, out=None) -> torch.Tensor:
+    """A Python scalar times a tensor, the scalar rounded to the tensor's
+    dtype first (JAX's weak typing). ``out=torch.float32`` is a bf16 product
+    that the reference's XLA program promotes at once: XLA keeps it in f32
+    (the bf16 rounding between the product and the conversion is elided),
+    so it is taken in f32 with the bf16-rounded scalar."""
+    c = _rounded(x, t.dtype)
+    return t.float() * c if out == torch.float32 and t.dtype != out \
+        else t * c
+
+
+def _f32_norm(t: torch.Tensor) -> torch.Tensor:
+    """The reference's f32 norm, summed in f64 and rounded to f32 so it
+    does not hang on the device's order of summation (torch's f32 sum on
+    the CPU is 1.9e-3 off for a 30.7M-element embedding)."""
+    return torch.linalg.vector_norm(t, dtype=torch.float64).float()
+
+
+class Lamb(Optimizer):
+    """Adam's moments with a layer-wise trust ratio ``||p|| / ||r||`` (f32
+    norms). ``exclude_from_weight_decay_fn(p)`` receives the parameter, as
+    the reference's does, and a true result turns the decay off for it.
+
+    The bias corrections are the reference's f32 arrays, so ``m_hat``,
+    ``v_hat``, the update and the new parameter are f32 whatever the
+    parameter's dtype: a bf16 parameter is rebound to a float32 one, with
+    its moments still bf16 until the next step promotes them too. Where a
+    bf16 product meets an f32 operand (the decay term, the moments of a
+    promoted parameter, ``lr * trust``), the reference's compiled rule keeps
+    the product in f32, and so does the port."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01, beta1=0.9,
+                 beta2=0.999, epsilon=1e-06, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay_fn=None, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _gate(self, i):
+        fun = self._exclude_fn
+        return 0.0 if fun is not None and fun(self._parameter_list[i]) \
+            else 1.0
+
+    def _init_accums(self, p):
+        return {"moment1": torch.zeros_like(p), "moment2": torch.zeros_like(p)}
+
+    def _update(self, ps, gs, states, lr, t, wd):
+        b1, b2 = self._beta1, self._beta2
+        bc1 = float(np.float32(1) - _f32_pow(b1, t))
+        bc2 = float(np.float32(1) - _f32_pow(b2, t))
+        eps = _rounded(self._epsilon, torch.float32)
+        for p, g, st in zip(ps, gs, states):
+            dt = p.dtype
+            m0, v0 = st["moment1"], st["moment2"]
+            mt = torch.promote_types(m0.dtype, dt)
+            m = _weak_mul(b1, m0, mt) + _weak_mul(1 - b1, g, mt)
+            v = _weak_mul(b2, v0, mt) + _weak_mul(1 - b2, g * g, mt)
+            r = (m.float() / bc1) / (torch.sqrt(v.float() / bc2) + eps)
+            r = r + _weak_mul(self._wd * wd, p, torch.float32)
+            w_norm, r_norm = _f32_norm(p), _f32_norm(r)
+            trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                                1.0).to(dt)
+            new_p = p - (trust.float() * _rounded(lr, dt)) * r
+            st["moment1"], st["moment2"] = m, v
+            if new_p.dtype == dt:
+                p.copy_(new_p)
+            else:
+                p.data = new_p
+
+
+class LarsMomentum(Optimizer):
+    """LARS: momentum with a layer-wise local lr ``coeff * ||p|| / (||g|| +
+    wd * ||p|| + 1e-12)`` from f32 norms, or 1 where either norm is 0."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_wd = lars_weight_decay
+
+    def _init_accums(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _update(self, ps, gs, states, lr, t, wd):
+        lwd, coeff = self._lars_wd, self._lars_coeff
+        lr32 = _rounded(lr, torch.float32)
+        for p, g, st in zip(ps, gs, states):
+            dt = p.dtype
+            w_norm, g_norm = _f32_norm(p), _f32_norm(g)
+            local = torch.where((w_norm > 0) & (g_norm > 0),
+                                coeff * w_norm / (g_norm + lwd * w_norm
+                                                  + 1e-12),
+                                1.0)
+            g = g + _weak_mul(lwd, p)
+            v = _weak_mul(self._momentum, st["velocity"]) \
+                + (local * lr32).to(dt) * g
+            st["velocity"].copy_(v)
+            p.sub_(v)

@@ -5,7 +5,8 @@ The JAX model's ``state_dict()`` is exported as numpy and loaded into the
 port by name; both then see the same numpy-made token ids. Both configs run:
 ``llama_tiny()`` (4 heads, MHA) and ``llama_tiny(num_kv_heads=2)`` (GQA, rep
 2). f32 on the CPU: logits within atol 1e-4 and the loss within 1e-5 (the
-two frameworks sum in different orders). The serving plug's RMS norm and
+two frameworks sum in different orders), every gradient within rtol = atol
+= 1e-4, and three compiled AdamW steps' losses within rtol 1e-4. The serving plug's RMS norm and
 RoPE forms (``_rms``, ``_rope_at``, ``_rope_rows``) and the model's
 ``apply_rope`` agree with the reference's functions to 1e-6 in f32; in bf16
 the serving forms agree bit for bit, and ``apply_rope`` (rotated in f32,
@@ -70,6 +71,48 @@ def test_loss_matches_reference(models):
         out = float(tm.loss(torch.from_numpy(ids).long(),
                             torch.from_numpy(labels).long()))
     assert abs(out - ref) <= 1e-5, (out, ref)
+
+
+def test_gradients_match_reference(models):
+    """Every parameter's gradient of the mean loss, GQA's K/V projections
+    included (their gradient sums over each KV head's query heads), within
+    rtol = atol = 1e-4."""
+    jm, tm = models
+    ids, labels = _ids(1024, 7), _ids(1024, 8)
+    jm.clear_gradients()
+    jm.loss(paddle.to_tensor(ids), paddle.to_tensor(labels)).backward()
+    tm.zero_grad(set_to_none=True)
+    tm.loss(torch.from_numpy(ids).long(),
+            torch.from_numpy(labels).long()).backward()
+    jg = {n: p.grad for n, p in jm.named_parameters()}
+    for n, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(jg[n].numpy()),
+                                   rtol=1e-4, atol=1e-4, err_msg=n)
+
+
+@pytest.mark.parametrize("kv", [None, 2], ids=["mha", "gqa"])
+def test_compiled_train_step_matches_reference(kv):
+    """Three ``compile_train_step`` steps with AdamW(1e-3) from the same
+    weights on one batch: the losses within rtol 1e-4 (the gradients'
+    1e-4 carries into each update) and falling."""
+    import paddle_tpu_torch as tp
+
+    paddle.seed(1)
+    jm = JL.LlamaForCausalLM(JL.llama_tiny(num_kv_heads=kv))
+    tm = port_of_llama(jm).train()
+    ids, labels = _ids(1024, 9), _ids(1024, 10)
+    jstep = paddle.jit.compile_train_step(
+        jm, lambda m, i, l: m.loss(i, l),
+        paddle.optimizer.AdamW(1e-3, parameters=jm.parameters()))
+    tstep = tp.jit.compile_train_step(
+        tm, lambda m, i, l: m.loss(i, l),
+        tp.optimizer.AdamW(1e-3, parameters=tm.named_parameters()))
+    want = [float(jstep(paddle.to_tensor(ids), paddle.to_tensor(labels)))
+            for _ in range(3)]
+    got = [float(tstep(torch.from_numpy(ids).long(),
+                       torch.from_numpy(labels).long())) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert got[-1] < got[0]
 
 
 def _rope_input(dtype, shape, seed, scale=1.0):

@@ -13,6 +13,8 @@ port rounds after each foreach op, and one ulp of drift can carry over.
 """
 from types import SimpleNamespace
 
+import jax
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -309,3 +311,181 @@ def test_param_attr_lr_scale_and_minimize_match_reference():
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-7)
     assert not np.allclose(got[0], w0)
+
+
+# -- the rules of Adamax, RMSProp, Adagrad, Adadelta, Lamb and LarsMomentum ----
+# Three steps, eager (the reference's ``step()``, the port's ``step()``) and
+# compiled (the reference's ``_functional_update``, the port's
+# ``_step(functional=True)``), in f32 and bf16. Every parameter and every
+# accumulator is held to the reference's, under the same ``state_dict()``
+# key and in the same dtype: f32 within rtol = atol = 1e-6, bf16 within one
+# bf16 ulp (the two packages round after the same ops; only the f32 norms of
+# Lamb and LARS sum in another order). The elementwise rules read bit-equal
+# in bf16. The fourth step runs on an optimizer
+# rebuilt from the third step's ``state_dict()`` and must equal the
+# uninterrupted one.
+NEW_STEPS = 3
+
+NEW_RULES = {
+    "adamax": lambda o, ps: o.Adamax(LR, parameters=ps),
+    "rmsprop": lambda o, ps: o.RMSProp(LR, parameters=ps),
+    "rmsprop_centered": lambda o, ps: o.RMSProp(
+        LR, momentum=0.9, centered=True, parameters=ps),
+    "adagrad": lambda o, ps: o.Adagrad(LR, initial_accumulator_value=0.1,
+                                       parameters=ps),
+    "adadelta": lambda o, ps: o.Adadelta(0.5, parameters=ps),
+    "lamb": lambda o, ps: o.Lamb(LR, lamb_weight_decay=0.01, parameters=ps),
+    "lamb_exclude": lambda o, ps: o.Lamb(
+        LR, lamb_weight_decay=0.3, parameters=ps,
+        exclude_from_weight_decay_fn=lambda p: p.name.startswith("b")),
+    "lars": lambda o, ps: o.LarsMomentum(LR, parameters=ps),
+    # b0 starts at 0: its norm is 0, so its local lr is 1
+    "lars_zero_norm": lambda o, ps: o.LarsMomentum(
+        LR, lars_weight_decay=0.01, parameters=ps),
+}
+
+
+def _new_data(case):
+    p0, grads = _data(seed=7)
+    if case == "lars_zero_norm":
+        p0[1] = np.zeros_like(p0[1])
+    return p0, grads[:NEW_STEPS + 1]
+
+
+def _ref_new(case, p0, grads, dtype, mode):
+    """The reference's parameters and state_dict after each step, as
+    (dtype name, f32 numpy) pairs."""
+    from paddle_tpu.core.tensor import Parameter as JParameter
+
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    ps = [JParameter(jnp.asarray(p, jdt), name=n) for n, p in zip(NAMES, p0)]
+    opt = NEW_RULES[case](paddle.optimizer, ps)
+    out = []
+    state = None
+    for gs in grads:
+        if mode == "eager":
+            for p, g in zip(ps, gs):
+                p.grad = paddle.to_tensor(jnp.asarray(g, jdt))
+            opt.step()
+            sd = opt.state_dict()
+            got = {k: v._data for k, v in sd.items() if k != "@step"}
+            params = [p._data for p in ps]
+        else:
+            arrs = [p._data for p in ps]
+            if state is None:
+                state = opt._functional_state(ps)
+            # jitted, and with no parameters (so no decay gate), as the
+            # reference's CompiledTrainStep runs it
+            arrs, state = jax.jit(opt._functional_update)(
+                arrs, [jnp.asarray(g, jdt) for g in gs], state,
+                jnp.float32(opt.get_lr()))
+            for p, a in zip(ps, arrs):
+                p._set_data(a)
+            got = {f"{n}.{k}": v for n, st in zip(NAMES, state["accums"])
+                   for k, v in st.items()}
+            params = arrs
+        snap = {n: (str(a.dtype), np.asarray(a.astype(jnp.float32)))
+                for n, a in zip(NAMES, params)}
+        snap.update({k: (str(v.dtype), np.asarray(v.astype(jnp.float32)))
+                     for k, v in got.items()})
+        out.append(snap)
+    return out
+
+
+def _port_new(case, p0, grads, dtype, mode, rebuild_after=None):
+    from paddle_tpu_torch.core.tensor import Parameter
+
+    ps = [Parameter(torch.from_numpy(p.copy()).to(dtype), name=n)
+          for n, p in zip(NAMES, p0)]
+    opt = NEW_RULES[case](topt, ps)
+    out = []
+    for i, gs in enumerate(grads):
+        for p, g in zip(ps, gs):
+            # in the parameter's dtype, which Lamb may have promoted (the
+            # reference casts the gradient to it)
+            p.grad = torch.from_numpy(g).to(dtype).to(p.dtype)
+        opt._step(functional=(mode == "compiled"))
+        sd = opt.state_dict()
+        snap = {n: (str(p.dtype).replace("torch.", ""),
+                    p.detach().float().numpy().copy())
+                for n, p in zip(NAMES, ps)}
+        snap.update({k: (str(v.dtype).replace("torch.", ""),
+                         v.float().numpy().copy())
+                     for k, v in sd.items() if k != "@step"})
+        out.append(snap)
+        if rebuild_after == i + 1:
+            sd = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                  for k, v in sd.items()}
+            ps = [Parameter(p.detach().clone(), name=p.name) for p in ps]
+            opt = NEW_RULES[case](topt, ps)
+            opt.set_state_dict(sd)
+            assert opt._step_count == i + 1
+    return out
+
+
+def _assert_close(got, want, what, dtype):
+    assert set(got) == set(want), (what, sorted(got), sorted(want))
+    for k in sorted(want):
+        (gd, g), (wd, w) = got[k], want[k]
+        assert gd == wd, (what, k, gd, wd)
+        # a bf16 run's values that Lamb promoted to f32 carry its bf16 trust
+        # ratio, rounded from f32 norms summed in another order: one bf16
+        # ulp of the ratio can flip, so they are held to one bf16 ulp too
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6,
+                                       err_msg=f"{what} {k}")
+        else:
+            ulps = np.abs(g - w) / _ulp(w)
+            assert ulps.max() <= 1, (what, k, float(ulps.max()))
+
+
+@pytest.mark.parametrize("mode", ["eager", "compiled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(NEW_RULES))
+def test_new_rule_matches_reference(case, dtype, mode):
+    p0, grads = _new_data(case)
+    want = _ref_new(case, p0, grads, dtype, mode)
+    got = _port_new(case, p0, grads, dtype, mode)
+    for i, (g, w) in enumerate(zip(got[:NEW_STEPS], want)):
+        _assert_close(g, w, f"{case} step {i + 1}", dtype)
+    resumed = _port_new(case, p0, grads, dtype, mode,
+                        rebuild_after=NEW_STEPS)
+    for k, (gd, g) in got[NEW_STEPS].items():
+        rd, r = resumed[NEW_STEPS][k]
+        assert gd == rd and np.array_equal(g, r), (case, k)
+    _assert_close(got[NEW_STEPS], want[NEW_STEPS], f"{case} step 4", dtype)
+
+
+def test_lamb_promotes_a_bf16_parameter_to_f32_as_the_reference():
+    """The reference's f32 bias corrections make Lamb's update f32, so a
+    bf16 parameter leaves the first step as f32 with bf16 moments, and the
+    moments turn f32 on the second (``paddle_tpu/optimizer/__init__.py``
+    ``Lamb._rule``)."""
+    p0, grads = _new_data("lamb")
+    got = _port_new("lamb", p0, grads[:2], torch.bfloat16, "eager")
+    assert got[0]["w0"][0] == "float32"
+    assert got[0]["w0.moment1"][0] == "bfloat16"
+    assert got[1]["w0.moment1"][0] == "float32"
+    other = _port_new("adamax", p0, grads[:2], torch.bfloat16, "eager")
+    assert other[1]["w0"][0] == "bfloat16"
+
+
+def test_lamb_exclude_fn_sees_the_parameter():
+    from paddle_tpu_torch.core.tensor import Parameter
+
+    seen = []
+    p = Parameter(torch.ones(3), name="ln.bias")
+    opt = topt.Lamb(LR, parameters=[("layer.ln.bias", p)],
+                    exclude_from_weight_decay_fn=lambda q: seen.append(q)
+                    or True)
+    p.grad = torch.ones(3)
+    opt.step()
+    assert len(seen) == 1 and seen[0] is p
+
+
+def test_elementwise_rule_flags_match_reference():
+    for name in ("Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+                 "RMSProp", "Adagrad", "Adadelta", "Lamb", "LarsMomentum"):
+        assert getattr(topt, name)._elementwise_rule == getattr(
+            paddle.optimizer, name)._elementwise_rule, name

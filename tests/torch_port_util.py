@@ -7,7 +7,8 @@ import time
 
 import numpy as np
 
-from paddle_tpu_torch.models import (GPTConfig, GPTForPretraining,
+from paddle_tpu_torch.models import (ErnieConfig, ErnieForPretraining,
+                                     GPTConfig, GPTForPretraining,
                                      LlamaConfig, LlamaForCausalLM,
                                      load_reference_state_dict)
 
@@ -54,6 +55,17 @@ def port_of_llama(jmodel):
     cfg = LlamaConfig(**{f.name: getattr(jmodel.model.config, f.name)
                          for f in dataclasses.fields(LlamaConfig)})
     m = LlamaForCausalLM(cfg, device="cpu").eval()
+    load_reference_state_dict(m, reference_state(jmodel))
+    return m
+
+
+def port_of_ernie(jmodel):
+    """A CPU ``paddle_tpu_torch`` ERNIE carrying the JAX ERNIE's weights,
+    loaded by parameter name; its config copies the reference's (set its
+    dropouts to 0 there for a parity run)."""
+    cfg = ErnieConfig(**{f.name: getattr(jmodel.config, f.name)
+                         for f in dataclasses.fields(ErnieConfig)})
+    m = ErnieForPretraining(cfg, device="cpu")
     load_reference_state_dict(m, reference_state(jmodel))
     return m
 
