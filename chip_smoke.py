@@ -182,6 +182,39 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    naming the ATen op, write a ``naninf`` flight dump and count one
    ``naninf_trips``; cleared, the same forward runs and no dispatch mode is
    left; the forward's ms with the flag off and on are printed;
+12. the training runtime (runs after phase 9): (12a) GPT-3 1.3B at full
+   width and depth with float32 parameters under ``amp.auto_cast(level=
+   "O1", dtype="bfloat16")`` by phase 7's loop (AdamW, warm-up/cosine,
+   global-norm clip, decay gate), its batches (synthetic token rows from
+   seed 0) from ``io.DataLoader(seed=0, num_workers=2)`` (forked workers)
+   through ``io.DevicePrefetcher(buffer_size=2)``, each step judged by
+   ``fault.StabilitySentinel.observe`` (warm-up 4): 2 warm-up and 8 timed
+   steps, the flash counters, zeroed just before them, must read 24 x 8
+   each, the flash kernels must get bf16 q/k/v and the fused CE float32
+   inputs, the sentinel must stay silent; a device timeline of 2 steps
+   must name each flash kernel 24 times a step and show host-to-device
+   copies on a stream of their own overlapping compute; the flash kernels
+   are held against their plain versions on layer 0's own O1 q/k/v; then
+   one ``grad.spike`` (x 10000) through ``maybe_spike`` must give a
+   ``skip`` verdict on ``grad_norm``, leave the parameters bit-equal and
+   quarantine the batch's loader position and samples. It prints the step
+   ms, tokens/s, MFU, peak memory, the host's prefetcher waits and the
+   sentinel's observe ms beside phase 7's bf16-parameter step. (12b)
+   ERNIE-3.0 base, phase 9's model and batch (through a seeded loader)
+   with float32 parameters under ``auto_cast(level="O1",
+   dtype="float16")`` with ``GradScaler(init_loss_scaling=2**15)``: the
+   scale after each step, the steps skipped for inf, the step ms, tokens/s
+   and peak beside phase 9's f32 step, and the losses beside phase 9's;
+   ``GradScaler``'s unscale on the card must equal a float32 CPU division
+   bit for bit; then the same run preempted after step 5
+   (``PreemptionGuard.preempt()``, ``check`` drains and calls a local
+   checkpoint's ``save_now``, which ``paddle.save``s the model, optimizer,
+   scaler and loader state and the port's generator state) is rebuilt
+   from ``paddle.load`` into a model of other weights, and steps 6-8 must
+   give the uninterrupted losses within ``RT_LOSS_REL_TOL``; the file's
+   bytes and the save and load ms are printed. One
+   ``{"runtime_train": ...}`` line; the flash rows of the ``kernels`` line
+   carry 12a's launches as ``launches_amp``;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -219,6 +252,7 @@ ms a step in the profiled windows (printed beside its CUDA-event time),
 long-sequence shape (no launches on the main path),
 ``{"flash_llama_shape": [...]}``, their times at Llama-7B's training shape
 with phase 8's launches, ``{"train_models": {...}}``, phases 8 and 9,
+``{"runtime_train": {...}}``, phase 12 (printed at its end),
 ``{"generate": {...}}``, phase 10, ``{"naninf": {...}}``, phase 11,
 ``{"paged_shapes": [...]}``, the paged kernel's time, bound and cluster
 size at each of ``PAGED_SHAPES``, and ``{"engine_drives": [...]}``, each
@@ -900,15 +934,18 @@ def rel_err(out, ref):
     return float((out - ref).norm() / ref.norm().clamp_min(1e-30))
 
 
-def flash_check(B, T, Tk, H, D, causal, dtype, fused_qkv=False):
+def flash_check(B, T, Tk, H, D, causal, dtype, fused_qkv=False, qkv=None):
     """The three flash kernels against the plain version (f32, autograd for
     the gradients) on the same inputs, and in bf16 also against the bf16
     plain versions (the reference's rounding points) by relative norm; a
     second dQ and a second dK/dV launch on the same inputs must agree bit for
-    bit. Returns the max abs error per kernel (dkv: over dK and dV)."""
+    bit. ``qkv``: q, k, v to use (a model's own) instead of random ones.
+    Returns the max abs error per kernel (dkv: over dK and dV)."""
     from paddle_tpu_torch.ops import kernels as K
 
     q, k, v, do = flash_inputs(B, T, Tk, H, D, dtype, fused_qkv)
+    if qkv is not None:
+        q, k, v = qkv
     o, lse = K.flash_attention_fwd(q, k, v, causal)
     delta = flash_delta(do, o)
     dq = K.flash_attention_dq(q, k, v, do, lse, delta, causal)
@@ -923,7 +960,8 @@ def flash_check(B, T, Tk, H, D, causal, dtype, fused_qkv=False):
         bo, blse = K.flash_attention_plain(q, k, v, causal)
         bgrads = K.flash_attention_bwd_plain(q, k, v, do, bo, blse, causal)
     print(f"  flash B={B} T={T} T_kv={Tk} H={H} D={D} causal={causal} "
-          f"{str(dtype)[6:]}{' (strided q/k/v views)' if fused_qkv else ''}:")
+          f"{str(dtype)[6:]}{' (strided q/k/v views)' if fused_qkv else ''}"
+          f"{' (layer 0 q/k/v of a model)' if qkv is not None else ''}:")
     errs = {"flash_attention_fwd": compare("flash_attention_fwd", dtype, o, po)}
     compare("flash_attention_lse", dtype, lse, plse)
     pairs = {"flash_attention_dq": [(dq, gq)],
@@ -3195,6 +3233,444 @@ def ernie_phase(profile=False):
             "losses": vals, "optimizers": checks}
 
 
+# -- training runtime phase ------------------------------------------------------
+
+RT_SEQS = 2 * 16  # 16 batches of b2 x s2048: 2 + 8 steps, 2 traced, 1 trip
+RT_TIMELINE_STEPS = 2
+RT_WORKERS = 2
+RT_PREFETCH = 2
+RT_SENTINEL_WARMUP = 4
+RT_SPIKE = 10000  # grad.spike's scale on the trip step
+RT_SCALER_INIT = 2.0 ** 15
+RT_RESUME_AT = 5  # (12b): the step after which the guard is preempted
+RT_RESUME_STEPS = 3  # (12b): steps 6-8 again after the resume
+RT_LOSS_REL_TOL = 1e-3
+
+
+def rt_loader(paddle, cfg, profile):
+    """(12a) synthetic token rows from seed 0 through ``io.DataLoader``
+    (seeded shuffle, forked workers) and ``io.DevicePrefetcher``."""
+    n = RT_SEQS + (4 if profile else 0)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (n, 2048)).astype(np.int64)
+    labels = rng.randint(0, cfg.vocab_size, (n, 2048)).astype(np.int64)
+    loader = paddle.io.DataLoader(
+        paddle.io.TensorDataset([ids, labels]), batch_size=2, shuffle=True,
+        seed=0, num_workers=RT_WORKERS)
+    return loader, paddle.io.DevicePrefetcher(loader, buffer_size=RT_PREFETCH)
+
+
+def rt_copy_overlap(ev_full, compute_streams):
+    """(12a) the host-to-device copies of a device timeline on streams other
+    than the compute streams (the prefetcher's), their streams and bytes,
+    and how many of them overlap a compute-stream kernel in time; beside
+    them the host-to-device copies on the compute streams."""
+    copies = [e for e in ev_full if "HtoD" in e["name"]]
+    side = [c for c in copies if c["stream"] not in compute_streams]
+    kernels = [e for e in ev_full if e["stream"] in compute_streams
+               and "Memcpy" not in e["name"]]
+    overlap = sum(1 for c in side if any(
+        k["start_ns"] < c["end_ns"] and c["start_ns"] < k["end_ns"]
+        for k in kernels))
+    return {"prefetch_copies": len(side),
+            "prefetch_streams": sorted({c["stream"] for c in side}),
+            "prefetch_names": sorted({c["name"] for c in side}),
+            "overlapping_compute": overlap,
+            "compute_stream_copies": len(copies) - len(side)}
+
+
+def gpt_amp_phase(paddle, api, profile=False):
+    """(12a) GPT-3 1.3B with f32 parameters under ``amp.auto_cast(O1,
+    bfloat16)`` by phase 7's loop, fed by DataLoader -> DevicePrefetcher,
+    each step judged by the stability sentinel; then one skip trip."""
+    import paddle_tpu_torch.nn.functional as F
+    import paddle_tpu_torch.nn.functional.attention as A
+    from paddle_tpu_torch.fault import inject
+    from paddle_tpu_torch.fault.sentinel import StabilitySentinel
+    from paddle_tpu_torch.models import GPTForPretraining, gpt3_1p3b
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
+
+    t0 = time.monotonic()
+    paddle.seed(0)
+    with paddle.utils.unique_name.guard():
+        model = GPTForPretraining(gpt3_1p3b(
+            hidden_dropout=0.0, attention_dropout=0.0, remat=False,
+            attention_impl="flash", fused_lm_loss=True)).train()
+    cfg = model.config
+    params = model.parameters()
+    n_params = sum(p.numel() for p in params)
+    if {p.dtype for p in params} != {torch.float32}:
+        fail("runtime (12a): the parameters are not all float32")
+    opt, sched, _ = api_optimizer(paddle, model,
+                                  paddle.nn.ClipGradByGlobalNorm(API_CLIP))
+    loader, pf = rt_loader(paddle, cfg, profile)
+    sentinel = StabilitySentinel(warmup=RT_SENTINEL_WARMUP, name="gpt_amp")
+    torch.cuda.synchronize()
+    print(f"  (12a) model: {n_params / 1e9:.3f}B float32 parameters, built "
+          f"in {time.monotonic() - t0:.1f}s; {len(loader)} batches from "
+          f"DataLoader(seed=0, num_workers={RT_WORKERS}) through "
+          f"DevicePrefetcher(buffer_size={RT_PREFETCH})")
+    host = {"wait": [], "sentinel": []}
+    losses, verdicts, seen = [], [], {}
+
+    def spy_flash(q, k, v, causal=False):
+        seen.setdefault("qkv", (q.detach(), k.detach(), v.detach()))
+        return flash_fn(q, k, v, causal=causal)
+
+    def spy_ce(x, w, labels, *a, **kw):
+        seen.setdefault("ce", (x.dtype, w.dtype))
+        return ce_fn(x, w, labels, *a, **kw)
+
+    def one_step(i, trip=False):
+        pos = tuple(pf.state_dict()[k] for k in ("epoch", "batch_idx"))
+        t0 = time.perf_counter()
+        ids, labels = next(pf)
+        host["wait"].append(time.perf_counter() - t0)
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model.loss(ids, labels)
+        loss.backward()
+        if trip:
+            spiked = sentinel.maybe_spike([p.grad for p in params], step=i)
+            for p, g in zip(params, spiked):
+                p.grad = g
+        t0 = time.perf_counter()
+        v = sentinel.observe(
+            i, loss, [p.grad for p in params], params, lr=opt.get_lr(),
+            pos=pos, indices_fn=lambda: loader.batch_indices(*pos))
+        host["sentinel"].append(time.perf_counter() - t0)
+        if v is None:
+            opt.step()
+            sched.step()
+        else:
+            verdicts.append(v)
+        opt.clear_grad()
+        losses.append(loss.detach())
+        return pos, v
+
+    flash_fn, ce_fn = A.flash_attention_array, F.fused_linear_cross_entropy
+    A.flash_attention_array, F.fused_linear_cross_entropy = spy_flash, spy_ce
+    try:
+        one_step(0)
+    finally:
+        A.flash_attention_array, F.fused_linear_cross_entropy = flash_fn, ce_fn
+    for i in range(1, TRAIN_WARMUP):
+        one_step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+        one_step(i)
+    queued = time.monotonic() - t0
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = 2 * 2048 * TRAIN_STEPS / wall
+    mfu = tok_s * train_flops_per_token(cfg, n_params, 2048) / 989e12
+    timed = slice(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
+    host_ms = {k: float(np.mean(v[timed])) * 1e3 for k, v in host.items()}
+    vals = [x.item() for x in losses]
+    want = cfg.num_layers * TRAIN_STEPS
+    print(f"  (12a) {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, f32 "
+          f"parameters under auto_cast(O1, bfloat16): step {step_ms:.2f} ms "
+          f"(host clock, one sync at the end; the sentinel reads 4 floats "
+          f"back each step), {tok_s:.1f} tokens/s, MFU {mfu:.4f}, peak "
+          f"memory {peak / 2**30:.2f} GiB, the host queued the steps in "
+          f"{queued * 1e3:.1f} ms; host ms a step: waiting on the "
+          f"prefetcher {host_ms['wait']:.3f}, the sentinel's observe "
+          f"{host_ms['sentinel']:.2f}; launches {counts}")
+    print(f"  (12a) beside phase 7's bf16-parameter step: {api['step_ms']:.2f} "
+          f"ms, {api['tokens_per_s']:.1f} tokens/s, MFU {api['mfu']:.4f}, "
+          f"peak {api['peak_gib']:.2f} GiB")
+    print(f"  (12a) losses {[round(v, 4) for v in vals]}")
+    q_dt = seen["qkv"][0].dtype
+    print(f"  (12a) under O1 the flash kernels got {q_dt} q/k/v and the "
+          f"fused CE {seen['ce'][0]} x with a {seen['ce'][1]} weight (its "
+          "full-f32 branch: layer_norm is on the black list)")
+    if q_dt != torch.bfloat16 or seen["ce"] != (torch.float32, torch.float32):
+        fail(f"runtime (12a): flash q/k/v {q_dt}, fused CE {seen['ce']}")
+    bad = [k for k in FLASH_KERNELS if counts[k] != want]
+    if bad:
+        fail(f"runtime (12a): launches {counts}, want {want} for each flash "
+             "kernel")
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0] or verdicts:
+        fail(f"runtime (12a): losses {vals}, sentinel verdicts {verdicts}")
+    # the device timeline: the flash kernels on the compute stream, the
+    # batches' copies on the prefetch stream beside them
+    with Profiler(targets=[ProfilerTarget.GPU]) as prof:
+        for i in range(RT_TIMELINE_STEPS):
+            one_step(TRAIN_WARMUP + TRAIN_STEPS + i)
+    ev_full = prof.device_events()
+    ev = [(e["start_ns"], e["end_ns"], e["name"]) for e in ev_full]
+    tl = timeline_kernels(ev, tuple(FLASH_KERNELS.values()),
+                          RT_TIMELINE_STEPS)
+    compute = {e["stream"] for e in ev_full if "fwd_wgmma" in e["name"]}
+    copies = rt_copy_overlap(ev_full, compute)
+    print(f"  (12a) timeline of {RT_TIMELINE_STEPS} steps: " + ", ".join(
+        f"{k} {v['launches']} launches" for k, v in tl.items())
+        + f"; compute streams {sorted(compute)}; host-to-device copies "
+        f"{copies}")
+    if any(v["launches"] != cfg.num_layers * RT_TIMELINE_STEPS
+           for v in tl.values()) or copies["prefetch_copies"] < 2 \
+            or not copies["overlapping_compute"]:
+        fail(f"runtime (12a): timeline {tl}, copies {copies}")
+    if profile:
+        device_breakdown(lambda: one_step(len(losses)), 2,
+                         "profile (runtime train, gpt O1) b2xs2048", top=12,
+                         watch=("Memcpy",))
+    # the flash kernels on layer 0's own bf16 q/k/v, against the plain ones
+    B, T, H, D = seen["qkv"][0].shape
+    amp_errs = flash_check(B, T, T, H, D, True, torch.bfloat16,
+                           fused_qkv=True, qkv=seen.pop("qkv"))
+    # one skip trip: grad.spike x RT_SPIKE on the next batch
+    trip_step = len(losses)
+    inject.arm(f"grad.spike:step={trip_step},scale={RT_SPIKE}")
+    try:
+        with torch.no_grad():
+            before = torch._foreach_mul(params, 1.0)
+        torch.cuda.synchronize()
+        pos, v = one_step(trip_step, trip=True)
+        same = all(torch.equal(a, p) for a, p in zip(before, params))
+        fired = inject.fired_counts()
+    finally:
+        inject.disarm()
+    del before
+    q = sentinel.quarantine.entries()
+    print(f"  (12a) skip trip at step {trip_step} (grad.spike x{RT_SPIKE}, "
+          f"fired {fired}): verdict {v}; parameters bit-equal across the "
+          f"step: {same}; quarantined {q}")
+    if v is None or (v.action, v.signal) != ("skip", "grad_norm") \
+            or not same or not sentinel.is_quarantined(pos=pos) \
+            or q[-1]["sample_indices"] != loader.batch_indices(*pos):
+        fail(f"runtime (12a): trip verdict {v}, parameters equal {same}, "
+             f"quarantine {q}")
+    sentinel.close()
+    pf.close()
+    del opt, sched, model, params, pf, loader
+    torch.cuda.empty_cache()
+    return {"model": "gpt3_1p3b", "params": n_params, "batch": [2, 2048],
+            "param_dtype": "float32", "amp": "O1 bfloat16",
+            "step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
+            "peak_gib": peak / 2**30, "queued_ms": queued * 1e3,
+            "host_ms": host_ms, "losses": vals,
+            "launches": {k: counts[k] for k in FLASH_REPLACES},
+            "device_timeline": tl, "h2d_copies": copies,
+            "flash_check_max_abs_err": amp_errs,
+            "fused_ce_dtypes": [str(d)[6:] for d in seen["ce"]],
+            "trip": {"step": trip_step, "verdict": v.to_dict(),
+                     "params_bit_equal": same, "quarantine": q[-1]},
+            "bf16_params_step": {k: api[k] for k in
+                                 ("step_ms", "tokens_per_s", "mfu",
+                                  "peak_gib")}}
+
+
+class RtCheckpoint:
+    """(12b) ``PreemptionGuard``'s checkpoint: ``save_now`` writes the state
+    tree's ``state_dict()``s (and plain values) with ``paddle.save``."""
+
+    def __init__(self, paddle, path):
+        self.paddle, self.path, self.saves = paddle, path, []
+
+    def save_now(self, step, state, sync=True):
+        t0 = time.monotonic()
+        tree = {k: v.state_dict() if hasattr(v, "state_dict") else v
+                for k, v in state.items()}
+        self.paddle.save({"step": step, **tree}, self.path)
+        self.saves.append({"step": step, "sync": sync,
+                           "ms": (time.monotonic() - t0) * 1e3,
+                           "bytes": os.path.getsize(self.path)})
+
+
+def rt_ernie(paddle, seed):
+    """(12b) phase 9's model, Lamb, loader over phase 9's batch (one
+    seeded-shuffle batch an epoch) and a GradScaler, built under
+    ``unique_name.guard()`` (the optimizer's state keys)."""
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_3_base
+
+    with paddle.utils.unique_name.guard():
+        model = ErnieForPretraining(ernie_3_base(), seed=seed).train()
+    opt = paddle.optimizer.Lamb(
+        learning_rate=ERNIE_LR, lamb_weight_decay=0.01,
+        parameters=model.parameters(),
+        exclude_from_weight_decay_fn=ln_excluder(model))
+    arrays = ernie_arrays(model.config.vocab_size)
+    loader = paddle.io.DataLoader(paddle.io.TensorDataset(list(arrays)),
+                                  batch_size=ERNIE_B, shuffle=True, seed=0)
+    scaler = paddle.amp.GradScaler(init_loss_scaling=RT_SCALER_INIT)
+    return model, opt, loader, scaler
+
+
+def rt_batches(loader):
+    """The loader's batches, epoch after epoch (its position rolls to the
+    next epoch as each one ends)."""
+    while True:
+        yield from loader
+
+
+def rt_ernie_step(paddle, model, opt, batches, scaler):
+    """One fp16 O1 step on the next batch; (loss, stepped)."""
+    ids, labels, nsp = next(batches)
+    with paddle.amp.auto_cast(level="O1", dtype="float16"):
+        loss = model.loss(ids, labels, nsp)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    stepped = not scaler._found_inf
+    scaler.update()
+    opt.clear_grad()
+    return loss.detach(), stepped
+
+
+def rt_unscale_bits():
+    """(12b) ``GradScaler``'s unscale on the card against a float32 CPU
+    division, bit for bit, at a scale that is not a power of two."""
+    from paddle_tpu_torch.amp import _unscale_grads
+
+    g = torch.randn(1 << 20, generator=torch.Generator().manual_seed(0))
+    p = torch.nn.Parameter(torch.zeros(1 << 20, device="cuda"))
+    p.grad = g.cuda()
+    found = _unscale_grads([p], 3.0 * 2 ** 13)
+    want = torch.div(g, torch.tensor(3.0 * 2 ** 13))
+    same = torch.equal(p.grad.cpu().view(torch.int32), want.view(torch.int32))
+    if found or not same:
+        fail(f"runtime (12b): unscale on the card differs from the CPU "
+             f"division (found_inf {found})")
+    return same
+
+
+def ernie_amp_phase(paddle, ernie, profile=False):
+    """(12b) ERNIE-3.0 base, f32 parameters under ``auto_cast(O1,
+    float16)`` with a GradScaler; then a preemption after step 5, a
+    checkpoint through ``paddle.save`` and a resume through
+    ``paddle.load`` that must replay the next ``RT_RESUME_STEPS`` steps."""
+    from paddle_tpu_torch.core import random as random_state
+    from paddle_tpu_torch.fault import PreemptionGuard, RESUMABLE_EXIT_CODE
+
+    bits_ok = rt_unscale_bits()
+    paddle.seed(0)
+    model, opt, loader, scaler = rt_ernie(paddle, 0)
+    batches = rt_batches(loader)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, scales, stepped = [], [], []
+    t0 = time.monotonic()
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+        loss, ok = rt_ernie_step(paddle, model, opt, batches, scaler)
+        losses.append(loss)
+        scales.append(scaler.get_scale())
+        stepped.append(ok)
+    torch.cuda.synchronize()
+    n = TRAIN_STEPS
+    wall = time.monotonic() - t0
+    step_ms = wall / n * 1e3
+    tok_s = ERNIE_B * ERNIE_T * n / wall
+    peak = torch.cuda.max_memory_allocated()
+    vals = [x.item() for x in losses]
+    skipped = [i for i, ok in enumerate(stepped) if not ok]
+    print(f"  (12b) ernie_3_base f32 parameters under auto_cast(O1, "
+          f"float16) with GradScaler(init_loss_scaling={RT_SCALER_INIT:g}): "
+          f"{n} steps after {TRAIN_WARMUP}, step {step_ms:.2f} ms (each "
+          f"step syncs once on the scaler's non-finite flag), "
+          f"{tok_s:.1f} tokens/s, peak {peak / 2**30:.2f} GiB; phase 9's "
+          f"f32 step {ernie['step_ms']:.2f} ms, {ernie['tokens_per_s']:.1f} "
+          f"tokens/s")
+    print(f"  (12b) scale after each step {scales}; steps skipped for inf "
+          f"{skipped}; unscale bit-equal to a CPU division: {bits_ok}")
+    print(f"  (12b) losses {[round(v, 4) for v in vals]}; phase 9's f32 "
+          f"losses {[round(v, 4) for v in ernie['losses']]}")
+    if not all(np.isfinite(vals)):
+        fail(f"runtime (12b): losses {vals}")
+    if profile:
+        device_breakdown(
+            lambda: rt_ernie_step(paddle, model, opt, batches, scaler), 2,
+            f"profile (runtime train, ernie O1 fp16) b{ERNIE_B}xs{ERNIE_T}",
+            top=10)
+    del model, opt, loader, batches, scaler, losses
+    torch.cuda.empty_cache()
+    # the same run, preempted after step RT_RESUME_AT
+    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_ckpt_")
+    try:
+        ckpt = RtCheckpoint(paddle, os.path.join(tmp, "state.pdckpt"))
+        codes = []
+        paddle.seed(0)
+        model, opt, loader, scaler = rt_ernie(paddle, 0)
+        batches = rt_batches(loader)
+        with PreemptionGuard(checkpoint=ckpt, exit_fn=codes.append) as guard:
+            for i in range(RT_RESUME_AT + 1):
+                rt_ernie_step(paddle, model, opt, batches, scaler)
+                if i == RT_RESUME_AT:
+                    guard.preempt()
+                state = {"model": model, "opt": opt, "scaler": scaler,
+                         "loader": loader,
+                         "rng": random_state.get_rng_state()}
+                if guard.check(i, state):
+                    break
+        del model, opt, loader, batches, scaler, state
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        sd = paddle.load(ckpt.path)
+        load_ms = (time.monotonic() - t0) * 1e3
+        model, opt, loader, scaler = rt_ernie(paddle, 1)  # other weights
+        missing, unexpected = model.set_state_dict(sd["model"])
+        opt.set_state_dict(sd["opt"])
+        scaler.load_state_dict(sd["scaler"])
+        loader.load_state_dict(sd["loader"])
+        random_state.set_rng_state(sd["rng"])
+        batches = rt_batches(loader)
+        got = [rt_ernie_step(paddle, model, opt, batches, scaler)[0].item()
+               for _ in range(RT_RESUME_STEPS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = vals[RT_RESUME_AT + 1:RT_RESUME_AT + 1 + RT_RESUME_STEPS]
+    err = rel_diff(got, want)
+    save = ckpt.saves[0] if ckpt.saves else {}
+    print(f"  (12b) preempted after step {RT_RESUME_AT}: exit codes {codes}, "
+          f"{len(ckpt.saves)} save(s), sync {save.get('sync')}; the file "
+          f"{save.get('bytes', 0) / 2**20:.1f} MiB, saved in "
+          f"{save.get('ms', 0):.1f} ms, loaded in {load_ms:.1f} ms; resumed "
+          f"steps {RT_RESUME_AT + 1}-{RT_RESUME_AT + RT_RESUME_STEPS} "
+          f"losses {got} "
+          f"against the uninterrupted {want}: largest relative difference "
+          f"{err:.3e} (tol {RT_LOSS_REL_TOL})")
+    if codes != [RESUMABLE_EXIT_CODE] or len(ckpt.saves) != 1 \
+            or sd["step"] != RT_RESUME_AT or missing or unexpected \
+            or not err <= RT_LOSS_REL_TOL:
+        fail(f"runtime (12b): exit codes {codes}, saves {ckpt.saves}, "
+             f"missing {missing}, unexpected {unexpected}, resumed losses "
+             f"{got} vs {want}")
+    del model, opt, loader, batches, scaler, sd
+    torch.cuda.empty_cache()
+    return {"model": "ernie_3_base", "batch": [ERNIE_B, ERNIE_T],
+            "param_dtype": "float32", "amp": "O1 float16",
+            "step_ms": step_ms, "tokens_per_s": tok_s,
+            "peak_gib": peak / 2**30, "scales": scales,
+            "skipped_steps": skipped, "losses": vals,
+            "f32_losses": ernie["losses"],
+            "f32_step": {k: ernie[k] for k in ("step_ms", "tokens_per_s")},
+            "unscale_bit_equal": bits_ok,
+            "resume": {"after_step": RT_RESUME_AT, "exit_codes": codes,
+                       "file_bytes": save.get("bytes"),
+                       "save_ms": save.get("ms"), "load_ms": load_ms,
+                       "losses": got, "uninterrupted": want,
+                       "max_rel_diff": err}}
+
+
+def runtime_phase(api, ernie, profile=False):
+    """Phase 12: the training runtime (amp, io, save/load, fault)."""
+    import paddle_tpu_torch as paddle
+
+    gpt = gpt_amp_phase(paddle, api, profile)
+    ern = ernie_amp_phase(paddle, ernie, profile)
+    out = {"gpt_o1_bf16": gpt, "ernie_o1_fp16": ern}
+    print(json.dumps({"runtime_train": out}))
+    return out
+
+
 # -- dense generation phase ------------------------------------------------------
 
 GEN_PROMPTS, GEN_LLAMA_PROMPTS, GEN_T0, GEN_NEW = 4, 2, 128, 32
@@ -3815,6 +4291,11 @@ def main(argv=None) -> int:
     print("[9] ERNIE-3.0 base train (eager loop, Lamb), then the six new "
           "optimizers card against CPU")
     ernie = ernie_phase(profile=args.profile)
+    print("[12] training runtime: gpt3_1p3b f32 parameters under amp O1 "
+          "bf16 through io.DataLoader and DevicePrefetcher with the "
+          "stability sentinel; ernie_3_base under O1 fp16 with GradScaler, "
+          "preempted and resumed through save/load")
+    runtime = runtime_phase(api, ernie, profile=args.profile)
     print("[10] dense generation: gpt3_1p3b greedy, beam 4, sampled, eos; "
           "llama_7b greedy")
     gen = generation_phase()
@@ -3839,6 +4320,9 @@ def main(argv=None) -> int:
             r["launches_paddle_api"] = api["launches"][r["name"]]
         if r["name"] in llama["launches"]:  # and phase 8's
             r["launches_llama_train"] = llama["launches"][r["name"]]
+        amp_launches = runtime["gpt_o1_bf16"]["launches"]
+        if r["name"] in amp_launches:  # and phase 12a's, bf16 from O1
+            r["launches_amp"] = amp_launches[r["name"]]
     # the reference's (B*H, T, D) route shape: not on the port's main path
     long_rows = flash_timing(long_errs, dict.fromkeys(FLASH_REPLACES, 0),
                              FLASH_LONG, fused_qkv=False)

@@ -10,7 +10,11 @@ is written against: the dtypes, ``Tensor`` (which is ``torch.Tensor``: no
 wrapper class), ``Parameter``, ``to_tensor``, the places and
 ``set_device``, grad mode, ``grad``, the op subset, ``nn`` (``Layer``,
 initializers, ``ParamAttr``, the grad clips) and ``optimizer`` (with the
-``lr`` schedulers). Under it, kernels written by hand in CUDA C++
+``lr`` schedulers), and the runtime around a user's own loop: ``amp``
+(``auto_cast``, ``decorate``, ``GradScaler``), ``io`` (datasets, samplers,
+``DataLoader``, ``DevicePrefetcher``), ``save``/``load`` (checkpoints either
+package reads) and ``fault`` (the stability sentinel, the preemption guard,
+retry). Under it, kernels written by hand in CUDA C++
 (``ops/kernels/csrc``) serve and train:
 
 - serving: ``serving.Engine`` over the paged builders in
@@ -24,7 +28,7 @@ Entry points run on ``cuda`` unless the caller asks for the CPU
 (``set_device("cpu")`` or ``device="cpu"``); on the CPU every kernel wrapper
 runs its plain PyTorch version.
 """
-from . import autograd, jit, nn, optimizer, utils
+from . import amp, autograd, io, jit, nn, optimizer, utils
 from .autograd import grad
 from .core.dtype import (bfloat16, bool_, complex64, complex128, float16,
                          float32, float64, get_default_dtype, int8, int16,
@@ -36,6 +40,7 @@ from .core.place import (CPUPlace, CUDAPlace, Place, TPUPlace, get_device,
 from .core.random import seed
 from .core.tensor import Parameter, Tensor, to_tensor
 from .framework.flags import flag, get_flags, set_flags
+from .framework.io import load, save
 from .nn import ParamAttr
 from .ops.creation import (arange, assign, clone, empty, empty_like, eye,
                            full, full_like, normal, ones, ones_like, rand,
@@ -60,7 +65,8 @@ bool = bool_  # noqa: A001 (paddle.bool)
 is_grad_enabled = grad_enabled
 
 __all__ = [
-    "autograd", "jit", "nn", "optimizer", "utils", "grad", "bool",
+    "amp", "autograd", "io", "jit", "nn", "optimizer", "utils", "grad",
+    "bool", "save", "load",
     "bfloat16", "complex64", "complex128", "float16", "float32", "float64",
     "int8", "int16", "int32", "int64", "uint8", "get_default_dtype",
     "set_default_dtype", "enable_grad", "grad_enabled", "is_grad_enabled",

@@ -1,6 +1,18 @@
-"""The ``FLAGS_check_nan_inf`` scan (port of ``paddle_tpu/core/dispatch.py``
-``_nonfinite_error``/``_check_nan_inf`` :150–204, read by ``eager_call`` at
-:279, :306 and :389).
+"""The AMP hook (port of ``paddle_tpu/core/dispatch.py`` ``set_amp_hook`` :49
+and its call in ``eager_call`` :268–269) and the ``FLAGS_check_nan_inf``
+scan (``_nonfinite_error``/``_check_nan_inf`` :150–204, read by
+``eager_call`` at :279, :306 and :389).
+
+The port has no ``eager_call`` layer, so each port function whose reference
+counterpart goes through ``eager_call`` under a name on ``amp``'s lists
+calls :func:`amp_cast` at its entry with that name and its tensor inputs:
+``linear``, ``matmul``, ``sum``, ``mean``, ``exp``, ``log``, ``square``,
+``layer_norm``, ``cross_entropy`` and the exact route of
+``scaled_dot_product_attention``. ``torch.autocast`` is not used: its lists
+are ATen's, and it would recast the ops inside the port's composites (the
+exact attention's softmax, the optimizers' sums) where the reference casts
+only at the ``eager_call`` boundary. With AMP off, :func:`amp_cast` costs
+one ``is None`` check.
 
 While ``FLAGS_check_nan_inf`` is set, every floating output of every op is
 checked, and the first one that holds a NaN or an infinity raises
@@ -47,7 +59,23 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack,
                                           _pop_mode, _push_mode)
 
-__all__ = ["scan_active"]
+__all__ = ["scan_active", "set_amp_hook", "amp_cast"]
+
+# AMP hook, set by paddle_tpu_torch.amp.auto_cast; (op_name, tensors) -> tensors
+_amp_hook = None
+
+
+def set_amp_hook(hook) -> None:
+    global _amp_hook
+    _amp_hook = hook
+
+
+def amp_cast(name: str, tensors):
+    """``tensors`` as the op ``name`` should see them under the active
+    ``auto_cast`` (the same sequence when AMP is off)."""
+    if _amp_hook is None:
+        return tensors
+    return _amp_hook(name, tensors)
 
 
 def _dtype_name(dt: torch.dtype) -> str:

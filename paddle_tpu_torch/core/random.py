@@ -39,4 +39,20 @@ def default_generator(device) -> torch.Generator:
         return g
 
 
-__all__ = ["seed", "default_generator"]
+def get_rng_state() -> dict:
+    """Every device generator's state, ``{device string: uint8 CPU
+    tensor}``: with the model's and the optimizer's, what a checkpoint
+    needs to replay dropout exactly."""
+    with _lock:
+        return {str(dev): g.get_state() for dev, g in _generators.items()}
+
+
+def set_rng_state(state: dict) -> None:
+    """Restore what :func:`get_rng_state` returned (generators are made as
+    needed)."""
+    for dev, st in state.items():
+        default_generator(dev).set_state(st.cpu() if st.device.type != "cpu"
+                                         else st)
+
+
+__all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state"]

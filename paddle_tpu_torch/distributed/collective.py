@@ -10,8 +10,20 @@ of more than one rank raises ``NotImplementedError``: the collectives over
 """
 from __future__ import annotations
 
-__all__ = ["_c_identity", "_mp_allreduce", "_c_split", "_c_concat",
-           "_c_softmax_with_cross_entropy"]
+__all__ = ["get_rank", "get_world_size", "_c_identity", "_mp_allreduce",
+           "_c_split", "_c_concat", "_c_softmax_with_cross_entropy"]
+
+
+def get_rank(group=None) -> int:
+    """This process's rank: 0, the port running as one process
+    (``paddle_tpu/distributed/parallel_env.py:101``)."""
+    return 0
+
+
+def get_world_size(group=None) -> int:
+    """The group's rank count, else 1: one process (``parallel_env.py:107``;
+    more than one comes with ROADMAP A11)."""
+    return 1 if group is None else int(group.nranks)
 
 
 def _nranks(group) -> int:

@@ -1,5 +1,5 @@
-"""Deterministic fault injection (port of the serving and memory-pressure
-points of ``paddle_tpu/fault/inject.py``).
+"""Deterministic fault injection (port of the serving, memory-pressure,
+preemption and training-stability points of ``paddle_tpu/fault/inject.py``).
 
 Every injection point has a stable name (:data:`POINTS`) and is consulted
 only while injection is armed, so the hot path pays one module-attribute
@@ -25,13 +25,18 @@ Keys (all optional; values are ints except ``op``):
 * ``bytes=N`` — ``hbm.pressure`` payload: synthetic live-byte pressure.
 * ``blocks=N`` — ``hbm.pressure`` payload: serving KV blocks parked when
   the point fires at a scheduler step.
+* ``scale=N`` — ``loss.spike``/``grad.spike`` payload: the multiplier
+  (default 1000); ``nonfinite=1`` makes it ``inf``.
 
 The serving points are consulted by the engine's scheduler thread at every
 step boundary; ``serve.snapshot_corrupt`` fires inside ``Engine.snapshot``
 and tears the captured pool bookkeeping, so ``Engine.adopt`` must reject
 the capture and fall back whole to re-prefill. ``hbm.oom`` synthesizes a
 device out-of-memory error at a named site (:func:`maybe_hbm_oom`; ``op=``
-selects the site, ``serve.step`` for the engine).
+selects the site, ``serve.step`` for the engine). ``preempt.sigterm``
+raises SIGTERM inside ``PreemptionGuard.check`` at ``step=K``;
+``loss.spike``/``grad.spike`` are read at the train step boundary through
+:func:`spike` (``StabilitySentinel.maybe_spike``).
 """
 from __future__ import annotations
 
@@ -57,6 +62,11 @@ POINTS: Dict[str, str] = {
     "hbm.pressure": ("memory pressure: bytes=N is read by pressure_bytes() "
                      "while armed; blocks=N parks serving pool blocks at "
                      "the scheduler step boundary"),
+    "preempt.sigterm": "PreemptionGuard.check(step=k) — SIGTERM at step k",
+    "loss.spike": ("train step boundary — scale the step's loss "
+                   "(scale=/nonfinite= payload)"),
+    "grad.spike": ("train step boundary — scale the step's gradients "
+                   "(scale=/nonfinite= payload)"),
 }
 
 
@@ -211,11 +221,6 @@ def exercised() -> set:
     return set(_exercised)
 
 
-def fired_counts() -> Dict[str, int]:
-    with _lock:
-        return dict(_fired)
-
-
 def hbm_oom_error(where: str) -> torch.OutOfMemoryError:
     """The error a device out-of-memory raises (``torch.OutOfMemoryError``,
     which ``torch.cuda.OutOfMemoryError`` names), carrying the reference's
@@ -234,6 +239,22 @@ def maybe_hbm_oom(where: str, step: Optional[int] = None,
         raise hbm_oom_error(where)
 
 
+def spike(point: str, step: Optional[int] = None,
+          rank: Optional[int] = None) -> Optional[float]:
+    """Consult ``loss.spike`` or ``grad.spike`` at the step boundary: the
+    multiplier for the step's loss or gradients (``scale=``, default 1000,
+    or ``inf`` with ``nonfinite=1``), or None when the point does not
+    fire."""
+    if point not in ("loss.spike", "grad.spike"):
+        raise KeyError(f"not a spike point: {point!r}")
+    if not _armed or not should_fire(point, step=step, rank=rank):
+        return None
+    cfg = point_cfg(point)
+    if cfg.get("nonfinite"):
+        return float("inf")
+    return float(cfg.get("scale", 1000))
+
+
 def pressure_bytes() -> int:
     """Synthetic live-byte pressure (``hbm.pressure:bytes=N``), read while
     armed without consuming a ``should_fire`` count (pressure is a level,
@@ -250,7 +271,7 @@ def pressure_bytes() -> int:
 def _arm_from_env() -> None:
     """Arm the points of ``PADDLE_FAULT_INJECT`` that this module has; the
     variable is shared with the reference package, whose other points
-    (checkpoint, collective, training) have no call site here."""
+    (store, checkpoint, collective, rank chaos) have no call site here."""
     spec = os.environ.get("PADDLE_FAULT_INJECT", "").strip()
     ours = {k: v for k, v in _parse_spec(spec).items() if k in POINTS}
     if ours:
@@ -261,4 +282,4 @@ _arm_from_env()
 
 __all__ = ["POINTS", "InjectedFault", "arm", "disarm", "armed",
            "should_fire", "check", "point_cfg", "exercised", "fired_counts",
-           "hbm_oom_error", "maybe_hbm_oom", "pressure_bytes"]
+           "hbm_oom_error", "maybe_hbm_oom", "spike", "pressure_bytes"]

@@ -1,6 +1,7 @@
 """Global flag registry (the ``FLAGS_serve_*`` entries the serving engine and
 its supervisor read, ``FLAGS_profile_memory``, the kernel registry's
-``FLAGS_kernel_*`` and the nan/inf scan's ``FLAGS_check_nan_inf*``).
+``FLAGS_kernel_*``, the nan/inf scan's ``FLAGS_check_nan_inf*`` and the
+stability sentinel's ``FLAGS_stability_*``).
 
 Same names, defaults and ``FLAGS_*`` environment pickup as the reference's
 ``paddle_tpu/framework/flags.py``; ``set_flags`` rejects unknown names with a
@@ -96,6 +97,25 @@ _FLAGS: Dict[str, object] = {
     "FLAGS_kernel_tune_dir": "",
     "FLAGS_kernel_tune_budget_s": 20.0,
     "FLAGS_kernel_tune_samples": 5,
+    # Training stability sentinel (fault/sentinel.py): robust (median/MAD)
+    # anomaly detection over per-step signals (loss, global grad norm,
+    # update/param ratio, non-finite rate) with a skip -> rollback -> halt
+    # ladder and batch quarantine. window/warmup/zmax parameterize the
+    # statistics; max_skips/max_rollbacks/cooldown shape the ladder;
+    # anchor_interval + ckpt_dir configure the rollback anchor (its
+    # AutoCheckpoint comes with ROADMAP A11); quarantine_dir (when set)
+    # persists the quarantine log as JSONL. FLAGS_stability_enable is the
+    # reference's hapi.Model.fit switch (hapi comes with ROADMAP A12).
+    "FLAGS_stability_enable": False,
+    "FLAGS_stability_window": 64,
+    "FLAGS_stability_warmup": 8,
+    "FLAGS_stability_zmax": 8.0,
+    "FLAGS_stability_max_skips": 2,
+    "FLAGS_stability_max_rollbacks": 2,
+    "FLAGS_stability_cooldown": 16,
+    "FLAGS_stability_anchor_interval": 25,
+    "FLAGS_stability_ckpt_dir": "",
+    "FLAGS_stability_quarantine_dir": "",
 }
 
 for _k, _cur in list(_FLAGS.items()):

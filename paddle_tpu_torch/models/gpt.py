@@ -4,10 +4,15 @@ Parameter names and shapes equal the reference's ``state_dict()``: e.g.
 ``gpt.layers.0.attn.qkv.weight`` is (h, 3h) in Paddle's (in, out) layout and
 ``gpt.embeddings.word_embeddings.weight`` is (V, h), so the reference's
 weights load by name (``models/convert.py``). The LM head is tied to the
-word embedding. Every class is an ``nn.Layer`` (a ``torch.nn.Module`` with
-Paddle's API), so the Paddle-API loop (``to_tensor`` ids, ``loss.backward()``,
-``opt.step()``, ``opt.clear_grad()``) runs on it as it does on the reference's.
-Attention in ``forward`` goes through
+word embedding. The projections are the single-rank mp layers, as in the
+reference (``ColumnParallelLinear`` for ``qkv`` and ``up``,
+``RowParallelLinear`` for ``proj`` and ``down``, whose bias is added after
+the matmul, outside ``linear``: under ``amp.auto_cast`` the sum then
+follows its inputs, as the reference's does). Every class is an
+``nn.Layer`` (a ``torch.nn.Module`` with Paddle's API), so the Paddle-API
+loop (``to_tensor`` ids, ``loss.backward()``, ``opt.step()``,
+``opt.clear_grad()``) runs on it as it does on the reference's. Attention
+in ``forward`` goes through
 ``nn.functional.scaled_dot_product_attention`` (the flash kernels on the card
 when eligible, the exact masked softmax otherwise); dropout draws from the
 port's generators (``core/random``) and applies only in ``train()`` mode,
@@ -26,7 +31,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import random as random_state
 from ..core.place import resolve_device
-from ..nn import Dropout, Embedding, Layer, LayerList, LayerNorm, Linear
+from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
+                                               RowParallelLinear)
+from ..nn import Dropout, Embedding, Layer, LayerList, LayerNorm
 from ..nn import functional as F
 from ..nn.initializer import Normal
 
@@ -60,8 +67,10 @@ class GPTAttention(Layer):
         h = config.hidden_size
         self.num_heads = config.num_heads
         self.head_dim = h // config.num_heads
-        self.qkv = Linear(h, 3 * h, **kw)
-        self.proj = Linear(h, h, **kw)
+        self.qkv = ColumnParallelLinear(h, 3 * h, has_bias=True,
+                                        gather_output=False, **kw)
+        self.proj = RowParallelLinear(h, h, has_bias=True,
+                                      input_is_parallel=True, **kw)
         self.attn_dropout = config.attention_dropout
         if config.attention_impl not in ("auto", "ring", "exact", "flash"):
             raise ValueError("attention_impl must be auto|ring|exact|flash, "
@@ -87,8 +96,10 @@ class GPTMLP(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
         h = config.hidden_size
-        self.up = Linear(h, config.ffn_size, **kw)
-        self.down = Linear(config.ffn_size, h, **kw)
+        self.up = ColumnParallelLinear(h, config.ffn_size, has_bias=True,
+                                       gather_output=False, **kw)
+        self.down = RowParallelLinear(config.ffn_size, h, has_bias=True,
+                                      input_is_parallel=True, **kw)
 
     def forward(self, x):
         return self.down(F.gelu(self.up(x), approximate=True))
@@ -191,7 +202,7 @@ class GPTForPretraining(Layer):
 
     def forward(self, input_ids, position_ids=None):
         x = self.gpt(input_ids, position_ids)
-        return x @ self.gpt.embeddings.word_embeddings.weight.T
+        return F.linear(x, self.gpt.embeddings.word_embeddings.weight.T)
 
     def loss(self, input_ids, labels):
         """Mean next-token cross-entropy against ``labels`` (B, T)."""

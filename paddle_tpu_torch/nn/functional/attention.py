@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from ...core.dispatch import amp_cast
 from ...ops.kernels.flash_attention import flash_attention_array
 from .common import keep_mask
 
@@ -31,7 +32,12 @@ def _flash_eligible(q, is_causal, attn_mask, dropout_p, training):
 
 def _exact(q, k, v, attn_mask, dropout_p, is_causal):
     """Scores scaled in the input dtype, additive mask, causal -1e30 fill
-    (top-left), softmax, optional dropout keep-mask."""
+    (top-left; -inf in float16, as the reference's cast of -1e30), softmax,
+    optional dropout keep-mask. The AMP cast applies here, to q, k, v and
+    the mask, and never on the flash route, whose reference counterpart
+    (``flash_attention``) is on neither list."""
+    q, k, v, attn_mask = amp_cast("scaled_dot_product_attention",
+                                  (q, k, v, attn_mask))
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, T, D)
     scores = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * (1.0 / math.sqrt(qh.shape[-1]))
     if attn_mask is not None:
@@ -39,7 +45,8 @@ def _exact(q, k, v, attn_mask, dropout_p, is_causal):
     if is_causal:
         tq, tk = scores.shape[-2], scores.shape[-1]
         keep = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~keep, -1e30)
+        scores = scores.masked_fill(
+            ~keep, float("-inf") if scores.dtype == torch.float16 else -1e30)
     probs = torch.softmax(scores, dim=-1)
     if dropout_p:
         keep = keep_mask(probs.shape, float(dropout_p), q.device)

@@ -6,10 +6,12 @@ from __future__ import annotations
 import torch
 
 from ...core import random as random_state
+from ...core.dispatch import amp_cast
 
 
 def linear(x, weight, bias=None, name=None):
     """``x @ weight (+ bias)`` with Paddle's (in, out) weight."""
+    x, weight, bias = amp_cast("linear", (x, weight, bias))
     y = x @ weight
     return y if bias is None else y + bias
 

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.dispatch import amp_cast
 from ...ops.fused_ce import fused_linear_cross_entropy as _fce
 
 
@@ -12,6 +13,7 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     labelled ``ignore_index`` count 0 and leave the mean's denominator."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be mean|sum|none, got {reduction!r}")
+    input, = amp_cast("cross_entropy", (input,))
     logp = torch.log_softmax(input, dim=-1)
     lab = label.long()
     if lab.dim() == logp.dim():

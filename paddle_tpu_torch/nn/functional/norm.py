@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from ...core.dispatch import amp_cast
+
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
                name=None):
@@ -11,6 +13,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     (``torch.layer_norm`` would upcast bf16)."""
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
+    x, weight, bias = amp_cast("layer_norm", (x, weight, bias))
     axes = tuple(range(-len(normalized_shape), 0))
     mu = x.mean(axes, keepdim=True)
     var = ((x - mu) ** 2).mean(axes, keepdim=True)

@@ -10,6 +10,7 @@ import builtins
 import torch
 
 from ..core import dtype as dtypes
+from ..core.dispatch import amp_cast
 from .creation import _as
 
 
@@ -47,22 +48,29 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
     return (x + float(bias)) * float(scale)
 
 
-def _unary(fn):
-    def op(x, name=None):
-        return fn(_as(x))
+def _unary(fn, amp_name=None):
+    """``amp_name``: the reference's ``eager_call`` name, when it is on one
+    of ``amp``'s lists (the input is cast under ``auto_cast``)."""
+    if amp_name is None:
+        def op(x, name=None):
+            return fn(_as(x))
+    else:
+        def op(x, name=None):
+            x, = amp_cast(amp_name, (_as(x),))
+            return fn(x)
 
     op.__name__ = fn.__name__
     return op
 
 
-exp = _unary(torch.exp)
-log = _unary(torch.log)
+exp = _unary(torch.exp, "exp")
+log = _unary(torch.log, "log")
 sqrt = _unary(torch.sqrt)
 rsqrt = _unary(torch.rsqrt)
 abs = _unary(torch.abs)
 tanh = _unary(torch.tanh)
 sigmoid = _unary(torch.sigmoid)
-square = _unary(torch.square)
+square = _unary(torch.square, "square")
 
 
 def clip(x, min=None, max=None, name=None):
@@ -107,7 +115,7 @@ def _dims(x, axis):
 
 def sum(x, axis=None, dtype=None, keepdim=False, name=None):
     """bool and integer inputs sum in int64, as the reference under x64."""
-    x = _as(x)
+    x, = amp_cast("sum", (_as(x),))
     dt = dtypes.convert_dtype(dtype)
     if dt is None and not x.is_floating_point() and not x.is_complex():
         dt = torch.int64
@@ -115,7 +123,7 @@ def sum(x, axis=None, dtype=None, keepdim=False, name=None):
 
 
 def mean(x, axis=None, keepdim=False, name=None):
-    x = _as(x)
+    x, = amp_cast("mean", (_as(x),))
     return torch.mean(x, _dims(x, axis), keepdim=keepdim)
 
 
@@ -160,7 +168,7 @@ def cumsum(x, axis=None, dtype=None, name=None):
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
-    x, y = _as(x), _as(y)
+    x, y = amp_cast("matmul", (_as(x), _as(y)))
     if transpose_x and x.dim() > 1:
         x = x.transpose(-1, -2)
     if transpose_y and y.dim() > 1:

@@ -87,6 +87,17 @@ def test_walk_covers_the_paddle_api_surface():
         assert path in PORT_FILES
 
 
+def test_walk_covers_the_training_runtime():
+    for path in ("paddle_tpu_torch/amp/__init__.py",
+                 "paddle_tpu_torch/io/__init__.py",
+                 "paddle_tpu_torch/io/ragged.py",
+                 "paddle_tpu_torch/framework/io.py",
+                 "paddle_tpu_torch/fault/retry.py",
+                 "paddle_tpu_torch/fault/preemption.py",
+                 "paddle_tpu_torch/fault/sentinel.py"):
+        assert path in PORT_FILES
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.serving.supervisor, paddle_tpu_torch.fault, "
@@ -100,7 +111,11 @@ def test_import_leaves_jax_out_of_sys_modules():
             "paddle_tpu_torch.ops.kernels.db, paddle_tpu_torch.cost_model, "
             "paddle_tpu_torch.autograd, paddle_tpu_torch.nn.clip, "
             "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.ops.math, "
-            "paddle_tpu_torch.ops.manipulation, paddle_tpu_torch.utils\n"
+            "paddle_tpu_torch.ops.manipulation, paddle_tpu_torch.utils, "
+            "paddle_tpu_torch.amp, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.io.ragged, paddle_tpu_torch.fault.retry, "
+            "paddle_tpu_torch.fault.preemption, "
+            "paddle_tpu_torch.fault.sentinel\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "assert not bad, bad\n")
