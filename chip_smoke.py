@@ -215,6 +215,46 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    bytes and the save and load ms are printed. One
    ``{"runtime_train": ...}`` line; the flash rows of the ``kernels`` line
    carry 12a's launches as ``launches_amp``;
+13. the engine (runs after phase 11; 13c at the end of phase 8, on its
+   model and optimizer): ``distributed.init_parallel_env()`` joins an NCCL
+   group of one rank, and GPT-3 1.3B (phase 5's model, batch and AdamW) in
+   ``DataParallel`` trains through ``distributed.HybridParallelEngine``.
+   (13a) ``all_reduce`` (AVG), ``all_gather``, ``all_gather_into_tensor``
+   and ``broadcast`` over the NCCL group must give their input back; from
+   one start, 3 engine steps against 3 ``compile_train_step``
+   steps (losses and parameters bit-equal is the expectation; the reading
+   is printed either way) and against 3 steps at ``grad_accumulate=2``
+   (losses within ``ENGINE_ACC_REL_TOL``); then 2 warm-up and 8 timed
+   steps: step ms, tokens/s, MFU, peak, the buckets a step (at world 1 the
+   sync is the reference's single-participant identity: ``dp_buckets``
+   must read one a bucket and ``dp_all_reduces`` none) and the flash
+   counters (24 x 8 each); a device timeline of one step counts its NCCL
+   kernels. (13b) from a fresh engine and a fresh AdamW under
+   ``FLAGS_hbm_admission=enforce``: the first two steps are measured (each
+   attribution's ``peak_bytes`` printed beside ``max_memory_allocated``;
+   the first builds the gradients and moments, the second is the steady
+   step), the third is admitted and its predicted and realized peaks are
+   printed as a drift, a budget 1 MiB above that realized peak must admit
+   the fourth, a budget 1 MiB under the prediction (set after the state
+   snapshot) must raise ``HbmBudgetExceeded`` exactly 1 MiB over it with
+   no launch (flash counters and a CUDA event pair) and the parameters,
+   gradients, AdamW state and RNG bit-equal, the same call with the budget
+   restored must equal an unadmitted run bit for bit, and ``warn`` must
+   warn once over 2 steps. (13c) Llama-7B at b4 x s2048 through the engine
+   must meet a real ``torch.OutOfMemoryError`` whose retry fails and whose
+   degrade rung fits; the attempts, the bytes ``free_pressure`` released,
+   the rung and the next 3 steps' ms and peak are printed, and those steps
+   must stay on ``engine.accum`` with no second out-of-memory; they run
+   under ``enforce`` at the card's budget, and the third must be admitted
+   (its predicted and realized peaks printed). (13d) ``hbm.oom:op=engine.step,from=1`` must give
+   losses and parameters bit-equal to the ``grad_accumulate=2`` run of
+   13a, and ``hbm.oom:from=1`` ``HbmExhausted`` with ``free_pressure``,
+   ``degrade_x2`` and ``degrade_x4`` in its attempts and a flight dump that
+   carries ``budget_bytes`` and the attributions. (13e) one traced serving
+   drive (4 requests, 8 tokens) under ``warn`` must record an
+   ``hbm_admission`` drift. The process group is destroyed at the end.
+   One ``{"engine_train": ...}`` line; the flash rows of the ``kernels``
+   line carry 13a's launches as ``launches_engine``;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -259,8 +299,9 @@ size at each of ``PAGED_SHAPES``, and ``{"engine_drives": [...]}``, each
 engine drive's tok/s, decode steps, mean decode-step ms, launches and
 logits errors, with (e)'s prefix hits, shared blocks, tail prefills and
 chunk steps, (f)'s drafts proposed and accepted, and (g)'s and (h)'s
-sub-drives with their adopt info, and ``{"registry": {...}}``, phase 6's
-searches, persistence, tuned drive, host µs and the 192-row int8 checks.
+sub-drives with their adopt info, ``{"registry": {...}}``, phase 6's
+searches, persistence, tuned drive, host µs and the 192-row int8 checks,
+and ``{"engine_train": {...}}``, phase 13.
 """
 from __future__ import annotations
 
@@ -3041,9 +3082,13 @@ def llama_train_phase(profile=False):
     if profile:
         device_breakdown(lambda: step(ids, labels), 2,
                          f"profile (llama train) b{B}xs{T}", top=14)
-    del step, opt, model
+    del step
+    print("[13c] Llama-7B through HybridParallelEngine at b"
+          f"{LLAMA_OOM_B} x s{LLAMA_TRAIN_T}: a real out-of-memory, absorbed")
+    oom = llama_oom_phase(model, opt, cfg)
+    del opt, model
     torch.cuda.empty_cache()
-    return {"model": "llama_7b", "layers": cfg.num_layers,
+    return {"oom": oom, "model": "llama_7b", "layers": cfg.num_layers,
             "batch": [B, T], "params": n_params, "step_ms": step_ms,
             "tokens_per_s": tok_s, "mfu": mfu, "peak_gib": peak / 2**30,
             "queued_ms": queued * 1e3, "losses": vals,
@@ -4190,6 +4235,529 @@ def registry_phase(c0, tune_dir):
             "host_us": registry_host_us()}
 
 
+
+# -- engine train phase (13) ---------------------------------------------------
+
+ENGINE_STEPS = 3  # steps from one start in each bit comparison of phase 13
+ENGINE_ACC_REL_TOL = 1e-2  # grad_accumulate=2 against 1 (bf16 sum order)
+LLAMA_OOM_B = 4  # Llama-7B at b4 x s2048 cannot fit one card (13c)
+
+
+def engine_snapshot(model, opt):
+    """The training state on the card: parameters, gradients, optimizer
+    state (cloned) and the port's generator states."""
+    from paddle_tpu_torch.core.random import get_rng_state
+
+    params = [p.detach().clone() for p in model.parameters()]
+    grads = [None if p.grad is None else p.grad.clone()
+             for p in model.parameters()]
+    opt_sd = {k: v.clone() if isinstance(v, torch.Tensor) else v
+              for k, v in opt.state_dict().items()}
+    return params, grads, opt_sd, get_rng_state()
+
+
+def engine_restore(model, opt, snap):
+    from paddle_tpu_torch.core.random import set_rng_state
+
+    params, grads, opt_sd, rng = snap
+    with torch.no_grad():
+        for p, s, g in zip(model.parameters(), params, grads):
+            p.copy_(s)
+            p.grad = None if g is None else g.clone()
+    opt._accumulators = {}
+    opt.set_state_dict({k: v.clone() if isinstance(v, torch.Tensor) else v
+                        for k, v in opt_sd.items()})
+    set_rng_state(rng)
+
+
+def same_state(a, b):
+    """(parameters bit-equal, gradients bit-equal, optimizer state
+    bit-equal) of two ``engine_snapshot``s."""
+    pa = all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+    ga = all((x is None and y is None) or (x is not None and y is not None
+                                           and torch.equal(x, y))
+             for x, y in zip(a[1], b[1]))
+    oa = a[2].keys() == b[2].keys() and all(
+        torch.equal(v, b[2][k]) if isinstance(v, torch.Tensor)
+        else v == b[2][k] for k, v in a[2].items())
+    return pa, ga, oa
+
+
+def engine_run(model, start, make_step, n=ENGINE_STEPS, ids=None,
+               labels=None, spec=None):
+    """``n`` steps of ``make_step(opt)`` from the initial parameters
+    ``start`` with a fresh AdamW: (losses, parameters after). The
+    gradients are dropped after, so only the parameters stay."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fault import inject
+
+    with torch.no_grad():
+        for p, s in zip(model.parameters(), start):
+            p.copy_(s)
+            p.grad = None
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.named_parameters())
+    step = make_step(opt)
+    if spec:
+        inject.arm(spec)
+    try:
+        losses = [step(ids, labels) for _ in range(n)]
+    finally:
+        inject.disarm()
+    vals = [x.item() for x in losses]
+    del step, opt
+    for p in model.parameters():
+        p.grad = None
+    return vals, [p.detach().clone() for p in model.parameters()]
+
+
+def engine_throughput(eng, ids, labels, cfg, n_params):
+    """13a: 2 warm-up and 8 timed engine steps: step ms, tokens/s, MFU,
+    peak, flash launches and bucket all-reduces a step."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.ops import kernels as K
+
+    losses = [eng.train_step(ids, labels) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    c0 = profiler.counters()
+    timed, queued, wall = time_steps(eng.train_step, ids, labels,
+                                     TRAIN_STEPS)
+    counts = K.launch_counts()
+    c1 = profiler.counters()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [x.item() for x in losses + timed]
+    B, T = ids.shape
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = B * T * TRAIN_STEPS / wall
+    flops_tok = train_flops_per_token(cfg, n_params, T)
+    ar = (c1.get("dp_all_reduces", 0) - c0.get("dp_all_reduces", 0)) \
+        / TRAIN_STEPS
+    synced = (c1.get("dp_buckets", 0) - c0.get("dp_buckets", 0)) / TRAIN_STEPS
+    buckets = len(eng._dp_model._bucket_plan)
+    print(f"  (13a) engine: {TRAIN_STEPS} steps after {TRAIN_WARMUP} "
+          f"warm-up, step {step_ms:.2f} ms (host clock, one sync at the "
+          f"end), {tok_s:.1f} tokens/s, MFU {tok_s * flops_tok / 989e12:.4f}"
+          f", peak memory {peak / 2**30:.2f} GiB, {synced:g} buckets of <= "
+          f"25 MiB synced a step as the single-participant identity (world "
+          f"1), {ar:g} bucket all-reduces a step, launches {counts}; queued "
+          f"in {queued * 1e3:.1f} ms")
+    print(f"  losses: {[round(v, 4) for v in vals]}")
+    want = cfg.num_layers * TRAIN_STEPS
+    bad = [k for k in FLASH_REPLACES if counts[k] != want]
+    if bad:
+        fail(f"engine: launches {counts}, want {want} for each flash kernel")
+    if ar != 0 or synced != buckets:
+        fail(f"engine: {ar} bucket all-reduces and {synced} buckets a step at"
+             f" world 1, want 0 and {buckets}")
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"engine: losses {vals}")
+    ev = device_timeline(lambda: eng.train_step(ids, labels), 1,
+                         "timeline (engine)")
+    nccl = sum(1 for _, _, n in ev if "nccl" in n.lower())
+    print(f"  timeline (engine): one step names {nccl} NCCL kernels")
+    return {"step_ms": step_ms, "tokens_per_s": tok_s,
+            "mfu": tok_s * flops_tok / 989e12, "peak_gib": peak / 2**30,
+            "queued_ms": queued * 1e3, "losses": vals,
+            "bucket_all_reduces_per_step": ar, "buckets": buckets,
+            "buckets_synced_per_step": synced,
+            "nccl_kernels_in_one_step": nccl,
+            "launches": {k: counts[k] for k in FLASH_REPLACES}}
+
+
+def nccl_collectives(dist):
+    """13a: the collectives over the NCCL group of one rank, on the card:
+    each gives its input back."""
+    x = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+    got = {"all_reduce_avg": dist.all_reduce(x.clone(), dist.ReduceOp.AVG),
+           "all_gather": dist.all_gather(None, x)[0],
+           "broadcast": dist.broadcast(x.clone(), src=0)}
+    out = torch.empty_like(x)
+    dist.all_gather_into_tensor(out, x)
+    got["all_gather_into_tensor"] = out
+    dist.barrier()
+    torch.cuda.synchronize()
+    ok = {k: bool(torch.equal(v, x)) for k, v in got.items()}
+    print(f"  (13a) collectives over NCCL at world 1 on the card: {ok}")
+    if not all(ok.values()):
+        fail(f"collectives: {ok}")
+    return ok
+
+
+def engine_admission(model, start, ids, labels, loss_fn):
+    """13b: the admission, from a fresh engine and a fresh AdamW."""
+    import warnings
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import DataParallel, HybridParallelEngine
+    from paddle_tpu_torch.fault import memory
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import kernels as K
+
+    with torch.no_grad():
+        for p, s in zip(model.parameters(), start):
+            p.copy_(s)
+            p.grad = None
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.named_parameters())
+    eng = HybridParallelEngine(DataParallel(model), opt, loss_fn)
+    out = {}
+    set_flags({"FLAGS_hbm_admission": "enforce", "FLAGS_hbm_budget_bytes": 0})
+    measured = []
+    for i in range(2):  # the state-building call, then the steady one
+        eng.train_step(ids, labels)
+        rows = [r for r in memory.attributions() if r["key"].startswith(
+            "engine.step:x1:")]
+        if not rows:
+            fail(f"admission: no engine attribution in "
+                 f"{memory.attributions()}")
+        measured.append(dict(rows[0], max_memory_allocated=int(
+            torch.cuda.max_memory_allocated())))
+        print(f"  (13b) call {i + 1} measured: {rows[0]}; peak_bytes "
+              f"{rows[0]['peak_bytes']} against max_memory_allocated "
+              f"{measured[-1]['max_memory_allocated']}")
+    budget = memory.budget_bytes()
+    cap = torch.cuda.get_device_properties(0).total_memory
+    live = torch.cuda.memory_allocated()
+    first = measured[0]
+    once = live + first["output_bytes"] + first["temp_bytes"]
+    print(f"  (13b) budget {budget} (capacity {cap} less the reserve); the "
+          f"allocator holds {torch.cuda.memory_reserved()} reserved, "
+          f"{cap - budget} between the budget and the card's whole memory; "
+          f"admitted with the first call's growth, call 3 would predict "
+          f"{once} (live {live} + the gradients and moments counted again)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng.train_step(ids, labels)  # the first admitted call
+    torch.cuda.synchronize()
+    pred = memory.last_prediction()
+    realized = torch.cuda.max_memory_allocated()
+    drift = (pred["hbm_predicted_peak_bytes"] - realized) / realized
+    print(f"  (13b) call 3 admitted: predicted peak "
+          f"{pred['hbm_predicted_peak_bytes']} (live {pred['hbm_live_bytes']}"
+          f" + extra {pred['hbm_extra_bytes']}), realized peak {realized}, "
+          f"drift {drift:+.6f}")
+    # a budget 1 MiB above the realized peak admits the next call
+    set_flags({"FLAGS_hbm_budget_bytes": realized + (1 << 20)})
+    try:
+        eng.train_step(ids, labels)
+    except memory.HbmBudgetExceeded as e:
+        fail(f"admission: a budget 1 MiB above the realized peak {realized} "
+             f"rejected the step: {e}")
+    tight = memory.last_prediction()
+    print(f"  (13b) call 4 at a budget 1 MiB above call 3's realized peak: "
+          f"admitted, predicted {tight['hbm_predicted_peak_bytes']}")
+    out.update(measured=measured, budget_bytes=budget, capacity_bytes=cap,
+               first_growth_prediction=once,
+               predicted_peak_bytes=pred["hbm_predicted_peak_bytes"],
+               realized_peak_bytes=realized, drift=drift,
+               admitted_at_realized_plus_1mib=True)
+    # a budget 1 MiB under the prediction: rejected before any launch
+    before = engine_snapshot(model, opt)
+    torch.cuda.synchronize()
+    extra = tight["hbm_extra_bytes"]
+    set_flags({"FLAGS_hbm_budget_bytes":
+               torch.cuda.memory_allocated() + extra - (1 << 20)})
+    K.reset_launch_counts()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    try:
+        eng.train_step(ids, labels)
+        fail("admission: a budget under the prediction did not reject")
+    except memory.HbmBudgetExceeded as e:
+        err = e
+    e1.record()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    margin = err.predicted_bytes - err.budget_bytes
+    after = engine_snapshot(model, opt)
+    equal = same_state(before, after)
+    rng_equal = all(torch.equal(before[3][k], after[3][k])
+                    for k in before[3])
+    print(f"  (13b) rejected {margin} bytes over the budget: {err}; launches "
+          f"{counts}, CUDA events {e0.elapsed_time(e1):.4f} ms around the "
+          f"call; parameters, gradients, AdamW state bit-equal {equal}, RNG "
+          f"{rng_equal}")
+    if margin != 1 << 20:
+        fail(f"admission: rejected {margin} bytes over the budget, want "
+             f"{1 << 20}")
+    if any(counts.values()) or not all(equal) or not rng_equal:
+        fail(f"admission: the rejected call launched {counts} or changed "
+             f"the state {equal}, rng {rng_equal}")
+    out.update(rejected=str(err), rejected_margin_bytes=margin,
+               rejected_event_ms=e0.elapsed_time(e1),
+               rejected_launches=counts)
+    # the budget restored: the same call equals an unadmitted run
+    set_flags({"FLAGS_hbm_budget_bytes": 0})
+    admitted = eng.train_step(ids, labels).item()
+    a_params = [p.detach().clone() for p in model.parameters()]
+    set_flags({"FLAGS_hbm_admission": "off"})
+    engine_restore(model, opt, before)
+    plain = eng.train_step(ids, labels).item()
+    retry_equal = admitted == plain and all(
+        torch.equal(x, p) for x, p in zip(a_params, model.parameters()))
+    print(f"  (13b) the same call with the budget restored: loss {admitted}"
+          f", unadmitted {plain}; parameters bit-equal {retry_equal}")
+    if not retry_equal:
+        fail("admission: the retried call differs from an unadmitted run")
+    del a_params, before, after
+    # warn: once a site
+    set_flags({"FLAGS_hbm_admission": "warn", "FLAGS_hbm_budget_bytes": 10})
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        for _ in range(2):
+            eng.train_step(ids, labels)
+    n_warn = sum("exceeds budget" in str(x.message) for x in w)
+    print(f"  (13b) warn at a 10-byte budget: {n_warn} warning over 2 "
+          "steps")
+    if n_warn != 1:
+        fail(f"admission: warn gave {n_warn} warnings, want 1")
+    set_flags({"FLAGS_hbm_admission": "off", "FLAGS_hbm_budget_bytes": 0})
+    out.update(retry_bit_equal=retry_equal, warnings=n_warn)
+    del eng, opt
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def engine_ladder(model, start, ids, labels, losses_acc2, params_acc2):
+    """13d: the ladder's pins by injection at GPT-3 1.3B."""
+    from paddle_tpu_torch.distributed import DataParallel, HybridParallelEngine
+    from paddle_tpu_torch.fault import memory
+
+    def loss_fn(m, i, l):
+        return m._layers.loss(i, l)
+
+    engines = []
+
+    def make(opt):
+        engines.append(HybridParallelEngine(DataParallel(model), opt,
+                                            loss_fn))
+        return engines[-1].train_step
+
+    vals, params = engine_run(model, start, make, ids=ids, labels=labels,
+                              spec="hbm.oom:op=engine.step,from=1")
+    eng = engines.pop()
+    bits = vals == losses_acc2 and all(
+        torch.equal(a, b) for a, b in zip(params, params_acc2))
+    print(f"  (13d) hbm.oom:op=engine.step,from=1: rung x"
+          f"{eng.grad_accumulate} ({eng._dispatch_op}), losses {vals}; "
+          f"against grad_accumulate=2 from the start {losses_acc2}: losses "
+          f"and parameters bit-equal {bits}")
+    if eng.grad_accumulate != 2 or not bits:
+        fail("ladder: the degraded run is not bit-equal to accumulate-from-"
+             "start")
+    rung, op = eng.grad_accumulate, eng._dispatch_op
+    del params, eng
+    try:
+        engine_run(model, start, make, n=1, ids=ids, labels=labels,
+                   spec="hbm.oom:from=1")
+        fail("ladder: hbm.oom:from=1 did not exhaust the ladder")
+    except memory.HbmExhausted as e:
+        exc = e
+    actions = [a["action"] for a in exc.attempts]
+    doc = json.loads(Path(exc.dump_path).read_text())
+    ex = doc["extra"]
+    print(f"  (13d) hbm.oom:from=1: HbmExhausted, attempts {actions}; dump "
+          f"{Path(exc.dump_path).name}: budget_bytes {ex.get('budget_bytes')}"
+          f", {len(ex.get('attributions', []))} attributions, census "
+          f"{ex['census'].get('allocated_bytes', ex['census'])}")
+    if not {"free_pressure", "degrade_x2", "degrade_x4"} <= set(actions) \
+            or not ex.get("budget_bytes") or not ex.get("attributions"):
+        fail(f"ladder: attempts {actions}, dump extra keys {sorted(ex)}")
+    engines.clear()
+    for p in model.parameters():
+        p.grad = None
+    return {"degrade_rung": rung, "degraded_dispatch": op,
+            "degraded_losses": vals, "bit_equal_to_accumulate": bits,
+            "exhausted_attempts": actions,
+            "dump_budget_bytes": ex["budget_bytes"],
+            "dump_attributions": len(ex["attributions"])}
+
+
+def engine_serving_drift(model):
+    """13e: one short traced serving drive under warn records the
+    admission's drift."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.serving import Engine, observe
+
+    observe.reset()
+    set_flags({"FLAGS_hbm_admission": "warn"})
+    try:
+        model.eval()
+        rng = np.random.RandomState(3)
+        with Engine(model, block_size=16, num_blocks=64, max_batch=4,
+                    max_seq_len=256, trace=True) as eng:
+            hs = [eng.submit(rng.randint(0, 50000, (32,)).tolist(),
+                             max_new_tokens=8) for _ in range(4)]
+            outs = [h.result(timeout=300) for h in hs]
+        g = observe.drift_gauges().get("hbm_admission")
+    finally:
+        set_flags({"FLAGS_hbm_admission": "off"})
+        model.train()
+        observe.reset()
+    print(f"  (13e) traced serving drive under warn: {len(outs)} requests, "
+          f"hbm_admission drift {g}")
+    if not g or g["samples"] < 1 or any(len(o) != 40 for o in outs):
+        fail(f"serving drift: gauge {g}, outputs {[len(o) for o in outs]}")
+    return {"samples": g["samples"], "rel_err": g["rel_err"],
+            "predicted": g["predicted"], "actual": g["actual"]}
+
+
+def engine_train_phase(llama_oom):
+    """Phase 13: GPT-3 1.3B through HybridParallelEngine over NCCL (13a),
+    the admission (13b), the ladder by injection (13d), the serving drift
+    (13e); 13c (Llama-7B's real out-of-memory) ran at the end of phase 8."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import DataParallel, HybridParallelEngine
+
+    env = dist.init_parallel_env()
+    print(f"  init_parallel_env: backend {dist.get_backend()}, world "
+          f"{env.world_size}, rank {env.rank}, mesh {dist.global_mesh()}")
+    try:
+        collectives = nccl_collectives(dist)
+        model = train_model()
+        cfg = model.config
+        ids, labels = train_batch(cfg)
+        n_params = sum(p.numel() for p in model.parameters())
+        start = [p.detach().clone() for p in model.parameters()]
+
+        def loss_fn(m, i, l):
+            return m._layers.loss(i, l)
+
+        def engine_of(acc=1):
+            def make(opt):
+                return HybridParallelEngine(DataParallel(model), opt,
+                                            loss_fn,
+                                            grad_accumulate=acc).train_step
+            return make
+
+        def compiled(opt):
+            return pt.jit.compile_train_step(
+                model, lambda m, i, l: m.loss(i, l), opt)
+
+        # three steps from one start: the engine, compile_train_step, and
+        # the engine at grad_accumulate=2
+        l_eng, p_eng = engine_run(model, start, engine_of(), ids=ids,
+                                  labels=labels)
+        l_cmp, p_cmp = engine_run(model, start, compiled, ids=ids,
+                                  labels=labels)
+        bits = l_eng == l_cmp and all(torch.equal(a, b)
+                                      for a, b in zip(p_eng, p_cmp))
+        del p_eng, p_cmp
+        l_acc, p_acc = engine_run(model, start, engine_of(2), ids=ids,
+                                  labels=labels)
+        acc_rel = rel_diff(l_acc, l_eng)
+        print(f"  (13a) from one start, {ENGINE_STEPS} steps: engine "
+              f"{l_eng}, compile_train_step {l_cmp}: losses and parameters "
+              f"bit-equal {bits}; grad_accumulate=2 {l_acc}, worst relative "
+              f"loss difference {acc_rel:.3e} (tol {ENGINE_ACC_REL_TOL})")
+        if not acc_rel <= ENGINE_ACC_REL_TOL:
+            fail(f"engine: grad_accumulate=2 losses {l_acc} against {l_eng}")
+        with torch.no_grad():
+            for p, s in zip(model.parameters(), start):
+                p.copy_(s)
+        opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.named_parameters())
+        eng = HybridParallelEngine(DataParallel(model), opt, loss_fn)
+        out = {"model": "gpt3_1p3b", "batch": list(ids.shape),
+               "backend": dist.get_backend(), "world": env.world_size,
+               "nccl_collectives": collectives}
+        out.update(engine_throughput(eng, ids, labels, cfg, n_params))
+        out.update(engine_vs_compiled_bit_equal=bits,
+                   engine_vs_compiled_losses=[l_eng, l_cmp],
+                   acc2_losses=l_acc, acc2_rel_diff=acc_rel)
+        del eng, opt
+        torch.cuda.empty_cache()
+        out["admission"] = engine_admission(model, start, ids, labels,
+                                            loss_fn)
+        torch.cuda.empty_cache()
+        # after the admission, so the exhaustion's dump has attributions
+        out["ladder"] = engine_ladder(model, start, ids, labels, l_acc,
+                                      p_acc)
+        del p_acc, start
+        torch.cuda.empty_cache()
+        out["serving_drift"] = engine_serving_drift(model)
+        out["llama_oom"] = llama_oom
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def llama_oom_phase(model, opt, cfg):
+    """13c, run at the end of phase 8 on its model and optimizer: Llama-7B
+    at b4 x s2048 through the engine meets a real torch.OutOfMemoryError;
+    the ladder must absorb it by a degrade rung."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed import HybridParallelEngine
+    from paddle_tpu_torch.fault import memory
+    from paddle_tpu_torch.framework.flags import set_flags
+
+    ids, labels = train_batch(cfg, LLAMA_OOM_B, LLAMA_TRAIN_T, seed=1)
+    eng = HybridParallelEngine(model, opt, lambda m, i, l: m.loss(i, l))
+    c0 = profiler.counters()
+    t0 = time.monotonic()
+    loss = eng.train_step(ids, labels).item()
+    torch.cuda.synchronize()
+    rec_s = time.monotonic() - t0
+    att = eng.last_oom_attempts or []
+    actions = [(a["action"], a.get("ok")) for a in att]
+    fp = next((a for a in att if a["action"] == "free_pressure"), {})
+    real = bool(att) and att[0].get("type") == "OutOfMemoryError" \
+        and "injected" not in att[0].get("message", "")
+    print(f"  (13c) llama_7b b{LLAMA_OOM_B} x s{LLAMA_TRAIN_T}: attempts "
+          f"{actions}; first: {att[0].get('message', '')[:160] if att else ''}"
+          f"; free_pressure released {fp.get('released_bytes')} bytes "
+          f"(gradients {fp.get('freed_grad_bytes')}); rung x"
+          f"{eng.grad_accumulate} ({eng._dispatch_op}), loss {loss:.4f}, "
+          f"the step with its recovery {rec_s * 1e3:.1f} ms")
+    degraded = [a for a in att if a["action"].startswith("degrade")
+                and a.get("ok")]
+    retry_failed = ("retry", False) in actions
+    if not real or not retry_failed or not degraded \
+            or not np.isfinite(loss):
+        fail(f"llama oom: attempts {att}")
+    # the next 3 steps under enforce at the card's budget: the first two
+    # are measured, the third must be admitted
+    set_flags({"FLAGS_hbm_admission": "enforce", "FLAGS_hbm_budget_bytes": 0})
+    ms = []
+    try:
+        for _ in range(3):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            eng.train_step(ids, labels).item()
+            ms.append((time.monotonic() - t0) * 1e3)
+    except memory.HbmBudgetExceeded as e:
+        fail(f"llama oom: the degraded step was not admitted: {e}")
+    finally:
+        set_flags({"FLAGS_hbm_admission": "off"})
+    peak = torch.cuda.max_memory_allocated()  # the admitted third step's
+    pred = memory.last_prediction()
+    drift = (pred["hbm_predicted_peak_bytes"] - peak) / peak
+    c1 = profiler.counters()
+    trips = c1.get("hbm_oom_trips", 0) - c0.get("hbm_oom_trips", 0)
+    print(f"  (13c) next 3 steps on {eng._dispatch_op} x"
+          f"{eng.grad_accumulate}: {[round(x, 2) for x in ms]} ms, peak "
+          f"{peak / 2**30:.2f} GiB, out-of-memory trips {trips} in all; "
+          f"under enforce the third admitted at budget "
+          f"{pred['hbm_budget_bytes']}: predicted "
+          f"{pred['hbm_predicted_peak_bytes']}, realized {peak}, drift "
+          f"{drift:+.6f}")
+    if trips != 1 or eng._dispatch_op != "engine.accum":
+        fail(f"llama oom: {trips} trips, dispatch {eng._dispatch_op}")
+    return {"batch": [LLAMA_OOM_B, LLAMA_TRAIN_T], "attempts": [
+        {k: v for k, v in a.items() if k != "handlers"} for a in att],
+        "rung": eng.grad_accumulate, "recovery_step_ms": rec_s * 1e3,
+        "next_steps_ms": ms, "degraded_peak_gib": peak / 2**30,
+        "admitted_predicted_bytes": pred["hbm_predicted_peak_bytes"],
+        "admitted_realized_bytes": peak, "admitted_drift": drift,
+        "budget_bytes": pred["hbm_budget_bytes"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4301,6 +4869,10 @@ def main(argv=None) -> int:
     gen = generation_phase()
     print("[11] FLAGS_check_nan_inf on the card")
     naninf = naninf_phase()
+    print("[13] engine train: gpt3_1p3b through HybridParallelEngine over "
+          "NCCL (DataParallel, world 1), HBM admission, the OOM ladder by "
+          "injection, the serving drift")
+    engine = engine_train_phase(llama.pop("oom"))
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -4323,6 +4895,8 @@ def main(argv=None) -> int:
         amp_launches = runtime["gpt_o1_bf16"]["launches"]
         if r["name"] in amp_launches:  # and phase 12a's, bf16 from O1
             r["launches_amp"] = amp_launches[r["name"]]
+        if r["name"] in engine["launches"]:  # and phase 13a's timed steps
+            r["launches_engine"] = engine["launches"][r["name"]]
     # the reference's (B*H, T, D) route shape: not on the port's main path
     long_rows = flash_timing(long_errs, dict.fromkeys(FLASH_REPLACES, 0),
                              FLASH_LONG, fused_qkv=False)
@@ -4365,6 +4939,7 @@ def main(argv=None) -> int:
     print(json.dumps({"paged_shapes": paged}))
     print(json.dumps({"engine_drives": drives}))
     print(json.dumps({"registry": registry}))
+    print(json.dumps({"engine_train": engine}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

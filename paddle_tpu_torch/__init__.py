@@ -13,8 +13,10 @@ initializers, ``ParamAttr``, the grad clips) and ``optimizer`` (with the
 ``lr`` schedulers), and the runtime around a user's own loop: ``amp``
 (``auto_cast``, ``decorate``, ``GradScaler``), ``io`` (datasets, samplers,
 ``DataLoader``, ``DevicePrefetcher``), ``save``/``load`` (checkpoints either
-package reads) and ``fault`` (the stability sentinel, the preemption guard,
-retry). Under it, kernels written by hand in CUDA C++
+package reads), ``fault`` (the stability sentinel, the preemption guard,
+retry, the HBM admission and the out-of-memory ladder) and
+``distributed`` (``init_parallel_env``, the collectives, ``DataParallel``,
+``HybridParallelEngine``). Under it, kernels written by hand in CUDA C++
 (``ops/kernels/csrc``) serve and train:
 
 - serving: ``serving.Engine`` over the paged builders in
@@ -28,7 +30,7 @@ Entry points run on ``cuda`` unless the caller asks for the CPU
 (``set_device("cpu")`` or ``device="cpu"``); on the CPU every kernel wrapper
 runs its plain PyTorch version.
 """
-from . import amp, autograd, io, jit, nn, optimizer, utils
+from . import amp, autograd, distributed, io, jit, nn, optimizer, utils
 from .autograd import grad
 from .core.dtype import (bfloat16, bool_, complex64, complex128, float16,
                          float32, float64, get_default_dtype, int8, int16,
@@ -38,6 +40,7 @@ from .core.engine import (enable_grad, grad_enabled, no_grad,
 from .core.place import (CPUPlace, CUDAPlace, Place, TPUPlace, get_device,
                          is_compiled_with_cuda, resolve_device, set_device)
 from .core.random import seed
+from .distributed.parallel import DataParallel
 from .core.tensor import Parameter, Tensor, to_tensor
 from .framework.flags import flag, get_flags, set_flags
 from .framework.io import load, save
@@ -65,7 +68,8 @@ bool = bool_  # noqa: A001 (paddle.bool)
 is_grad_enabled = grad_enabled
 
 __all__ = [
-    "amp", "autograd", "io", "jit", "nn", "optimizer", "utils", "grad",
+    "amp", "autograd", "distributed", "io", "jit", "nn", "optimizer",
+    "utils", "grad", "DataParallel",
     "bool", "save", "load",
     "bfloat16", "complex64", "complex128", "float16", "float32", "float64",
     "int8", "int16", "int32", "int64", "uint8", "get_default_dtype",

@@ -1,6 +1,7 @@
 """Cost model (port of ``paddle_tpu/cost_model/__init__.py``): analytic
-kernel-config estimates that order the autotuner's visits, and a measured
-profile of one callable.
+kernel-config estimates that order the autotuner's visits, a measured
+profile of one callable, and a step program's memory footprint
+(:func:`executable_memory` over a :class:`MeasuredStep`).
 
 The reference takes a program's flops and bytes from XLA's
 ``cost_analysis()``; the port runs eagerly, so ``profile_measure`` counts
@@ -17,11 +18,12 @@ have.
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-__all__ = ["CostModel", "leaves", "device_sync", "H100"]
+__all__ = ["CostModel", "MeasuredStep", "MEASURED_CALLS", "executable_memory",
+           "leaves", "device_sync", "H100"]
 
 # one H100 SXM (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM3
 # rate, SMs, shared memory a block can take, NVLink one way; and the host
@@ -41,6 +43,14 @@ _INT8_STAGES, _INT8_KC, _INT8_MP, _INT8_XPITCH = 4, 128, 32, 136
 _PAGED_WARPS, _PAGED_BLOCKS_PER_SM, _PAGED_MAX_SPLIT = 4, 4, 8
 
 
+# A step program's signature is measured on this many first calls, and its
+# later calls are admitted with the last measurement. The first call builds
+# the optimizer state and keeps the gradients, which every later call finds
+# already in the live census; only the second call rises from where the
+# calls after it start, so only it predicts them.
+MEASURED_CALLS = 2
+
+
 def leaves(out):
     """The tensors of a nested output (a tensor, tuples, lists, dicts)."""
     if isinstance(out, torch.Tensor):
@@ -57,6 +67,101 @@ def device_sync(out) -> None:
     card: a host clock read after it sees the device's work done."""
     if any(t.is_cuda for t in leaves(out)):
         torch.cuda.synchronize()
+
+
+class MeasuredStep:
+    """One call of a step program, measured: the port's counterpart of a
+    compiled XLA executable's ``memory_analysis()``.
+
+    A context manager around the call. On a CUDA device it resets the
+    caching allocator's peak (``reset_peak_memory_stats``, process-wide for
+    that device), reads ``memory_allocated`` before and after the call and
+    ``max_memory_allocated`` after it, all host-side counters that never
+    wait on the device. On the CPU it takes the profiler's census before
+    and after (the live tensors ``gc`` can see) and has no peak. A call
+    that raises is not measured. :meth:`memory_analysis` then answers as
+    XLA's does, with ``argument_size_in_bytes`` (the live bytes before the
+    call), ``output_size_in_bytes`` (their growth across it: the optimizer
+    state a first step creates, the gradients it keeps),
+    ``temp_size_in_bytes`` (the peak less the live bytes after; 0 on the
+    CPU) and ``alias_size_in_bytes`` (0: the update writes in place and
+    nothing is donated)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._before = self._after = self._peak = None
+
+    def _live(self) -> int:
+        if self.device.type == "cuda":
+            return int(torch.cuda.memory_allocated(self.device))
+        from .. import profiler
+
+        return int(profiler.memory_census(self.device)["live_bytes"])
+
+    def __enter__(self):
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+        self._before = self._live()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            return False
+        self._after = self._live()
+        self._peak = (int(torch.cuda.max_memory_allocated(self.device))
+                      if self.device.type == "cuda" else self._after)
+        return False
+
+    def memory_analysis(self):
+        if self._after is None:
+            return None
+        from types import SimpleNamespace
+
+        return SimpleNamespace(
+            argument_size_in_bytes=self._before,
+            output_size_in_bytes=max(self._after - self._before, 0),
+            temp_size_in_bytes=max(self._peak - self._after, 0),
+            alias_size_in_bytes=0)
+
+
+def executable_memory(compiled) -> Optional[Dict[str, int]]:
+    """A step program's memory footprint: argument/output/temp/alias bytes
+    plus the derived ``peak_bytes`` (argument + output + temp - alias, the
+    reference's rule). ``compiled`` is anything with the reference's
+    ``memory_analysis()``; in the port that is a :class:`MeasuredStep`.
+    None when nothing could be measured (the call raised, or the object
+    has no analysis).
+
+    The reference predicts these numbers at compile time from XLA's
+    analysis of the executable; the port measures them over a call that
+    already happened. A first step's output includes the optimizer state it
+    created and the gradients it kept, which the next call finds in the
+    live census, so admitting from it would count them twice: the step
+    programs measure a signature's first :data:`MEASURED_CALLS` calls and
+    admit the later ones with the last measurement. ``fault/memory.py``
+    keys these dicts by the step's signature and feeds the preflight HBM
+    admission check."""
+    try:
+        ma = compiled.memory_analysis()
+    except Exception:
+        return None
+    if ma is None:
+        return None
+
+    def g(name):
+        return int(getattr(ma, name, 0) or 0)
+
+    arg = g("argument_size_in_bytes")
+    out = g("output_size_in_bytes")
+    tmp = g("temp_size_in_bytes")
+    alias = g("alias_size_in_bytes")
+    return {
+        "argument_bytes": arg,
+        "output_bytes": out,
+        "temp_bytes": tmp,
+        "alias_bytes": alias,
+        "peak_bytes": max(arg + out + tmp - alias, 0),
+    }
 
 
 def _pad(n, b):

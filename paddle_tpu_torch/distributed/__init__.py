@@ -1,8 +1,44 @@
-"""Distributed training (port of ``paddle_tpu/distributed``): so far the
-model-parallel helper collectives' single-rank form (``collective.py``) and
-the single-device model-parallel layers (``fleet.meta_parallel``). Groups of
-more than one rank come with ROADMAP A11."""
+"""Distributed training (port of ``paddle_tpu/distributed``): the process
+group and its collectives on ``torch.distributed`` (``parallel_env``,
+``collective``), the job's mesh of axes (``mesh``), gradient buckets and
+``DataParallel``, the ``HybridParallelEngine`` with its OOM recovery
+ladder, and the single-device model-parallel layers
+(``fleet.meta_parallel``). Tensor, pipeline and sequence parallelism and
+ZeRO come with ROADMAP A11b; the distributed checkpoint, coordination,
+watchdog and launchers with A11c."""
 from . import collective, fleet
-from .collective import get_rank, get_world_size
+from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
+                         all_gather_into_tensor, all_reduce, all_to_all,
+                         alltoall, alltoall_single, barrier, broadcast,
+                         get_group, irecv, isend, new_group, recv, reduce,
+                         reduce_scatter, scatter, send, wait)
+from .collective import split as _dist_split  # noqa: F401
+from .engine import HybridParallelEngine  # noqa: F401
+from .mesh import (build_mesh, global_mesh, mesh_axis_size,  # noqa: F401
+                   set_global_mesh)
+from .parallel import DataParallel  # noqa: F401
+from .parallel_env import (ParallelEnv, destroy_process_group,  # noqa: F401
+                           get_rank, get_world_size, init_parallel_env)
 
-__all__ = ["collective", "fleet", "get_rank", "get_world_size"]
+
+def get_backend():
+    import torch.distributed as dist
+
+    return dist.get_backend() if dist.is_initialized() else "gloo"
+
+
+def is_initialized():
+    from .parallel_env import _initialized
+
+    return _initialized()
+
+
+__all__ = ["collective", "fleet", "get_rank", "get_world_size",
+           "init_parallel_env", "ParallelEnv", "destroy_process_group",
+           "DataParallel", "HybridParallelEngine", "build_mesh",
+           "global_mesh", "set_global_mesh", "mesh_axis_size", "Group",
+           "ReduceOp", "new_group", "get_group", "all_reduce", "all_gather",
+           "all_gather_into_tensor", "reduce", "reduce_scatter", "broadcast",
+           "scatter", "all_to_all", "alltoall", "alltoall_single", "send",
+           "recv", "isend", "irecv", "barrier", "wait", "get_backend",
+           "is_initialized"]

@@ -1,0 +1,387 @@
+"""Hybrid-parallel training engine (port of
+``paddle_tpu/distributed/engine.py`` ``HybridParallelEngine``).
+
+The reference compiles forward, backward and the optimizer update into one
+XLA program over a GSPMD mesh. The port runs one process a card and the
+step eagerly: ``train_step`` clears the gradients, runs
+``loss_fn(model, *batch)`` and its backward, syncs the gradients over the
+``dp`` ranks through ``DataParallel``'s buckets (when the model is a
+``DataParallel``, or ``dp > 1``), and applies the update the reference's
+engine applies (``Optimizer._step(functional=True, with_params=True)``: the
+compiled rule with the decay gate and lr scale of each parameter, no grad
+clip). At ``dp > 1`` each rank passes its own dim-0 shard of the global
+batch, and the returned loss is the mean over the ranks.
+
+``grad_accumulate=acc`` splits the batch's dim 0 into ``acc`` chunks and
+runs one backward each before the one update. Each chunk's loss is scaled
+by ``1/acc`` before its backward and ``.grad`` accumulates: for a power of
+two this gives the bits of the reference's ``a + (g / acc).astype(a.dtype)``
+(the scale is exact and commutes with every rounding of the backward, with
+no subnormals at these scales), with no extra buffer.
+
+The OOM recovery ladder (``_recover_oom``) keeps the reference's rungs,
+counters, span attributes and attempt records: classify (``note_oom``) ->
+``free_pressure`` (which drops the failed step's gradients and graph and
+empties the caching allocator) -> retry once -> re-run the step through the
+accumulate path at 2x and then 4x the configured accumulation (sticky,
+with the dim-0 divisibility check) -> halt with a post-mortem and
+``HbmExhausted``. Before each rung the RNG stream is restored to where the
+step began, so a recovered step draws what a healthy one would (the
+reference reuses the step's key). An out-of-memory inside the optimizer
+update leaves the parameters half written, so the ladder halts there (the
+counterpart of the reference's donated-and-dead arguments). The ``hbm.oom``
+chaos point is consulted at ``engine.step`` (``engine.accum`` once
+degraded) and at each degrade rung, as the reference's ``_dispatch`` does.
+
+Under ``FLAGS_hbm_admission`` the step is admitted as ``jit``'s is: the
+first two calls of a signature (the step's kind, its accumulation and the
+batch's shapes and dtypes) measure the footprint
+(``cost_model.MEASURED_CALLS``), and later calls run
+``fault.memory.preflight`` with the second's numbers before anything is
+touched.
+
+Not ported here: a mesh axis other than ``dp`` larger than 1 (``mp``,
+``pp``, ``sharding``, ``sp``) and the ZeRO-1 sharded weight update that
+``FLAGS_shard_weight_update`` builds at ``dp > 1`` raise
+``NotImplementedError`` (ROADMAP A11b). ``donate`` is accepted and
+recorded; the port updates in place.
+"""
+from __future__ import annotations
+
+import gc
+import traceback
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import profiler
+from ..core.place import resolve_device
+from ..core.random import get_rng_state, set_rng_state
+from ..fault import inject as _inject
+from ..framework.flags import flag
+from . import collective as C
+from .mesh import global_mesh
+from .parallel import DataParallel
+
+__all__ = ["HybridParallelEngine"]
+
+
+def _drop_frames(exc: BaseException) -> None:
+    """Release what a failed step's frames hold (its activations, its
+    graph), then the tracebacks of ``exc`` and its chained causes: a
+    traceback kept in a local of a frame it references is a cycle that
+    would hold the engine, its model and its optimizer until the garbage
+    collector runs."""
+    seen = set()
+    e = exc
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        if e.__traceback__ is not None:
+            traceback.clear_frames(e.__traceback__)
+            e.__traceback__ = None
+        e = e.__cause__ or e.__context__
+
+
+class HybridParallelEngine:
+    """``loss_fn(model, *batch_tensors) -> scalar tensor``; one
+    ``train_step(*batch)`` is one forward, backward, sync and update."""
+
+    def __init__(
+        self,
+        model,
+        optimizer,
+        loss_fn: Callable,
+        mesh=None,
+        batch_specs: Optional[Sequence] = None,
+        dp_axes=("dp",),
+        grad_accumulate: int = 1,
+        donate: bool = True,
+    ):
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.mesh = mesh or global_mesh()
+        self.batch_specs = batch_specs
+        self.dp_axes = tuple(dp_axes)
+        self.donate = donate
+        self.grad_accumulate = max(int(grad_accumulate), 1)
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.buffers = list(model.buffers())
+        if not self.params:
+            raise ValueError("HybridParallelEngine: the model has no "
+                             "trainable parameters")
+        sizes = dict(self.mesh.shape)
+        other = {a: s for a, s in sizes.items()
+                 if a not in self.dp_axes and s > 1}
+        if other:
+            raise NotImplementedError(
+                f"HybridParallelEngine: mesh axes {other} are not ported "
+                "yet: tensor, pipeline, sharding and sequence parallelism "
+                "come with ROADMAP A11b; only the dp axes run")
+        self.dp = int(np.prod([sizes.get(a, 1) for a in self.dp_axes]))
+        if (self.dp > 1 and self.grad_accumulate == 1
+                and flag("FLAGS_shard_weight_update", True)
+                and getattr(optimizer, "_elementwise_rule", False)):
+            raise NotImplementedError(
+                "HybridParallelEngine: FLAGS_shard_weight_update at dp="
+                f"{self.dp} builds the reference's ZeRO-1 sharded weight "
+                "update, which is not ported yet: ROADMAP A11b; clear the "
+                "flag for the replicated update")
+        world = C.get_world_size()
+        if self.dp > 1 and world != self.dp:
+            raise ValueError(f"HybridParallelEngine: dp={self.dp} needs a "
+                             f"world of {self.dp} ranks, have {world} "
+                             "(init_parallel_env)")
+        # raises when the model sits on a card this process cannot reach
+        self._device = resolve_device(self.params[0].device)
+        self._dp_model = model if isinstance(model, DataParallel) else (
+            DataParallel(model) if self.dp > 1 else None)
+        # stability sentinel (fault/sentinel.py); None keeps the zero-cost
+        # path — one attribute check per train_step
+        self._sentinel = None
+        # the hbm.oom chaos consult site name: "engine.step" until a sticky
+        # degrade moves the primary dispatch onto the accumulate path
+        self._dispatch_op = "engine.step"
+        # step signature -> (calls measured, the last footprint): admission
+        self._mem = {}
+        # set when the last step's optimizer update raised: the parameters
+        # may be half written
+        self._update_failed = False
+        self.last_oom_attempts = None
+
+    def attach_sentinel(self, sentinel) -> None:
+        """Hook a :class:`~paddle_tpu_torch.fault.sentinel.StabilitySentinel`
+        into the step: ``train_step`` consults the ``loss.spike``/
+        ``grad.spike`` chaos points on the batch and feeds the step's loss
+        to the sentinel as a COMMITTED observation (the update is applied
+        by the time the loss is read), so a trip escalates to rollback,
+        never skip."""
+        self._sentinel = sentinel
+
+    def _as_tensor(self, b):
+        return b if isinstance(b, torch.Tensor) \
+            else torch.as_tensor(np.asarray(b), device=self._device)
+
+    def prefetch(self, data, buffer_size=2):
+        """``data`` through a ``DevicePrefetcher`` onto this engine's card:
+        batch k+1 is copied while step k runs."""
+        from ..io import DevicePrefetcher
+
+        return DevicePrefetcher(data, buffer_size=buffer_size,
+                                device=self._device)
+
+    # -- the step ------------------------------------------------------------
+    def train_step(self, *batch):
+        with profiler.span("train_step", kind="engine") as sp:
+            return self._train_step_impl(sp, *batch)
+
+    def _train_step_impl(self, sp, *batch):
+        batch = [self._as_tensor(b) for b in batch]
+        sp.set(wus=False, params=len(self.params))
+        first = None  # a signature whose call is measured
+        if flag("FLAGS_hbm_admission", "off") != "off":
+            first = self._admit(sp, batch)
+        if self._sentinel is not None:
+            # chaos spikes are applied to the batch on its device (a
+            # poisoned batch is what the sentinel exists to survive)
+            batch = list(self._sentinel.maybe_spike(
+                batch, step=self.optimizer._step_count + 1))
+        rng = get_rng_state()
+        oom = None
+        try:
+            loss = self._dispatch(batch) if first is None \
+                else self._measured(sp, first, batch)
+        except Exception as e:
+            from ..fault import memory as _hbm
+
+            if not _hbm.is_oom(e):
+                raise
+            oom = e
+        if oom is not None:
+            # out of memory in the step: free pressure -> retry -> degrade
+            # through the accumulate path -> halt (post-mortem). Run outside
+            # the handler, so an error of a rung does not chain to the OOM
+            # (the classifier walks the chain)
+            loss = self._recover_oom(oom, batch, rng, sp)
+        self._observe_stability(loss)
+        return loss
+
+    def _dispatch(self, batch):
+        """One step, with the ``hbm.oom`` chaos point consulted at the
+        dispatch site (the unarmed path is one module-attribute probe)."""
+        if _inject._armed:
+            _inject.maybe_hbm_oom(self._dispatch_op,
+                                  step=self.optimizer._step_count + 1)
+        return self._step(batch, self.grad_accumulate)
+
+    def _step(self, batch, acc):
+        """Forward, backward (``acc`` chunks), the dp sync and the update;
+        the loss (an f32 mean of the chunks' losses when ``acc > 1``)."""
+        opt = self.optimizer
+        self._update_failed = False
+        opt.clear_grad(set_to_zero=False)
+        if acc == 1:
+            loss = self.loss_fn(self.model, *batch)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            loss = None
+            for i in range(acc):
+                chunk = [b[i * (b.shape[0] // acc):(i + 1) * (b.shape[0] // acc)]
+                         if b.dim() >= 1 else b for b in batch]
+                part = self.loss_fn(self.model, *chunk)
+                (part / acc).backward()
+                part = (part.detach() / acc).float()
+                loss = part if loss is None else loss + part
+        if self._dp_model is not None:
+            self._dp_model.apply_collective_grads()
+            if self.dp > 1:
+                loss = C.all_reduce(loss.clone(), C.ReduceOp.AVG)
+        try:
+            opt._step(functional=True, with_params=True)
+        except BaseException:
+            self._update_failed = True
+            raise
+        return loss
+
+    # -- admission -----------------------------------------------------------
+    def _signature(self, batch):
+        return (self._dispatch_op, self.grad_accumulate) + tuple(
+            (tuple(b.shape), str(b.dtype)) for b in batch)
+
+    def _admit(self, sp, batch):
+        """Preflight a signature measured ``MEASURED_CALLS`` times (under
+        ``enforce`` this raises before anything is touched) and return
+        None; else return the signature, whose call is then measured."""
+        from ..cost_model import MEASURED_CALLS
+        from ..fault import memory as _hbm
+
+        sig = self._signature(batch)
+        calls, mem = self._mem.get(sig, (0, None))
+        if calls < MEASURED_CALLS:
+            return sig
+        _hbm.preflight(mem, self._dispatch_op, span=sp, device=self._device)
+        return None
+
+    def _measured(self, sp, sig, batch):
+        """One of the first calls of ``sig``: dispatched, measured and
+        noted."""
+        from ..cost_model import MeasuredStep
+        from ..fault import memory as _hbm
+
+        with MeasuredStep(self._device) as run:
+            loss = self._dispatch(batch)
+        key = f"{sig[0]}:x{sig[1]}:{hash(sig) & 0xFFFFFFFFFFFFFFFF:016x}"
+        mem = _hbm.analyze_compiled(run, key=key)
+        self._mem[sig] = (self._mem.get(sig, (0, None))[0] + 1, mem)
+        if mem is not None:
+            sp.set(hbm_exec_peak_bytes=mem["peak_bytes"])
+        return loss
+
+    # -- the OOM ladder ------------------------------------------------------
+    def _release(self):
+        """Between two failed rungs: drop the partial gradients and the
+        garbage, and give the allocator's free blocks back."""
+        for p in self.params:
+            p.grad = None
+        gc.collect()
+        if self._device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _recover_oom(self, exc, batch, rng, sp):
+        """The engine-level OOM recovery ladder (fault/memory.py), run on the
+        step's batch with the RNG stream restored before each rung.
+
+        classify -> free pressure -> retry once -> degrade by re-running the
+        failed step through the accumulate path at 2x/4x the configured
+        accumulation (sticky: the engine STAYS at the working accumulation,
+        so every later step equals a run configured with it from the start)
+        -> halt with a flight post-mortem carrying the census, the budget,
+        the per-step-program attributions and every attempt."""
+        from ..fault import memory as _hbm
+
+        attempts = [{"action": "classify",
+                     **_hbm.note_oom(self._dispatch_op, exc)}]
+        self.last_oom_attempts = attempts  # what the ladder tried, last time
+        _drop_frames(exc)
+
+        def _halt(why, cause):
+            attempts.append({"action": "halt", "why": why})
+            path = _hbm.post_mortem("engine.step", attempts, cause,
+                                    device=self._device)
+            raise _hbm.HbmExhausted("engine.step", attempts, path) from cause
+
+        if self._update_failed:
+            # the parameters are half written: checkpoint/sentinel recovery
+            # owns it from here
+            _halt("the update had started", exc)
+        attempts.append({"action": "free_pressure", **_hbm.free_pressure(
+            "engine.step", params=self.params, device=self._device)})
+        set_rng_state(rng)
+        try:
+            out = self._dispatch(batch)
+        except Exception as e2:
+            if not _hbm.is_oom(e2):
+                raise
+            attempts.append({"action": "retry", "ok": False})
+            exc = e2
+            _drop_frames(e2)
+        else:
+            profiler.counter_inc("hbm_oom_recoveries")
+            attempts.append({"action": "retry", "ok": True})
+            sp.set(hbm_oom_recovered="retry")
+            return out
+        base = self.grad_accumulate
+        for mult in (2, 4):
+            if self._update_failed:
+                _halt("the update had started in a failed rung", exc)
+            acc = base * mult
+            if any(b.shape[0] % acc for b in batch if b.dim() >= 1):
+                attempts.append({"action": f"degrade_x{mult}", "ok": False,
+                                 "why": "batch dim0 not divisible"})
+                continue
+            self._release()
+            set_rng_state(rng)
+            try:
+                if _inject._armed:
+                    _inject.maybe_hbm_oom(
+                        "engine.accum", step=self.optimizer._step_count + 1)
+                out = self._step(batch, acc)
+            except Exception as e3:
+                if not _hbm.is_oom(e3):
+                    raise
+                attempts.append({"action": f"degrade_x{mult}", "ok": False})
+                exc = e3
+                _drop_frames(e3)
+                continue
+            self.grad_accumulate = acc
+            self._dispatch_op = "engine.accum"
+            profiler.counter_inc("hbm_oom_recoveries")
+            profiler.counter_inc("hbm_degraded_steps")
+            attempts.append({"action": f"degrade_x{mult}", "ok": True})
+            sp.set(hbm_oom_recovered=f"accum_x{mult}", grad_accumulate=acc)
+            return out
+        path = _hbm.post_mortem("engine.step", attempts, exc,
+                                device=self._device)
+        raise _hbm.HbmExhausted("engine.step", attempts, path) from exc
+
+    def _observe_stability(self, loss) -> None:
+        """Feed the committed step's loss to the attached sentinel (verdicts
+        surface through ``sentinel.take_verdict()`` after ``train_step``
+        returns)."""
+        if self._sentinel is not None:
+            self._sentinel.observe(self.optimizer._step_count, loss=loss,
+                                   committed=True, stash=True)
+
+    def sync_optimizer_state(self):
+        """No-op: the replicated update keeps the optimizer's own state (the
+        reference's sharded ZeRO-1 state comes with ROADMAP A11b)."""
+
+    def invalidate_dp_state(self):
+        """No-op on the replicated update, as in the reference."""
+
+    def eval_step(self, fn, *batch):
+        with torch.no_grad():
+            return fn(self.model, *(self._as_tensor(b) for b in batch))
+

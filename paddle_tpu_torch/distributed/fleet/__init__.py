@@ -1,5 +1,7 @@
-"""``fleet`` (port of ``paddle_tpu/distributed/fleet``): the model-parallel
-layers of ``meta_parallel`` in their single-device form."""
-from . import meta_parallel
+"""``fleet`` (port of ``paddle_tpu/distributed/fleet``): the gradient
+buckets of data parallelism (``grad_buckets``) and the model-parallel layers
+of ``meta_parallel`` in their single-device form. ``fleet.init``, the
+hybrid topology and the meta-optimizers come with ROADMAP A11b."""
+from . import grad_buckets, meta_parallel
 
-__all__ = ["meta_parallel"]
+__all__ = ["grad_buckets", "meta_parallel"]

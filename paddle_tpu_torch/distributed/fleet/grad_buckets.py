@@ -1,0 +1,143 @@
+"""Gradient bucketing for data-parallel sync (port of
+``paddle_tpu/distributed/fleet/grad_buckets.py``).
+
+The reference's C++ Reducer (``paddle/fluid/imperative/reducer.cc``) fills
+dtype-homogeneous, ``comm_buffer_size``-capped buckets in REVERSE
+registration order, so the first bucket to fill is the last layer's, whose
+backward finishes first. The plan coalesces per-parameter gradients into a
+handful of large flat tensors, so the sync is a few big all-reduces instead
+of hundreds of small ones. Every bucket is padded to a multiple of
+``nranks * block`` elements, so it splits into whole per-rank shards of
+whole quantization blocks. The geometry (buckets, offsets, padding) is
+the reference's; ``flatten``/``unflatten`` work on torch tensors. The
+reference's per-parameter decay gates and lr multipliers on a bucket, and
+its shard and gather sizes, serve only its ZeRO sharded update, which
+comes with ROADMAP A11b.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+# Default bucket cap: the reference DataParallel's comm_buffer_size=25 (MB).
+DEFAULT_BUCKET_BYTES = 25 * 1024 * 1024
+# Quantization/shard granularity. Buckets are padded to a multiple of
+# nranks*block so shards and blocks always divide evenly.
+DEFAULT_BLOCK = 128
+
+
+class Bucket:
+    """One fused sync unit: a contiguous run of params (reverse-backward
+    order) sharing one dtype."""
+
+    __slots__ = ("indices", "shapes", "sizes", "offsets", "dtype", "size",
+                 "padded")
+
+    def __init__(self, indices, shapes, sizes, offsets, dtype, size, padded):
+        self.indices = tuple(indices)    # positions into the plan's param list
+        self.shapes = tuple(shapes)
+        self.sizes = tuple(sizes)
+        self.offsets = tuple(int(o) for o in offsets)
+        self.dtype = dtype               # a torch dtype
+        self.size = int(size)            # live elements (sum of sizes)
+        self.padded = int(padded)        # flat length incl. padding
+
+    @property
+    def itemsize(self):
+        return torch.empty((), dtype=self.dtype).element_size()
+
+
+class BucketPlan:
+    """Static bucket geometry for a fixed parameter list. ``nranks`` is the
+    DP world the buckets are synced over (1 = bucketing alone, no shard
+    constraint beyond block alignment)."""
+
+    def __init__(self, buckets: Sequence[Bucket], nranks: int, block: int):
+        self.buckets = list(buckets)
+        self.nranks = int(nranks)
+        self.block = int(block)
+
+    def __len__(self):
+        return len(self.buckets)
+
+    def flatten(self, bucket: Bucket, tensors):
+        """Concatenate the bucket's tensors (reverse-backward order) into one
+        padded 1-D tensor of the bucket dtype."""
+        parts = [t.reshape(-1).to(bucket.dtype) for t in tensors]
+        pad = bucket.padded - bucket.size
+        if pad:
+            parts.append(parts[0].new_zeros((pad,)))
+        return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+    def unflatten(self, bucket: Bucket, flat):
+        """Views of a flat bucket, one per parameter (plan order)."""
+        return [flat[off:off + sz].view(shape) for off, sz, shape in
+                zip(bucket.offsets, bucket.sizes, bucket.shapes)]
+
+    def sync_bytes(self, quantized: bool = False) -> int:
+        """Per-replica payload bytes of one step's bucket all-reduces, at a
+        ring's two phases (reduce-scatter and all-gather); quantized
+        buckets ship int8 and one f32 scale a block."""
+        total = 0
+        for b in self.buckets:
+            if quantized:
+                payload = b.padded * 1 + (b.padded // self.block) * 4
+            else:
+                payload = b.padded * b.itemsize
+            total += payload * 2
+        return total
+
+
+def build_bucket_plan(
+    params,
+    nranks: int = 1,
+    bucket_bytes: Optional[int] = None,
+    block: int = DEFAULT_BLOCK,
+) -> BucketPlan:
+    """A plan over ``params`` (tensors): walk them in REVERSE registration
+    order (last layer first — its gradient materializes first in backward)
+    and split whenever the dtype changes or the byte cap fills, as
+    reducer.cc assembles its groups."""
+    bucket_bytes = int(bucket_bytes or DEFAULT_BUCKET_BYTES)
+    nranks = max(int(nranks), 1)
+    align = nranks * int(block)
+    params = list(params)
+    n = len(params)
+
+    metas = []  # (orig_index, shape, size, dtype), reverse order
+    for rev_pos, p in enumerate(reversed(params)):
+        shape = tuple(int(s) for s in p.shape)
+        size = int(np.prod(shape)) if shape else 1
+        metas.append((n - 1 - rev_pos, shape, size, p.dtype))
+
+    buckets: List[Bucket] = []
+    cur: list = []
+    cur_bytes = 0
+
+    def close():
+        nonlocal cur, cur_bytes
+        if not cur:
+            return
+        sizes = [m[2] for m in cur]
+        offsets = list(np.cumsum([0] + sizes[:-1]).astype(int))
+        size = int(sum(sizes))
+        padded = int(-(-size // align) * align)
+        buckets.append(Bucket([m[0] for m in cur], [m[1] for m in cur],
+                              sizes, offsets, cur[0][3], size, padded))
+        cur, cur_bytes = [], 0
+
+    for m in metas:
+        _, _, size, dt = m
+        nbytes = size * torch.empty((), dtype=dt).element_size()
+        if cur and (dt != cur[0][3] or cur_bytes + nbytes > bucket_bytes):
+            close()
+        cur.append(m)
+        cur_bytes += nbytes
+    close()
+    return BucketPlan(buckets, nranks, block)
+
+
+__all__ = ["Bucket", "BucketPlan", "build_bucket_plan",
+           "DEFAULT_BUCKET_BYTES", "DEFAULT_BLOCK"]

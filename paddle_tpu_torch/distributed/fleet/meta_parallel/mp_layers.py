@@ -4,12 +4,13 @@
 Each layer keeps the reference's constructor arguments, its full logical
 weight in Paddle's (in, out) layout (the embedding's is (vocab, dim)), the
 Xavier-uniform default and the zero bias, and calls the reference's helper
-collectives in the same places (``distributed/collective.py``). Those are
-ported for one rank only, where each is the identity, so a layer computes
-what the plain ``nn.Linear``/``nn.Embedding``/cross-entropy would.
-``mp_group`` defaults to none (the reference reads the hybrid communicate
-group, which is unset without ``fleet.init``); a group of more than one rank
-raises in the forward (ROADMAP A11).
+collectives in the same places (``distributed/collective.py``). With one
+rank each helper is the identity, so a layer computes what the plain
+``nn.Linear``/``nn.Embedding``/cross-entropy would. ``mp_group`` defaults to
+none (the reference reads the hybrid communicate group, which is unset
+without ``fleet.init``). A layer holds the whole weight, so a group of more
+than one rank raises in the forward: the sharded layers come with the
+tensor-parallel topology of ROADMAP A11b.
 
 Like the port's ``nn.Linear``, each layer takes ``device`` (default
 ``get_device()``), ``dtype`` (default ``get_default_dtype()``) and the
@@ -26,11 +27,20 @@ from ....nn import initializer as I
 from ....nn.layer.layers import Layer
 from ...collective import (_c_concat, _c_identity,
                            _c_softmax_with_cross_entropy, _c_split,
-                           _mp_allreduce, _single_rank)
+                           _mp_allreduce)
 
 
 def _mp_degree(group) -> int:
     return group.nranks if group is not None else 1
+
+
+def _single_rank(group, what: str) -> None:
+    n = _mp_degree(group)
+    if n > 1:
+        raise NotImplementedError(
+            f"{what} over a group of {n} ranks is not ported yet: its weight "
+            "shards come with ROADMAP A11b (the tensor-parallel topology); "
+            "only the single-rank layer is")
 
 
 class VocabParallelEmbedding(Layer):
@@ -71,6 +81,7 @@ class ColumnParallelLinear(Layer):
             **kw) if has_bias else None
 
     def forward(self, x):
+        _single_rank(self.group, "ColumnParallelLinear")
         x = _c_identity(x, self.group)
         out = F.linear(x, self.weight, self.bias)
         if self.gather_output:
@@ -97,6 +108,7 @@ class RowParallelLinear(Layer):
             **kw) if has_bias else None
 
     def forward(self, x):
+        _single_rank(self.group, "RowParallelLinear")
         if not self.input_is_parallel:
             x = _c_split(x, self.group)
         out = _mp_allreduce(F.linear(x, self.weight, None), self.group)
@@ -115,6 +127,7 @@ class ParallelCrossEntropy(Layer):
         self.ignore_index = ignore_index
 
     def forward(self, input, label):
+        _single_rank(self.group, "ParallelCrossEntropy")
         return _c_softmax_with_cross_entropy(input, label, self.group,
                                              self.ignore_index)
 

@@ -35,7 +35,7 @@ class PreemptionGuard:
                 guard.check(step, state)   # drains and exits if preempted
 
     ``checkpoint`` is any object with ``save_now(step, state, sync=True)``
-    (the reference's ``AutoCheckpoint`` comes with ROADMAP A11). All real
+    (the reference's ``AutoCheckpoint`` comes with ROADMAP A11c). All real
     work happens in ``check()``, at a step boundary where the state is
     consistent.
     """
@@ -118,7 +118,7 @@ class PreemptionGuard:
         preempted worker's last spans and counters survive the exit), and
         force a final synchronous checkpoint. The reference also publishes
         a ``preempt_drain`` progress record to its distributed watchdog,
-        which comes with ROADMAP A11."""
+        which comes with ROADMAP A11c."""
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
         _counter("preemption_drains")

@@ -29,7 +29,9 @@ roll back. ``rollback`` works against any anchor with ``resume(state,
 max_step)``, ``invalidate``, ``protect`` and ``release``; the reference's
 ``AutoCheckpoint`` anchor of ``from_flags``, the cross-rank
 ``VerdictBarrier`` and the engine hook (``for_engine``) come with ROADMAP
-A11, and the ``hapi.Model.fit`` hook with A12.
+A11c, and the ``hapi.Model.fit`` hook with A12.
+``distributed.HybridParallelEngine.attach_sentinel`` feeds it each step's
+loss as a committed observation.
 """
 from __future__ import annotations
 
@@ -364,7 +366,7 @@ class StabilitySentinel:
     def from_flags(cls, anchor=None, **kw) -> "StabilitySentinel":
         """Built from the ``FLAGS_stability_*`` registry. An anchor directory
         in ``FLAGS_stability_ckpt_dir`` names the reference's
-        ``AutoCheckpoint``, which comes with ROADMAP A11: pass an ``anchor``
+        ``AutoCheckpoint``, which comes with ROADMAP A11c: pass an ``anchor``
         instead."""
         from ..framework import flags as _flags
 
@@ -373,7 +375,7 @@ class StabilitySentinel:
             raise NotImplementedError(
                 "StabilitySentinel.from_flags: FLAGS_stability_ckpt_dir "
                 "names an AutoCheckpoint anchor, which is not ported yet: "
-                "ROADMAP A11 (distributed/checkpoint.py); pass anchor=")
+                "ROADMAP A11c (distributed/checkpoint.py); pass anchor=")
         return cls(anchor=anchor, **kw)
 
     # -- per-step entry points --------------------------------------------

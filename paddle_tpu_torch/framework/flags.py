@@ -1,7 +1,9 @@
 """Global flag registry (the ``FLAGS_serve_*`` entries the serving engine and
 its supervisor read, ``FLAGS_profile_memory``, the kernel registry's
-``FLAGS_kernel_*``, the nan/inf scan's ``FLAGS_check_nan_inf*`` and the
-stability sentinel's ``FLAGS_stability_*``).
+``FLAGS_kernel_*``, the nan/inf scan's ``FLAGS_check_nan_inf*``, the
+stability sentinel's ``FLAGS_stability_*``, the HBM admission's
+``FLAGS_hbm_*`` and data parallelism's bucket, quantization and ZeRO
+switches).
 
 Same names, defaults and ``FLAGS_*`` environment pickup as the reference's
 ``paddle_tpu/framework/flags.py``; ``set_flags`` rejects unknown names with a
@@ -103,7 +105,7 @@ _FLAGS: Dict[str, object] = {
     # ladder and batch quarantine. window/warmup/zmax parameterize the
     # statistics; max_skips/max_rollbacks/cooldown shape the ladder;
     # anchor_interval + ckpt_dir configure the rollback anchor (its
-    # AutoCheckpoint comes with ROADMAP A11); quarantine_dir (when set)
+    # AutoCheckpoint comes with ROADMAP A11c); quarantine_dir (when set)
     # persists the quarantine log as JSONL. FLAGS_stability_enable is the
     # reference's hapi.Model.fit switch (hapi comes with ROADMAP A12).
     "FLAGS_stability_enable": False,
@@ -116,6 +118,32 @@ _FLAGS: Dict[str, object] = {
     "FLAGS_stability_anchor_interval": 25,
     "FLAGS_stability_ckpt_dir": "",
     "FLAGS_stability_quarantine_dir": "",
+    # HBM admission (fault/memory.py). FLAGS_hbm_admission gates the
+    # preflight check on the step programs (jit.CompiledTrainStep and
+    # distributed.engine.HybridParallelEngine): "off" (default; the whole
+    # disabled path is one flag probe a step), "warn" (measure each step
+    # signature's footprint on its first two calls, predict later calls, warn
+    # once a site when over budget, run anyway), "enforce" (raise a
+    # structured HbmBudgetExceeded BEFORE the step touches the device).
+    # FLAGS_hbm_budget_bytes overrides the device budget (0 = the card's
+    # capacity minus FLAGS_hbm_reserve_bytes; on the CPU, which reports no
+    # capacity, 0 means no budget: admission predicts, never rejects).
+    "FLAGS_hbm_admission": "off",
+    "FLAGS_hbm_budget_bytes": 0,
+    "FLAGS_hbm_reserve_bytes": 256 * 1024 * 1024,
+    # Data parallelism (distributed/parallel.py, distributed/engine.py).
+    # FLAGS_shard_weight_update is the reference's ZeRO-1 sharded weight
+    # update for pure-DP meshes; on by default as there, and an engine that
+    # would build it (dp > 1, no accumulation, an elementwise rule) raises
+    # until ROADMAP A11b ports it. FLAGS_quantized_allreduce compresses each
+    # gradient bucket's all-reduce blockwise to int8
+    # (FLAGS_quantized_allreduce_block elements a scale; lossy, off by
+    # default). FLAGS_dp_bucket_bytes caps a gradient bucket (the
+    # reference DataParallel's comm_buffer_size=25MB).
+    "FLAGS_shard_weight_update": True,
+    "FLAGS_quantized_allreduce": False,
+    "FLAGS_quantized_allreduce_block": 128,
+    "FLAGS_dp_bucket_bytes": 25 * 1024 * 1024,
 }
 
 for _k, _cur in list(_FLAGS.items()):

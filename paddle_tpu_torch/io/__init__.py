@@ -221,7 +221,7 @@ class BatchSampler(Sampler):
 class DistributedBatchSampler(BatchSampler):
     """Shards the index space across data-parallel ranks. Without an
     explicit ``num_replicas``/``rank`` it takes the port's world
-    (``distributed.get_world_size``: 1 until ROADMAP A11)."""
+    (``distributed.get_world_size``: the world ``init_parallel_env`` joined, else 1)."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -537,7 +537,7 @@ class DevicePrefetcher:
 
     ``device`` defaults to ``get_device()`` (the card unless the CPU was
     asked for). ``sharding`` lays batches out for a mesh: it has no
-    counterpart on one card and must be None (ROADMAP A11).
+    counterpart on one card a process and must be None (ROADMAP A11c).
 
     Order is kept; a worker exception is raised again at the consumer's
     ``next()``; ``close()`` (also on exhaustion and from ``__del__``) stops
@@ -551,7 +551,7 @@ class DevicePrefetcher:
         if sharding is not None:
             raise NotImplementedError(
                 "DevicePrefetcher(sharding=...): batch sharding over a mesh "
-                "is not ported yet: ROADMAP A11 (distributed); pass None")
+                "is not ported yet: ROADMAP A11c (distributed); pass None")
         self._device = place_mod.resolve_device(device)
         self._stream = (torch.cuda.Stream(self._device)
                         if self._device.type == "cuda" else None)

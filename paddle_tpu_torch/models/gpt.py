@@ -53,7 +53,7 @@ class GPTConfig:
     remat: bool = False  # recompute each decoder layer in the backward
     # "auto": the flash kernels when eligible (see scaled_dot_product_attention),
     # "exact"/"flash" force one path; "ring" is the reference's
-    # sequence-parallel path, not ported yet (ROADMAP A11)
+    # sequence-parallel path, not ported yet (ROADMAP A11b)
     attention_impl: str = "auto"
 
     @property
@@ -78,7 +78,7 @@ class GPTAttention(Layer):
         if config.attention_impl == "ring":
             raise NotImplementedError(
                 "attention_impl='ring' (sequence-parallel ring attention) is "
-                "not ported yet: ROADMAP A11 (distributed)")
+                "not ported yet: ROADMAP A11b (sequence parallelism)")
         self.impl = (config.attention_impl
                      if config.attention_impl in ("exact", "flash") else None)
 

@@ -149,10 +149,13 @@ class Optimizer:
         self._step(functional=False)
 
     @torch.no_grad()
-    def _step(self, functional: bool) -> None:
+    def _step(self, functional: bool, with_params: bool = False) -> None:
         """``functional=True`` is the reference's compiled-step update
         (``_functional_update``, called without the parameters): no grad
-        clip, the decay on every parameter and no per-parameter lr scale."""
+        clip, the decay on every parameter and no per-parameter lr scale.
+        ``with_params=True`` is the same update called with the parameters,
+        as the reference's ``HybridParallelEngine`` calls it: no grad clip,
+        but each parameter's decay gate and lr scale."""
         self._step_count += 1
         live = [i for i, p in enumerate(self._parameter_list)
                 if p.requires_grad and p.grad is not None]
@@ -169,7 +172,7 @@ class Optimizer:
                 st = self._accumulators[name] = self._init_accums(p)
             if g.dtype != p.dtype:
                 g = g.to(p.dtype)
-            if functional:
+            if functional and not with_params:
                 wd, scale = 1.0, 1.0
             else:
                 wd = self._gate(i)

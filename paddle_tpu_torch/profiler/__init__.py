@@ -98,6 +98,16 @@ def counters() -> Dict[str, int]:
     device-memory pressure: ``hbm_oom_trips``, ``serve_pool_shrunk``,
     ``serve_pages_parked`` / ``serve_pages_unparked``.
 
+    HBM admission and the out-of-memory ladder (``fault/memory.py``):
+    ``hbm_admission_checks`` / ``hbm_admission_rejects`` (preflight
+    decisions under ``FLAGS_hbm_admission``), ``hbm_oom_recoveries``
+    (ladder rungs that brought a step back: a retry or a degrade),
+    ``hbm_degraded_steps`` (steps re-run through the accumulate path),
+    ``hbm_cache_evicted`` (the reference's cold-executable evictions; the
+    port keeps no executable cache, so it never moves). Data parallelism
+    (``distributed/parallel.py``): ``dp_buckets``, ``dp_all_reduces``,
+    ``dp_sync_bytes``.
+
     Serving observability: ``serve_trace_evicted`` (completed timelines
     dropped from the bounded trace ring), ``serve_http_requests`` (telemetry
     endpoint GETs served), ``serve_http_bind_failed`` (endpoint start-ups

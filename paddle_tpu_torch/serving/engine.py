@@ -1346,8 +1346,22 @@ class Engine:
                     self._decode_spec()
                 else:
                     self._decode()
+            if self._obs is not None and flags.flag(
+                    "FLAGS_hbm_admission", "off") != "off":
+                # the admission's predicted peak against the live census
+                # after the step; priced only while admission is armed
+                self._hbm_drift()
             self._oom_streak = 0
             self._maybe_unpark()
+
+    def _hbm_drift(self):
+        from ..profiler import memory_census
+
+        pred = _fmem.last_prediction().get("hbm_predicted_peak_bytes")
+        if pred:
+            live = int(memory_census(self._device).get("live_bytes", 0))
+            if live:
+                self._obs.drift("hbm_admission", pred, live)
 
     # clean scheduler steps before parked blocks start coming back (half at
     # a time, so a recurrence re-parks quickly); a class attribute so tests

@@ -98,6 +98,28 @@ def test_walk_covers_the_training_runtime():
         assert path in PORT_FILES
 
 
+def test_walk_covers_the_admission_and_distributed_training():
+    for path in ("paddle_tpu_torch/distributed/__init__.py",
+                 "paddle_tpu_torch/distributed/mesh.py",
+                 "paddle_tpu_torch/distributed/parallel_env.py",
+                 "paddle_tpu_torch/distributed/collective.py",
+                 "paddle_tpu_torch/distributed/parallel.py",
+                 "paddle_tpu_torch/distributed/engine.py",
+                 "paddle_tpu_torch/distributed/fleet/grad_buckets.py",
+                 "paddle_tpu_torch/cost_model/__init__.py",
+                 "paddle_tpu_torch/fault/memory.py"):
+        assert path in PORT_FILES
+
+
+def test_dist_worker_imports_neither_jax_nor_the_reference():
+    tree = ast.parse((ROOT / "tests/torch_dist_worker.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [m for m in names if _forbidden(m)]
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.serving.supervisor, paddle_tpu_torch.fault, "
@@ -115,7 +137,13 @@ def test_import_leaves_jax_out_of_sys_modules():
             "paddle_tpu_torch.amp, paddle_tpu_torch.io, "
             "paddle_tpu_torch.io.ragged, paddle_tpu_torch.fault.retry, "
             "paddle_tpu_torch.fault.preemption, "
-            "paddle_tpu_torch.fault.sentinel\n"
+            "paddle_tpu_torch.fault.sentinel, paddle_tpu_torch.distributed, "
+            "paddle_tpu_torch.distributed.mesh, "
+            "paddle_tpu_torch.distributed.parallel_env, "
+            "paddle_tpu_torch.distributed.collective, "
+            "paddle_tpu_torch.distributed.parallel, "
+            "paddle_tpu_torch.distributed.engine, "
+            "paddle_tpu_torch.distributed.fleet.grad_buckets\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "assert not bad, bad\n")
