@@ -255,6 +255,31 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    ``hbm_admission`` drift. The process group is destroyed at the end.
    One ``{"engine_train": ...}`` line; the flash rows of the ``kernels``
    line carry 13a's launches as ``launches_engine``;
+14. fleet (runs at the end of phase 13, on its NCCL group of one rank and
+   its GPT-3 1.3B, batch and start): (14a) ``fleet.init`` with every
+   degree 1, ``fleet.distributed_model``, ``fleet.distributed_optimizer``
+   (AdamW) and ``HybridParallelEngine(mesh=hcg.mesh)``: 3 steps from one
+   start must give 13a's engine's losses and parameters bit for bit, and
+   so must ``group_sharded_parallel(level="os_g")`` over the one-rank
+   sharding group; then 2 warm-up and 8 timed steps (step ms, tokens/s,
+   MFU, peak and the flash counters, 24 x 8 each) printed beside 13a's.
+   (14b) the bf16 state split by ``models.split_state_dict`` into mp = 2
+   and mp = 4 rank shards on the card and merged back bit-equal, each
+   rank's qkv shard (first and last layer) holding exactly its heads' q, k
+   and v columns, and the ranks' bytes summing to the logical bytes plus
+   the replicated ones once more a rank. (14c) ``ulysses_attention`` over
+   the one-rank sp group at ``ULYSSES_SHAPE`` (B=1, T=8192, H=16, D=64,
+   causal, bf16), forward and backward, bit-equal to
+   ``flash_attention_array``'s own call, within the flash tolerances of
+   the f32 plain form, and launching each flash kernel once;
+   ``ring_attention`` over it at ``RING_SHAPE`` (GPT's training shape)
+   against the flash forward within ``RING_REL_TOL`` by relative norm,
+   with both timed by CUDA events, and its own backward's dQ, dK and dV
+   against the f32 plain form within the flash gradient tolerances, the
+   forward and backward of ring and flash timed. One
+   ``{"fleet_train": ...}`` line; the
+   flash rows of the ``kernels`` line carry 14a's launches as
+   ``launches_fleet`` and 14c's as ``launches_ulysses``;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -301,7 +326,8 @@ logits errors, with (e)'s prefix hits, shared blocks, tail prefills and
 chunk steps, (f)'s drafts proposed and accepted, and (g)'s and (h)'s
 sub-drives with their adopt info, ``{"registry": {...}}``, phase 6's
 searches, persistence, tuned drive, host µs and the 192-row int8 checks,
-and ``{"engine_train": {...}}``, phase 13.
+``{"engine_train": {...}}``, phase 13, and ``{"fleet_train": {...}}``,
+phase 14.
 """
 from __future__ import annotations
 
@@ -4311,9 +4337,9 @@ def engine_run(model, start, make_step, n=ENGINE_STEPS, ids=None,
     return vals, [p.detach().clone() for p in model.parameters()]
 
 
-def engine_throughput(eng, ids, labels, cfg, n_params):
-    """13a: 2 warm-up and 8 timed engine steps: step ms, tokens/s, MFU,
-    peak, flash launches and bucket all-reduces a step."""
+def engine_throughput(eng, ids, labels, cfg, n_params, tag="13a"):
+    """13a (and 14a): 2 warm-up and 8 timed engine steps: step ms,
+    tokens/s, MFU, peak, flash launches and bucket all-reduces a step."""
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.ops import kernels as K
 
@@ -4335,8 +4361,9 @@ def engine_throughput(eng, ids, labels, cfg, n_params):
     ar = (c1.get("dp_all_reduces", 0) - c0.get("dp_all_reduces", 0)) \
         / TRAIN_STEPS
     synced = (c1.get("dp_buckets", 0) - c0.get("dp_buckets", 0)) / TRAIN_STEPS
-    buckets = len(eng._dp_model._bucket_plan)
-    print(f"  (13a) engine: {TRAIN_STEPS} steps after {TRAIN_WARMUP} "
+    buckets = len(eng._dp_model._buckets["plan"]) \
+        if eng._dp_model is not None else 0
+    print(f"  ({tag}) engine: {TRAIN_STEPS} steps after {TRAIN_WARMUP} "
           f"warm-up, step {step_ms:.2f} ms (host clock, one sync at the "
           f"end), {tok_s:.1f} tokens/s, MFU {tok_s * flops_tok / 989e12:.4f}"
           f", peak memory {peak / 2**30:.2f} GiB, {synced:g} buckets of <= "
@@ -4354,9 +4381,9 @@ def engine_throughput(eng, ids, labels, cfg, n_params):
     if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
         fail(f"engine: losses {vals}")
     ev = device_timeline(lambda: eng.train_step(ids, labels), 1,
-                         "timeline (engine)")
+                         f"timeline ({tag} engine)")
     nccl = sum(1 for _, _, n in ev if "nccl" in n.lower())
-    print(f"  timeline (engine): one step names {nccl} NCCL kernels")
+    print(f"  timeline ({tag} engine): one step names {nccl} NCCL kernels")
     return {"step_ms": step_ms, "tokens_per_s": tok_s,
             "mfu": tok_s * flops_tok / 989e12, "peak_gib": peak / 2**30,
             "queued_ms": queued * 1e3, "losses": vals,
@@ -4646,7 +4673,8 @@ def engine_train_phase(llama_oom):
                                   labels=labels)
         bits = l_eng == l_cmp and all(torch.equal(a, b)
                                       for a, b in zip(p_eng, p_cmp))
-        del p_eng, p_cmp
+        p_eng = [p.cpu() for p in p_eng]  # phase 14a holds itself to them
+        del p_cmp
         l_acc, p_acc = engine_run(model, start, engine_of(2), ids=ids,
                                   labels=labels)
         acc_rel = rel_diff(l_acc, l_eng)
@@ -4677,15 +4705,276 @@ def engine_train_phase(llama_oom):
         # after the admission, so the exhaustion's dump has attributions
         out["ladder"] = engine_ladder(model, start, ids, labels, l_acc,
                                       p_acc)
-        del p_acc, start
+        del p_acc
         torch.cuda.empty_cache()
         out["serving_drift"] = engine_serving_drift(model)
         out["llama_oom"] = llama_oom
-        del model
+        print("[14] fleet: gpt3_1p3b through fleet.init, distributed_model, "
+              "distributed_optimizer and HybridParallelEngine(mesh=hcg.mesh) "
+              "at world 1 over NCCL; the tensor-parallel layout at full "
+              "width; sequence parallelism on the flash kernels")
+        fleet = fleet_phase(model, start, ids, labels, n_params, l_eng,
+                            p_eng, out)
+        del model, start, p_eng
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+    return out, fleet
+
+
+ULYSSES_SHAPE = FLASH_LONG  # (B, T, T_kv, H, D, causal): 14c's long shape
+RING_SHAPE = FLASH_TRAIN  # 14c's ring: GPT-3 1.3B's training shape
+RING_REL_TOL = 1e-2  # ring (f32 scores) against the bf16 flash forward
+
+
+def fleet_engine_of(model, hcg, level=None):
+    """``make_step(opt)`` for ``engine_run``: the model and the optimizer
+    through fleet's entry points (``level``: through
+    ``group_sharded_parallel`` over the one-rank sharding group instead),
+    trained by ``HybridParallelEngine(mesh=hcg.mesh)``."""
+    from paddle_tpu_torch.distributed import HybridParallelEngine, fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        group_sharded_parallel
+
+    def make(opt):
+        if level is None:
+            m, o = fleet.distributed_model(model), \
+                fleet.distributed_optimizer(opt)
+        else:
+            m, o, _ = group_sharded_parallel(
+                model, opt, level, group=hcg.get_sharding_parallel_group())
+        return HybridParallelEngine(m, o, lambda mm, i, l: mm.loss(i, l),
+                                    mesh=hcg.mesh).train_step
+    return make
+
+
+def mp_layout_check(model):
+    """14b: GPT-3 1.3B's bf16 state split into mp = 2 and 4 rank shards on
+    the card and merged back; each rank's qkv shard holds its heads' q, k
+    and v columns; the ranks' bytes sum to the logical bytes with the
+    replicated parameters once a rank."""
+    from paddle_tpu_torch.models import (merge_state_dicts, mp_layouts,
+                                         split_state_dict)
+
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    layouts = mp_layouts(model)
+    h, heads = model.config.hidden_size, model.config.num_heads
+    logical = sum(v.numel() * v.element_size() for v in state.values())
+    repl = sum(v.numel() * v.element_size() for k, v in state.items()
+               if layouts[k] == "replicated")
+    out = {"logical_bytes": logical, "replicated_bytes": repl,
+           "kinds": {k: sum(1 for x in layouts.values() if x == k)
+                     for k in sorted(set(layouts.values()))}}
+    for mp in (2, 4):
+        t0 = time.monotonic()
+        shards = split_state_dict(state, layouts, mp)
+        merged = merge_state_dicts(shards, layouts)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3
+        equal = all(torch.equal(merged[k], v) for k, v in state.items())
+        per = h // mp
+        qkv_ok = True
+        for li in (0, model.config.num_layers - 1):
+            name = f"gpt.layers.{li}.attn.qkv.weight"
+            w = state[name]
+            for r, sh in enumerate(shards):
+                got = sh[name]
+                qkv_ok &= tuple(got.shape) == (h, 3 * per) and all(
+                    torch.equal(got[:, g * per:(g + 1) * per],
+                                w[:, g * h + r * per:g * h + (r + 1) * per])
+                    for g in range(3))
+        rank_bytes = [sum(v.numel() * v.element_size() for v in sh.values())
+                      for sh in shards]
+        bytes_ok = sum(rank_bytes) == logical + (mp - 1) * repl
+        print(f"  (14b) mp={mp}: split and merge of {len(state)} tensors "
+              f"({logical / 2**30:.3f} GiB) in {ms:.1f} ms, bit-equal "
+              f"{equal}; qkv shards hold their {heads // mp} heads' q, k, v "
+              f"{qkv_ok}; rank bytes {rank_bytes} sum to the logical "
+              f"{logical} + {mp - 1} x replicated {repl}: {bytes_ok}")
+        if not (equal and qkv_ok and bytes_ok):
+            fail(f"mp layout at mp={mp}: merge {equal}, qkv {qkv_ok}, "
+                 f"bytes {bytes_ok}")
+        out[f"mp{mp}"] = {"bit_equal": equal, "qkv_heads": qkv_ok,
+                          "rank_bytes": rank_bytes, "split_merge_ms": ms}
+        del shards, merged
     return out
+
+
+def sequence_parallel_check(group):
+    """14c: ``ulysses_attention`` over the one-rank sp group at the long
+    shape (forward and backward) bit-equal to ``flash_attention_array``
+    and near the plain form, with its kernel launches; ``ring_attention``
+    at GPT's training shape against the flash forward, both timed."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ring_attention, ulysses_attention)
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels.flash_attention import \
+        flash_attention_array
+
+    B, T, _, H, D, causal = ULYSSES_SHAPE
+    q, k, v, do = flash_inputs(B, T, T, H, D, torch.bfloat16, seed=5)
+    leaves = [[x.detach().clone().requires_grad_() for x in (q, k, v)]
+              for _ in range(2)]
+    K.reset_launch_counts()
+    o_u = ulysses_attention(*leaves[0], group, causal=causal)
+    o_u.backward(do)
+    torch.cuda.synchronize()
+    launches = {k_: n for k_, n in K.launch_counts().items() if n}
+    o_f = flash_attention_array(*leaves[1], causal=causal)
+    o_f.backward(do)
+    bits = torch.equal(o_u, o_f) and all(
+        torch.equal(a.grad, b.grad) for a, b in zip(*leaves))
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    po, _ = K.flash_attention_plain(qf, kf, vf, causal)
+    gp = torch.autograd.grad(po, (qf, kf, vf), do.float())
+    rels = {"O": rel_err(o_u, po)}
+    rels.update({n: rel_err(a.grad, b) for n, a, b in
+                 zip(("dQ", "dK", "dV"), leaves[0], gp)})
+    tol = {"O": FLASH_O_REL_TOL, "dQ": FLASH_DQ_REL_TOL,
+           "dK": FLASH_GRAD_REL_TOL, "dV": FLASH_GRAD_REL_TOL}
+    ok = all(rels[n] <= tol[n] for n in rels)
+    want = {"flash_attention_fwd": 1, "flash_attention_dq": 1,
+            "flash_attention_dkv": 1}
+    print(f"  (14c) ulysses_attention over a one-rank group at B={B} T={T} "
+          f"H={H} D={D} causal bf16, forward and backward: bit-equal to "
+          f"flash_attention_array {bits}; against the f32 plain form "
+          + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+          + f" (tol {tol}); launches {launches}")
+    if not bits or not ok or launches != want:
+        fail(f"ulysses: bit-equal {bits}, errors {rels}, launches "
+             f"{launches}")
+    del leaves, o_u, o_f, po, gp, qf, kf, vf
+    B, T, _, H, D, causal = RING_SHAPE
+    q, k, v, do = flash_inputs(B, T, T, H, D, torch.bfloat16, seed=6)
+    with torch.no_grad():
+        o_r = ring_attention(q, k, v, group, causal=causal)
+        o_f = flash_attention_array(q, k, v, causal=causal)
+        ring_ms = time_ms(lambda: ring_attention(q, k, v, group,
+                                                 causal=causal), 5)
+        flash_ms = time_ms(lambda: flash_attention_array(q, k, v,
+                                                         causal=causal), 5)
+    diff = float((o_r.float() - o_f.float()).abs().max())
+    rel = rel_err(o_r, o_f)
+    print(f"  (14c) ring_attention over a one-rank group at B={B} T={T} "
+          f"H={H} D={D} causal bf16 against the flash forward: max abs "
+          f"difference {diff:.3e}, relative norm {rel:.3e} (tol "
+          f"{RING_REL_TOL}); ring {ring_ms:.3f} ms, flash forward "
+          f"{flash_ms:.3f} ms (CUDA events)")
+    if not rel <= RING_REL_TOL:
+        fail(f"ring attention: relative error {rel}")
+    del o_r, o_f
+    ring_bwd = ring_backward_check(group, q, k, v, do, causal)
+    return {"ulysses": {"shape": list(ULYSSES_SHAPE), "bit_equal": bits,
+                        "rel_err_vs_plain": rels, "launches": launches},
+            "ring": {"shape": list(RING_SHAPE), "max_abs_diff": diff,
+                     "rel_err": rel, "ring_ms": ring_ms,
+                     "flash_fwd_ms": flash_ms, **ring_bwd}}
+
+
+def ring_backward_check(group, q, k, v, do, causal):
+    """14c: ``ring_attention``'s own backward (``_RingAttention.backward``)
+    over the one-rank group on the card: its dQ, dK and dV against the f32
+    plain form within the flash kernels' gradient tolerances, beside the
+    flash backward's errors on the same inputs; the forward and backward
+    of each timed by CUDA events (what one attention layer costs a
+    training step when sp > 1 routes GPT to the ring)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        ring_attention
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels.flash_attention import \
+        flash_attention_array
+
+    fns = {"ring": lambda a, b, c: ring_attention(a, b, c, group,
+                                                  causal=causal),
+           "flash": lambda a, b, c: flash_attention_array(a, b, c,
+                                                          causal=causal)}
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    po, _ = K.flash_attention_plain(qf, kf, vf, causal)
+    gp = torch.autograd.grad(po, (qf, kf, vf), do.float())
+    del po, qf, kf, vf
+    tol = {"dQ": FLASH_DQ_REL_TOL, "dK": FLASH_GRAD_REL_TOL,
+           "dV": FLASH_GRAD_REL_TOL}
+    rels, ms = {}, {}
+    for name, fn in fns.items():
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        fn(*leaves).backward(do)
+        rels[name] = {n: rel_err(a.grad, b) for n, a, b in
+                      zip(("dQ", "dK", "dV"), leaves, gp)}
+
+        def step(fn=fn, leaves=leaves):
+            torch.autograd.grad(fn(*leaves), leaves, do)
+        ms[name] = time_ms(step, 5)
+        del leaves
+    print(f"  (14c) ring_attention's backward on the card against the f32 "
+          f"plain form: " + ", ".join(f"{n} {r:.3e}" for n, r in
+                                       rels["ring"].items())
+          + f" (tol {tol}); the flash backward's on the same inputs: "
+          + ", ".join(f"{n} {r:.3e}" for n, r in rels["flash"].items())
+          + f"; forward + backward: ring {ms['ring']:.3f} ms, flash "
+          f"{ms['flash']:.3f} ms (CUDA events)")
+    if not all(rels["ring"][n] <= tol[n] for n in tol):
+        fail(f"ring attention backward: errors {rels['ring']}")
+    return {"bwd_rel_err_vs_plain": rels["ring"],
+            "flash_bwd_rel_err_vs_plain": rels["flash"],
+            "ring_fwd_bwd_ms": ms["ring"], "flash_fwd_bwd_ms": ms["flash"]}
+
+
+def fleet_phase(model, start, ids, labels, n_params, l_eng, p_eng, base):
+    """Phase 14 on phase 13's NCCL group of one rank and GPT-3 1.3B: (14a)
+    fleet's entry points, 3 steps from one start bit-equal to 13a's engine,
+    ``os_g`` over the one-rank group bit-equal too, 2 warm-up + 8 timed
+    steps; (14b) the tensor-parallel layout; (14c) sequence parallelism."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import HybridParallelEngine, fleet
+
+    cfg = model.config
+    env = dist.init_parallel_env()  # joined by phase 13: returns at once
+    strategy = fleet.DistributedStrategy()  # every degree 1
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    print(f"  (14a) fleet.init: backend {dist.get_backend()}, world "
+          f"{env.world_size}, mesh {hcg.mesh}")
+    res = {}
+    for tag, level in (("fleet", None), ("os_g", "os_g")):
+        losses, params = engine_run(model, start,
+                                    fleet_engine_of(model, hcg, level),
+                                    ids=ids, labels=labels)
+        bits = losses == l_eng and all(torch.equal(a.cpu(), b)
+                                       for a, b in zip(params, p_eng))
+        del params
+        print(f"  (14a) {tag}: {ENGINE_STEPS} steps from one start "
+              f"{losses}, 13a's engine {l_eng}: losses and parameters "
+              f"bit-equal {bits}")
+        if not bits:
+            fail(f"fleet {tag}: not bit-equal to phase 13a's engine")
+        res[f"{tag}_bit_equal"] = bits
+        res[f"{tag}_losses"] = losses
+    with torch.no_grad():
+        for p, s in zip(model.parameters(), start):
+            p.copy_(s)
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.named_parameters()))
+    eng = HybridParallelEngine(fleet.distributed_model(model), opt,
+                               lambda mm, i, l: mm.loss(i, l), mesh=hcg.mesh)
+    res.update(engine_throughput(eng, ids, labels, cfg, n_params, "14a"))
+    print(f"  (14a) step {res['step_ms']:.2f} ms and peak "
+          f"{res['peak_gib']:.2f} GiB beside 13a's {base['step_ms']:.2f} ms "
+          f"and {base['peak_gib']:.2f} GiB")
+    res["engine_13a"] = {"step_ms": base["step_ms"],
+                         "peak_gib": base["peak_gib"]}
+    del eng, opt
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    res["mp_layout"] = mp_layout_check(model)
+    torch.cuda.empty_cache()
+    res["sequence_parallel"] = sequence_parallel_check(
+        hcg.get_sequence_parallel_group())
+    torch.cuda.empty_cache()
+    res.update(model="gpt3_1p3b", batch=list(ids.shape), world=1,
+               backend=dist.get_backend())
+    return res
 
 
 def llama_oom_phase(model, opt, cfg):
@@ -4872,7 +5161,7 @@ def main(argv=None) -> int:
     print("[13] engine train: gpt3_1p3b through HybridParallelEngine over "
           "NCCL (DataParallel, world 1), HBM admission, the OOM ladder by "
           "injection, the serving drift")
-    engine = engine_train_phase(llama.pop("oom"))
+    engine, fleet = engine_train_phase(llama.pop("oom"))
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -4897,6 +5186,11 @@ def main(argv=None) -> int:
             r["launches_amp"] = amp_launches[r["name"]]
         if r["name"] in engine["launches"]:  # and phase 13a's timed steps
             r["launches_engine"] = engine["launches"][r["name"]]
+        if r["name"] in fleet["launches"]:  # phase 14a's timed steps
+            r["launches_fleet"] = fleet["launches"][r["name"]]
+        uly = fleet["sequence_parallel"]["ulysses"]["launches"]
+        if r["name"] in uly:  # 14c's one Ulysses forward and backward
+            r["launches_ulysses"] = uly[r["name"]]
     # the reference's (B*H, T, D) route shape: not on the port's main path
     long_rows = flash_timing(long_errs, dict.fromkeys(FLASH_REPLACES, 0),
                              FLASH_LONG, fused_qkv=False)
@@ -4940,6 +5234,7 @@ def main(argv=None) -> int:
     print(json.dumps({"engine_drives": drives}))
     print(json.dumps({"registry": registry}))
     print(json.dumps({"engine_train": engine}))
+    print(json.dumps({"fleet_train": fleet}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

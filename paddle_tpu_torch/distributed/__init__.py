@@ -2,10 +2,11 @@
 group and its collectives on ``torch.distributed`` (``parallel_env``,
 ``collective``), the job's mesh of axes (``mesh``), gradient buckets and
 ``DataParallel``, the ``HybridParallelEngine`` with its OOM recovery
-ladder, and the single-device model-parallel layers
-(``fleet.meta_parallel``). Tensor, pipeline and sequence parallelism and
-ZeRO come with ROADMAP A11b; the distributed checkpoint, coordination,
-watchdog and launchers with A11c."""
+ladder, and ``fleet``: the hybrid topology (``fleet.init``), the
+tensor-parallel layers over their rank's shards, ZeRO-1/2 and ring/Ulysses
+sequence parallelism. Pipeline parallelism, MoE and ZeRO-3 come with
+ROADMAP A11b, part 2; the distributed checkpoint, coordination, watchdog
+and launchers with A11c."""
 from . import collective, fleet
 from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
                          all_gather_into_tensor, all_reduce, all_to_all,

@@ -24,9 +24,19 @@ an all-gather. The model-parallel helpers (``_c_identity``,
 ``_c_softmax_with_cross_entropy``) are ``torch.autograd.Function``s over a
 group: identity forward and all-reduce backward, and so on. With no group,
 or a group of one rank, each is what the reference's is outside a bound
-``mp`` axis: the identity, or the plain per-row cross-entropy. A group of
-more ranks that has no process group (the reference's GSPMD-partitioned
-mesh axis) raises: tensor parallelism comes with ROADMAP A11b.
+``mp`` axis: the identity, or the plain per-row cross-entropy. Over a group
+of more ranks they run on its process group (the hybrid topology's ``mp``
+group, ``fleet/base/topology.py``); a group of more ranks that has no
+process group (the reference's GSPMD-partitioned mesh axis) raises.
+
+Sequence parallelism adds three internal autograd collectives over a
+group: ``_ring_shift`` (the reference's ``lax.ppermute`` with
+``perm = [(i, (i - 1) % n)]``: rank i sends to i - 1 and receives from
+i + 1, and the backward shifts the gradient the other way),
+``_all_to_all_tiled`` (the reference's tiled ``lax.all_to_all``, whose
+backward is the reverse exchange) and ``_all_gather_tiled`` (the tiled
+``lax.all_gather``, whose backward is the reduce-scatter of the sum). The
+public eager ``send``/``recv`` keep raising.
 """
 from __future__ import annotations
 
@@ -44,7 +54,8 @@ __all__ = [
     "barrier", "wait", "split", "blockwise_quantize", "blockwise_dequantize",
     "quantized_psum_scatter_mean", "quantized_all_reduce_mean",
     "_c_identity", "_mp_allreduce", "_c_split", "_c_concat",
-    "_c_softmax_with_cross_entropy",
+    "_c_softmax_with_cross_entropy", "_ring_shift", "_all_to_all_tiled",
+    "_all_gather_tiled",
 ]
 
 
@@ -174,9 +185,9 @@ def _resolve(group, what: str):
     if pg is None and n > 1:
         raise NotImplementedError(
             f"{what} over a group of {n} ranks that has no process group "
-            "(a mesh axis the reference's GSPMD partitions) is not ported: "
-            "tensor parallelism comes with ROADMAP A11b; join one with "
-            "init_parallel_env() and new_group()")
+            "(a mesh axis the reference's GSPMD partitions) has no port: "
+            "join one with init_parallel_env() and fleet.init() (or "
+            "new_group())")
     return pg, n
 
 
@@ -590,3 +601,103 @@ def _c_softmax_with_cross_entropy(logits, label, group=None,
         return cross_entropy(logits, label, reduction="none",
                              ignore_index=ignore_index)
     return _ShardedCE.apply(logits, label, m[0], m[2])
+
+
+# -- sequence-parallel autograd collectives ----------------------------------
+def _peers(group, step):
+    """World ranks this rank sends to and receives from when every rank
+    passes its tensor ``step`` places down the group's ring."""
+    n, r = group.nranks, group.rank
+    return group.ranks[(r - step) % n], group.ranks[(r + step) % n]
+
+
+def _shift(x, group, step):
+    pg, _ = _resolve(group, "_ring_shift")
+    dst, src = _peers(group, step)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, dst, group=pg),
+                                   dist.P2POp(dist.irecv, out, src, group=pg)])
+    for q in reqs:
+        q.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -1), None
+
+
+def _ring_shift(x, group):
+    """Rank i's ``x`` lands on rank i - 1 (mod n), differentiable; the
+    identity over one rank."""
+    if group is None or group.nranks == 1:
+        return x
+    return _RingShift.apply(x, group)
+
+
+def _a2a(x, group, split_axis, concat_axis):
+    pg, n = _resolve(group, "_all_to_all_tiled")
+    parts = [t.contiguous() for t in x.chunk(n, dim=split_axis)]
+    outs = [torch.empty_like(t) for t in parts]
+    dist.all_to_all(outs, parts, group=pg)
+    return torch.cat(outs, dim=concat_axis)
+
+
+class _AllToAllTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _a2a(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return _a2a(g, group, concat_axis, split_axis), None, None, None
+
+
+def _all_to_all_tiled(x, group, split_axis, concat_axis):
+    """The tiled all-to-all: ``x`` split in n equal parts along
+    ``split_axis``, part j sent to rank j, the parts received concatenated
+    along ``concat_axis`` in rank order; the backward is the reverse
+    exchange. The identity over one rank."""
+    if group is None or group.nranks == 1:
+        return x
+    return _AllToAllTiled.apply(x, group, split_axis, concat_axis)
+
+
+def _gather_axis(x, group, axis):
+    pg, n = _resolve(group, "_all_gather_tiled")
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=pg)
+    return torch.cat(parts, dim=axis)
+
+
+class _AllGatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = (group, axis)
+        return _gather_axis(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, axis = ctx.args
+        pg, n = _resolve(group, "_all_gather_tiled")
+        parts = [t.contiguous() for t in g.chunk(n, dim=axis)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=pg)
+        return out, None, None
+
+
+def _all_gather_tiled(x, group, axis):
+    """Every rank's ``x`` concatenated along ``axis`` in rank order; the
+    backward reduce-scatters the sum. The identity over one rank."""
+    if group is None or group.nranks == 1:
+        return x
+    return _AllGatherTiled.apply(x, group, axis)

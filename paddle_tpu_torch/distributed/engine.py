@@ -5,12 +5,28 @@ The reference compiles forward, backward and the optimizer update into one
 XLA program over a GSPMD mesh. The port runs one process a card and the
 step eagerly: ``train_step`` clears the gradients, runs
 ``loss_fn(model, *batch)`` and its backward, syncs the gradients over the
-``dp`` ranks through ``DataParallel``'s buckets (when the model is a
-``DataParallel``, or ``dp > 1``), and applies the update the reference's
+data-parallel ranks through ``DataParallel``'s buckets (when the model is a
+``DataParallel``, or dp x sp > 1), and applies the update the reference's
 engine applies (``Optimizer._step(functional=True, with_params=True)``: the
 compiled rule with the decay gate and lr scale of each parameter, no grad
 clip). At ``dp > 1`` each rank passes its own dim-0 shard of the global
 batch, and the returned loss is the mean over the ranks.
+
+The mesh's ``mp``, ``sharding`` and ``sp`` axes run when ``fleet.init``
+built the topology with the same degrees (``hcg.mesh``): the model's mp
+layers hold their rank's shards, each rank's batch is cut into its T/sp
+tokens over the sp group (``split_batch``: along the dimension that
+``batch_specs`` names ``"sp"``, else along dim 1 of every input of two or
+more dimensions), the gradients and the loss are averaged over the data x
+sequence group (every parameter is replicated over it), and a
+``ShardingOptimizerStage1`` (which
+``fleet.distributed_optimizer`` builds at sharding > 1) exchanges them over
+the sharding group in its update. At dp > 1 on a pure data-parallel mesh,
+with ``FLAGS_shard_weight_update`` on (the default), an elementwise rule and
+no accumulation, the update is the reference's ZeRO-1 sharded weight
+update (``ShardedWeightUpdate``): bucket reduce-scatter, a 1/dp-shard
+update, parameter all-gather. ``pp`` and ``ep`` larger than 1 raise
+(ROADMAP A11b, part 2).
 
 ``grad_accumulate=acc`` splits the batch's dim 0 into ``acc`` chunks and
 runs one backward each before the one update. Each chunk's loss is scaled
@@ -40,11 +56,19 @@ batch's shapes and dtypes) measure the footprint
 ``fault.memory.preflight`` with the second's numbers before anything is
 touched.
 
-Not ported here: a mesh axis other than ``dp`` larger than 1 (``mp``,
-``pp``, ``sharding``, ``sp``) and the ZeRO-1 sharded weight update that
-``FLAGS_shard_weight_update`` builds at ``dp > 1`` raise
-``NotImplementedError`` (ROADMAP A11b). ``donate`` is accepted and
-recorded; the port updates in place.
+Under dp x sp > 1 the forward runs inside ``ops.valid_mean.mean_over``
+the data x sequence group: a mean over valid rows (the cross-entropies'
+rows not labelled ``ignore_index``) divides by the group's count over its
+size, so the group's average of the losses and of the gradients is the
+reference's mean over the logical batch however unevenly the padding
+falls on the ranks. ``eval_step`` cuts the batch and takes its means the
+same way, and averages a 0-d result over the group.
+
+``donate`` is accepted and recorded; the port updates in place. The
+sharded update keeps the moments in its flat shards:
+``sync_optimizer_state()`` (and a ``HybridParallelOptimizer``'s
+``state_dict()``) unpacks them, and the OOM ladder's accumulate rungs sync
+them back and fall to the replicated update, as the reference's do.
 """
 from __future__ import annotations
 
@@ -57,6 +81,7 @@ import torch
 
 from .. import profiler
 from ..core.place import resolve_device
+from ..ops.valid_mean import mean_over
 from ..core.random import get_rng_state, set_rng_state
 from ..fault import inject as _inject
 from ..framework.flags import flag
@@ -112,31 +137,57 @@ class HybridParallelEngine:
             raise ValueError("HybridParallelEngine: the model has no "
                              "trainable parameters")
         sizes = dict(self.mesh.shape)
-        other = {a: s for a, s in sizes.items()
-                 if a not in self.dp_axes and s > 1}
-        if other:
-            raise NotImplementedError(
-                f"HybridParallelEngine: mesh axes {other} are not ported "
-                "yet: tensor, pipeline, sharding and sequence parallelism "
-                "come with ROADMAP A11b; only the dp axes run")
+        from .fleet.base.fleet_base import _part2, get_hybrid_communicate_group
+        from .fleet.meta_optimizers.hybrid_parallel_optimizer import \
+            ShardedWeightUpdate
+
+        for axis, what in (("pp", "pipeline parallelism"),
+                           ("ep", "expert parallelism")):
+            if sizes.get(axis, 1) > 1:
+                raise _part2(f"HybridParallelEngine with {what} ({axis}="
+                             f"{sizes[axis]})")
         self.dp = int(np.prod([sizes.get(a, 1) for a in self.dp_axes]))
-        if (self.dp > 1 and self.grad_accumulate == 1
-                and flag("FLAGS_shard_weight_update", True)
-                and getattr(optimizer, "_elementwise_rule", False)):
-            raise NotImplementedError(
-                "HybridParallelEngine: FLAGS_shard_weight_update at dp="
-                f"{self.dp} builds the reference's ZeRO-1 sharded weight "
-                "update, which is not ported yet: ROADMAP A11b; clear the "
-                "flag for the replicated update")
+        self.sp = int(sizes.get("sp", 1))
+        n = int(np.prod(list(sizes.values()) or [1]))
         world = C.get_world_size()
-        if self.dp > 1 and world != self.dp:
-            raise ValueError(f"HybridParallelEngine: dp={self.dp} needs a "
-                             f"world of {self.dp} ranks, have {world} "
+        if n > 1 and world != n:
+            raise ValueError(f"HybridParallelEngine: the mesh {sizes} needs a "
+                             f"world of {n} ranks, have {world} "
                              "(init_parallel_env)")
+        self._hcg = None
+        hybrid = {a: s for a, s in sizes.items()
+                  if a not in self.dp_axes and s > 1}
+        if hybrid:
+            hcg = get_hybrid_communicate_group()
+            want = {a: s for a, s in sizes.items() if s > 1}
+            have = None if hcg is None else {
+                a: s for a, s in hcg.mesh.shape.items() if s > 1}
+            if have != want:
+                raise ValueError(
+                    f"HybridParallelEngine: the mesh axes {hybrid} need "
+                    f"fleet.init with the same degrees (have {have}); pass "
+                    "mesh=fleet.get_hybrid_communicate_group().mesh")
+            self._hcg = hcg
+        # parameters are replicated over data x sequence: their gradients
+        # and the loss are averaged over it (the world on a pure dp mesh)
+        self._sync_group = self._hcg.get_dp_sp_parallel_group() \
+            if self._hcg is not None else None
+        self._sync_n = self.dp * self.sp
+        # the group whose means over valid rows are taken together
+        self._mean_group = (self._sync_group or C._get_default_group()) \
+            if self._sync_n > 1 else None
+        self._sp_group = self._hcg.get_sequence_parallel_group() \
+            if self.sp > 1 else None
         # raises when the model sits on a card this process cannot reach
         self._device = resolve_device(self.params[0].device)
         self._dp_model = model if isinstance(model, DataParallel) else (
-            DataParallel(model) if self.dp > 1 else None)
+            DataParallel(model, group=self._sync_group)
+            if self._sync_n > 1 else None)
+        self._wus = ShardedWeightUpdate.maybe_build(
+            optimizer, self.params, self.mesh, self.dp_axes,
+            self.grad_accumulate)
+        if self._wus is not None and hasattr(optimizer, "_sharded_update"):
+            optimizer._sharded_update = self._wus
         # stability sentinel (fault/sentinel.py); None keeps the zero-cost
         # path — one attribute check per train_step
         self._sentinel = None
@@ -176,9 +227,19 @@ class HybridParallelEngine:
         with profiler.span("train_step", kind="engine") as sp:
             return self._train_step_impl(sp, *batch)
 
-    def _train_step_impl(self, sp, *batch):
+    def _shard_batch(self, batch):
+        """The batch as tensors on this engine's card, cut to this rank's
+        T/sp tokens under sequence parallelism."""
         batch = [self._as_tensor(b) for b in batch]
-        sp.set(wus=False, params=len(self.params))
+        if self._sp_group is None:
+            return batch
+        from .fleet.meta_parallel.sequence_parallel import split_batch
+
+        return split_batch(batch, self._sp_group, self.batch_specs)
+
+    def _train_step_impl(self, sp, *batch):
+        batch = self._shard_batch(batch)
+        sp.set(wus=self._wus is not None, params=len(self.params))
         first = None  # a signature whose call is measured
         if flag("FLAGS_hbm_admission", "off") != "off":
             first = self._admit(sp, batch)
@@ -222,7 +283,8 @@ class HybridParallelEngine:
         self._update_failed = False
         opt.clear_grad(set_to_zero=False)
         if acc == 1:
-            loss = self.loss_fn(self.model, *batch)
+            with mean_over(self._mean_group):
+                loss = self.loss_fn(self.model, *batch)
             loss.backward()
             loss = loss.detach()
         else:
@@ -230,16 +292,25 @@ class HybridParallelEngine:
             for i in range(acc):
                 chunk = [b[i * (b.shape[0] // acc):(i + 1) * (b.shape[0] // acc)]
                          if b.dim() >= 1 else b for b in batch]
-                part = self.loss_fn(self.model, *chunk)
+                with mean_over(self._mean_group):
+                    part = self.loss_fn(self.model, *chunk)
                 (part / acc).backward()
                 part = (part.detach() / acc).float()
                 loss = part if loss is None else loss + part
-        if self._dp_model is not None:
+        wus = self._wus if acc == 1 else None
+        if wus is None and self._dp_model is not None:
             self._dp_model.apply_collective_grads()
-            if self.dp > 1:
-                loss = C.all_reduce(loss.clone(), C.ReduceOp.AVG)
+        if self._sync_n > 1:
+            loss = C.all_reduce(loss.clone(), C.ReduceOp.AVG,
+                                self._sync_group)
         try:
-            opt._step(functional=True, with_params=True)
+            if wus is None:
+                opt._step(functional=True, with_params=True)
+            else:
+                opt._step_count += 1
+                wus.apply()
+                for k, v in wus.step_counters().items():
+                    profiler.counter_inc(k, v)
         except BaseException:
             self._update_failed = True
             raise
@@ -341,6 +412,10 @@ class HybridParallelEngine:
                 attempts.append({"action": f"degrade_x{mult}", "ok": False,
                                  "why": "batch dim0 not divisible"})
                 continue
+            if self._wus is not None:
+                # the sharded update has no accumulate path: its shards go
+                # back to the optimizer, which runs the replicated update
+                self._drop_sharded_update()
             self._release()
             set_rng_state(rng)
             try:
@@ -374,14 +449,39 @@ class HybridParallelEngine:
             self._sentinel.observe(self.optimizer._step_count, loss=loss,
                                    committed=True, stash=True)
 
+    def _drop_sharded_update(self):
+        self.sync_optimizer_state()
+        if getattr(self.optimizer, "_sharded_update", None) is self._wus:
+            self.optimizer._sharded_update = None
+        self._wus = None
+
     def sync_optimizer_state(self):
-        """No-op: the replicated update keeps the optimizer's own state (the
-        reference's sharded ZeRO-1 state comes with ROADMAP A11b)."""
+        """Unpack the sharded update's flat moment shards into the
+        optimizer's per-parameter accumulators (a collective over the dp
+        ranks); a no-op on the replicated update, which keeps them there."""
+        if self._wus is not None:
+            self._wus.sync_back()
 
     def invalidate_dp_state(self):
-        """No-op on the replicated update, as in the reference."""
+        """Drop the sharded update's shards so the next step repacks them
+        from the optimizer's accumulators (after loading a checkpoint into
+        the optimizer); a no-op on the replicated update."""
+        if self._wus is not None:
+            self._wus.state = None
 
     def eval_step(self, fn, *batch):
-        with torch.no_grad():
-            return fn(self.model, *(self._as_tensor(b) for b in batch))
+        """``fn(model, *batch)`` without gradients, on the batch cut as
+        ``train_step`` cuts it and with its means over valid rows taken
+        over the data x sequence group. A 0-d floating result (a loss) is
+        averaged over that group, which gives the reference's value over
+        the logical batch; any other result is this rank's shard."""
+        batch = self._shard_batch(batch)
+        with torch.no_grad(), mean_over(self._mean_group):
+            out = fn(self.model, *batch)
+            if self._mean_group is not None and isinstance(
+                    out, torch.Tensor) and out.dim() == 0 \
+                    and out.is_floating_point():
+                out = C.all_reduce(out.clone(), C.ReduceOp.AVG,
+                                   self._sync_group)
+        return out
 

@@ -1,0 +1,131 @@
+"""Fleet's entry points (port of
+``paddle_tpu/distributed/fleet/base/fleet_base.py``): ``init`` builds the
+``HybridCommunicateGroup`` from ``strategy.hybrid_configs`` over the axes
+``["pipe", "data", "sharding", "sequence", "model"]``,
+``distributed_model`` wraps the model for the active parallelism and
+``distributed_optimizer`` wraps the optimizer in
+``HybridParallelOptimizer``. A world of more than one rank joins its
+process group first (``init_parallel_env``) when it has not yet.
+
+Pipeline and expert parallelism and the DGC and LocalSGD meta-optimizers
+raise ``NotImplementedError`` naming A11b, part 2.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ...parallel_env import get_rank, get_world_size
+from .distributed_strategy import DistributedStrategy
+from .role_maker import PaddleCloudRoleMaker
+from .topology import CommunicateTopology, HybridCommunicateGroup
+
+_strategy: Optional[DistributedStrategy] = None
+_hcg: Optional[HybridCommunicateGroup] = None
+_role_maker = None
+
+PART2 = "A11b, part 2"
+
+
+def _part2(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with ROADMAP {PART2}")
+
+
+def init(role_maker=None, is_collective=True, strategy=None,
+         log_level="INFO"):
+    global _strategy, _hcg, _role_maker
+    strategy = strategy or DistributedStrategy()
+    hc = strategy.hybrid_configs
+    for key, what in (("pp_degree", "pipeline parallelism (pp_degree > 1)"),
+                      ("ep_degree", "expert parallelism (ep_degree > 1)")):
+        if int(hc.get(key, 1)) > 1:
+            raise _part2(what)
+    dims = [int(hc.get(k, 1)) for k in ("pp_degree", "dp_degree",
+                                        "sharding_degree", "sp_degree",
+                                        "mp_degree")]
+    from ...parallel_env import _initialized, init_parallel_env
+
+    if int(np.prod(dims)) > 1 and not _initialized():
+        init_parallel_env()
+    topo = CommunicateTopology(
+        hybrid_group_names=["pipe", "data", "sharding", "sequence", "model"],
+        dims=dims)
+    _hcg = HybridCommunicateGroup(topo)
+    _strategy = strategy
+    _role_maker = role_maker or PaddleCloudRoleMaker(
+        is_collective=is_collective)
+    return None
+
+
+def _reset() -> None:
+    """Forget the topology (its groups died with their process group)."""
+    global _strategy, _hcg, _role_maker
+    from ...mesh import set_global_mesh
+
+    if _hcg is not None:
+        set_global_mesh(None)
+    _strategy = _hcg = _role_maker = None
+
+
+def _get_strategy() -> DistributedStrategy:
+    return _strategy or DistributedStrategy()
+
+
+def get_hybrid_communicate_group() -> Optional[HybridCommunicateGroup]:
+    return _hcg
+
+
+def is_first_worker():
+    return _role_maker.is_first_worker() if _role_maker else get_rank() == 0
+
+
+def worker_index():
+    return _role_maker.worker_index() if _role_maker else get_rank()
+
+
+def worker_num():
+    return _role_maker.worker_num() if _role_maker else get_world_size()
+
+
+def is_worker():
+    return True
+
+
+def distributed_model(model):
+    """The model wrapped for the active parallelism (reference
+    fleet_base.py:70): ``ShardingParallel`` at sharding > 1, else
+    ``TensorParallel`` at mp > 1, else ``DataParallel`` over the data x
+    sequence group at dp > 1, else the model itself."""
+    hcg = _hcg
+    if hcg is None:
+        return model
+    from ...parallel import DataParallel
+    from ..meta_parallel.parallel_wrappers import (ShardingParallel,
+                                                   TensorParallel)
+
+    strategy = _get_strategy()
+    if hcg.get_pipe_parallel_world_size() > 1:
+        raise _part2("distributed_model at pp_degree > 1 (PipelineParallel)")
+    if hcg.get_sharding_parallel_world_size() > 1:
+        return ShardingParallel(model, hcg, strategy)
+    if hcg.get_model_parallel_world_size() > 1:
+        return TensorParallel(model, hcg, strategy)
+    if hcg.get_data_parallel_world_size() > 1:
+        return DataParallel(model, group=hcg.get_dp_sp_parallel_group())
+    return model
+
+
+def distributed_optimizer(optimizer, strategy=None):
+    """``optimizer`` wrapped in ``HybridParallelOptimizer`` (reference
+    fleet_base.py:94); ``strategy.dgc`` and ``strategy.localsgd`` raise."""
+    from ..meta_optimizers.hybrid_parallel_optimizer import \
+        HybridParallelOptimizer
+
+    strategy = strategy or _get_strategy()
+    if getattr(strategy, "dgc", False):
+        raise _part2("the DGC meta-optimizer (strategy.dgc)")
+    if getattr(strategy, "localsgd", False):
+        raise _part2("the LocalSGD meta-optimizer (strategy.localsgd)")
+    return HybridParallelOptimizer(optimizer, _hcg, strategy)

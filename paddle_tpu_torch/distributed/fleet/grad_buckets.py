@@ -9,10 +9,11 @@ handful of large flat tensors, so the sync is a few big all-reduces instead
 of hundreds of small ones. Every bucket is padded to a multiple of
 ``nranks * block`` elements, so it splits into whole per-rank shards of
 whole quantization blocks. The geometry (buckets, offsets, padding) is
-the reference's; ``flatten``/``unflatten`` work on torch tensors. The
-reference's per-parameter decay gates and lr multipliers on a bucket, and
-its shard and gather sizes, serve only its ZeRO sharded update, which
-comes with ROADMAP A11b.
+the reference's; ``flatten``/``unflatten`` work on torch tensors. For the
+ZeRO-1 sharded weight update (``meta_optimizers``) a bucket also carries
+each parameter's decay gate (``wds``; it may vary inside a bucket) and the
+lr multiplier it shares (``plr``; a change of it starts a new bucket), and
+the plan gives the shard size and the reduce-scatter and all-gather bytes.
 """
 from __future__ import annotations
 
@@ -33,9 +34,10 @@ class Bucket:
     order) sharing one dtype."""
 
     __slots__ = ("indices", "shapes", "sizes", "offsets", "dtype", "size",
-                 "padded")
+                 "padded", "wds", "plr")
 
-    def __init__(self, indices, shapes, sizes, offsets, dtype, size, padded):
+    def __init__(self, indices, shapes, sizes, offsets, dtype, size, padded,
+                 wds=None, plr=1.0):
         self.indices = tuple(indices)    # positions into the plan's param list
         self.shapes = tuple(shapes)
         self.sizes = tuple(sizes)
@@ -43,6 +45,8 @@ class Bucket:
         self.dtype = dtype               # a torch dtype
         self.size = int(size)            # live elements (sum of sizes)
         self.padded = int(padded)        # flat length incl. padding
+        self.wds = tuple(float(w) for w in (wds or [1.0] * len(self.indices)))
+        self.plr = float(plr)            # the bucket's lr multiplier
 
     @property
     def itemsize(self):
@@ -76,6 +80,19 @@ class BucketPlan:
         return [flat[off:off + sz].view(shape) for off, sz, shape in
                 zip(bucket.offsets, bucket.sizes, bucket.shapes)]
 
+    def shard_size(self, bucket: Bucket) -> int:
+        return bucket.padded // self.nranks
+
+    def reduce_scatter_bytes(self, quantized: bool = False) -> int:
+        """Per-replica payload bytes of one step's bucket reduce-scatters
+        (one pass over each bucket)."""
+        return self.sync_bytes(quantized) // 2
+
+    def gather_bytes(self) -> int:
+        """Per-replica bytes of the ZeRO-1 updated-parameter all-gather
+        (full precision)."""
+        return sum(b.padded * b.itemsize for b in self.buckets)
+
     def sync_bytes(self, quantized: bool = False) -> int:
         """Per-replica payload bytes of one step's bucket all-reduces, at a
         ring's two phases (reduce-scatter and all-gather); quantized
@@ -95,22 +112,27 @@ def build_bucket_plan(
     nranks: int = 1,
     bucket_bytes: Optional[int] = None,
     block: int = DEFAULT_BLOCK,
+    wd_of=None,
+    plr_of=None,
 ) -> BucketPlan:
     """A plan over ``params`` (tensors): walk them in REVERSE registration
     order (last layer first — its gradient materializes first in backward)
-    and split whenever the dtype changes or the byte cap fills, as
-    reducer.cc assembles its groups."""
+    and split whenever the dtype or the lr multiplier (``plr_of(p)``)
+    changes or the byte cap fills, as reducer.cc assembles its groups.
+    ``wd_of(p)`` is each parameter's decay gate."""
     bucket_bytes = int(bucket_bytes or DEFAULT_BUCKET_BYTES)
     nranks = max(int(nranks), 1)
     align = nranks * int(block)
     params = list(params)
     n = len(params)
 
-    metas = []  # (orig_index, shape, size, dtype), reverse order
+    metas = []  # (orig_index, shape, size, dtype, wd, plr), reverse order
     for rev_pos, p in enumerate(reversed(params)):
         shape = tuple(int(s) for s in p.shape)
         size = int(np.prod(shape)) if shape else 1
-        metas.append((n - 1 - rev_pos, shape, size, p.dtype))
+        wd = float(wd_of(p)) if wd_of is not None else 1.0
+        plr = float(plr_of(p)) if plr_of is not None else 1.0
+        metas.append((n - 1 - rev_pos, shape, size, p.dtype, wd, plr))
 
     buckets: List[Bucket] = []
     cur: list = []
@@ -125,13 +147,15 @@ def build_bucket_plan(
         size = int(sum(sizes))
         padded = int(-(-size // align) * align)
         buckets.append(Bucket([m[0] for m in cur], [m[1] for m in cur],
-                              sizes, offsets, cur[0][3], size, padded))
+                              sizes, offsets, cur[0][3], size, padded,
+                              [m[4] for m in cur], cur[0][5]))
         cur, cur_bytes = [], 0
 
     for m in metas:
-        _, _, size, dt = m
+        _, _, size, dt, _, plr = m
         nbytes = size * torch.empty((), dtype=dt).element_size()
-        if cur and (dt != cur[0][3] or cur_bytes + nbytes > bucket_bytes):
+        if cur and (dt != cur[0][3] or plr != cur[0][5]
+                    or cur_bytes + nbytes > bucket_bytes):
             close()
         cur.append(m)
         cur_bytes += nbytes

@@ -6,7 +6,10 @@ each array. The port runs one card per process, so a mesh here only
 describes the job's axes: their names and sizes over the ranks of
 ``torch.distributed``, and no layout. The default mesh is one ``dp`` axis
 over every rank (``get_world_size()``), as the reference's default mesh is
-one ``dp`` axis over every device.
+one ``dp`` axis over every device. ``fleet.init`` sets the hybrid mesh
+global: the axes ``pp``, ``dp``, ``sharding``, ``sp`` and ``mp`` over
+the ranks in the topology's row-major order
+(``HybridCommunicateGroup.mesh``), which ``HybridParallelEngine`` reads.
 """
 from __future__ import annotations
 

@@ -3,7 +3,9 @@
 The reference's gradient averaging is compiler-inserted when its train step
 runs under pjit with the batch sharded on ``dp``; ``apply_collective_grads``
 is its explicit reducer path. In the port each rank runs its own process
-on its own shard of the batch, so ``apply_collective_grads`` is the sync:
+on its own shard of the batch, so ``apply_collective_grads`` is the sync
+(``sync_gradients``, which ``HybridParallelOptimizer``'s eager step calls
+too):
 the gradients are coalesced into reverse-backward-order flat buckets
 (``fleet/grad_buckets.py``, capped at ``comm_buffer_size`` MB, else
 ``FLAGS_dp_bucket_bytes``) and each bucket is one all-reduce-mean over the
@@ -26,7 +28,60 @@ from ..framework import flags as _flags
 from ..nn.layer.layers import Layer
 from . import collective as C
 
-__all__ = ["DataParallel"]
+__all__ = ["DataParallel", "sync_gradients"]
+
+
+def sync_gradients(params, group, bucket_bytes=0, cache=None):
+    """Average the gradients of ``params`` over ``group``: one
+    all-reduce-mean a bucket, buckets in reverse-backward order, each
+    bucket ``bucket_bytes`` at most (0: ``FLAGS_dp_bucket_bytes``).
+    ``cache`` is a dict the caller keeps between calls: it holds the bucket
+    plan of the last call's parameters."""
+    params = [p for p in params if p.requires_grad and p.grad is not None]
+    if not params:
+        return
+    pg, n = C._resolve(group, "DataParallel")
+    quant = bool(_flags.flag("FLAGS_quantized_allreduce", False)) \
+        and pg is not None and n > 1
+    block = int(_flags.flag("FLAGS_quantized_allreduce_block", 128))
+    plan = _plan_for(params, n, block, bucket_bytes,
+                     {} if cache is None else cache)
+    if pg is None or n == 1:  # the single-participant identity
+        profiler.counter_inc("dp_buckets", len(plan.buckets))
+        return
+    with profiler.span("dp_sync", buckets=len(plan.buckets), world=n,
+                       quantized=quant) as ssp:
+        for b in plan.buckets:
+            b_params = [params[i] for i in b.indices]
+            with profiler.span("dp_bucket", bytes=b.padded * b.itemsize,
+                               params=len(b.indices), dtype=str(b.dtype)):
+                flat = plan.flatten(b, [p.grad for p in b_params])
+                if quant:
+                    flat = C.quantized_all_reduce_mean(
+                        flat, group, n, block)[0].to(b.dtype)
+                else:
+                    C.all_reduce(flat, C.ReduceOp.AVG, group)
+                for p, g in zip(b_params, plan.unflatten(b, flat)):
+                    p.grad = g
+        sync_bytes = plan.sync_bytes(quant)
+        profiler.counter_inc("dp_buckets", len(plan.buckets))
+        profiler.counter_inc("dp_all_reduces", len(plan.buckets))
+        profiler.counter_inc("dp_sync_bytes", sync_bytes)
+        ssp.set(sync_bytes=sync_bytes)
+
+
+def _plan_for(params, nranks, block, bucket_bytes, cache):
+    from .fleet.grad_buckets import build_bucket_plan
+
+    sig = (tuple(id(p) for p in params), int(nranks), int(block),
+           int(bucket_bytes))
+    if cache.get("sig") != sig:
+        cache["plan"] = build_bucket_plan(
+            params, nranks=nranks,  # pad so quantized shards divide
+            bucket_bytes=bucket_bytes or _flags.flag("FLAGS_dp_bucket_bytes"),
+            block=block)
+        cache["sig"] = sig
+    return cache["plan"]
 
 
 class DataParallel(Layer):
@@ -38,8 +93,7 @@ class DataParallel(Layer):
         self._group = group
         self.find_unused_parameters = find_unused_parameters
         self._comm_buffer_bytes = int(comm_buffer_size) * 1024 * 1024
-        self._bucket_plan = None
-        self._bucket_params = None
+        self._buckets = {}  # sync_gradients' plan of the last sync
 
     def forward(self, *inputs, **kwargs):
         return self._layers(*inputs, **kwargs)
@@ -47,54 +101,11 @@ class DataParallel(Layer):
     def scale_loss(self, loss):
         return loss
 
-    def _plan_for(self, params, nranks, block):
-        from .fleet.grad_buckets import build_bucket_plan
-
-        sig = (tuple(id(p) for p in params), int(nranks), int(block))
-        if self._bucket_plan is None or self._bucket_params != sig:
-            self._bucket_plan = build_bucket_plan(
-                params, nranks=nranks,  # pad so quantized shards divide
-                bucket_bytes=self._comm_buffer_bytes
-                or _flags.flag("FLAGS_dp_bucket_bytes"),
-                block=block)
-            self._bucket_params = sig
-        return self._bucket_plan
-
     def apply_collective_grads(self):
-        """Bucketed gradient sync after the backward: one all-reduce-mean a
-        bucket, buckets in reverse-backward order."""
-        params = [p for p in self._layers.parameters()
-                  if p.requires_grad and p.grad is not None]
-        if not params:
-            return
-        pg, n = C._resolve(self._group, "DataParallel")
-        quant = bool(_flags.flag("FLAGS_quantized_allreduce", False)) \
-            and pg is not None and n > 1
-        block = int(_flags.flag("FLAGS_quantized_allreduce_block", 128))
-        plan = self._plan_for(params, n, block)
-        if pg is None or n == 1:  # the single-participant identity
-            profiler.counter_inc("dp_buckets", len(plan.buckets))
-            return
-        with profiler.span("dp_sync", buckets=len(plan.buckets), world=n,
-                           quantized=quant) as ssp:
-            for b in plan.buckets:
-                b_params = [params[i] for i in b.indices]
-                with profiler.span("dp_bucket", bytes=b.padded * b.itemsize,
-                                   params=len(b.indices),
-                                   dtype=str(b.dtype)):
-                    flat = plan.flatten(b, [p.grad for p in b_params])
-                    if quant:
-                        flat = C.quantized_all_reduce_mean(
-                            flat, self._group, n, block)[0].to(b.dtype)
-                    else:
-                        C.all_reduce(flat, C.ReduceOp.AVG, self._group)
-                    for p, g in zip(b_params, plan.unflatten(b, flat)):
-                        p.grad = g
-            sync_bytes = plan.sync_bytes(quant)
-            profiler.counter_inc("dp_buckets", len(plan.buckets))
-            profiler.counter_inc("dp_all_reduces", len(plan.buckets))
-            profiler.counter_inc("dp_sync_bytes", sync_bytes)
-            ssp.set(sync_bytes=sync_bytes)
+        """Bucketed gradient sync after the backward (``sync_gradients``
+        over this wrapper's group)."""
+        sync_gradients(self._layers.parameters(), self._group,
+                       self._comm_buffer_bytes, self._buckets)
 
     def state_dict(self, *args, **kwargs):
         return self._layers.state_dict(*args, **kwargs)

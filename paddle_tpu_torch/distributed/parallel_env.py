@@ -75,13 +75,16 @@ def init_parallel_env(device=None, timeout_s: float = 300.0):
 
 def destroy_process_group() -> None:
     """Leave the process group ``init_parallel_env`` joined; the process is
-    then a world of one again."""
+    then a world of one again, and ``fleet``'s topology (whose groups died
+    with it) is forgotten."""
     global _init_done, _device
     from . import collective
+    from .fleet.base import fleet_base
 
     if dist.is_initialized():
         dist.destroy_process_group()
     collective._reset()
+    fleet_base._reset()
     _init_done = False
     _device = None
 

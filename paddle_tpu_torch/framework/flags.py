@@ -133,16 +133,18 @@ _FLAGS: Dict[str, object] = {
     "FLAGS_hbm_reserve_bytes": 256 * 1024 * 1024,
     # Data parallelism (distributed/parallel.py, distributed/engine.py).
     # FLAGS_shard_weight_update is the reference's ZeRO-1 sharded weight
-    # update for pure-DP meshes; on by default as there, and an engine that
-    # would build it (dp > 1, no accumulation, an elementwise rule) raises
-    # until ROADMAP A11b ports it. FLAGS_quantized_allreduce compresses each
-    # gradient bucket's all-reduce blockwise to int8
-    # (FLAGS_quantized_allreduce_block elements a scale; lossy, off by
-    # default). FLAGS_dp_bucket_bytes caps a gradient bucket (the
-    # reference DataParallel's comm_buffer_size=25MB).
+    # update for pure-DP meshes (dp > 1, no accumulation, an elementwise
+    # rule); on by default as there. FLAGS_quantized_allreduce compresses
+    # each gradient bucket's all-reduce (or the sharded update's
+    # reduce-scatter) blockwise to int8 (FLAGS_quantized_allreduce_block
+    # elements a scale; lossy, off by default), and
+    # FLAGS_quantized_allreduce_error_feedback carries the sharded update's
+    # compression residual into the next step. FLAGS_dp_bucket_bytes caps a
+    # gradient bucket (the reference DataParallel's comm_buffer_size=25MB).
     "FLAGS_shard_weight_update": True,
     "FLAGS_quantized_allreduce": False,
     "FLAGS_quantized_allreduce_block": 128,
+    "FLAGS_quantized_allreduce_error_feedback": False,
     "FLAGS_dp_bucket_bytes": 25 * 1024 * 1024,
 }
 

@@ -3,10 +3,12 @@
 post-LN encoder layers with exact (erf) GELU, a tanh pooler, an MLM head
 tied to the word embedding and an NSP head.
 
-Built on the port's single-device model-parallel layers, as the reference's
+Built on the port's model-parallel layers, as the reference's
 is on its own, so parameter names and shapes equal the reference's
 ``state_dict()`` (e.g. ``ernie.layers.0.attn.qkv.weight`` is (h, 3h)) and
-its weights load by name (``models/convert.py``). Attention is
+its weights load by name (``models/convert.py``). Under mp each rank holds
+its heads (``qkv`` cut head by head) and its vocabulary rows, and the MLM
+logits are gathered over mp. Attention is
 bidirectional, so ``scaled_dot_product_attention`` takes the exact path,
 never the flash kernels (the reference sends non-causal calls there too).
 """
@@ -21,6 +23,7 @@ from ..core.place import resolve_device
 from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
                                                RowParallelLinear,
                                                VocabParallelEmbedding)
+from ..distributed.fleet.meta_parallel.mp_layers import tied_logits
 from ..nn import Dropout, Embedding, Layer, LayerList, LayerNorm, Linear
 from ..nn import functional as F
 from ..nn.initializer import Normal
@@ -51,7 +54,11 @@ class ErnieSelfAttention(Layer):
         self.num_heads = config.num_heads
         self.head_dim = h // config.num_heads
         self.qkv = ColumnParallelLinear(h, 3 * h, has_bias=True,
-                                        gather_output=False, **kw)
+                                        gather_output=False, fused_groups=3,
+                                        **kw)
+        if config.num_heads % self.qkv.world_size:
+            raise ValueError(f"{config.num_heads} heads do not split over "
+                             f"mp = {self.qkv.world_size}")
         self.out = RowParallelLinear(h, h, has_bias=True,
                                      input_is_parallel=True, **kw)
         self.dropout = config.attention_dropout
@@ -149,7 +156,7 @@ class ErnieForPretraining(Layer):
         seq, pooled = self.ernie(input_ids, token_type_ids,
                                  attn_mask=attn_mask)
         h = self.mlm_ln(F.gelu(self.mlm_transform(seq)))
-        mlm_logits = F.linear(h, self.ernie.word_emb.weight.T)
+        mlm_logits = tied_logits(h, self.ernie.word_emb)
         return mlm_logits, self.nsp_head(pooled)
 
     def loss(self, input_ids, mlm_labels, nsp_labels=None):

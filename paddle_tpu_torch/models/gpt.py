@@ -4,11 +4,20 @@ Parameter names and shapes equal the reference's ``state_dict()``: e.g.
 ``gpt.layers.0.attn.qkv.weight`` is (h, 3h) in Paddle's (in, out) layout and
 ``gpt.embeddings.word_embeddings.weight`` is (V, h), so the reference's
 weights load by name (``models/convert.py``). The LM head is tied to the
-word embedding. The projections are the single-rank mp layers, as in the
-reference (``ColumnParallelLinear`` for ``qkv`` and ``up``,
-``RowParallelLinear`` for ``proj`` and ``down``, whose bias is added after
-the matmul, outside ``linear``: under ``amp.auto_cast`` the sum then
-follows its inputs, as the reference's does). Every class is an
+word embedding. The projections and the word embedding are the mp layers,
+as in the reference (``VocabParallelEmbedding``, ``ColumnParallelLinear``
+for ``qkv`` and ``up``, ``RowParallelLinear`` for ``proj`` and ``down``,
+whose bias is added after the matmul, outside ``linear``: under
+``amp.auto_cast`` the sum then follows its inputs, as the reference's
+does). Built after ``fleet.init`` with mp > 1, each rank holds its shard:
+its heads (``qkv`` cut head by head, ``fused_groups=3``) and its rows of
+the vocabulary, and the loss is the vocab-parallel fused CE on the tied,
+sharded weight. With ``sequence_parallel=True`` and an sp group of more
+than one rank, each rank holds T/sp tokens at their global positions
+``r * T/sp + arange(T/sp)``, and attention runs as ring attention over the
+sp group (``attention_impl`` "auto" or "ring", the reference's dropout
+rule); the other paths gather the sequence's q, k and v and keep this
+rank's rows. Every class is an
 ``nn.Layer`` (a ``torch.nn.Module`` with Paddle's API), so the Paddle-API
 loop (``to_tensor`` ids, ``loss.backward()``, ``opt.step()``,
 ``opt.clear_grad()``) runs on it as it does on the reference's. Attention
@@ -22,17 +31,17 @@ KV-cached decode (``models/generation.py``).
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
-from ..core import random as random_state
 from ..core.place import resolve_device
 from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
-                                               RowParallelLinear)
+                                               RowParallelLinear,
+                                               VocabParallelEmbedding)
+from ..distributed.fleet.meta_parallel import sequence_parallel as _sp
+from ..distributed.fleet.meta_parallel.mp_layers import tied_logits
 from ..nn import Dropout, Embedding, Layer, LayerList, LayerNorm
 from ..nn import functional as F
 from ..nn.initializer import Normal
@@ -51,9 +60,11 @@ class GPTConfig:
     initializer_range: float = 0.02
     fused_lm_loss: bool = True  # blockwise head+CE, no (B*T, V) logits tensor
     remat: bool = False  # recompute each decoder layer in the backward
-    # "auto": the flash kernels when eligible (see scaled_dot_product_attention),
-    # "exact"/"flash" force one path; "ring" is the reference's
-    # sequence-parallel path, not ported yet (ROADMAP A11b)
+    sequence_parallel: bool = False  # shard the sequence over the sp group
+    # "auto": ring attention when sequence_parallel and an sp group of more
+    # than one rank, else the flash kernels when eligible (see
+    # scaled_dot_product_attention); "ring" forces the ring under sp;
+    # "exact"/"flash" force one path
     attention_impl: str = "auto"
 
     @property
@@ -68,28 +79,57 @@ class GPTAttention(Layer):
         self.num_heads = config.num_heads
         self.head_dim = h // config.num_heads
         self.qkv = ColumnParallelLinear(h, 3 * h, has_bias=True,
-                                        gather_output=False, **kw)
+                                        gather_output=False, fused_groups=3,
+                                        **kw)
+        if config.num_heads % self.qkv.world_size:
+            raise ValueError(f"{config.num_heads} heads do not split over "
+                             f"mp = {self.qkv.world_size}")
         self.proj = RowParallelLinear(h, h, has_bias=True,
                                       input_is_parallel=True, **kw)
         self.attn_dropout = config.attention_dropout
         if config.attention_impl not in ("auto", "ring", "exact", "flash"):
             raise ValueError("attention_impl must be auto|ring|exact|flash, "
                              f"got {config.attention_impl!r}")
-        if config.attention_impl == "ring":
-            raise NotImplementedError(
-                "attention_impl='ring' (sequence-parallel ring attention) is "
-                "not ported yet: ROADMAP A11b (sequence parallelism)")
+        self.config = config
         self.impl = (config.attention_impl
                      if config.attention_impl in ("exact", "flash") else None)
 
+    def _ring_group(self):
+        """The sp group iff ring attention runs (reference gpt.py:90):
+        sequence_parallel on, impl auto or ring, an sp group of more than
+        one rank, and no attention dropout in play (ring, like flash, never
+        forms the score matrix a dropout mask applies to)."""
+        cfg = self.config
+        if not cfg.sequence_parallel or cfg.attention_impl not in ("auto",
+                                                                   "ring"):
+            return None
+        if self.attn_dropout and self.training:
+            if cfg.attention_impl == "ring":
+                raise ValueError("attention_impl='ring' does not support "
+                                 "attention_dropout>0 while training; set "
+                                 "attention_dropout=0.0")
+            return None
+        return _sp.sp_group()
+
     def forward(self, x):
         B, T = x.shape[0], x.shape[1]
-        q, k, v = self.qkv(x).reshape(B, T, 3, self.num_heads,
-                                      self.head_dim).unbind(2)
-        out = F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, dropout_p=self.attn_dropout,
-            training=self.training, impl=self.impl)
-        return self.proj(out.reshape(B, T, -1))
+        qkv = self.qkv(x)  # (B, T, 3H/mp): this rank's heads' q, k, v
+        local_h = qkv.shape[-1] // 3
+        q, k, v = qkv.reshape(B, T, 3, local_h // self.head_dim,
+                              self.head_dim).unbind(2)
+        ring = self._ring_group()
+        if ring is not None:
+            out = _sp.ring_attention(q, k, v, ring, causal=True)
+        else:
+            group = _sp.sp_group() if self.config.sequence_parallel else None
+            if group is not None:  # the whole sequence, then this rank's rows
+                q, k, v = (_sp.gather_sequence(t, group) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=self.attn_dropout,
+                training=self.training, impl=self.impl)
+            if group is not None:
+                out = _sp.split_sequence(out, group)
+        return self.proj(out.reshape(B, T, local_h))
 
 
 class GPTMLP(Layer):
@@ -126,8 +166,9 @@ class GPTEmbeddings(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
         init = Normal(std=config.initializer_range)
-        self.word_embeddings = Embedding(config.vocab_size, config.hidden_size,
-                                         weight_attr=init, **kw)
+        self.word_embeddings = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size, weight_attr=init, **kw)
+        self.sequence_parallel = config.sequence_parallel
         self.position_embeddings = Embedding(
             config.max_position_embeddings, config.hidden_size,
             weight_attr=init, **kw)
@@ -135,7 +176,10 @@ class GPTEmbeddings(Layer):
 
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[1],
+            T = input_ids.shape[1]
+            group = _sp.sp_group() if self.sequence_parallel else None
+            start = group.rank * T if group is not None else 0  # global
+            position_ids = torch.arange(start, start + T,
                                         device=input_ids.device)[None]
         x = self.word_embeddings(input_ids) + self.position_embeddings(position_ids)
         return self.dropout(x)
@@ -161,28 +205,13 @@ class GPTModel(Layer):
         return self.final_ln(x)
 
 
-@contextlib.contextmanager
-def _generator_state(gen, state):
-    """Run with ``gen`` set to ``state``, then put its state back."""
-    saved = gen.get_state()
-    gen.set_state(state)
-    try:
-        yield
-    finally:
-        gen.set_state(saved)
-
-
 def _remat(layer, x):
-    """Activation checkpointing of one decoder layer. Its dropout draws from
-    the port's generator, which torch's checkpoint does not replay, so the
-    recompute restarts that generator from the forward's state and draws
-    the same masks."""
-    gen = random_state.default_generator(x.device)
-    state = gen.get_state()
-    return checkpoint(
-        layer, x, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(),
-                            _generator_state(gen, state)))
+    """Activation checkpointing of one decoder layer through
+    ``fleet.utils.recompute``, which replays the port's generator in the
+    recompute so the dropout masks are the forward's."""
+    from ..distributed.fleet.utils import recompute
+
+    return recompute(layer, x)
 
 
 class GPTForPretraining(Layer):
@@ -202,14 +231,16 @@ class GPTForPretraining(Layer):
 
     def forward(self, input_ids, position_ids=None):
         x = self.gpt(input_ids, position_ids)
-        return F.linear(x, self.gpt.embeddings.word_embeddings.weight.T)
+        return tied_logits(x, self.gpt.embeddings.word_embeddings)
 
     def loss(self, input_ids, labels):
         """Mean next-token cross-entropy against ``labels`` (B, T)."""
         if self.config.fused_lm_loss:
             x = self.gpt(input_ids)
-            w = self.gpt.embeddings.word_embeddings.weight
-            return F.fused_linear_cross_entropy(x, w, labels)
+            emb = self.gpt.embeddings.word_embeddings
+            return F.fused_linear_cross_entropy(
+                x, emb.weight, labels,
+                group=emb.group if emb.world_size > 1 else None)
         logits = self(input_ids)
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                labels.reshape(-1))

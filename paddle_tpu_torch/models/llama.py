@@ -5,8 +5,10 @@ a SwiGLU MLP, with an untied LM head. Parameter names and shapes equal the
 reference's ``state_dict()``: e.g. ``model.layers.0.self_attn.q_proj.weight``
 is (h, h) in Paddle's (in, out) layout and ``lm_head.weight`` is (h, V), so
 the reference's weights load by name (``models/convert.py``). The projections,
-the embedding and the head are the port's single-device model-parallel
-layers, as the reference's are (``distributed/fleet/meta_parallel``).
+the embedding and the head are the port's model-parallel layers, as the
+reference's are (``distributed/fleet/meta_parallel``): under mp each rank
+holds its query and KV heads (the KV heads must split over mp) and the
+head's columns, whose logits are gathered.
 Attention in ``forward`` goes through
 ``nn.functional.scaled_dot_product_attention`` (the flash kernels on the
 card for the causal training pass), with grouped-query attention's K/V
@@ -104,6 +106,10 @@ class LlamaAttention(Layer):
         kvd = self.kv_heads * self.head_dim
         col = {"has_bias": False, "gather_output": False, **kw}
         self.q_proj = ColumnParallelLinear(h, h, **col)
+        mp = self.q_proj.world_size
+        if self.kv_heads % mp or self.num_heads % mp:
+            raise ValueError(f"{self.num_heads} heads and {self.kv_heads} KV "
+                             f"heads must both split over mp = {mp}")
         self.k_proj = ColumnParallelLinear(h, kvd, **col)
         self.v_proj = ColumnParallelLinear(h, kvd, **col)
         self.o_proj = RowParallelLinear(h, h, has_bias=False,
@@ -112,9 +118,10 @@ class LlamaAttention(Layer):
 
     def forward(self, x, attn_mask=None):
         B, T = x.shape[0], x.shape[1]
-        q = self.q_proj(x).reshape(B, T, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(B, T, self.kv_heads, self.head_dim)
-        v = self.v_proj(x).reshape(B, T, self.kv_heads, self.head_dim)
+        # this rank's heads (all of them at mp = 1)
+        q = self.q_proj(x).reshape(B, T, -1, self.head_dim)
+        k = self.k_proj(x).reshape(B, T, -1, self.head_dim)
+        v = self.v_proj(x).reshape(B, T, -1, self.head_dim)
         q, k = apply_rope(q, k, self.theta)
         if self.kv_heads != self.num_heads:  # GQA: q head h reads h // rep
             rep = self.num_heads // self.kv_heads

@@ -9,6 +9,17 @@ squares are summed in float32, the global clip scales by
 back to its own dtype. The norms and scales stay on the device
 (``torch._foreach_*`` over the whole list), so a clip adds no host sync to
 a step.
+
+Under hybrid parallelism ``ClipGradByGlobalNorm`` is group-aware: the
+reference's clip sees logical arrays, so its norm is global. A parameter
+an mp layer shards (``mp_distributed``, with its ``mp_group``) holds one
+rank's slice, so its squares are summed over the mp group, while a
+replicated one (LayerNorms, ``RowParallelLinear``'s bias) counts once, not
+mp times. Gradients a ZeRO-2 optimizer reduce-scattered (``sharded``
+indices, over ``shard_group``) are summed over that group the same way.
+With no group of more than one rank the norm is the single-rank one.
+``ClipGradByNorm`` takes a sharded gradient's own norm over its mp group
+the same way.
 """
 from __future__ import annotations
 
@@ -74,7 +85,8 @@ class ClipGradByValue(ClipGradBase):
 
 class ClipGradByNorm(ClipGradBase):
     """Each gradient scaled by ``min(clip / max(norm, 1e-12), 1)`` with its
-    own float32 L2 norm."""
+    own float32 L2 norm (the logical gradient's under tensor parallelism:
+    ``_logical_norms``)."""
 
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
@@ -84,12 +96,37 @@ class ClipGradByNorm(ClipGradBase):
         if not idx:
             return params_grads
         gs = [params_grads[i][1] for i in idx]
-        norms = torch._foreach_norm(gs, 2, dtype=torch.float32)
+        norms = _logical_norms(params_grads, idx, torch._foreach_norm(
+            gs, 2, dtype=torch.float32))
         scales = torch._foreach_reciprocal(
             torch._foreach_clamp_min(norms, 1e-12))
         torch._foreach_mul_(scales, self.clip_norm)
         torch._foreach_clamp_max_(scales, 1.0)
         return _replace(params_grads, idx, _scaled(gs, scales))
+
+
+def _logical_norms(params_grads, idx, norms):
+    """``norms``, the float32 norms of the gradients at ``idx``, with the
+    norm of each gradient an mp layer shards (``mp_distributed`` over an
+    ``mp_group`` of more than one rank) taken over the logical gradient:
+    its shard's squares summed over the group, one all-reduce a group."""
+    groups = {}
+    for k, i in enumerate(idx):
+        p = params_grads[i][0]
+        g = getattr(p, "mp_group", None)
+        if getattr(p, "mp_distributed", False) and g is not None \
+                and g.nranks > 1:
+            groups.setdefault(id(g), (g, []))[1].append(k)
+    if not groups:
+        return norms
+    from ..distributed import collective as C
+
+    norms = list(norms)
+    for g, ks in groups.values():
+        sq = C.all_reduce(torch.stack([norms[k] for k in ks]) ** 2, group=g)
+        for k, n in zip(ks, torch.sqrt(sq)):
+            norms[k] = n
+    return norms
 
 
 def _global_norm(grads):
@@ -99,20 +136,56 @@ def _global_norm(grads):
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def _group_global_norm(params_grads, idx, sharded, shard_group):
+    """The global norm over the logical gradients when they are spread
+    over ranks, or None when no group of more than one rank is involved:
+    squares of mp-sharded gradients summed over their mp group, of
+    ZeRO-sharded ones over ``shard_group``, replicated ones once."""
+    from ..distributed import collective as C
+
+    dist_of = [bool(getattr(params_grads[i][0], "mp_distributed", False))
+               for i in idx]
+    mp = next((params_grads[i][0].mp_group for i, d in zip(idx, dist_of)
+               if d and getattr(params_grads[i][0], "mp_group", None)
+               is not None and params_grads[i][0].mp_group.nranks > 1), None)
+    sh = shard_group if shard_group is not None and shard_group.nranks > 1 \
+        and sharded else None
+    if mp is None and sh is None:
+        return None
+    gs = [params_grads[i][1] for i in idx]
+    sq = torch.stack(torch._foreach_norm(gs, 2, dtype=torch.float32)) ** 2
+    zero = sq.new_zeros(())
+
+    def part(d, s):
+        m = [k for k, i in enumerate(idx)
+             if dist_of[k] == d and (i in sharded) == s]
+        return sq[m].sum() if m else zero
+
+    def total(t, g):  # the sum over g's ranks (the rank's own without g)
+        return t if g is None else C.all_reduce(t.clone(), group=g)
+
+    dist_sh = total(part(True, True).reshape(1), sh)
+    rep_sh = total(part(False, True).reshape(1), sh)
+    dist_all = total(dist_sh + part(True, False), mp)
+    return torch.sqrt((dist_all + rep_sh + part(False, False))[0])
+
+
 class ClipGradByGlobalNorm(ClipGradBase):
     """Every gradient scaled by ``clip / max(gn, clip)``, ``gn`` the L2 norm
-    over all of them."""
+    over all of them (of the logical gradients under hybrid parallelism)."""
 
     def __init__(self, clip_norm, group_name="default_group",
                  auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
 
-    def __call__(self, params_grads):
+    def __call__(self, params_grads, sharded=frozenset(), shard_group=None):
         idx = _clipped(params_grads)
         if not idx:
             return params_grads
         gs = [params_grads[i][1] for i in idx]
-        gn = _global_norm(gs)
+        gn = _group_global_norm(params_grads, idx, sharded, shard_group)
+        if gn is None:
+            gn = _global_norm(gs)
         scale = self.clip_norm / torch.clamp_min(gn, self.clip_norm)
         return _replace(params_grads, idx, _scaled(gs, scale))
 

@@ -21,7 +21,9 @@ no excess precision between bf16 ops, but keeps a bf16 product that is
 promoted to f32 at once in f32, which only ``Lamb`` meets), so the
 elementwise rules write one ``torch._foreach_*`` op for each of the
 reference's ops. ``Lamb`` and ``LarsMomentum`` need each parameter's f32
-norm and run parameter by parameter. ``Lamb`` follows the reference's promotion: its bias corrections
+norm and run parameter by parameter; under tensor parallelism the norm of
+a sharded parameter is the logical one, its shard's squares summed over
+its mp group (``_f32_norms``). ``Lamb`` follows the reference's promotion: its bias corrections
 are f32 arrays, so a bf16 parameter comes out of the first step as float32
 (the port rebinds ``p.data``), and its moments follow it on the next step.
 
@@ -163,6 +165,14 @@ class Optimizer:
               for i in live]
         if self._grad_clip is not None and not functional:
             pg = self._grad_clip(pg)
+        self._apply_updates(live, pg, functional, with_params)
+
+    def _apply_updates(self, live, pg, functional: bool,
+                       with_params: bool) -> None:
+        """The rule over ``pg``, the (tensor, gradient) pairs of the
+        parameters at ``live`` (indices into the parameter list): each
+        tensor is the parameter or, under ZeRO, a view of this rank's
+        shard of it, whose accumulators take its shape."""
         lr = self.get_lr()
         groups: Dict[tuple, list] = {}
         for i, (p, g) in zip(live, pg):
@@ -176,7 +186,8 @@ class Optimizer:
                 wd, scale = 1.0, 1.0
             else:
                 wd = self._gate(i)
-                scale = float(getattr(p, "optimize_attr", {}).get(
+                scale = float(getattr(self._parameter_list[i],
+                                      "optimize_attr", {}).get(
                     "learning_rate", 1.0))
             key = (p.device, p.dtype, wd, scale)
             groups.setdefault(key, []).append((p, g, st))
@@ -473,11 +484,22 @@ def _weak_mul(x: float, t: torch.Tensor, out=None) -> torch.Tensor:
         else t * c
 
 
-def _f32_norm(t: torch.Tensor) -> torch.Tensor:
-    """The reference's f32 norm, summed in f64 and rounded to f32 so it
-    does not hang on the device's order of summation (torch's f32 sum on
-    the CPU is 1.9e-3 off for a 30.7M-element embedding)."""
-    return torch.linalg.vector_norm(t, dtype=torch.float64).float()
+def _f32_norms(p, *ts):
+    """The reference's f32 norms of ``ts``, summed in f64 and rounded to
+    f32 so they do not hang on the device's order of summation (torch's f32
+    sum on the CPU is 1.9e-3 off for a 30.7M-element embedding). When an
+    mp layer shards ``p`` (``mp_distributed``), ``ts`` are its rank's
+    slices and the norms are the logical tensors': the squares are summed
+    over its ``mp_group`` in one all-reduce."""
+    norms = [torch.linalg.vector_norm(t, dtype=torch.float64) for t in ts]
+    group = getattr(p, "mp_group", None) \
+        if getattr(p, "mp_distributed", False) else None
+    if group is None or group.nranks == 1:
+        return [n.float() for n in norms]
+    from ..distributed import collective as C
+
+    sq = C.all_reduce(torch.stack(norms) ** 2, group=group)
+    return list(torch.sqrt(sq).float())
 
 
 class Lamb(Optimizer):
@@ -522,7 +544,7 @@ class Lamb(Optimizer):
             v = _weak_mul(b2, v0, mt) + _weak_mul(1 - b2, g * g, mt)
             r = (m.float() / bc1) / (torch.sqrt(v.float() / bc2) + eps)
             r = r + _weak_mul(self._wd * wd, p, torch.float32)
-            w_norm, r_norm = _f32_norm(p), _f32_norm(r)
+            w_norm, r_norm = _f32_norms(p, p, r)
             trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                                 1.0).to(dt)
             new_p = p - (trust.float() * _rounded(lr, dt)) * r
@@ -553,7 +575,7 @@ class LarsMomentum(Optimizer):
         lr32 = _rounded(lr, torch.float32)
         for p, g, st in zip(ps, gs, states):
             dt = p.dtype
-            w_norm, g_norm = _f32_norm(p), _f32_norm(g)
+            w_norm, g_norm = _f32_norms(p, p, g)
             local = torch.where((w_norm > 0) & (g_norm > 0),
                                 coeff * w_norm / (g_norm + lwd * w_norm
                                                   + 1e-12),

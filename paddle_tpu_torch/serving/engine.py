@@ -1254,6 +1254,10 @@ class Engine:
         while not self._quiesced.wait(timeout=0.05):
             if self._broken is not None or self._failed.is_set() \
                     or not self._thread.is_alive():
+                if self._quiesced.is_set():
+                    # the loop quiesced and exited between the wait's
+                    # timeout and this check: not a failure
+                    break
                 raise ServeError(
                     "engine failed before handoff quiesce") from self._broken
             if time.monotonic() > deadline:

@@ -5,8 +5,8 @@ on the CPU, at one rank.
   ported: a transient out-of-memory retried bit-identically; the sticky
   degrade bit-identical to an engine configured with ``grad_accumulate=2``
   from the start; the structured exhaustion with its post-mortem; and
-  ``FLAGS_shard_weight_update`` raising at dp > 1 (its ZeRO-1 update comes
-  with ROADMAP A11b).
+  ``FLAGS_shard_weight_update`` building the ZeRO-1 update where the
+  reference's ``maybe_build`` does (its parity: tests/test_torch_zero.py).
 * The engine against the reference's engine on ``gpt_tiny`` (float32,
   dropout 0, a one-device ``dp`` mesh), 3 steps at accumulation 1 and 2:
   losses rtol 1e-5; with SGD the parameters rtol 1e-4 / atol 1e-6 (AdamW's
@@ -123,25 +123,58 @@ class TestEngineLadder:
         assert "hbm" in doc["context"]
 
     def test_shard_weight_update_raises_at_dp_gt_1(self):
+        """The ZeRO-1 sharded update is built where the reference's
+        ``maybe_build`` builds it (its dp = 2 parity is
+        tests/test_torch_zero.py); with or without it, an engine at dp = 2
+        asks for the world of 2 ranks it needs."""
+        from paddle_tpu_torch.distributed.fleet.meta_optimizers import \
+            ShardedWeightUpdate
+
         m = _linear()
         opt = pt.optimizer.SGD(0.1, parameters=m.parameters())
         mesh = Mesh(np.arange(2), ("dp",))
+        params = list(m.parameters())
         flags.set_flags({"FLAGS_shard_weight_update": True})
-        with pytest.raises(NotImplementedError, match="A11b"):
+        wus = ShardedWeightUpdate.maybe_build(opt, params, mesh, ("dp",))
+        assert isinstance(wus, ShardedWeightUpdate) and wus.nranks == 2
+        assert all(b.padded % (2 * 128) == 0 for b in wus.plan.buckets)
+        # the reference builds no sharded update for accumulation, a
+        # norm-based rule or a mesh with another axis
+        assert ShardedWeightUpdate.maybe_build(opt, params, mesh, ("dp",),
+                                               grad_accumulate=2) is None
+        lamb = pt.optimizer.Lamb(0.1, parameters=m.parameters())
+        assert ShardedWeightUpdate.maybe_build(lamb, params, mesh,
+                                               ("dp",)) is None
+        mesh2 = Mesh(np.arange(4).reshape(2, 2), ("dp", "mp"))
+        assert ShardedWeightUpdate.maybe_build(opt, params, mesh2,
+                                               ("dp",)) is None
+        with pytest.raises(ValueError, match="world of 2"):
             HybridParallelEngine(m, opt, _mse, mesh=mesh)
-        # the reference builds no sharded update for accumulation either;
-        # without it the engine asks for the dp world it needs
         flags.set_flags({"FLAGS_shard_weight_update": False})
+        assert ShardedWeightUpdate.maybe_build(opt, params, mesh,
+                                               ("dp",)) is None
         with pytest.raises(ValueError, match="world of 2"):
             HybridParallelEngine(m, opt, _mse, mesh=mesh)
 
 
 def test_mesh_axes_beyond_dp_raise():
+    """Pipeline and expert axes raise naming A11b, part 2; the mp, sharding
+    and sp axes run (tests/test_torch_tensor_parallel.py,
+    test_torch_zero.py, test_torch_sequence_parallel.py) over the world and
+    the ``fleet.init`` topology they need."""
     m = _linear()
     opt = pt.optimizer.SGD(0.1, parameters=m.parameters())
-    mesh = Mesh(np.arange(2).reshape(1, 2), ("dp", "mp"))
-    with pytest.raises(NotImplementedError, match="A11b"):
-        HybridParallelEngine(m, opt, _mse, mesh=mesh)
+    for axis in ("pp", "ep"):
+        mesh = Mesh(np.arange(2).reshape(1, 2), ("dp", axis))
+        with pytest.raises(NotImplementedError, match="A11b, part 2"):
+            HybridParallelEngine(m, opt, _mse, mesh=mesh)
+    for axis in ("mp", "sharding", "sp"):
+        mesh = Mesh(np.arange(2).reshape(1, 2), ("dp", axis))
+        with pytest.raises(ValueError, match="world of 2"):
+            HybridParallelEngine(m, opt, _mse, mesh=mesh)
+    # a world of one with an axis of one rank runs as before
+    mesh = Mesh(np.arange(1).reshape(1, 1), ("dp", "mp"))
+    assert HybridParallelEngine(m, opt, _mse, mesh=mesh).dp == 1
 
 
 def _gpt_pair():

@@ -5,7 +5,8 @@ reference's, on the same weights and inputs (numpy, from a seed).
 
 Forward outputs and input/weight gradients in f32 within rtol = atol = 1e-5
 (the matmuls sum in another order); parameter names and shapes equal; a
-group of more than one rank raises ``NotImplementedError`` naming A11.
+group of more than one rank without a process group raises (the sharded
+layers over a real group: tests/test_torch_tensor_parallel.py).
 """
 from types import SimpleNamespace
 
@@ -117,12 +118,17 @@ def test_single_rank_collectives_are_identities(fn):
 @pytest.mark.parametrize("fn", ["_c_identity", "_mp_allreduce", "_c_split",
                                 "_c_concat", "_c_softmax_with_cross_entropy"])
 def test_larger_group_raises(fn):
-    group = SimpleNamespace(nranks=2)
+    """Over two ranks the layers hold their shards and the helpers run on
+    the group's process group (parity: tests/test_torch_tensor_parallel.py);
+    a group of two ranks that has no process group (the reference's
+    GSPMD-partitioned axis) still raises, in the helper and in the layer."""
+    group = SimpleNamespace(nranks=2, rank=0)
     x = torch.zeros(2, 4)
     args = (x, torch.zeros(2, dtype=torch.long)) \
         if fn == "_c_softmax_with_cross_entropy" else (x,)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="no process group"):
         getattr(tcol, fn)(*args, group)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmp.ColumnParallelLinear(4, 3, mp_group=group, device="cpu")(
-            torch.zeros(2, 4))
+    layer = tmp.ColumnParallelLinear(4, 6, mp_group=group, device="cpu")
+    assert tuple(layer.weight.shape) == (4, 3) and layer.weight.mp_distributed
+    with pytest.raises(NotImplementedError, match="no process group"):
+        layer(torch.zeros(2, 4))

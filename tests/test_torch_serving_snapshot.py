@@ -227,6 +227,50 @@ def test_handoff_mid_decode_matches_reference(gpt, ref):
     assert _delta(c0, "serve_reprefill_tokens") == 0
 
 
+class _RacedQuiesce:
+    """The engine's quiesce event whose first ``wait`` times out just as
+    the loop sets it and exits: it returns False only after both."""
+
+    def __init__(self, eng):
+        self._ev, self._eng, self._raced = eng._quiesced, eng, False
+
+    def set(self):
+        self._ev.set()
+
+    def is_set(self):
+        return self._ev.is_set()
+
+    def wait(self, timeout=None):
+        if self._raced:
+            return self._ev.wait(timeout)
+        self._raced = True
+        assert self._ev.wait(30), "the loop never quiesced"
+        self._eng._thread.join(30)
+        return False
+
+
+def test_handoff_survives_a_quiesce_that_races_the_wait(gpt, ref):
+    """A loop that quiesces and exits between ``handoff``'s wait timing out
+    and its liveness check has handed off, not failed (the engine raised
+    "engine failed before handoff quiesce" there, seen once on the card
+    in a Llama-7B handoff)."""
+    prompts = make_prompts(3, np.random.RandomState(33))
+    want = ref(prompts, 8)
+    old = Engine(gpt[1], **KW)
+    try:
+        hs = [old.submit(p, max_new_tokens=8) for p in prompts]
+        _mid_decode(old)
+        old._quiesced = _RacedQuiesce(old)
+        snap = old.handoff()
+        assert not old._thread.is_alive()
+        with Engine(gpt[1], **KW) as new:
+            assert new.adopt(snap)["mode"] == "reattach"
+            outs = [h.result(timeout=60) for h in hs]
+    finally:
+        old.close()
+    assert outs == want
+
+
 def test_handoff_transfers_queue(gpt, ref):
     prompts = make_prompts(4, np.random.RandomState(31))
     want = ref(prompts, 8)

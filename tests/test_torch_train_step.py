@@ -101,11 +101,33 @@ def test_compile_train_step_without_device_raises_when_cuda_missing(
                                            parameters=model.parameters()))
 
 
-@pytest.mark.parametrize("impl,err", [("ring", NotImplementedError),
+@pytest.mark.parametrize("impl,err", [("ring", None),
                                       ("bogus", ValueError)])
 def test_attention_impl_checked(impl, err):
-    with pytest.raises(err, match="A11" if impl == "ring" else "auto"):
-        GPTForPretraining(gpt_tiny(attention_impl=impl), device="cpu")
+    """An unknown impl raises. "ring" builds: without an sp group of more
+    than one rank it is the reference's sdpa path (its sp = 2 parity:
+    tests/test_torch_sequence_parallel.py), and under sequence_parallel it
+    refuses attention dropout while training, as the reference's does."""
+    if err is not None:
+        with pytest.raises(err, match="auto"):
+            GPTForPretraining(gpt_tiny(attention_impl=impl), device="cpu")
+        return
+    ids, labels = (torch.from_numpy(a) for a in _batch())
+    losses = []
+    for kind in ("auto", "ring"):
+        m = GPTForPretraining(gpt_tiny(attention_impl=kind,
+                                       sequence_parallel=True,
+                                       hidden_dropout=0.0,
+                                       attention_dropout=0.0),
+                              device="cpu").train()
+        losses.append(m.loss(ids, labels).item())
+    assert losses[0] == losses[1]
+    m = GPTForPretraining(gpt_tiny(attention_impl="ring",
+                                   sequence_parallel=True,
+                                   attention_dropout=0.1),
+                          device="cpu").train()
+    with pytest.raises(ValueError, match="attention_dropout"):
+        m.loss(ids, labels)
 
 
 def test_remat_replays_dropout_and_matches_no_remat():

@@ -8,8 +8,10 @@ Joins the group through ``paddle_tpu_torch.distributed.init_parallel_env(
 device="cpu")`` and runs every check of the file on this rank: the
 collectives on inputs made from seeds, the quantized all-reduce-mean, the
 model-parallel helpers over both ranks, ``DataParallel``'s eager loop and
-``HybridParallelEngine`` at dp = 2 on this rank's half of the batch, with
-the weights the test wrote to ``<dir>/inputs.npz``. Writes what it got to
+``HybridParallelEngine`` at dp = 2 on this rank's half of the batch (with
+the replicated update and with the ZeRO-1 sharded one; GPT also on padded
+labels, with its ``eval_step``), with the weights the test wrote to
+``<dir>/inputs.npz``. Writes what it got to
 ``<dir>/rank<r>.pt``. Imports torch, numpy and ``paddle_tpu_torch`` only.
 """
 import json
@@ -185,14 +187,43 @@ def gpt_engine(rank, inp, out):
     out["dp_buckets"] = pt.profiler.counters().get("dp_all_reduces", 0)
 
 
-def zero_raises(rank, out):
+def gpt_engine_padded(rank, inp, out):
+    """The engine at dp = 2 on labels whose padding (ignore_index) falls
+    mostly on rank 1's half: 2 SGD steps, then ``eval_step``'s loss."""
+    cfg = json.loads(str(inp["gpt_config"]))
+    state = {k[4:]: inp[k] for k in inp.files if k.startswith("gpt.")}
+    m = GPTForPretraining(GPTConfig(**cfg), device="cpu").train()
+    load_reference_state_dict(m, state)
+    eng = tdist.HybridParallelEngine(
+        m, pt.optimizer.SGD(0.1, parameters=m.parameters()),
+        lambda mm, i, l: mm.loss(i, l))
+    ids = half(inp["gpt_ids"], rank)
+    labels = half(inp["gpt_labels_pad"], rank)
+    losses = torch.stack([eng.train_step(ids, labels) for _ in range(2)])
+    out["gpt_pad"] = {
+        "losses": losses,
+        "eval": eng.eval_step(lambda mm, i, l: mm.loss(i, l), ids, labels),
+        "state": {k: v.detach().clone() for k, v in m.state_dict().items()}}
+
+
+def zero_update(rank, inp, out):
+    """The engine at dp = 2 with FLAGS_shard_weight_update on: the ZeRO-1
+    sharded update, 3 SGD steps on this rank's half of the batch."""
+    state = {k[4:]: inp[k] for k in inp.files if k.startswith("mlp.")}
+    x, y = half(inp["mlp_x"], rank), half(inp["mlp_y"], rank)
     flags.set_flags({"FLAGS_shard_weight_update": True})
-    m = MLP()
     try:
-        tdist.HybridParallelEngine(
-            m, pt.optimizer.SGD(0.1, parameters=m.parameters()), mse)
-    except NotImplementedError as e:
-        out["zero_raised"] = str(e)
+        m = MLP()
+        load_reference_state_dict(m, state)
+        eng = tdist.HybridParallelEngine(
+            m, pt.optimizer.SGD(0.1, parameters=m.parameters()), mse,
+            mesh=tdist.build_mesh(["dp"], [2]))
+        out["zero_built"] = [eng._wus is not None,
+                             eng._wus.nranks if eng._wus else 0]
+        out["zero_losses"] = torch.stack([eng.train_step(x, y)
+                                          for _ in range(3)])
+        out["zero_state"] = {k: v.detach().clone()
+                             for k, v in m.state_dict().items()}
     finally:
         flags.set_flags({"FLAGS_shard_weight_update": False})
 
@@ -211,7 +242,8 @@ def main(d):
         mp_helpers(rank, out)
         data_parallel(rank, inp, out)
         gpt_engine(rank, inp, out)
-        zero_raises(rank, out)
+        gpt_engine_padded(rank, inp, out)
+        zero_update(rank, inp, out)
     except Exception:
         out["error"] = traceback.format_exc()
     torch.save(out, d / f"rank{rank}.pt")

@@ -135,3 +135,82 @@ def wait_for(cond, timeout, what):
         if time.monotonic() > deadline:
             raise AssertionError(f"timed out after {timeout}s: {what}")
         time.sleep(0.005)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(worker, args, world, d, timeout_s, attempts=2):
+    """Run ``python <worker> *args`` as ``world`` gloo ranks of one group on
+    a free local port (each with ``OMP_NUM_THREADS=1``), wait at most
+    ``timeout_s`` for all of them, and return what each wrote to
+    ``<d>/rank<r>.pt``. A rank that fails stops the others at once. The
+    port is picked free and released before the ranks bind it, so another
+    process may take it first: a rendezvous that finds it taken is started
+    again on a new port (``attempts`` in all). A rank that hangs, fails or
+    reports an error fails the caller's fixture."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    import time
+    from pathlib import Path
+
+    import pytest
+    import torch
+
+    for attempt in range(attempts):
+        port = free_port()
+        procs, logs = [], []
+        for r in range(world):
+            env = dict(os.environ, PADDLE_TRAINERS_NUM=str(world),
+                       PADDLE_TRAINER_ID=str(r),
+                       PADDLE_TRAINER_ENDPOINTS=f"127.0.0.1:{port}",
+                       OMP_NUM_THREADS="1",
+                       PYTHONPATH=str(Path(worker).resolve().parents[1]))
+            log = tempfile.TemporaryFile(mode="w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(worker), *map(str, args)], env=env,
+                stdout=log, stderr=subprocess.STDOUT, text=True))
+
+        def text(r):
+            logs[r].seek(0)
+            return logs[r].read()[-4000:]
+
+        deadline = time.monotonic() + timeout_s
+        failed = None
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            failed = next((r for r, c in enumerate(codes)
+                           if c not in (None, 0)), None)
+            if failed is not None or all(c == 0 for c in codes):
+                break
+            time.sleep(0.2)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if failed is None and any(p.returncode != 0 for p in procs):
+            pytest.fail(f"a gloo rank did not finish in {timeout_s}s:\n"
+                        + "\n".join(text(r) for r in range(world)))
+        if failed is not None:
+            out = text(failed)
+            if "ddress already in use" in out and attempt + 1 < attempts:
+                continue
+            pytest.fail(f"rank {failed} exited {procs[failed].returncode}:"
+                        f"\n{out}")
+        break
+    got = []
+    for r in range(world):
+        f = Path(d) / f"rank{r}.pt"
+        assert f.exists(), f"rank {r} wrote nothing:\n{text(r)}"
+        res = torch.load(f, weights_only=False)
+        assert "error" not in res, f"rank {r}: {res['error']}"
+        got.append(res)
+    return got
