@@ -280,6 +280,33 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    ``{"fleet_train": ...}`` line; the
    flash rows of the ``kernels`` line carry 14a's launches as
    ``launches_fleet`` and 14c's as ``launches_ulysses``;
+15. fleet, part 2 (runs after phase 14, on its NCCL group of one rank):
+   (15b) ``group_sharded_parallel(level="p_g_os")`` (ZeRO-3) over the
+   one-rank sharding group on phase 14's model, batch and start through
+   the engine (``dp_axes=()``): 3 steps bit-equal to 13a's engine. (15a)
+   GPT-3 1.3B at full width and depth as a one-stage ``PipelineLayer``
+   (the embedding and the tied head one ``SharedLayerDesc`` key, the head
+   through its ``forward_func``; 24 decoder layers; the final LayerNorm;
+   the f32 cross-entropy as ``loss_fn``) on b4 x s2048 in 4 micro-batches:
+   ``PipelineTrainStep`` by 1F1B and by F-then-B and the engine at
+   ``grad_accumulate=4``, 3 AdamW steps each from one start (parameters
+   bit-equal to the engine's, else within ``PIPE_REL_TOL``), each one's
+   peak (1F1B's below F-then-B's); then 2 warm-up and 8 timed 1F1B steps
+   (step ms, tokens/s, MFU, flash launches 24 x 4 x 8 each). (15c)
+   ``MoELayer(2048, 8192, 8 experts, top 2)`` in bf16 on 8192 tokens,
+   forward and backward: the one-rank ep group bit-equal to the local
+   path, the layer against the f32 plain per-expert loop on the card's
+   own routing by relative norm (``MOE_REL_TOL``; the gate's gradient and
+   the auxiliary loss ``MOE_GATE_REL_TOL``), the choices dropped at
+   capacity, forward and backward ms by CUDA events. (15d)
+   ``DGCMomentumOptimizer`` (sparsity 0.999) on GPT-3 1.3B for 3 eager
+   steps: ``last_comm_fraction``, the optimizer step's ms beside plain
+   Momentum's, and one layer's last update bit-equal to the CPU rule on
+   the card's gradient; then ``LocalSGDOptimizer(k_steps=2)`` over SGD for
+   4 steps bit-equal to plain SGD (the sync at world 1 is the identity).
+   One ``{"fleet_part2": ...}`` line with the card's name and power
+   limit; the flash rows of the ``kernels`` line carry 15a's timed
+   launches as ``launches_pipeline``;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -316,7 +343,8 @@ ms a step in the profiled windows (printed beside its CUDA-event time),
 ``{"flash_long_shape": [...]}``, the flash kernels' times at the
 long-sequence shape (no launches on the main path),
 ``{"flash_llama_shape": [...]}``, their times at Llama-7B's training shape
-with phase 8's launches, ``{"train_models": {...}}``, phases 8 and 9,
+with phase 8's launches, ``{"flash_pipeline_shape": [...]}``, their times
+at 15a's micro-batch (B = 1) with its launches, ``{"train_models": {...}}``, phases 8 and 9,
 ``{"runtime_train": {...}}``, phase 12 (printed at its end),
 ``{"generate": {...}}``, phase 10, ``{"naninf": {...}}``, phase 11,
 ``{"paged_shapes": [...]}``, the paged kernel's time, bound and cluster
@@ -326,8 +354,8 @@ logits errors, with (e)'s prefix hits, shared blocks, tail prefills and
 chunk steps, (f)'s drafts proposed and accepted, and (g)'s and (h)'s
 sub-drives with their adopt info, ``{"registry": {...}}``, phase 6's
 searches, persistence, tuned drive, host µs and the 192-row int8 checks,
-``{"engine_train": {...}}``, phase 13, and ``{"fleet_train": {...}}``,
-phase 14.
+``{"engine_train": {...}}``, phase 13, ``{"fleet_train": {...}}``,
+phase 14, and ``{"fleet_part2": {...}}``, phase 15.
 """
 from __future__ import annotations
 
@@ -499,6 +527,8 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 # 16 heads, T=8192), where the reference takes its (B*H, T, D) route
 FLASH_TRAIN = (2, 2048, 2048, 16, 128, True)
 FLASH_LONG = (1, 8192, 8192, 16, 64, True)
+# 15a's micro-batch: GPT-3 1.3B's training shape at B = 1
+FLASH_PIPE = (1, 2048, 2048, 16, 128, True)
 # Llama-7B's training batch and its flash shape (B, T, T_kv, H, D, causal)
 LLAMA_TRAIN_B, LLAMA_TRAIN_T = 1, 2048
 LLAMA_GRAD_LAYERS = 2  # the full-width model of the kernels-vs-plain check
@@ -4715,8 +4745,15 @@ def engine_train_phase(llama_oom):
               "width; sequence parallelism on the flash kernels")
         fleet = fleet_phase(model, start, ids, labels, n_params, l_eng,
                             p_eng, out)
+        print("[15] fleet, part 2: ZeRO-3 (p_g_os) on phase 14's model, "
+              "gpt3_1p3b as a one-stage PipelineLayer (1F1B, F-then-B), the "
+              "MoE layer at full width, DGC and LocalSGD")
+        part2, hcg = fleet_part2_phase(model, start, ids, labels, l_eng,
+                                       p_eng)
         del model, start, p_eng
         torch.cuda.empty_cache()
+        fleet_part2_rest(part2, hcg)
+        fleet["part2"] = part2
     finally:
         dist.destroy_process_group()
     return out, fleet
@@ -4977,6 +5014,410 @@ def fleet_phase(model, start, ids, labels, n_params, l_eng, p_eng, base):
     return res
 
 
+PIPE_B, PIPE_MICRO = 4, 4  # 15a: b4 x s2048 in 4 micro-batches
+PIPE_REL_TOL = 1e-3  # 15a: the schedules against the engine, if not bit-equal
+MOE_SHAPE = (4, 2048, 2048, 8192, 8, 2)  # 15c: B, T, d_model, d_hidden, E, k
+# 15c: the bf16 layer against the f32 plain per-expert loop on the same bf16
+# inputs and routing, by relative norm: h (8192 wide) and the output are
+# rounded to bf16 once each, the gate values and the gradients' products
+# too (~0.4% each)
+MOE_REL_TOL = 2e-2
+# the gate's gradient and the auxiliary loss go through the bf16 softmax
+# (probabilities rounded to bf16, their mean taken in bf16)
+MOE_GATE_REL_TOL = 5e-2
+DGC_SPARSITY = 0.999  # 15d
+
+
+def pipeline_gpt(cfg, device, gen):
+    """GPT-3 1.3B as a one-stage ``PipelineLayer``: the embedding and the
+    tied LM head as one ``SharedLayerDesc`` key (the head through its
+    ``forward_func``), the decoder layers, the final LayerNorm, and the
+    cross-entropy as ``loss_fn``."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer, SharedLayerDesc)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.mp_layers import \
+        tied_logits
+    from paddle_tpu_torch.models.gpt import GPTDecoderLayer, GPTEmbeddings
+    from paddle_tpu_torch.nn import LayerNorm
+    from paddle_tpu_torch.nn import functional as F
+
+    kw = {"device": device, "dtype": torch.bfloat16}
+    emb = {"generator": gen, **kw}
+
+    def head(layer, x):
+        return tied_logits(x, layer.word_embeddings)
+
+    def loss_fn(logits, labels):
+        return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1))
+
+    descs = [SharedLayerDesc("embed", GPTEmbeddings, None,
+                             "word_embeddings.weight", cfg, **emb)] \
+        + [LayerDesc(GPTDecoderLayer, cfg, **emb)
+           for _ in range(cfg.num_layers)] \
+        + [LayerDesc(LayerNorm, cfg.hidden_size, epsilon=1e-5, **kw),
+           SharedLayerDesc("embed", GPTEmbeddings, head,
+                           "word_embeddings.weight", cfg, **emb)]
+    return PipelineLayer(descs, num_stages=1, loss_fn=loss_fn).train()
+
+
+def pipeline_check(hcg):
+    """15a: GPT-3 1.3B as a one-stage PipelineLayer, 3 AdamW steps from one
+    start by 1F1B, F-then-B and the engine at grad_accumulate=4, each
+    schedule's peak; then 2 warm-up and 8 timed 1F1B steps."""
+    from paddle_tpu_torch.distributed import HybridParallelEngine
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineTrainStep
+    from paddle_tpu_torch.models import gpt3_1p3b
+    from paddle_tpu_torch.ops import kernels as K
+
+    cfg = gpt3_1p3b(hidden_dropout=0.0, attention_dropout=0.0, remat=False,
+                    attention_impl="flash")
+    dev = torch.device("cuda")
+    pl = pipeline_gpt(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    ids, labels = train_batch(cfg, PIPE_B, seed=3)
+    n_params = sum(p.numel() for p in pl.parameters())
+    start = [p.detach().clone() for p in pl.parameters()]
+
+    def schedule(sch):
+        def make(opt):
+            return PipelineTrainStep(pl, opt, hcg.mesh, n_micro=PIPE_MICRO,
+                                     schedule=sch)
+        return make
+
+    def engine(opt):
+        return HybridParallelEngine(
+            pl, opt, lambda m, i, l: m._loss_fn(m(i), l), mesh=hcg.mesh,
+            grad_accumulate=PIPE_MICRO).train_step
+
+    runs = {}
+    for tag, make in (("1F1B", schedule("1F1B")),
+                      ("F-then-B", schedule("F-then-B")),
+                      ("engine_acc4", engine)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, params = engine_run(pl, start, make, ids=ids, labels=labels)
+        peak = torch.cuda.max_memory_allocated()
+        # off the card, so no run's peak counts another's parameters
+        runs[tag] = (losses, [p.cpu() for p in params], peak)
+        del params
+    ref_l, ref_p, _ = runs["engine_acc4"]
+    out = {"model": "gpt3_1p3b", "stages": 1, "batch": [PIPE_B, cfg.max_position_embeddings],
+           "n_micro": PIPE_MICRO}
+    for tag in ("1F1B", "F-then-B"):
+        losses, params, peak = runs[tag]
+        bits = all(torch.equal(a, b) for a, b in zip(params, ref_p))
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(params, ref_p))
+        rel = max(rel_err(a, b) for a, b in zip(params, ref_p))
+        lrel = rel_diff(losses, ref_l)
+        print(f"  (15a) {tag}: {ENGINE_STEPS} AdamW steps from one start "
+              f"{losses} against the engine at grad_accumulate="
+              f"{PIPE_MICRO} {ref_l}: parameters bit-equal {bits}, max abs "
+              f"difference {diff:.3e}, worst relative norm {rel:.3e}, "
+              f"losses relative {lrel:.3e} (tol {PIPE_REL_TOL} unless "
+              f"bit-equal); peak {peak / 2**30:.2f} GiB")
+        if not bits and not (rel <= PIPE_REL_TOL and lrel <= PIPE_REL_TOL):
+            fail(f"pipeline {tag}: parameters {rel}, losses {lrel} against "
+                 "the engine")
+        out[tag] = {"losses": losses, "bit_equal": bits,
+                    "max_param_abs_diff": diff, "max_param_rel_err": rel,
+                    "loss_rel_diff": lrel, "peak_gib": peak / 2**30}
+    out["engine_acc4"] = {"losses": ref_l,
+                          "peak_gib": runs["engine_acc4"][2] / 2**30}
+    del runs, ref_p
+    if not out["1F1B"]["peak_gib"] < out["F-then-B"]["peak_gib"]:
+        fail(f"pipeline: 1F1B's peak {out['1F1B']['peak_gib']} GiB is not "
+             f"below F-then-B's {out['F-then-B']['peak_gib']}")
+    import paddle_tpu_torch as pt
+
+    with torch.no_grad():
+        for p, s in zip(pl.parameters(), start):
+            p.copy_(s)
+    del start
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=pl.named_parameters())
+    step = PipelineTrainStep(pl, opt, hcg.mesh, n_micro=PIPE_MICRO)
+    warm = [step(ids, labels) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    timed, queued, wall = time_steps(step, ids, labels, TRAIN_STEPS)
+    counts = K.launch_counts()
+    B, T = ids.shape
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = B * T * TRAIN_STEPS / wall
+    mfu = tok_s * train_flops_per_token(cfg, n_params, T) / 989e12
+    vals = [x.item() for x in warm + timed]
+    want = cfg.num_layers * PIPE_MICRO * TRAIN_STEPS
+    launches = {k: counts[k] for k in FLASH_REPLACES}
+    print(f"  (15a) 1F1B: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, "
+          f"step {step_ms:.2f} ms (host clock, one sync at the end), "
+          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f}; stash high-water "
+          f"{step.stash_high_water}; launches {launches} (want {want} "
+          f"each); losses {[round(v, 4) for v in vals]}")
+    if any(n != want for n in launches.values()) \
+            or not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"pipeline 1F1B: launches {launches}, losses {vals}")
+    out.update(step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
+               queued_ms=queued * 1e3, timed_losses=vals,
+               stash_high_water=step.stash_high_water, launches=launches)
+    del step, opt, pl
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero3_check(model, start, ids, labels, l_eng, p_eng, hcg):
+    """15b: ``group_sharded_parallel(level="p_g_os")`` over the one-rank
+    sharding group on phase 14's model and batch: 3 engine steps from one
+    start bit-equal to 13a's (and 14a's) engine."""
+    from paddle_tpu_torch.distributed import HybridParallelEngine
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        group_sharded_parallel
+
+    def make(opt):
+        m, o, _ = group_sharded_parallel(
+            model, opt, "p_g_os", group=hcg.get_sharding_parallel_group())
+        return HybridParallelEngine(m, o, lambda mm, i, l: mm.loss(i, l),
+                                    mesh=hcg.mesh, dp_axes=()).train_step
+
+    losses, params = engine_run(model, start, make, ids=ids, labels=labels)
+    bits = losses == l_eng and all(torch.equal(a.cpu(), b)
+                                   for a, b in zip(params, p_eng))
+    print(f"  (15b) p_g_os (ShardingStage3) over the one-rank sharding "
+          f"group: {ENGINE_STEPS} steps from one start {losses}, 13a's "
+          f"engine {l_eng}: losses and parameters bit-equal {bits}")
+    if not bits:
+        fail("zero-3: not bit-equal to phase 13a's engine")
+    return {"losses": losses, "bit_equal": bits}
+
+
+def moe_plain(x, gate_w, w_up, w_down, gate_idx, cf, act):
+    """The f32 plain form of the MoE layer with the routing fixed to
+    ``gate_idx``: each expert's kept tokens through its FFN in a loop,
+    weighted by the softmax's values at the fixed experts; (out, aux)."""
+    T, k = gate_idx.shape
+    E = w_up.shape[0]
+    probs = torch.softmax(x @ gate_w, dim=-1)
+    vals = probs.gather(1, gate_idx)
+    C = int(np.ceil(k * T * cf / E))
+    onehot = torch.nn.functional.one_hot(gate_idx, E).reshape(T * k, E)
+    pos = (torch.cumsum(onehot, 0) * onehot).sum(-1).reshape(T, k) - 1
+    keep = pos < C
+    out = torch.zeros_like(x)
+    for e in range(E):
+        for j in range(k):
+            rows = ((gate_idx[:, j] == e) & keep[:, j]).nonzero()[:, 0]
+            y = act(x[rows] @ w_up[e]) @ w_down[e]
+            out = out.index_add(0, rows, y * vals[rows, j:j + 1])
+    me = probs.mean(0)
+    ce = torch.nn.functional.one_hot(gate_idx[:, 0], E).float().mean(0)
+    return out, (me * ce).sum() * E
+
+
+def moe_check():
+    """15c: MoELayer at full width in bf16 on 8192 tokens: the one-rank ep
+    group against the local path (bit for bit), the layer against the f32
+    plain per-expert loop on the card's routing, drops, and its forward
+    and backward times."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import MoELayer
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.moe_layer import \
+        act_fn
+
+    B, T, d, h, E, k = MOE_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    local = MoELayer(d, h, E, top_k=k, device=dev, dtype=torch.bfloat16,
+                     generator=gen)
+    group = C.new_group([0], axis_name="ep")
+    ep = MoELayer(d, h, E, top_k=k, ep_group=group, device=dev,
+                  dtype=torch.bfloat16)
+    ep.set_state_dict(local.state_dict())
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(B, T, d, device=dev, generator=g).to(torch.bfloat16)
+    cot = torch.randn(B, T, d, device=dev, generator=g).to(torch.bfloat16)
+    res = {}
+    for tag, layer in (("local", local), ("ep1", ep)):
+        xl = x.detach().clone().requires_grad_()
+        out = layer(xl)
+        (out.float() * cot.float()).sum().add(layer.aux_loss.float() * 0.01) \
+            .backward()
+        res[tag] = (out.detach(), layer.aux_loss.detach(), xl.grad,
+                    {n: p.grad.clone() for n, p in layer.named_parameters()})
+    lo, ea = res["local"], res["ep1"]
+    bits = torch.equal(lo[0], ea[0]) and torch.equal(lo[1], ea[1]) \
+        and torch.equal(lo[2], ea[2]) and all(
+            torch.equal(lo[3][n], ea[3][n]) for n in lo[3])
+    gate_idx = local.last_routing[2]
+    dropped = local.dropped_tokens()
+    leaves = [t.detach().float().requires_grad_() for t in (
+        x.reshape(-1, d), local.gate.weight, local.w_up, local.w_down)]
+    po, paux = moe_plain(*leaves, gate_idx, local.capacity_factor,
+                         act_fn(local.act))
+    (po * cot.reshape(-1, d).float()).sum().add(paux * 0.01).backward()
+    rels = {"out": rel_err(lo[0].reshape(-1, d), po.detach()),
+            "aux": abs(float(lo[1]) - float(paux.detach()))
+            / abs(float(paux.detach())),
+            "dx": rel_err(lo[2].reshape(-1, d), leaves[0].grad),
+            "dgate": rel_err(lo[3]["gate.weight"], leaves[1].grad),
+            "dw_up": rel_err(lo[3]["w_up"], leaves[2].grad),
+            "dw_down": rel_err(lo[3]["w_down"], leaves[3].grad)}
+    del leaves, po, paux, res
+    xt = x.detach().clone().requires_grad_()
+
+    def fwd():
+        with torch.no_grad():
+            local(x)
+
+    def fwd_bwd():
+        local.zero_grad(set_to_none=True)
+        out = local(xt)
+        out.backward(cot)
+
+    fwd_ms = time_ms(fwd, 5)
+    fb_ms = time_ms(fwd_bwd, 5)
+    n_choices = B * T * k
+    print(f"  (15c) MoELayer(d_model={d}, d_hidden={h}, n_experts={E}, "
+          f"top_k={k}) bf16 on {B * T} tokens: the one-rank ep group "
+          f"bit-equal to the local path {bits}; against the f32 plain "
+          f"per-expert loop on the card's routing "
+          + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+          + f" (tol {MOE_REL_TOL}; dgate and aux {MOE_GATE_REL_TOL}); "
+          f"{dropped} of {n_choices} token choices dropped at capacity; "
+          f"forward {fwd_ms:.3f} ms, backward {fb_ms - fwd_ms:.3f} ms (CUDA "
+          "events)")
+    tol = {n: MOE_GATE_REL_TOL if n in ("dgate", "aux") else MOE_REL_TOL
+           for n in rels}
+    if not bits or not all(rels[n] <= tol[n] for n in rels):
+        fail(f"moe: bit-equal {bits}, errors {rels}")
+    del local, ep, x, xt, cot
+    torch.cuda.empty_cache()
+    return {"shape": list(MOE_SHAPE), "ep1_bit_equal": bits,
+            "rel_err_vs_plain": rels, "tol": tol,
+            "dropped": dropped, "choices": n_choices, "fwd_ms": fwd_ms,
+            "bwd_ms": fb_ms - fwd_ms}
+
+
+def dgc_localsgd_check():
+    """15d: GPT-3 1.3B with DGCMomentumOptimizer (sparsity 0.999) for 3
+    eager steps beside plain Momentum (one layer's update checked against
+    the CPU rule bit for bit), then LocalSGDOptimizer(k_steps=2) for 4
+    steps, whose sync at world 1 is the identity."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.tensor import Parameter
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import (
+        DGCMomentumOptimizer, LocalSGDOptimizer)
+
+    model = train_model()
+    ids, labels = train_batch(model.config)
+    start = [p.detach().clone() for p in model.parameters()]
+    probe = "gpt.layers.0.attn.qkv.weight"
+    res = {}
+
+    def restore():
+        with torch.no_grad():
+            for p, s in zip(model.parameters(), start):
+                p.copy_(s)
+                p.grad = None
+
+    def run(opt, n, tag):
+        losses, step_ms, cpu_check = [], [], None
+        for i in range(n):
+            loss = model.loss(ids, labels)
+            loss.backward()
+            if tag == "dgc" and i == n - 1:
+                p = dict(model.named_parameters())[probe]
+                before = (p.detach().cpu(), p.grad.cpu(),
+                          opt._u[p.name].cpu(), opt._v[p.name].cpu())
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            opt.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            opt.clear_grad()
+            losses.append(loss.item())
+        if tag == "dgc":
+            w, g, u, v = before
+            cp = Parameter(w.clone(), name=probe)
+            cp.grad = g
+            cpu = DGCMomentumOptimizer(opt.get_lr(), opt._momentum, [cp],
+                                       sparsity=(DGC_SPARSITY,))
+            cpu._step_count = opt._step_count - 1
+            cpu._u, cpu._v = {cp.name: u}, {cp.name: v}
+            cpu.step()
+            card = dict(model.named_parameters())[probe].detach().cpu()
+            cpu_check = bool(torch.equal(cp.detach(), card))
+        return losses, step_ms, cpu_check
+
+    restore()
+    dgc = DGCMomentumOptimizer(1e-3, 0.9, model.parameters(),
+                               sparsity=(DGC_SPARSITY,))
+    l_dgc, ms_dgc, bits = run(dgc, ENGINE_STEPS, "dgc")
+    frac = dgc.last_comm_fraction
+    del dgc
+    restore()
+    mom = pt.optimizer.Momentum(1e-3, momentum=0.9,
+                                parameters=model.parameters())
+    l_mom, ms_mom, _ = run(mom, ENGINE_STEPS, "momentum")
+    del mom
+    print(f"  (15d) DGCMomentumOptimizer(sparsity {DGC_SPARSITY}) on "
+          f"gpt3_1p3b, {ENGINE_STEPS} steps: losses {l_dgc}, "
+          f"last_comm_fraction {frac:.6f}, optimizer step "
+          f"{[round(m, 2) for m in ms_dgc]} ms against Momentum's "
+          f"{[round(m, 2) for m in ms_mom]} ms (losses {l_mom}); {probe}'s "
+          f"last update bit-equal to the CPU rule on the card's gradient "
+          f"{bits}")
+    if not bits or not all(np.isfinite(l_dgc)) \
+            or not abs(frac - (1 - DGC_SPARSITY)) < 1e-4:
+        fail(f"dgc: cpu bit-equal {bits}, fraction {frac}, losses {l_dgc}")
+    res["dgc"] = {"losses": l_dgc, "last_comm_fraction": frac,
+                  "step_ms": ms_dgc, "momentum_step_ms": ms_mom,
+                  "momentum_losses": l_mom, "cpu_bit_equal": bits,
+                  "probe": probe}
+    finals = {}
+    for tag in ("localsgd", "sgd"):
+        restore()
+        sgd = pt.optimizer.SGD(1e-3, parameters=model.parameters())
+        opt = LocalSGDOptimizer(sgd, k_steps=2) if tag == "localsgd" else sgd
+        losses, _, _ = run(opt, 4, tag)
+        finals[tag] = (losses, [p.detach().clone()
+                                for p in model.parameters()])
+        del opt, sgd
+    same = finals["localsgd"][0] == finals["sgd"][0] and all(
+        torch.equal(a, b) for a, b in zip(finals["localsgd"][1],
+                                          finals["sgd"][1]))
+    print(f"  (15d) LocalSGDOptimizer(k_steps=2) over SGD, 4 steps: losses "
+          f"{finals['localsgd'][0]}; the sync at world 1 is the identity: "
+          f"bit-equal to plain SGD {same}")
+    if not same:
+        fail("localsgd: the sync at world 1 changed the parameters")
+    res["localsgd"] = {"losses": finals["localsgd"][0],
+                       "identity_bit_equal": same}
+    del finals, model, start
+    torch.cuda.empty_cache()
+    return res
+
+
+def fleet_part2_phase(model, start, ids, labels, l_eng, p_eng):
+    """Phase 15 on phase 14's NCCL group of one rank: (15b) ZeRO-3 on phase
+    14's model first, then (15a) pipeline, (15c) MoE, (15d) DGC and
+    LocalSGD on models of their own."""
+    from paddle_tpu_torch.distributed import fleet
+
+    hcg = fleet.get_hybrid_communicate_group()
+    out = {"zero3": zero3_check(model, start, ids, labels, l_eng, p_eng,
+                                hcg)}
+    return out, hcg
+
+
+def fleet_part2_rest(out, hcg):
+    out["pipeline"] = pipeline_check(hcg)
+    out["moe"] = moe_check()
+    out.update(dgc_localsgd_check())
+    return out
+
+
 def llama_oom_phase(model, opt, cfg):
     """13c, run at the end of phase 8 on its model and optimizer: Llama-7B
     at b4 x s2048 through the engine meets a real torch.OutOfMemoryError;
@@ -5162,6 +5603,7 @@ def main(argv=None) -> int:
           "NCCL (DataParallel, world 1), HBM admission, the OOM ladder by "
           "injection, the serving drift")
     engine, fleet = engine_train_phase(llama.pop("oom"))
+    part2 = fleet.pop("part2")
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -5191,13 +5633,21 @@ def main(argv=None) -> int:
         uly = fleet["sequence_parallel"]["ulysses"]["launches"]
         if r["name"] in uly:  # 14c's one Ulysses forward and backward
             r["launches_ulysses"] = uly[r["name"]]
+        pipe = part2["pipeline"]["launches"]
+        if r["name"] in pipe:  # 15a's timed 1F1B steps
+            r["launches_pipeline"] = pipe[r["name"]]
     # the reference's (B*H, T, D) route shape: not on the port's main path
     long_rows = flash_timing(long_errs, dict.fromkeys(FLASH_REPLACES, 0),
                              FLASH_LONG, fused_qkv=False)
     # Llama-7B's training shape, with phase 8's launches
     llama_rows = flash_timing(llama_errs, llama["launches"], FLASH_LLAMA,
                               fused_qkv=False)
-    for r in rows + long_rows + llama_rows:
+    # 15a's micro-batch shape, with its pipelined launches
+    pipe_errs = {(n, torch.bfloat16): e for n, e in flash_check(
+        *FLASH_PIPE, torch.bfloat16, fused_qkv=True).items()}
+    pipe_rows = flash_timing(pipe_errs, part2["pipeline"]["launches"],
+                             FLASH_PIPE, fused_qkv=True)
+    for r in rows + long_rows + llama_rows + pipe_rows:
         extra = (f", {r['tflop_s']:.1f} TFLOP/s, host "
                  f"{r['host_us_per_call']:.1f} us/call" if "tflop_s" in r
                  else "")
@@ -5226,6 +5676,7 @@ def main(argv=None) -> int:
     print(json.dumps({"device_timeline": timeline}))
     print(json.dumps({"flash_long_shape": long_rows}))
     print(json.dumps({"flash_llama_shape": llama_rows}))
+    print(json.dumps({"flash_pipeline_shape": pipe_rows}))
     print(json.dumps({"train_models": {"llama_7b": llama,
                                        "ernie_3_base": ernie}}))
     print(json.dumps({"generate": gen}))
@@ -5235,6 +5686,7 @@ def main(argv=None) -> int:
     print(json.dumps({"registry": registry}))
     print(json.dumps({"engine_train": engine}))
     print(json.dumps({"fleet_train": fleet}))
+    print(json.dumps({"fleet_part2": {"card": card, **part2}}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,14 @@
 group and its collectives on ``torch.distributed`` (``parallel_env``,
 ``collective``), the job's mesh of axes (``mesh``), gradient buckets and
 ``DataParallel``, the ``HybridParallelEngine`` with its OOM recovery
-ladder, and ``fleet``: the hybrid topology (``fleet.init``), the
-tensor-parallel layers over their rank's shards, ZeRO-1/2 and ring/Ulysses
-sequence parallelism. Pipeline parallelism, MoE and ZeRO-3 come with
-ROADMAP A11b, part 2; the distributed checkpoint, coordination, watchdog
-and launchers with A11c."""
-from . import collective, fleet
+ladder, the expert all-to-all (``utils``: ``global_scatter``,
+``global_gather``), and ``fleet``: the hybrid topology (``fleet.init``),
+the tensor-parallel layers over their rank's shards, ZeRO-1/2/3,
+ring/Ulysses sequence parallelism, pipeline parallelism, the MoE layer and
+the DGC and LocalSGD meta-optimizers. ``sharding_api`` and
+``auto_parallel`` come with ROADMAP A11b, part 3; the distributed
+checkpoint, coordination, watchdog and launchers with A11c."""
+from . import collective, fleet, utils
 from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
                          all_gather_into_tensor, all_reduce, all_to_all,
                          alltoall, alltoall_single, barrier, broadcast,
@@ -34,7 +36,7 @@ def is_initialized():
     return _initialized()
 
 
-__all__ = ["collective", "fleet", "get_rank", "get_world_size",
+__all__ = ["collective", "fleet", "utils", "get_rank", "get_world_size",
            "init_parallel_env", "ParallelEnv", "destroy_process_group",
            "DataParallel", "HybridParallelEngine", "build_mesh",
            "global_mesh", "set_global_mesh", "mesh_axis_size", "Group",

@@ -122,6 +122,7 @@ class Group:
 
 _default_group: Optional[Group] = None
 _groups = {}
+_fused = {}  # the engine's groups over fused mesh axes (engine.fused_group)
 
 
 def _reset() -> None:
@@ -129,6 +130,7 @@ def _reset() -> None:
     global _default_group
     _default_group = None
     _groups.clear()
+    _fused.clear()
 
 
 def _get_default_group() -> Group:

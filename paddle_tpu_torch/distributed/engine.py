@@ -17,16 +17,36 @@ built the topology with the same degrees (``hcg.mesh``): the model's mp
 layers hold their rank's shards, each rank's batch is cut into its T/sp
 tokens over the sp group (``split_batch``: along the dimension that
 ``batch_specs`` names ``"sp"``, else along dim 1 of every input of two or
-more dimensions), the gradients and the loss are averaged over the data x
-sequence group (every parameter is replicated over it), and a
-``ShardingOptimizerStage1`` (which
-``fleet.distributed_optimizer`` builds at sharding > 1) exchanges them over
-the sharding group in its update. At dp > 1 on a pure data-parallel mesh,
-with ``FLAGS_shard_weight_update`` on (the default), an elementwise rule and
-no accumulation, the update is the reference's ZeRO-1 sharded weight
-update (``ShardedWeightUpdate``): bucket reduce-scatter, a 1/dp-shard
-update, parameter all-gather. ``pp`` and ``ep`` larger than 1 raise
-(ROADMAP A11b, part 2).
+more dimensions), and a ``ShardingOptimizerStage1`` (which
+``fleet.distributed_optimizer`` builds at sharding > 1) exchanges the
+gradients over the sharding group in its update.
+
+The batch axes are the mesh axes that ``dp_axes`` names: each rank takes
+its own dim-0 shard of the global batch over them, as the reference's
+``_batch_sharding`` shards dim 0 over them. The gradients, the loss, the
+means over valid rows and ``eval_step``'s loss are averaged over exactly
+those axes plus ``sp`` (the sync group), so one step is the reference's
+one mean and one update over the logical batch; any other axis holds
+replicas that see the same batch. The sync group is the world when the
+axes span it, and otherwise a group that the engine's constructor creates
+from the mesh's ``CommunicateTopology.get_fused_comm_list``: every rank
+creates every list's group, in list order, so the constructor is
+collective (every rank builds the engine). Groups are cached per mesh and
+axes for the life of the process group.
+
+``pp`` and ``ep`` axes larger than 1 are replica axes, as in the
+reference, whose GSPMD step replicates over them every parameter without a
+``pp`` or ``ep`` spec and the batch. Two models the reference's step cannot
+run raise: a ``PipelineLayer`` built over a pp group of more than one rank
+(it holds only its stage; ``PipelineParallelModel.train_batch`` runs its
+schedule) and a ``MoELayer`` whose ``ep_group`` has more than one rank
+(its all-to-all needs the expert-parallel body that the step does not
+open; the reference raises an unbound axis name there).
+
+At dp > 1 on a pure data-parallel mesh, with ``FLAGS_shard_weight_update``
+on (the default), an elementwise rule and no accumulation, the update is
+the reference's ZeRO-1 sharded weight update (``ShardedWeightUpdate``):
+bucket reduce-scatter, a 1/dp-shard update, parameter all-gather.
 
 ``grad_accumulate=acc`` splits the batch's dim 0 into ``acc`` chunks and
 runs one backward each before the one update. Each chunk's loss is scaled
@@ -108,6 +128,60 @@ def _drop_frames(exc: BaseException) -> None:
         e = e.__cause__ or e.__context__
 
 
+REPLICA_AXES = ("pp", "ep")
+
+
+def fused_group(mesh, axes):
+    """This rank's group over the mesh axes ``axes`` together, from the
+    mesh's ``CommunicateTopology.get_fused_comm_list``. Every rank creates
+    every list's group in list order (``new_group`` is collective), once
+    per process group: later calls return the group kept in
+    ``collective._fused``, which ``destroy_process_group`` clears."""
+    from .fleet.base.topology import CommunicateTopology
+
+    devs = np.asarray(mesh.devices)
+    key = (tuple(mesh.axis_names), devs.tobytes(), devs.shape, tuple(axes))
+    if key not in C._fused:
+        topo = CommunicateTopology(mesh.axis_names, devs.shape)
+        me = C.get_rank()
+        for lst in topo.get_fused_comm_list(list(axes)):
+            ranks = [int(devs.flat[r]) for r in lst]
+            g = C.new_group(ranks, axis_name="+".join(axes))
+            if me in ranks:
+                C._fused[key] = g
+    return C._fused[key]
+
+
+def _check_replica_axes(model, sizes):
+    """Raise where the reference's step cannot run a model over a ``pp`` or
+    ``ep`` axis larger than 1 (see the module docstring)."""
+    from .fleet.meta_parallel.moe_layer import MoELayer
+    from .fleet.meta_parallel.pp_layers import PipelineLayer
+
+    if sizes.get("pp", 1) > 1:
+        for m in model.modules():
+            if isinstance(m, PipelineLayer) and m._pp_group is not None \
+                    and m._pp_group.nranks > 1:
+                raise NotImplementedError(
+                    "HybridParallelEngine runs a mesh 'pp' axis as replicas "
+                    "of the whole model, as the reference's step does; this "
+                    f"PipelineLayer holds only stage {m._stage_id} of "
+                    f"{m.num_stages}: train it with fleet.distributed_model("
+                    "layer).train_batch (PipelineTrainStep)")
+    if sizes.get("ep", 1) > 1:
+        for m in model.modules():
+            if isinstance(m, MoELayer) and m.ep_group is not None \
+                    and m.ep_group.nranks > 1:
+                raise NotImplementedError(
+                    "HybridParallelEngine runs a mesh 'ep' axis as replicas; "
+                    "a MoELayer with an ep_group of "
+                    f"{m.ep_group.nranks} ranks needs its expert all-to-all "
+                    "inside an expert-parallel body that the step does not "
+                    "open (the reference raises an unbound axis name there): "
+                    "run the MoE layer's forward and backward in your own "
+                    "loop over the ep group")
+
+
 class HybridParallelEngine:
     """``loss_fn(model, *batch_tensors) -> scalar tensor``; one
     ``train_step(*batch)`` is one forward, backward, sync and update."""
@@ -137,15 +211,11 @@ class HybridParallelEngine:
             raise ValueError("HybridParallelEngine: the model has no "
                              "trainable parameters")
         sizes = dict(self.mesh.shape)
-        from .fleet.base.fleet_base import _part2, get_hybrid_communicate_group
+        from .fleet.base.fleet_base import get_hybrid_communicate_group
         from .fleet.meta_optimizers.hybrid_parallel_optimizer import \
             ShardedWeightUpdate
 
-        for axis, what in (("pp", "pipeline parallelism"),
-                           ("ep", "expert parallelism")):
-            if sizes.get(axis, 1) > 1:
-                raise _part2(f"HybridParallelEngine with {what} ({axis}="
-                             f"{sizes[axis]})")
+        _check_replica_axes(model, sizes)
         self.dp = int(np.prod([sizes.get(a, 1) for a in self.dp_axes]))
         self.sp = int(sizes.get("sp", 1))
         n = int(np.prod(list(sizes.values()) or [1]))
@@ -155,8 +225,10 @@ class HybridParallelEngine:
                              f"world of {n} ranks, have {world} "
                              "(init_parallel_env)")
         self._hcg = None
+        # pp and ep are replica axes: they need no topology of their own
         hybrid = {a: s for a, s in sizes.items()
-                  if a not in self.dp_axes and s > 1}
+                  if a not in self.dp_axes and a not in REPLICA_AXES
+                  and s > 1}
         if hybrid:
             hcg = get_hybrid_communicate_group()
             want = {a: s for a, s in sizes.items() if s > 1}
@@ -168,11 +240,10 @@ class HybridParallelEngine:
                     f"fleet.init with the same degrees (have {have}); pass "
                     "mesh=fleet.get_hybrid_communicate_group().mesh")
             self._hcg = hcg
-        # parameters are replicated over data x sequence: their gradients
-        # and the loss are averaged over it (the world on a pure dp mesh)
-        self._sync_group = self._hcg.get_dp_sp_parallel_group() \
-            if self._hcg is not None else None
+        # the batch axes plus sp: the gradients, the loss and the means over
+        # valid rows are averaged over them (None: the world)
         self._sync_n = self.dp * self.sp
+        self._sync_group = self._build_sync_group(n)
         # the group whose means over valid rows are taken together
         self._mean_group = (self._sync_group or C._get_default_group()) \
             if self._sync_n > 1 else None
@@ -200,6 +271,15 @@ class HybridParallelEngine:
         # may be half written
         self._update_failed = False
         self.last_oom_attempts = None
+
+    def _build_sync_group(self, n):
+        """The group over the mesh axes ``dp_axes`` names plus ``sp``: None
+        (the world) when they span it or hold one rank, else this rank's
+        group of the mesh's fused comm lists."""
+        if self._sync_n in (1, n):
+            return None
+        return fused_group(self.mesh, [a for a in self.mesh.axis_names
+                                       if a in self.dp_axes or a == "sp"])
 
     def attach_sentinel(self, sentinel) -> None:
         """Hook a :class:`~paddle_tpu_torch.fault.sentinel.StabilitySentinel`

@@ -2,10 +2,10 @@
 the hybrid topology (``base``), ``distributed_model`` and
 ``distributed_optimizer``, the gradient buckets (``grad_buckets``), the
 tensor-, sharding- and sequence-parallel layers and wrappers of
-``meta_parallel``, ``HybridParallelOptimizer`` with the ZeRO-1 sharded
-weight update (``meta_optimizers``) and ``recompute`` (``utils``).
-Pipeline parallelism, MoE, ZeRO-3 and the DGC and LocalSGD
-meta-optimizers come with ROADMAP A11b, part 2."""
+``meta_parallel`` with ZeRO-3, pipeline parallelism (``PipelineLayer``,
+``PipelineTrainStep``) and the MoE layer, ``HybridParallelOptimizer``
+with the ZeRO-1 sharded weight update and the DGC and LocalSGD
+meta-optimizers (``meta_optimizers``) and ``recompute`` (``utils``)."""
 from . import grad_buckets, meta_optimizers, meta_parallel, utils
 from .base.distributed_strategy import DistributedStrategy
 from .base.fleet_base import (_get_strategy, distributed_model,  # noqa: F401

@@ -7,8 +7,14 @@
 ``HybridParallelOptimizer``. A world of more than one rank joins its
 process group first (``init_parallel_env``) when it has not yet.
 
-Pipeline and expert parallelism and the DGC and LocalSGD meta-optimizers
-raise ``NotImplementedError`` naming A11b, part 2.
+``pp_degree`` builds the pipe axis, and ``distributed_model`` returns a
+``PipelineParallelModel`` at pp > 1. ``ep_degree`` is accepted and has no
+effect, as in the reference, whose topology has no expert axis: an expert
+group is one that ``new_group`` makes and ``MoELayer(ep_group=...)``
+takes. ``distributed_optimizer`` composes the meta-optimizers as the
+reference does: ``strategy.dgc`` wraps a Momentum or SGD optimizer in
+``DGCMomentumOptimizer`` first, ``strategy.localsgd`` wraps the result in
+``LocalSGDOptimizer``, and ``HybridParallelOptimizer`` wraps them last.
 """
 from __future__ import annotations
 
@@ -25,23 +31,11 @@ _strategy: Optional[DistributedStrategy] = None
 _hcg: Optional[HybridCommunicateGroup] = None
 _role_maker = None
 
-PART2 = "A11b, part 2"
-
-
-def _part2(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP {PART2}")
-
-
 def init(role_maker=None, is_collective=True, strategy=None,
          log_level="INFO"):
     global _strategy, _hcg, _role_maker
     strategy = strategy or DistributedStrategy()
     hc = strategy.hybrid_configs
-    for key, what in (("pp_degree", "pipeline parallelism (pp_degree > 1)"),
-                      ("ep_degree", "expert parallelism (ep_degree > 1)")):
-        if int(hc.get(key, 1)) > 1:
-            raise _part2(what)
     dims = [int(hc.get(k, 1)) for k in ("pp_degree", "dp_degree",
                                         "sharding_degree", "sp_degree",
                                         "mp_degree")]
@@ -95,9 +89,10 @@ def is_worker():
 
 def distributed_model(model):
     """The model wrapped for the active parallelism (reference
-    fleet_base.py:70): ``ShardingParallel`` at sharding > 1, else
-    ``TensorParallel`` at mp > 1, else ``DataParallel`` over the data x
-    sequence group at dp > 1, else the model itself."""
+    fleet_base.py:70): ``PipelineParallelModel`` at pp > 1, else
+    ``ShardingParallel`` at sharding > 1, else ``TensorParallel`` at
+    mp > 1, else ``DataParallel`` over the data x sequence group at
+    dp > 1, else the model itself."""
     hcg = _hcg
     if hcg is None:
         return model
@@ -107,7 +102,9 @@ def distributed_model(model):
 
     strategy = _get_strategy()
     if hcg.get_pipe_parallel_world_size() > 1:
-        raise _part2("distributed_model at pp_degree > 1 (PipelineParallel)")
+        from ..meta_parallel.pipeline_parallel import PipelineParallelModel
+
+        return PipelineParallelModel(model, hcg, strategy)
     if hcg.get_sharding_parallel_world_size() > 1:
         return ShardingParallel(model, hcg, strategy)
     if hcg.get_model_parallel_world_size() > 1:
@@ -119,13 +116,34 @@ def distributed_model(model):
 
 def distributed_optimizer(optimizer, strategy=None):
     """``optimizer`` wrapped in ``HybridParallelOptimizer`` (reference
-    fleet_base.py:94); ``strategy.dgc`` and ``strategy.localsgd`` raise."""
+    fleet_base.py:94), after ``strategy.dgc`` (a Momentum or SGD optimizer
+    only) and ``strategy.localsgd`` have wrapped it in that order."""
     from ..meta_optimizers.hybrid_parallel_optimizer import \
         HybridParallelOptimizer
 
     strategy = strategy or _get_strategy()
     if getattr(strategy, "dgc", False):
-        raise _part2("the DGC meta-optimizer (strategy.dgc)")
+        from ..meta_optimizers.dgc_optimizer import DGCMomentumOptimizer
+
+        tname = type(optimizer).__name__
+        if tname not in ("Momentum", "SGD", "DGCMomentumOptimizer"):
+            raise ValueError(
+                f"strategy.dgc requires a Momentum/SGD inner optimizer "
+                f"(got {tname}); DGC replaces the update rule with "
+                "compressed momentum SGD")
+        cfg = getattr(strategy, "dgc_configs", {}) or {}
+        if tname != "DGCMomentumOptimizer":
+            optimizer = DGCMomentumOptimizer(
+                learning_rate=optimizer.get_lr(),
+                lr_fn=optimizer.get_lr,  # live: a scheduler keeps working
+                momentum=getattr(optimizer, "_momentum", 0.9),
+                parameters=optimizer._parameter_list,
+                rampup_begin_step=cfg.get("rampup_begin_step", 0),
+                rampup_step=cfg.get("rampup_step", 1),
+                sparsity=cfg.get("sparsity", (0.999,)))
     if getattr(strategy, "localsgd", False):
-        raise _part2("the LocalSGD meta-optimizer (strategy.localsgd)")
+        from ..meta_optimizers.localsgd_optimizer import LocalSGDOptimizer
+
+        cfg = getattr(strategy, "localsgd_configs", {}) or {}
+        optimizer = LocalSGDOptimizer(optimizer, k_steps=cfg.get("k_steps", 4))
     return HybridParallelOptimizer(optimizer, _hcg, strategy)

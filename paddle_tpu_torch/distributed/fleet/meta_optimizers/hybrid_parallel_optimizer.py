@@ -30,6 +30,8 @@ with a sharding group of more than one rank it wraps it further in
 gradients over the hybrid communicate group's data x sequence group (the
 reference's gradients are global by construction), then runs the inner
 step, whose ``ClipGradByGlobalNorm`` is group-aware (``nn/clip.py``).
+Under a DGC or LocalSGD meta-optimizer it does not average them: DGC
+communicates its own masked tensor, and LocalSGD's steps are local.
 ``state_dict()`` is the logical state: when an engine's sharded update
 owns the moments, it syncs them back first.
 """
@@ -247,11 +249,23 @@ class HybridParallelOptimizer:
     def _step_count(self, v):
         self._inner_opt._step_count = v
 
+    def _communicates_itself(self):
+        """True under a DGC or LocalSGD meta-optimizer."""
+        from .dgc_optimizer import DGCMomentumOptimizer
+        from .localsgd_optimizer import LocalSGDOptimizer
+
+        opt = self._inner_opt
+        while opt is not None:
+            if isinstance(opt, (DGCMomentumOptimizer, LocalSGDOptimizer)):
+                return True
+            opt = opt.__dict__.get("_inner_opt") or opt.__dict__.get("inner")
+        return False
+
     def _sync_grads(self):
         """Average the gradients over the data x sequence group (the eager
         loop's counterpart of the engine's sync)."""
         g = self._hcg.get_dp_sp_parallel_group() if self._hcg else None
-        if g is None or g.nranks == 1:
+        if g is None or g.nranks == 1 or self._communicates_itself():
             return
         from ...parallel import sync_gradients
 

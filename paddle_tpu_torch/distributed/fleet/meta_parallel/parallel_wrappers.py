@@ -3,7 +3,9 @@
 ``TensorParallel`` and ``ShardingParallel`` hold the model, run its forward
 and pass its state through; an attribute they lack is read from the model
 (``wrapped.loss(...)``). The sharding itself lives in the layers (mp
-shards) and the optimizer (ZeRO). ``PipelineParallel`` raises."""
+shards) and the optimizer (ZeRO). ``PipelineParallel`` is the reference's
+plain wrapper; ``fleet.distributed_model`` returns a
+``PipelineParallelModel`` at pp > 1, which runs the schedule."""
 from __future__ import annotations
 
 from ....nn.layer.layers import Layer
@@ -41,10 +43,7 @@ class TensorParallel(_MetaParallelBase):
 
 
 class PipelineParallel(_MetaParallelBase):
-    def __init__(self, layers, hcg, strategy):
-        from ..base.fleet_base import _part2
-
-        raise _part2("PipelineParallel")
+    pass
 
 
 __all__ = ["TensorParallel", "ShardingParallel", "PipelineParallel"]

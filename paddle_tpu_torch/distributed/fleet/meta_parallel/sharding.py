@@ -23,7 +23,26 @@ need whole-parameter norms), is updated whole on every rank from the
 all-reduced gradient. ``state_dict()`` gathers the moments into their
 logical shapes (a collective: every rank calls it); ``set_state_dict``
 keeps this rank's slices. ``group_sharded_parallel`` takes ``"os"`` and
-``"os_g"``; ``"p_g_os"`` (ZeRO-3) raises until ROADMAP A11b, part 2.
+``"os_g"`` and ``"p_g_os"``.
+
+ZeRO-3 (``ShardingStage3``) shards the parameters themselves: at rest each
+rank holds only its slice of every parameter along ``shard_spec_for``'s
+dimension (the ``Parameter`` object keeps its identity, so an optimizer
+built on the model updates the slices and its moments come out
+slice-sized). Each call into the model (its ``forward``, or a method read
+through the wrapper, such as ``loss``) swaps in every parameter gathered
+by ``_GatherParam``: an all-gather in the forward, and in the backward a
+reduce-scatter that takes the mean of the full gradient over the group,
+so ``.grad`` is slice-shaped. Autograd keeps the gathered tensors its
+backward needs until it runs; the wrapper keeps none after the call. A
+parameter that no dimension of the group's size divides stays whole, and
+its gradient is all-reduced (mean) by ``_MeanGrad``. Each slice carries
+``zero3_group``, over which the global-norm clip, ``ClipGradByNorm`` and
+the norms of ``Lamb`` and ``LarsMomentum`` sum their squares.
+``get_all_parameters()`` and ``state_dict()`` gather the logical tensors
+(collectives: every rank calls them). ``offload`` is accepted and ignored,
+as the reference's is. Over a group of one rank nothing is sliced or
+wrapped.
 """
 from __future__ import annotations
 
@@ -203,12 +222,145 @@ class ShardingStage2(_MetaParallelBase):
                             "(group_sharded_parallel builds one)")
 
 
-class ShardingStage3(Layer):
+class _GatherParam(torch.autograd.Function):
+    """A parameter's slice -> the whole parameter (all-gather along
+    ``dim``); the backward reduce-scatters the mean of the gradient."""
+
+    @staticmethod
+    def forward(ctx, p, group, dim):
+        ctx.args = (group, dim)
+        return C.all_gather_into_tensor(None, p.detach(), group,
+                                        concat_axis=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        parts = [t.contiguous() for t in g.chunk(group.nranks, dim=dim)]
+        out = torch.empty_like(parts[0])
+        C.reduce_scatter(out, parts, C.ReduceOp.AVG, group)
+        return out, None, None
+
+
+class _MeanGrad(torch.autograd.Function):
+    """The identity; the backward averages the gradient over the group."""
+
+    @staticmethod
+    def forward(ctx, p, group):
+        ctx.group = group
+        return p.detach().clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return C.all_reduce(g.contiguous().clone(), C.ReduceOp.AVG,
+                            ctx.group), None
+
+
+class ShardingStage3(_MetaParallelBase):
+    """ZeRO-3: the parameters themselves sharded over ``group`` (default
+    the hybrid communicate group's sharding group); reference
+    sharding.py:135. See the module docstring."""
+
     def __init__(self, layer, optimizer=None, group=None, sync_buffers=False,
                  segment_size=2**20, offload=False, device=None):
-        from ..base.fleet_base import _part2
+        super().__init__(layer, None, None)
+        if group is None:
+            from ..base.fleet_base import get_hybrid_communicate_group
 
-        raise _part2("ZeRO-3 (ShardingStage3: sharded parameters)")
+            hcg = get_hybrid_communicate_group()
+            group = hcg.get_sharding_parallel_group() \
+                if hcg is not None else None
+        self.group = group
+        self.offload = offload
+        if optimizer is not None:
+            self._optim = optimizer
+        n = group.nranks if group is not None else 1
+        r = max(group.rank, 0) if group is not None else 0
+        # (module, name, parameter) of every registration of a parameter
+        self._held = []
+        if n == 1:
+            return
+        for mod in layer.modules():
+            for name, p in list(mod._parameters.items()):
+                if p is None:
+                    continue
+                if getattr(p, "zero3_group", None) is not group:
+                    dim = _shard_dim(p, n)
+                    if dim is not None:
+                        size = p.shape[dim] // n
+                        p.data = p.data.narrow(dim, r * size, size).clone()
+                    p.zero3_group, p.zero3_dim = group, dim
+                self._held.append((mod, name, p))
+
+    def _gathered(self):
+        """Swap every held parameter for its gathered tensor; returns the
+        undo list."""
+        full, undo = {}, []
+        for mod, name, p in self._held:
+            dim = p.zero3_dim
+            if id(p) not in full:
+                if not p.requires_grad:
+                    full[id(p)] = p if dim is None else \
+                        C.all_gather_into_tensor(None, p.detach(),
+                                                 self.group, concat_axis=dim)
+                elif dim is None:
+                    full[id(p)] = _MeanGrad.apply(p, self.group)
+                else:
+                    full[id(p)] = _GatherParam.apply(p, self.group, dim)
+            mod._parameters[name] = full[id(p)]
+            undo.append((mod, name, p))
+        return undo
+
+    @staticmethod
+    def _restore(undo):
+        for mod, name, p in undo:
+            mod._parameters[name] = p
+
+    def _call(self, fn, *args, **kwargs):
+        if not self._held:
+            return fn(*args, **kwargs)
+        undo = self._gathered()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self._restore(undo)
+
+    def forward(self, *inputs, **kwargs):
+        return self._call(self._layers, *inputs, **kwargs)
+
+    def __getattr__(self, name):
+        attr = super().__getattr__(name)
+        layers = self.__dict__["_modules"].get("_layers")
+        if callable(attr) and not isinstance(attr, torch.nn.Module) \
+                and getattr(attr, "__self__", None) is layers:
+            return lambda *a, **k: self._call(attr, *a, **k)
+        return attr
+
+    @torch.no_grad()
+    def get_all_parameters(self):
+        """Every parameter of the model in its logical shape (a collective
+        over the group)."""
+        out = []
+        for p in self._layers.parameters():
+            dim = getattr(p, "zero3_dim", None)
+            out.append(p.detach() if dim is None or not self._held else
+                       C.all_gather_into_tensor(None, p.detach(), self.group,
+                                                concat_axis=dim))
+        return out
+
+    @torch.no_grad()
+    def state_dict(self, *args, **kwargs):
+        """The model's state with every parameter gathered into its
+        logical shape (a collective over the group)."""
+        sd = self._layers.state_dict(*args, **kwargs)
+        if not self._held:
+            return sd
+        params = dict(self._layers.named_parameters(remove_duplicate=False))
+        for k, v in sd.items():
+            dim = getattr(params.get(k), "zero3_dim", None)
+            if dim is not None:
+                sd[k] = C.all_gather_into_tensor(None, v.contiguous(),
+                                                 self.group, concat_axis=dim)
+        return sd
 
 
 def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
@@ -216,20 +368,20 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
                            buffer_max_size=2**23, segment_size=2**20,
                            sync_comm=False):
     """``paddle.distributed.sharding.group_sharded_parallel``: ``"os"``
-    shards the optimizer state, ``"os_g"`` the gradients too;
-    ``"p_g_os"`` raises (A11b, part 2). ``group`` defaults to the hybrid
-    communicate group's sharding group."""
-    if level == "p_g_os":
-        from ..base.fleet_base import _part2
-
-        raise _part2("group_sharded_parallel(level='p_g_os') (ZeRO-3)")
-    if level not in ("os", "os_g"):
+    shards the optimizer state, ``"os_g"`` the gradients too, and
+    ``"p_g_os"`` the parameters (``ShardingStage3``, with the raw
+    optimizer). ``group`` defaults to the hybrid communicate group's
+    sharding group."""
+    if level not in ("os", "os_g", "p_g_os"):
         raise ValueError(f"unknown sharding level {level}")
     if group is None:
         from ..base.fleet_base import get_hybrid_communicate_group
 
         hcg = get_hybrid_communicate_group()
         group = hcg.get_sharding_parallel_group() if hcg is not None else None
+    if level == "p_g_os":
+        model = ShardingStage3(model, optimizer, group=group, offload=offload)
+        return model, optimizer, scaler
     opt = ShardingOptimizerStage1(optimizer, group=group)
     if level == "os_g":
         model = ShardingStage2(model, opt, group=group)

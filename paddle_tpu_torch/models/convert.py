@@ -13,6 +13,15 @@ one table ``MP_LAYOUTS`` of ``distributed/fleet/meta_parallel/mp_layers.py``
 that the layers cut their own initial weights by: GPT's and ERNIE's fused
 ``qkv`` is cut head by head (``"qkv"``), so each rank holds q, k and v of
 its own heads.
+
+Pipeline and expert parallelism cut a state differently:
+``pp_split_state_dict`` gives each stage of a ``PipelineLayer`` the keys
+of its ``stage{s}_{i}`` sublayers, with a ``SharedLayerDesc`` key's
+parameters on every stage that holds it (the reference's state keeps them
+once, under the key's first position), and ``pp_merge_state_dicts`` takes
+them back. ``ep_split_state_dict`` cuts a ``MoELayer``'s ``w_up`` and
+``w_down`` along dim 0 (each ep rank's experts) and
+``ep_merge_state_dicts`` joins them.
 """
 from __future__ import annotations
 
@@ -96,3 +105,88 @@ def merge_state_dicts(states: Sequence[Mapping[str, torch.Tensor]],
     return {k: merge_shards([s[k] for s in states],
                             layouts.get(k, "replicated"))
             for k in states[0]}
+
+
+def pp_stage_prefixes(layer) -> List[Dict[str, str]]:
+    """For each stage of the ``PipelineLayer`` ``layer``: ``{the stage's
+    sublayer prefix: the reference's prefix}``. A shared key maps to its
+    first position overall; its repeats inside one stage are left out, as
+    the reference's state leaves them out."""
+    from ..distributed.fleet.meta_parallel.pp_layers import (LayerDesc,
+                                                             SharedLayerDesc)
+
+    first, out = {}, []
+    parts = layer.segment_parts
+    for s in range(layer.num_stages):
+        here, seen = {}, set()
+        for i in range(parts[s], parts[s + 1]):
+            d, pre = layer._layers_desc[i], f"stage{s}_{i}"
+            if isinstance(d, SharedLayerDesc):
+                logical = first.setdefault(d.layer_name, pre)
+                if d.layer_name in seen:
+                    continue
+                seen.add(d.layer_name)
+                here[pre] = logical
+            elif isinstance(d, (LayerDesc, torch.nn.Module)):
+                here[pre] = pre
+        out.append(here)
+    return out
+
+
+def _renamed(state, mapping):
+    """The entries of ``state`` under one of ``mapping``'s source prefixes,
+    renamed to its target prefix."""
+    out = {}
+    for k, v in state.items():
+        head, _, rest = k.partition(".")
+        if head in mapping:
+            out[f"{mapping[head]}.{rest}"] = v
+    return out
+
+
+def pp_split_state_dict(state: Mapping[str, torch.Tensor],
+                        layer) -> List[Dict[str, torch.Tensor]]:
+    """Every stage's state (stage order) from the reference's state of the
+    ``PipelineLayer`` ``layer`` (any rank's: each knows every stage's
+    descs)."""
+    return [_renamed(state, {v: k for k, v in m.items()})
+            for m in pp_stage_prefixes(layer)]
+
+
+def pp_merge_state_dicts(states: Sequence[Mapping[str, torch.Tensor]],
+                         layer) -> Dict[str, torch.Tensor]:
+    """The reference's state from every stage's state (stage order): the
+    inverse of ``pp_split_state_dict``; a shared key's parameters are
+    taken from the first stage that holds them."""
+    out = {}
+    for st, m in zip(states, pp_stage_prefixes(layer)):
+        for k, v in _renamed(st, m).items():
+            out.setdefault(k, v)
+    return out
+
+
+EXPERT_PARAMS = ("w_up", "w_down")
+
+
+def _is_expert(name):
+    return name.rsplit(".", 1)[-1] in EXPERT_PARAMS
+
+
+def ep_split_state_dict(state: Mapping[str, torch.Tensor],
+                        ep_degree: int) -> List[Dict[str, torch.Tensor]]:
+    """Every ep rank's state (rank order): each ``MoELayer``'s ``w_up`` and
+    ``w_down`` cut along dim 0 into the rank's experts, the rest whole."""
+    def cut(k, v, r):
+        v = torch.as_tensor(v)
+        return shard_of(v, "rows", r, ep_degree) if _is_expert(k) else v
+
+    return [{k: cut(k, v, r) for k, v in state.items()}
+            for r in range(ep_degree)]
+
+
+def ep_merge_state_dicts(states: Sequence[Mapping[str, torch.Tensor]]
+                         ) -> Dict[str, torch.Tensor]:
+    """The logical state from every ep rank's (rank order): the inverse of
+    ``ep_split_state_dict``."""
+    return {k: merge_shards([s[k] for s in states], "rows")
+            if _is_expert(k) else states[0][k] for k in states[0]}

@@ -17,9 +17,10 @@ rank's slice, so its squares are summed over the mp group, while a
 replicated one (LayerNorms, ``RowParallelLinear``'s bias) counts once, not
 mp times. Gradients a ZeRO-2 optimizer reduce-scattered (``sharded``
 indices, over ``shard_group``) are summed over that group the same way.
-With no group of more than one rank the norm is the single-rank one.
-``ClipGradByNorm`` takes a sharded gradient's own norm over its mp group
-the same way.
+A ZeRO-3 slice (``zero3_group``, with a ``zero3_dim``) counts as such a
+sharded gradient over its group. With no group of more than one rank the
+norm is the single-rank one. ``ClipGradByNorm`` takes a sharded gradient's
+own norm over its mp group, then over its ZeRO-3 group, the same way.
 """
 from __future__ import annotations
 
@@ -105,27 +106,43 @@ class ClipGradByNorm(ClipGradBase):
         return _replace(params_grads, idx, _scaled(gs, scales))
 
 
+def mp_split(p):
+    """The mp group of more than one rank that shards ``p``, or None."""
+    g = getattr(p, "mp_group", None)
+    return g if getattr(p, "mp_distributed", False) and g is not None \
+        and g.nranks > 1 else None
+
+
+def zero3_split(p):
+    """The ZeRO-3 group of more than one rank that slices ``p``, or
+    None."""
+    g = getattr(p, "zero3_group", None)
+    return g if getattr(p, "zero3_dim", None) is not None and g is not None \
+        and g.nranks > 1 else None
+
+
 def _logical_norms(params_grads, idx, norms):
     """``norms``, the float32 norms of the gradients at ``idx``, with the
     norm of each gradient an mp layer shards (``mp_distributed`` over an
-    ``mp_group`` of more than one rank) taken over the logical gradient:
-    its shard's squares summed over the group, one all-reduce a group."""
-    groups = {}
-    for k, i in enumerate(idx):
-        p = params_grads[i][0]
-        g = getattr(p, "mp_group", None)
-        if getattr(p, "mp_distributed", False) and g is not None \
-                and g.nranks > 1:
-            groups.setdefault(id(g), (g, []))[1].append(k)
-    if not groups:
-        return norms
+    ``mp_group`` of more than one rank), or ZeRO-3 slices, taken over the
+    logical gradient: its shard's squares summed over the group, one
+    all-reduce a group."""
     from ..distributed import collective as C
 
-    norms = list(norms)
-    for g, ks in groups.values():
-        sq = C.all_reduce(torch.stack([norms[k] for k in ks]) ** 2, group=g)
-        for k, n in zip(ks, torch.sqrt(sq)):
-            norms[k] = n
+    for split in (mp_split, zero3_split):
+        groups = {}
+        for k, i in enumerate(idx):
+            g = split(params_grads[i][0])
+            if g is not None:
+                groups.setdefault(id(g), (g, []))[1].append(k)
+        if not groups:
+            continue
+        norms = list(norms)
+        for g, ks in groups.values():
+            sq = C.all_reduce(torch.stack([norms[k] for k in ks]) ** 2,
+                              group=g)
+            for k, n in zip(ks, torch.sqrt(sq)):
+                norms[k] = n
     return norms
 
 
@@ -183,6 +200,10 @@ class ClipGradByGlobalNorm(ClipGradBase):
         if not idx:
             return params_grads
         gs = [params_grads[i][1] for i in idx]
+        zero3 = [i for i in idx if zero3_split(params_grads[i][0])]
+        if zero3 and not sharded:
+            sharded = frozenset(zero3)
+            shard_group = zero3_split(params_grads[zero3[0]][0])
         gn = _group_global_norm(params_grads, idx, sharded, shard_group)
         if gn is None:
             gn = _global_norm(gs)

@@ -490,15 +490,19 @@ def _f32_norms(p, *ts):
     sum on the CPU is 1.9e-3 off for a 30.7M-element embedding). When an
     mp layer shards ``p`` (``mp_distributed``), ``ts`` are its rank's
     slices and the norms are the logical tensors': the squares are summed
-    over its ``mp_group`` in one all-reduce."""
+    over its ``mp_group`` in one all-reduce, and so over its ZeRO-3 group
+    when ``ts`` are its ZeRO-3 slices."""
+    from ..nn.clip import mp_split, zero3_split
+
     norms = [torch.linalg.vector_norm(t, dtype=torch.float64) for t in ts]
-    group = getattr(p, "mp_group", None) \
-        if getattr(p, "mp_distributed", False) else None
-    if group is None or group.nranks == 1:
+    groups = [g for g in (mp_split(p), zero3_split(p)) if g is not None]
+    if not groups:
         return [n.float() for n in norms]
     from ..distributed import collective as C
 
-    sq = C.all_reduce(torch.stack(norms) ** 2, group=group)
+    sq = torch.stack(norms) ** 2
+    for group in groups:
+        sq = C.all_reduce(sq, group=group)
     return list(torch.sqrt(sq).float())
 
 

@@ -158,20 +158,33 @@ class TestEngineLadder:
 
 
 def test_mesh_axes_beyond_dp_raise():
-    """Pipeline and expert axes raise naming A11b, part 2; the mp, sharding
-    and sp axes run (tests/test_torch_tensor_parallel.py,
-    test_torch_zero.py, test_torch_sequence_parallel.py) over the world and
-    the ``fleet.init`` topology they need."""
+    """``pp`` and ``ep`` are replica axes, as in the reference's GSPMD
+    step: like the mp, sharding and sp axes they need a world of the mesh's
+    size (their multi-rank runs: tests/test_torch_pipeline.py and
+    test_torch_moe.py). What the reference's step cannot run raises
+    naming why: a PipelineLayer holding one stage of a pp group, and a
+    MoELayer whose ep_group has more than one rank."""
+    from paddle_tpu_torch.distributed.collective import Group
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as tmp
+
     m = _linear()
     opt = pt.optimizer.SGD(0.1, parameters=m.parameters())
-    for axis in ("pp", "ep"):
-        mesh = Mesh(np.arange(2).reshape(1, 2), ("dp", axis))
-        with pytest.raises(NotImplementedError, match="A11b, part 2"):
-            HybridParallelEngine(m, opt, _mse, mesh=mesh)
-    for axis in ("mp", "sharding", "sp"):
+    for axis in ("pp", "ep", "mp", "sharding", "sp"):
         mesh = Mesh(np.arange(2).reshape(1, 2), ("dp", axis))
         with pytest.raises(ValueError, match="world of 2"):
             HybridParallelEngine(m, opt, _mse, mesh=mesh)
+    moe = tmp.MoELayer(8, 16, 4, ep_group=Group(ranks=[0, 1]), device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE layer's forward"):
+        HybridParallelEngine(moe, pt.optimizer.SGD(
+            0.1, parameters=moe.parameters()), _mse,
+            mesh=Mesh(np.arange(2).reshape(1, 2), ("dp", "ep")))
+    pl = tmp.PipelineLayer([tmp.LayerDesc(pt.nn.Linear, 8, 8, device="cpu")
+                            for _ in range(2)], num_stages=2)
+    pl._pp_group = Group(ranks=[0, 1])  # as if built over a pp group of 2
+    with pytest.raises(NotImplementedError, match="train_batch"):
+        HybridParallelEngine(pl, pt.optimizer.SGD(
+            0.1, parameters=pl.parameters()), _mse,
+            mesh=Mesh(np.arange(2).reshape(1, 2), ("dp", "pp")))
     # a world of one with an axis of one rank runs as before
     mesh = Mesh(np.arange(1).reshape(1, 1), ("dp", "mp"))
     assert HybridParallelEngine(m, opt, _mse, mesh=mesh).dp == 1

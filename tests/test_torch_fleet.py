@@ -13,7 +13,10 @@ reference (``paddle_tpu.distributed.fleet``).
   without fleet over 3 AdamW steps of tiny GPT;
 * ``recompute`` (and ``recompute_sequential``) gradients bit-equal to no
   recompute, dropout included (the port's generator is replayed);
-* what stays unported raises naming A11b, part 2.
+* what A11b, part 2 ported builds at one rank: ``ep_degree`` is accepted
+  with no axis (as the reference's topology has none), ``pp_degree`` needs
+  its world, ``strategy.dgc``/``localsgd`` wrap the optimizer as the
+  reference composes them, and ``PipelineParallel`` is a plain wrapper.
 """
 import numpy as np
 import pytest
@@ -181,21 +184,33 @@ def test_recompute_gradients_equal_no_recompute(p):
 
 
 def test_unported_parts_raise_naming_part_2():
+    """What used to raise naming A11b, part 2 now runs at one rank (the
+    multi-rank parity: tests/test_torch_pipeline.py, test_torch_moe.py,
+    test_torch_zero3.py, test_torch_comm_compression.py)."""
     m = pt.nn.Linear(4, 4, device="cpu")
     opt = pt.optimizer.Momentum(0.1, parameters=m.parameters())
-    for key in ("pp_degree", "ep_degree"):
-        s = fleet.DistributedStrategy()
-        s.hybrid_configs[key] = 2
-        with pytest.raises(NotImplementedError, match="A11b, part 2"):
-            fleet.init(is_collective=True, strategy=s)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["ep_degree"] = 2
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    assert "ep" not in hcg.mesh.shape and hcg.nranks == 1
+    assert hcg.get_expert_parallel_world_size() == 1
+    fleet_base._reset()
+    tdist.init_parallel_env(device="cpu")  # a gloo world of one
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["pp_degree"] = 2
+    with pytest.raises(ValueError, match="world of 2"):
+        fleet.init(is_collective=True, strategy=s)
     assert fleet.get_hybrid_communicate_group() is None
-    for meta in ("dgc", "localsgd"):
+    for meta, kind in (("dgc", "DGCMomentumOptimizer"),
+                       ("localsgd", "LocalSGDOptimizer")):
         s = fleet.DistributedStrategy()
         setattr(s, meta, True)
-        with pytest.raises(NotImplementedError, match="A11b, part 2"):
-            fleet.distributed_optimizer(opt, s)
+        wrapped = fleet.distributed_optimizer(opt, s)
+        assert type(wrapped).__name__ == "HybridParallelOptimizer"
+        assert type(wrapped._inner_opt).__name__ == kind
     from paddle_tpu_torch.distributed.fleet.meta_parallel import \
         PipelineParallel
 
-    with pytest.raises(NotImplementedError, match="A11b, part 2"):
-        PipelineParallel(m, None, None)
+    x = torch.ones(2, 4)
+    assert torch.equal(PipelineParallel(m, None, None)(x), m(x))

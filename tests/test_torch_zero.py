@@ -23,8 +23,9 @@ Linear(16, 4))`` on a (16, 8) batch, float32, from seeded numpy.
   sharded dimension;
 * one rank, no spawn: the sharded update over a group of one with a decay
   gate that varies inside a bucket equals the plain AdamW update (rtol
-  1e-6 / atol 1e-7), and ``p_g_os``, ``ShardingStage3``, pipeline and
-  expert degrees, DGC and LocalSGD raise naming A11b, part 2.
+  1e-6 / atol 1e-7), and ``p_g_os`` (``ShardingStage3``) over no group of
+  more than one rank leaves the model and its optimizer as they are (its
+  multi-rank parity: tests/test_torch_zero3.py).
 """
 from pathlib import Path
 
@@ -219,21 +220,29 @@ def test_sharded_update_with_mixed_decay_gates_equals_plain_adamw():
 
 
 def test_part2_raises():
+    """ZeRO-3 and the wrappers that raised naming A11b, part 2 build: over
+    no group of more than one rank ``p_g_os`` slices nothing, returns the
+    raw optimizer, and its steps equal the plain model's bit for bit."""
+    torch.manual_seed(0)
+    x, y = torch.randn(6, 4), torch.randn(6, 4)
+    plain = pt.nn.Linear(4, 4, device="cpu")
     m = pt.nn.Linear(4, 4, device="cpu")
-    opt = pt.optimizer.SGD(0.1, parameters=m.parameters())
-    with pytest.raises(NotImplementedError, match="A11b, part 2"):
-        tmp.group_sharded_parallel(m, opt, "p_g_os")
-    with pytest.raises(NotImplementedError, match="A11b, part 2"):
-        tmp.ShardingStage3(m, opt)
-    with pytest.raises(NotImplementedError, match="A11b, part 2"):
-        tmp.PipelineParallel(m, None, None)
-    for key in ("pp_degree", "ep_degree"):
-        s = fleet.DistributedStrategy()
-        s.hybrid_configs[key] = 2
-        with pytest.raises(NotImplementedError, match="A11b, part 2"):
-            fleet.init(is_collective=True, strategy=s)
-    for meta in ("dgc", "localsgd"):
-        s = fleet.DistributedStrategy()
-        setattr(s, meta, True)
-        with pytest.raises(NotImplementedError, match="A11b, part 2"):
-            fleet.distributed_optimizer(opt, s)
+    m.set_state_dict(plain.state_dict())
+    opt = pt.optimizer.AdamW(0.1, parameters=m.parameters())
+    popt = pt.optimizer.AdamW(0.1, parameters=plain.parameters())
+    model, o, scaler = tmp.group_sharded_parallel(m, opt, "p_g_os")
+    assert isinstance(model, tmp.ShardingStage3) and o is opt
+    assert scaler is None and not model._held
+    for _ in range(2):
+        for mm, oo in ((model, opt), (plain, popt)):
+            _mse(mm, x, y).backward()
+            oo.step()
+            oo.clear_grad()
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, plain.state_dict()[k]), k
+    assert [tuple(p.shape) for p in model.get_all_parameters()] == [
+        (4, 4), (4,)]
+    assert isinstance(tmp.ShardingStage3(m, opt), tmp.ShardingStage3)
+    assert torch.equal(tmp.PipelineParallel(m, None, None)(x), m(x))
+    with pytest.raises(ValueError, match="unknown sharding level"):
+        tmp.group_sharded_parallel(m, opt, "p_g")

@@ -400,7 +400,329 @@ def sp_suite(rank, inp, out):
     sp_gpt_padded(hcg, inp, out)
 
 
-SUITES = {"tp": tp_suite, "zero": zero_suite, "sp": sp_suite}
+# -- pp: pipeline parallelism (4 ranks) -------------------------------------
+V_PP, D_PP = 32, 64
+
+
+class PPEmbed(Layer):
+    def __init__(self):
+        super().__init__()
+        self.emb = pt.nn.Embedding(V_PP, D_PP, device="cpu")
+
+    def forward(self, ids):
+        return self.emb(ids)
+
+
+class PPBlock(Layer):
+    def __init__(self, d_in=D_PP, d_out=D_PP):
+        super().__init__()
+        self.fc = Linear(d_in, d_out, device="cpu")
+
+    def forward(self, x):
+        y = torch.tanh(self.fc(x))
+        return x + y if y.shape == x.shape else y
+
+
+class PPHead(Layer):
+    def __init__(self, d_in=D_PP):
+        super().__init__()
+        self.proj = Linear(d_in, V_PP, device="cpu")
+
+    def forward(self, x):
+        return self.proj(x)
+
+
+def pp_ce(logits, labels):
+    return pt.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+
+
+def ebh(n_stages, wide=False):
+    """The reference test's Embed, 6 Blocks, Head; ``wide``: Embed, Block,
+    a Block to 2D, a Head from 2D (its third stage changes the carrier)."""
+    if wide:
+        descs = [tmp.LayerDesc(PPEmbed), tmp.LayerDesc(PPBlock),
+                 tmp.LayerDesc(PPBlock, D_PP, 2 * D_PP),
+                 tmp.LayerDesc(PPHead, 2 * D_PP)]
+    else:
+        descs = [tmp.LayerDesc(PPEmbed)] + [tmp.LayerDesc(PPBlock)
+                                            for _ in range(6)] \
+            + [tmp.LayerDesc(PPHead)]
+    return tmp.PipelineLayer(descs, num_stages=n_stages, loss_fn=pp_ce)
+
+
+def tied_head(layer, x):
+    """The embedding on ids, the tied LM head on activations (one function
+    for both positions of the shared key)."""
+    if not x.is_floating_point():
+        return layer(x)
+    return x @ layer.word_embeddings.weight.t()
+
+
+def gpt_pipe(inp, n_stages):
+    from paddle_tpu_torch.models.gpt import GPTDecoderLayer, GPTEmbeddings
+
+    cfg = GPTConfig(**json.loads(str(inp["gpt_config"])))
+    shared = lambda: tmp.SharedLayerDesc(  # noqa: E731
+        "embed", GPTEmbeddings, tied_head, "word_embeddings.weight", cfg,
+        device="cpu")
+    descs = [shared()] + [tmp.LayerDesc(GPTDecoderLayer, cfg, device="cpu")
+                          for _ in range(cfg.num_layers)] \
+        + [tmp.LayerDesc(pt.nn.LayerNorm, cfg.hidden_size, epsilon=1e-5,
+                         device="cpu"), shared()]
+    return tmp.PipelineLayer(descs, num_stages=n_stages, loss_fn=pp_ce)
+
+
+def pp_run(inp, tag, make, ids, labels, schedule, via_fleet=False):
+    """3 SGD(0.05) steps of 4 micro-batches from the reference's weights."""
+    from paddle_tpu_torch.models import pp_split_state_dict
+
+    pl = make()
+    load_reference_state_dict(pl, pp_split_state_dict(
+        prefixed(inp, f"{tag}."), pl)[pl._stage_id])
+    opt = pt.optimizer.SGD(0.05, parameters=pl.parameters())
+    hcg = fleet.get_hybrid_communicate_group()
+    if via_fleet:
+        model = fleet.distributed_model(pl)
+        losses = [model.train_batch((ids, labels), opt) for _ in range(3)]
+        step = model._train_fn
+    else:
+        step = tmp.PipelineTrainStep(pl, opt, hcg.mesh, n_micro=4,
+                                     schedule=schedule)
+        losses = [step(ids, labels) for _ in range(3)]
+    return {"losses": torch.stack(losses), "stage": pl._stage_id,
+            "dp_rank": hcg.get_data_parallel_rank(), "state": state_of(pl),
+            "stash": step.stash_high_water, "kind": type(step).__name__}
+
+
+def pp_suite(rank, inp, out):
+    ids = torch.from_numpy(inp["pp_ids"])
+    labels = torch.from_numpy(inp["pp_labels"])
+    fleet.init(is_collective=True, strategy=strategy(pp_degree=4))
+    for sch in ("1F1B", "F-then-B"):
+        out[f"ebh4_{sch}"] = pp_run(inp, "ebh4", lambda: ebh(4), ids, labels,
+                                    sch)
+    hcg = fleet.get_hybrid_communicate_group()
+    wide = ebh(4, wide=True)
+    try:
+        step = tmp.PipelineTrainStep(wide, pt.optimizer.SGD(
+            0.05, parameters=wide.parameters()), hcg.mesh, n_micro=4)
+        step(ids, labels)
+        out["carrier_error"] = None
+    except ValueError as e:
+        out["carrier_error"] = str(e)
+    s = strategy(pp_degree=2, dp_degree=2)
+    s.pipeline_configs = {"accumulate_steps": 4, "micro_batch_size": 2}
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    dp_r = hcg.get_data_parallel_rank()
+    # the engine runs pp as replicas of the whole model, as the reference's
+    m = mlp(inp)
+    eng = tdist.HybridParallelEngine(
+        m, pt.optimizer.SGD(0.1, parameters=m.parameters()), mse,
+        mesh=hcg.mesh)
+    x, y = dp_half(inp["mlp_x"], dp_r), dp_half(inp["mlp_y"], dp_r)
+    out["engine_pp"] = {
+        "losses": torch.stack([eng.train_step(x, y) for _ in range(2)]),
+        "state": state_of(m), "sync_ranks": eng._sync_group.ranks}
+    for sch in ("1F1B", "F-then-B"):
+        out[f"ebh2_{sch}"] = pp_run(inp, "ebh2", lambda: ebh(2), ids, labels,
+                                    sch)
+        out[f"ebh2dp_{sch}"] = pp_run(inp, "ebh2", lambda: ebh(2),
+                                      dp_half(inp["pp_ids"], dp_r),
+                                      dp_half(inp["pp_labels"], dp_r), sch)
+        out[f"gpt2_{sch}"] = pp_run(
+            inp, "gpt_pp", lambda: gpt_pipe(inp, 2),
+            torch.from_numpy(inp["gpt_pp_ids"]),
+            torch.from_numpy(inp["gpt_pp_labels"]), sch,
+            via_fleet=sch == "1F1B")
+
+
+# -- zero3: the engine's sync group (C1), then ZeRO-3 (4 ranks) ------------
+def c1_engine(inp, out):
+    """mp 2 x sharding 2 with dp_axes=("dp", "sharding"): each sharding rank
+    on its half of the batch (padded labels), 2 SGD steps, eval_step."""
+    fleet.init(is_collective=True, strategy=strategy(mp_degree=2,
+                                                      sharding_degree=2))
+    hcg = fleet.get_hybrid_communicate_group()
+    mp_r, sh_r = hcg.get_model_parallel_rank(), \
+        hcg.get_sharding_parallel_rank()
+    m = gpt_model(inp, mp_r, 2)
+    eng = tdist.HybridParallelEngine(
+        m, pt.optimizer.SGD(0.1, parameters=m.parameters()),
+        lambda mm, i, l: mm.loss(i, l), mesh=hcg.mesh,
+        dp_axes=("dp", "sharding"))
+    ids = dp_half(inp["gpt_ids"], sh_r)
+    labels = dp_half(inp["gpt_labels_pad"], sh_r)
+    losses = torch.stack([eng.train_step(ids, labels) for _ in range(2)])
+    out["c1"] = {"losses": losses, "state": state_of(m), "mp_rank": mp_r,
+                 "sharding_rank": sh_r, "sync_ranks": eng._sync_group.ranks,
+                 "eval": eng.eval_step(lambda mm, i, l: mm.loss(i, l), ids,
+                                       labels)}
+
+
+class OddMLP(Layer):
+    """The reference's ``Sequential(Linear(8, 16), Tanh(), Linear(16,
+    3))``: the last bias (3,) splits over no group of 2 or 4 ranks."""
+
+    def __init__(self):
+        super().__init__()
+        self.add_sublayer("0", Linear(8, 16, device="cpu"))
+        self.add_sublayer("2", Linear(16, 3, device="cpu"))
+
+    def forward(self, x):
+        return getattr(self, "2")(torch.tanh(getattr(self, "0")(x)))
+
+
+ZERO3_EAGER = {
+    "global_norm": lambda ps: pt.optimizer.SGD(
+        0.5, parameters=ps, grad_clip=pt.nn.ClipGradByGlobalNorm(0.05)),
+    "by_norm": lambda ps: pt.optimizer.SGD(
+        0.5, parameters=ps, grad_clip=pt.nn.ClipGradByNorm(0.02)),
+    "lamb": lambda ps: pt.optimizer.Lamb(0.1, epsilon=1e-3, parameters=ps),
+    "lars": lambda ps: pt.optimizer.LarsMomentum(
+        1.0, lars_coeff=0.1, parameters=ps),
+}
+
+
+def zero3_run(inp, n, out):
+    """ZeRO-3 over this rank's sharding group of ``n``: 3 AdamW steps
+    through the engine (dp_axes=(), the whole batch), then 2 eager steps of
+    each clip and norm rule."""
+    hcg = fleet.get_hybrid_communicate_group()
+    x, y = torch.from_numpy(inp["z3_x"]), torch.from_numpy(inp["z3_y"])
+    m = OddMLP()
+    load_reference_state_dict(m, prefixed(inp, "z3."))
+    adam = pt.optimizer.AdamW(0.01, parameters=m.parameters())
+    model, opt, _ = tmp.group_sharded_parallel(m, adam, "p_g_os")
+    eng = tdist.HybridParallelEngine(model, opt, mse, mesh=hcg.mesh,
+                                     dp_axes=())
+    losses = torch.stack([eng.train_step(x, y) for _ in range(3)])
+    res = {"losses": losses, "state": model.state_dict(),
+           "local": {k: tuple(p.shape) for k, p in m.named_parameters()},
+           "moments": [{k: tuple(v.shape) for k, v in
+                        adam._accumulators[nm].items()}
+                       for nm in adam._names],
+           "all": [tuple(p.shape) for p in model.get_all_parameters()],
+           "wrapper": type(model).__name__}
+    for name, make in ZERO3_EAGER.items():
+        m = OddMLP()
+        load_reference_state_dict(m, prefixed(inp, "z3."))
+        o = make(m.parameters())
+        model = tmp.ShardingStage3(m, o)
+        for _ in range(2):
+            mse(model, x, y).backward()
+            o.step()
+            o.clear_grad()
+        res[f"eager_{name}"] = model.state_dict()
+    out[f"zero3_{n}"] = res
+
+
+def zero3_suite(rank, inp, out):
+    c1_engine(inp, out)
+    fleet.init(is_collective=True, strategy=strategy(sharding_degree=4))
+    zero3_run(inp, 4, out)
+    fleet.init(is_collective=True, strategy=strategy(sharding_degree=2,
+                                                      dp_degree=2))
+    zero3_run(inp, 2, out)
+
+
+# -- moe: the expert all-to-all at ep 2 and 4 (4 ranks) ----------------------
+def moe_suite(rank, inp, out):
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.models import ep_split_state_dict
+
+    # every rank creates every group, in one order
+    pairs = [C.new_group([0, 1]), C.new_group([2, 3])]
+    groups = {2: pairs[rank // 2], 4: C.new_group([0, 1, 2, 3])}
+    state = prefixed(inp, "moe.")
+    for ep, g in groups.items():
+        r = g.rank
+        layer = tmp.MoELayer(8, 16, 8, top_k=2, ep_group=g, device="cpu")
+        load_reference_state_dict(layer, ep_split_state_dict(state, ep)[r])
+        T = int(inp["moe_tokens"])
+        x = torch.from_numpy(inp["moe_x"][r * T:(r + 1) * T]).requires_grad_()
+        y = layer(x)
+        ((y ** 2).mean() + 0.01 * layer.aux_loss).backward()
+        out[f"ep{ep}"] = {
+            "rank": r, "out": y.detach(), "aux": layer.aux_loss.detach(),
+            "dx": x.grad, "dropped": layer.dropped_tokens(),
+            "grads": {n: p.grad.clone() for n, p in
+                      layer.named_parameters()},
+            "shapes": {n: tuple(p.shape) for n, p in
+                       layer.named_parameters()}}
+        # the exchange itself: global_scatter then global_gather
+        rows = torch.arange(4 * ep, dtype=torch.float32) + 100 * r
+        out[f"scatter{ep}"] = [tdist.utils.global_scatter(rows, group=g),
+                               tdist.utils.global_gather(
+                                   tdist.utils.global_scatter(rows, group=g),
+                                   group=g)]
+    # the engine runs ep as replicas (a MoELayer without an ep group), as
+    # the reference's does
+    mesh = tdist.build_mesh(["dp", "ep"], [2, 2])
+    layer = tmp.MoELayer(8, 16, 8, top_k=2, capacity_factor=4.0,
+                         device="cpu")
+    load_reference_state_dict(layer, state)
+    eng = tdist.HybridParallelEngine(
+        layer, pt.optimizer.SGD(0.1, parameters=layer.parameters()),
+        mse, mesh=mesh)
+    half = int(inp["moe_tokens"])
+    dp_r = rank // 2
+    x = torch.from_numpy(inp["moe_x"][dp_r * half:(dp_r + 1) * half])
+    y = torch.from_numpy(inp["moe_y"][dp_r * half:(dp_r + 1) * half])
+    out["engine_ep"] = {
+        "losses": torch.stack([eng.train_step(x, y) for _ in range(2)]),
+        "state": state_of(layer), "sync_ranks": eng._sync_group.ranks}
+
+
+# -- comm: DGC and LocalSGD at dp 2 (2 ranks) --------------------------------
+DGC_CFG = {"rampup_begin_step": 1, "rampup_step": 2, "sparsity": (0.5, 0.75)}
+
+
+def comm_run(inp, rank, make_opt):
+    """4 eager steps on this rank's half batch; the parameters after each
+    step, and whether each step left the gradients local."""
+    m = mlp(inp)
+    opt = make_opt(m.parameters())
+    x, y = dp_half(inp["mlp_x"], rank), dp_half(inp["mlp_y"], rank)
+    states, local = [], []
+    for _ in range(4):
+        mse(m, x, y).backward()
+        before = [p.grad.clone() for p in m.parameters()]
+        opt.step()
+        local.append(all(torch.equal(p.grad, g)
+                         for p, g in zip(m.parameters(), before)))
+        opt.clear_grad()
+        states.append(state_of(m))
+    return {"states": states, "local": local, "opt": opt}
+
+
+def comm_suite(rank, inp, out):
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import (
+        DGCMomentumOptimizer, LocalSGDOptimizer)
+
+    fleet.init(is_collective=True, strategy=strategy(dp_degree=2))
+    res = comm_run(inp, rank, lambda ps: DGCMomentumOptimizer(
+        0.1, 0.9, ps, **DGC_CFG))
+    out["dgc"] = {"states": res["states"],
+                  "fraction": res["opt"].last_comm_fraction}
+    s = fleet.DistributedStrategy()
+    s.dgc, s.dgc_configs = True, dict(DGC_CFG)
+    res = comm_run(inp, rank, lambda ps: fleet.distributed_optimizer(
+        pt.optimizer.Momentum(0.1, momentum=0.9, parameters=ps), s))
+    out["dgc_fleet"] = {"states": res["states"], "local": res["local"],
+                        "kind": type(res["opt"]._inner_opt).__name__}
+    s = fleet.DistributedStrategy()
+    s.localsgd, s.localsgd_configs = True, {"k_steps": 2}
+    res = comm_run(inp, rank, lambda ps: fleet.distributed_optimizer(
+        pt.optimizer.SGD(0.1, parameters=ps), s))
+    out["localsgd"] = {"states": res["states"], "local": res["local"],
+                       "kind": type(res["opt"]._inner_opt).__name__}
+    assert isinstance(res["opt"]._inner_opt, LocalSGDOptimizer)
+
+
+SUITES = {"tp": tp_suite, "zero": zero_suite, "sp": sp_suite, "pp": pp_suite,
+          "zero3": zero3_suite, "moe": moe_suite, "comm": comm_suite}
 
 
 def main(suite, d):
