@@ -6,6 +6,8 @@
                                      #   a GPT, a Llama-7B and an ERNIE
                                      #   train step, through the port's
                                      #   profiler
+    python3 chip_smoke.py --launch-worker DIR  # 16d's worker, the process
+                                     #   launch starts (not run by hand)
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -307,6 +309,42 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    One ``{"fleet_part2": ...}`` line with the card's name and power
    limit; the flash rows of the ``kernels`` line carry 15a's timed
    launches as ``launches_pipeline``;
+16. auto-parallel and the coordinated checkpoint (runs after phase 15, on
+   its NCCL group of one rank): (16a) GPT-3 1.3B (24 layers, bf16, the f32
+   CE of the tied head as the loss, AdamW) through
+   ``distributed.auto_parallel.Engine``: ``auto_parallelize`` on 13a's
+   batch derives ``replicated`` only (mp 1) and prints its measured report
+   (FLOPs from ``FlopCounterMode`` plus the flash kernels' tally, the bytes
+   the aten ops move, the collectives, the peak, the score); 3 steps
+   through ``fit`` from 13a's start must give 13a's engine's losses and
+   parameters bit for bit; then 2 warm-up and 8 timed steps (step ms,
+   tokens/s, MFU against 989 TFLOP/s, flash launches 24 x 8 each), and
+   ``shard_tensor``/``reshard`` of a card tensor at world 1 must give its
+   bits back. (16b) ``CoordinatedCheckpoint(async_save=True)`` over the
+   ``TCPStore`` adapter on 16a's ``engine_state_dict`` (bf16 weights and
+   both AdamW moments): the save after step k is waited on after steps k+1
+   and k+2 ran; a fresh engine restored by ``resume`` runs the same two
+   steps bit for bit; the bytes, the host-blocked ms, the write's and the
+   restore's seconds are printed; one byte flipped in a leaf file must make
+   ``load_state_dict`` raise ``CheckpointError`` naming its key. (16c)
+   ``StabilitySentinel.from_flags`` with ``FLAGS_stability_ckpt_dir`` (its
+   ``AutoCheckpoint`` anchor, every 2 steps) and ``for_engine`` on GPT at
+   full width and ``ANCHOR_LAYERS`` layers (the depth cut only for the
+   anchors' disk and time): a ``loss.spike`` on batch 6 (through a float
+   loss weight the batch carries) must roll back to anchor 4, and the
+   replayed step 5 must equal the first step 5, loss and parameters, bit
+   for bit. (16d) ``launch(this script --launch-worker, nproc_per_node=1,
+   elastic=True)`` with ``PADDLE_FAULT_INJECT=preempt.sigterm:step=3``:
+   the worker (NCCL, GPT at full width and ``ANCHOR_LAYERS`` layers,
+   ``AutoCheckpoint`` and ``PreemptionGuard``) drains with a
+   ``preempt_drain`` progress record and exits 75, the launcher relaunches
+   it, it resumes step 3, and its losses must equal an uninterrupted run's
+   (in this process) bit for bit; the seconds from the drain to the
+   resumed step are printed. Everything is written under a temporary
+   directory the phase removes. One ``{"auto_parallel_ckpt": ...}`` line
+   with the card's name and power limit and the phase's wall seconds; the
+   flash rows of the ``kernels`` line carry 16a's timed launches as
+   ``launches_auto``;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -355,7 +393,8 @@ chunk steps, (f)'s drafts proposed and accepted, and (g)'s and (h)'s
 sub-drives with their adopt info, ``{"registry": {...}}``, phase 6's
 searches, persistence, tuned drive, host µs and the 192-row int8 checks,
 ``{"engine_train": {...}}``, phase 13, ``{"fleet_train": {...}}``,
-phase 14, and ``{"fleet_part2": {...}}``, phase 15.
+phase 14, ``{"fleet_part2": {...}}``, phase 15, and
+``{"auto_parallel_ckpt": {...}}``, phase 16.
 """
 from __future__ import annotations
 
@@ -4750,13 +4789,19 @@ def engine_train_phase(llama_oom):
               "MoE layer at full width, DGC and LocalSGD")
         part2, hcg = fleet_part2_phase(model, start, ids, labels, l_eng,
                                        p_eng)
-        del model, start, p_eng
+        del model, start
         torch.cuda.empty_cache()
         fleet_part2_rest(part2, hcg)
         fleet["part2"] = part2
+        print("[16] auto-parallel and the coordinated checkpoint: gpt3_1p3b "
+              "through auto_parallel.Engine, CoordinatedCheckpoint over the "
+              "TCPStore adapter, the sentinel's AutoCheckpoint anchor, "
+              "launch(elastic=True) with a preemption")
+        auto = auto_parallel_ckpt_phase(ids, labels, l_eng, p_eng)
+        del p_eng
     finally:
         dist.destroy_process_group()
-    return out, fleet
+    return out, fleet, auto
 
 
 ULYSSES_SHAPE = FLASH_LONG  # (B, T, T_kv, H, D, causal): 14c's long shape
@@ -5418,6 +5463,411 @@ def fleet_part2_rest(out, hcg):
     return out
 
 
+# -- phase 16: auto-parallel, the coordinated checkpoint, the sentinel's
+# anchor and the elastic launcher ---------------------------------------------
+ANCHOR_LAYERS = 2  # 16c/16d: full width, depth cut for the anchors' disk/time
+LAUNCH_STEPS = 5   # 16d: the worker's steps; preempted after LAUNCH_PREEMPT
+LAUNCH_PREEMPT = 3
+LAUNCH_SAVE_EVERY = 4
+SENTINEL_SPIKE = 6  # 16c: the batch whose loss spikes
+
+
+def params_equal(model, want):
+    """Every parameter bit-equal to ``want`` (host tensors)."""
+    return all(torch.equal(p.detach().cpu(), w)
+               for p, w in zip(model.parameters(), want))
+
+
+def gpt_head_loss(model):
+    """The f32 cross-entropy of the tied head on the GPT body's output
+    (what ``GPTForPretraining.loss`` computes), vocab-parallel when the
+    table is."""
+    from paddle_tpu_torch.nn import functional as F
+
+    emb = model.gpt.embeddings.word_embeddings
+
+    def loss(x, labels):
+        return F.fused_linear_cross_entropy(
+            x, emb.weight, labels,
+            group=emb.group if emb.world_size > 1 else None)
+    return loss
+
+
+def auto_engine_of(model):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import auto_parallel
+
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.named_parameters())
+    return auto_parallel.Engine(model.gpt, loss=gpt_head_loss(model),
+                                optimizer=opt)
+
+
+def auto_parallel_check(ids, labels, l_eng, p_eng):
+    """16a: GPT-3 1.3B through ``auto_parallel.Engine`` on the one-rank
+    mesh: the plan search's report, 3 steps through ``fit`` from 13a's
+    start against 13a's engine, then 2 warm-up and 8 timed steps;
+    ``shard_tensor``/``reshard`` of a card tensor at world 1."""
+    from paddle_tpu_torch.distributed import sharding_api
+    from paddle_tpu_torch.ops import kernels as K
+
+    model = train_model()
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = auto_engine_of(model)
+    t0 = time.monotonic()
+    best = eng.auto_parallelize(ids, labels)
+    search_s = time.monotonic() - t0
+    plans = []
+    for p in eng.plans:
+        rep = p.report
+        plans.append({"name": p.name, "score": list(p.score),
+                      "flops": rep["flops"],
+                      "bytes_accessed": rep["bytes_accessed"],
+                      "comm_counts": rep["comm_counts"],
+                      "comm_bytes": rep["comm_bytes"],
+                      "peak_gib": rep["peak_memory_bytes"] / 2**30})
+        print(f"  (16a) plan {p.name}: {rep['flops'] / 1e12:.3f} TFLOP "
+              f"(FlopCounterMode + the flash kernels' tally), "
+              f"{rep['bytes_accessed'] / 2**30:.2f} GiB read and written by "
+              f"the aten ops, collectives {rep['comm_counts']} "
+              f"({rep['comm_bytes']:.0f} bytes), peak "
+              f"{rep['peak_memory_bytes'] / 2**30:.2f} GiB, score {p.score}")
+    if [p["name"] for p in plans] != ["replicated"] \
+            or best.name != "replicated":
+        fail(f"auto_parallel: plans {[p['name'] for p in plans]}, winner "
+             f"{best.name}; at mp 1 only 'replicated' is derived")
+    losses = eng.fit([(ids, labels)] * ENGINE_STEPS)
+    bits = losses == l_eng and params_equal(model, p_eng)
+    print(f"  (16a) plan search {search_s:.2f} s; fit from 13a's start, "
+          f"{ENGINE_STEPS} steps: {losses} against 13a's engine {l_eng}: "
+          f"losses and parameters bit-equal {bits}")
+    if not bits:
+        fail(f"auto_parallel: fit {losses} against 13a's {l_eng}")
+    step = eng._engine.train_step
+    warm = [step(ids, labels) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    timed, queued, wall = time_steps(step, ids, labels, TRAIN_STEPS)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    B, T = ids.shape
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = B * T * TRAIN_STEPS / wall
+    mfu = tok_s * train_flops_per_token(cfg, n_params, T) / 989e12
+    vals = [x.item() for x in warm + timed]
+    print(f"  (16a) {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: step "
+          f"{step_ms:.2f} ms, {tok_s:.1f} tokens/s, MFU {mfu:.4f} (989 "
+          f"TFLOP/s), peak {peak / 2**30:.2f} GiB, launches {counts}")
+    want = cfg.num_layers * TRAIN_STEPS
+    if any(counts[k] != want for k in FLASH_REPLACES):
+        fail(f"auto_parallel: launches {counts}, want {want} each")
+    if not all(np.isfinite(vals)):
+        fail(f"auto_parallel: losses {vals}")
+    # the sharding API on the card at world 1: the identity, bit for bit
+    x = torch.randn(64, 2048, device=ids.device, dtype=torch.bfloat16)
+    s = sharding_api.shard_tensor(x, None, ["dp", None])
+    y = sharding_api.reshard(s, [None, "dp"])
+    same = torch.equal(s, x) and torch.equal(y, x) \
+        and tuple(y.placement) == (None, "dp")
+    print(f"  (16a) shard_tensor/reshard of a (64, 2048) bf16 card tensor "
+          f"at world 1: bit-equal {same}")
+    if not same:
+        fail("sharding_api: a world-1 placement changed the tensor")
+    out = {"plans": plans, "winner": best.name, "search_s": search_s,
+           "fit_losses": losses, "fit_bit_equal_13a": bits,
+           "step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
+           "peak_gib": peak / 2**30, "losses": vals,
+           "launches": {k: counts[k] for k in FLASH_REPLACES},
+           "shard_reshard_bit_equal": same}
+    return out, model, eng
+
+
+def coordinated_check(model, eng, ids, labels, d):
+    """16b: ``CoordinatedCheckpoint`` (store: the ``TCPStore`` adapter) of
+    16a's engine state: an async save after step k waited on while steps
+    k+1 and k+2 run; a fresh engine restored by ``resume`` runs the same
+    two steps bit for bit; a flipped byte is named."""
+    from paddle_tpu_torch.distributed import TCPStore
+    from paddle_tpu_torch.distributed import checkpoint as ck
+
+    free = shutil.disk_usage(d).free
+    store = TCPStore("127.0.0.1", 0, is_master=True, timeout=60)
+    cc = ck.CoordinatedCheckpoint(str(d / "coord"), world_size=1, rank=0,
+                                  store=store, async_save=True)
+    opt = eng.optimizer
+    k = opt._step_count
+    state = ck.engine_state_dict(eng._engine)
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    if not cc.save_now(k, state):
+        fail("coordinated checkpoint: the async save did not start")
+    blocked = time.monotonic() - t0
+    after = [eng._engine.train_step(ids, labels) for _ in range(2)]
+    vals = [x.item() for x in after]  # the two steps ran during the write
+    t1 = time.monotonic()
+    committed = cc.wait()
+    waited = time.monotonic() - t1
+    write_s = time.monotonic() - t0
+    want = [p.detach().cpu() for p in model.parameters()]
+    print(f"  (16b) async save of step {k}: {nbytes / 1e9:.3f} GB "
+          f"({len(state)} leaves; {free / 1e9:.1f} GB free), host blocked "
+          f"{blocked * 1e3:.1f} ms, the write {write_s:.2f} s from the call "
+          f"(waited {waited:.2f} s after steps {k + 1}-{k + 2}), committed "
+          f"{committed}")
+    if not committed:
+        fail("coordinated checkpoint: the save did not commit")
+    fresh = train_model()
+    feng = auto_engine_of(fresh)
+    feng.prepare()
+    fstate = ck.engine_state_dict(feng._engine)
+    t0 = time.monotonic()
+    step = cc.resume(fstate)
+    ck.engine_apply_state(feng._engine, fstate)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    again = [feng._engine.train_step(ids, labels).item() for _ in range(2)]
+    bits = step == k and again == vals and params_equal(fresh, want)
+    print(f"  (16b) a fresh engine resumed step {step} in {restore_s:.2f} s; "
+          f"steps {k + 1}-{k + 2}: {again} against {vals}: losses and "
+          f"parameters bit-equal {bits}")
+    if not bits:
+        fail(f"coordinated checkpoint: resumed {step}, losses {again} "
+             f"against {vals}")
+    del fresh, feng, fstate
+    torch.cuda.empty_cache()
+    path = Path(cc._rank_path(k))
+    index = json.loads((path / "index.json").read_text())["leaves"]
+    leaf = index[0]
+    f = path / leaf["file"]
+    raw = bytearray(f.read_bytes()[:64])
+    with open(f, "r+b") as fh:
+        fh.seek(17)
+        fh.write(bytes([raw[17] ^ 0x20]))
+    try:
+        ck.load_state_dict(ck.engine_state_dict(eng._engine), str(path))
+        named = False
+    except ck.CheckpointError as e:
+        named = f"'{leaf['key']}'" in str(e)
+        print(f"  (16b) one flipped byte in {leaf['file']}: {e}")
+    if not named:
+        fail("coordinated checkpoint: a flipped byte was not named")
+    store.close()
+    return {"step": k, "bytes": nbytes, "leaves": len(state),
+            "host_blocked_ms": blocked * 1e3, "write_s": write_s,
+            "waited_s": waited, "restore_s": restore_s,
+            "losses_after": vals, "resumed_losses": again,
+            "resume_bit_equal": bits, "corrupt_byte_named": named}
+
+
+def sentinel_check(d):
+    """16c: ``StabilitySentinel.from_flags`` (its ``AutoCheckpoint`` anchor
+    in ``FLAGS_stability_ckpt_dir``) and ``for_engine`` at full width and
+    ``ANCHOR_LAYERS`` layers: the spiked batch rolls back to the anchor,
+    and the replay's next step equals the anchor's continuation bit for
+    bit."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import HybridParallelEngine
+    from paddle_tpu_torch.fault import inject
+    from paddle_tpu_torch.fault.sentinel import StabilitySentinel
+    from paddle_tpu_torch.framework.flags import set_flags
+
+    set_flags({"FLAGS_stability_ckpt_dir": str(d / "anchor"),
+               "FLAGS_stability_anchor_interval": 2})
+    try:
+        base = StabilitySentinel.from_flags()
+    finally:
+        set_flags({"FLAGS_stability_ckpt_dir": "",
+                   "FLAGS_stability_anchor_interval": 25})
+    anchor = base.anchor
+    base.close()
+    model = train_model(ANCHOR_LAYERS)
+    cfg = model.config
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.named_parameters())
+    # the batch carries a float loss weight (1.0): the spike scales the
+    # batch's floating tensors, and the ids and labels are integers
+    eng = HybridParallelEngine(model, opt,
+                               lambda m, i, l, w: m.loss(i, l) * w)
+    s = StabilitySentinel.for_engine(eng, anchor, window=16, warmup=3,
+                                     zmax=8.0, max_rollbacks=1)
+    one = torch.ones((), device=model.parameters()[0].device)
+    batches = {k: (*train_batch(cfg, seed=200 + k), one)
+               for k in range(1, 9)}
+    inject.arm(f"loss.spike:step={SENTINEL_SPIKE},scale=1000")
+    seen, after, rolled, replay = {}, {}, None, None
+    t0 = time.monotonic()
+    try:
+        for k in range(1, 9):
+            s.note_batch((0, k))
+            seen[k] = eng.train_step(*batches[k]).item()
+            after[k] = [p.detach().clone() for p in model.parameters()]
+            s.maybe_anchor(opt._step_count)
+            v = s.take_verdict()
+            if v is not None:
+                a = s.rollback(v)
+                rolled = (v.step, v.action, a)
+                # the replay of the batch after the anchor
+                s.note_batch((0, a + 1))
+                replay = eng.train_step(*batches[a + 1]).item()
+                same = replay == seen[a + 1] and all(
+                    torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                      after[a + 1]))
+                break
+    finally:
+        inject.disarm()
+        s.close()
+    wall = time.monotonic() - t0
+    print(f"  (16c) sentinel (from_flags anchor, for_engine), gpt3_1p3b at "
+          f"full width and {ANCHOR_LAYERS} layers (depth cut for the "
+          f"anchor's disk and time): losses {[round(v, 4) for v in seen.values()]}"
+          f"; verdict (step, action, anchor) {rolled}; the replayed step "
+          f"{rolled[2] + 1 if rolled else None}: {replay} against "
+          f"{seen.get(rolled[2] + 1) if rolled else None}, bit-equal with "
+          f"its parameters {rolled is not None and same}; {wall:.2f} s")
+    if rolled is None or rolled[:2] != (SENTINEL_SPIKE, "rollback") \
+            or not same:
+        fail(f"sentinel: verdict {rolled}, replay {replay}")
+    return {"layers": ANCHOR_LAYERS, "verdict": list(rolled),
+            "replayed_loss": replay, "continuation_bit_equal": same,
+            "losses": list(seen.values()), "s": wall}
+
+
+def launch_worker_train(out, steps=LAUNCH_STEPS):
+    """16d's worker body: GPT at full width and ``ANCHOR_LAYERS`` layers
+    through the engine with an ``AutoCheckpoint`` and a
+    ``PreemptionGuard``, each step's loss appended to
+    ``<out>/losses.txt`` (``float.hex``). A resumed run first notes the
+    phase of this rank's last progress record and the time."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import HybridParallelEngine
+    from paddle_tpu_torch.distributed.checkpoint import (AutoCheckpoint,
+                                                         engine_apply_state,
+                                                         engine_state_dict)
+    from paddle_tpu_torch.fault.preemption import PreemptionGuard
+
+    model = train_model(ANCHOR_LAYERS)
+    cfg = model.config
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.named_parameters())
+    eng = HybridParallelEngine(model, opt, lambda m, i, l: m.loss(i, l))
+    ckpt = AutoCheckpoint(str(out / "ck"), interval_steps=LAUNCH_SAVE_EVERY,
+                          keep_last=2)
+    state = engine_state_dict(eng)
+    start = ckpt.resume(state)
+    if start >= 0:
+        engine_apply_state(eng, state)
+        pdir = os.environ.get("PADDLE_TPU_PROGRESS_DIR")
+        rec = Path(pdir or "") / "rank_0.json"
+        phase = json.loads(rec.read_text()).get("phase") \
+            if pdir and rec.exists() else None
+        (out / "resumed.json").write_text(json.dumps(
+            {"step": start, "phase": phase, "t": time.time()}))
+    with PreemptionGuard(checkpoint=ckpt) as guard:
+        for k in range(max(start, 0) + 1, steps + 1):
+            loss = eng.train_step(*train_batch(cfg, seed=300 + k)).item()
+            with open(out / "losses.txt", "a") as f:
+                f.write(float(loss).hex() + "\n")
+            st = engine_state_dict(eng)
+            ckpt.maybe_save(k, st)
+            if guard.preempted or k == LAUNCH_PREEMPT:
+                (out / "drained.json").write_text(json.dumps(
+                    {"step": k, "t": time.time()}))
+            guard.check(k, st)
+
+
+def launch_worker(out_dir):
+    """``chip_smoke.py --launch-worker <dir>``: the process ``launch``
+    starts in 16d (one a card): joins the NCCL world and trains."""
+    sys.path.insert(0, str(ROOT))
+    from paddle_tpu_torch import distributed as dist
+
+    dist.init_parallel_env()
+    try:
+        launch_worker_train(Path(out_dir))
+    finally:
+        dist.destroy_process_group()
+
+
+def launch_check(d):
+    """16d: ``launch(nproc_per_node=1, elastic=True)`` of this script's
+    worker with ``PADDLE_FAULT_INJECT=preempt.sigterm:step=3``: the worker
+    drains (a ``preempt_drain`` progress record) and exits 75, the
+    launcher relaunches it, it resumes, and its losses equal an
+    uninterrupted run's (here, in this process) bit for bit."""
+    from paddle_tpu_torch.distributed import launch
+
+    ref = d / "uninterrupted"
+    ref.mkdir()
+    launch_worker_train(ref)
+    want = (ref / "losses.txt").read_text().split()
+    torch.cuda.empty_cache()
+    run = d / "launched"
+    run.mkdir()
+    env = {"PADDLE_FAULT_INJECT": f"preempt.sigterm:step={LAUNCH_PREEMPT}"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.monotonic()
+    try:
+        rc = launch(str(Path(__file__).resolve()),
+                    ["--launch-worker", str(run)], nproc_per_node=1,
+                    coordinator_port=free_port(), elastic=True,
+                    log_dir=str(run / "logs"))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.monotonic() - t0
+    got = (run / "losses.txt").read_text().split() \
+        if (run / "losses.txt").exists() else []
+    drained = json.loads((run / "drained.json").read_text()) \
+        if (run / "drained.json").exists() else {}
+    resumed = json.loads((run / "resumed.json").read_text()) \
+        if (run / "resumed.json").exists() else {}
+    relaunch_s = resumed.get("t", 0.0) - drained.get("t", 0.0)
+    same = got == want
+    print(f"  (16d) launch(elastic=True, nproc_per_node=1): rc {rc} in "
+          f"{wall:.2f} s; drained at step {drained.get('step')}, relaunched "
+          f"and resumed step {resumed.get('step')} (last progress phase "
+          f"{resumed.get('phase')!r}) {relaunch_s:.2f} s after the drain; "
+          f"losses {[float.fromhex(x) for x in got]} against the "
+          f"uninterrupted {[float.fromhex(x) for x in want]}: bit-equal "
+          f"{same}")
+    if rc != 0 or not same or resumed.get("step") != LAUNCH_PREEMPT \
+            or resumed.get("phase") != "preempt_drain":
+        fail(f"launch: rc {rc}, losses {got} against {want}, resumed "
+             f"{resumed}")
+    return {"layers": ANCHOR_LAYERS, "rc": rc, "wall_s": wall,
+            "drained_step": drained.get("step"),
+            "resumed_step": resumed.get("step"),
+            "resumed_phase": resumed.get("phase"), "relaunch_s": relaunch_s,
+            "losses": [float.fromhex(x) for x in got],
+            "bit_equal_uninterrupted": same}
+
+
+def auto_parallel_ckpt_phase(ids, labels, l_eng, p_eng):
+    """Phase 16 on phase 13's NCCL group of one rank (after phase 15)."""
+    t0 = time.monotonic()
+    d = Path(tempfile.mkdtemp(prefix="paddle_tpu_torch_phase16_"))
+    try:
+        out, model, eng = auto_parallel_check(ids, labels, l_eng, p_eng)
+        out["checkpoint"] = coordinated_check(model, eng, ids, labels, d)
+        del model, eng
+        torch.cuda.empty_cache()
+        out["sentinel"] = sentinel_check(d)
+        torch.cuda.empty_cache()
+        out["launch"] = launch_check(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out["wall_s"] = time.monotonic() - t0
+    print(f"  phase 16: {out['wall_s']:.1f} s")
+    return out
+
+
 def llama_oom_phase(model, opt, cfg):
     """13c, run at the end of phase 8 on its model and optimizer: Llama-7B
     at b4 x s2048 through the engine meets a real torch.OutOfMemoryError;
@@ -5493,12 +5943,19 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace each engine's decode step and one train "
                          "step on the device")
+    ap.add_argument("--launch-worker", metavar="DIR",
+                    help="run 16d's worker (the process launch starts)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     if not (ROOT / "paddle_tpu_torch" / "ops" / "kernels" / "csrc").is_dir():
         fail(f"paddle_tpu_torch is not beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.launch_worker:
+        launch_worker(args.launch_worker)
+        return 0
     global FLIGHT_DIR
     if os.environ.get("PADDLE_TPU_FLIGHT_DIR"):
         FLIGHT_DIR = Path(os.environ["PADDLE_TPU_FLIGHT_DIR"])
@@ -5506,8 +5963,6 @@ def main(argv=None) -> int:
         FLIGHT_DIR = Path(tempfile.mkdtemp(prefix="paddle_tpu_torch_flight_"))
         atexit.register(shutil.rmtree, FLIGHT_DIR, True)
         os.environ["PADDLE_TPU_FLIGHT_DIR"] = str(FLIGHT_DIR)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.ops import kernels as K
@@ -5602,7 +6057,7 @@ def main(argv=None) -> int:
     print("[13] engine train: gpt3_1p3b through HybridParallelEngine over "
           "NCCL (DataParallel, world 1), HBM admission, the OOM ladder by "
           "injection, the serving drift")
-    engine, fleet = engine_train_phase(llama.pop("oom"))
+    engine, fleet, auto = engine_train_phase(llama.pop("oom"))
     part2 = fleet.pop("part2")
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
@@ -5636,6 +6091,8 @@ def main(argv=None) -> int:
         pipe = part2["pipeline"]["launches"]
         if r["name"] in pipe:  # 15a's timed 1F1B steps
             r["launches_pipeline"] = pipe[r["name"]]
+        if r["name"] in auto["launches"]:  # 16a's timed steps
+            r["launches_auto"] = auto["launches"][r["name"]]
     # the reference's (B*H, T, D) route shape: not on the port's main path
     long_rows = flash_timing(long_errs, dict.fromkeys(FLASH_REPLACES, 0),
                              FLASH_LONG, fused_qkv=False)
@@ -5687,6 +6144,7 @@ def main(argv=None) -> int:
     print(json.dumps({"engine_train": engine}))
     print(json.dumps({"fleet_train": fleet}))
     print(json.dumps({"fleet_part2": {"card": card, **part2}}))
+    print(json.dumps({"auto_parallel_ckpt": {"card": card, **auto}}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

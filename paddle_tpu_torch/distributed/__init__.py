@@ -6,10 +6,17 @@ ladder, the expert all-to-all (``utils``: ``global_scatter``,
 ``global_gather``), and ``fleet``: the hybrid topology (``fleet.init``),
 the tensor-parallel layers over their rank's shards, ZeRO-1/2/3,
 ring/Ulysses sequence parallelism, pipeline parallelism, the MoE layer and
-the DGC and LocalSGD meta-optimizers. ``sharding_api`` and
-``auto_parallel`` come with ROADMAP A11b, part 3; the distributed
-checkpoint, coordination, watchdog and launchers with A11c."""
-from . import collective, fleet, utils
+the DGC and LocalSGD meta-optimizers and ``fleet.elastic``'s heartbeats
+and relaunch. ``sharding_api`` places a tensor over a mesh as this rank's
+shard (``shard_tensor``, ``reshard``) and ``auto_parallel`` searches and
+realises a parameter placement; ``checkpoint`` is the sharded, async and
+coordinated checkpoint with crash-safe resume, ``coord`` the stores
+(``FileStore``, ``TCPStore``) and the two-phase commit barrier,
+``watchdog`` the progress table and collective deadlines, and ``spawn``
+and ``launch`` start and supervise the workers."""
+from . import (auto_parallel, checkpoint, collective, coord, fleet,  # noqa: F401
+               launch_mod, sharding_api, utils, watchdog)
+from .checkpoint import load_state_dict, save_state_dict  # noqa: F401
 from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
                          all_gather_into_tensor, all_reduce, all_to_all,
                          alltoall, alltoall_single, barrier, broadcast,
@@ -22,6 +29,10 @@ from .mesh import (build_mesh, global_mesh, mesh_axis_size,  # noqa: F401
 from .parallel import DataParallel  # noqa: F401
 from .parallel_env import (ParallelEnv, destroy_process_group,  # noqa: F401
                            get_rank, get_world_size, init_parallel_env)
+from .coord import TCPStore  # noqa: F401
+from .launch_mod import launch  # noqa: F401
+from .sharding_api import reshard, shard_op, shard_tensor  # noqa: F401
+from .spawn import spawn  # noqa: F401
 
 
 def get_backend():
@@ -44,4 +55,7 @@ __all__ = ["collective", "fleet", "utils", "get_rank", "get_world_size",
            "all_gather_into_tensor", "reduce", "reduce_scatter", "broadcast",
            "scatter", "all_to_all", "alltoall", "alltoall_single", "send",
            "recv", "isend", "irecv", "barrier", "wait", "get_backend",
-           "is_initialized"]
+           "is_initialized", "auto_parallel", "checkpoint", "coord",
+           "launch_mod", "sharding_api", "watchdog", "spawn", "launch",
+           "TCPStore", "save_state_dict", "load_state_dict", "shard_tensor",
+           "shard_op", "reshard"]

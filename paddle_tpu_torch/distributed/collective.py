@@ -37,9 +37,19 @@ i + 1, and the backward shifts the gradient the other way),
 backward is the reverse exchange) and ``_all_gather_tiled`` (the tiled
 ``lax.all_gather``, whose backward is the reduce-scatter of the sum). The
 public eager ``send``/``recv`` keep raising.
+
+``record()`` logs every collective launched inside its block, with its
+kind (the reference's HLO names: ``all-reduce``, ``all-gather``,
+``reduce-scatter``, ``all-to-all``, ``collective-permute``; else the torch
+name) and the bytes it produces; auto-parallel's plan cost reads it in
+place of the reference's parse of compiled HLO. ``barrier`` and ``wait``
+run under the watchdog's ``guard`` (``FLAGS_collective_timeout_s``; a
+flag probe when it is 0); on the card a guarded ``wait`` synchronizes the
+tensor's stream inside the guard.
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import Optional
 
@@ -55,7 +65,7 @@ __all__ = [
     "quantized_psum_scatter_mean", "quantized_all_reduce_mean",
     "_c_identity", "_mp_allreduce", "_c_split", "_c_concat",
     "_c_softmax_with_cross_entropy", "_ring_shift", "_all_to_all_tiled",
-    "_all_gather_tiled",
+    "_all_gather_tiled", "record",
 ]
 
 
@@ -378,16 +388,86 @@ def irecv(tensor, src=0, group=None):
 
 
 def barrier(group=None):
+    from . import watchdog
+
     pg, _ = _resolve(group, "barrier")
     if pg is not None:
-        dist.barrier(group=pg)
+        with watchdog.guard("barrier"):
+            dist.barrier(group=pg)
 
 
 def wait(tensor, group=None, use_calc_stream=True):
     """Block the host until ``tensor``'s pending work on its card is done
-    (the reference's ``block_until_ready``)."""
+    (the reference's ``block_until_ready``), under the watchdog's
+    deadline."""
+    from . import watchdog
+
     if isinstance(tensor, torch.Tensor) and tensor.is_cuda:
-        torch.cuda.current_stream(tensor.device).synchronize()
+        with watchdog.guard("wait"):
+            torch.cuda.current_stream(tensor.device).synchronize()
+
+
+# -- the record of launched collectives (auto-parallel's plan cost) ----------
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+
+
+def _first(a, k):
+    return a[0] if a else next(iter(k.values()), None)
+
+
+def _out_list(a, k):
+    return sum(_nbytes(t) for t in (_first(a, k) or ()))
+
+
+def _p2p_recv(a, k):
+    return sum(_nbytes(op.tensor) for op in (_first(a, k) or ())
+               if getattr(op.op, "__name__", "") == "irecv")
+
+
+# torch.distributed function -> (kind, bytes it produces)
+_RECORDED = {
+    "all_reduce": ("all-reduce", lambda a, k: _nbytes(_first(a, k))),
+    "all_gather": ("all-gather", _out_list),
+    "all_gather_into_tensor": ("all-gather",
+                               lambda a, k: _nbytes(_first(a, k))),
+    "reduce_scatter": ("reduce-scatter", lambda a, k: _nbytes(_first(a, k))),
+    "reduce_scatter_tensor": ("reduce-scatter",
+                              lambda a, k: _nbytes(_first(a, k))),
+    "all_to_all": ("all-to-all", _out_list),
+    "all_to_all_single": ("all-to-all", lambda a, k: _nbytes(_first(a, k))),
+    "batch_isend_irecv": ("collective-permute", _p2p_recv),
+    "broadcast": ("broadcast", lambda a, k: _nbytes(_first(a, k))),
+    "reduce": ("reduce", lambda a, k: _nbytes(_first(a, k))),
+    "scatter": ("scatter", lambda a, k: _nbytes(_first(a, k))),
+}
+
+
+@contextlib.contextmanager
+def record():
+    """Log ``(kind, bytes)`` for every collective launched in the block,
+    wherever it is called from (the port's modules call ``torch.distributed``
+    through its module attributes, which the block wraps). Yields the list;
+    not for concurrent use from two threads."""
+    log = []
+    saved = {}
+
+    def wrap(fn, kind, size):
+        def recorded(*a, **k):
+            log.append((kind, int(size(a, k))))
+            return fn(*a, **k)
+        return recorded
+
+    for name, (kind, size) in _RECORDED.items():
+        fn = getattr(dist, name, None)
+        if fn is not None:
+            saved[name] = fn
+            setattr(dist, name, wrap(fn, kind, size))
+    try:
+        yield log
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
 
 
 def split(x, num_partitions, axis=0, group=None):

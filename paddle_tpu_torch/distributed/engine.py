@@ -294,22 +294,69 @@ class HybridParallelEngine:
         return b if isinstance(b, torch.Tensor) \
             else torch.as_tensor(np.asarray(b), device=self._device)
 
+    def batch_layout(self, i, t):
+        """Input ``i``'s layout over the mesh: ``batch_specs[i]`` when
+        given, else dim 0 over the batch axes (``dp_axes``) and, under
+        sequence parallelism, dim 1 over ``sp`` (the reference's
+        ``_batch_sharding`` with the port's sequence cut)."""
+        from .sharding_api import NamedSharding, PartitionSpec
+
+        if self.batch_specs is not None and i is not None \
+                and i < len(self.batch_specs) \
+                and self.batch_specs[i] is not None:
+            return NamedSharding(self.mesh, PartitionSpec(
+                *self.batch_specs[i]))
+        axes = tuple(a for a in self.dp_axes if a in self.mesh.axis_names
+                     and self.mesh.shape[a] > 1)
+        spec = [axes or None] + [None] * (t.dim() - 1)
+        if self.sp > 1 and t.dim() >= 2:
+            spec[1] = "sp"
+        return NamedSharding(self.mesh, PartitionSpec(*spec))
+
     def prefetch(self, data, buffer_size=2):
-        """``data`` through a ``DevicePrefetcher`` onto this engine's card:
-        batch k+1 is copied while step k runs."""
+        """``data`` (global batches) through a ``DevicePrefetcher`` onto
+        this engine's card, each input cut to this rank's part by
+        :meth:`batch_layout` before its copy: batch k+1 is copied while
+        step k runs, and ``train_step`` does not cut it again."""
         from ..io import DevicePrefetcher
 
         return DevicePrefetcher(data, buffer_size=buffer_size,
-                                device=self._device)
+                                device=self._device,
+                                sharding=self.batch_layout)
 
     # -- the step ------------------------------------------------------------
     def train_step(self, *batch):
+        from . import watchdog
+
+        # progress for the distributed watchdog: a peer that stops stepping
+        # is attributable from the table (two attribute checks without a
+        # supervision session)
+        watchdog.publish(step=self.optimizer._step_count, phase="train_step")
         with profiler.span("train_step", kind="engine") as sp:
             return self._train_step_impl(sp, *batch)
 
+    def trial_step(self, *batch):
+        """One forward and backward with the gradient sync, and no update
+        (the step auto-parallel's plan search measures); the gradients are
+        dropped after it. Returns the loss."""
+        batch = self._shard_batch(batch)
+        opt = self.optimizer
+        opt.clear_grad(set_to_zero=False)
+        with mean_over(self._mean_group):
+            loss = self.loss_fn(self.model, *batch)
+        loss.backward()
+        if self._wus is None and self._dp_model is not None:
+            self._dp_model.apply_collective_grads()
+        opt.clear_grad(set_to_zero=False)
+        return loss.detach()
+
     def _shard_batch(self, batch):
         """The batch as tensors on this engine's card, cut to this rank's
-        T/sp tokens under sequence parallelism."""
+        T/sp tokens under sequence parallelism (a batch from
+        :meth:`prefetch` is cut already: its tensors carry their
+        ``placement``)."""
+        if any(getattr(b, "placement", None) is not None for b in batch):
+            return [self._as_tensor(b) for b in batch]
         batch = [self._as_tensor(b) for b in batch]
         if self._sp_group is None:
             return batch

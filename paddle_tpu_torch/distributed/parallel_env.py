@@ -7,14 +7,20 @@
 runs ``torch.distributed.init_process_group``: NCCL on the card, gloo with
 ``device="cpu"``. The rendezvous is ``tcp://`` at the first endpoint. A
 world of one still makes a group (on a free local port when no endpoint is
-given), so the card launches the collectives on the one-rank path too. The
-reference starts ``jax.distributed`` and its watchdog and elastic
-heartbeat; those come with ROADMAP A11c.
+given), so the card launches the collectives on the one-rank path too.
+It then binds the distributed watchdog's session (rank and world from the
+launcher's variables, the progress directory and store when the launcher
+provides them), and under ``launch(elastic=True)``
+(``PADDLE_ELASTIC_STORE``, ``PADDLE_ELASTIC_WORKER_ID``) registers this
+worker's heartbeat on the elastic store; a registration that fails warns
+(rate-limited) and counts ``heartbeat_failures``, and training goes on.
 """
 from __future__ import annotations
 
 import os
 import socket
+import time
+import warnings
 from datetime import timedelta
 
 import torch
@@ -25,6 +31,26 @@ __all__ = ["init_parallel_env", "get_rank", "get_world_size", "ParallelEnv",
 
 _init_done = False
 _device = None  # the device the group's collectives run on
+_heartbeat = None  # this worker's ElasticManager under launch(elastic=True)
+_last_hb_warn = 0.0
+_HB_WARN_INTERVAL_S = 60.0
+
+
+def _warn_heartbeat_failure(e: Exception) -> None:
+    """A failed heartbeat registration made visible: the elastic watcher
+    will see this worker as dead while it trains, so warn (rate-limited)
+    and count ``heartbeat_failures`` instead of passing silently."""
+    global _last_hb_warn
+    from .. import profiler
+
+    profiler.counter_inc("heartbeat_failures")
+    now = time.monotonic()
+    if now - _last_hb_warn >= _HB_WARN_INTERVAL_S:
+        _last_hb_warn = now
+        warnings.warn(
+            f"elastic heartbeat registration failed ({e!r}); training "
+            "proceeds but the elastic watcher cannot see this worker — it "
+            "may be declared dead and the job relaunched", RuntimeWarning)
 
 
 def _initialized() -> bool:
@@ -40,13 +66,15 @@ def _free_port() -> int:
 def init_parallel_env(device=None, timeout_s: float = 300.0):
     """Join the job's process group and return a :class:`ParallelEnv`.
     ``device`` defaults to ``get_device()`` (the card unless the CPU was
-    asked for): NCCL on ``cuda``, gloo on ``cpu``. A second call returns
-    at once."""
+    asked for, here or by the launcher's ``PADDLE_DISTRI_BACKEND=gloo``):
+    NCCL on ``cuda``, gloo on ``cpu``. A second call returns at once."""
     global _init_done, _device
     if _init_done:
         return ParallelEnv()
     from ..core.place import resolve_device
 
+    if device is None and os.environ.get("PADDLE_DISTRI_BACKEND") == "gloo":
+        device = "cpu"
     dev = resolve_device(device)
     n = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
     rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
@@ -69,18 +97,44 @@ def init_parallel_env(device=None, timeout_s: float = 300.0):
             init_method=f"tcp://{host or '127.0.0.1'}:{port}",
             world_size=n, rank=rank, timeout=timedelta(seconds=timeout_s))
     _device = dev
+    from . import watchdog
+
+    watchdog.configure(rank=rank, world_size=n)
+    _register_heartbeat(n)
     _init_done = True
     return ParallelEnv()
+
+
+def _register_heartbeat(n: int) -> None:
+    """Under ``launch(elastic=True)``: this worker's heartbeat on the
+    elastic store (advisory: a failure warns and training goes on)."""
+    global _heartbeat
+    est = os.environ.get("PADDLE_ELASTIC_STORE")
+    wid = os.environ.get("PADDLE_ELASTIC_WORKER_ID")
+    if not (est and wid):
+        return
+    try:
+        from .coord import TCPStore
+        from .fleet.elastic import ElasticManager
+
+        host, _, port = est.rpartition(":")
+        store = TCPStore(host=host, port=int(port), is_master=False)
+        _heartbeat = ElasticManager(store, n, worker_id=wid).register()
+    except Exception as e:
+        _warn_heartbeat_failure(e)
 
 
 def destroy_process_group() -> None:
     """Leave the process group ``init_parallel_env`` joined; the process is
     then a world of one again, and ``fleet``'s topology (whose groups died
     with it) is forgotten."""
-    global _init_done, _device
+    global _init_done, _device, _heartbeat
     from . import collective
     from .fleet.base import fleet_base
 
+    if _heartbeat is not None:
+        _heartbeat.deregister()
+        _heartbeat = None
     if dist.is_initialized():
         dist.destroy_process_group()
     collective._reset()

@@ -27,6 +27,7 @@ Keys (all optional; values are ints except ``op``):
   the point fires at a scheduler step.
 * ``scale=N`` — ``loss.spike``/``grad.spike`` payload: the multiplier
   (default 1000); ``nonfinite=1`` makes it ``inf``.
+* ``exit=N``  — ``rank.kill`` payload: the exit code (default 137).
 
 The serving points are consulted by the engine's scheduler thread at every
 step boundary; ``serve.snapshot_corrupt`` fires inside ``Engine.snapshot``
@@ -36,7 +37,12 @@ device out-of-memory error at a named site (:func:`maybe_hbm_oom`; ``op=``
 selects the site, ``serve.step`` for the engine). ``preempt.sigterm``
 raises SIGTERM inside ``PreemptionGuard.check`` at ``step=K``;
 ``loss.spike``/``grad.spike`` are read at the train step boundary through
-:func:`spike` (``StabilitySentinel.maybe_spike``).
+:func:`spike` (``StabilitySentinel.maybe_spike``). The failure-type points
+``store.op``, ``ckpt.write``, ``ckpt.serialize``, ``ckpt.ack`` and
+``ckpt.commit`` raise :class:`InjectedFault` through :func:`check`; the
+chaos points ``rank.kill``/``rank.hang``/``rank.slow`` act in
+``watchdog.publish`` (:func:`chaos`) and ``collective.drop`` in
+``watchdog.guard`` (:func:`chaos_drop`).
 """
 from __future__ import annotations
 
@@ -67,6 +73,18 @@ POINTS: Dict[str, str] = {
                    "(scale=/nonfinite= payload)"),
     "grad.spike": ("train step boundary — scale the step's gradients "
                    "(scale=/nonfinite= payload)"),
+    "store.op": "store operations in fleet/elastic (set/get/add)",
+    "ckpt.write": "distributed/checkpoint.py save_state_dict write path",
+    "ckpt.serialize": "coordinated save — crash during state serialization",
+    "ckpt.ack": "coordinated save — crash after durable write, before the ack",
+    "ckpt.commit": ("coordinated save — crash between full acks and the "
+                    "commit record"),
+    "rank.kill": ("watchdog.publish — hard-kill this rank (os._exit, "
+                  "default 137)"),
+    "rank.hang": "watchdog.publish — wedge this rank in a sleep loop forever",
+    "rank.slow": "watchdog.publish — straggler delay (ms=N, default 1000)",
+    "collective.drop": ("watchdog.guard enter — this rank never joins the "
+                        "collective"),
 }
 
 
@@ -214,6 +232,37 @@ def _hang(point: str) -> None:
     _sys.stderr.flush()
     while True:
         _time.sleep(3600)
+
+
+def chaos(step: Optional[int] = None, rank: Optional[int] = None,
+          phase: Optional[str] = None) -> None:
+    """The ``rank.*`` chaos points (``watchdog.publish``): ``rank.slow``
+    sleeps ``ms=`` (default 1000), ``rank.hang`` wedges forever,
+    ``rank.kill`` exits at once with ``exit=`` (default 137, not
+    resumable: the launcher sees a real failure)."""
+    import time as _time
+
+    if not _armed:
+        return
+    if should_fire("rank.slow", step=step, rank=rank):
+        _time.sleep(point_cfg("rank.slow").get("ms", 1000) / 1000.0)
+    if should_fire("rank.hang", step=step, rank=rank):
+        _hang("rank.hang")
+    if should_fire("rank.kill", step=step, rank=rank):
+        import sys as _sys
+
+        code = point_cfg("rank.kill").get("exit", 137)
+        _sys.stderr.write("paddle_tpu_torch.fault.inject: 'rank.kill' fired "
+                          f"— exit {code}\n")
+        _sys.stderr.flush()
+        os._exit(code)
+
+
+def chaos_drop(rank: Optional[int] = None, step: Optional[int] = None) -> None:
+    """``collective.drop``: wedge this rank right before it would enter a
+    guarded collective, so its peers wait until their watchdog deadline."""
+    if _armed and should_fire("collective.drop", step=step, rank=rank):
+        _hang("collective.drop")
 
 
 def exercised() -> set:

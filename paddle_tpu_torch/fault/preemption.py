@@ -35,9 +35,9 @@ class PreemptionGuard:
                 guard.check(step, state)   # drains and exits if preempted
 
     ``checkpoint`` is any object with ``save_now(step, state, sync=True)``
-    (the reference's ``AutoCheckpoint`` comes with ROADMAP A11c). All real
-    work happens in ``check()``, at a step boundary where the state is
-    consistent.
+    (``distributed.checkpoint.AutoCheckpoint`` or
+    ``CoordinatedCheckpoint``). All real work happens in ``check()``, at a
+    step boundary where the state is consistent.
     """
 
     def __init__(self, checkpoint=None, signals=(signal.SIGTERM, signal.SIGINT),
@@ -114,11 +114,18 @@ class PreemptionGuard:
         return True  # only reached when exit_fn returns (tests)
 
     def drain(self, step: Optional[int] = None, state_dict=None) -> None:
-        """Wait for the card's queued work, write a flight-recorder dump (the
-        preempted worker's last spans and counters survive the exit), and
-        force a final synchronous checkpoint. The reference also publishes
-        a ``preempt_drain`` progress record to its distributed watchdog,
-        which comes with ROADMAP A11c."""
+        """Publish a ``preempt_drain`` progress record to the distributed
+        watchdog (peers and the launcher's report see this rank leave
+        through a drain, not silently stop stepping), wait for the card's
+        queued work, write a flight-recorder dump (the preempted worker's
+        last spans and counters survive the exit), and force a final
+        synchronous checkpoint."""
+        try:
+            from ..distributed import watchdog
+
+            watchdog.publish(step=step, phase="preempt_drain", force=True)
+        except Exception:
+            pass
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
         _counter("preemption_drains")

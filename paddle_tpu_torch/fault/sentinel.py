@@ -26,12 +26,16 @@ judges the step before the caller applies its update, and the skip rung is
 always possible. ``committed=True`` (an update that was already applied)
 still defers the judgment to the next ``observe``/``poll``, which can only
 roll back. ``rollback`` works against any anchor with ``resume(state,
-max_step)``, ``invalidate``, ``protect`` and ``release``; the reference's
-``AutoCheckpoint`` anchor of ``from_flags``, the cross-rank
-``VerdictBarrier`` and the engine hook (``for_engine``) come with ROADMAP
-A11c, and the ``hapi.Model.fit`` hook with A12.
-``distributed.HybridParallelEngine.attach_sentinel`` feeds it each step's
-loss as a committed observation.
+max_step)``, ``invalidate``, ``protect`` and ``release``:
+``distributed.checkpoint.AutoCheckpoint`` (which ``from_flags`` builds in
+``FLAGS_stability_ckpt_dir``) or ``CoordinatedCheckpoint``.
+:class:`VerdictBarrier` gives every rank the world's most severe verdict
+through ``coord.CommitBarrier`` rounds, and ``for_engine`` wires a
+sentinel to a ``distributed.HybridParallelEngine``: its anchors hold
+``engine_state_dict`` and a rollback restores through
+``engine_apply_state``, while ``attach_sentinel`` feeds it each step's loss
+as a committed observation. The ``hapi.Model.fit`` hook comes with
+ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ import torch
 
 __all__ = [
     "SIGNALS", "StabilityError", "StabilityVerdict", "QuarantineLog",
-    "StabilitySentinel", "last_signals",
+    "StabilitySentinel", "VerdictBarrier", "last_signals",
 ]
 
 SIGNALS = ("loss", "grad_norm", "nonfinite", "upd_ratio")
@@ -167,6 +171,115 @@ class QuarantineLog:
 
 
 # -- device-side signal pack --------------------------------------------------
+_SEVERITY = {"skip": 1, "rollback": 2, "halt": 3}
+
+
+class VerdictBarrier:
+    """Store-mediated cross-rank verdict agreement.
+
+    With all-reduced gradients a spike trips every rank's detector in the
+    same step, so coordinated rollback falls out of determinism. A
+    rank-LOCAL anomaly — host memory corrupting one rank's batch, a bad
+    DataLoader worker — trips ONE detector, and without coordination that
+    rank rolls back alone while its peers march on: the world diverges.
+    This barrier reuses :class:`~paddle_tpu_torch.distributed.coord.CommitBarrier`
+    rounds so every rank leaves each step boundary with the SAME verdict:
+
+    1. each rank publishes its local verdict (if any) for the round, then
+       acks the round's two-phase barrier — after rank 0's commit record no
+       rank can still be writing;
+    2. every rank reads every peer's verdict and adopts the most severe one
+       posted anywhere (ties broken by z-score, then rank);
+    3. ranks whose own detector stayed silent fold the adopted verdict into
+       their sentinel (:meth:`StabilitySentinel.adopt`): same quarantine
+       entry, same ladder rung — the subsequent ``rollback`` then resolves
+       one anchor world-wide through the existing store-mediated resume
+       agreement.
+
+    ``exchange`` must be called once per step attempt on EVERY rank, in
+    lockstep (rounds are monotonic and never reused, so no ``reset`` litter
+    race exists). A barrier timeout degrades to the local verdict — a dead
+    peer is the watchdog's jurisdiction, and stalling recovery on it would
+    hang the healthy ranks.
+    """
+
+    def __init__(self, store, world_size: int, rank: int, sentinel=None,
+                 prefix: str = "stability", timeout_s: float = 60.0):
+        from ..distributed.coord import CommitBarrier
+
+        self.store = store
+        self.world_size = int(world_size)
+        self.rank = int(rank)
+        self.prefix = prefix
+        self.timeout_s = float(timeout_s)
+        self._bar = CommitBarrier(store, world_size, rank,
+                                  prefix=f"{prefix}/bar")
+        self._sentinel = weakref.ref(sentinel) if sentinel is not None else None
+        self._round = 0
+
+    def exchange(self, verdict: Optional[StabilityVerdict]
+                 ) -> Optional[StabilityVerdict]:
+        """One coordination round: publish this rank's ``verdict`` (or
+        None), synchronize, return the world-agreed verdict (or None)."""
+        from .. import profiler as _prof
+
+        tag = self._round
+        self._round += 1
+        if verdict is not None:
+            self.store.set(
+                f"{self.prefix}/v/{tag}/r{self.rank}",
+                json.dumps(verdict.to_dict()),
+            )
+        try:
+            self._bar.ack(tag)
+            self._bar.commit(tag, self.timeout_s)
+        except Exception:
+            _prof.counter_inc("stability_barrier_timeouts")
+            return verdict
+        # bounded store footprint: round N's commit proves every rank left
+        # round N-1 long ago, so its barrier keys and this rank's verdict
+        # key can go — one live round instead of one key pair per step
+        if tag:
+            self._bar.reset(tag - 1)
+            self.store.delete_key(f"{self.prefix}/v/{tag - 1}/r{self.rank}")
+        # most severe verdict posted anywhere, ties broken by z-score then
+        # LOWEST rank — the full key is identical on every rank, so equal
+        # (severity, z) verdicts (e.g. two rank-local nonfinite trips, both
+        # z=inf) still resolve to ONE world-wide choice
+        cands = [(self.rank, verdict)] if verdict is not None else []
+        for r in range(self.world_size):
+            if r == self.rank:
+                continue
+            raw = self.store.get(f"{self.prefix}/v/{tag}/r{r}")
+            if not raw:
+                continue
+            d = json.loads(raw)
+            cands.append((r, StabilityVerdict(
+                d["action"], d["step"],
+                tuple(d["pos"]) if d.get("pos") else None,
+                d["signal"], d["value"], d["zscore"], True,
+                d.get("signals") or {}, origin_rank=r,
+            )))
+        if not cands:
+            return None
+        _, best = max(
+            cands,
+            key=lambda rv: (_SEVERITY.get(rv[1].action, 0), rv[1].zscore, -rv[0]),
+        )
+        if best.origin_rank is not None and verdict is None:
+            # a remote detector tripped and the LOCAL one stayed silent:
+            # fold the verdict into the local sentinel so quarantine +
+            # ladder state stay world-consistent. A rank whose own verdict
+            # was merely OUTRANKED already consumed its rung (and
+            # quarantined the same world-shared batch) in _judge — adopting
+            # on top would double-count the incident budget and desync the
+            # ladders across ranks.
+            s = self._sentinel() if self._sentinel is not None else None
+            if s is not None:
+                s.adopt(best)
+        return best
+
+
 def _pack(loss, lr, grads, params) -> torch.Tensor:
     """``[loss, grad_norm, probe, upd_ratio]`` as one float32 device tensor.
     ``probe`` is 1 when the gradient norm is not finite (the exact
@@ -364,19 +477,47 @@ class StabilitySentinel:
 
     @classmethod
     def from_flags(cls, anchor=None, **kw) -> "StabilitySentinel":
-        """Built from the ``FLAGS_stability_*`` registry. An anchor directory
-        in ``FLAGS_stability_ckpt_dir`` names the reference's
-        ``AutoCheckpoint``, which comes with ROADMAP A11c: pass an ``anchor``
-        instead."""
+        """Built from the ``FLAGS_stability_*`` registry; an anchor
+        directory in ``FLAGS_stability_ckpt_dir`` gives the rollback
+        checkpoint (an ``AutoCheckpoint`` saving every
+        ``FLAGS_stability_anchor_interval`` steps, keeping 2)."""
         from ..framework import flags as _flags
 
-        if anchor is None and (_flags.flag("FLAGS_stability_ckpt_dir", "")
-                               or ""):
-            raise NotImplementedError(
-                "StabilitySentinel.from_flags: FLAGS_stability_ckpt_dir "
-                "names an AutoCheckpoint anchor, which is not ported yet: "
-                "ROADMAP A11c (distributed/checkpoint.py); pass anchor=")
+        if anchor is None:
+            d = _flags.flag("FLAGS_stability_ckpt_dir", "") or ""
+            if d:
+                from ..distributed.checkpoint import AutoCheckpoint
+
+                anchor = AutoCheckpoint(
+                    d, interval_steps=int(_flags.flag(
+                        "FLAGS_stability_anchor_interval")),
+                    keep_last=2)
         return cls(anchor=anchor, **kw)
+
+    @classmethod
+    def for_engine(cls, engine, anchor, extras: Optional[dict] = None, **kw
+                   ) -> "StabilitySentinel":
+        """A sentinel wired to a ``HybridParallelEngine``: its anchors hold
+        the engine's parameters and optimizer state (``engine_state_dict``,
+        which syncs the sharded update's moments back first), a rollback
+        restores them through ``engine_apply_state`` (the sharded update
+        then repacks from the restored moments), and the engine feeds it
+        each step (``attach_sentinel``). ``extras`` (a loader, an RNG
+        state, ...) join the checkpoint tree."""
+        from ..distributed.checkpoint import (engine_apply_state,
+                                              engine_state_dict)
+
+        extras = dict(extras or {})
+
+        def state_fn():
+            st = engine_state_dict(engine)
+            st.update(extras)
+            return st
+
+        s = cls(anchor=anchor, state_fn=state_fn,
+                post_restore=lambda st: engine_apply_state(engine, st), **kw)
+        engine.attach_sentinel(s)
+        return s
 
     # -- per-step entry points --------------------------------------------
     def observe(self, step: int, loss=None, grads: Sequence = (),

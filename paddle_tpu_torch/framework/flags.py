@@ -2,8 +2,9 @@
 its supervisor read, ``FLAGS_profile_memory``, the kernel registry's
 ``FLAGS_kernel_*``, the nan/inf scan's ``FLAGS_check_nan_inf*``, the
 stability sentinel's ``FLAGS_stability_*``, the HBM admission's
-``FLAGS_hbm_*`` and data parallelism's bucket, quantization and ZeRO
-switches).
+``FLAGS_hbm_*``, data parallelism's bucket, quantization and ZeRO
+switches, the watchdog's ``FLAGS_collective_timeout_s`` and the
+checkpoint's ``FLAGS_ckpt_verify_on_load``).
 
 Same names, defaults and ``FLAGS_*`` environment pickup as the reference's
 ``paddle_tpu/framework/flags.py``; ``set_flags`` rejects unknown names with a
@@ -16,6 +17,12 @@ import os
 from typing import Dict
 
 _FLAGS: Dict[str, object] = {
+    # Distributed supervision: the deadline of every guarded collective,
+    # barrier and host sync (distributed/watchdog.py; 0 disables it: no
+    # thread, no sync), and whether a checkpoint load recomputes its
+    # leaves' CRCs against the manifest (distributed/checkpoint.py).
+    "FLAGS_collective_timeout_s": 0.0,
+    "FLAGS_ckpt_verify_on_load": True,
     # The nan/inf scan (core/dispatch.py): while FLAGS_check_nan_inf is set,
     # every floating output of every op is checked and the first non-finite
     # one raises FloatingPointError. FLAGS_check_nan_inf_per_op is accepted;
@@ -104,8 +111,8 @@ _FLAGS: Dict[str, object] = {
     # update/param ratio, non-finite rate) with a skip -> rollback -> halt
     # ladder and batch quarantine. window/warmup/zmax parameterize the
     # statistics; max_skips/max_rollbacks/cooldown shape the ladder;
-    # anchor_interval + ckpt_dir configure the rollback anchor (its
-    # AutoCheckpoint comes with ROADMAP A11c); quarantine_dir (when set)
+    # anchor_interval + ckpt_dir configure the rollback anchor (an
+    # AutoCheckpoint in that directory); quarantine_dir (when set)
     # persists the quarantine log as JSONL. FLAGS_stability_enable is the
     # reference's hapi.Model.fit switch (hapi comes with ROADMAP A12).
     "FLAGS_stability_enable": False,

@@ -536,8 +536,13 @@ class DevicePrefetcher:
     that reads it is done. On the CPU the copies are no-ops.
 
     ``device`` defaults to ``get_device()`` (the card unless the CPU was
-    asked for). ``sharding`` lays batches out for a mesh: it has no
-    counterpart on one card a process and must be None (ROADMAP A11c).
+    asked for). ``sharding`` lays batches out over a mesh: a layout
+    (``distributed.sharding_api.NamedSharding``, or a ``PartitionSpec``
+    over the global mesh) for every leaf, or a callable ``(leaf_index,
+    tensor) -> layout`` (``HybridParallelEngine.prefetch`` passes its
+    ``batch_layout``); each leaf is cut to this rank's slice **before** its
+    host-to-device copy, and the copy carries the layout (``placement``,
+    ``mesh``, ``logical_shape``), so the engine does not cut it again.
 
     Order is kept; a worker exception is raised again at the consumer's
     ``next()``; ``close()`` (also on exhaustion and from ``__del__``) stops
@@ -548,10 +553,15 @@ class DevicePrefetcher:
     _DONE = object()
 
     def __init__(self, it, buffer_size=2, sharding=None, device=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DevicePrefetcher(sharding=...): batch sharding over a mesh "
-                "is not ported yet: ROADMAP A11c (distributed); pass None")
+        from ..distributed.sharding_api import NamedSharding, PartitionSpec
+
+        if sharding is not None and not callable(sharding) \
+                and not isinstance(sharding, (NamedSharding, PartitionSpec)):
+            raise TypeError(
+                "DevicePrefetcher(sharding=...): a NamedSharding, a "
+                "PartitionSpec or a callable (leaf_index, tensor) -> layout, "
+                f"got {type(sharding).__name__}")
+        self._sharding = sharding
         self._device = place_mod.resolve_device(device)
         self._stream = (torch.cuda.Stream(self._device)
                         if self._device.type == "cuda" else None)
@@ -583,26 +593,52 @@ class DevicePrefetcher:
         self._thread.start()
 
     # -- producer ----------------------------------------------------------
-    def _transfer(self, obj, moved):
+    def _layout(self, i, t):
+        from ..distributed.sharding_api import NamedSharding, PartitionSpec
+
+        lay = self._sharding(i, t) if callable(self._sharding) \
+            else self._sharding
+        if isinstance(lay, PartitionSpec):
+            from ..distributed.mesh import global_mesh
+
+            lay = NamedSharding(global_mesh(), lay)
+        return lay
+
+    def _transfer(self, obj, moved, i=None):
         """Every tensor leaf copied to the device (``moved`` collects the
-        copies); numpy leaves become tensors first."""
+        copies), cut to this rank's slice first under a layout; numpy
+        leaves become tensors first. ``i`` is the leaf's top-level position
+        (nested leaves take their container's)."""
         if isinstance(obj, np.ndarray):
             obj = torch.from_numpy(obj)
         if isinstance(obj, torch.Tensor):
+            lay = self._layout(i, obj) if self._sharding is not None else None
+            if lay is not None:
+                cut = lay.shard(obj)
+                tag = (cut.placement, lay.mesh, cut.logical_shape)
+                obj = cut.contiguous()
             if self._stream is None:
-                return obj.to(self._device)
-            if obj.device.type == "cpu" and not obj.is_pinned():
-                obj = obj.pin_memory()
-            out = obj.to(self._device, non_blocking=True)
-            moved.append(out)
+                out = obj.to(self._device)
+            else:
+                if obj.device.type == "cpu" and not obj.is_pinned():
+                    obj = obj.pin_memory()
+                out = obj.to(self._device, non_blocking=True)
+                moved.append(out)
+            if lay is not None:
+                from ..distributed.sharding_api import _tag
+
+                if out is obj:  # already there: tag a view, not the source
+                    out = out.view(out.shape)
+                _tag(out, *tag)
             return out
         if isinstance(obj, (list, tuple)):
-            staged = [self._transfer(o, moved) for o in obj]
+            staged = [self._transfer(o, moved, idx if i is None else i)
+                      for idx, o in enumerate(obj)]
             if hasattr(obj, "_fields"):  # namedtuples need star-args
                 return type(obj)(*staged)
             return type(obj)(staged)
         if isinstance(obj, dict):
-            return {k: self._transfer(v, moved) for k, v in obj.items()}
+            return {k: self._transfer(v, moved, i) for k, v in obj.items()}
         return obj
 
     def _stage(self, batch):

@@ -43,11 +43,27 @@ from .registry import launch_config
 
 __all__ = ["flash_attention_array", "flash_attention_plain",
            "flash_attention_bwd_plain", "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
-           "launches"]
+           "launches", "flops"]
 
 # kernel launches per kernel since the last reset (plain calls excluded)
 launches = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
             "flash_attention_dkv": 0}
+# the matmul FLOPs of those launches (2 * M * N * K a product, the causal
+# half): the hand-written kernels' work, which torch's FlopCounterMode
+# cannot see (auto_parallel's plan cost adds it)
+flops = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
+         "flash_attention_dkv": 0}
+# products of T x T_kv x D a launch computes: QK^T and PV; S again, dP and
+# dQ; S again, dP, dV and dK
+_PRODUCTS = {"flash_attention_fwd": 2, "flash_attention_dq": 3,
+             "flash_attention_dkv": 4}
+
+
+def _count(name, q, k, causal):
+    B, T, H, D = q.shape
+    f = 2 * _PRODUCTS[name] * B * H * T * k.shape[1] * D
+    launches[name] += 1
+    flops[name] += f // 2 if causal else f
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -186,7 +202,7 @@ def flash_attention_fwd(q, k, v, causal=False):
                               v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                               strides, *_dims(q, k, causal))
     _build.check(rc, lib, "flash_attention_fwd")
-    launches["flash_attention_fwd"] += 1
+    _count("flash_attention_fwd", q, k, causal)
     return o, lse
 
 
@@ -220,7 +236,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal=False):
                              delta.data_ptr(), dq.data_ptr(), strides,
                              *_dims(q, k, causal))
     _build.check(rc, lib, "flash_attention_dq")
-    launches["flash_attention_dq"] += 1
+    _count("flash_attention_dq", q, k, causal)
     return dq
 
 
@@ -238,7 +254,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False):
                               delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                               strides, *_dims(q, k, causal))
     _build.check(rc, lib, "flash_attention_dkv")
-    launches["flash_attention_dkv"] += 1
+    _count("flash_attention_dkv", q, k, causal)
     return dk, dv
 
 

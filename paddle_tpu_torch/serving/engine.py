@@ -621,6 +621,9 @@ class Engine:
         # set by ServingSupervisor: a supervised crash leaves the scheduler
         # state for the supervisor to harvest instead of failing every handle
         self._supervised = False
+        # the distributed watchdog module when a ServingSupervisor runs this
+        # engine: its scheduler publishes serve.step unit records
+        self._watchdog = None
         self._failed = threading.Event()
         self._provider = f"paddle_tpu_torch_serving_{next(_engine_ids)}"
         # the flight registry holds the engine only through a weakref: an
@@ -853,6 +856,11 @@ class Engine:
             self._endpoint.close()
             self._endpoint = None
         _fmem.unregister_pressure_handler(self._provider)
+        if self._watchdog is not None:
+            try:  # a stale unit record must not outlive its engine
+                self._watchdog.remove_unit(self._provider)
+            except Exception:
+                pass
         if not on_sched_thread:
             # a drain may have used the whole budget on real work: the
             # post-stop join gets a floor (a healthy thread exits within a
@@ -1315,6 +1323,12 @@ class Engine:
                             or self._prefilling)
         if has_work:
             self._step()
+        if self._watchdog is not None:
+            # a supervised engine's step lands in the watchdog's progress
+            # table (and so in every crash dump's cross-rank view) as a unit
+            # record of this rank, rate-limited inside publish
+            self._watchdog.publish(step=self._step_i, phase="serve.step",
+                                   unit=self._provider)
         return False
 
     def _step(self):

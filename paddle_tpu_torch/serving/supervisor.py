@@ -231,8 +231,11 @@ class ServingSupervisor:
             self._endpoint = _observe.start_endpoint(self, self._metrics_port)
 
     def _spawn(self) -> Engine:
+        from ..distributed import watchdog
+
         eng = Engine(self._model, config=self._config, **self._overrides)
         eng._supervised = True
+        eng._watchdog = watchdog
         return eng
 
     # ------------------------------------------------------------------ API
@@ -377,6 +380,11 @@ class ServingSupervisor:
             old._stop = True
         flight.remove_context_provider(old._provider)
         _fmem.unregister_pressure_handler(old._provider)
+        if old._watchdog is not None:
+            try:  # the dead engine's progress-table unit goes with it
+                old._watchdog.remove_unit(old._provider)
+            except Exception:
+                pass
         # capture BEFORE the harvest empties the dead loop's lists; crash
         # only (a live wedged thread could tear it). A failed capture falls
         # back to the requeue, never breaks the recovery.

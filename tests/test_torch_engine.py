@@ -25,7 +25,10 @@ on the CPU, at one rank.
   float32 and bfloat16.
 * The RNG stream restored before a rung, an out-of-memory inside the update
   halting, the sentinel attached, ``DataParallel`` at one rank, a world of
-  one over gloo, ``eval_step`` and ``prefetch``.
+  one over gloo, ``eval_step`` and ``prefetch``; ``prefetch``'s batch
+  layout cuts each rank's tokens once at sp 2 (two gloo ranks,
+  ``tests/torch_a11_worker.py prefetch``) and a prefetched batch is not
+  cut again in the step.
 """
 import json
 
@@ -46,7 +49,11 @@ from paddle_tpu_torch.fault import inject, memory
 from paddle_tpu_torch.fault.sentinel import StabilitySentinel
 from paddle_tpu_torch.framework import flags
 from paddle_tpu_torch.models import GPTForPretraining, gpt_tiny
-from torch_port_util import port_of
+from torch_port_util import port_of, reference_state
+
+GPT_FIELDS = ("vocab_size", "hidden_size", "num_layers", "num_heads",
+              "max_position_embeddings", "hidden_dropout",
+              "attention_dropout")
 
 
 @pytest.fixture(autouse=True)
@@ -488,6 +495,60 @@ def test_eval_step_and_prefetch():
     pf = eng.prefetch(batches)
     got = [b[0][0, 0].item() for b in pf]
     assert got == [0.0, 1.0, 2.0]
+
+
+def test_prefetched_batch_is_not_cut_again(monkeypatch):
+    """A batch from ``prefetch`` carries its layout (``placement``), so
+    the step does not cut its sequence a second time; a raw batch is cut
+    by ``split_batch`` under sequence parallelism."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        sequence_parallel as tsp
+
+    m = _linear()
+    opt = pt.optimizer.SGD(0.1, parameters=m.parameters())
+    eng = HybridParallelEngine(m, opt, _mse)
+    (x, y), = list(eng.prefetch([(np.ones((2, 8), np.float32),
+                                  np.zeros((2, 4), np.float32))]))
+    assert x.placement == (None, None) and x.logical_shape == (2, 8)
+    cuts = []
+    monkeypatch.setattr(tsp, "split_batch",
+                        lambda b, g, specs: cuts.append(len(b)) or b)
+    eng._sp_group = object()  # as under sequence parallelism
+    eng.train_step(x, y)
+    assert cuts == []
+    eng.train_step(np.ones((2, 8), np.float32), np.zeros((2, 4), np.float32))
+    assert cuts == [2]
+
+
+def test_prefetch_cuts_each_ranks_tokens_once_at_sp_2(tmp_path):
+    """Two gloo ranks at sp 2 (``tests/torch_a11_worker.py prefetch``):
+    ``prefetch`` of the global batch hands each rank its T/2 tokens, and
+    ``eval_step`` and a train step on it give the losses of the same
+    engine fed the global batch (cut inside the step)."""
+    from pathlib import Path
+
+    from torch_port_util import spawn_ranks
+
+    cfg = jgpt_tiny(hidden_dropout=0.0, attention_dropout=0.0)
+    paddle.seed(9)
+    jm = JGPT(cfg)
+    rng = np.random.RandomState(2)
+    inp = {f"gpt.{k}": v for k, v in reference_state(jm).items()}
+    inp["gpt_config"] = np.array(json.dumps(
+        {f: getattr(cfg, f) for f in GPT_FIELDS}))
+    inp["ids"] = rng.randint(0, cfg.vocab_size, (2, 32)).astype(np.int64)
+    inp["labels"] = rng.randint(0, cfg.vocab_size, (2, 32)).astype(np.int64)
+    np.savez(tmp_path / "inputs.npz", **inp)
+    worker = Path(__file__).resolve().parent / "torch_a11_worker.py"
+    got = spawn_ranks(worker, ["prefetch", tmp_path], 2, tmp_path, 240)
+    for g in got:
+        r, res = g["sp_rank"], g["prefetch"]
+        for (shape, placement, t), full in zip(
+                res["batch"], (inp["ids"], inp["labels"])):
+            assert shape == (2, 16) and placement == (None, "sp")
+            np.testing.assert_array_equal(t.numpy(),
+                                          full[:, r * 16:(r + 1) * 16])
+        assert res["prefetch"] == res["direct"]
 
 
 def test_a_recovered_step_leaves_no_reference_cycle():

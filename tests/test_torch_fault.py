@@ -75,7 +75,9 @@ def test_unknown_point_and_disarm():
     assert inject.fired_counts() == {}
     assert "serve.crash" in inject.exercised()
     with pytest.raises(KeyError):
-        inject.should_fire("ckpt.write")
+        inject.should_fire("no.such.point")
+    # the distributed points are registered since the checkpoint's port
+    assert not inject.should_fire("ckpt.write")
 
 
 def test_check_raises_injected_fault():

@@ -10,7 +10,9 @@ exact (bit-equal batches, equal indices and positions):
   ``pad_to_bucket_collate``, ``random_split`` and the other samplers;
 - ``DevicePrefetcher`` on the CPU keeps order, raises a worker's exception
   again at ``next()``, and its ``state_dict`` counts the batches handed
-  out, never the read-ahead, as the reference's does.
+  out, never the read-ahead, as the reference's does; with a ``sharding``
+  layout it cuts each leaf to this rank's slice before the copy and tags
+  the copy with its placement.
 """
 import threading
 
@@ -264,8 +266,34 @@ def test_prefetcher_close_stops_the_thread_and_refuses_sharding():
     tp.close()
     assert not tp._thread.is_alive()
     assert threading.active_count() <= before
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         tio.DevicePrefetcher(tl, sharding=object(), device="cpu")
+
+
+@pytest.mark.parametrize("form", ["layout", "spec", "callable"])
+def test_prefetcher_cuts_each_leaf_to_this_ranks_slice(form):
+    """A layout cuts each leaf before its copy, as the reference's
+    ``device_put(arr, sharding)`` places it: here a mesh of two ranks
+    along dim 0 seen from rank 0 and rank 1 (``local_shard``'s rank), the
+    copy tagged with its placement and logical shape."""
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    from paddle_tpu_torch.distributed import sharding_api as tsh
+
+    mesh = tmesh.Mesh(np.arange(1), ("dp",))
+    spec = tsh.PartitionSpec("dp")
+    lay = {"layout": tsh.NamedSharding(mesh, spec), "spec": spec,
+           "callable": lambda i, t: tsh.NamedSharding(
+               mesh, spec if i == 0 else tsh.PartitionSpec())}[form]
+    batches = [(torch.arange(8).reshape(4, 2), torch.ones(4))]
+    tp = tio.DevicePrefetcher(iter(batches), sharding=lay, device="cpu")
+    x, y = next(tp)
+    assert x.placement == ("dp", None) and x.logical_shape == (4, 2)
+    assert y.logical_shape == (4,)
+    assert torch.equal(x, batches[0][0])
+    two = tmesh.Mesh(np.arange(2), ("dp",))
+    parts = [tsh.local_shard(batches[0][0], spec, two, rank=r)
+             for r in range(2)]
+    assert [p.tolist() for p in parts] == [[[0, 1], [2, 3]], [[4, 5], [6, 7]]]
 
 
 def test_loader_device_prefetch_and_functional_form():

@@ -14,6 +14,13 @@ and the stability sentinel against the reference's ``paddle_tpu.fault``.
   ``FLAGS_lazy_async`` off, its synchronous detection. Also the skip rung
   on a tiny GPT (parameters bit-equal, position quarantined), ``halt``'s
   ``StabilityError`` and ``rollback`` against an in-memory anchor.
+- ``from_flags`` with ``FLAGS_stability_ckpt_dir`` builds the
+  ``AutoCheckpoint`` anchor; ``VerdictBarrier`` at world 2 (two threads
+  over a ``FileStore``) gives each rank the reference's agreed verdict and
+  quarantine (the most severe, then the highest z; a silent rank adopts
+  a peer's); ``for_engine`` on the engine with an ``AutoCheckpoint``
+  anchor rolls a spiked step back to the reference's anchor, with the
+  reference's losses and weights.
 """
 import math
 import signal
@@ -255,15 +262,26 @@ def test_halt_raises_stability_error_with_a_dump(tmp_path, monkeypatch):
     assert any("stability_halt" in p.name for p in tmp_path.iterdir())
 
 
-def test_from_flags_anchor_waits_for_a11():
-    pt.set_flags({"FLAGS_stability_ckpt_dir": "/nonexistent"})
+def test_from_flags_anchor_waits_for_a11(tmp_path):
+    """``FLAGS_stability_ckpt_dir`` builds the reference's anchor: an
+    ``AutoCheckpoint`` there, every ``FLAGS_stability_anchor_interval``
+    steps, keeping 2."""
+    from paddle_tpu_torch.distributed.checkpoint import AutoCheckpoint
+
+    pt.set_flags({"FLAGS_stability_ckpt_dir": str(tmp_path / "anchor"),
+                  "FLAGS_stability_anchor_interval": 3})
     try:
-        with pytest.raises(NotImplementedError, match="A11"):
-            tsent.StabilitySentinel.from_flags()
+        s = tsent.StabilitySentinel.from_flags()
     finally:
-        pt.set_flags({"FLAGS_stability_ckpt_dir": ""})
+        pt.set_flags({"FLAGS_stability_ckpt_dir": "",
+                      "FLAGS_stability_anchor_interval": 25})
+    assert isinstance(s.anchor, AutoCheckpoint)
+    assert (s.anchor.save_dir, s.anchor.interval, s.anchor.keep_last) == (
+        str(tmp_path / "anchor"), 3, 2)
+    s.close()
     s = tsent.StabilitySentinel.from_flags(warmup=2)
     assert (s.window, s.warmup, s.zmax) == (64, 2, 8.0)
+    assert s.anchor is None
 
 
 def test_skip_rung_on_a_tiny_gpt_leaves_parameters_bit_equal():
@@ -364,3 +382,134 @@ def test_rollback_without_anchor_halts():
                                {})
     with pytest.raises(tsent.StabilityError, match="no anchor"):
         s.rollback(v)
+
+
+# -- the A11c hooks: VerdictBarrier, for_engine --------------------------------
+def _barrier_round(mod, store_mod, d, verdicts):
+    """One ``VerdictBarrier.exchange`` round of two ranks (threads over a
+    FileStore): each rank's agreed verdict and its sentinel's quarantine."""
+    import threading
+
+    store = store_mod.FileStore(str(d))
+    sents = [mod.StabilitySentinel(**KW) for _ in range(2)]
+    bars = [mod.VerdictBarrier(store, 2, r, sentinel=sents[r], timeout_s=30)
+            for r in range(2)]
+    out = [None, None]
+
+    def run(r):
+        v = verdicts[r]
+        if v is not None:
+            v = mod.StabilityVerdict(*v)
+        out[r] = bars[r].exchange(v)
+
+    ts = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(60)
+    res = [(o.action, o.step, o.signal, o.origin_rank) if o else None
+           for o in out]
+    quar = [[(e["step"], e["action"]) for e in s.quarantine.entries()]
+            for s in sents]
+    for s in sents:
+        s.close()
+    return res, quar
+
+
+BARRIER_CASES = {
+    # rank 0 skips, rank 1 rolls back: both leave with the rollback; rank 0
+    # was outranked (its own rung spent), nothing adopted there
+    "severity": [("skip", 5, (0, 5), "loss", 9.0, 20.0, False, {}),
+                 ("rollback", 5, (0, 5), "grad_norm", 9.0, 12.0, True, {})],
+    # only rank 1 tripped: rank 0 adopts its verdict and quarantines
+    "adopt": [None, ("skip", 7, (0, 7), "loss", 9.0, 30.0, False, {})],
+    # equal severity: the higher z wins
+    "zscore": [("skip", 3, None, "loss", 9.0, 10.0, False, {}),
+               ("skip", 3, None, "upd_ratio", 9.0, 40.0, False, {})],
+    "quiet": [None, None],
+}
+
+
+@pytest.mark.parametrize("case", sorted(BARRIER_CASES))
+def test_verdict_barrier_at_world_2_adopts_the_most_severe_verdict(
+        case, tmp_path):
+    from paddle_tpu.distributed import coord as jcoord
+    from paddle_tpu_torch.distributed import coord as tcoord
+
+    verdicts = BARRIER_CASES[case]
+    got = _barrier_round(tsent, tcoord, tmp_path / "t", verdicts)
+    want = _barrier_round(jsent, jcoord, tmp_path / "r", verdicts)
+    assert got == want
+    if case == "adopt":
+        assert got == ([("skip", 7, "loss", 1), ("skip", 7, "loss", None)],
+                       [[(7, "skip")], []])
+
+
+def _engine_rollback_run(pkg, d):
+    """A Linear trained by SGD through the engine with a sentinel from
+    ``for_engine`` on an ``AutoCheckpoint`` anchor (every 2 steps); the
+    batch of step 6 spikes. Returns the losses, each verdict's rollback
+    and the weights after it."""
+    rng = np.random.RandomState(4)
+    w0 = rng.randn(4, 1).astype(np.float32)
+    batches = [(rng.randn(8, 4).astype(np.float32),
+                rng.randn(8, 1).astype(np.float32)) for _ in range(9)]
+    if pkg == "port":
+        from paddle_tpu_torch.distributed import HybridParallelEngine
+        from paddle_tpu_torch.distributed.checkpoint import AutoCheckpoint
+        lin = pt.nn.Linear(4, 1, device="cpu")
+        with torch.no_grad():
+            lin.weight.copy_(torch.from_numpy(w0))
+            lin.bias.zero_()
+        opt = pt.optimizer.SGD(learning_rate=0.05,
+                               parameters=lin.parameters())
+        conv, inj, sent = torch.from_numpy, tinject, tsent
+        weight = lambda: lin.weight.detach().numpy().copy()  # noqa: E731
+    else:
+        from paddle_tpu.distributed.checkpoint import AutoCheckpoint
+        from paddle_tpu.distributed.engine import HybridParallelEngine
+        from paddle_tpu.distributed.mesh import build_mesh
+        lin = paddle.nn.Linear(4, 1)
+        lin.weight.set_value(w0)
+        lin.bias.set_value(np.zeros(1, np.float32))
+        opt = paddle.optimizer.SGD(learning_rate=0.05,
+                                   parameters=lin.parameters())
+        conv, inj, sent = paddle.to_tensor, jinject, jsent
+        weight = lambda: np.asarray(lin.weight.numpy()).copy()  # noqa: E731
+    kw = {} if pkg == "port" else {"mesh": build_mesh(("dp",), (1,))}
+    eng = HybridParallelEngine(lin, opt,
+                               lambda m, x, y: ((m(x) - y) ** 2).mean(), **kw)
+    anchor = AutoCheckpoint(str(d), interval_steps=2, keep_last=2)
+    s = sent.StabilitySentinel.for_engine(eng, anchor, window=16, warmup=3,
+                                          zmax=8.0, max_rollbacks=1)
+    inj.arm({"loss.spike": {"step": 6, "scale": 1000}})
+    log = []
+    for k in range(1, 9):
+        s.note_batch((0, k))
+        loss = eng.train_step(*(conv(a) for a in batches[k]))
+        log.append(("loss", k, float(np.asarray(
+            loss.detach() if pkg == "port" else loss.numpy()))))
+        s.maybe_anchor(opt._step_count)
+        v = s.take_verdict()
+        if v is not None:
+            a = s.rollback(v)
+            log.append(("rollback", v.step, v.action, a, opt._step_count,
+                        weight()))
+    inj.disarm()
+    s.close()
+    return log
+
+
+def test_for_engine_rolls_back_to_the_anchor_as_the_reference(tmp_path):
+    paddle.set_flags({"FLAGS_lazy_async": False})
+    got = _engine_rollback_run("port", tmp_path / "t")
+    want = _engine_rollback_run("ref", tmp_path / "r")
+    assert [e[:5] if e[0] == "rollback" else e[:2] for e in got] \
+        == [e[:5] if e[0] == "rollback" else e[:2] for e in want]
+    rb = [e for e in got if e[0] == "rollback"]
+    assert [e[1:5] for e in rb] == [(6, "rollback", 4, 4)]
+    for g, w in zip(got, want):
+        if g[0] == "loss":
+            np.testing.assert_allclose(g[2], w[2], rtol=1e-5)
+        else:
+            np.testing.assert_allclose(g[5], w[5], rtol=1e-6)

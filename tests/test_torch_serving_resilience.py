@@ -9,7 +9,9 @@ f32, greedy; where a case produces tokens they must equal the JAX engine's
 for the same prompts. Chaos specs are armed in both packages' injection
 modules at once (``torch_port_util.chaos``). Supervisors run with the
 smallest watchdog the reference accepts (1 s), and every wait has its own
-timeout.
+timeout. A supervised engine's ``serve.step`` unit records in the
+distributed watchdog's progress table (replaced at a restart, removed at
+``close``) are held against the reference's supervisor.
 """
 import threading
 import time
@@ -479,3 +481,50 @@ def test_unconfigured_path_adds_zero_threads_and_zero_sweeps(model,
         assert [t.name for t in new] == [eng._provider]
         assert eng._deadline_seen is False and eng._has_prio is False
         assert eng._supervised is False and not inject.armed()
+
+
+@pytest.mark.parametrize("pkg", ["port", "ref"])
+def test_supervised_engine_publishes_serve_step_units_removed_on_close(
+        gpt, pkg, tmp_path):
+    """A supervised engine's scheduler publishes ``serve.step`` unit
+    records into this rank's watchdog progress entry (beside the rank's
+    own record), a restart replaces the dead engine's unit, and ``close``
+    removes it: the same in both packages."""
+    import json as _json
+
+    if pkg == "port":
+        from paddle_tpu_torch.distributed import watchdog as wd
+        from paddle_tpu_torch.serving import ServingSupervisor as Sup
+        model, kw, arm = gpt[1], KW, inject
+    else:
+        from paddle_tpu.distributed import watchdog as wd
+        from paddle_tpu.serving import ServingSupervisor as Sup
+        model, kw, arm = gpt[0], REF_KW, jinject
+    wd.reset()
+    wd.configure(rank=0, world_size=1, store=None, progress_dir=str(tmp_path))
+    wd.publish(step=5, phase="train_step", force=True)
+    rec_path = tmp_path / "rank_0.json"
+
+    def units():
+        wd.publish(force=True)  # write the current record through
+        return _json.loads(rec_path.read_text()).get("units", {})
+
+    try:
+        prompt = np.random.RandomState(3).randint(0, 211, (5,)).tolist()
+        with Sup(model, watchdog_s=1.0, **kw) as sup:
+            sup.generate(prompt, max_new_tokens=3)
+            first = units()
+            assert len(first) == 1
+            (name, rec), = first.items()
+            assert rec["phase"] == "serve.step" and rec["step"] > 0
+            arm.arm("serve.crash:at=1")
+            sup.generate(prompt, max_new_tokens=3)
+            assert sup.restarts == 1
+            arm.disarm()
+            wait_for(lambda: len(units()) == 1 and name not in units(), 30,
+                     "the restarted engine's unit")
+        assert units() == {}
+        rec = _json.loads(rec_path.read_text())
+        assert (rec["step"], rec["phase"]) == (5, "train_step")
+    finally:
+        wd.reset()
