@@ -8,6 +8,8 @@
                                      #   profiler
     python3 chip_smoke.py --launch-worker DIR  # 16d's worker, the process
                                      #   launch starts (not run by hand)
+    python3 chip_smoke.py --phase17  # the build and phase 17 alone: its
+                                     #   tp_native line, no result line
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -345,6 +347,39 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    with the card's name and power limit and the phase's wall seconds; the
    flash rows of the ``kernels`` line carry 16a's timed launches as
    ``launches_auto``;
+17. tensor-parallel serving and the native host runtime (runs after
+   phase 16 on phase 3's models, built again; 17e inside phase 12): (17a)
+   GPT-3 1.3B through
+   ``serving.Engine(tp=2, device=("cuda:0", "cuda:0"))`` (both shards on
+   the one card) with the paged kernel over drive (a)'s 32 requests, then
+   drive (e)'s prefix-plus-chunk mix, each wave queued before its first
+   step and each beside a one-device engine's run of the same waves: tok/s,
+   mean decode-step ms, the share of greedy tokens equal to tp = 1's, the
+   max abs difference of the first step's and of one decode step's
+   logits; the paged kernel must launch once a layer a shard a decode step
+   (at KV = 8 heads, with the unsharded shape's cluster size), and the tp
+   engine's decode step through the kernels is held against its plain path
+   within ``LOGITS_REL_TOL``; every sharded product of layer 0, the head
+   and the paged kernel over the shards' heads are compared bit for bit
+   with the one-device ops on the card, and a token mismatch with every op
+   bit-equal fails; the kernel at the shard shape against its plain
+   version (``TOL``, ``PAGED_O_REL_TOL``), timed beside its bound; one
+   decode step's gather bytes against ``tp_collective_bytes``. (17b)
+   Llama-7B the same on the first 8 of drive (c)'s prompts, with the peak
+   memory. (17c) the int8 wire (``tp_int8``) on (a)'s requests: every
+   stream complete, the token agreement, a decode step's wire bytes equal
+   to ``tp_collective_bytes``' int8 figure. (17d) drive (i)'s
+   observability tax while a host ``Profiler`` records, so every span goes
+   to the native span ring (``core/csrc/trace.cc``), which must hold the
+   decode steps. (17e) phase 12a's loop for 4 more steps fed by a
+   thread-worker ``DataLoader`` over ``NativeQueue`` (``core/csrc/
+   queue.cc``), whose epoch of batches must equal the serial loader's
+   order; the host ms waiting are printed. The card's memory (allocated,
+   reserved, in use) is read before and after each model's part and at
+   the end. One ``{"tp_native": ...}``
+   line; the paged row of the ``kernels`` line carries the tp drives'
+   launches as ``launches_tp`` and the shard shape's times as
+   ``tp_shard_shape``;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -394,7 +429,8 @@ sub-drives with their adopt info, ``{"registry": {...}}``, phase 6's
 searches, persistence, tuned drive, host µs and the 192-row int8 checks,
 ``{"engine_train": {...}}``, phase 13, ``{"fleet_train": {...}}``,
 phase 14, ``{"fleet_part2": {...}}``, phase 15, and
-``{"auto_parallel_ckpt": {...}}``, phase 16.
+``{"auto_parallel_ckpt": {...}}``, phase 16, and ``{"tp_native": {...}}``,
+phase 17.
 """
 from __future__ import annotations
 
@@ -801,17 +837,9 @@ def paged_split_rule(B: int, KV: int, BS: int, MB: int, n_sm: int) -> int:
 def kernel_split(B, KV, BS, MB):
     """The cluster size the built paged kernel launches with at this shape
     on the current card (its C entry ``pt_paged_split``)."""
-    import ctypes
-
-    from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import paged_attention as P
 
-    fn = _build.load("paged_attention", P._SIGS).pt_paged_split
-    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
-    split = fn(B, KV, BS, MB)
-    if split <= 0:
-        fail(f"pt_paged_split: CUDA error {-split}")
-    return split
+    return P.rule_split(B, KV, BS, MB, torch.cuda.current_device())
 
 
 def paged_split_check(shapes):
@@ -2559,6 +2587,488 @@ def engine_phase(profile=False):
     return total, rows
 
 
+# -- phase 17: tensor-parallel serving and the native host runtime -----------
+
+TP = 2
+TP_DEVICES = ("cuda:0", "cuda:0")  # both shards on the one card
+TP_LLAMA_REQUESTS = 8  # (17b): the first 8 of drive (c)'s prompts
+TP_NATIVE = {}  # phase 17's results: the {"tp_native": ...} line
+LOADER_STEPS = 4  # (17e): 12a's steps fed by the thread-worker loader
+
+
+def tp_serve(model, vocab_size, tag, waves, tp, **kw):
+    """One engine with the paged kernel (at ``tp``: ``TP`` shards on
+    ``TP_DEVICES``; else one device) serves ``waves`` of prompts greedily,
+    each wave run to its end and queued whole before its first step
+    (``FIRST_STEP_WAITS``), so the tp and one-device runs batch alike.
+    Launch counts and the engine's counters are zeroed just before the last
+    wave and read just after it. Returns (every output, the last wave's
+    wall s, its decode steps, its mean decode-step ms, its launches, its
+    counter deltas, the engine, still open)."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.fault import inject
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import Engine
+
+    set_flags({"FLAGS_serve_paged_kernel": True,
+               "FLAGS_serve_int8_kernel": False})
+    where = {"tp": TP, "device": TP_DEVICES} if tp else {}
+    eng = Engine(model, **ENGINE_KW, seed=0, **where, **kw)
+    outs = []
+    for i, wave in enumerate(waves):
+        last = i == len(waves) - 1
+        if last:
+            st0 = eng.stats()
+            K.reset_launch_counts()
+            c0 = profiler.counters()
+        t0 = time.monotonic()
+        try:
+            got = [h.result(timeout=900) for h in chaos_wave(eng.submit,
+                                                             wave)]
+        finally:
+            inject.disarm()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        well_formed(tag, wave, got, vocab_size)
+        outs += got
+    counts = K.launch_counts()
+    d = counter_delta(c0)
+    st = drain(eng, tag, cached=bool(kw.get("prefix_cache")))
+    steps = st["decode_steps"] - st0["decode_steps"]
+    step_ms = (st["decode_step_ms_mean"] * st["decode_steps"]
+               - st0["decode_step_ms_mean"] * st0["decode_steps"]) / steps
+    return outs, wall, steps, step_ms, counts, d, eng
+
+
+def token_agreement(outs, ref, prompts):
+    """The share of generated tokens equal to the reference's at the same
+    place, and the requests whose every token is equal."""
+    same = total = whole = 0
+    for o, r, p in zip(outs, ref, prompts):
+        a, b = o[len(p):], r[len(p):]
+        same += sum(x == y for x, y in zip(a, b))
+        total += len(b)
+        whole += a == b
+    return same / total, whole
+
+
+def tp_logits_diff(eng, eng1, prompts):
+    """The max abs difference of the first step's logits (the monolithic
+    prefill's, at each prompt's last token) between the tp engine and the
+    one-device engine, and of one decode step's through the kernels."""
+    mono_tp = eng._debug_prefill_paths(prompts)[0]
+    mono_1 = eng1._debug_prefill_paths(prompts)[0]
+    step_tp = eng._debug_step_logits(prompts)[0]
+    step_1 = eng1._debug_step_logits(prompts)[0]
+    return (float(np.abs(mono_tp - mono_1).max()),
+            float(np.abs(step_tp - step_1).max()))
+
+
+def tp_op_probe(model, B=32):
+    """Where a tp step can stop being the one-device step's bits: each
+    sharded product of layer 0 and the head at decode batch ``B`` (bf16,
+    random inputs from a seed) as the shards' concat against the full
+    product's columns, and the paged kernel over the shards' KV heads (the
+    unsharded shape's cluster size) against the whole pool's. Returns
+    ``[(op, bit_equal, max_abs_diff)]`` in the step's order."""
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda", 0)
+    decode_state = G.gpt_decode_state if hasattr(model, "gpt") \
+        else G.llama_decode_state
+    key, arch, params, _ = decode_state(model, dev)
+    packed, vocab = G.tp_pack_params(key, params, TP, [dev] * TP)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    HD = params["wte"].shape[1]
+    h = torch.randn(B, 1, HD, generator=g, device="cuda").to(params[
+        "wte"].dtype)
+    w0, s0 = params["layers"][0], [s["layers"][0] for s in packed["shard"]]
+    out = []
+
+    def probe(op, full, parts):
+        got = torch.cat(parts, -1)[..., :full.shape[-1]]
+        out.append((op, bool(torch.equal(got, full)),
+                    float((got.float() - full.float()).abs().max())))
+
+    if key[0] == "gpt":
+        probe("qkv", (h @ w0["qkv_w"] + w0["qkv_b"]).reshape(
+            B, 1, 3, -1, arch["head_dim"]).transpose(2, 3).reshape(B, 1, -1),
+            [(h @ s["qkv_w"] + s["qkv_b"]).reshape(
+                B, 1, 3, -1, arch["head_dim"]).transpose(2, 3).reshape(
+                    B, 1, -1) for s in s0])
+        probe("up", h @ w0["up_w"] + w0["up_b"],
+              [h @ s["up_w"] + s["up_b"] for s in s0])
+        head = h[:, 0] @ params["wte"].T
+        parts = [h[:, 0] @ s["head_w"].T for s in packed["shard"]]
+    else:
+        for name in ("q_w", "k_w", "v_w", "gate_w", "up_w"):
+            probe(name[:-2], h @ w0[name], [h @ s[name] for s in s0])
+        head = h[:, 0] @ params["head_w"]
+        parts = [h[:, 0] @ s["head_w"] for s in packed["shard"]]
+    KV, D = arch["kv_heads"], arch["head_dim"]
+    rep = key[1] // KV
+    q, kp, vp, tables, pos = paged_inputs(params["wte"].dtype, rep=rep, B=B,
+                                          KV=KV, D=D, seed=2)
+    bs, mb = kp.shape[1], tables.shape[1]
+    cfg = {"split": kernel_split(B, KV, bs, mb)}
+    full = K.paged_attention_rows(q, kp, vp, tables, pos, config=cfg)
+    kvl = KV // TP
+    shards = [K.paged_attention_rows(
+        q[:, d * kvl * rep:(d + 1) * kvl * rep].contiguous(),
+        kp[:, :, d * kvl:(d + 1) * kvl].contiguous(),
+        vp[:, :, d * kvl:(d + 1) * kvl].contiguous(), tables, pos,
+        config=cfg) for d in range(TP)]
+    probe("paged_attention", full, shards)
+    probe("head", head, parts)
+    del packed, params, q, kp, vp
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_first_divergence(tag, agree, probe):
+    """A tp run whose tokens differ from the one-device run's must have a
+    sharded op whose bits differ (its first, in the step's order, is the
+    cause named); a mismatch with every op bit-equal fails."""
+    first = next(((op, d) for op, eq, d in probe if not eq), None)
+    if agree < 1.0 and first is None:
+        fail(f"tp ({tag}): token agreement {agree:.4f} with every sharded "
+             "op bit-equal to the one-device op: no cause found")
+    return None if first is None else {"op": first[0], "max_abs": first[1]}
+
+
+def tp_shard_kernel(B=32, MB=64, KV=16):
+    """The paged kernel at a tp shard's shape (KV/TP heads, the unsharded
+    shape's cluster size) against its plain version, bf16 against the f32
+    plain read on the same inputs (``TOL`` and ``PAGED_O_REL_TOL``), then
+    timed beside the plain version and the card's least time (as
+    ``paged_timing``)."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    kvl = KV // TP
+    split = kernel_split(B, KV, 16, MB)
+    q, kp, vp, tables, pos = paged_inputs(torch.bfloat16, B=B, KV=kvl,
+                                          MB=MB, seed=1)
+    cfg = {"split": split}
+    out = K.paged_attention_rows(q, kp, vp, tables, pos, config=cfg)
+    ref = K.paged_attention_rows_plain(q.float(), kp.float(), vp.float(),
+                                       tables, pos)
+    rel = rel_err(out, ref)
+    note = (f" at the tp shard shape B={B} MB={MB} KV={kvl} split={split}, "
+            f"rel_norm_err={rel:.3e} (tol rel {PAGED_O_REL_TOL})")
+    err = compare("paged_attention_rows", torch.bfloat16, out, ref, note)
+    if not rel <= PAGED_O_REL_TOL:
+        fail(f"paged_attention_rows bf16{note}")
+    H, D, BS = q.shape[1], q.shape[2], kp.shape[1]
+    live = int((pos.long() + 1).sum())
+    nbytes = (2 * B * H * D * 2 + 2 * live * kvl * D * 2
+              + 4 * int((pos.long() // BS + 1).sum()) + 4 * B)
+    b_ms, b_by = bound(nbytes, 4 * live * H * D, torch.bfloat16)
+    row = {"shape": f"B={B} H={H} KV={kvl} D={D} BS={BS} MB={MB} "
+                    f"mean_ctx={live / B:.1f} bf16, split {split} (the "
+                    f"rule's at KV={KV}; at KV={kvl} it gives "
+                    f"{kernel_split(B, kvl, BS, MB)})",
+           "max_abs_err": err, "rel_norm_err": rel,
+           "ms": time_ms(lambda: K.paged_attention_rows(q, kp, vp, tables,
+                                                        pos, config=cfg)),
+           "plain_ms": time_ms(lambda: K.paged_attention_rows_plain(
+               q, kp, vp, tables, pos), iters=5),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"  (17a) paged kernel at the shard shape: {row['ms']:.4f} ms "
+          f"(plain {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}) "
+          f"at {row['shape']}")
+    del q, kp, vp, out, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_wire_bytes(eng, params_key, params, B=32):
+    """The gather bytes one decode step of ``eng`` at batch B sends
+    (``serve_tp_gather_bytes``), beside ``tp_collective_bytes``."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.models import generation as G
+
+    step = decode_step(eng, B=B)
+    with torch.inference_mode():
+        step()
+        c0 = profiler.counters().get("serve_tp_gather_bytes", 0)
+        step()
+    got = profiler.counters()["serve_tp_gather_bytes"] - c0
+    fp32_b, int8_b = G.tp_collective_bytes(params_key, params, B, TP)
+    return got, fp32_b, int8_b
+
+
+def tp_gpt_phase(model, cfg):
+    """(17a) GPT-3 1.3B at tp = 2, both shards on the one card, with the
+    paged kernel: drive (a)'s 32 requests and drive (e)'s prefix-plus-chunk
+    mix, each beside a one-device run of the same waves; (17c) the int8
+    wire on (a)'s requests; (17d) drive (i)'s observability tax with the
+    spans in the native ring."""
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
+
+    L, V = cfg.num_layers, cfg.vocab_size
+    prompts = drive_prompts(V)
+    probe = tp_op_probe(model)
+    print(f"  (17) sharded ops against the one-device ops (bit_equal, max "
+          f"abs): {probe}")
+    res, refs = {"card_ops": probe}, {}
+    for tag, waves, kw in (
+            ("17a", [prompts], {}),
+            ("17a+e", [prefix_prompts(V)[:1], prefix_prompts(V)[1:]],
+             PREFIX_KW)):
+        ref, wall1, _, step1, _, _, eng1 = tp_serve(model, V, tag + " tp1",
+                                                    waves, 0, **kw)
+        refs[tag] = ref
+        try:
+            outs, wall, steps, step_ms, counts, d, eng = tp_serve(
+                model, V, tag, waves, TP, **kw)
+            try:
+                last = waves[-1]
+                agree, whole = token_agreement(outs, ref, sum(waves, []))
+                diff = tp_logits_diff(eng, eng1, last[:8])
+                kl, pl = eng._debug_step_logits(last[:8])
+                rel = float(np.linalg.norm(kl - pl) / np.linalg.norm(pl))
+                want = TP * L * steps
+                row = {"tok_s": len(last) * DRIVE_NEW / wall,
+                       "wall_s": wall, "decode_steps": steps,
+                       "decode_step_ms_mean": step_ms,
+                       "tp1": {"tok_s": len(last) * DRIVE_NEW / wall1,
+                               "decode_step_ms_mean": step1},
+                       "launches_tp": counts["paged_attention_rows"],
+                       "token_agreement": agree, "requests_equal": whole,
+                       "first_step_logits_max_abs": diff[0],
+                       "decode_step_logits_max_abs": diff[1],
+                       "shard_kernel_vs_plain_rel": rel,
+                       "first_divergence": tp_first_divergence(tag, agree,
+                                                               probe),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+                if kw:
+                    row.update(prefix_hits=d["serve_prefix_hits"],
+                               prefill_chunks=d["serve_prefill_chunks"])
+                if tag == "17a":
+                    got, fp32_b, int8_b = tp_wire_bytes(
+                        eng, eng._arch_key, G.gpt_decode_state(model)[2])
+                    row["gather_bytes_step"] = got
+                    row["tp_collective_bytes"] = [fp32_b, int8_b]
+            finally:
+                eng.close()
+        finally:
+            eng1.close()
+        print(f"  ({tag}) tp={TP} on {TP_DEVICES}: {len(last) * DRIVE_NEW} "
+              f"tokens in {wall:.2f}s = {row['tok_s']:.1f} tok/s, decode "
+              f"steps {steps}, mean decode step {step_ms:.2f} ms (one "
+              f"device: {row['tp1']['tok_s']:.1f} tok/s, {step1:.2f} ms), "
+              "paged "
+              f"launches {row['launches_tp']} (want {TP} x {L} x {steps} = "
+              f"{want}); greedy tokens equal to tp=1's: {agree:.4f} "
+              f"({whole} of {len(last)} requests whole); max abs logit diff "
+              f"first step {diff[0]:.4e}, one decode step {diff[1]:.4e}; the "
+              f"shard kernel's step against its plain path rel "
+              f"{rel:.3e} (tol {LOGITS_REL_TOL}); first diverging op "
+              f"{row['first_divergence']}"
+              + (f"; prefix hits {row['prefix_hits']}, chunk steps "
+                 f"{row['prefill_chunks']}" if kw else ""))
+        if row["launches_tp"] != want:
+            fail(f"tp ({tag}): {row['launches_tp']} paged launches, want "
+                 f"{want} (one a layer a shard a decode step)")
+        if rel > LOGITS_REL_TOL:
+            fail(f"tp ({tag}): shard kernel step rel {rel:.3e}")
+        if kw and row["prefix_hits"] != len(last):
+            fail(f"tp ({tag}): {row['prefix_hits']} prefix hits")
+        res[tag] = row
+    a = res["17a"]
+    print(f"  (17a) gather bytes a decode step at B=32: {a['gather_bytes_step']}"
+          f" (bf16; tp_collective_bytes counts 4 bytes an element: "
+          f"{a['tp_collective_bytes'][0]}, half of it "
+          f"{a['tp_collective_bytes'][0] // 2})")
+    if a["gather_bytes_step"] * 2 != a["tp_collective_bytes"][0]:
+        fail(f"tp (17a): gather bytes {a['gather_bytes_step']}")
+    res["shard_kernel"] = tp_shard_kernel()
+    # (17c) the int8 wire: lossy, every stream at its length
+    outs, wall, steps, step_ms, counts, d, eng = tp_serve(
+        model, V, "17c", [prompts], TP, tp_int8=True)
+    try:
+        got, fp32_b, int8_b = tp_wire_bytes(eng, eng._arch_key,
+                                            G.gpt_decode_state(model)[2])
+    finally:
+        eng.close()
+    agree, whole = token_agreement(outs, refs["17a"], prompts)
+    res["17c"] = {"tok_s": len(prompts) * DRIVE_NEW / wall,
+                  "decode_step_ms_mean": step_ms, "token_agreement": agree,
+                  "requests_equal": whole, "gather_bytes_step": got,
+                  "tp_collective_bytes": [fp32_b, int8_b],
+                  "launches_tp": counts["paged_attention_rows"]}
+    print(f"  (17c) int8 wire: every stream complete at {DRIVE_NEW} new "
+          f"tokens; {res['17c']['tok_s']:.1f} tok/s, mean decode step "
+          f"{step_ms:.2f} ms; greedy tokens equal to tp=1's {agree:.4f} "
+          f"({whole} requests whole); wire bytes a decode step at B=32 "
+          f"{got} against tp_collective_bytes' int8 {int8_b} (f32 {fp32_b})")
+    if got != int8_b:
+        fail(f"tp (17c): wire bytes {got}, want {int8_b}")
+    # (17d) drive (i)'s tax with every span in the native ring
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.profiler import export
+
+    with Profiler(targets=[ProfilerTarget.CPU]):
+        tax = observe_tax(model, prompts)
+        dropped = export.dropped()
+        ring = [s for s in profiler.span_events()
+                if s["name"] == "decode_step"]
+    res["17d"] = {"tax_pct": tax["tax_pct"], "ratios": tax["ratios"],
+                  "native_ring_decode_spans": len(ring),
+                  "ring_dropped": dropped}
+    print(f"  (17d) observability tax with spans in the native ring: "
+          f"{tax['tax_pct']:+.2f}% (median of {TAX_PAIRS} alternating "
+          f"pairs); the ring holds {len(ring)} decode_step spans; records "
+          f"the rings overwrote {dropped}")
+    if not ring:
+        fail("tp (17d): no decode_step span in the native ring")
+    TP_NATIVE.update(gpt=res)
+    return res
+
+
+def card_memory():
+    """After a collection and ``empty_cache``: the caching allocator's
+    allocated and reserved bytes and the bytes in use on the card (all
+    processes; one here), from ``cudaMemGetInfo``."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "card_used": total - free}
+
+
+def tp_phase():
+    """Phase 17's serving part: (17a, c, d) on GPT-3 1.3B, then (17b) on
+    Llama-7B, each model built as the engine phase builds it and freed
+    before the next, with the card's memory before and after each part
+    and at the end (what the tp engines leave behind); the phase's seconds
+    go on the ``tp_native`` line."""
+    t0 = time.monotonic()
+    mem = {"start": card_memory()}
+    for name, cfg, _, _ in engine_models():
+        model = build_engine_model(name, cfg)
+        mem[f"{name} built"] = card_memory()
+        torch.cuda.reset_peak_memory_stats()
+        (tp_gpt_phase if name == "gpt3_1p3b" else tp_llama_phase)(model, cfg)
+        mem[f"{name} after"] = card_memory()
+        del model
+    mem["end"] = card_memory()
+    print(f"  (17) the card's memory (allocated / reserved / in use, MiB): "
+          + "; ".join(f"{k} " + " / ".join(f"{v / 2**20:.1f}"
+                                             for v in m.values())
+                      for k, m in mem.items()))
+    TP_NATIVE["memory"] = mem
+    TP_NATIVE["seconds"] = time.monotonic() - t0
+
+
+def tp_llama_phase(model, cfg):
+    """(17b) Llama-7B at tp = 2, both shards on the one card, with the paged
+    kernel, over the first ``TP_LLAMA_REQUESTS`` of drive (c)'s prompts,
+    beside a one-device run of the same wave; with the peak memory."""
+    L, V = cfg.num_layers, cfg.vocab_size
+    prompts = drive_prompts(V)[:TP_LLAMA_REQUESTS]
+    probe = tp_op_probe(model, B=TP_LLAMA_REQUESTS)  # the drive's bucket
+    print(f"  (17b) sharded ops at B={TP_LLAMA_REQUESTS} against the "
+          f"one-device ops (bit_equal, max abs): {probe}")
+    ref, wall1, _, step1, _, _, eng1 = tp_serve(model, V, "17b tp1",
+                                                [prompts], 0)
+    mono1 = eng1._debug_prefill_paths(prompts[:4])[0]
+    kl1 = eng1._debug_step_logits(prompts[:4])[0]
+    eng1.close()
+    del eng1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    outs, wall, steps, step_ms, counts, d, eng = tp_serve(
+        model, V, "17b", [prompts], TP)
+    try:
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        mono = eng._debug_prefill_paths(prompts[:4])[0]
+        kl, pl = eng._debug_step_logits(prompts[:4])
+    finally:
+        eng.close()
+    agree, whole = token_agreement(outs, ref, prompts)
+    rel = float(np.linalg.norm(kl - pl) / np.linalg.norm(pl))
+    want = TP * L * steps
+    row = {"requests": len(prompts), "tok_s": len(prompts) * DRIVE_NEW / wall,
+           "wall_s": wall, "decode_steps": steps,
+           "decode_step_ms_mean": step_ms,
+           "tp1": {"tok_s": len(prompts) * DRIVE_NEW / wall1,
+                   "decode_step_ms_mean": step1},
+           "launches_tp": counts["paged_attention_rows"],
+           "token_agreement": agree, "requests_equal": whole,
+           "first_step_logits_max_abs": float(np.abs(mono - mono1).max()),
+           "decode_step_logits_max_abs": float(np.abs(kl - kl1).max()),
+           "shard_kernel_vs_plain_rel": rel, "peak_gib": peak,
+           "card_ops": probe,
+           "first_divergence": tp_first_divergence("17b", agree, probe)}
+    print(f"  (17b) tp={TP} on {TP_DEVICES}: {len(prompts) * DRIVE_NEW} "
+          f"tokens in {wall:.2f}s = {row['tok_s']:.1f} tok/s, decode steps "
+          f"{steps}, mean decode step {step_ms:.2f} ms (one device: "
+          f"{row['tp1']['tok_s']:.1f} tok/s, {step1:.2f} ms), paged launches "
+          f"{row['launches_tp']} (want {want}); greedy tokens equal to "
+          f"tp=1's: {agree:.4f} ({whole} of {len(prompts)} whole); max abs "
+          f"logit diff first step {row['first_step_logits_max_abs']:.4e}, "
+          f"one decode step {row['decode_step_logits_max_abs']:.4e}; shard "
+          f"kernel step against its plain path rel {rel:.3e}; peak memory "
+          f"{peak:.2f} GiB; first diverging op {row['first_divergence']}")
+    if row["launches_tp"] != want:
+        fail(f"tp (17b): {row['launches_tp']} paged launches, want {want}")
+    if rel > LOGITS_REL_TOL:
+        fail(f"tp (17b): shard kernel step rel {rel:.3e}")
+    TP_NATIVE.update(llama=row)
+    return row
+
+
+def native_loader_check(paddle, cfg):
+    """(17e) the thread-worker ``DataLoader`` over the native queue
+    (``use_shared_memory=False``, ``RT_WORKERS`` threads) on 12a's data: an
+    epoch of its batches must equal the serial loader's in order. Returns
+    the result, and a fresh such loader with its ``DevicePrefetcher`` for
+    12a's loop to take ``LOADER_STEPS`` steps from."""
+    from paddle_tpu_torch.core import native
+
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (RT_SEQS, 2048)).astype(np.int64)
+    labels = rng.randint(0, cfg.vocab_size, (RT_SEQS, 2048)).astype(np.int64)
+
+    def loader(**kw):
+        return paddle.io.DataLoader(
+            paddle.io.TensorDataset([ids, labels]), batch_size=2,
+            shuffle=True, seed=0, **kw)
+
+    made = []
+    real = native.NativeQueue
+
+    class Counted(real):
+        def __init__(self, cap):
+            made.append(cap)
+            super().__init__(cap)
+
+    native.NativeQueue = Counted
+    try:
+        serial = [b[0].cpu() for b in loader(places="cpu")]
+        threaded = [b[0].cpu() for b in loader(
+            places="cpu", num_workers=RT_WORKERS, use_shared_memory=False)]
+    finally:
+        native.NativeQueue = real
+    same = len(serial) == len(threaded) and all(
+        torch.equal(a, b) for a, b in zip(serial, threaded))
+    if not same or not made:
+        fail(f"runtime (17e): thread-worker batches equal the serial order: "
+             f"{same}; native queues made {made}")
+    ld = loader(num_workers=RT_WORKERS, use_shared_memory=False)
+    pf = paddle.io.DevicePrefetcher(ld, buffer_size=RT_PREFETCH)
+    return {"batches_equal_serial": same, "batches": len(serial),
+            "workers": RT_WORKERS, "native_queues": len(made)}, ld, pf
+
+
 # -- train phase -------------------------------------------------------------
 
 def train_arrays(cfg, B=2, T=2048, seed=0):
@@ -3587,6 +4097,29 @@ def gpt_amp_phase(paddle, api, profile=False):
             or q[-1]["sample_indices"] != loader.batch_indices(*pos):
         fail(f"runtime (12a): trip verdict {v}, parameters equal {same}, "
              f"quarantine {q}")
+    # (17e) the same loop fed by the thread-worker loader over the native
+    # queue; its batches' order first
+    t17 = time.monotonic()
+    native_info, native_loader, native_pf = native_loader_check(paddle, cfg)
+    pf.close()
+    loader, pf = native_loader, native_pf  # what one_step reads
+    n0 = len(host["wait"])
+    for _ in range(LOADER_STEPS):
+        one_step(len(losses))
+    torch.cuda.synchronize()
+    waits = [w * 1e3 for w in host["wait"][n0:]]
+    native_info.update(steps=LOADER_STEPS, host_wait_ms=waits,
+                       losses=[x.item() for x in losses[-LOADER_STEPS:]],
+                       seconds=time.monotonic() - t17)
+    print(f"  (17e) 12a's loop over the thread-worker DataLoader "
+          f"({RT_WORKERS} threads, NativeQueue): an epoch of "
+          f"{native_info['batches']} batches equal to the serial order; "
+          f"{LOADER_STEPS} steps, host ms waiting on the prefetcher "
+          f"{[round(w, 3) for w in waits]}, losses "
+          f"{[round(v, 4) for v in native_info['losses']]}")
+    if not all(np.isfinite(native_info["losses"])):
+        fail(f"runtime (17e): losses {native_info['losses']}")
+    TP_NATIVE.update(loader=native_info)
     sentinel.close()
     pf.close()
     del opt, sched, model, params, pf, loader
@@ -5945,6 +6478,10 @@ def main(argv=None) -> int:
                          "step on the device")
     ap.add_argument("--launch-worker", metavar="DIR",
                     help="run 16d's worker (the process launch starts)")
+    ap.add_argument("--phase17", action="store_true",
+                    help="build the kernels and run phase 17 alone (17a-d, "
+                         "then phase 12a's loop for 17e), print its "
+                         "tp_native line and exit; no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -6021,6 +6558,16 @@ def main(argv=None) -> int:
           f"{sorted({r for _, _, r in narrow})}, spill-store bytes "
           f"{sum(st for _, st, _ in narrow)}")
     int8_sass_check()
+    if args.phase17:
+        import paddle_tpu_torch as paddle
+
+        print(f"[17] tensor-parallel serving at tp={TP} alone")
+        tp_phase()
+        print("[17e] inside phase 12a")
+        gpt_amp_phase(paddle, {"step_ms": 0.0, "tokens_per_s": 0.0,
+                               "mfu": 0.0, "peak_gib": 0.0})
+        print(json.dumps({"tp_native": {"card": card, **TP_NATIVE}}))
+        return 0
 
     print("[2] kernels against their plain versions")
     errs = kernel_phase()
@@ -6059,6 +6606,10 @@ def main(argv=None) -> int:
           "injection, the serving drift")
     engine, fleet, auto = engine_train_phase(llama.pop("oom"))
     part2 = fleet.pop("part2")
+    print(f"[17] tensor-parallel serving at tp={TP}, both shards on one card: "
+          "gpt3_1p3b (drive a, the e mix, the int8 wire, the tax with spans "
+          "in the native ring), then llama_7b")
+    tp_phase()
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -6093,6 +6644,13 @@ def main(argv=None) -> int:
             r["launches_pipeline"] = pipe[r["name"]]
         if r["name"] in auto["launches"]:  # 16a's timed steps
             r["launches_auto"] = auto["launches"][r["name"]]
+        if r["name"] == "paged_attention_rows":  # phase 17's tp drives
+            tp = TP_NATIVE["gpt"]
+            r["launches_tp"] = (tp["17a"]["launches_tp"]
+                                + tp["17a+e"]["launches_tp"]
+                                + tp["17c"]["launches_tp"]
+                                + TP_NATIVE["llama"]["launches_tp"])
+            r["tp_shard_shape"] = tp["shard_kernel"]
     # the reference's (B*H, T, D) route shape: not on the port's main path
     long_rows = flash_timing(long_errs, dict.fromkeys(FLASH_REPLACES, 0),
                              FLASH_LONG, fused_qkv=False)
@@ -6145,6 +6703,7 @@ def main(argv=None) -> int:
     print(json.dumps({"fleet_train": fleet}))
     print(json.dumps({"fleet_part2": {"card": card, **part2}}))
     print(json.dumps({"auto_parallel_ckpt": {"card": card, **auto}}))
+    print(json.dumps({"tp_native": {"card": card, **TP_NATIVE}}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -68,7 +68,19 @@ _FLAGS: Dict[str, object] = {
     "FLAGS_serve_drafter": "ngram",
     "FLAGS_serve_draft_window": 64,
     "FLAGS_serve_prefill_chunk": 0,
-    # Resilience: FLAGS_serve_max_queue is the queue depth at which the shed
+    # Tensor-parallel serving. FLAGS_serve_tp shards attention heads, FFN
+    # columns, the LM head and the KV pool over tp shards (0/1 = one
+    # device, the exact prior code path). Every tensor-parallel boundary is
+    # a concat of column-partitioned outputs (never a sum of partials), an
+    # exact gather; greedy decode equals the one-device engine's only where
+    # each shard's product rounds as the full product's columns. On the
+    # H100 cuBLAS's bf16 q/k/v projections of Llama-7B do not (ROADMAP §C).
+    # FLAGS_serve_tp_int8 sends those payloads as blockwise int8 with f32
+    # scales (lossy: greedy tokens may differ; off by default). Both are off
+    # by default and their code paths are never reached unconfigured.
+    "FLAGS_serve_tp": 0,
+    "FLAGS_serve_tp_int8": False,
+    # Resilience:FLAGS_serve_max_queue is the queue depth at which the shed
     # policy engages (0 = never), enforced only with FLAGS_serve_shed, when a
     # submit past the cap fast-fails with Overloaded (a retry_after_s hint)
     # instead of queueing without bound; FLAGS_serve_watchdog_s is the

@@ -1,12 +1,12 @@
 """paddle.io: datasets, samplers, ``DataLoader`` and ``DevicePrefetcher``
 (port of ``paddle_tpu/io/__init__.py``).
 
-Batches are assembled on the host: worker threads, or forked worker
-processes that return numpy only (a forked child must never touch the
-parent's CUDA context), feed a bounded ``queue.Queue`` (the reference's
-native C++ queue core is part of its ``runtime_cpp``, which the port does
-not build). Host tensors move to the device on the consumer: to the
-loader's place as each batch is handed out, or, through
+Batches are assembled on the host: worker threads feed the native host
+runtime's bounded C++ blocking queue (``core/csrc/queue.cc``) as pickled
+numpy trees; forked worker processes, which return numpy only (a forked
+child must never touch the parent's CUDA context), feed a
+``multiprocessing`` queue. Host tensors move to the device on the
+consumer: to the loader's place as each batch is handed out, or, through
 ``DevicePrefetcher``, with asynchronous copies from pinned memory on a
 stream of their own that overlap the training step.
 
@@ -17,6 +17,7 @@ sample-exactly.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 import queue as _queue
@@ -308,6 +309,20 @@ def _tree_to_device(obj, device):
     return obj
 
 
+def _tree_to_numpy(obj):
+    """Host tensors as numpy (the native queue's wire form); a tensor numpy
+    cannot hold (bf16, on the card) crosses as itself, pickled by torch."""
+    if isinstance(obj, torch.Tensor):
+        if obj.device.type != "cpu" or obj.dtype == torch.bfloat16:
+            return obj
+        return obj.detach().numpy()
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_tree_to_numpy(o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _tree_to_numpy(v) for k, v in obj.items()}
+    return obj
+
+
 def _numpy_collate(batch):
     """Worker-side collate, numpy end to end: a forked worker must never
     touch torch's CUDA state ("Cannot re-initialize CUDA in forked
@@ -423,46 +438,95 @@ class _MultiprocessIter:
             pass
 
 
+def _fetch_batch(dataset, collate_fn, indices):
+    if isinstance(dataset, IterableDataset):
+        raise RuntimeError("use _IterableIter")
+    return collate_fn([dataset[i] for i in indices])
+
+
+def _thread_worker_loop(index_queue, native_q, fetch):
+    """One worker thread: fetch the batches named on ``index_queue`` and push
+    each as a pickled ``(kind, index, numpy tree)``. It holds the queues
+    and ``fetch`` only, never the iterator, so an iterator abandoned part
+    way through an epoch is still collected and its ``close()`` runs."""
+    import pickle
+
+    while True:
+        try:
+            i, indices = index_queue.get_nowait()
+        except _queue.Empty:
+            return
+        try:
+            payload = pickle.dumps(("ok", i, _tree_to_numpy(fetch(indices))),
+                                   protocol=pickle.HIGHEST_PROTOCOL)
+        except Exception as e:  # raised again at the consumer
+            try:
+                payload = pickle.dumps(("err", i, e))
+            except Exception:
+                payload = pickle.dumps(("err", i, RuntimeError(
+                    f"DataLoader worker failed: {e!r}")))
+        if not native_q.push(payload):
+            return  # closed: the consumer went away
+
+
 class _DataLoaderIter:
-    """The synchronous loader (``num_workers=0``), or worker threads → a
-    bounded ``queue.Queue`` of ``max(2, prefetch_factor)`` batches."""
+    """The synchronous loader (``num_workers=0``), or worker threads → the
+    native runtime's bounded ``NativeQueue`` of ``max(2, prefetch_factor)``
+    batches: each worker pushes its batch as a pickled numpy tree (the copy
+    into C++ runs without the GIL), and the consumer unpickles it and makes
+    the tensors, handing batches out in index order (a batch that arrives
+    early waits for its turn). ``close()`` (also from ``__del__``) stops
+    the workers: a worker blocked on the full queue sees the close and
+    exits."""
 
     def __init__(self, loader):
         self.loader = loader
         self.batch_sampler_iter, _ = loader._index_iter()
         self.num_workers = loader.num_workers
         self.collate_fn = loader.collate_fn or default_collate_fn
+        self.native_q = None
         if self.num_workers > 0:
-            cap = max(2, loader.prefetch_factor)
-            self.queue: _queue.Queue = _queue.Queue(maxsize=cap)
+            from ..core.native import NativeQueue
+
+            self.native_q = NativeQueue(max(2, loader.prefetch_factor))
+            self._hold = {}
             self.index_queue: _queue.Queue = _queue.Queue()
             self.n_pending = 0
-            for indices in self.batch_sampler_iter:
-                self.index_queue.put(indices)
+            for i, indices in enumerate(self.batch_sampler_iter):
+                self.index_queue.put((i, indices))
                 self.n_pending += 1
+            fetch = functools.partial(_fetch_batch, loader.dataset,
+                                      self.collate_fn)
             self.workers = []
             for _ in range(self.num_workers):
-                t = threading.Thread(target=self._worker_loop, daemon=True)
+                t = threading.Thread(
+                    target=_thread_worker_loop,
+                    args=(self.index_queue, self.native_q, fetch),
+                    daemon=True, name="dataloader-worker")
                 t.start()
                 self.workers.append(t)
             self.n_received = 0
 
     def _fetch(self, indices):
-        ds = self.loader.dataset
-        if isinstance(ds, IterableDataset):
-            raise RuntimeError("use _IterableIter")
-        return self.collate_fn([ds[i] for i in indices])
+        return _fetch_batch(self.loader.dataset, self.collate_fn, indices)
 
-    def _worker_loop(self):
-        while True:
-            try:
-                indices = self.index_queue.get_nowait()
-            except _queue.Empty:
-                return
-            try:
-                self.queue.put(("ok", self._fetch(indices)))
-            except Exception as e:  # raised again at the consumer's next()
-                self.queue.put(("err", e))
+    def _native_next(self):
+        import pickle
+
+        want = self.n_received
+        while want not in self._hold:
+            raw = self.native_q.pop()
+            if raw is None:
+                raise RuntimeError("DataLoader: the batch queue closed with "
+                                   f"batch {want} of {self.n_pending} due")
+            kind, i, payload = pickle.loads(raw)
+            self._hold[i] = (kind, payload)
+        kind, payload = self._hold.pop(want)
+        self.n_received += 1
+        if kind == "err":
+            self.close()  # as the forked workers' path does
+            raise payload
+        return _tree_to_tensor(payload)
 
     def __iter__(self):
         return self
@@ -473,15 +537,34 @@ class _DataLoaderIter:
             batch = self._fetch(indices)
         else:
             if self.n_received >= self.n_pending:
+                self.close()
                 raise StopIteration
-            kind, payload = self.queue.get()
-            self.n_received += 1
-            if kind == "err":
-                raise payload
-            batch = payload
+            batch = self._native_next()
         if self.loader.return_list and isinstance(batch, (list, tuple)):
             return list(batch)
         return batch
+
+    def close(self):
+        """Stop the worker threads (idempotent): the batches not yet
+        fetched are dropped from the index queue, and the native queue is
+        closed, which wakes a worker blocked on a push."""
+        if self.native_q is None:
+            return
+        try:
+            while True:
+                self.index_queue.get_nowait()
+        except _queue.Empty:
+            pass
+        self.native_q.close()
+        for t in self.workers:
+            if t is not threading.current_thread():
+                t.join(timeout=2.0)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     def skip_next(self):
         """Advance one batch without loading its samples on the synchronous
@@ -756,8 +839,9 @@ class DevicePrefetcher:
     set_state_dict = load_state_dict
 
     def close(self):
-        """Stop the prefetch thread (idempotent). Staged batches are
-        dropped; the source is not drained."""
+        """Stop the prefetch thread, and the worker threads of the loader's
+        epoch iterator under it (idempotent). Staged batches are dropped;
+        the source is not drained."""
         self._stop.set()
         try:
             while True:
@@ -768,6 +852,11 @@ class DevicePrefetcher:
         if t is not None and t.is_alive() \
                 and t is not threading.current_thread():
             t.join(timeout=2.0)
+        # the loader's epoch iterator under this prefetcher hands its host
+        # batches to no one else: stop its worker threads too
+        ei = self._epoch_iter()
+        if ei is not None:
+            ei.close()
 
     def __del__(self):
         try:
@@ -812,6 +901,12 @@ class _StatefulIter:
         self.loader._batch_idx = self._start_idx + self._produced
         return batch if self.host else _tree_to_device(batch, self.device)
 
+    def close(self):
+        """Stop the inner iterator's workers, where it has any."""
+        close = getattr(self.inner, "close", None)
+        if close is not None:
+            close()
+
     def skip_batch(self) -> bool:
         """Advance past the next batch without training on it (the
         quarantine skip), at the index level when the inner iterator can;
@@ -849,7 +944,9 @@ class DataLoader:
     (``num_workers=0``), worker threads (``use_shared_memory=False`` or
     ``use_multiprocess=False``) or forked worker processes (the default
     with ``num_workers > 0``). ``device_prefetch=N`` wraps each epoch's
-    iterator in a ``DevicePrefetcher`` staging N batches."""
+    iterator in a ``DevicePrefetcher`` staging N batches.
+    ``use_buffer_reader`` is accepted for the Paddle signature and selects
+    nothing: worker threads always feed the native queue."""
 
     def __init__(self, dataset, feed_list=None, places=None, return_list=True,
                  batch_sampler=None, batch_size=1, shuffle=False,
@@ -864,6 +961,7 @@ class DataLoader:
         self.collate_fn = collate_fn
         self.num_workers = num_workers
         self.prefetch_factor = prefetch_factor
+        self.use_buffer_reader = bool(use_buffer_reader)
         self.device_prefetch = int(device_prefetch or 0)
         if use_multiprocess is None:
             use_multiprocess = use_shared_memory

@@ -581,15 +581,28 @@ def kv_block_checksums(kpool, vpool, bids):
     fixed chunk of blocks and sums each block's row in one f32 reduction
     (no atomics), so the same pools and ids give the same bits on the card,
     as a clean handoff needs. Reads the pools on the device they live on;
-    the caller synchronizes with any work still writing them."""
+    the caller synchronizes with any work still writing them.
+
+    Tensor-parallel pools come as lists of shards (L, NB, BS, KV/tp, D):
+    each chunk's blocks are gathered on the KV-head axis onto the first
+    shard's device before the same reduction, so a block's checksum equals
+    the one-device engine's for the same contents."""
     if not len(bids):
         return np.zeros((0, 2), dtype=np.float64)
-    idx = torch.as_tensor(np.asarray(bids, dtype=np.int64),
-                          device=kpool.device)
+    sharded = isinstance(kpool, (list, tuple))
+    dev = kpool[0].device if sharded else kpool.device
+    idx = torch.as_tensor(np.asarray(bids, dtype=np.int64), device=dev)
+
+    def blocks(pool, part):
+        if not sharded:
+            return pool.index_select(1, part)
+        return torch.cat([p.index_select(1, part.to(p.device)).to(dev)
+                          for p in pool], dim=3)
+
     out = []
     for lo in range(0, len(idx), _CHECKSUM_CHUNK):
         part = idx[lo:lo + _CHECKSUM_CHUNK]
-        sums = [pool.index_select(1, part).abs_().transpose(0, 1)
+        sums = [blocks(pool, part).abs_().transpose(0, 1)
                 .reshape(len(part), -1).sum(1, dtype=torch.float32)
                 for pool in (kpool, vpool)]
         out.append(torch.stack(sums, 1))
@@ -727,6 +740,484 @@ def build_window_draft(arch, B, W, k):
         return out
 
     return draft
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving
+# ---------------------------------------------------------------------------
+# The tp builders shard attention heads, FFN columns and the LM head's vocab
+# rows over tp shards; every tp boundary is a CONCAT of column shards (each
+# shard's output copied to the consumer's device and joined on the last
+# axis), never a sum of partial products. Every element of a gathered
+# tensor is then the dot product the one-device step computes, and the
+# replicated work after a gather (the attention projection, the FFN down
+# projection, the head's argmax) runs once, on the consumer's device, on
+# the same inputs: greedy decode keeps the one-device engine's tokens as
+# long as a column slice of a product is computed as the product's columns
+# (on the H100 Llama-7B's bf16 q/k/v projections are not; ROADMAP §C).
+# Embeddings and norms stay replicated; GPT's tied head gets its own
+# vocab-row-sharded copy of wte while the replicated wte keeps serving the
+# embedding lookup. A shard is a weight tree of its own on its own device,
+# each leaf contiguous, and so is its KV pool (L, NB, BS, KV/tp, D); the
+# host-side block tables, PagePool bookkeeping and scheduler state stay
+# replicated, so pool conservation, prefix chaining, snapshot/adopt and
+# preemption are unchanged.
+
+_INT8_TAG = "__int8__"  # serving/int8.quantize_params's leaf encoding
+
+
+def _tp_dims(arch_key):
+    """(kind, H, KV, D, L, theta, eps) from a decode-state ``arch_key``."""
+    if arch_key[0] == "gpt":
+        _, H, D, L = arch_key
+        return "gpt", H, H, D, L, None, None
+    _, H, KV, D, L, theta, eps = arch_key
+    return "llama", H, KV, D, L, theta, eps
+
+
+def _tp_leaf(leaf, fn):
+    """``fn`` applied to a weight leaf, looking through the int8 tagged
+    encoding. The scale is per tensor, so slice-then-dequantize is bitwise
+    dequantize-then-slice: an int8 engine shards the int8 bytes and each
+    shard dequantizes its own leaves."""
+    if isinstance(leaf, dict) and _INT8_TAG in leaf:
+        return {_INT8_TAG: fn(leaf[_INT8_TAG]), "scale": leaf["scale"]}
+    return fn(leaf)
+
+
+def _tp_shape(leaf):
+    if isinstance(leaf, dict) and _INT8_TAG in leaf:
+        return tuple(leaf[_INT8_TAG].shape)
+    return tuple(leaf.shape)
+
+
+def tp_validate(arch_key, params, tp):
+    """Shard-divisibility requirements for a tp degree; returns
+    ``(ffn_width, vocab)``. Heads, kv heads and the FFN width must divide
+    evenly (the vocab is zero-padded to a tp multiple instead: the padded
+    logits are sliced off after the gather, so they never win argmax)."""
+    kind, H, KV, D, L, _, _ = _tp_dims(arch_key)
+    ffn = _tp_shape(params["layers"][0]["up_w"])[1]
+    vocab = (_tp_shape(params["wte"])[0] if kind == "gpt"
+             else _tp_shape(params["head_w"])[1])
+    for name, n in (("attention heads", H), ("kv heads", KV),
+                    ("ffn width", ffn)):
+        if n % tp:
+            raise ValueError(
+                f"serving: tp={tp} must divide the model's {name} ({n})")
+    return ffn, vocab
+
+
+def _tp_place(node, device):
+    """Every tensor of a weight tree contiguous on ``device``."""
+    if isinstance(node, dict):
+        return {k: _tp_place(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tp_place(v, device) for v in node]
+    if device is None:
+        return node.contiguous()
+    return node.contiguous().to(device)
+
+
+def tp_pack_params(arch_key, params, tp, devices=None):
+    """Split a decode weight tree (float or int8-tagged) into
+    ``({"rep": replicated_tree, "shard": [tree_0, ..., tree_{tp-1}]},
+    vocab)``.
+
+    ``rep`` holds the replicated leaves themselves (no copy); shard ``d``
+    holds, per sharded weight, its column slice, contiguous, on
+    ``devices[d]`` (each leaf's own device when None). GPT's fused qkv is
+    sliced through its (H·D, 3, H, D) view, so each shard owns whole
+    (q, k, v) triples for its heads; the head weight is vocab-sliced after
+    zero-padding the vocab to a tp multiple."""
+    kind, H, KV, D, L, _, _ = _tp_dims(arch_key)
+    ffn, vocab = tp_validate(arch_key, params, tp)
+    Hl, KVl, Fl = H // tp, KV // tp, ffn // tp
+    HD = H * D
+    Vl = -(-vocab // tp)
+
+    def vocab_slice(a, axis, d):
+        # shard d's Vl vocab entries of the zero-padded vocab
+        lo = d * Vl
+        part = a.narrow(axis, lo, max(0, min(lo + Vl, vocab) - lo))
+        if part.shape[axis] == Vl:
+            return part
+        shape = list(a.shape)
+        shape[axis] = Vl - part.shape[axis]
+        return torch.cat([part, a.new_zeros(shape)], dim=axis)
+
+    def cols(a, d, n):
+        return a[:, d * n:(d + 1) * n]
+
+    def heads(a, n_heads, d, n):
+        # (HD, n_heads * D) -> shard d's n heads of D columns each
+        return a.reshape(HD, n_heads, D)[:, d * n:(d + 1) * n].reshape(
+            HD, n * D)
+
+    def dev_tree(d):
+        if kind == "gpt":
+            head = _tp_leaf(params["wte"], lambda a: vocab_slice(a, 0, d))
+            layers = [{
+                "qkv_w": _tp_leaf(w["qkv_w"], lambda a: a.reshape(
+                    HD, 3, H, D)[:, :, d * Hl:(d + 1) * Hl].reshape(
+                        HD, 3 * Hl * D)),
+                "qkv_b": w["qkv_b"].reshape(3, H, D)[
+                    :, d * Hl:(d + 1) * Hl].reshape(-1),
+                "up_w": _tp_leaf(w["up_w"], lambda a: cols(a, d, Fl)),
+                "up_b": w["up_b"][d * Fl:(d + 1) * Fl],
+            } for w in params["layers"]]
+        else:
+            head = _tp_leaf(params["head_w"],
+                            lambda a: vocab_slice(a, 1, d))
+            layers = [{
+                "q_w": _tp_leaf(w["q_w"], lambda a: heads(a, H, d, Hl)),
+                "k_w": _tp_leaf(w["k_w"], lambda a: heads(a, KV, d, KVl)),
+                "v_w": _tp_leaf(w["v_w"], lambda a: heads(a, KV, d, KVl)),
+                "gate_w": _tp_leaf(w["gate_w"], lambda a: cols(a, d, Fl)),
+                "up_w": _tp_leaf(w["up_w"], lambda a: cols(a, d, Fl)),
+            } for w in params["layers"]]
+        tree = {"head_w": head, "layers": layers}
+        return _tp_place(tree, None if devices is None else devices[d])
+
+    if kind == "gpt":
+        rep = {k: params[k] for k in ("wte", "wpe", "lnf_w", "lnf_b")}
+        rep_keys = ("ln1_w", "ln1_b", "proj_w", "proj_b", "ln2_w", "ln2_b",
+                    "down_w", "down_b")
+    else:
+        rep = {k: params[k] for k in ("wte", "lnf_w")}
+        rep_keys = ("ln1_w", "o_w", "ln2_w", "down_w")
+    rep["layers"] = [{k: w[k] for k in rep_keys} for w in params["layers"]]
+    return {"rep": rep, "shard": [dev_tree(d) for d in range(tp)]}, vocab
+
+
+def tp_collective_bytes(arch_key, params, B, tp):
+    """A decode step's tensor-parallel gather payload as ``(fp32_bytes,
+    int8_bytes)``: the attention output and the FFN intermediate a layer,
+    plus the padded logits, over all shards. The int8 figure includes the
+    f32 blockwise scales (one per 128 elements, each shard's payload padded
+    to a whole block), what the ``tp_int8`` wire really carries."""
+    kind, H, KV, D, L, _, _ = _tp_dims(arch_key)
+    ffn, vocab = tp_validate(arch_key, params, tp)
+    vp = -(-vocab // tp) * tp
+    sizes = [B * H * D, B * ffn] * L + [B * vp]
+
+    def wire(n, int8):
+        if not int8:
+            return n * 4
+        blocks = -(-(n // tp) // 128)
+        return tp * blocks * (128 * 1 + 4)
+
+    return (sum(wire(n, False) for n in sizes),
+            sum(wire(n, True) for n in sizes))
+
+
+def _tp_gather(parts, quantized, device):
+    """The tp boundary: each shard's column block (on its own device) copied
+    to ``device`` and concatenated on the last axis. Exact: every element is
+    the value one shard computed. With ``quantized`` (``tp_int8``) each
+    block crosses as blockwise int8 with f32 scales (padded to 128
+    elements) and is dequantized shard by shard: about 3.9x fewer bytes,
+    LOSSY (greedy tokens may differ). The bytes that cross are counted in
+    ``serve_tp_gather_bytes``."""
+    from ..profiler import counter_inc
+
+    if not quantized:
+        counter_inc("serve_tp_gather_bytes",
+                    sum(p.numel() * p.element_size() for p in parts))
+        return torch.cat([p.to(device) for p in parts], dim=-1)
+    from ..distributed.collective import (blockwise_dequantize,
+                                          blockwise_quantize)
+
+    out, wire = [], 0
+    for p in parts:
+        flat = p.reshape(-1)
+        m = flat.shape[0]
+        pad = -m % 128
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        q, s = blockwise_quantize(flat)
+        q, s = q.to(device), s.to(device)
+        wire += q.numel() + s.numel() * 4
+        out.append(blockwise_dequantize(q, s, p.dtype)[:m].reshape(p.shape))
+    counter_inc("serve_tp_gather_bytes", wire)
+    return torch.cat(out, dim=-1)
+
+
+def _has_int8(tree) -> bool:
+    return any(isinstance(v, dict) and _INT8_TAG in v
+               for v in tree["layers"][0].values())
+
+
+def _tp_view(tree, dtype):
+    """A shard's (or the replicated part's) weights to compute with: its
+    int8 leaves dequantized on read, on its own device, as the one-device
+    int8 engine reads them."""
+    from ..serving.int8 import dequantize_tree
+
+    return dequantize_tree(tree, dtype) if _has_int8(tree) else tree
+
+
+def _tp_arch(arch_key, tp, vocab, int8_wire, devices):
+    """The tp step's layer drivers over the consumer (``devices[0]``, where
+    the replicated work runs) and the shards: the replicated norm, the
+    column-sharded projections and local grouped attention of each shard, a
+    gather at the attention and FFN boundaries, the replicated second
+    matmuls. Op for op the one-device plugs and the gather is an exact
+    concat, so a gathered tensor is the one-device activation bit for bit
+    where the backend computes each shard's column slice of a product as
+    the full product's columns: on the H100, cuBLAS's bf16 q/k/v
+    projections of Llama-7B at half the columns round otherwise (ROADMAP
+    §C)."""
+    kind, H, KV, D, L, theta, eps = _tp_dims(arch_key)
+    Hl, KVl = H // tp, KV // tp
+    rep = H // KV  # the GQA group width is tp-invariant (both axes sharded)
+    gpt = kind == "gpt"
+    dev0 = devices[0]
+
+    def gather(parts):
+        return _tp_gather(parts, int8_wire, dev0)
+
+    def on(t):
+        # t on every shard's device (the same tensor where it already is)
+        return [t if t.device == d else t.to(d) for d in devices]
+
+    def embed(rep, rw, ids, pos):
+        # tokens at absolute positions; a position past GPT's table reads
+        # its last row, as the reference's gather clamps (only padding and
+        # feeds past a sequence's budget reach it)
+        if gpt:
+            n_pos = _tp_shape(rep["wpe"])[0]
+            return _rows(rw, "wte", ids) + _rows(rw, "wpe",
+                                                 pos.clamp(max=n_pos - 1))
+        return _rows(rw, "wte", ids)
+
+    def pre(rwl, x):
+        if gpt:
+            return _ln(x, rwl["ln1_w"], rwl["ln1_b"])
+        return _rms(x, rwl["ln1_w"], eps)
+
+    def proj(swl, h, posm):
+        # one shard's column-sharded projections of h (B,T,H·D): q
+        # (B,T,Hl,D), k and v (B,T,KVl,D), RoPE at the (row, token) grid
+        B, T = h.shape[0], h.shape[1]
+        if gpt:
+            qkv = (h @ swl["qkv_w"] + swl["qkv_b"]).reshape(B, T, 3, Hl, D)
+            return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q = (h @ swl["q_w"]).reshape(B, T, Hl, D)
+        k = (h @ swl["k_w"]).reshape(B, T, KVl, D)
+        v = (h @ swl["v_w"]).reshape(B, T, KVl, D)
+        return _rope_grid(q, posm, theta), _rope_grid(k, posm, theta), v
+
+    def post_attn(rwl, swls, x, o_parts):
+        # the shards' attention reads (B,T,Hl·D) gathered to the full heads,
+        # then the replicated projection, the sharded FFN columns, gathered,
+        # and the replicated down projection
+        o = gather(o_parts)
+        if gpt:
+            x = x + (o @ rwl["proj_w"] + rwl["proj_b"])
+            h2s = on(_ln(x, rwl["ln2_w"], rwl["ln2_b"]))
+            ff = gather([F.gelu(h2 @ sw["up_w"] + sw["up_b"],
+                                approximate="tanh")
+                         for h2, sw in zip(h2s, swls)])
+            return x + (ff @ rwl["down_w"] + rwl["down_b"])
+        x = x + o @ rwl["o_w"]
+        h2s = on(_rms(x, rwl["ln2_w"], eps))
+        ff = gather([F.silu(h2 @ sw["gate_w"]) * (h2 @ sw["up_w"])
+                     for h2, sw in zip(h2s, swls)])
+        return x + ff @ rwl["down_w"]
+
+    def head_rows(rw, sws, x, idx):
+        rows = x[torch.arange(x.shape[0], device=x.device), idx]
+        h = _ln(rows, rw["lnf_w"], rw["lnf_b"]) if gpt \
+            else _rms(rows, rw["lnf_w"], eps)
+        parts = [hd @ (sw["head_w"].T if gpt else sw["head_w"])
+                 for hd, sw in zip(on(h), sws)]
+        # the padded vocab columns are sliced off after the gather
+        return gather(parts)[:, :vocab]
+
+    return {"embed": embed, "pre": pre, "proj": proj, "on": on,
+            "post_attn": post_attn, "head_rows": head_rows,
+            "kv_local": KVl, "head_dim": D, "rep": rep, "n_layers": L}
+
+
+def _tp_weights(packed, dtype):
+    return (_tp_view(packed["rep"], dtype),
+            [_tp_view(s, dtype) for s in packed["shard"]])
+
+
+def _tp_kernel_config(B, MB, BS, KV, rep, D, dtype, device):
+    """The paged kernel's config for a shard: the one the UNSHARDED (B, KV)
+    resolves to, the kernel's own cluster-size rule (``split_for``) taken at
+    the unsharded shape. At KV/tp the rule can pick a larger split, which
+    changes the merge order of a row's partial results and can flip a greedy
+    token against the one-device engine; with the unsharded split each
+    (row, head) is computed as the one-device step computes it."""
+    from ..ops.kernels import paged_attention as P
+    from ..ops.kernels.registry import launch_config
+
+    config = dict(launch_config("paged_attention", P.paged_attention_key, B,
+                                MB, BS, KV, rep, D, dtype))
+    if int(config["split"]) == 0:
+        config["split"] = P.rule_split(B, KV, BS, MB, device)
+    return config
+
+
+def build_tp_paged_decode(arch_key, B, block_size, max_blocks, devices, vocab,
+                          dtype, use_kernel=False, int8_wire=False):
+    """Tensor-parallel ``build_paged_decode`` (``build_paged_decode_kernel``
+    with ``use_kernel``): the same step, ``step(packed, kpools, vpools,
+    tables, pos, toks, temps, generator)``, with :func:`tp_pack_params`'s
+    tree in place of ``params`` and one (L, NB, BS, KV/tp, D) pool a shard
+    (``kpools[d]`` on ``devices[d]``) in place of the pools; tables,
+    positions and tokens are the consumer's. The kernel path launches the
+    paged-attention kernel on each shard's own contiguous layer pool, at
+    KV/tp heads and the unsharded shape's cluster size
+    (``_tp_kernel_config``)."""
+    tp = len(devices)
+    A = _tp_arch(arch_key, tp, vocab, int8_wire, devices)
+    KVl, D, rep = A["kv_local"], A["head_dim"], A["rep"]
+    T_pad = block_size * max_blocks
+    config = {}
+
+    def logits_fn(packed, kpools, vpools, tables, pos, toks):
+        rw, sws = _tp_weights(packed, dtype)
+        tl, pl = tables.long(), pos.long()
+        x = A["embed"](packed["rep"], rw, toks.long(), pl)[:, None]
+        bids = tl.gather(1, (pl // block_size)[:, None])[:, 0]
+        offs = pl % block_size
+        tls, pls, bidss, offss = (A["on"](t) for t in (tl, pl, bids, offs))
+        if use_kernel:
+            tabs, poss = A["on"](tables), A["on"](pos)
+            if not config and tables.device.type == "cuda":
+                config["c"] = _tp_kernel_config(
+                    B, max_blocks, block_size, KVl * tp, rep, D, dtype,
+                    tables.device)
+        else:
+            lives = A["on"](torch.arange(T_pad, device=pl.device)[None, :]
+                            <= pl[:, None])
+        for li in range(len(packed["rep"]["layers"])):
+            rwl = rw["layers"][li]
+            swls = [sw["layers"][li] for sw in sws]
+            hs = A["on"](A["pre"](rwl, x))
+            o_parts = []
+            for d in range(tp):
+                q, k, v = A["proj"](swls[d], hs[d], pls[d][:, None])
+                kp, vp = kpools[d][li], vpools[d][li]
+                if use_kernel:
+                    kp[bidss[d], offss[d]] = k[:, 0]
+                    vp[bidss[d], offss[d]] = v[:, 0]
+                    o = paged_attention_rows(q[:, 0].contiguous(), kp, vp,
+                                             tabs[d], poss[d],
+                                             config=config.get("c"))[:, None]
+                else:
+                    rows = torch.arange(B, device=q.device)
+                    k_ctx = kp[tls[d]].reshape(B, T_pad, KVl, D)
+                    v_ctx = vp[tls[d]].reshape(B, T_pad, KVl, D)
+                    k_ctx[rows, pls[d]] = k[:, 0]
+                    v_ctx[rows, pls[d]] = v[:, 0]
+                    o = _grouped_attention(
+                        q, k_ctx, v_ctx, lives[d][:, None, None, None, :],
+                        rep)
+                    kp[bidss[d], offss[d]] = k[:, 0]
+                    vp[bidss[d], offss[d]] = v[:, 0]
+                o_parts.append(o)
+            x = A["post_attn"](rwl, swls, x, o_parts)
+        return A["head_rows"](rw, sws, x,
+                              torch.zeros(B, dtype=torch.long,
+                                          device=x.device))
+
+    return _decode_step(logits_fn)
+
+
+def build_tp_paged_prefill(arch_key, B, T_bucket, block_size, max_blocks,
+                           devices, vocab, dtype, int8_wire=False):
+    """Tensor-parallel ``build_paged_prefill``: ``prefill(packed, ids, lens,
+    tables, kpools, vpools)``; each shard scatters its (B, nb, BS, KV/tp, D)
+    K/V into its own pool at the replicated block table."""
+    if T_bucket % block_size:
+        raise ValueError(f"prefill bucket {T_bucket} must be a multiple of "
+                         f"block_size {block_size}")
+    nb = T_bucket // block_size
+    if nb > max_blocks:
+        raise ValueError("prefill bucket exceeds max sequence blocks")
+    tp = len(devices)
+    A = _tp_arch(arch_key, tp, vocab, int8_wire, devices)
+    KVl, D, rep = A["kv_local"], A["head_dim"], A["rep"]
+
+    def prefill(packed, ids, lens, tables, kpools, vpools):
+        rw, sws = _tp_weights(packed, dtype)
+        dev = ids.device
+        ar = torch.arange(T_bucket, device=dev)
+        x = A["embed"](packed["rep"], rw, ids.long(), ar[None, :].expand(B, -1))
+        posms = A["on"](ar[None, :].expand(B, -1))
+        tbs = A["on"](tables[:, :nb].long())
+        live = torch.ones(T_bucket, T_bucket, dtype=torch.bool,
+                          device=dev).tril()[None, None, None]
+        lives = A["on"](live)
+        for li in range(len(packed["rep"]["layers"])):
+            rwl = rw["layers"][li]
+            swls = [sw["layers"][li] for sw in sws]
+            hs = A["on"](A["pre"](rwl, x))
+            o_parts = []
+            for d in range(tp):
+                q, k, v = A["proj"](swls[d], hs[d], posms[d])
+                o_parts.append(_grouped_attention(q, k, v, lives[d], rep))
+                kpools[d][li][tbs[d]] = k.reshape(B, nb, block_size, KVl, D)
+                vpools[d][li][tbs[d]] = v.reshape(B, nb, block_size, KVl, D)
+            x = A["post_attn"](rwl, swls, x, o_parts)
+        return kpools, vpools, A["head_rows"](rw, sws, x, lens.long() - 1)
+
+    return prefill
+
+
+def build_tp_paged_tail_prefill(arch_key, B, T_bucket, block_size,
+                                max_blocks, devices, vocab, dtype,
+                                int8_wire=False):
+    """Tensor-parallel ``build_paged_tail_prefill`` (also the chunked
+    prefill's step): ``prefill(packed, ids, starts, lens, tables, kpools,
+    vpools)``; each shard reads its heads of the earlier blocks through the
+    replicated table and writes its heads of the tail's blocks."""
+    if T_bucket % block_size:
+        raise ValueError(f"tail-prefill bucket {T_bucket} must be a multiple "
+                         f"of block_size {block_size}")
+    nb = T_bucket // block_size
+    T_pad = block_size * max_blocks
+    tp = len(devices)
+    A = _tp_arch(arch_key, tp, vocab, int8_wire, devices)
+    KVl, D, rep = A["kv_local"], A["head_dim"], A["rep"]
+
+    def prefill(packed, ids, starts, lens, tables, kpools, vpools):
+        rw, sws = _tp_weights(packed, dtype)
+        tl, st = tables.long(), starts.long()
+        dev = st.device
+        posm = st[:, None] + torch.arange(T_bucket, device=dev)[None, :]
+        x = A["embed"](packed["rep"], rw, ids.long(), posm)
+        live = torch.arange(T_pad, device=dev)[None, None, :] \
+            <= posm[:, :, None]  # (B, T, Tp)
+        bids = _table_cols(tl, (st // block_size)[:, None]
+                           + torch.arange(nb, device=dev)[None, :],
+                           max_blocks)
+        tls, sts, posms, lives, bidss = (A["on"](t) for t in
+                                         (tl, st, posm, live, bids))
+        for li in range(len(packed["rep"]["layers"])):
+            rwl = rw["layers"][li]
+            swls = [sw["layers"][li] for sw in sws]
+            hs = A["on"](A["pre"](rwl, x))
+            o_parts = []
+            for d in range(tp):
+                q, k_new, v_new = A["proj"](swls[d], hs[d], posms[d])
+                kp, vp = kpools[d][li], vpools[d][li]
+                k_ctx = kp[tls[d]].reshape(B, T_pad, KVl, D)
+                v_ctx = vp[tls[d]].reshape(B, T_pad, KVl, D)
+                _write_feeds(k_ctx, v_ctx, k_new, v_new, sts[d])
+                o_parts.append(_grouped_attention(
+                    q, k_ctx, v_ctx, lives[d][:, None, None], rep))
+                kp[bidss[d]] = k_new.reshape(B, nb, block_size, KVl, D)
+                vp[bidss[d]] = v_new.reshape(B, nb, block_size, KVl, D)
+            x = A["post_attn"](rwl, swls, x, o_parts)
+        return kpools, vpools, A["head_rows"](rw, sws, x, lens.long() - 1)
+
+    return prefill
 
 
 # ---------------------------------------------------------------------------

@@ -29,14 +29,15 @@ from . import _build
 from .registry import dtype_name, launch_config, register_kernel
 
 __all__ = ["paged_attention_rows", "paged_attention_rows_plain",
-           "paged_attention_key", "launches"]
+           "paged_attention_key", "rule_split", "launches"]
 
 launches = 0  # kernel launches since the last reset (plain calls excluded)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {"pt_paged_attention": (
-    (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _I), _I)}
+    (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _I), _I),
+    "pt_paged_split": ((_I, _I, _I, _I), _I)}
 _SPLITS = (0, 1, 2, 4, 8)  # 0: the kernel's own rule (split_for)
 
 
@@ -70,6 +71,18 @@ def paged_attention_rows_plain(q, kpool, vpool, tables, pos):
     o = _grouped_attention(q[:, None], kc, vc, live[:, None, None, None, :],
                            H // KV)
     return o.reshape(B, H * D)
+
+
+def rule_split(B, KV, BS, MB, device) -> int:
+    """The cluster size the kernel's own rule (``split_for``) gives a launch
+    at (B, KV, BS, MB) on ``device``'s card (the tensor-parallel decode
+    hands each shard the unsharded shape's size)."""
+    lib = _build.load("paged_attention", _SIGS)
+    with torch.cuda.device(device):
+        split = lib.pt_paged_split(int(B), int(KV), int(BS), int(MB))
+    if split <= 0:
+        _build.check(-split, lib, "pt_paged_split")
+    return int(split)
 
 
 @lru_cache(maxsize=None)

@@ -6,7 +6,11 @@ Layers, each usable alone:
   (:func:`counters`), exported as JSON or Prometheus text (:mod:`.export`);
 * **span tracer** (:mod:`.spans`): nested, attributed host spans
   (``train_step``; ``schedule`` → ``admit``/``prefill``/``decode_step``),
-  kept in the session while a :class:`Profiler` records;
+  kept in the session while a :class:`Profiler` records. A session's flat
+  events (``RecordEvent``) and finished spans live in the native host
+  runtime's two C++ rings (``core/csrc/trace.cc``, built at first use by
+  ``core/native.py``), the one sink of their timing records; span
+  attributes stay in Python, joined by span id at export;
 * **flight recorder** (:mod:`.flight`): an always-on ring of the last N spans
   and a JSON post-mortem on a serving crash, a supervisor recovery, an
   unrecovered device-memory exhaustion or an uncaught exception;
@@ -60,7 +64,6 @@ class _Event:
         self.tid = tid
 
 
-_events: List[_Event] = []
 _enabled = False
 _memory_on = False  # set while a Profiler(profile_memory=True) session runs
 
@@ -213,17 +216,50 @@ def _memory_active() -> bool:
     return bool(_flags.flag("FLAGS_profile_memory", False))
 
 
+# The native host runtime's recorder (core/csrc/trace.cc): its event ring and
+# span ring hold the session's timing records. Created at the first record
+# (or session reset); a failed build raises there.
+_native = None
+_native_rec = None
+_native_lock = threading.Lock()
+_name_ids: Dict[str, int] = {}  # the recorder's interned ids, by name
+
+
+def _native_recorder():
+    """The session recorder (a ``ptt_create`` handle of 65536 events and
+    65536 spans), built and created on the first call."""
+    global _native, _native_rec
+    if _native_rec is None:
+        with _native_lock:
+            if _native_rec is None:
+                from ..core import native as _native_mod
+
+                _native = _native_mod.lib()
+                _native_rec = _native.ptt_create(1 << 16)
+    return _native_rec
+
+
+def _name_id(rec, name: str) -> int:
+    nid = _name_ids.get(name)
+    if nid is None:
+        nid = _name_ids.setdefault(name, _native.ptt_intern(rec,
+                                                             name.encode()))
+    return nid
+
+
 def _record(name: str, t0: int, tid: int = 0):
-    """Event sink: a start stamp taken while ``_enabled``, closed here."""
+    """Event sink: a start stamp taken while ``_enabled``, closed here, into
+    the native event ring (its one sink)."""
     t1 = time.perf_counter_ns()
     if _enabled:
-        _events.append(_Event(name, t0, t1, tid))
+        rec = _native_recorder()
+        _native.ptt_record(rec, _name_id(rec, name), tid, t0, t1)
 
 
 class RecordEvent:
     """A named host event (reference ``platform/profiler.h`` RecordEvent):
-    ``with RecordEvent("load"):`` or ``begin()``/``end()``. Recorded only
-    while a profiler records."""
+    ``with RecordEvent("load"):`` or ``begin()``/``end()``. Recorded, into
+    the native event ring, only while a profiler records."""
 
     def __init__(self, name, event_type=None):
         self.name = name
@@ -246,9 +282,11 @@ class RecordEvent:
 
 
 def _reset_session():
-    """Clear the session sinks so a new recording starts empty."""
-    _events.clear()
+    """Clear the session sinks (both native rings and the span attribute
+    table) so a new recording starts empty."""
     spans._reset_session()
+    rec = _native_recorder()
+    _native.ptt_reset(rec)
 
 
 def make_scheduler(closed=0, ready=0, record=1, repeat=0, skip_first=0):

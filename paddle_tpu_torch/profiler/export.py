@@ -1,8 +1,14 @@
 """Trace and metrics exporters (port of ``paddle_tpu/profiler/export.py``).
 
-Flat events and spans each live in ONE sink, the profiler session's Python
-lists (the reference's native C++ rings are not ported), and the functions
-here read them back in time order.
+Flat events and spans each live in ONE sink, the native host runtime's C++
+rings (``core/csrc/trace.cc``), and the functions here drain them (the
+drain copies; the cursors run on until the next session resets them),
+resolve each record's name through ``ptt_name``, join the spans' attributes
+from the Python side table by span id, and hand them back in time order;
+each span keeps its ``span_id``/``parent_id``, the nesting. Each ring keeps
+its newest 65536 records: what a wraparound overwrote is counted under
+``trace_dropped`` in :func:`metrics_snapshot`, and a drain that finds its
+ring wrapped warns.
 
 Formats:
 
@@ -18,13 +24,17 @@ Formats:
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import sys
 import time
+import warnings
 from typing import Dict, List, Optional
 
-__all__ = ["merged_events", "merged_spans", "metrics_snapshot",
+import numpy as np
+
+__all__ = ["merged_events", "merged_spans", "dropped", "metrics_snapshot",
            "chrome_trace", "jsonl", "register_metric_provider",
            "prometheus_text", "export_metrics"]
 
@@ -33,23 +43,83 @@ def _pkg():
     return sys.modules[__package__]
 
 
+_EVENT = np.dtype([("name_id", "<u4"), ("tid", "<u4"), ("t0", "<u8"),
+                   ("t1", "<u8")])  # trace.cc Event, 24 bytes
+_SPAN = np.dtype(_EVENT.descr + [("span_id", "<u8"), ("parent_id", "<u8")])
+_MAX_DRAIN = 1 << 16  # the rings' capacity
+
+
+def dropped() -> Dict[str, int]:
+    """Records the native rings overwrote since the session began (each
+    keeps its newest 65536): ``{"events": n, "spans": n}``, zeros before
+    the first record."""
+    m = _pkg()
+    rec = m._native_rec
+    if rec is None:
+        return {"events": 0, "spans": 0}
+    return {"events": int(m._native.ptt_dropped(rec, 0)),
+            "spans": int(m._native.ptt_dropped(rec, 1))}
+
+
+def _drain(kind: str) -> list:
+    """``(name, record)`` for each record of the native ``"event"`` or
+    ``"span"`` ring, oldest first; warns when the ring wrapped and lost
+    its oldest records."""
+    m = _pkg()
+    rec = m._native_recorder()
+    lost = int(m._native.ptt_dropped(rec, int(kind == "span")))
+    if lost:
+        warnings.warn(f"profiler: the native {kind} ring wrapped; its "
+                      f"{lost} oldest records of this session were "
+                      "overwritten", RuntimeWarning, stacklevel=3)
+    dt = _EVENT if kind == "event" else _SPAN
+    buf = ctypes.create_string_buffer(dt.itemsize * _MAX_DRAIN)
+    drain = m._native.ptt_drain if kind == "event" \
+        else m._native.ptt_span_drain
+    n = drain(rec, buf, _MAX_DRAIN)
+    if n <= 0:
+        return []
+    rows = np.frombuffer(buf, dtype=dt, count=int(n))
+    names: Dict[int, str] = {}
+
+    def name_of(nid: int) -> str:
+        if nid not in names:
+            raw = m._native.ptt_name(rec, nid)
+            names[nid] = raw.decode(errors="replace") if raw \
+                else f"name_{nid}"
+        return names[nid]
+
+    return [(name_of(int(r["name_id"])), r) for r in rows]
+
+
 def merged_events() -> list:
     """Flat events (``RecordEvent``) as ``_Event`` objects, time-ordered."""
-    out = list(_pkg()._events)
+    m = _pkg()
+    out = [m._Event(name, int(r["t0"]), int(r["t1"]), int(r["tid"]))
+           for name, r in _drain("event")]
     out.sort(key=lambda e: e.start)
     return out
 
 
 def merged_spans() -> List[dict]:
-    """Finished spans of the session as dicts, time-ordered."""
-    out = [sp.to_dict() for sp in _pkg().spans._span_events]
+    """Finished spans of the session as dicts (attributes joined by span
+    id), time-ordered."""
+    attrs = _pkg().spans._span_attrs
+    out = []
+    for name, r in _drain("span"):
+        sid, t0, t1 = int(r["span_id"]), int(r["t0"]), int(r["t1"])
+        out.append({"name": name, "span_id": sid,
+                    "parent_id": int(r["parent_id"]), "tid": int(r["tid"]),
+                    "t0": t0, "t1": t1, "dur_us": (t1 - t0) / 1000.0,
+                    "attrs": dict(attrs.get(sid, ()))})
     out.sort(key=lambda s: s["t0"])
     return out
 
 
 def metrics_snapshot() -> dict:
-    """Counters, memory gauges and the flags in effect (the trace metadata
-    and flight-dump payload), with each provider's JSON under its name."""
+    """Counters, memory gauges, the flags in effect and the records the
+    native rings overwrote (the trace metadata and flight-dump payload),
+    with each provider's JSON under its name."""
     m = _pkg()
     try:
         from ..framework.flags import _FLAGS
@@ -62,6 +132,7 @@ def metrics_snapshot() -> dict:
         "counters": m.counters(),
         "memory": m.memory_stats(),
         "flags": flags,
+        "trace_dropped": dropped(),
     }
     for name, (_prom, json_obj) in _provider_results():
         snap[name] = json_obj

@@ -18,9 +18,11 @@ Two sinks, different lifetimes:
 * the **flight recorder** (:mod:`.flight`) receives every finished span,
   always: one bounded-deque append;
 * the **profiler session** receives spans only while a
-  :class:`~paddle_tpu_torch.profiler.Profiler` records: a Python list, read
-  back at export. The reference's native C++ span ring is not ported, so
-  this list is the one sink that holds the timing record.
+  :class:`~paddle_tpu_torch.profiler.Profiler` records: the native span
+  ring (``core/csrc/trace.cc`` ``ptt_span_record``: name id, tid, start,
+  end, span id, parent id), the one sink of the timing record, written
+  from any thread without a lock. Attributes ride a bounded Python side
+  table keyed by span id and are joined at export.
 """
 from __future__ import annotations
 
@@ -138,7 +140,10 @@ def active_spans() -> List[Span]:
 
 
 # -- session sink ------------------------------------------------------------
-_span_events: List[Span] = []
+# The native span ring holds (name_id, tid, t0, t1, span_id, parent_id); the
+# attributes of a recorded span wait here for export.
+_span_attrs: Dict[int, dict] = {}  # span_id -> attrs
+_SPAN_ATTRS_MAX = 1 << 16  # the native ring's capacity
 
 _pkg = None  # the parent package module, bound lazily (import-order safe)
 
@@ -174,15 +179,31 @@ def _emit(sp: Span) -> None:
             except Exception:
                 remove_span_observer(fn)
     _pkg.flight.record(sp)
-    if _pkg._enabled:
-        _span_events.append(sp)  # the Span carries its own attrs to export
+    if not _pkg._enabled:
+        return
+    rec = _pkg._native_recorder()
+    _pkg._native.ptt_span_record(rec, _pkg._name_id(rec, sp.name), sp.tid,
+                                 sp.t0, sp.t1, sp.span_id, sp.parent_id)
+    if sp.attrs:
+        _keep_attrs(sp)
+
+
+def _keep_attrs(sp: Span) -> None:
+    # the ring keeps the NEWEST spans, so the table ages out the same way
+    if sp.span_id not in _span_attrs and len(_span_attrs) >= _SPAN_ATTRS_MAX:
+        _span_attrs.pop(next(iter(_span_attrs)))
+    _span_attrs[sp.span_id] = dict(sp.attrs)
 
 
 def update_attrs(sp: Span, **attrs) -> None:
-    """Attach attributes to an ALREADY-FINISHED span. The sinks hold the Span
-    object itself, so changing it is enough."""
+    """Attach attributes to an ALREADY-FINISHED span. The flight ring holds
+    the Span object itself; a span the session recorded gets its side-table
+    entry refreshed."""
     sp.attrs.update(attrs)
+    if sp.span_id in _span_attrs or (
+            _pkg is not None and _pkg._enabled and sp.t1 and sp.attrs):
+        _keep_attrs(sp)
 
 
 def _reset_session() -> None:
-    _span_events.clear()
+    _span_attrs.clear()

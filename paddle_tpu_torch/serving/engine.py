@@ -142,7 +142,7 @@ class EngineConfig:
                  decode_buckets=None, seed=0, device=None, prefix_cache=None,
                  spec_k=None, drafter=None, draft_window=None,
                  prefill_chunk=None, max_queue=None, shed=None, trace=None,
-                 metrics_port=None):
+                 metrics_port=None, tp=None, tp_int8=None):
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.max_batch = max_batch
@@ -168,6 +168,11 @@ class EngineConfig:
         # port (0 = no endpoint thread)
         self.trace = trace
         self.metrics_port = metrics_port
+        # the tensor-parallel degree (0 and 1: one device), and the int8
+        # wire of its gathers; ``device`` may then be a sequence of tp
+        # devices, one a shard
+        self.tp = tp
+        self.tp_int8 = tp_int8
 
     def resolve(self, model_max_positions: int) -> "EngineConfig":
         def pick(v, name):
@@ -195,6 +200,15 @@ class EngineConfig:
         self.draft_window = pick(self.draft_window, "FLAGS_serve_draft_window")
         self.prefill_chunk = pick(self.prefill_chunk,
                                   "FLAGS_serve_prefill_chunk")
+        self.tp = pick(self.tp, "FLAGS_serve_tp")
+        if self.tp_int8 is None:
+            self.tp_int8 = bool(flags.flag("FLAGS_serve_tp_int8", False))
+        if self.tp < 0:
+            raise ValueError("serving: tp must be >= 0 (0/1 = one device)")
+        if self.tp >= 2 and self.spec_k > 0:
+            raise ValueError(
+                "serving: speculative decoding is not supported under "
+                "tensor-parallel serving (set spec_k=0 or tp<=1)")
         if self.prefill_chunk < 0:
             raise ValueError("serving: prefill_chunk must be >= 0 "
                              "(0 = monolithic prefill)")
@@ -512,13 +526,35 @@ class Engine:
         if config is not None and overrides:
             raise ValueError("pass EngineConfig OR keyword overrides, not both")
         cfg = copy.copy(config or EngineConfig(**overrides))
-        device = resolve_device(cfg.device)
-        _, arch, params, max_pos = decode_state(model, device)
+        # tensor-parallel serving: tp >= 2 shards heads, FFN columns, the LM
+        # head and the KV pool over tp devices; 0 and 1 leave every code
+        # path below as the one-device engine's
+        tp = int(cfg.tp if cfg.tp is not None
+                 else flags.flag("FLAGS_serve_tp", 0))
+        self._tp = tp if tp >= 2 else 0
+        if self._tp:
+            self._tp_devices = _tp_placement(cfg.device, self._tp)
+            device = self._tp_devices[0]
+        else:
+            device = resolve_device(cfg.device)
+        arch_key, arch, params, max_pos = decode_state(model, device)
         self.config = cfg.resolve(max_pos)
         self._device = device
         self._arch = arch
+        self._arch_key = arch_key
         self._dtype = params["wte"].dtype
-        if cfg.int8:
+        if self._tp:
+            # one packed copy: the replicated leaves are the model's own,
+            # each shard's column slices a contiguous tree on its device;
+            # an int8 tree is sliced on its int8 bytes and each shard
+            # dequantizes its own leaves (FLAGS_serve_int8_kernel, a
+            # one-device head fusion, is not used under tp, as in the
+            # reference)
+            src = quantize_params(params) if cfg.int8 else params
+            self._params, self._tp_vocab = G.tp_pack_params(
+                arch_key, src, self._tp, self._tp_devices)
+            self._plain_params = None
+        elif cfg.int8:
             tagged = quantize_params(params)
             self._plain_params = dequantize_tree(tagged, self._dtype)
             self._params = (attach_int8_head(self._plain_params, tagged)
@@ -526,8 +562,7 @@ class Engine:
                             else self._plain_params)
         else:
             self._params = self._plain_params = params
-        del params
-        self._n_layers = len(self._params["layers"])
+        self._n_layers = len(params["layers"])
         self._spec_k = cfg.spec_k
         # the speculative verify writes reach pos + spec_k: widen the block
         # tables so a real write never lands past them
@@ -537,8 +572,19 @@ class Engine:
         # mask on the plain path, and 0 * NaN would poison it
         shape = (self._n_layers, cfg.num_blocks, cfg.block_size,
                  arch["kv_heads"], arch["head_dim"])
-        self._kpool = torch.zeros(shape, dtype=self._dtype, device=self._device)
-        self._vpool = torch.zeros(shape, dtype=self._dtype, device=self._device)
+        if self._tp:
+            # one contiguous pool a shard, its KV heads of EVERY block: the
+            # replicated block tables index every shard alike
+            shape = shape[:3] + (shape[3] // self._tp,) + shape[4:]
+            self._kpool = [torch.zeros(shape, dtype=self._dtype, device=d)
+                           for d in self._tp_devices]
+            self._vpool = [torch.zeros(shape, dtype=self._dtype, device=d)
+                           for d in self._tp_devices]
+        else:
+            self._kpool = torch.zeros(shape, dtype=self._dtype,
+                                      device=self._device)
+            self._vpool = torch.zeros(shape, dtype=self._dtype,
+                                      device=self._device)
         self._pool = PagePool(cfg.num_blocks)
         self._prefill_buckets = self._make_prefill_buckets()
         self._prefix = (_PrefixCache(self._pool, cfg.block_size)
@@ -565,9 +611,19 @@ class Engine:
         self._occ_live = 0
         self._occ_slots = 0
         self._decode_s = 0.0  # host time of decode steps, each ending in a sync
-        # the shed ETA's per-step floor while the decode EMA is cold (the
-        # reference's tensor-parallel collective term: 0 on one card)
+        # the shed ETA's per-step floor while the decode EMA is cold: the
+        # cost model's time of a step's tensor-parallel gathers at the
+        # widest batch (0 on one device)
         self._step_floor_s = 0.0
+        if self._tp:
+            from ..cost_model import CostModel
+
+            fp32_b, int8_b = G.tp_collective_bytes(
+                arch_key, src, cfg.max_batch, self._tp)
+            wire = int8_b if cfg.tp_int8 else fp32_b
+            self._step_floor_s = CostModel(self._device.type).kernel_estimate(
+                "tp_collective", (int(wire), self._tp), {}) / 1e3
+        del params
         # resilience gauges (scheduler-thread writes, racy reads by design):
         # the warm decode-step time EMA (deadline feasibility), the finished
         # request latency EMA (Retry-After hints), and the heartbeat that
@@ -903,12 +959,20 @@ class Engine:
     def _compat_key(self) -> tuple:
         """The geometry an adopted snapshot must match exactly: the KV pools
         and block tables mean something only against the same paged-cache
-        shape. The tensor-parallel fields keep the reference's tuple shape
-        (degree 0, replicated: this engine runs on one card)."""
+        shape, and the same KV layout: the tensor-parallel degree and
+        ``"kv-shard/tp"`` (each shard's pool holds KV/tp heads of every
+        block), or 0 and ``"replicated"`` on one device. A snapshot taken
+        at another degree is refused, never re-sharded."""
         cfg = self.config
         return (self._n_layers, int(cfg.num_blocks), int(cfg.block_size),
                 int(self._arch["kv_heads"]), int(self._arch["head_dim"]),
-                str(self._dtype), 0, "replicated")
+                str(self._dtype), int(self._tp),
+                "kv-shard/tp" if self._tp else "replicated")
+
+    def _pool_shards(self, pool) -> list:
+        """A KV pool as its list of shards: the tp shards, or the one
+        pool."""
+        return list(pool) if self._tp else [pool]
 
     def snapshot(self) -> dict:
         """O(blocks) capture of the live serving state: the pool bookkeeping
@@ -953,8 +1017,9 @@ class Engine:
                           "tick": self._prefix._tick}
             owned = sorted(self._pool._ref)
             with self._device_scope():
-                if self._device.type == "cuda":
-                    torch.cuda.synchronize(self._device)
+                for dev in {p.device for p in self._pool_shards(self._kpool)}:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
                 sums = G.kv_block_checksums(self._kpool, self._vpool, owned)
             snap = {"version": SNAPSHOT_VERSION, "compat": self._compat_key(),
                     "pool": pool_snap, "kpool": self._kpool,
@@ -1029,8 +1094,12 @@ class Engine:
             raise SnapshotError(
                 f"snapshot geometry {compat} does not match this engine's "
                 f"{self._compat_key()} — cross-config adoption refused")
-        if any(p.shape != self._kpool.shape or p.dtype != self._dtype
-               or p.device != self._device for p in (kpool, vpool)):
+
+        def layout(pool):  # a tensor, or the tp shards' list
+            shards = pool if isinstance(pool, (list, tuple)) else [pool]
+            return [(p.shape, p.dtype, p.device) for p in shards]
+
+        if any(layout(p) != layout(self._kpool) for p in (kpool, vpool)):
             raise SnapshotError("KV pool shape/dtype/device mismatch")
         pool = PagePool.restore(snap["pool"])
         bs = self.config.block_size
@@ -1900,8 +1969,9 @@ class Engine:
                 raise ServeError(f"page pool exhausted during copy-on-write "
                                  f"(request {seq.req.id})")
             new = repl[0]
-            self._kpool[:, new].copy_(self._kpool[:, bid])
-            self._vpool[:, new].copy_(self._vpool[:, bid])
+            for pool in self._pool_shards(self._kpool) \
+                    + self._pool_shards(self._vpool):
+                pool[:, new].copy_(pool[:, bid])
             seq.blocks[col] = new
             self._pool.free([bid])
             counter_inc("serve_cow_copies")
@@ -2196,7 +2266,9 @@ class Engine:
         fn = self._fns.get(key)
         if fn is None:
             bs = self.config.block_size
-            if kind == "prefill":
+            if self._tp:
+                fn = self._tp_fn(kind, bucket)
+            elif kind == "prefill":
                 bw, t_bucket = bucket
                 fn = G.build_paged_prefill(self._arch, bw, t_bucket, bs,
                                            self._max_blocks)
@@ -2224,6 +2296,28 @@ class Engine:
             counter_inc("serve_compiles")
         return fn
 
+    def _tp_fn(self, kind: str, bucket):
+        """The tensor-parallel step of ``kind`` over the packed tree and the
+        shards' pools, with the one-device step's call signature; the
+        speculative kinds have none (``EngineConfig`` refuses spec_k under
+        tp)."""
+        bs = self.config.block_size
+        kw = dict(devices=self._tp_devices, vocab=self._tp_vocab,
+                  dtype=self._dtype, int8_wire=bool(self.config.tp_int8))
+        if kind == "prefill":
+            bw, t_bucket = bucket
+            return G.build_tp_paged_prefill(self._arch_key, bw, t_bucket, bs,
+                                            self._max_blocks, **kw)
+        if kind == "prefill_tail":
+            bw, t_bucket = bucket
+            return G.build_tp_paged_tail_prefill(
+                self._arch_key, bw, t_bucket, bs, self._max_blocks, **kw)
+        if kind == "decode":
+            return self._tp_decode(*bucket, bool(
+                flags.flag("FLAGS_serve_paged_kernel", False)))
+        raise RuntimeError(f"serving: step kind {kind!r} has no "
+                           "tensor-parallel build")
+
     # -- flight-recorder context ----------------------------------------------
     def _flight_context(self) -> dict:
         """What every post-mortem carries of this engine (any thread; racy
@@ -2235,7 +2329,7 @@ class Engine:
             "queue_depth": depth,
             "step": self._step_i,
             "spec_k": self._spec_k,
-            "tp": 0,  # the reference's tensor-parallel degree: one card
+            "tp": self._tp,  # the tensor-parallel degree (0: one device)
             "prefill_chunk": self._chunk,
             "chunk_queue_depth": len(self._prefilling),
             "pending_chunks": sum(
@@ -2269,16 +2363,36 @@ class Engine:
         try:
             with torch.inference_mode():
                 tables, pos, toks = self._debug_prefill_rows(prompts, grants)
+                mb = tables.shape[1]
+                if self._tp:  # the shards' kernel, then their plain path
+                    steps = [(self._tp_decode(B, mb, kernel), self._params)
+                             for kernel in (True, False)]
+                else:
+                    steps = [(build(self._arch, B, bs, mb), params)
+                             for build, params in (
+                                 (G.build_paged_decode_kernel, self._params),
+                                 (G.build_paged_decode, self._plain_params))]
                 out = []
-                for build, params in ((G.build_paged_decode_kernel, self._params),
-                                      (G.build_paged_decode, self._plain_params)):
-                    logits = build(self._arch, B, bs, tables.shape[1]).logits(
-                        params, self._kpool.clone(), self._vpool.clone(),
-                        tables, self._dev(pos), self._dev(toks))
+                for step, params in steps:
+                    logits = step.logits(
+                        params, self._clone_pool(self._kpool),
+                        self._clone_pool(self._vpool), tables,
+                        self._dev(pos), self._dev(toks))
                     out.append(logits.float().cpu().numpy())
             return out[0], out[1]
         finally:
             self._pool.free([b for g in grants for b in g])
+
+    def _clone_pool(self, pool):
+        if self._tp:
+            return [p.clone() for p in pool]
+        return pool.clone()
+
+    def _tp_decode(self, B, mb, kernel):
+        return G.build_tp_paged_decode(
+            self._arch_key, B, self.config.block_size, mb, self._tp_devices,
+            self._tp_vocab, self._dtype, use_kernel=kernel,
+            int8_wire=bool(self.config.tp_int8))
 
     def _debug_grants(self, sizes, who):
         """Fresh blocks of the given counts for a debug hook (freed by the
@@ -2379,6 +2493,29 @@ class Engine:
                     torch.stack(seq, 1).cpu().numpy())
         finally:
             self._pool.free([b for g in grants for b in g])
+
+
+def _tp_placement(device, tp: int) -> List[torch.device]:
+    """The devices of a tensor-parallel engine's tp shards, the first of
+    which also holds the replicated weights and runs the replicated work:
+    the sequence ``device`` names (one device a shard; a device may repeat,
+    as two shards on one card do), every shard on the CPU under
+    ``"cpu"``, else the first tp CUDA devices (from the index ``device``
+    names), which must exist."""
+    if isinstance(device, (list, tuple)):
+        devs = [resolve_device(d) for d in device]
+        if len(devs) != tp:
+            raise ValueError(f"serving: {len(devs)} devices given for "
+                             f"tp={tp} shards")
+        return devs
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev] * tp
+    n = torch.cuda.device_count()
+    if dev.index + tp > n:
+        raise ValueError(f"serving: tp={tp} exceeds the {n - dev.index} "
+                         "visible devices")
+    return [torch.device("cuda", dev.index + i) for i in range(tp)]
 
 
 def _engine_loop(wr, device):

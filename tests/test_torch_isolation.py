@@ -188,3 +188,90 @@ def test_supervisor_without_device_raises_when_cuda_missing(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingSupervisor(model, watchdog_s=1.0, block_size=8, num_blocks=8,
                           max_batch=2)
+
+
+# -- the port's own sources: no path into the reference's tree ---------------
+# a path component runtime_cpp, the reference runtime's library, or a path
+# through a paddle_tpu directory (the bare module name is not a path)
+_REF_PATH = __import__("re").compile(
+    r"(^|[/\\])runtime_cpp([/\\]|$)|libpaddle_tpu_runtime"
+    r"|(^|[/\\])paddle_tpu[/\\]|[/\\]paddle_tpu$")
+PORT_SOURCES = sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "paddle_tpu_torch").rglob("*")
+    if p.suffix in (".py", ".cc", ".cu", ".h"))
+
+
+def _code_strings(path):
+    """The string constants a file's code computes with: a Python file's
+    constants other than docstrings (f-strings' literal parts included), a
+    C++ file's string literals. Docstrings and comments may name the
+    reference's files; code may not."""
+    text = (ROOT / path).read_text()
+    if not path.endswith(".py"):
+        import re
+
+        return re.findall(r'"((?:[^"\\\n]|\\.)*)"', "\n".join(
+            line.split("//")[0] for line in text.splitlines()))
+    tree = ast.parse(text, filename=path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body \
+                and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant):
+            docs.add(id(node.body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
+def test_no_path_into_the_reference_tree(path):
+    bad = [s for s in _code_strings(path) if _REF_PATH.search(s)]
+    assert not bad, f"{path} names the reference's tree: {bad}"
+
+
+def test_reference_path_check_catches_a_cdll_of_runtime_cpp(tmp_path):
+    """The check itself: a library path into runtime_cpp/ or paddle_tpu/ in
+    code is caught, a docstring that names the file is not."""
+    assert _REF_PATH.search("runtime_cpp/libpaddle_tpu_runtime.so")
+    assert _REF_PATH.search(os.path.join("x", "runtime_cpp"))
+    assert _REF_PATH.search("../paddle_tpu/core/native.py")
+    assert not _REF_PATH.search("paddle_tpu_torch/_build/libx.so")
+    assert not _REF_PATH.search("paddle_tpu_torch")
+    assert not _REF_PATH.search("paddle_tpu")  # a module name, not a path
+    src = ('"""Port of runtime_cpp/trace.cc."""\n'
+           'import ctypes\n'
+           'L = ctypes.CDLL("runtime_cpp/libpaddle_tpu_runtime.so")\n')
+    f = tmp_path / "probe.py"  # an absolute path: ROOT / f is f
+    f.write_text(src)
+    assert _code_strings(str(f)) == ["runtime_cpp/libpaddle_tpu_runtime.so"]
+
+
+def test_walk_covers_the_native_runtime():
+    for path in ("paddle_tpu_torch/core/native.py",
+                 "paddle_tpu_torch/core/csrc/trace.cc",
+                 "paddle_tpu_torch/core/csrc/queue.cc",
+                 "paddle_tpu_torch/core/csrc/arena.cc"):
+        assert path in PORT_SOURCES
+    assert "paddle_tpu_torch/core/native.py" in PORT_FILES
+
+
+def test_native_runtime_loads_nothing_of_runtime_cpp():
+    """A process that records a profiler session and moves bytes through
+    the native queue has the port's library mapped, and nothing from
+    runtime_cpp/."""
+    code = ("import paddle_tpu_torch.profiler as p\n"
+            "from paddle_tpu_torch.core import native\n"
+            "with p.Profiler(targets=[p.ProfilerTarget.CPU]):\n"
+            "    with p.span('s'):\n"
+            "        pass\n"
+            "q = native.NativeQueue(2); q.push(b'x'); assert q.pop() == b'x'\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert str(native.library_path()) in maps\n"
+            "assert 'runtime_cpp' not in maps, 'runtime_cpp mapped'\n"
+            "assert 'libpaddle_tpu_runtime' not in maps\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
