@@ -10,6 +10,8 @@
                                      #   launch starts (not run by hand)
     python3 chip_smoke.py --phase17  # the build and phase 17 alone: its
                                      #   tp_native line, no result line
+    python3 chip_smoke.py --phase18  # the build and phase 18 alone: its
+                                     #   op_surface line, no result line
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -380,6 +382,42 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    line; the paged row of the ``kernels`` line carries the tp drives'
    launches as ``launches_tp`` and the shard shape's times as
    ``tp_shard_shape``;
+18. the op surface (runs after phase 17, on GPT-3 1.3B built again at full
+   width and depth, bf16, seed 0): (18a) every op of
+   ``ops.registry.all_ops()`` that ``ops/sweep.py`` feeds (the spec
+   table's sampler, its case list), on the card in f32 against the same
+   function on the CPU (rtol 1e-4, atol 1e-5; 1e-3 for the special
+   functions; integers and bools exactly; complex by absolute error), its
+   backward the same way, and in bf16 with finite outputs where the f32
+   ones are: 0 mismatches; the factorizations whose factors are not
+   unique are held in 18c; (18b) ``cost_model.get_static_op_time`` for
+   every one-input op at (4096, 2048) in bf16 and f32, forward and
+   forward + backward, each beside its bytes bound at 3.35 TB/s (the
+   table's size, median and ten farthest ops; an op that takes more
+   inputs, or raises at that shape, is listed by name); (18c) layer 0's
+   attention output weight W (2048²) and A = WᵀW/2048 + I through
+   ``qr``, ``svd``, ``pinv``, ``matrix_rank``, ``norm``, ``cond``,
+   ``eigh``, ``cholesky``, ``cholesky_solve``, ``solve``, ``inv``,
+   ``det``, ``slogdet``, ``lu``, ``lstsq`` and ``triangular_solve``, each
+   by its identity (relative residual <= 1e-4) and against the CPU in
+   f64 (10 x cond x float32's epsilon; det 10 x n x epsilon); (18d) 8
+   clips of 30 s at 16 kHz through ``signal.stft`` (n_fft 400, hop 160,
+   Hann) and ``istft`` back, ``rfft``/``irfft`` and ``fft2``/``ifft2``:
+   round trips and the CPU within 1e-5 relative; (18e) the model's
+   b2 x s2048 logits (f32) through ``Categorical`` (entropy, log_prob,
+   samples from a CUDA generator by their frequencies and mean
+   log-probability), its hidden states under ragged lengths through
+   ``logsumexp``, ``sequence_softmax`` and ``sequence_pool``, the argmax
+   against the shifted tokens through ``precision_recall``, ``mean_iou``
+   and ``auc``, two greedy 64-token continuations through
+   ``edit_distance`` (each against the port's CPU run on the same
+   tensors, 1e-4), and a greedy 8-step ``while_loop`` against a plain
+   loop; (18f) layer 0's FFN up-projection (2048 x 8192) pruned to its
+   top 5%, as COO and CSR: ``sparse.matmul`` with 4096 activation rows,
+   ``masked_matmul`` under a causal 2048² mask, ``add``, ``multiply``,
+   ``softmax`` and the unary ops against their dense forms (1e-5). One
+   ``{"op_surface": ...}`` line with the card, each part's counts, errors
+   and seconds;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -429,8 +467,8 @@ sub-drives with their adopt info, ``{"registry": {...}}``, phase 6's
 searches, persistence, tuned drive, host µs and the 192-row int8 checks,
 ``{"engine_train": {...}}``, phase 13, ``{"fleet_train": {...}}``,
 phase 14, ``{"fleet_part2": {...}}``, phase 15, and
-``{"auto_parallel_ckpt": {...}}``, phase 16, and ``{"tp_native": {...}}``,
-phase 17.
+``{"auto_parallel_ckpt": {...}}``, phase 16, ``{"tp_native": {...}}``,
+phase 17, and ``{"op_surface": {...}}``, phase 18.
 """
 from __future__ import annotations
 
@@ -6471,6 +6509,462 @@ def llama_oom_phase(model, opt, cfg):
         "budget_bytes": pred["hbm_budget_bytes"]}
 
 
+# -- phase 18: the op surface -------------------------------------------------
+
+OP_SURFACE = {}  # phase 18's results: the {"op_surface": ...} line
+OP_TABLE_SHAPE = (4096, 2048)  # b2 x s2048 tokens by GPT-3 1.3B's hidden
+OP_TABLE_LARGE = {  # outputs of (4096, 2048)^2 elements or worse
+    "diag_embed", "diagflat", "histogramdd", "cartesian_prod"}
+OP_TABLE_LINALG = {  # factorizations: held at the model's width in 18c
+    "svd", "qr", "eig", "eigh", "eigvals", "eigvalsh", "pinv", "cond",
+    "matrix_rank", "cholesky", "inv", "inverse", "det", "slogdet", "lu",
+    "matrix_exp", "matrix_norm", "householder_product"}
+SURFACE_RESIDUAL = 1e-4  # 18c: ||identity residual|| / ||operand||
+AUDIO = (8, 30 * 16000, 400, 160)  # 18d: clips, samples, n_fft, hop
+ROUND_TRIP_REL = 1e-5
+SPARSE_KEEP = 0.05  # 18f: the FFN weight's largest entries kept
+SURFACE_GREEDY = (64, 8)  # 18e: generate's new tokens, while_loop steps
+
+
+def surface_model(device="cuda", cfg=None):
+    """GPT-3 1.3B at full width (bf16, seed 0, dropout 0, flash attention)
+    for phase 18 (or ``cfg`` for a rehearsal)."""
+    from paddle_tpu_torch.models import GPTForPretraining, gpt3_1p3b
+
+    cfg = cfg or gpt3_1p3b(hidden_dropout=0.0, attention_dropout=0.0,
+                           attention_impl="flash")
+    return GPTForPretraining(cfg, device=device, dtype=torch.bfloat16,
+                             seed=0).eval()
+
+
+def surface_sweep(dev="cuda"):
+    """(18a) every op of ``all_ops()`` that the spec table or the sweep's
+    case list feeds, on ``dev`` in float32 against the CPU, its backward,
+    and a bfloat16 run (``paddle_tpu_torch.ops.sweep.run``)."""
+    from paddle_tpu_torch.ops import sweep
+    from paddle_tpu_torch.ops.registry import all_ops
+
+    t0 = time.monotonic()
+    ops = all_ops()
+    rep = sweep.run(ops, dev, "cpu")
+    reasons = {}
+    for name, why in rep["skipped"].items():
+        reasons.setdefault(why, []).append(name)
+    out = {"registry": len(ops), "ops_run": rep["ops"],
+           "grads_held": rep["grads"], "bf16_run": rep["bf16"],
+           "mismatches": len(rep["mismatches"]),
+           "bf16_nonfinite": rep["bf16_nonfinite"],
+           "bf16_unsupported": rep["bf16_unsupported"],
+           "grad_unsupported": rep["grad_unsupported"],
+           "held_by_identity": rep["nonunique"],
+           "skipped": {k: sorted(v) for k, v in reasons.items()},
+           "slowest": sorted(rep["seconds"].items(),
+                             key=lambda kv: -kv[1])[:8],
+           "seconds": time.monotonic() - t0}
+    print(f"  (18a) {out['ops_run']} of {len(ops)} registry ops on {dev} "
+          f"against the CPU, {out['grads_held']} gradients held, "
+          f"{out['bf16_run']} run in bf16, mismatches "
+          f"{out['mismatches']}, bf16 non-finite {len(rep['bf16_nonfinite'])}"
+          f" ({out['seconds']:.1f} s; slowest " + ", ".join(
+              f"{k} {v:.2f}" for k, v in out["slowest"]) + ")")
+    for name, why in sorted(rep["mismatches"].items()):
+        print(f"    MISMATCH {name}: {why}")
+    if rep["mismatches"] or rep["bf16_nonfinite"]:
+        fail(f"18a: mismatches {sorted(rep['mismatches'])}, bf16 non-finite "
+             f"{rep['bf16_nonfinite']}")
+    return out
+
+
+def op_table(shape=OP_TABLE_SHAPE, platform="cuda"):
+    """(18b) ``cost_model.get_static_op_time`` for every one-input op of the
+    registry at ``shape``, bf16 and f32, forward and forward + backward,
+    each beside its bytes bound at ``cost_model.H100``'s rate (each input
+    read and each output written once; the backward adds the output's
+    gradient read and the input's gradient written)."""
+    from paddle_tpu_torch import cost_model
+    from paddle_tpu_torch.ops import inplace, sweep
+    from paddle_tpu_torch.ops.registry import all_ops
+
+    t0 = time.monotonic()
+    cm = cost_model.CostModel(platform)
+    bw = cost_model.H100["peak_bw"]
+    rows, skipped = [], {}
+    if platform == "cuda":  # the clocks up before the first entry
+        time_ms(lambda: torch.ones(4096, 4096, device="cuda").sum(), 50)
+    for name, fn in sorted(all_ops().items()):
+        why = ("random" if name in sweep.RANDOM else
+               "host query" if name in sweep.HOST else
+               "CUDA kernel (phase 2)" if name in sweep.KERNELS else
+               "in-place" if name in inplace.INPLACE_OPS else
+               "linalg (18c)" if name in OP_TABLE_LINALG else
+               "output too large" if name in OP_TABLE_LARGE else
+               None if sweep.one_input(name, fn) else "needs more inputs")
+        if why is not None:
+            skipped.setdefault(why, []).append(name)
+            continue
+        for dtype in ("bfloat16", "float32"):
+            for forward in (True, False):
+                try:
+                    c = cm.get_static_op_time(name, forward, dtype, shape)
+                except (RuntimeError, TypeError, ValueError,
+                        NotImplementedError, IndexError) as e:
+                    mode = "fwd" if forward else "fwd+bwd"
+                    skipped.setdefault(f"raised ({mode})", []).append(
+                        f"{name} {dtype}: {type(e).__name__}")
+                    continue
+                nbytes = c["bytes_in"] + c["bytes_out"]
+                if not forward:
+                    nbytes += c["bytes_in"] + c["bytes_out"] + c["bytes_in"]
+                rows.append({"op": name, "dtype": dtype, "forward": forward,
+                             "ms": c["op_time"],
+                             "bound_ms": nbytes / bw * 1e3})
+    for r in rows:
+        r["x_bound"] = r["ms"] / max(r["bound_ms"], 1e-12)
+        print(f"    {r['op']} {r['dtype']} {'fwd' if r['forward'] else 'fwd+bwd'}"
+              f": {r['ms']:.4f} ms, bytes bound {r['bound_ms']:.4f} ms "
+              f"({r['x_bound']:.1f}x)")
+    far = sorted(rows, key=lambda r: -r["x_bound"])[:10]
+    med = sorted(r["x_bound"] for r in rows)[len(rows) // 2] if rows else 0
+    out = {"shape": list(shape), "entries": len(cm.static_cost_data()),
+           "ops": len({r["op"] for r in rows}), "median_x_bound": med,
+           "farthest": [{k: r[k] for k in ("op", "dtype", "forward", "ms",
+                                           "bound_ms", "x_bound")}
+                        for r in far],
+           "skipped": {k: sorted(v) for k, v in skipped.items()},
+           "seconds": time.monotonic() - t0}
+    print(f"  (18b) per-op table at {tuple(shape)}: {out['entries']} entries "
+          f"over {out['ops']} ops, median {med:.1f}x the bytes bound; "
+          "farthest: " + ", ".join(
+              f"{r['op']} {r['dtype']} {'fwd' if r['forward'] else 'bwd'} "
+              f"{r['x_bound']:.0f}x" for r in far)
+          + f" ({out['seconds']:.1f} s)")
+    if not rows:
+        fail("18b: the per-op table is empty")
+    return out
+
+
+def _rel(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def surface_linalg(model, dev="cuda"):
+    """(18c) linalg at the model's width on layer 0's attention output
+    weight W (f32) and on A = Wᵀ W / n + I: each result held by its
+    identity (relative residual <= SURFACE_RESIDUAL) and against the CPU in
+    float64 (within 10 x cond x float32's epsilon, cond the operand's;
+    ``det`` and ``slogdet`` within 10 x n x epsilon)."""
+    import paddle_tpu_torch.linalg as L
+
+    t0 = time.monotonic()
+    w = model.gpt.layers[0].attn.proj.weight.detach().float().to(dev)
+    n = w.shape[0]
+    a = w.T @ w / n + torch.eye(n, device=dev)
+    b = torch.randn(n, 16, generator=torch.Generator(dev).manual_seed(0),
+                    device=dev)
+    w64, a64, b64 = w.double().cpu(), a.double().cpu(), b.double().cpu()
+    u64, s64, vh64 = torch.linalg.svd(w64)  # one SVD serves svd, pinv, cond
+    kw = float(s64[0] / s64[-1])
+    e64 = torch.linalg.eigvalsh(a64)
+    ka = float(e64[-1] / e64[0])
+    eps = torch.finfo(torch.float32).eps
+    tol_w, tol_a = 10 * kw * eps, 10 * ka * eps
+    eye = torch.eye(n, device=dev)
+    res, ref = {}, {}
+
+    def ident(name, num, den):
+        res[name] = float(num.norm() / den.norm())
+
+    q, r = L.qr(w)
+    ident("qr", q @ r - w, w)
+    ref["qr"] = _rel(r.diagonal().abs(), torch.linalg.qr(w64)[1]
+                     .diagonal().abs())
+    u, s, v = L.svd(w)
+    ident("svd", u @ torch.diag(s) @ v.T - w, w)
+    ref["svd"] = _rel(s, s64)
+    p = L.pinv(w)
+    ident("pinv", w @ p @ w - w, w)
+    ref["pinv"] = _rel(p, vh64.T @ torch.diag(1 / s64) @ u64.T)
+    rank = int(L.matrix_rank(w))
+    ref["matrix_rank"] = float(rank != int((s64 > s64[0] * n * torch.finfo(
+        torch.float64).eps).sum()))
+    ref["norm"] = _rel(L.norm(w), torch.linalg.norm(w64))
+    ref["cond"] = _rel(L.cond(w), torch.tensor(kw))
+    wv, vv = L.eigh(a)
+    ident("eigh", a @ vv - vv * wv, a)
+    ref["eigh"] = _rel(wv, e64)
+    c = L.cholesky(a)
+    ident("cholesky", c @ c.T - a, a)
+    ref["cholesky"] = _rel(c, torch.linalg.cholesky(a64))
+    xs = L.cholesky_solve(b, c)
+    ident("cholesky_solve", a @ xs - b, b)
+    ref["cholesky_solve"] = _rel(xs, torch.cholesky_solve(
+        b64, torch.linalg.cholesky(a64)))
+    xs = L.solve(a, b)
+    ident("solve", a @ xs - b, b)
+    ref["solve"] = _rel(xs, torch.linalg.solve(a64, b64))
+    ai = L.inv(a)
+    ident("inv", a @ ai - eye, eye)
+    ref["inv"] = _rel(ai, torch.linalg.inv(a64))
+    ref["det"] = _rel(L.det(a), torch.linalg.det(a64))
+    ref["slogdet"] = _rel(L.slogdet(a), torch.stack(torch.linalg.slogdet(
+        a64)))
+    lu, piv = L.lu(w)
+    pl, lo, up = torch.lu_unpack(lu, piv)
+    ident("lu", pl @ lo @ up - w, w)
+    lu64, piv64 = torch.linalg.lu_factor(w64)
+    pivots_equal = bool(torch.equal(piv.cpu(), piv64))
+    # the same pivots give the same factors; else the same product
+    ref["lu"] = _rel(lu, lu64) if pivots_equal else _rel(pl @ lo @ up, w64)
+    tall = w[:, : n // 2]
+    xs, _, _, _ = L.lstsq(tall, b)
+    rr = tall @ xs - b
+    res["lstsq"] = float((tall.T @ rr).norm() / (tall.norm() * rr.norm()))
+    ref["lstsq"] = _rel(xs, torch.linalg.lstsq(tall.double().cpu(), b64,
+                                               driver="gelsd").solution)
+    xs = L.triangular_solve(c, b, upper=False)
+    ident("triangular_solve", c @ xs - b, b)
+    ref["triangular_solve"] = _rel(xs, torch.linalg.solve_triangular(
+        torch.linalg.cholesky(a64), b64, upper=False))
+    tol = {k: (tol_w if k in ("qr", "svd", "pinv", "cond", "lu", "lstsq",
+                              "norm", "matrix_rank") else tol_a)
+           for k in ref}
+    # a determinant sums n rounding errors in its logarithm
+    tol["det"] = tol["slogdet"] = 10 * n * eps
+    out = {"n": n, "cond_w": kw, "cond_a": ka, "rank": rank,
+           "lu_pivots_equal": pivots_equal,
+           "residual": res, "vs_cpu_f64": ref,
+           "tol_vs_cpu": {"w": tol_w, "a": tol_a, "det": tol["det"]},
+           "seconds": time.monotonic() - t0}
+    print(f"  (18c) linalg at {n} x {n}: cond(W) {kw:.1f}, cond(A) {ka:.3f}, "
+          f"rank {rank}; residuals " + ", ".join(
+              f"{k} {v:.1e}" for k, v in res.items()) + "; against f64 "
+          + ", ".join(f"{k} {v:.1e}" for k, v in ref.items())
+          + f" ({out['seconds']:.1f} s)")
+    bad = [k for k, v in res.items() if not v <= SURFACE_RESIDUAL] + \
+        [k for k, v in ref.items() if not v <= tol[k]]
+    if bad:
+        fail(f"18c: {bad} outside their bounds")
+    return out
+
+
+def surface_audio(dev="cuda", audio=AUDIO):
+    """(18d) Whisper's log-mel front end: ``audio`` = (clips, samples, n_fft,
+    hop) of synthetic audio from a seed through ``signal.stft`` (Hann
+    window) and back through ``istft``, ``fft.rfft``/``irfft`` and
+    ``fft2``/``ifft2`` on the same data, each against the CPU."""
+    from paddle_tpu_torch import fft, signal
+
+    t0 = time.monotonic()
+    clips, n, n_fft, hop = audio
+    g = torch.Generator().manual_seed(0)
+    tt = torch.arange(n) / 16000.0
+    f0 = 100 + 900 * torch.rand(clips, 1, generator=g)
+    x = (0.5 * torch.sin(2 * np.pi * f0 * tt)
+         + 0.1 * torch.randn(clips, n, generator=g)).float()
+    win = torch.hann_window(n_fft, periodic=True)
+    xd, wd = x.to(dev), win.to(dev)
+    spec = signal.stft(xd, n_fft, hop_length=hop, window=wd)
+    back = signal.istft(spec, n_fft, hop_length=hop, window=wd, length=n)
+    spec_cpu = signal.stft(x, n_fft, hop_length=hop, window=win)
+    r = fft.irfft(fft.rfft(xd), n=n)
+    frames = xd[:, : (n // hop) * hop].reshape(clips, -1, hop)
+    f2 = fft.ifft2(fft.fft2(frames)).real
+    out = {"shape": list(spec.shape), "round_trip": _rel(back, x),
+           "stft_vs_cpu": _rel(torch.view_as_real(spec),
+                               torch.view_as_real(spec_cpu)),
+           "rfft_vs_cpu": _rel(torch.view_as_real(fft.rfft(xd)),
+                               torch.view_as_real(fft.rfft(x))),
+           "rfft_round_trip": _rel(r, x),
+           "fft2_round_trip": _rel(f2, frames),
+           "fft2_vs_cpu": _rel(torch.view_as_real(fft.fft2(frames)),
+                               torch.view_as_real(fft.fft2(frames.cpu())))}
+    out["seconds"] = time.monotonic() - t0
+    print(f"  (18d) stft {tuple(spec.shape)} {spec.dtype}: round trip "
+          f"{out['round_trip']:.2e}, against the CPU {out['stft_vs_cpu']:.2e}"
+          f"; rfft {out['rfft_round_trip']:.2e} / {out['rfft_vs_cpu']:.2e}; "
+          f"fft2 {out['fft2_round_trip']:.2e} / {out['fft2_vs_cpu']:.2e} "
+          f"({out['seconds']:.1f} s)")
+    bad = [k for k in out if k.endswith(("round_trip", "vs_cpu"))
+           and not out[k] <= ROUND_TRIP_REL]
+    if bad:
+        fail(f"18d: {bad} above {ROUND_TRIP_REL}")
+    return out
+
+
+def surface_outputs(model, dev="cuda", B=2, T=2048, greedy=SURFACE_GREEDY):
+    """(18e) the model's outputs through the surface: its logits (f32) into
+    ``distribution.Categorical`` (entropy, log_prob, samples from an
+    explicit CUDA generator held by their frequencies and their mean
+    log-probability), ragged lengths over its hidden states into
+    ``logsumexp``, ``sequence_softmax`` and ``sequence_pool``, the argmax
+    against the shifted tokens into ``precision_recall``, ``mean_iou`` and
+    ``auc``, two greedy continuations into ``edit_distance``, and a greedy
+    ``while_loop``; each held against the port's CPU run of the same
+    function on the same tensors (the loop against a plain loop)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distribution
+    from paddle_tpu_torch.ops import control_flow, metrics_ops, sequence
+
+    t0 = time.monotonic()
+    V = model.config.vocab_size
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, V, (B, T))).to(dev)
+    with torch.no_grad():
+        logits = model(ids).float().reshape(B * T, V)
+        hidden = model.gpt(ids).float()
+    errs = {}
+
+    def held(name, fn, *args, tol=1e-4):
+        got = fn(*args)
+        want = fn(*[a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args])
+        got, want = (list(got), list(want)) if isinstance(got, tuple) \
+            else ([got], [want])
+        errs[name] = max(_rel(g, w) for g, w in zip(got, want))
+        if not errs[name] <= tol:
+            fail(f"18e: {name} {errs[name]:.2e} from the CPU (> {tol})")
+
+    cat = lambda lg: distribution.Categorical(lg)  # noqa: E731
+    held("entropy", lambda lg: cat(lg).entropy(), logits)
+    pred = torch.argmax(logits, -1)
+    held("log_prob", lambda lg, v: cat(lg).log_prob(v), logits, pred)
+    rows = logits[:8]
+    gen = torch.Generator(dev).manual_seed(0)
+    draws = cat(rows).sample([4000], generator=gen)  # (4000, 8)
+    p = torch.softmax(rows.double(), -1)
+    freq = torch.stack([torch.bincount(draws[:, r], minlength=V) / 4000.0
+                        for r in range(8)])
+    lp = torch.log(p).gather(1, draws.T).mean(1)
+    ent = -(p * torch.log(p)).sum(1)
+    sd = (torch.log(p) ** 2 * p).sum(1).sub(ent ** 2).clamp_min(0).sqrt()
+    errs["sample_freq"] = float((freq - p).abs().max())
+    errs["sample_logp_z"] = float(((lp + ent) / (sd / 4000 ** 0.5)).abs()
+                                  .max())
+    if errs["sample_freq"] > 5 * (0.25 / 4000) ** 0.5 or \
+            errs["sample_logp_z"] > 5:
+        fail(f"18e: samples off their distribution ({errs})")
+    held("logsumexp", lambda h: paddle.logsumexp(h, axis=-1),
+         hidden.reshape(B * T, -1))
+    rows_h = hidden.reshape(16, (B * T) // 16, -1)
+    lens = torch.from_numpy(rng.randint(0, rows_h.shape[1] + 1, 16)).to(dev)
+    held("sequence_softmax", sequence.sequence_softmax, rows_h, lens)
+    held("sequence_pool", lambda h, n: sequence.sequence_pool(h, n,
+                                                               "AVERAGE"),
+         rows_h, lens)
+    held("sequence_pool_max", lambda h, n: sequence.sequence_pool(h, n,
+                                                                   "MAX"),
+         rows_h, lens)
+    labels = ids.reshape(-1).roll(-1)
+    held("precision_recall", lambda a, b: metrics_ops.precision_recall(
+        a, b, V), pred, labels)
+    held("mean_iou", lambda a, b: metrics_ops.mean_iou(a, b, V), pred,
+         labels)
+    score = torch.log_softmax(logits, -1).gather(1, labels[:, None])[:, 0]
+    held("auc", metrics_ops.auc, score, (labels < V // 2).long())
+    new, steps = greedy
+    prompts = ids[:, :128]
+    cont = model.generate(prompts, max_new_tokens=new, do_sample=False)[
+        :, 128:]
+    n = torch.full((1,), new, dtype=torch.int64, device=dev)
+    held("edit_distance", lambda a, b, m: metrics_ops.edit_distance(
+        a, m, b, m, normalized=False), cont[:1], cont[1:], n, tol=0.0)
+
+    def step(toks):
+        with torch.no_grad():
+            nxt = torch.argmax(model(toks)[:, -1], -1)
+        return torch.cat([toks, nxt[:, None]], 1)
+
+    _, looped = control_flow.while_loop(
+        lambda i, t: i < steps, lambda i, t: [i + 1, step(t)],
+        [torch.zeros((), dtype=torch.int64, device=dev), prompts])
+    plain = prompts
+    for _ in range(steps):
+        plain = step(plain)
+    errs["while_loop"] = float((looped != plain).sum())
+    if errs["while_loop"]:
+        fail("18e: the while_loop's tokens differ from a plain loop's")
+    out = {"logits": [B * T, V], "errors": errs,
+           "edit_distance": float(metrics_ops.edit_distance(
+               cont[:1], n, cont[1:], n, normalized=False)[0]),
+           "entropy_mean": float(cat(logits).entropy().mean()),
+           "seconds": time.monotonic() - t0}
+    print(f"  (18e) logits {B * T} x {V}: " + ", ".join(
+        f"{k} {v:.1e}" for k, v in errs.items())
+        + f"; edit distance {out['edit_distance']:.0f} of {new} "
+        f"({out['seconds']:.1f} s)")
+    return out
+
+
+def surface_sparse(model, dev="cuda", T=4096):
+    """(18f) layer 0's FFN up-projection (H x 4H, f32) pruned to its top
+    ``SPARSE_KEEP`` by magnitude, as COO and CSR: ``sparse.matmul`` against
+    the dense product with T activation rows, ``masked_matmul`` under a
+    causal mask, and ``add``, ``multiply``, ``softmax`` and the unary ops
+    against their dense forms."""
+    from paddle_tpu_torch import sparse
+
+    t0 = time.monotonic()
+    w = model.gpt.layers[0].mlp.up.weight.detach().float().to(dev)
+    k = int(w.numel() * SPARSE_KEEP)
+    thr = w.abs().flatten().kthvalue(w.numel() - k).values
+    wp = torch.where(w.abs() > thr, w, torch.zeros_like(w))
+    g = torch.Generator(dev).manual_seed(0)
+    act = torch.randn(T, w.shape[0], generator=g, device=dev)
+    errs = {}
+    dense = act @ wp
+    for fmt in ("coo", "csr"):
+        sp = getattr(sparse, f"to_sparse_{fmt}")(wp.T.contiguous())
+        errs[f"matmul_{fmt}"] = _rel(sparse.matmul(sp, act.T).T, dense)
+    h = w.shape[0]
+    x, y = act[:h], act[h:2 * h].T.contiguous()
+    mask = torch.tril(torch.ones(h, h, device=dev))
+    mm = sparse.masked_matmul(x, y, sparse.to_sparse_coo(mask))
+    errs["masked_matmul"] = _rel(mm.to_dense(), (x @ y) * mask)
+    coo, csr = sparse.to_sparse_coo(wp), sparse.to_sparse_csr(wp)
+    errs["add"] = _rel(sparse.add(coo, csr).to_dense(), 2 * wp)
+    errs["multiply"] = _rel(sparse.multiply(csr, w).to_dense(), wp * w)
+    on = wp != 0
+    for name, fn in (("relu", torch.relu), ("sin", torch.sin),
+                     ("tanh", torch.tanh), ("abs", torch.abs),
+                     ("neg", torch.neg)):
+        errs[name] = _rel(getattr(sparse, name)(coo).to_dense(), fn(wp))
+    errs["pow"] = _rel(sparse.pow(coo, 2.0).to_dense(), wp ** 2)
+    errs["sqrt"] = _rel(sparse.sqrt(sparse.abs(coo)).to_dense(),
+                        wp.abs().sqrt())
+    sm = torch.softmax(torch.where(on, wp, -torch.inf), -1).nan_to_num(0.0)
+    errs["softmax"] = _rel(sparse.softmax(coo).to_dense(), sm)
+    out = {"shape": list(w.shape), "nnz": coo.nnz(), "errors": errs,
+           "seconds": time.monotonic() - t0}
+    print(f"  (18f) {tuple(w.shape)} at {SPARSE_KEEP:.0%} ({coo.nnz()} nnz): "
+          + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+          + f" ({out['seconds']:.1f} s)")
+    bad = [k for k, v in errs.items() if not v <= 1e-5]
+    if bad:
+        fail(f"18f: {bad} above 1e-5 from their dense forms")
+    return out
+
+
+def op_surface_phase(card):
+    """Phase 18: 18a-f; the results go on the ``op_surface`` line."""
+    import gc
+
+    t0 = time.monotonic()
+    OP_SURFACE["card"] = card
+    OP_SURFACE["18a"] = surface_sweep()
+    OP_SURFACE["18b"] = op_table()
+    model = surface_model()
+    OP_SURFACE["18c"] = surface_linalg(model)
+    OP_SURFACE["18d"] = surface_audio()
+    OP_SURFACE["18e"] = surface_outputs(model)
+    OP_SURFACE["18f"] = surface_sparse(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    OP_SURFACE["seconds"] = time.monotonic() - t0
+    print(f"  (18) {OP_SURFACE['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6482,6 +6976,10 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 17 alone (17a-d, "
                          "then phase 12a's loop for 17e), print its "
                          "tp_native line and exit; no result line")
+    ap.add_argument("--phase18", action="store_true",
+                    help="build the kernels and run phase 18 alone (the op "
+                         "surface, 18a-f), print its op_surface line and "
+                         "exit; no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -6568,6 +7066,11 @@ def main(argv=None) -> int:
                                "mfu": 0.0, "peak_gib": 0.0})
         print(json.dumps({"tp_native": {"card": card, **TP_NATIVE}}))
         return 0
+    if args.phase18:
+        print("[18] the op surface alone")
+        op_surface_phase(card)
+        print(json.dumps({"op_surface": OP_SURFACE}))
+        return 0
 
     print("[2] kernels against their plain versions")
     errs = kernel_phase()
@@ -6610,6 +7113,10 @@ def main(argv=None) -> int:
           "gpt3_1p3b (drive a, the e mix, the int8 wire, the tax with spans "
           "in the native ring), then llama_7b")
     tp_phase()
+    print("[18] the op surface: the registry's ops on the card against the "
+          "CPU, the per-op table at (4096, 2048), linalg, fft and signal, "
+          "the model's outputs and sparse at gpt3_1p3b's width")
+    op_surface_phase(card)
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -6704,6 +7211,7 @@ def main(argv=None) -> int:
     print(json.dumps({"fleet_part2": {"card": card, **part2}}))
     print(json.dumps({"auto_parallel_ckpt": {"card": card, **auto}}))
     print(json.dumps({"tp_native": {"card": card, **TP_NATIVE}}))
+    print(json.dumps({"op_surface": OP_SURFACE}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,13 @@ module paths and names so each counterpart is easy to find. It imports
 ``import paddle_tpu_torch as paddle`` gives the Paddle API the training loop
 is written against: the dtypes, ``Tensor`` (which is ``torch.Tensor``: no
 wrapper class), ``Parameter``, ``to_tensor``, the places and
-``set_device``, grad mode, ``grad``, the op subset, ``nn`` (``Layer``,
-initializers, ``ParamAttr``, the grad clips) and ``optimizer`` (with the
-``lr`` schedulers), and the runtime around a user's own loop: ``amp``
+``set_device``, grad mode, ``grad``, the op surface (the reference's
+math, manipulation, creation, table, linalg, misc and extra ops at the top
+level; ``fft``, ``signal``, ``sparse``, ``distribution``, ``linalg`` and
+``tensor`` as modules; ``ops.registry.all_ops()`` names them all),
+``nn`` (``Layer``, initializers, ``ParamAttr``, the grad clips) and
+``optimizer`` (with the ``lr`` schedulers), and the runtime around a
+user's own loop: ``amp``
 (``auto_cast``, ``decorate``, ``GradScaler``), ``io`` (datasets, samplers,
 ``DataLoader``, ``DevicePrefetcher``), ``save``/``load`` (checkpoints either
 package reads), ``fault`` (the stability sentinel, the preemption guard,
@@ -45,20 +49,67 @@ from .core.tensor import Parameter, Tensor, to_tensor
 from .framework.flags import flag, get_flags, set_flags
 from .framework.io import load, save
 from .nn import ParamAttr
-from .ops.creation import (arange, assign, clone, empty, empty_like, eye,
-                           full, full_like, normal, ones, ones_like, rand,
-                           randint, randn, tril, triu, uniform, zeros,
-                           zeros_like)
-from .ops.manipulation import (argsort, broadcast_to, chunk, concat, expand,
-                               flatten, gather, gather_nd, index_select,
-                               masked_fill, repeat_interleave, reshape, slice,
-                               sort, split, squeeze, stack, take_along_axis,
-                               tile, topk, transpose, unbind, unsqueeze, where)
-from .ops.math import (abs, add, allclose, argmax, argmin, cast, clip, cumsum,
-                       divide, equal, exp, greater_equal, greater_than,
-                       less_equal, less_than, log, matmul, max, maximum, mean,
-                       min, minimum, multiply, not_equal, pow, prod, rsqrt,
-                       scale, sigmoid, sqrt, square, subtract, sum, tanh)
+from . import ops as _ops  # attaches the tensor methods torch lacks
+from .ops.creation import (
+    zeros, ones, full, empty, zeros_like, ones_like, full_like, empty_like,
+    arange, linspace, logspace, eye, diag, diagflat, tril, triu, meshgrid,
+    assign, clone, numel, rand, randn, randint, randint_like, randperm,
+    uniform, normal, gaussian, standard_normal, bernoulli, multinomial,
+    shard_index,
+)
+from .ops.math import (
+    add, subtract, multiply, divide, floor_divide, remainder, mod, pow,
+    maximum, minimum, fmax, fmin, atan2, exp, expm1, log, log2, log10, log1p,
+    sqrt, rsqrt, abs, sign, floor, ceil, round, trunc, frac, sin, cos, tan,
+    asin, acos, atan, sinh, cosh, tanh, asinh, acosh, atanh, erf, erfinv,
+    reciprocal, square, digamma, lgamma, sigmoid, clip, lerp, nan_to_num,
+    stanh, isnan, isinf, isfinite, equal, not_equal, greater_than,
+    greater_equal, less_than, less_equal, logical_and, logical_or,
+    logical_not, logical_xor, bitwise_and, bitwise_or, bitwise_xor,
+    bitwise_not, equal_all, allclose, isclose, sum, mean, max, min, prod,
+    amax, amin, all, any, std, var, median, quantile, nanmean, nansum,
+    logsumexp, argmax, argmin, cumsum, cumprod, cummax, cummin, logcumsumexp,
+    matmul, mm, dot, inner, outer, addmm, bmm, kron, trace, diagonal, mv,
+    dist, cast, scale, increment, neg, heaviside, hypot, copysign, nextafter,
+    gcd, lcm, ldexp, floor_mod,
+)
+from .ops.manipulation import (
+    reshape, reshape_, transpose, t, concat, stack, split, chunk, unbind,
+    unstack, squeeze, unsqueeze, flatten, expand, expand_as, broadcast_to,
+    broadcast_shape, broadcast_tensors, tile, repeat_interleave, flip, roll,
+    rot90, gather, gather_nd, take_along_axis, put_along_axis, scatter,
+    scatter_nd, scatter_nd_add, index_select, index_sample, index_add,
+    masked_select, masked_fill, where, nonzero, slice, strided_slice, crop,
+    topk, sort, argsort, searchsorted, unique, unique_consecutive, bincount,
+    histogram, atleast_1d, atleast_2d, atleast_3d, as_real, as_complex, real,
+    imag, conj, moveaxis, swapaxes,
+)
+from .ops import generated as _generated
+from .ops import inplace as _inplace
+from .ops.extra import (einsum, histogramdd, segment_max, segment_mean,
+                        segment_min, segment_sum)
+from .ops.misc import (
+    is_tensor, is_floating_point, is_integer, is_complex, is_empty, rank,
+    shape, tolist, reverse, multiplex, mode, poisson, set_printoptions,
+    create_parameter, disable_signal_handler, is_compiled_with_cinn,
+    is_compiled_with_rocm, is_compiled_with_xpu, is_compiled_with_npu,
+    is_compiled_with_mlu, is_compiled_with_ipu, get_cuda_rng_state,
+    set_cuda_rng_state,
+)
+from .linalg import (cholesky, cholesky_solve, cond, cov, eig, eigvals,
+                     eigvalsh, inverse, lstsq, lu, multi_dot, norm, qr,
+                     triangular_solve)
+from . import distribution, fft, linalg, signal, sparse, tensor
+
+# the table ops join the top level without replacing a hand-written one
+_GENERATED_TOP = [n for n in _generated.GENERATED if n not in globals()]
+globals().update({n: _generated.GENERATED[n] for n in _GENERATED_TOP})
+
+# the v1 top-level in-place names (paddle.tanh_ and the rest) that exist
+_INPLACE_TOP = [n for n in ("scatter_", "squeeze_", "tanh_", "unsqueeze_",
+                            "relu_", "clip_", "exp_", "sqrt_", "subtract_",
+                            "add_") if n in _inplace.INPLACE_OPS]
+globals().update({n: _inplace.INPLACE_OPS[n] for n in _INPLACE_TOP})
 
 from .core import dispatch as _dispatch
 
@@ -69,7 +120,8 @@ is_grad_enabled = grad_enabled
 
 __all__ = [
     "amp", "autograd", "distributed", "io", "jit", "nn", "optimizer",
-    "utils", "grad", "DataParallel",
+    "utils", "grad", "DataParallel", "distribution", "fft",
+    "linalg", "signal", "sparse", "tensor",
     "bool", "save", "load",
     "bfloat16", "complex64", "complex128", "float16", "float32", "float64",
     "int8", "int16", "int32", "int64", "uint8", "get_default_dtype",
@@ -78,17 +130,11 @@ __all__ = [
     "TPUPlace", "get_device", "is_compiled_with_cuda", "resolve_device",
     "set_device", "seed", "Parameter", "Tensor", "to_tensor", "flag",
     "get_flags", "set_flags", "ParamAttr",
-    "arange", "assign", "clone", "empty", "empty_like", "eye", "full",
-    "full_like", "normal", "ones", "ones_like", "rand", "randint", "randn",
-    "tril", "triu", "uniform", "zeros", "zeros_like",
-    "argsort", "broadcast_to", "chunk", "concat", "expand", "flatten",
-    "gather", "gather_nd", "index_select", "masked_fill", "repeat_interleave",
-    "reshape", "slice", "sort", "split", "squeeze", "stack",
-    "take_along_axis", "tile", "topk", "transpose", "unbind", "unsqueeze",
-    "where",
-    "abs", "add", "allclose", "argmax", "argmin", "cast", "clip", "cumsum",
-    "divide", "equal", "exp", "greater_equal", "greater_than", "less_equal",
-    "less_than", "log", "matmul", "max", "maximum", "mean", "min", "minimum",
-    "multiply", "not_equal", "pow", "prod", "rsqrt", "scale", "sigmoid",
-    "sqrt", "square", "subtract", "sum", "tanh",
+    *[n for mod in (_ops.creation, _ops.math, _ops.manipulation,
+                    _ops.misc) for n in mod.__all__ if n in globals()],
+    "einsum", "histogramdd", "segment_max", "segment_mean", "segment_min",
+    "segment_sum", "cholesky", "cholesky_solve", "cond", "cov", "eig",
+    "eigvals", "eigvalsh", "inverse", "lstsq", "lu", "multi_dot", "norm",
+    "qr", "triangular_solve", *_GENERATED_TOP, *_INPLACE_TOP,
 ]
+__all__ = list(dict.fromkeys(__all__))

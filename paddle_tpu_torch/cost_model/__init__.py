@@ -201,6 +201,9 @@ class CostModel:
         if platform not in ("cuda", "cpu"):
             raise ValueError(f"platform must be cuda or cpu, got {platform!r}")
         self.platform = platform
+        self._static_cache: Dict[tuple, dict] = {}
+        self._ops = None  # ops.registry.all_ops(), read at first use
+        self._inputs: Dict[tuple, torch.Tensor] = {}  # (shape, dtype) -> x
 
     # -- measured profile (reference profile_measure) -------------------------
     def profile_measure(self, program=None, startup_program=None,
@@ -314,3 +317,81 @@ class CostModel:
             return 0.0
         ms = (flops / peak_flops + bytes_ / peak_bw) * 1e3 * spill
         return ms + progs * overhead_ms
+
+    # -- per-op costs (reference static_cost_data/get_static_op_time) --------
+    def static_cost_data(self):
+        """The measured per-op table built so far (``op/forward/dtype/shape``
+        -> cost dict)."""
+        return {f"{k[0]}/{k[1]}/{k[2]}/{k[3]}": v
+                for k, v in self._static_cache.items()}
+
+    def get_static_op_time(self, op_name, forward=True, dtype="float32",
+                           shape=(1024, 1024), iters=5):
+        """Measure (and cache by (op, forward, dtype, shape)) one op of
+        ``ops.registry.all_ops()`` on one input of ``shape`` (uniform on
+        [0.5, 1.5) from seed 0, on this model's platform): the forward, or
+        with ``forward=False`` the forward and the backward of its (first)
+        output's sum. Returns ``{"op_time": ms a call, "dtype", "bytes_in",
+        "bytes_out"}``: CUDA events around ``iters`` calls after one
+        untimed call on the card, ``perf_counter`` on the CPU."""
+        import numpy as np
+
+        from ..core import dtype as dtypes
+        from ..ops.registry import all_ops
+
+        key = (op_name, bool(forward), str(dtype), tuple(shape))
+        if key in self._static_cache:
+            return self._static_cache[key]
+        if self._ops is None:
+            self._ops = all_ops()
+        ops = self._ops
+        op = ops.get(op_name) or ops.get(f"functional.{op_name}")
+        if op is None:
+            raise KeyError(f"unknown op {op_name!r} (registry has "
+                           f"{len(ops)})")
+        dt = dtypes.convert_dtype(dtype)
+        base = self._inputs.get((tuple(shape), dt))
+        if base is None:  # drawn once a shape: the draw costs more than ops
+            rng = np.random.RandomState(0)
+            base = torch.from_numpy(rng.rand(*shape).astype(np.float32)
+                                    + 0.5).to(self.platform).to(dt)
+            self._inputs[(tuple(shape), dt)] = base
+        x = base.clone()  # ops may write their input
+        first = [None]
+
+        if forward:
+            def run():
+                first[0] = op(x)
+        else:
+            x.requires_grad_(True)
+
+            def run():
+                out = op(x)
+                out = out[0] if isinstance(out, (tuple, list)) else out
+                first[0] = out
+                out.sum().backward()
+                x.grad = None
+        run()
+        out = first[0]
+        outs = leaves(out)
+        if self.platform == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(int(iters)):
+                run()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / int(iters)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(int(iters)):
+                run()
+            ms = (time.perf_counter() - t0) / int(iters) * 1e3
+        cost = {"op_time": ms, "dtype": str(dtype),
+                "bytes_in": x.numel() * x.element_size(),
+                "bytes_out": sum(o.numel() * o.element_size()
+                                 for o in outs)}
+        self._static_cache[key] = cost
+        return cost

@@ -13,7 +13,7 @@ import torch
 
 from ...core.dispatch import amp_cast
 from ...ops.kernels.flash_attention import flash_attention_array
-from .common import keep_mask
+from .common import _keep_mask
 
 _FLASH_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -49,7 +49,7 @@ def _exact(q, k, v, attn_mask, dropout_p, is_causal):
             ~keep, float("-inf") if scores.dtype == torch.float16 else -1e30)
     probs = torch.softmax(scores, dim=-1)
     if dropout_p:
-        keep = keep_mask(probs.shape, float(dropout_p), q.device)
+        keep = _keep_mask(probs.shape, float(dropout_p), q.device)
         probs = probs * keep.to(probs.dtype) / (1.0 - dropout_p)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vh)
     return out.transpose(1, 2)

@@ -26,7 +26,7 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     return weight[x]
 
 
-def keep_mask(shape, p: float, device) -> torch.Tensor:
+def _keep_mask(shape, p: float, device) -> torch.Tensor:
     """A bool mask that keeps each element with probability ``1 - p``,
     drawn from the device's default generator."""
     u = torch.empty(shape, device=device)
@@ -40,8 +40,8 @@ def dropout(x, p: float = 0.5, training: bool = True):
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = keep_mask(x.shape, p, x.device)
+    keep = _keep_mask(x.shape, p, x.device)
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
-__all__ = ["linear", "embedding", "dropout", "keep_mask"]
+__all__ = ["linear", "embedding", "dropout"]

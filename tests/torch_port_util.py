@@ -214,3 +214,59 @@ def spawn_ranks(worker, args, world, d, timeout_s, attempts=2):
         assert "error" not in res, f"rank {r}: {res['error']}"
         got.append(res)
     return got
+
+
+def as_numpy(t):
+    """(numpy value, dtype name) of a tensor of either package; bfloat16 as
+    float32 values."""
+    import torch
+
+    from paddle_tpu.core.dtype import dtype_name as jname
+    from paddle_tpu_torch.core.dtype import dtype_name as tname
+
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        name = tname(t.dtype)
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy(), name
+    name = jname(t.dtype)
+    return np.asarray(t.numpy(), np.float32 if name == "bfloat16" else None), \
+        name
+
+
+def assert_same(got, want, rtol=1e-5, atol=1e-6, what=""):
+    """A port output held to the reference's: dtype by name, shape, float
+    values within ``rtol``/``atol`` (NaN where NaN), complex values by
+    absolute error ``atol``, integer and bool values exactly."""
+    (gv, gn), (wv, wn) = as_numpy(got), as_numpy(want)
+    assert gn == wn, (what, gn, wn)
+    assert gv.shape == wv.shape, (what, gv.shape, wv.shape)
+    if gv.dtype.kind == "f":
+        np.testing.assert_allclose(gv, wv, rtol=rtol, atol=atol,
+                                   equal_nan=True, err_msg=what)
+    elif gv.dtype.kind == "c":
+        assert np.abs(gv - wv).max(initial=0.0) <= atol + rtol * np.abs(
+            wv).max(initial=0.0), what
+    else:
+        np.testing.assert_array_equal(gv, wv, err_msg=what)
+
+
+def flat_outputs(out):
+    """An op's outputs as a list (one tensor, or a tuple or list)."""
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def public_names(path):
+    """The public names a module file defines at its top level (functions,
+    classes and assignments not starting with ``_``), read from its source,
+    so names it imports are left out."""
+    import ast
+
+    names = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            names.update(t.id for t in targets if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
