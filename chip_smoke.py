@@ -12,6 +12,8 @@
                                      #   tp_native line, no result line
     python3 chip_smoke.py --phase18  # the build and phase 18 alone: its
                                      #   op_surface line, no result line
+    python3 chip_smoke.py --phase19  # the build and phase 19 alone: its
+                                     #   nn line, no result line
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -418,6 +420,34 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    ``softmax`` and the unary ops against their dense forms (1e-5). One
    ``{"op_surface": ...}`` line with the card, each part's counts, errors
    and seconds;
+19. the ``nn`` layer library (runs after phase 18; ``--phase19`` alone),
+   f32: (19a) the Transformer base (6 + 6 layers, d 512, 8 heads, FFN
+   2048, dropout 0.1, post-norm) with one 37000-token embedding shared by
+   source, target and output projection, sinusoidal positions; step 1 on
+   4 pairs with dropout off against the CPU (loss 1e-5, every gradient
+   together 1e-4 by relative norm), 10 Adam (0.9, 0.98, 1e-9) steps under
+   NoamDecay(512, 4000) on b32 x s128 synthetic pairs, a label-smoothed
+   (0.1) soft-label cross entropy (the loss must be finite and fall), then
+   greedy incremental decoding of 32 tokens for 8 sources through
+   ``gen_cache`` against full recomputation at every step (tokens equal,
+   logits 1e-4); (19b) ResNet-50's stem and conv2_x (7x7/2 conv, BN,
+   ReLU, 3x3/2 max pool, three bottlenecks 64-64-256, average pool, a
+   1000-way head) at b32 x 224²: NHWC from the same weights against NCHW,
+   one Momentum(0.1, 0.9, wd 1e-4) step whose first BN moves by Paddle's
+   momentum rule, eval, the same step on 4 images against the CPU
+   (outputs, gradients, every BN buffer, 1e-4), ms a step; (19c) the
+   medium PTB LSTM (vocab 10000, 2 x 650, 35 steps, batch 20, dropout 0.5
+   outside the LSTM), ``nn.GRU`` at that width and one
+   ``BiRNN(LSTMCell, LSTMCell)``: two truncated-BPTT batches, SGD(1.0),
+   global-norm clip 5, states carried and detached, with dropout off
+   against the CPU (losses, gradients, final states, 1e-4), ms a step;
+   (19d) on 19b's stage activations GroupNorm(32), InstanceNorm2D,
+   LocalResponseNorm, Conv2DTranspose 2x, ``interpolate`` in every 2-D
+   mode down and up, Pixel(Un)Shuffle, ``grid_sample`` on an
+   ``affine_grid``, Unfold/Fold, ``max_pool2d(return_mask)`` then
+   ``max_unpool2d``; ``ctc_loss`` and its gradient on 19c's logits;
+   ``sparse_attention`` under a banded CSR pattern on 19a's memory: each
+   against the CPU on the first 4 rows (1e-5). One ``{"nn": ...}`` line;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -468,7 +498,8 @@ searches, persistence, tuned drive, host µs and the 192-row int8 checks,
 ``{"engine_train": {...}}``, phase 13, ``{"fleet_train": {...}}``,
 phase 14, ``{"fleet_part2": {...}}``, phase 15, and
 ``{"auto_parallel_ckpt": {...}}``, phase 16, ``{"tp_native": {...}}``,
-phase 17, and ``{"op_surface": {...}}``, phase 18.
+phase 17, ``{"op_surface": {...}}``, phase 18, and ``{"nn": {...}}``,
+phase 19.
 """
 from __future__ import annotations
 
@@ -6965,6 +6996,637 @@ def op_surface_phase(card):
     print(f"  (18) {OP_SURFACE['seconds']:.1f} s")
 
 
+# -- phase 19: the nn layer library ---------------------------------------------
+NN = {}  # phase 19's results: the {"nn": ...} line
+# 19a: the Transformer base (Vaswani et al. 2017, Table 3, "base"), which is
+# nn.Transformer's defaults, on the paper's shared 37000-token vocabulary
+NN_TRANSFORMER = {"vocab": 37000, "d": 512, "heads": 8, "layers": 6,
+                  "ffn": 2048, "dropout": 0.1, "batch": 32, "seq": 128,
+                  "steps": 10, "warmup": 2, "parity_rows": 4,
+                  "decode": (8, 32)}
+# 19b: ResNet-50's stem and conv2_x (He et al. 2016, Table 1) at ImageNet size
+NN_RESNET = {"batch": 32, "size": 224, "classes": 1000, "timed": 5,
+             "warmup": 2, "parity_rows": 4}
+# 19c: the medium PTB LSTM (Zaremba et al. 2014): 2 x 650, 35 steps, batch 20
+NN_PTB = {"vocab": 10000, "hidden": 650, "layers": 2, "steps": 35,
+          "batch": 20, "dropout": 0.5, "timed": 4}
+NN_LOSS_REL = 1e-5  # a loss against the CPU
+NN_GRAD_REL = 1e-4  # every gradient together, by relative norm
+# 19b's gradients: a BatchNorm network's weight gradients sum 50K-400K
+# terms a value that cancel to zero mean (cuDNN's and the CPU's orders
+# differ): 1.2e-4-1.3e-4 by relative norm on the card (PR 20, call 14)
+NN_BN_GRAD_REL = 1e-3
+NN_OUT_REL = 1e-4   # outputs, states and buffers against the CPU
+NN_OP_REL = 1e-5    # 19d's ops against the CPU
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _worst_grad(a, b):
+    """The parameter whose gradient differs most between two copies of a
+    model, by relative norm: (name, error)."""
+    pb = dict(b.named_parameters())
+    return max(((n, _rel(p.grad, pb[n].grad)) for n, p in a.named_parameters()
+                if p.grad is not None), key=lambda t: t[1])
+
+
+def _grad_vec(model):
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                      .detach().double().cpu().reshape(-1)
+                      for p in model.parameters()])
+
+
+def _cpu_copy(model):
+    import copy
+
+    return copy.deepcopy(model).to("cpu")
+
+
+def nn_seq2seq(cfg, dev, seed=0):
+    """The Transformer base as a translation model: one embedding table
+    shared by source, target and the output projection (scaled by
+    sqrt(d)), sinusoidal positions and dropout on the embedded sums; the
+    body is ``nn.Transformer``."""
+    import math
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    V, d = cfg["vocab"], cfg["d"]
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator(dev).manual_seed(seed)
+            kw = {"device": dev, "generator": g}
+            self.emb = nn.Embedding(V, d, **kw)
+            self.body = nn.Transformer(d, cfg["heads"], cfg["layers"],
+                                       cfg["layers"], cfg["ffn"],
+                                       dropout=cfg["dropout"], **kw)
+            self.drop = nn.Dropout(cfg["dropout"])
+            pos = torch.arange(cfg["seq"] + 64, dtype=torch.float64)[:, None]
+            div = torch.pow(10000.0, torch.arange(0, d, 2,
+                                                  dtype=torch.float64) / d)
+            pe = torch.zeros(len(pos), d, dtype=torch.float64)
+            pe[:, 0::2], pe[:, 1::2] = torch.sin(pos / div), torch.cos(
+                pos / div)
+            self.register_buffer("pe", pe.float().to(dev), persistable=False)
+
+        def embed(self, ids, start=0):
+            x = self.emb(ids) * math.sqrt(d) + \
+                self.pe[start: start + ids.shape[1]]
+            return self.drop(x)
+
+        def logits(self, h):
+            return F.linear(h, self.emb.weight.T)
+
+        def forward(self, src, tgt):
+            mask = nn.Transformer.generate_square_subsequent_mask(
+                tgt.shape[1]).to(src.device)
+            return self.logits(self.body(self.embed(src), self.embed(tgt),
+                                         tgt_mask=mask))
+
+        def loss(self, src, tgt_in, tgt_out):
+            soft = F.label_smooth(F.one_hot(tgt_out, V), epsilon=0.1)
+            return F.cross_entropy(self(src, tgt_in), soft, soft_label=True)
+
+    return Seq2Seq()
+
+
+def nn_transformer_phase(cfg=NN_TRANSFORMER, dev="cuda"):
+    """(19a) the Transformer base: its step 1 on ``parity_rows`` pairs with
+    dropout off against the CPU (loss, every gradient), ``steps`` Adam
+    steps (0.9, 0.98, 1e-9) under NoamDecay(d, 4000) on one batch of
+    synthetic pairs with dropout on (the loss must be finite and fall),
+    then greedy incremental decoding through ``gen_cache`` (``Cache`` for
+    self-attention, ``StaticCache`` for cross-attention) against full
+    recomputation under the causal mask at every step. Returns the
+    results and the encoder's memory of the batch."""
+    from paddle_tpu_torch import optimizer
+
+    t0 = time.monotonic()
+    V, B, T = cfg["vocab"], cfg["batch"], cfg["seq"]
+    g = torch.Generator().manual_seed(1)
+    src = torch.randint(1, V, (B, T), generator=g).to(dev)
+    tgt = torch.randint(1, V, (B, T + 1), generator=g).to(dev)
+    tgt[:, 0] = 0  # the start token
+    batch = (src, tgt[:, :-1], tgt[:, 1:])
+    model = nn_seq2seq(cfg, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    # parity: step 1 on the first rows, dropout off, card against CPU
+    model.eval()
+    rows = tuple(t[: cfg["parity_rows"]] for t in batch)
+    card_loss = model.loss(*rows)
+    card_loss.backward()
+    cpu = _cpu_copy(model)
+    cpu_loss = cpu.loss(*(t.cpu() for t in rows))
+    cpu_loss.backward()
+    parity = {"loss": _rel(card_loss, cpu_loss),
+              "grads": _rel(_grad_vec(model), _grad_vec(cpu))}
+    del cpu
+    model.clear_gradients()
+    model.train()
+    sched = optimizer.lr.NoamDecay(cfg["d"], 4000)
+    opt = optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                         epsilon=1e-9, parameters=model.parameters())
+    losses = []
+    for step in range(cfg["steps"]):
+        if step == cfg["warmup"]:
+            _sync(dev)
+            t_start = time.perf_counter()
+        loss = model.loss(*batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        losses.append(loss.detach())
+    _sync(dev)
+    timed = cfg["steps"] - cfg["warmup"]
+    step_ms = (time.perf_counter() - t_start) * 1e3 / timed
+    losses = [float(v) for v in losses]
+    # incremental decoding against full recomputation
+    model.eval()
+    n_src, n_new = cfg["decode"]
+    with torch.no_grad():
+        memory = model.body.encoder(model.embed(src))
+        mem = memory[:n_src]
+        cache = model.body.decoder.gen_cache(mem)
+        toks = torch.zeros(n_src, 1, dtype=torch.long, device=dev)
+        logit_err, equal = 0.0, 0
+        t_inc = t_full = 0.0
+        from paddle_tpu_torch import nn
+
+        for t in range(n_new):
+            a = time.perf_counter()
+            h, cache = model.body.decoder(model.embed(toks[:, -1:], start=t),
+                                          mem, cache=cache)
+            inc = model.logits(h[:, -1])
+            inc_tok = inc.argmax(-1)
+            b = time.perf_counter()
+            mask = nn.Transformer.generate_square_subsequent_mask(
+                t + 1).to(dev)
+            full = model.logits(model.body.decoder(model.embed(toks), mem,
+                                                   tgt_mask=mask)[:, -1])
+            full_tok = full.argmax(-1)
+            equal += int((inc_tok == full_tok).sum())
+            c = time.perf_counter()
+            t_inc, t_full = t_inc + b - a, t_full + c - b
+            logit_err = max(logit_err, float((inc - full).abs().max()
+                                             / full.abs().max()))
+            toks = torch.cat([toks, full_tok[:, None]], 1)
+    out = {"params": n_params, "tokens_a_side": B * T,
+           "parity_rows": cfg["parity_rows"], "parity": parity,
+           "losses": losses, "step_ms": step_ms,
+           "tokens_per_s": 2 * B * T / (step_ms / 1e3),
+           "decode": {"sources": n_src, "new": n_new,
+                      "tokens_equal": equal, "tokens": n_src * n_new,
+                      "logits_rel": logit_err,
+                      "incremental_ms_a_token": t_inc * 1e3 / n_new,
+                      "full_ms_a_token": t_full * 1e3 / n_new},
+           "seconds": time.monotonic() - t0}
+    print(f"  (19a) Transformer base ({n_params / 1e6:.1f}M parameters), "
+          f"b{B} x s{T}: step 1 against the CPU on {cfg['parity_rows']} "
+          f"pairs: loss {parity['loss']:.1e}, gradients {parity['grads']:.1e}"
+          f"; losses {losses[0]:.4f} -> {losses[-1]:.4f}; {step_ms:.2f} ms a "
+          f"step, {out['tokens_per_s']:.0f} tokens/s (source + target); "
+          f"decode {equal}/{n_src * n_new} tokens equal, logits "
+          f"{logit_err:.1e} ({out['seconds']:.1f} s)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"19a: the losses {losses} are not finite and falling")
+    if parity["loss"] > NN_LOSS_REL or parity["grads"] > NN_GRAD_REL:
+        fail(f"19a: step 1 differs from the CPU's: {parity}")
+    if equal != n_src * n_new or logit_err > NN_OUT_REL:
+        fail(f"19a: incremental decoding differs from full recomputation "
+             f"({equal} of {n_src * n_new} tokens, logits {logit_err:.1e})")
+    return out, memory
+
+
+def nn_resnet(fmt, dev, cfg=NN_RESNET, seed=0):
+    """ResNet-50's stem and conv2_x: 7x7/2 Conv2D 64, BatchNorm2D, ReLU,
+    3x3/2 MaxPool2D, three bottlenecks 64-64-256 (the first with the
+    projection shortcut), then AdaptiveAvgPool2D(1) and a Linear head."""
+    from paddle_tpu_torch import nn
+
+    g = torch.Generator(dev).manual_seed(seed)
+    kw = {"device": dev, "generator": g}
+
+    def conv(ci, co, k, s=1, p=0):
+        return nn.Conv2D(ci, co, k, stride=s, padding=p, bias_attr=False,
+                         data_format=fmt, **kw)
+
+    def bn(c):
+        return nn.BatchNorm2D(c, data_format=fmt, **kw)
+
+    class Bottleneck(nn.Layer):
+        def __init__(self, cin, width, proj):
+            super().__init__()
+            self.conv1, self.bn1 = conv(cin, width, 1), bn(width)
+            self.conv2, self.bn2 = conv(width, width, 3, 1, 1), bn(width)
+            self.conv3, self.bn3 = conv(width, width * 4, 1), bn(width * 4)
+            self.relu = nn.ReLU()
+            self.downsample = nn.Sequential(conv(cin, width * 4, 1),
+                                            bn(width * 4)) if proj else None
+
+        def forward(self, x):
+            out = self.relu(self.bn1(self.conv1(x)))
+            out = self.relu(self.bn2(self.conv2(out)))
+            out = self.bn3(self.conv3(out))
+            idn = x if self.downsample is None else self.downsample(x)
+            return self.relu(out + idn)
+
+    class Stage1(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv1, self.bn1 = conv(3, 64, 7, 2, 3), bn(64)
+            self.relu = nn.ReLU()
+            self.maxpool = nn.MaxPool2D(3, 2, 1, data_format=fmt)
+            self.layer1 = nn.Sequential(Bottleneck(64, 64, True),
+                                        Bottleneck(256, 64, False),
+                                        Bottleneck(256, 64, False))
+            self.avgpool = nn.AdaptiveAvgPool2D(1, data_format=fmt)
+            self.flatten = nn.Flatten()
+            self.fc = nn.Linear(256, cfg["classes"], **kw)
+
+        def features(self, x):
+            return self.layer1(self.maxpool(self.relu(self.bn1(
+                self.conv1(x)))))
+
+        def forward(self, x):
+            return self.fc(self.flatten(self.avgpool(self.features(x))))
+
+    return Stage1()
+
+
+def _resnet_step(net, x, y, lr=0.1):
+    """One train-mode step with Momentum(lr, 0.9, weight decay 1e-4):
+    (logits, loss); the gradients stay on the parameters."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.nn import functional as F
+
+    opt = optimizer.Momentum(lr, momentum=0.9, weight_decay=1e-4,
+                             parameters=net.parameters())
+    logits = net(x)
+    loss = F.cross_entropy(logits, y)
+    loss.backward()
+    grads = _grad_vec(net)
+    opt.step()
+    return logits.detach(), loss.detach(), grads, opt
+
+
+def nn_resnet_phase(cfg=NN_RESNET, dev="cuda"):
+    """(19b) the stage at ImageNet size, f32: the NHWC network built from
+    the same weights agrees with NCHW (train-mode logits, loss and
+    gradients); one Momentum step, whose first BatchNorm's buffers must
+    move by Paddle's rule (``running * 0.9 + batch * 0.1``, the unbiased
+    variance); eval on the running statistics; the same step on the first
+    ``parity_rows`` images against the CPU (outputs, gradients, every
+    BatchNorm buffer after the step); then ms a step and images/s. Returns
+    the results and the stage's activations of the batch (eval)."""
+    t0 = time.monotonic()
+    B, S = cfg["batch"], cfg["size"]
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(B, 3, S, S, generator=g).to(dev)
+    y = torch.randint(0, cfg["classes"], (B,), generator=g).to(dev)
+    net = nn_resnet("NCHW", dev)
+    nhwc = nn_resnet("NHWC", dev, seed=1)
+    nhwc.set_state_dict(net.state_dict())
+    init = _cpu_copy(net)
+    with torch.no_grad():
+        stem = net.conv1(x)
+        mean = stem.mean((0, 2, 3))
+        var = stem.var((0, 2, 3), unbiased=True)
+    lg_h, loss_h, grads_h, _ = _resnet_step(
+        nhwc, x.permute(0, 2, 3, 1).contiguous(), y)
+    logits, loss, grads, opt = _resnet_step(net, x, y)
+    layout = {"logits": _rel(lg_h, logits), "loss": _rel(loss_h, loss),
+              "grads": _rel(grads_h, grads)}
+    worst_layout = _worst_grad(nhwc, net)
+    momentum = {"mean": _rel(net.bn1._mean, 0.1 * mean),
+                "variance": _rel(net.bn1._variance, 0.9 + 0.1 * var)}
+    net.eval()
+    with torch.no_grad():
+        eval_logits = net(x)
+        act = net.features(x)
+    finite = bool(torch.isfinite(eval_logits).all())
+    # the same step on the first rows, card against CPU
+    n = cfg["parity_rows"]
+    card4 = init.to(dev)
+    cpu4 = _cpu_copy(init)
+    c_lg, c_loss, c_g, _ = _resnet_step(card4, x[:n], y[:n])
+    p_lg, p_loss, p_g, _ = _resnet_step(cpu4, x[:n].cpu(), y[:n].cpu())
+    bufs = {k: v for k, v in cpu4.state_dict().items()
+            if k.endswith(("_mean", "_variance"))}
+    card_bufs = card4.state_dict()
+    parity = {"logits": _rel(c_lg, p_lg), "loss": _rel(c_loss, p_loss),
+              "grads": _rel(c_g, p_g),
+              "buffers": max(_rel(card_bufs[k], v) for k, v in bufs.items()),
+              "buffers_held": len(bufs),
+              "worst_grad": _worst_grad(card4, cpu4)}
+    del card4, cpu4, init, nhwc
+    # throughput: train-mode steps on the batch
+    net.train()
+    from paddle_tpu_torch.nn import functional as F
+
+    for step in range(cfg["warmup"] + cfg["timed"]):
+        if step == cfg["warmup"]:
+            _sync(dev)
+            t_start = time.perf_counter()
+        F.cross_entropy(net(x), y).backward()
+        opt.step()
+        opt.clear_grad()
+    _sync(dev)
+    step_ms = (time.perf_counter() - t_start) * 1e3 / cfg["timed"]
+    out = {"batch": B, "size": S, "loss": float(loss), "nhwc": layout,
+           "nhwc_worst_grad": worst_layout,
+           "momentum_rule": momentum, "eval_finite": finite,
+           "parity_rows": n, "parity": parity, "step_ms": step_ms,
+           "images_per_s": B / (step_ms / 1e3),
+           "seconds": time.monotonic() - t0}
+    print(f"  (19b) ResNet-50 stem + conv2_x, b{B} x {S}²: NHWC against "
+          f"NCHW logits {layout['logits']:.1e}, gradients "
+          f"{layout['grads']:.1e}; bn1 against Paddle's momentum rule "
+          f"{momentum['mean']:.1e} / {momentum['variance']:.1e}; the CPU on "
+          f"{n} images: logits {parity['logits']:.1e}, gradients "
+          f"{parity['grads']:.1e} (worst {parity['worst_grad'][0]} "
+          f"{parity['worst_grad'][1]:.1e}), {parity['buffers_held']} buffers "
+          f"{parity['buffers']:.1e}; {step_ms:.2f} ms a step, "
+          f"{out['images_per_s']:.0f} images/s ({out['seconds']:.1f} s)")
+    tol = {"grads": NN_BN_GRAD_REL}
+    bad = [f"nhwc {k}" for k, v in layout.items()
+           if not v <= tol.get(k, NN_OUT_REL)] + \
+        [f"momentum {k}" for k, v in momentum.items()
+         if not v <= NN_OUT_REL] + \
+        [f"cpu {k}" for k in ("logits", "loss", "grads", "buffers")
+         if not parity[k] <= tol.get(k, NN_OUT_REL)]
+    if bad or not finite:
+        fail(f"19b: {bad} outside their bounds (outputs {NN_OUT_REL}, "
+             f"gradients {NN_BN_GRAD_REL}; finite eval: {finite})")
+    return out, act
+
+
+def nn_ptb(kind, cfg, dev, seed=0):
+    """The PTB language model: embedding, dropout, the recurrent body
+    (``nn.LSTM``/``nn.GRU`` of ``layers``, or one ``BiRNN`` of two
+    ``LSTMCell``), dropout, the head."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    V, H = cfg["vocab"], cfg["hidden"]
+    g = torch.Generator(dev).manual_seed(seed)
+    kw = {"device": dev, "generator": g}
+
+    class PTBModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(V, H, **kw)
+            self.drop_in = nn.Dropout(cfg["dropout"])
+            self.drop_out = nn.Dropout(cfg["dropout"])
+            if kind == "lstm":
+                self.rnn = nn.LSTM(H, H, cfg["layers"], **kw)
+            elif kind == "gru":
+                self.rnn = nn.GRU(H, H, cfg["layers"], **kw)
+            else:
+                self.rnn = nn.BiRNN(nn.LSTMCell(H, H, **kw),
+                                    nn.LSTMCell(H, H, **kw))
+            self.head = nn.Linear(H * (2 if kind == "birnn" else 1), V, **kw)
+
+        def forward(self, ids, states=None):
+            y, states = self.rnn(self.drop_in(self.emb(ids)), states)
+            return self.head(self.drop_out(y)), states
+
+        def loss(self, ids, labels, states=None):
+            logits, states = self(ids, states)
+            return F.cross_entropy(logits.reshape(-1, V),
+                                   labels.reshape(-1)), states, logits
+
+    return PTBModel()
+
+
+def _detach(states):
+    if isinstance(states, (tuple, list)):
+        return type(states)(_detach(s) for s in states)
+    return states.detach()
+
+
+def _flat(states):
+    if isinstance(states, (tuple, list)):
+        return [t for s in states for t in _flat(s)]
+    return [states]
+
+
+def _ptb_run(model, data, cfg):
+    """Two truncated-BPTT batches, the final states carried and detached,
+    ``SGD(1.0)`` with ``ClipGradByGlobalNorm(5.0)``: the losses, each
+    batch's gradients and the final states."""
+    from paddle_tpu_torch import nn, optimizer
+
+    opt = optimizer.SGD(1.0, parameters=model.parameters(),
+                        grad_clip=nn.ClipGradByGlobalNorm(5.0))
+    T, states, losses, grads = cfg["steps"], None, [], []
+    for k in range(2):
+        ids = data[:, k * T: (k + 1) * T]
+        labels = data[:, k * T + 1: (k + 1) * T + 1]
+        loss, states, _ = model.loss(ids, labels, states)
+        loss.backward()
+        grads.append(_grad_vec(model))
+        opt.step()
+        opt.clear_grad()
+        states = _detach(states)
+        losses.append(loss.detach())
+    return losses, grads, _flat(states), opt
+
+
+def nn_ptb_phase(cfg=NN_PTB, dev="cuda"):
+    """(19c) the medium PTB LSTM, then ``nn.GRU`` at the same width and one
+    ``BiRNN(LSTMCell, LSTMCell)`` layer: two truncated-BPTT batches with
+    dropout off against the CPU (losses, gradients, final states), then
+    ms a train step with dropout on. Returns the results and the LSTM's
+    logits of the first batch (eval)."""
+    t0 = time.monotonic()
+    B, T, V = cfg["batch"], cfg["steps"], cfg["vocab"]
+    g = torch.Generator().manual_seed(3)
+    data = torch.randint(0, V, (B, 2 * T + 1), generator=g).to(dev)
+    out, logits = {}, None
+    for kind in ("lstm", "gru", "birnn"):
+        model = nn_ptb(kind, cfg, dev)
+        cpu = _cpu_copy(model)
+        model.eval()
+        cpu.eval()
+        c_l, c_g, c_s, _ = _ptb_run(model, data, cfg)
+        p_l, p_g, p_s, _ = _ptb_run(cpu, data.cpu(), cfg)
+        parity = {"losses": max(_rel(a, b) for a, b in zip(c_l, p_l)),
+                  "grads": max(_rel(a, b) for a, b in zip(c_g, p_g)),
+                  "states": max(_rel(a, b) for a, b in zip(c_s, p_s))}
+        del cpu
+        model.train()
+        from paddle_tpu_torch import nn, optimizer
+
+        opt = optimizer.SGD(1.0, parameters=model.parameters(),
+                            grad_clip=nn.ClipGradByGlobalNorm(5.0))
+        states = None
+        for step in range(1 + cfg["timed"]):
+            if step == 1:
+                _sync(dev)
+                t_start = time.perf_counter()
+            k = step % 2
+            loss, states, _ = model.loss(
+                data[:, k * T: (k + 1) * T],
+                data[:, k * T + 1: (k + 1) * T + 1], states)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            states = _detach(states)
+        _sync(dev)
+        step_ms = (time.perf_counter() - t_start) * 1e3 / cfg["timed"]
+        out[kind] = {"losses": [float(v) for v in c_l], "parity": parity,
+                     "step_ms": step_ms,
+                     "params": sum(p.numel() for p in model.parameters())}
+        print(f"  (19c) {kind} ({out[kind]['params'] / 1e6:.1f}M parameters)"
+              f", b{B} x {T} steps: the CPU's losses {parity['losses']:.1e},"
+              f" gradients {parity['grads']:.1e}, states "
+              f"{parity['states']:.1e}; {step_ms:.2f} ms a step")
+        bad = [k for k, v in parity.items() if not v <= NN_OUT_REL]
+        if bad or not all(np.isfinite(out[kind]["losses"])):
+            fail(f"19c {kind}: {bad} outside {NN_OUT_REL}: {parity}")
+        if kind == "lstm":
+            model.eval()
+            with torch.no_grad():
+                logits = model(data[:, :T])[0]
+    out["seconds"] = time.monotonic() - t0
+    return out, logits
+
+
+def _banded_csr(B, H, T, w, dev):
+    """Per (batch, head), each row attends to itself and the ``w`` rows
+    before it, as CSR offsets (B, H, T + 1) and columns (B, H, nnz)."""
+    cols, offs = [], [0]
+    for r in range(T):
+        cols += range(max(0, r - w), r + 1)
+        offs.append(len(cols))
+    off = torch.tensor(offs, device=dev).expand(B, H, T + 1).contiguous()
+    col = torch.tensor(cols, device=dev).expand(B, H, len(cols)).contiguous()
+    return off, col
+
+
+def nn_rest_phase(act, lm_logits, memory, dev="cuda"):
+    """(19d) the rest of the layer library at those widths, each on the
+    card over the whole batch and held against the port's CPU run on its
+    first rows (every op here is per sample): on 19b's stage activations
+    GroupNorm(32), InstanceNorm2D, LocalResponseNorm, Conv2DTranspose 2x,
+    ``interpolate`` in every 2-D mode down and up, PixelShuffle and
+    PixelUnshuffle, ``grid_sample`` under an ``affine_grid``,
+    ``Unfold``/``Fold``, ``max_pool2d(return_mask)`` then
+    ``max_unpool2d``; ``ctc_loss`` (and its gradient) on 19c's logits
+    against synthetic label lengths; ``sparse_attention`` under a banded
+    CSR pattern on 19a's memory."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    t0 = time.monotonic()
+    n = 4
+    N, C, H, W = act.shape
+    g = torch.Generator(dev).manual_seed(4)
+    kw = {"device": dev, "generator": g}
+    layers = {"group_norm": nn.GroupNorm(32, C, **kw),
+              "instance_norm": nn.InstanceNorm2D(C, **kw),
+              "local_response_norm": nn.LocalResponseNorm(5),
+              "conv2d_transpose": nn.Conv2DTranspose(C, 64, 2, stride=2,
+                                                     **kw),
+              "pixel_shuffle": nn.PixelShuffle(2),
+              "pixel_unshuffle": nn.PixelUnshuffle(2),
+              "unfold_fold": nn.Sequential(
+                  nn.Unfold(3, paddings=1),
+                  nn.Fold([H, W], 3, paddings=1))}
+    ang = torch.rand(N, generator=torch.Generator().manual_seed(5)) - 0.5
+    theta = torch.stack([torch.stack([ang.cos() * 1.1, -ang.sin(),
+                                      ang * 0.2], 1),
+                         torch.stack([ang.sin(), ang.cos() * 0.9,
+                                      -ang * 0.1], 1)], 1).to(dev)
+    fns = {"grid_sample": lambda x, th: F.grid_sample(
+               x, F.affine_grid(th, list(x.shape))),
+           "max_unpool2d": lambda x: F.max_unpool2d(
+               *F.max_pool2d(x, 2, 2, return_mask=True), 2, 2)}
+    for mode in ("nearest", "bilinear", "bicubic", "area"):
+        for name, size in (("down", [H // 2, W // 2]),
+                           ("up", [H * 2, W * 2])):
+            fns[f"interpolate_{mode}_{name}"] = (
+                lambda x, m=mode, s=size: F.interpolate(x, s, mode=m))
+    errs, times = {}, {}
+    with torch.no_grad():
+        for name, layer in layers.items():
+            a = time.perf_counter()
+            got = layer(act)
+            _sync(dev)
+            times[name] = (time.perf_counter() - a) * 1e3
+            errs[name] = _rel(got[:n], _cpu_copy(layer)(act[:n].cpu()))
+        for name, fn in fns.items():
+            args = (act, theta) if name == "grid_sample" else (act,)
+            a = time.perf_counter()
+            got = fn(*args)
+            _sync(dev)
+            times[name] = (time.perf_counter() - a) * 1e3
+            errs[name] = _rel(got[:n], fn(*[t[:n].cpu() for t in args]))
+        qkv = memory.reshape(memory.shape[0], memory.shape[1], 8,
+                             -1).transpose(1, 2).contiguous()
+        off, cols = _banded_csr(qkv.shape[0], 8, qkv.shape[2], 16, dev)
+        got = F.sparse_attention(qkv, qkv, qkv, off, cols)
+        errs["sparse_attention"] = _rel(got[:n], F.sparse_attention(
+            *(t[:n].cpu() for t in (qkv, qkv, qkv, off, cols))))
+    # CTC on the LM's logits: (T, N, C) with synthetic label lengths
+    gl = torch.Generator().manual_seed(6)
+    Bc, Tc, Vc = lm_logits.shape
+    S = Tc // 3
+    labels = torch.randint(1, Vc, (Bc, S), generator=gl)
+    lab_len = torch.randint(0, S + 1, (Bc,), generator=gl)
+    in_len = torch.randint(2 * S + 1, Tc + 1, (Bc,), generator=gl)
+    res = []
+    for d in (dev, "cpu"):
+        lg = lm_logits.transpose(0, 1).to(d).clone().requires_grad_(True)
+        loss = F.ctc_loss(lg, labels.to(d), in_len.to(d), lab_len.to(d),
+                          reduction="none")
+        loss.sum().backward()
+        res.append((loss.detach(), lg.grad))
+    errs["ctc_loss"] = _rel(res[0][0], res[1][0])
+    errs["ctc_loss_grad"] = _rel(res[0][1], res[1][1])
+    out = {"activations": list(act.shape), "held_rows": n, "errors": errs,
+           "card_ms": times, "seconds": time.monotonic() - t0}
+    print(f"  (19d) on {tuple(act.shape)}, the CPU on {n} rows: " + ", ".join(
+        f"{k} {v:.1e}" for k, v in errs.items())
+        + f" ({out['seconds']:.1f} s)")
+    bad = [k for k, v in errs.items() if not v <= NN_OP_REL]
+    if bad:
+        fail(f"19d: {bad} above {NN_OP_REL} from the CPU")
+    return out
+
+
+def nn_phase(card, dev="cuda", cfgs=None):
+    """Phase 19: 19a-d; the results go on the ``nn`` line. ``cfgs``
+    (transformer, resnet, ptb) cut the sizes for a rehearsal."""
+    import gc
+
+    t0 = time.monotonic()
+    tr, rn, ptb = cfgs or (NN_TRANSFORMER, NN_RESNET, NN_PTB)
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    NN["card"] = card
+    NN["19a"], memory = nn_transformer_phase(tr, dev)
+    NN["19b"], act = nn_resnet_phase(rn, dev)
+    NN["19c"], lm_logits = nn_ptb_phase(ptb, dev)
+    NN["19d"] = nn_rest_phase(act, lm_logits, memory, dev)
+    del memory, act, lm_logits
+    gc.collect()
+    if dev != "cpu":
+        NN["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        torch.cuda.empty_cache()
+    NN["seconds"] = time.monotonic() - t0
+    print(f"  (19) {NN['seconds']:.1f} s, peak "
+          f"{NN.get('peak_gib', 0.0):.2f} GiB")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6979,6 +7641,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phase18", action="store_true",
                     help="build the kernels and run phase 18 alone (the op "
                          "surface, 18a-f), print its op_surface line and "
+                         "exit; no result line")
+    ap.add_argument("--phase19", action="store_true",
+                    help="build the kernels and run phase 19 alone (the nn "
+                         "layer library, 19a-d), print its nn line and "
                          "exit; no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -7071,6 +7737,11 @@ def main(argv=None) -> int:
         op_surface_phase(card)
         print(json.dumps({"op_surface": OP_SURFACE}))
         return 0
+    if args.phase19:
+        print("[19] the nn layer library alone")
+        nn_phase(card)
+        print(json.dumps({"nn": NN}))
+        return 0
 
     print("[2] kernels against their plain versions")
     errs = kernel_phase()
@@ -7117,6 +7788,11 @@ def main(argv=None) -> int:
           "CPU, the per-op table at (4096, 2048), linalg, fft and signal, "
           "the model's outputs and sparse at gpt3_1p3b's width")
     op_surface_phase(card)
+    print("[19] the nn layer library: the Transformer base trained, checked "
+          "against the CPU and decoded incrementally; ResNet-50's stem and "
+          "conv2_x at ImageNet size, NCHW and NHWC; the medium PTB LSTM, a "
+          "GRU and a BiRNN; the rest of the layers at those widths")
+    nn_phase(card)
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -7212,6 +7888,7 @@ def main(argv=None) -> int:
     print(json.dumps({"auto_parallel_ckpt": {"card": card, **auto}}))
     print(json.dumps({"tp_native": {"card": card, **TP_NATIVE}}))
     print(json.dumps({"op_surface": OP_SURFACE}))
+    print(json.dumps({"nn": NN}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -15,17 +15,25 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
          no_grad_vars=None):
     """Gradients of ``outputs`` with respect to ``inputs``, without touching
     ``.grad``; an input that ``outputs`` do not reach raises unless
-    ``allow_unused`` (then its entry is None)."""
-    if no_grad_vars is not None:
-        raise NotImplementedError("grad(no_grad_vars=...) is not ported")
+    ``allow_unused`` (then its entry is None). The tensors of
+    ``no_grad_vars`` are held constant: no gradient flows through them."""
     outputs = [outputs] if isinstance(outputs, torch.Tensor) else list(outputs)
     inputs = [inputs] if isinstance(inputs, torch.Tensor) else list(inputs)
     if isinstance(grad_outputs, torch.Tensor):
         grad_outputs = [grad_outputs]
-    return list(torch.autograd.grad(
-        outputs, inputs, grad_outputs,
-        retain_graph=bool(retain_graph) or create_graph,
-        create_graph=create_graph, allow_unused=allow_unused))
+    if isinstance(no_grad_vars, torch.Tensor):
+        no_grad_vars = [no_grad_vars]
+    # a hook that zeroes the gradient arriving at a constant stops it there
+    hooks = [t.register_hook(torch.zeros_like) for t in no_grad_vars or ()
+             if t.requires_grad]
+    try:
+        return list(torch.autograd.grad(
+            outputs, inputs, grad_outputs,
+            retain_graph=bool(retain_graph) or create_graph,
+            create_graph=create_graph, allow_unused=allow_unused))
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 class PyLayerContext:

@@ -34,7 +34,8 @@ from ..distributed.fleet.meta_parallel.mp_layers import (merge_shards,
                                                          shard_of)
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
-              torch.float16: np.float16}
+              torch.float16: np.float16, torch.int64: np.int64,
+              torch.int32: np.int32, torch.bool: np.bool_}
 
 
 def mp_layouts(model: torch.nn.Module) -> Dict[str, str]:
@@ -43,32 +44,44 @@ def mp_layouts(model: torch.nn.Module) -> Dict[str, str]:
             for n, p in model.named_parameters()}
 
 
+def _persistent_buffers(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``{name: buffer}`` of the buffers ``state_dict()`` holds."""
+    out = {}
+    for mname, m in model.named_modules():
+        for bname, b in m._buffers.items():
+            if b is not None and bname not in m._non_persistent_buffers_set:
+                out[f"{mname}.{bname}" if mname else bname] = b
+    return out
+
+
 def load_reference_state_dict(model: torch.nn.Module,
                               state: Mapping[str, np.ndarray],
                               mp_rank: int = 0, mp_degree: int = 1) -> None:
     """Copy ``{name: np.ndarray}`` — the JAX model's ``state_dict()``
-    exported as numpy, logical shapes — into ``model``'s parameters: rank
-    ``mp_rank``'s shard of each under ``mp_degree``. Every name, shape and
-    dtype is checked first; any missing, extra, mis-shaped or mis-typed
-    entry raises ``ValueError`` and nothing is copied. bfloat16 parameters
-    take float32 arrays (numpy has no bfloat16) and round them on the
-    copy."""
-    params = dict(model.named_parameters())
+    exported as numpy, logical shapes — into ``model``'s parameters and
+    persistable buffers (BatchNorm's ``_mean`` and ``_variance``, for
+    example): rank ``mp_rank``'s shard of each parameter under
+    ``mp_degree``. Every name, shape and dtype is checked first; any
+    missing, extra, mis-shaped or mis-typed entry raises ``ValueError`` and
+    nothing is copied. bfloat16 tensors take float32 arrays (numpy has no
+    bfloat16) and round them on the copy."""
+    targets = dict(model.named_parameters())
+    targets.update(_persistent_buffers(model))
     layouts = mp_layouts(model)
-    missing = sorted(set(params) - set(state))
-    extra = sorted(set(state) - set(params))
+    missing = sorted(set(targets) - set(state))
+    extra = sorted(set(state) - set(targets))
     errors = []
     if missing:
         errors.append(f"missing {missing}")
     if extra:
         errors.append(f"unexpected {extra}")
     shards = {}
-    for name in sorted(set(params) & set(state)):
-        p, a = params[name], np.asarray(state[name])
+    for name in sorted(set(targets) & set(state)):
+        p, a = targets[name], np.asarray(state[name])
         np_dtype = a.dtype
         try:
             a = shard_of(torch.from_numpy(np.ascontiguousarray(a)),
-                         layouts[name], mp_rank, mp_degree)
+                         layouts.get(name, "replicated"), mp_rank, mp_degree)
         except ValueError as e:
             errors.append(f"{name}: {e}")
             continue
@@ -84,7 +97,7 @@ def load_reference_state_dict(model: torch.nn.Module,
     if errors:
         raise ValueError("load_reference_state_dict: " + "; ".join(errors))
     with torch.no_grad():
-        for name, p in params.items():
+        for name, p in targets.items():
             p.copy_(shards[name])
 
 

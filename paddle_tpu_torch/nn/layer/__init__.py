@@ -1,7 +1,9 @@
-from .activation import GELU
-from .common import Dropout, Embedding, Linear
-from .layers import Layer, LayerList
-from .norm import LayerNorm
-
-__all__ = ["Layer", "LayerList", "Dropout", "Embedding", "Linear",
-           "LayerNorm", "GELU"]
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .layers import HookRemoveHelper, Layer, LayerList  # noqa: F401
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403
+from .transformer import *  # noqa: F401,F403

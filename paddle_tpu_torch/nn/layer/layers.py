@@ -1,12 +1,15 @@
-"""Layer (port of ``paddle_tpu/nn/layer/layers.py:28``) and LayerList.
+"""Layer (port of ``paddle_tpu/nn/layer/layers.py:28``), LayerList and
+HookRemoveHelper.
 
 ``Layer`` is a ``torch.nn.Module`` with Paddle's API on top: parameters are
 made by ``create_parameter`` from a ``ParamAttr`` and an initializer,
 ``parameters()`` is a list, ``set_state_dict`` returns ``(missing,
 unexpected)``, ``to``/``astype`` take Paddle's places and dtype names, and
 ``register_forward_post_hook`` is Paddle's name for torch's forward hook
-(``register_forward_pre_hook`` has the same name and arguments in both).
-``__call__`` is torch's, so a Layer costs no host time over a Module.
+(``register_forward_pre_hook`` has the same name and arguments in both:
+``hook(layer, inputs)``, a non-None result replacing the inputs); both
+return Paddle's ``HookRemoveHelper``. ``__call__`` is torch's, so a Layer
+costs no host time over a Module.
 
 ``state_dict`` is torch's: structured names, persistable buffers only, each
 value a detached tensor that shares the parameter's storage.
@@ -22,6 +25,18 @@ from ...core.place import resolve_device
 from ...core.tensor import Parameter
 from .. import initializer as init_mod
 from ..param_attr import ParamAttr
+
+
+class HookRemoveHelper:
+    """``remove()`` takes the hook ``hook_id`` out of ``hooks`` (one of the
+    layer's hook tables)."""
+
+    def __init__(self, hooks, hook_id):
+        self._hooks = hooks
+        self._hook_id = hook_id
+
+    def remove(self):
+        self._hooks.pop(self._hook_id, None)
 
 
 class Layer(nn.Module):
@@ -149,10 +164,19 @@ class Layer(nn.Module):
         return self.to(dtype=torch.bfloat16)
 
     # -- hooks ----------------------------------------------------------------
+    def register_forward_pre_hook(self, hook, *, prepend=False,
+                                  with_kwargs=False):
+        """``hook(layer, inputs)``; a non-None result replaces the inputs
+        (a non-tuple one becomes the only input)."""
+        h = super().register_forward_pre_hook(hook, prepend=prepend,
+                                              with_kwargs=with_kwargs)
+        return HookRemoveHelper(self._forward_pre_hooks, h.id)
+
     def register_forward_post_hook(self, hook):
         """``hook(layer, inputs, outputs)``; a non-None result replaces the
         outputs."""
-        return self.register_forward_hook(hook)
+        h = self.register_forward_hook(hook)
+        return HookRemoveHelper(self._forward_hooks, h.id)
 
     def clear_gradients(self):
         for p in self.parameters():
@@ -171,4 +195,4 @@ class LayerList(Layer, nn.ModuleList):
             self.extend(sublayers)
 
 
-__all__ = ["Layer", "LayerList"]
+__all__ = ["Layer", "LayerList", "HookRemoveHelper"]

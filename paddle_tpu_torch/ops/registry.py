@@ -13,11 +13,7 @@ import inspect
 from typing import Callable, Dict
 
 # the reference registry's modules not in the port yet (its queue A)
-MISSING_MODULES = (
-    "nn.functional.conv", "nn.functional.pooling", "nn.functional.vision",
-    "nn.functional (the rest of activation, common, loss and norm)",
-    "vision.ops", "quantization", "text", "incubate.operators",
-)
+MISSING_MODULES = ("vision.ops", "quantization", "text", "incubate.operators")
 
 
 def _module_fns(mod, prefix=""):
@@ -40,7 +36,8 @@ def all_ops() -> Dict[str, Callable]:
     from .. import signal as signal_mod
     from .. import sparse as sparse_mod
     from ..nn import functional as F
-    from ..nn.functional import activation, attention, common, loss, norm
+    from ..nn.functional import (activation, attention, common, conv, loss,
+                                 norm, pooling, vision)
 
     ops: Dict[str, Callable] = {}
     for mod in (math, manipulation, creation, linalg):
@@ -51,7 +48,8 @@ def all_ops() -> Dict[str, Callable]:
     ops.update({f"fft.{n}": getattr(fft_mod, n) for n in fft_mod.__all__})
     ops.update({f"signal.{n}": getattr(signal_mod, n)
                 for n in signal_mod.__all__})
-    for mod in (F, activation, common, loss, norm, attention):
+    for mod in (F, activation, common, conv, loss, norm, pooling, attention,
+                vision):
         ops.update(_module_fns(mod, "functional."))
     ops.update({f"sparse.{n}": getattr(sparse_mod, n)
                 for n in sparse_mod.__all__

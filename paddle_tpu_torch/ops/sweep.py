@@ -133,6 +133,133 @@ def _sparse(fn_of_sparse):
     return build
 
 
+# nn.functional inputs: an image, a sequence, a volume, logits and labels
+IMG = _R.randn(2, 4, 6, 6).astype(np.float32)
+SEQ1 = _R.randn(2, 4, 9).astype(np.float32)
+VOL = _R.randn(1, 2, 4, 4, 4).astype(np.float32)
+LOGITS = _R.randn(6, 5).astype(np.float32)
+LAB = np.array([0, 3, 1, 4, 2, 1], np.int64)
+SOFT = (np.exp(LOGITS) / np.exp(LOGITS).sum(1, keepdims=True)).astype(
+    np.float32)
+PROB = (_R.rand(6, 3) * 0.8 + 0.1).astype(np.float32)
+Y01 = (_R.rand(6, 3) > 0.5).astype(np.float32)
+PM1 = np.where(_R.rand(6) > 0.5, 1.0, -1.0).astype(np.float32)
+W2 = (_R.randn(6, 4, 3, 3) * 0.3).astype(np.float32)
+W1 = (_R.randn(6, 4, 3) * 0.3).astype(np.float32)
+W3 = (_R.randn(4, 2, 2, 2, 2) * 0.3).astype(np.float32)
+WT = (_R.randn(4, 3, 3, 3) * 0.3).astype(np.float32)
+CH = (_R.rand(4) + 0.5).astype(np.float32)
+THETA = np.array([[[0.9, 0.2, 0.1], [-0.1, 1.1, 0.0]]] * 2, np.float32)
+GRID = (_R.rand(2, 3, 5, 2) * 2.4 - 1.2).astype(np.float32)
+COLS = _R.randn(2, 8, 9).astype(np.float32)
+CTC_IN = _R.randn(7, 2, 5).astype(np.float32)
+POOL_IDX = np.array([[[[0, 3, 14], [19, 26, 30], [31, 33, 47]]] * 4] * 2,
+                    np.int64)
+
+
+def _img(*extra, **kw):
+    return lambda t: ([t(IMG)] + list(extra), kw)
+
+
+def _nn_cases():
+    c = {
+        "prelu": lambda t: ([t(IMG), t(CH)], {}),
+        "maxout": _img(2),
+        "bilinear": lambda t: ([t(X[:, :3]), t(Y[:, :2]), t(
+            np.stack([X[:3, :2]] * 5)), t(VEC[:5])], {}),
+        "channel_shuffle": _img(2),
+        "cosine_similarity": _pair(X, Y),
+        "fold": lambda t: ([t(COLS), [4, 4], 2], {"strides": 1}),
+        "unfold": _img([3, 2], strides=2, paddings=1),
+        "interpolate": _img(size=[4, 9], mode="bicubic"),
+        "upsample": _img(scale_factor=0.5, mode="bilinear"),
+        "label_smooth": _one(SOFT, epsilon=0.1),
+        "one_hot": lambda t: ([t(LAB), 5], {}),
+        "pad": _img([1, 2, 0, 1], mode="reflect"),
+        "pixel_shuffle": _img(2),
+        "pixel_unshuffle": _img(2),
+        "conv1d": lambda t: ([t(SEQ1), t(W1), t(VEC)], {"padding": 1,
+                                                        "stride": 2}),
+        "conv2d": lambda t: ([t(IMG), t(W2), t(VEC)], {"padding": "SAME"}),
+        "conv3d": lambda t: ([t(VOL), t(W3)], {"padding": [1, 0, 1]}),
+        "conv1d_transpose": lambda t: ([t(SEQ1), t(W1[:4].transpose(
+            0, 1, 2).copy())], {"stride": 2, "output_padding": 1}),
+        "conv2d_transpose": lambda t: ([t(IMG), t(WT), t(VEC[:3])],
+                                       {"stride": 2, "padding": 1}),
+        "conv3d_transpose": lambda t: ([t(VOL), t(W3[:2])], {"stride": 2}),
+        "max_pool1d": lambda t: ([t(SEQ1), 3], {"stride": 2,
+                                                "ceil_mode": True}),
+        "max_pool2d": _img(3, 2, 1),
+        "max_pool3d": lambda t: ([t(VOL), 2], {}),
+        "avg_pool1d": lambda t: ([t(SEQ1), 4], {"stride": 2, "padding": 1}),
+        "avg_pool2d": _img(3, 2, ceil_mode=True),
+        "avg_pool3d": lambda t: ([t(VOL), 2], {"padding": 1,
+                                               "exclusive": False}),
+        "adaptive_avg_pool1d": lambda t: ([t(SEQ1), 4], {}),
+        "adaptive_avg_pool2d": _img([4, 5]),
+        "adaptive_avg_pool3d": lambda t: ([t(VOL), 3], {}),
+        "adaptive_max_pool1d": lambda t: ([t(SEQ1), 4], {}),
+        "adaptive_max_pool2d": _img([4, 5]),
+        "adaptive_max_pool3d": lambda t: ([t(VOL), 3], {}),
+        "batch_norm": lambda t: ([t(IMG), t(np.zeros(4, np.float32)),
+                                  t(np.ones(4, np.float32)), t(CH),
+                                  t(VEC[:4])], {"training": True}),
+        "group_norm": _img(2),
+        "local_response_norm": _img(3),
+        "spectral_norm": lambda t: ([t(W2)], {"power_iters": 2}),
+        "cross_entropy": lambda t: ([t(LOGITS), t(LAB)],
+                                    {"label_smoothing": 0.1}),
+        "softmax_with_cross_entropy": lambda t: ([t(LOGITS), t(SOFT)],
+                                                 {"soft_label": True}),
+        "nll_loss": lambda t: ([t(np.log(SOFT)), t(LAB)], {}),
+        "binary_cross_entropy": _pair(PROB, Y01),
+        "binary_cross_entropy_with_logits": lambda t: (
+            [t(X[:, :3]), t(Y01[:4])], {"pos_weight": t(CH[:3])}),
+        "kl_div": _pair(np.log(SOFT), SOFT[::-1].copy()),
+        "margin_ranking_loss": lambda t: ([t(VEC), t(VEC[::-1].copy()),
+                                           t(PM1)], {}),
+        "hinge_embedding_loss": _pair(VEC, PM1),
+        "cosine_embedding_loss": lambda t: ([t(PROB), t(Y01), t(PM1)], {}),
+        "triplet_margin_loss": lambda t: ([t(X), t(Y), t(P)], {}),
+        "log_loss": _pair(PROB, Y01),
+        "ctc_loss": lambda t: ([t(CTC_IN),
+                                t(np.array([[1, 1, 3], [2, 4, 0]])),
+                                t(np.array([7, 5])), t(np.array([3, 2]))],
+                               {}),
+        "sigmoid_focal_loss": _pair(X[:, :3], Y01[:4]),
+        "hsigmoid_loss": lambda t: ([t(X), t(LAB[:4]), 5, t(np.concatenate(
+            [X, Y])[:4])], {}),
+        "margin_cross_entropy": lambda t: ([t(np.tanh(LOGITS)), t(LAB)],
+                                           {"scale": 8.0}),
+        **{n: _pair(X, Y) for n in ("mse_loss", "l1_loss",
+                                    "smooth_l1_loss", "square_error_cost")},
+        "affine_grid": lambda t: ([t(THETA), [2, 4, 5, 3]], {}),
+        "grid_sample": lambda t: ([t(IMG), t(GRID)],
+                                  {"padding_mode": "reflection",
+                                   "align_corners": False}),
+        "sequence_mask": lambda t: ([t(np.array([3, 0, 5]))], {}),
+        "temporal_shift": _img(2),
+        "zeropad2d": _img([1, 0, 2, 1]),
+        "pairwise_distance": _pair(X, Y),
+        "npair_loss": lambda t: ([t(X), t(Y), t(np.array([0, 1, 0, 2]))],
+                                 {}),
+        "dice_loss": lambda t: ([t(SOFT), t(LAB[:, None])], {}),
+        "gather_tree": lambda t: ([t(IDS.T.reshape(5, 3, 1).repeat(2, 2)),
+                                   t(np.zeros((5, 3, 2), np.int64))], {}),
+        "max_unpool1d": lambda t: ([t(SEQ1[..., :3]), t(POOL_IDX[0, :, 0]
+                                                        [None].repeat(2, 0)),
+                                    2], {"output_size": [48]}),
+        "max_unpool2d": lambda t: ([t(IMG[..., :3, :3]), t(POOL_IDX), 2],
+                                   {"output_size": [6, 8]}),
+        "max_unpool3d": lambda t: ([t(VOL[..., :2, :2, :2]), t(
+            np.arange(8).reshape(1, 1, 2, 2, 2).repeat(2, 1) * 7), 2], {}),
+    }
+    return {f"functional.{k}": v for k, v in c.items()}
+
+
+_NN_CASES = _nn_cases()
+
+
 CASES = {
     # binary elementwise and comparisons
     **{n: _pair(X, Y) for n in (
@@ -302,6 +429,9 @@ CASES = {
         [t(SEQ[None]), t(SEQ[None][:, ::-1].copy()), t(SEQ[None])],
         {"is_causal": True})) for n in ("scaled_dot_product_attention",
                                         "flash_attention")},
+    # nn.functional: activations, common, convolutions, pools, norms,
+    # losses and vision ops at small shapes
+    **_NN_CASES,
     # sparse (on dense inputs turned sparse by the op under test's module)
     "sparse.add": _sparse(lambda t, sp: ([sp.to_sparse_coo(t(SPARSE)),
                                           sp.to_sparse_coo(t(SPARSE.T))],
@@ -368,7 +498,9 @@ RANDOM = {
     "rand", "randn", "randint", "randint_like", "randperm", "uniform",
     "normal", "gaussian", "standard_normal", "bernoulli", "multinomial",
     "poisson", "uniform_random", "gaussian_random", "uniform_", "normal_",
-    "exponential_", "functional.dropout",
+    "exponential_", "functional.dropout", "functional.dropout2d",
+    "functional.dropout3d", "functional.alpha_dropout",
+    "functional.gumbel_softmax", "functional.class_center_sample",
 }
 # results unique only up to signs, phases or order (held in phase 18c);
 # lstsq's solvers differ (gelsd here, gels on the card)

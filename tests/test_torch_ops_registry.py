@@ -126,28 +126,10 @@ def _module_fns(mod):
 
 def _missing():
     """The reference registry's names from the modules not ported yet:
-    ``nn.functional``'s conv, pooling and vision, the rest of its
-    activation, common, loss and norm, ``vision.ops``, ``quantization``,
-    ``text`` and ``incubate.operators``."""
-    from paddle_tpu.nn.functional import (activation, common, conv, loss,
-                                          norm, pooling, vision)
-
-    import paddle_tpu_torch.nn.functional as PF
-
-    port_fn = set(PR._module_fns(PF))
-    for m in ("activation", "common", "loss", "norm", "attention"):
-        port_fn |= set(PR._module_fns(
-            importlib.import_module(f"paddle_tpu_torch.nn.functional.{m}")))
-    fn = set()
-    for mod in (conv, pooling, vision):
-        fn |= _module_fns(mod)
-    for mod in (activation, common, loss, norm):
-        fn |= _module_fns(mod) - port_fn
-    ref = set(RR.all_ops())
-    fn = {f"functional.{n}" for n in fn} & ref
-    other = {k for k in ref if k.split(".")[0] in (
+    ``vision.ops``, ``quantization``, ``text`` and ``incubate.operators``
+    (every ``nn.functional`` module's are in the port)."""
+    return {k for k in RR.all_ops() if k.split(".")[0] in (
         "vision", "quant", "text", "incubate")}
-    return fn | other
 
 
 def test_all_ops_is_the_references_less_the_modules_not_ported():
@@ -156,7 +138,7 @@ def test_all_ops_is_the_references_less_the_modules_not_ported():
     assert port - ref == set(), sorted(port - ref)
     assert ref - port == missing, (sorted(ref - port - missing),
                                    sorted(missing - (ref - port)))
-    assert len(missing) == 124, len(missing)
+    assert len(missing) == 25, len(missing)
     assert PR.op_count() == len(ref) - len(missing)
     assert all(callable(f) for f in PR.all_ops().values())
 
@@ -211,5 +193,34 @@ def test_static_op_time_measures_and_caches():
 
 
 def test_missing_modules_are_named():
-    assert "nn.functional.conv" in PR.MISSING_MODULES
+    assert PR.MISSING_MODULES == ("vision.ops", "quantization", "text",
+                                  "incubate.operators")
     assert inspect.isfunction(PR.all_ops)
+
+
+# the reference's nn modules and the port's counterparts
+NN_MODULES = {
+    f"nn/functional/{m}.py": f"paddle_tpu_torch.nn.functional.{m}"
+    for m in ("activation", "common", "conv", "loss", "norm", "pooling",
+              "vision", "sparse_attention", "attention")}
+NN_MODULES.update({
+    f"nn/layer/{m}.py": f"paddle_tpu_torch.nn.layer.{m}"
+    for m in ("activation", "common", "conv", "layers", "loss", "norm",
+              "pooling", "rnn", "transformer")})
+NN_MODULES["nn/utils/__init__.py"] = "paddle_tpu_torch.nn.utils"
+
+
+@pytest.mark.parametrize("path", sorted(NN_MODULES))
+def test_every_public_nn_name_has_its_counterpart(path):
+    names = public_names(_ref(path))
+    port = importlib.import_module(NN_MODULES[path])
+    missing = sorted(n for n in names if not hasattr(port, n))
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("pkg", ["nn", "nn/functional"])
+def test_the_nn_namespaces_export_what_the_references_do(pkg):
+    want = {n for n in _imported_names(f"{pkg}/__init__.py") if n != "*"}
+    port = importlib.import_module("paddle_tpu_torch." + pkg.replace(
+        "/", "."))
+    assert not sorted(n for n in want if not hasattr(port, n))
