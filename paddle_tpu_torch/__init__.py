@@ -20,7 +20,9 @@ user's own loop: ``amp``
 package reads), ``fault`` (the stability sentinel, the preemption guard,
 retry, the HBM admission and the out-of-memory ladder) and
 ``distributed`` (``init_parallel_env``, the collectives, ``DataParallel``,
-``HybridParallelEngine``). Under it, kernels written by hand in CUDA C++
+``HybridParallelEngine``), and the high-level API: ``Model`` (with
+``callbacks``, ``summary`` and ``flops``), ``metric`` and ``vision``
+(``models``, ``transforms``, ``datasets`` and the detection ``ops``). Under it, kernels written by hand in CUDA C++
 (``ops/kernels/csrc``) serve and train:
 
 - serving: ``serving.Engine`` over the paged builders in
@@ -100,6 +102,9 @@ from .linalg import (cholesky, cholesky_solve, cond, cov, eig, eigvals,
                      eigvalsh, inverse, lstsq, lu, multi_dot, norm, qr,
                      triangular_solve)
 from . import distribution, fft, linalg, signal, sparse, tensor
+from . import callbacks, metric, vision
+from .hapi.flops import flops
+from .hapi.model import Model, summary
 
 # the table ops join the top level without replacing a hand-written one
 _GENERATED_TOP = [n for n in _generated.GENERATED if n not in globals()]
@@ -121,7 +126,8 @@ is_grad_enabled = grad_enabled
 __all__ = [
     "amp", "autograd", "distributed", "io", "jit", "nn", "optimizer",
     "utils", "grad", "DataParallel", "distribution", "fft",
-    "linalg", "signal", "sparse", "tensor",
+    "linalg", "signal", "sparse", "tensor", "callbacks", "metric", "vision",
+    "Model", "summary", "flops",
     "bool", "save", "load",
     "bfloat16", "complex64", "complex128", "float16", "float32", "float64",
     "int8", "int16", "int32", "int64", "uint8", "get_default_dtype",

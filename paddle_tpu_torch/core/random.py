@@ -55,4 +55,33 @@ def set_rng_state(state: dict) -> None:
                                          else st)
 
 
-__all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state"]
+class ProgramRNG:
+    """Checkpointable view of the process's generators: put
+    ``program_rng`` in a checkpoint tree (``{"model": m, "optimizer": o,
+    "rng": program_rng}``) and a restored run draws the same numbers again
+    (the stability sentinel's rollback, ``hapi.Model.fit``). A generator
+    made after the capture is put back to its first state, the last seed's,
+    which is where it stood then."""
+
+    def state_dict(self) -> dict:
+        with _lock:
+            seed_now = _seed
+        return {"seed": torch.tensor(seed_now, dtype=torch.int64),
+                "devices": get_rng_state()}
+
+    def set_state_dict(self, sd: dict) -> None:
+        global _seed
+        states = dict(sd.get("devices", {}))
+        with _lock:
+            if "seed" in sd:
+                _seed = int(sd["seed"])
+            for dev, g in _generators.items():
+                if str(dev) not in states:
+                    g.manual_seed(_seed)
+        set_rng_state(states)
+
+
+program_rng = ProgramRNG()
+
+__all__ = ["seed", "default_generator", "get_rng_state", "set_rng_state",
+           "ProgramRNG", "program_rng"]

@@ -114,4 +114,20 @@ def to_tensor(data, dtype=None, place=None,
     return t
 
 
-__all__ = ["Tensor", "Parameter", "to_tensor"]
+def host_arrays(*xs):
+    """Every argument as a numpy array (bfloat16 as float32), with one
+    device sync: each card tensor is copied without blocking (into pinned
+    memory), then the current stream is waited on once, instead of one
+    blocking ``.cpu()`` a tensor."""
+    ts = [x.detach() if isinstance(x, torch.Tensor)
+          else torch.as_tensor(np.asarray(x)) for x in xs]
+    on_card = [t.device.type == "cuda" for t in ts]
+    if any(on_card):
+        ts = [t.to("cpu", non_blocking=True) if c else t
+              for t, c in zip(ts, on_card)]
+        torch.cuda.current_stream().synchronize()
+    return [(t.float() if t.dtype == torch.bfloat16 else t).numpy()
+            for t in ts]
+
+
+__all__ = ["Tensor", "Parameter", "to_tensor", "host_arrays"]

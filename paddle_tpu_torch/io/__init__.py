@@ -1089,6 +1089,17 @@ def get_worker_info():
     return None
 
 
+def data_home():
+    """The datasets' root: ``PADDLE_TPU_DATA_HOME``, as the reference's
+    ``data_home``, else the port's own cache directory; where
+    ``vision.datasets`` looks for local files (nothing is fetched)."""
+    import os
+
+    return os.environ.get(
+        "PADDLE_TPU_DATA_HOME",
+        os.path.expanduser("~/.cache/paddle_tpu_torch/datasets"))
+
+
 # variable-length batching; imported last: ragged.py imports Sampler
 from .ragged import (BucketSampler, bucket_boundaries,  # noqa: E402,F401
                      pad_to_bucket_collate)
@@ -1099,5 +1110,6 @@ __all__ = [
     "SequenceSampler", "RandomSampler", "WeightedRandomSampler",
     "BatchSampler", "DistributedBatchSampler", "default_collate_fn",
     "DataLoader", "DevicePrefetcher", "device_prefetch", "get_worker_info",
+    "data_home",
     "BucketSampler", "bucket_boundaries", "pad_to_bucket_collate",
 ]

@@ -25,8 +25,15 @@ def _act(op_name, fn, doc):
     return op
 
 
+def _clip(a, lo, hi):
+    """``jnp.clip``'s gradient: halved at a bound (``torch.clamp`` passes
+    all of it there)."""
+    return torch.minimum(torch.maximum(a, a.new_tensor(lo)), a.new_tensor(hi))
+
+
 relu = _act("relu", torch.relu, "``max(x, 0)``.")
-relu6 = _act("relu6", lambda a: torch.clamp(a, 0.0, 6.0), "``min(max(x, 0), 6)``.")
+# jax.nn.relu6's derivative is 0 at 0 and at 6, as hardtanh's backward
+relu6 = _act("relu6", TF.relu6, "``min(max(x, 0), 6)``.")
 sigmoid = _act("sigmoid", torch.sigmoid, "``1 / (1 + exp(-x))``.")
 tanh = _act("tanh", torch.tanh, "``tanh(x)``.")
 silu = _act("silu", TF.silu, "``x * sigmoid(x)`` (``jax.nn.silu``).")
@@ -38,8 +45,7 @@ tanhshrink = _act("tanhshrink", lambda a: a - torch.tanh(a),
 softsign = _act("softsign", lambda a: a / (1 + a.abs()),
                 "``x / (1 + |x|)``.")
 log_sigmoid = _act("log_sigmoid", TF.logsigmoid, "``-softplus(-x)``.")
-hardswish = _act("hardswish", lambda a: a * torch.clamp(a / 6.0 + 0.5, 0.0,
-                                                        1.0),
+hardswish = _act("hardswish", lambda a: a * _clip(a / 6.0 + 0.5, 0.0, 1.0),
                  "``x * clip(x / 6 + 0.5, 0, 1)``.")
 
 
@@ -96,12 +102,12 @@ def softshrink(x, threshold=0.5, name=None):
 
 def hardtanh(x, min=-1.0, max=1.0, name=None):
     x, = amp_cast("hardtanh", (x,))
-    return torch.clamp(x, min, max)
+    return _clip(x, min, max)
 
 
 def hardsigmoid(x, slope=0.1666667, offset=0.5, name=None):
     x, = amp_cast("hardsigmoid", (x,))
-    return torch.clamp(slope * x + offset, 0.0, 1.0)
+    return _clip(slope * x + offset, 0.0, 1.0)
 
 
 def softplus(x, beta=1.0, threshold=20.0, name=None):

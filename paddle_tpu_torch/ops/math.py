@@ -145,9 +145,18 @@ bitwise_not = _unary(torch.bitwise_not)
 
 
 def clip(x, min=None, max=None, name=None):
+    """``jnp.clip``: on floating tensors the gradient is halved at a bound
+    (``torch.clamp`` would pass all of it)."""
     mn = min.item() if isinstance(min, torch.Tensor) else min
     mx = max.item() if isinstance(max, torch.Tensor) else max
-    return torch.clamp(_as(x), mn, mx)
+    x = _as(x)
+    if not x.is_floating_point():
+        return torch.clamp(x, mn, mx)
+    if mn is not None:
+        x = torch.maximum(x, x.new_tensor(mn))
+    if mx is not None:
+        x = torch.minimum(x, x.new_tensor(mx))
+    return x
 
 
 def lerp(x, y, weight, name=None):

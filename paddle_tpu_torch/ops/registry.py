@@ -13,7 +13,7 @@ import inspect
 from typing import Callable, Dict
 
 # the reference registry's modules not in the port yet (its queue A)
-MISSING_MODULES = ("vision.ops", "quantization", "text", "incubate.operators")
+MISSING_MODULES = ("quantization", "text", "incubate.operators")
 
 
 def _module_fns(mod, prefix=""):
@@ -38,6 +38,7 @@ def all_ops() -> Dict[str, Callable]:
     from ..nn import functional as F
     from ..nn.functional import (activation, attention, common, conv, loss,
                                  norm, pooling, vision)
+    from ..vision import ops as vops
 
     ops: Dict[str, Callable] = {}
     for mod in (math, manipulation, creation, linalg):
@@ -51,6 +52,7 @@ def all_ops() -> Dict[str, Callable]:
     for mod in (F, activation, common, conv, loss, norm, pooling, attention,
                 vision):
         ops.update(_module_fns(mod, "functional."))
+    ops.update({f"vision.{n}": f for n, f in _module_fns(vops).items()})
     ops.update({f"sparse.{n}": getattr(sparse_mod, n)
                 for n in sparse_mod.__all__
                 if callable(getattr(sparse_mod, n))})

@@ -260,7 +260,76 @@ def _nn_cases():
 _NN_CASES = _nn_cases()
 
 
+def _boxes(rng, n, scale=1.0):
+    """``n`` valid xyxy boxes in [0, scale)."""
+    lo = rng.rand(n, 2) * 0.6
+    hi = lo + 0.1 + rng.rand(n, 2) * 0.3
+    return (np.concatenate([lo, hi], 1) * scale).astype(np.float32)
+
+
+def _vision_cases():
+    """``vision.ops`` at small detection shapes (every array drawn once,
+    so each device gets the same inputs)."""
+    r = np.random.RandomState(21)
+    feat = r.randn(2, 8, 8, 8).astype(np.float32)
+    rois, num = _boxes(r, 3, 8.0), np.array([2, 1], np.int32)
+    head = r.randn(1, 2 * 7, 4, 4).astype(np.float32)
+    yolo_x = r.randn(2, 3 * 7, 4, 4).astype(np.float32)
+    gt = np.concatenate([r.rand(2, 3, 2) * 0.8 + 0.1,
+                         r.rand(2, 3, 2) * 0.3 + 0.05], -1).astype(np.float32)
+    gl = np.array([[0, 1, -1], [1, -1, -1]], np.int32)
+    boxes8, scores = _boxes(r, 8), r.rand(3, 8).astype(np.float32)
+    b6, s6 = _boxes(r, 6), r.rand(6).astype(np.float32)
+    b4, t4 = _boxes(r, 4), _boxes(r, 4)
+    var = np.array([0.1, 0.1, 0.2, 0.2], np.float32)
+    fpn, b3, clip = _boxes(r, 6, 600.0), _boxes(r, 3), _boxes(r, 3, 40.0)
+    off = r.randn(1, 18, 6, 6).astype(np.float32) * 0.7
+    wd = r.randn(3, 4, 3, 3).astype(np.float32) * 0.3
+    dist = r.rand(3, 5).astype(np.float32)
+    tgt = r.randn(4, 3).astype(np.float32)
+    anchors = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+               156, 198, 373, 326]
+    c = {
+        "nms": lambda t: ([t(b6)], {"iou_threshold": 0.5, "scores": t(s6)}),
+        "box_coder": lambda t: ([t(b4), t(var), t(t4)], {}),
+        "roi_align": lambda t: ([t(feat[:1]), t(rois), t(num[:1] + 2), 2],
+                                {"spatial_scale": 0.9}),
+        "yolo_box": lambda t: ([t(head), t(np.array([[64, 60]], np.int32)),
+                                [10, 13, 16, 30], 2, 0.01, 16], {}),
+        "roi_pool": lambda t: ([t(feat), t(rois), t(num), 2], {}),
+        "psroi_pool": lambda t: ([t(feat), t(rois), t(num), 2], {}),
+        "prior_box": lambda t: ([t(feat[:1, :2, :4, :4]), t(np.zeros(
+            (1, 3, 32, 32), np.float32)), [8.0]], {
+                "max_sizes": [16.0], "aspect_ratios": [2.0], "flip": True}),
+        "distribute_fpn_proposals": lambda t: ([t(fpn), 2, 5, 4, 224], {}),
+        "deform_conv2d": lambda t: ([t(feat[:1, :4, :6, :6]), t(off),
+                                     t(wd)], {"padding": 1}),
+        "iou_similarity": lambda t: ([t(b3), t(b4)], {}),
+        "box_clip": lambda t: ([t(clip), t(np.array([20.0, 30.0],
+                                                    np.float32))], {}),
+        "anchor_generator": lambda t: ([t(feat[:1, :2, :3, :4]), [16, 32],
+                                        [0.5, 1.0], [8, 8]], {}),
+        "density_prior_box": lambda t: ([t(feat[:1, :2, :3, :3]), t(
+            np.zeros((1, 3, 24, 24), np.float32)), [2], [8.0], [1.0]], {}),
+        "bipartite_match": lambda t: ([t(dist)], {}),
+        "matrix_nms": lambda t: ([t(boxes8), t(scores), 0.1], {
+            "nms_top_k": 5, "keep_top_k": 6}),
+        "multiclass_nms": lambda t: ([t(boxes8), t(scores)], {
+            "score_threshold": 0.1, "nms_top_k": 5, "keep_top_k": 6,
+            "nms_threshold": 0.3}),
+        "target_assign": lambda t: ([t(tgt), t(np.array([2, -1, 0, 3, -1]))],
+                                    {}),
+        "yolov3_loss": lambda t: ([t(yolo_x), t(gt), t(gl), anchors,
+                                   [0, 1, 2], 2], {"downsample_ratio": 8}),
+    }
+    return {f"vision.{k}": v for k, v in c.items()}
+
+
+_VISION_CASES = _vision_cases()
+
+
 CASES = {
+    **_VISION_CASES,
     # binary elementwise and comparisons
     **{n: _pair(X, Y) for n in (
         "add", "subtract", "multiply", "maximum", "minimum", "fmax", "fmin",

@@ -127,6 +127,22 @@ def test_commit_barrier_missing_rank_meets_the_deadline(pkg, tmp_path):
     assert not bars[0].committed(3)
 
 
+@pytest.mark.parametrize("pkg", ["port", "ref"])
+def test_a_peer_ack_before_rank0_enters_is_erased(pkg, tmp_path):
+    """The interleaving behind a clean coordinated save that times out
+    (ROADMAP §C, C2), in both packages: a peer that runs ahead acks step 7
+    before rank 0 enters its save, whose reset clears the step's acks; one
+    ack is left of two and rank 0's commit meets its deadline."""
+    mod = PKGS[pkg]
+    store = mod.FileStore(str(tmp_path))
+    bars = [mod.CommitBarrier(store, 2, r) for r in range(2)]
+    assert bars[1].ack(7) == 1  # the peer's shard is durable
+    bars[0].reset(7)            # rank 0 enters the save late
+    assert bars[0].ack(7) == 1 and bars[0].acks(7) == 1
+    with pytest.raises(mod.DeadlineExceeded):
+        bars[0].commit(7, 0.2)
+
+
 def test_commit_barrier_over_tcpstore(tcp):
     master, client = tcp
     bars = [tcoord.CommitBarrier(s, 2, r, prefix="x")

@@ -257,6 +257,23 @@ def test_walk_covers_the_native_runtime():
     assert "paddle_tpu_torch/core/native.py" in PORT_FILES
 
 
+def test_walk_covers_the_high_level_api_and_vision():
+    models = ("alexnet", "densenet", "googlenet", "inceptionv3", "lenet",
+              "mobilenetv1", "mobilenetv2", "resnet", "resnext",
+              "shufflenetv2", "squeezenet", "vgg", "vit", "yolov3")
+    for path in ("paddle_tpu_torch/hapi/model.py",
+                 "paddle_tpu_torch/hapi/callbacks.py",
+                 "paddle_tpu_torch/hapi/flops.py",
+                 "paddle_tpu_torch/callbacks.py",
+                 "paddle_tpu_torch/metric/__init__.py",
+                 "paddle_tpu_torch/vision/ops.py",
+                 "paddle_tpu_torch/vision/transforms/__init__.py",
+                 "paddle_tpu_torch/vision/datasets/__init__.py",
+                 "paddle_tpu_torch/vision/models/__init__.py",
+                 *[f"paddle_tpu_torch/vision/models/{m}.py" for m in models]):
+        assert path in PORT_FILES, path
+
+
 def test_native_runtime_loads_nothing_of_runtime_cpp():
     """A process that records a profiler session and moves bytes through
     the native queue has the port's library mapped, and nothing from

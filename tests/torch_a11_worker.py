@@ -321,16 +321,36 @@ def ckpt_zero():
             "n": {"k": torch.tensor(0, dtype=torch.int64)}}
 
 
+def _rank0_entered(store):
+    """Rank 0's ``CommitBarrier.reset`` (where it enters a save and clears
+    the step's acks) also sets ``entered/<step>`` on the store, which the
+    other rank waits for before it saves: the protocol erases an ack that
+    lands before rank 0's reset (both packages; ROADMAP §C, C2), and the
+    reference's oracle runs its rank threads in lockstep, joined after
+    each save. Returns the undo."""
+    from paddle_tpu_torch.distributed.coord import CommitBarrier
+
+    reset = CommitBarrier.reset
+
+    def reset_and_mark(self, tag):
+        reset(self, tag)
+        store.set(f"entered/{tag}", "1")
+
+    CommitBarrier.reset = reset_and_mark
+    return lambda: setattr(CommitBarrier, "reset", reset)
+
+
 def ckpt_scenario(rank, d, point, crash_rank):
     """Saves at steps 1-3 (clean, keep_last 2), the save at step 4 with
     ``point`` armed on ``crash_rank`` (``from=1``: it defeats the write's
     retries), then a resume into a zeroed state. Returns the save results,
     the resumed step and state, and the step dirs left."""
     from paddle_tpu_torch.distributed.checkpoint import CoordinatedCheckpoint
-    from paddle_tpu_torch.distributed.coord import FileStore
+    from paddle_tpu_torch.distributed.coord import FileStore, wait_for
     from paddle_tpu_torch.fault import inject
 
     store = FileStore(os.path.join(d, "store"))
+    entered = _rank0_entered(store) if rank == 0 else None
 
     def ck(timeout):
         return CoordinatedCheckpoint(os.path.join(d, "ckpt"), world_size=2,
@@ -338,8 +358,13 @@ def ckpt_scenario(rank, d, point, crash_rank):
                                      interval_steps=1, keep_last=2,
                                      commit_timeout_s=timeout)
 
-    results = [ck(CLEAN_TIMEOUT_S).save_now(s, ckpt_state(s, rank))
-               for s in (1, 2, 3)]
+    def save(step, timeout):
+        if rank != 0:  # the protocol's lockstep: rank 0 enters a save first
+            wait_for(lambda: store.get(f"entered/{step}") is not None,
+                     f"rank 0 entering step {step}", CLEAN_TIMEOUT_S)
+        return ck(timeout).save_now(step, ckpt_state(step, rank))
+
+    results = [save(s, CLEAN_TIMEOUT_S) for s in (1, 2, 3)]
     C.barrier()
     # the crash rules out the event every wait of this save waits for,
     # except a crash at the commit point on rank 1 (after its ack)
@@ -348,9 +373,11 @@ def ckpt_scenario(rank, d, point, crash_rank):
     if rank == crash_rank:
         inject.arm(f"{point}:from=1")
     try:
-        results.append(ck(timeout).save_now(4, ckpt_state(4, rank)))
+        results.append(save(4, timeout))
     finally:
         inject.disarm()
+        if entered is not None:
+            entered()
     C.barrier()
     state = ckpt_zero()
     step = ck(CLEAN_TIMEOUT_S).resume(state)

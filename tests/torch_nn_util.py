@@ -147,3 +147,17 @@ def check_layer(jlayer, tlayer, args, rtol=1e-5, atol=1e-6, grad=True,
         layer_grads(jlayer, tlayer, rtol=rtol, atol=max(atol, 1e-5),
                     what=what)
     return out
+
+
+def grad_rel(jlayer, tlayer):
+    """``{name: |g - g_ref| / |g_ref|}`` over the parameters, by name (a
+    deep network's gradients are held by relative norm: elementwise, its
+    small entries carry the summation order's noise)."""
+    jp = dict(jlayer.named_parameters())
+    out = {}
+    for name, p in tlayer.named_parameters():
+        want = as_numpy(jp[name].grad)[0].astype(np.float64)
+        got = p.grad.detach().cpu().numpy().astype(np.float64)
+        out[name] = float(np.linalg.norm(got - want)
+                          / max(np.linalg.norm(want), 1e-30))
+    return out
