@@ -16,6 +16,8 @@
                                      #   nn line, no result line
     python3 chip_smoke.py --phase20  # the build and phase 20 alone: its
                                      #   hapi_vision line, no result line
+    python3 chip_smoke.py --phase21  # the build and phase 21 alone: its
+                                     #   export line, no result line
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -481,6 +483,30 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    for InceptionV3, 1 x 28² for LeNet): one image in eval mode against the
    CPU (logits, and gradients on the CPU's branches, 1e-4), then a step at
    batch 8. One ``{"hapi_vision": ...}`` line;
+21. export and deployment (runs after phase 20; ``--phase21`` alone):
+   (21a) GPT-3 1.3B bf16 at full width and depth through ``jit.save`` with
+   ``InputSpec([None, 2048], "int64")``: the saved ``torch.export``
+   program must hold 24 ``paddle_tpu_torch::flash_attention_fwd`` nodes
+   and a symbolic batch; an ``inference`` Predictor on the card at B = 2
+   (the ids shared without a copy) and at B = 1: logits against the eager
+   model's (relative norm, bit equality reported), 24 flash forward
+   launches a run, ms a run beside the eager forward's, save and load
+   seconds, the artifact's bytes; (21b) ``static.load_program`` on that
+   artifact, cross-entropy appended, 3 plain-SGD ``train_step``s at B = 1,
+   T = 2048 against the eager model's 3 steps on the same weights and
+   batch (bit-equal on the card, each step's loss drop within 1e-2 of
+   eager's), 24 launches of each flash kernel a step; (21c) ResNet-50 f32 at
+   b8 x 224² (cuDNN deterministic) through ``save_inference_model``, then
+   the port's C API through ctypes (create, set input, run, get output:
+   within 1e-5 of eager), 4 cloned Predictors on 4 threads, and the
+   ``capi_demo`` host as a subprocess; (21d) a ``to_static`` function
+   with a tensor ``while`` and ``if``: its export holds ``while_loop``
+   and ``cond``, and the program, saved and loaded on the card, gives
+   eager's outputs at both branches; (21e) a tiny GPT with
+   ``attention_impl="flash"`` saved on the card and run by a
+   ``Config.disable_gpu()`` Predictor (no launch) against the card's
+   logits (1e-4). One ``{"export": ...}`` line; the flash rows of
+   ``kernels`` get ``launches_export`` and ``launches_trainable``;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -532,7 +558,8 @@ searches, persistence, tuned drive, host µs and the 192-row int8 checks,
 phase 14, ``{"fleet_part2": {...}}``, phase 15, and
 ``{"auto_parallel_ckpt": {...}}``, phase 16, ``{"tp_native": {...}}``,
 phase 17, ``{"op_surface": {...}}``, phase 18, ``{"nn": {...}}``,
-phase 19, and ``{"hapi_vision": {...}}``, phase 20.
+phase 19, ``{"hapi_vision": {...}}``, phase 20, and
+``{"export": {...}}``, phase 21.
 """
 from __future__ import annotations
 
@@ -540,6 +567,7 @@ import argparse
 import atexit
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -1469,7 +1497,7 @@ def timing_phase(errs, launches, int8_ptxas=()):
                  "shapes on the paged_shapes line",
     })
     rows.append(int8_timing(errs, launches, int8_ptxas))
-    rows += flash_timing(errs, launches)
+    rows += flash_timing(errs, launches, operators=True)
     return rows, paged
 
 
@@ -1487,13 +1515,63 @@ def host_us(fn, calls=200) -> float:
     return us
 
 
-def flash_timing(errs, launches, shape=FLASH_TRAIN, fused_qkv=True):
+def flash_operator_host_us(q, k, v, do, o, lse, delta, causal):
+    """Host µs a call of each flash kernel's raw ``ctypes`` launcher against
+    its ``torch.library`` operator (dispatch, the registry's tile lookup
+    for the forward, then the same launcher), interleaved call by call
+    (``host_us_ab``); and of the backward as the main path runs it, the
+    operator's registered autograd node under ``torch.autograd.grad``
+    (delta, the dQ and dK/dV operators, the engine), against delta and the
+    two launchers called directly. Returns {name: {"launcher_us",
+    "operator_us"}} with the backward under "backward"."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    ops = torch.ops.paddle_tpu_torch
+    pairs = {
+        "flash_attention_fwd": (
+            lambda: K.flash_attention_fwd(q, k, v, causal),
+            lambda: ops.flash_attention_fwd(q, k, v, causal, 0, 0)),
+        "flash_attention_dq": (
+            lambda: K.flash_attention_dq(q, k, v, do, lse, delta, causal),
+            lambda: ops.flash_attention_dq(q, k, v, do, lse, delta, causal)),
+        "flash_attention_dkv": (
+            lambda: K.flash_attention_dkv(q, k, v, do, lse, delta, causal),
+            lambda: ops.flash_attention_dkv(q, k, v, do, lse, delta,
+                                            causal)),
+    }
+    out = {}
+    for name, (raw, op) in pairs.items():
+        r, o_us = host_us_ab(raw, op)
+        out[name] = {"launcher_us": r, "operator_us": o_us}
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    og, _ = ops.flash_attention_fwd(qg, kg, vg, causal, 0, 0)
+
+    def raw_bwd():
+        d = flash_delta(do, o)
+        K.flash_attention_dq(q, k, v, do, lse, d, causal)
+        K.flash_attention_dkv(q, k, v, do, lse, d, causal)
+
+    # ~10 launches a backward: 32 calls a chunk keep the queue short of full
+    r, o_us = host_us_ab(
+        raw_bwd, lambda: torch.autograd.grad(og, (qg, kg, vg), do,
+                                             retain_graph=True),
+        per_chunk=32)
+    out["backward"] = {"launcher_us": r, "operator_us": o_us}
+    del og, qg, kg, vg
+    return out
+
+
+def flash_timing(errs, launches, shape=FLASH_TRAIN, fused_qkv=True,
+                 operators=False):
     """The three flash kernels at ``shape`` (bf16; at the training shape
     through strided q/k/v views as the model feeds them). Operations are the
     matmul FLOPs of the live (causal) score entries: 2 products forward, 3
     for dQ, 4 for dK/dV. The plain version's backward and the library's
     backward each compute dQ, dK and dV together; both backward rows carry
-    that one time."""
+    that one time. With ``operators``, each row also carries the host µs
+    through the kernel's ``torch.library`` operator beside its launcher's
+    (``flash_operator_host_us``), the backward rows the registered
+    backward's."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from paddle_tpu_torch.ops import kernels as K
@@ -1515,6 +1593,8 @@ def flash_timing(errs, launches, shape=FLASH_TRAIN, fused_qkv=True):
     }
     ms = {name: time_ms(fn) for name, fn in calls.items()}
     host = {name: host_us(fn) for name, fn in calls.items()}
+    via_op = (flash_operator_host_us(q, k, v, do, o, lse, delta, causal)
+              if operators else None)
     delta_ms = time_ms(lambda: flash_delta(do, o))
     qp, kp, vp = (x.detach().requires_grad_() for x in (q, k, v))
     po, _ = K.flash_attention_plain(qp, kp, vp, causal)
@@ -1557,6 +1637,10 @@ def flash_timing(errs, launches, shape=FLASH_TRAIN, fused_qkv=True):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib[name],
             "tflop_s": ops / ms[name] / 1e9,
             "host_us_per_call": host[name],
+            **({"host_us_operator": via_op[name],
+                "host_us_backward": via_op["backward"]
+                if name != "flash_attention_fwd" else None}
+               if via_op else {}),
             "shape": f"B={B} T={T} H={H} D={D} causal={causal} bf16"
                      f"{', strided q/k/v views' if fused_qkv else ''}; "
                      f"library: torch scaled_dot_product_attention on "
@@ -8430,6 +8514,498 @@ def hapi_vision_phase(card, dev="cuda", cfgs=None):
           f"{HV.get('peak_gib', 0.0):.2f} GiB")
 
 
+# -- phase 21: export and deployment -----------------------------------------
+
+EXPORT = {}  # phase 21's results: the {"export": ...} line
+# 21a/21b: GPT-3 1.3B's export at the training length, the Predictor's
+# batch, its timed runs, 21b's SGD steps and learning rate
+EXPORT_T, EXPORT_B, EXPORT_RUNS = 2048, 2, 5
+EXPORT_STEPS, EXPORT_LR = 3, 1e-3
+# 21a: ||predictor - eager|| / ||eager|| of the logits that fails the
+# phase (the same ATen ops and kernels: expected bit-equal, and the line
+# says whether they were); 21b: the losses' relative difference that fails
+EXPORT_LOGITS_REL_TOL = 1e-3
+EXPORT_LOSS_REL_TOL = 1e-3
+# 21b: each step's loss drop from the first loss (loss_0 - loss_k) against
+# eager's, relative: a program that does not train (parameters unchanged,
+# zero gradients) is 1 off. At lr 1e-3 eager's drops are ~7e-4 on a loss
+# of ~11.2, where one f32 ulp is ~1e-6 (1.4e-3 of the drop). On the card
+# the losses must also be bit-equal: the same ATen ops and kernels run.
+EXPORT_DROP_REL_TOL = 1e-2
+# 21c: ResNet-50 at b8 x 224², f32, through the C API, 4 cloned predictors
+EXPORT_RESNET = {"batch": 8, "size": 224, "classes": 1000, "threads": 4}
+EXPORT_RESNET_TOL = 1e-5
+# 21c's capi_demo, a process of its own: |demo - eager| over the largest
+# |logit|
+EXPORT_DEMO_REL_TOL = 1e-5
+# 21e: the card's f32 flash kernels against the CPU's plain versions
+# through a 4-layer tiny GPT's logits (the kernels alone hold 1e-5)
+EXPORT_CPU_TOL = 1e-4
+FLASH_OP = "paddle_tpu_torch.flash_attention_fwd.default"
+
+
+def _op_count(ep, name) -> int:
+    return sum(1 for n in ep.graph.nodes
+               if n.op == "call_function" and str(n.target) == name)
+
+
+def _rel_norm(got, want) -> float:
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _artifact_bytes(prefix):
+    return {s: os.path.getsize(prefix + s)
+            for s in (".pdmodel", ".pdiparams", ".pdtrain", ".pdtrain.json")
+            if os.path.exists(prefix + s)}
+
+
+def _predictor_config(prefix, dev):
+    from paddle_tpu_torch import inference
+
+    cfg = inference.Config(prefix)
+    if torch.device(dev).type == "cpu":
+        cfg.disable_gpu()
+    else:
+        cfg.enable_use_gpu(device_id=torch.device(dev).index or 0)
+    return cfg
+
+
+def export_gpt_phase(cfg, dev, tmp, B=EXPORT_B, T=EXPORT_T, runs=EXPORT_RUNS):
+    """(21a) ``jit.save`` of GPT with a symbolic batch, one flash forward
+    node a layer, the Predictor's logits against the eager model's at B and
+    at 1 (through the symbolic batch), launches a run, ms a run beside the
+    eager forward's. Returns (results, model, prefix)."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.models import GPTForPretraining
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.static import InputSpec
+
+    card = torch.device(dev).type == "cuda"
+    L = cfg.num_layers
+    model = GPTForPretraining(cfg, device=dev, seed=0,
+                              dtype=torch.bfloat16 if card else None).eval()
+    prefix = os.path.join(tmp, "gpt")
+    t0 = time.monotonic()
+    jit.save(model, prefix, input_spec=[InputSpec([None, T], "int64",
+                                                  "input_ids")])
+    out = {"save_s": time.monotonic() - t0, "bytes": _artifact_bytes(prefix)}
+    ep, meta = jit.read_program(prefix + ".pdmodel")
+    out["flash_nodes"] = _op_count(ep, FLASH_OP)
+    out["dynamic_batch"] = meta["dynamic"]
+    if out["flash_nodes"] != L or not meta["dynamic"]:
+        fail(f"21a: the saved program holds {out['flash_nodes']} "
+             f"{FLASH_OP} nodes (want {L}), dynamic={meta['dynamic']}")
+    del ep
+    t0 = time.monotonic()
+    pred = inference.create_predictor(_predictor_config(prefix, dev))
+    out["load_s"] = time.monotonic() - t0
+    g = torch.Generator().manual_seed(21)
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=g).to(dev)
+    h = pred.get_input_handle("input_ids")
+    for b in (B, 1):
+        x = ids[:b]
+        with torch.inference_mode():
+            want = model(x)
+        h.share_external_data(x)
+        K.reset_launch_counts()
+        pred.run()
+        got = pred.output_tensors()[0]
+        launches = K.launch_counts()["flash_attention_fwd"]
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"21a B={b}: predictor logits {tuple(got.shape)} against "
+                 f"{tuple(want.shape)} or non-finite")
+        rel = _rel_norm(got, want)
+        row = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+               "rel_norm": rel, "bit_equal": bool(torch.equal(got, want)),
+               "launches_flash_fwd": launches}
+        out[f"b{b}"] = row
+        print(f"  21a B={b}: logits {row['max_abs_err']:.3e} max abs, "
+              f"{rel:.3e} rel norm, bit-equal {row['bit_equal']}; "
+              f"flash forward launches {launches}")
+        if rel > EXPORT_LOGITS_REL_TOL:
+            fail(f"21a B={b}: predictor logits {rel:.3e} from eager")
+        if card and launches != L:
+            fail(f"21a B={b}: {launches} flash forward launches a run "
+                 f"(want {L})")
+    if card:
+        h.share_external_data(ids)
+        K.reset_launch_counts()
+        out["predictor_ms"] = time_ms(pred.run, iters=runs)
+        out["launches_flash_fwd_timed"] = K.launch_counts()[
+            "flash_attention_fwd"]
+        if out["launches_flash_fwd_timed"] != L * (runs + 3):
+            fail(f"21a: {out['launches_flash_fwd_timed']} flash forward "
+                 f"launches over {runs + 3} timed runs (want {L} each)")
+
+        def eager():
+            with torch.inference_mode():
+                model(ids)
+
+        out["eager_ms"] = time_ms(eager, iters=runs)
+
+        def wall_ms(fn):  # a caller's wait: launch to result, host included
+            ts = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(dev)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            return sorted(ts)[len(ts) // 2]
+
+        out["predictor_wall_ms"] = wall_ms(pred.run)
+        out["eager_wall_ms"] = wall_ms(eager)
+        print(f"  21a: predictor {out['predictor_ms']:.2f} ms a run "
+              f"(median {out['predictor_wall_ms']:.2f} ms launch to result), "
+              f"eager forward {out['eager_ms']:.2f} ms (median "
+              f"{out['eager_wall_ms']:.2f}) (B={B}, T={T}); save "
+              f"{out['save_s']:.1f} s, load {out['load_s']:.1f} s; bytes "
+              f"{out['bytes']}")
+    del pred
+    return out, model, prefix
+
+
+def _export_ce(outs, labels):
+    """The next-token cross-entropy of 21b, on the logits in f32."""
+    from paddle_tpu_torch.nn import functional as F
+
+    logits = outs[0].float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))
+
+
+def export_train_phase(model, prefix, dev, T=EXPORT_T, steps=EXPORT_STEPS,
+                       lr=EXPORT_LR):
+    """(21b) ``static.load_program`` on 21a's artifact, cross-entropy
+    appended, ``steps`` plain-SGD ``train_step``s at B=1 against the eager
+    model's steps on the same weights and batch; dQ and dK/dV launches a
+    step."""
+    import gc
+
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import kernels as K
+
+    card = torch.device(dev).type == "cuda"
+    L = model.config.num_layers
+    t0 = time.monotonic()
+    prog = static.load_program(prefix, device=dev)
+    out = {"load_s": time.monotonic() - t0, "steps": steps, "lr": lr}
+    prog.append_backward(_export_ce)
+    g = torch.Generator().manual_seed(22)
+    ids = torch.randint(0, model.config.vocab_size, (1, T), generator=g)
+    labels = torch.randint(0, model.config.vocab_size, (1, T), generator=g)
+    ids, labels = ids.to(dev), labels.to(dev)
+    losses, per_step, ms = [], [], []
+    K.reset_launch_counts()
+    for _ in range(steps):
+        c0 = dict(K.launch_counts())
+        _sync(dev)
+        t0 = time.perf_counter()
+        losses.append(float(prog.train_step([ids], [labels], lr=lr)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        c = K.launch_counts()
+        per_step.append({k: c[k] - c0[k] for k in FLASH_REPLACES})
+    out["launches"] = {k: K.launch_counts()[k] for k in FLASH_REPLACES}
+    if card and any(s["flash_attention_dq"] != L
+                    or s["flash_attention_dkv"] != L
+                    or s["flash_attention_fwd"] != L for s in per_step):
+        fail(f"21b: flash launches a step {per_step} (want {L} of each)")
+    del prog
+    gc.collect()
+    params = [p for _, p in model.named_parameters()]
+    eager, eager_ms = [], []
+    for _ in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss = _export_ce([model(ids)], labels)
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            for p, gr in zip(params, grads):
+                p.copy_(p - lr * gr)
+        eager.append(float(loss.detach()))
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, eager))
+    drops = [losses[0] - x for x in losses[1:]]
+    eager_drops = [eager[0] - x for x in eager[1:]]
+    drop_rel = max(abs(a - b) / abs(b) if b else math.inf
+                   for a, b in zip(drops, eager_drops))
+    out.update(losses=losses, eager_losses=eager, rel_diff=rel,
+               bit_equal=losses == eager, drops=drops,
+               eager_drops=eager_drops, drop_rel_diff=drop_rel, step_ms=ms,
+               eager_step_ms=eager_ms)
+    print(f"  21b: TrainableProgram losses {losses}, eager {eager} (max rel "
+          f"{rel:.3e}, bit-equal {losses == eager}); drops {drops} against "
+          f"eager's {eager_drops} (max rel {drop_rel:.3e}); launches a step "
+          f"{per_step[-1]}; step ms {[round(x, 1) for x in ms]} against "
+          f"eager {[round(x, 1) for x in eager_ms]}")
+    if not all(math.isfinite(x) for x in losses) or rel > EXPORT_LOSS_REL_TOL:
+        fail(f"21b: losses {losses} against eager {eager}")
+    if not all(d > 0 for d in eager_drops) or drop_rel > EXPORT_DROP_REL_TOL:
+        fail(f"21b: loss drops {drops} against eager's {eager_drops} "
+             f"(max rel {drop_rel:.3e}, limit {EXPORT_DROP_REL_TOL})")
+    if card and losses != eager:
+        fail(f"21b: losses {losses} not bit-equal to eager's {eager}")
+    return out
+
+
+def export_resnet_phase(dev, tmp, cfg=EXPORT_RESNET):
+    """(21c) ResNet-50 through ``static.save_inference_model``, then the C
+    API through ctypes and ``threads`` cloned Predictors on threads, each
+    against eager (cuDNN deterministic), while the ``capi_demo`` host runs
+    as a subprocess. Returns (results, the demo's check: call it to wait
+    for the host and hold its output against eager)."""
+    import ctypes
+
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.inference import capi
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision.models import resnet50
+
+    B, S, C = cfg["batch"], cfg["size"], cfg["classes"]
+    det, bench = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    g = torch.Generator(dev).manual_seed(0)
+    net = resnet50(num_classes=C, device=dev, generator=g).eval()
+    prefix = os.path.join(tmp, "resnet50")
+    t0 = time.monotonic()
+    static.save_inference_model(
+        prefix, [InputSpec([B, 3, S, S], "float32", "image")], net)
+    out = {"save_s": time.monotonic() - t0, "bytes": _artifact_bytes(prefix)}
+
+    def eager(x):
+        with torch.no_grad():
+            return net(torch.from_numpy(x).to(dev)).cpu().numpy()
+
+    rng = np.random.RandomState(23)
+    xs = [rng.randn(B, 3, S, S).astype(np.float32)
+          for _ in range(cfg["threads"] + 1)]
+    wants = [eager(x) for x in xs]
+    ramp = ((np.arange(B * 3 * S * S) % 17).astype(np.float32) * 0.25
+            - 2.0).reshape(B, 3, S, S)
+    want_demo = eager(ramp).astype(np.float64)
+    t0 = time.monotonic()
+    L = capi.lib()
+    demo = capi.build_demo()
+    out["capi_build_s"] = time.monotonic() - t0
+    # the host is a new process with PyTorch's defaults, which let cuDNN
+    # take TF32; NVIDIA's override keeps its convolutions in f32 as here
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    t_demo = time.monotonic()
+    proc = subprocess.Popen([str(demo), "--device", str(dev), prefix,
+                             str(ROOT), str(B), "3", str(S), str(S)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    # on the card the reference's create (its default device, cuda:0)
+    d = torch.device(dev)
+    p = L.PD_PredictorCreate(prefix.encode()) \
+        if d.type == "cuda" and not d.index else \
+        L.PD_PredictorCreateOnDevice(prefix.encode(), str(dev).encode())
+    if not p:
+        fail(f"21c: PD_PredictorCreate: {L.PD_LastError().decode()}")
+    name_in = L.PD_PredictorInputName(p, 0)
+    name_out = L.PD_PredictorOutputName(p, 0)
+    shape = (ctypes.c_int64 * 4)(B, 3, S, S)
+    fp = ctypes.POINTER(ctypes.c_float)
+    run_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        if L.PD_PredictorSetInputFloat(p, name_in, xs[0].ctypes.data_as(fp),
+                                       shape, 4) or L.PD_PredictorRun(p):
+            fail(f"21c: C API run: {L.PD_LastError().decode()}")
+        n = L.PD_PredictorOutputNumel(p, name_out)
+        buf = (ctypes.c_float * max(n, 1))()
+        if n != B * C or L.PD_PredictorGetOutputFloat(p, name_out, buf, n):
+            fail(f"21c: C API output ({n} elements): "
+                 f"{L.PD_LastError().decode()}")
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+    L.PD_PredictorDestroy(p)
+    got = np.frombuffer(buf, np.float32).reshape(B, C)
+    out["capi_max_abs_err"] = float(np.abs(got - wants[0]).max())
+    out["capi_ms"] = run_ms
+    if out["capi_max_abs_err"] > EXPORT_RESNET_TOL:
+        fail(f"21c: C API output {out['capi_max_abs_err']:.3e} from eager")
+    pred = inference.create_predictor(_predictor_config(prefix, dev))
+    clones = [pred.clone() for _ in range(cfg["threads"])]
+    if any(c._call is not pred._call for c in clones):
+        fail("21c: a clone does not share the loaded program")
+    errs = [None] * len(clones)
+
+    def work(i):
+        try:
+            errs[i] = float(np.abs(clones[i].run([xs[i + 1]])[0]
+                                   - wants[i + 1]).max())
+        except Exception as e:  # reported below
+            errs[i] = repr(e)
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(clones))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out["clone_max_abs_err"] = errs
+    if not all(isinstance(e, float) and e <= EXPORT_RESNET_TOL for e in errs):
+        fail(f"21c: cloned predictors on threads: {errs}")
+    torch.backends.cudnn.deterministic = det
+    torch.backends.cudnn.benchmark = bench
+    print(f"  21c: ResNet-50 b{B}x{S}²: C API {out['capi_max_abs_err']:.3e} "
+          f"from eager, {[round(x, 1) for x in run_ms]} ms a call (set, run, "
+          f"get); {len(errs)} cloned predictors on threads {errs}")
+
+    def demo_check():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail("21c: capi_demo did not finish in 600 s")
+        out["demo_s"] = time.monotonic() - t_demo
+        if proc.returncode:
+            fail(f"21c: capi_demo exited {proc.returncode}: {stderr[-2000:]}")
+        res = json.loads(stdout.strip().splitlines()[-1])
+        out["demo"] = res
+        # another process may pick other cuDNN algorithms: held relative to
+        # the logits' scale (f32 sums in another order)
+        scale = float(np.abs(want_demo).max())
+        head = float(np.abs(np.asarray(res["head"])
+                            - want_demo.ravel()[:4]).max())
+        out["demo_head_rel"] = head / scale
+        if res["numel"] != want_demo.size \
+                or head > EXPORT_DEMO_REL_TOL * scale \
+                or abs(res["sum"] - want_demo.sum()) \
+                > EXPORT_DEMO_REL_TOL * scale * want_demo.size:
+            fail(f"21c: capi_demo {res} against eager sum "
+                 f"{want_demo.sum():.6f}, head {want_demo.ravel()[:4]}")
+        print(f"  21c: capi_demo {out['demo_s']:.1f} s (beside 21c-e), head "
+              f"within {out['demo_head_rel']:.1e} of the largest logit")
+
+    return out, demo_check
+
+
+def _export_loop_fn(x):
+    """21d's function: a tensor ``while`` and a tensor ``if``."""
+    s = x * 0.0
+    i = x.sum() * 0.0
+    while i < 3.0:
+        s = s + x
+        i = i + 1.0
+    if s.mean() > 0:
+        y = s * 2.0
+    else:
+        y = s - 1.0
+    return y
+
+
+def export_control_flow_phase(dev, tmp):
+    """(21d) ``to_static`` of ``_export_loop_fn``: its export holds
+    ``while_loop`` and ``cond`` nodes, and the exported program, saved and
+    loaded, gives eager's outputs on inputs that take each branch."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.static import InputSpec
+
+    st = jit.to_static(_export_loop_fn)
+    spec = InputSpec([None, 64], "float32", "x")
+    ep = st.concrete_program(spec)
+    targets = {str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function"}
+    if not {"cond", "while_loop"} <= targets:
+        fail(f"21d: the export holds no cond/while_loop node: {targets}")
+    prefix = os.path.join(tmp, "loop")
+    jit.save(st, prefix, input_spec=[spec], device=dev)
+    layer = jit.load(prefix, device=dev)
+    g = torch.Generator().manual_seed(24)
+    cases = []
+    for b, sign in ((4, 1.0), (3, -1.0)):
+        x = (torch.rand(b, 64, generator=g) * sign).to(dev)
+        want = _export_loop_fn(x)
+        for tag, got in (("export", ep.module()(x)), ("load", layer(x))):
+            cases.append((tag, b, bool(torch.equal(got, want))))
+    if not all(c[2] for c in cases):
+        fail(f"21d: exported outputs differ from eager: {cases}")
+    print(f"  21d: to_static while + if exported with {sorted(targets & {'cond', 'while_loop'})}"
+          f", saved and loaded on {dev}: outputs equal to eager at both "
+          "branches")
+    return {"nodes": sorted(targets & {"cond", "while_loop"}),
+            "equal": cases}
+
+
+def export_cpu_phase(dev, tmp):
+    """(21e) a 4-layer tiny GPT, f32, ``attention_impl="flash"``, saved on
+    ``dev`` and run by a ``Config.disable_gpu()`` Predictor (the flash
+    operator's CPU implementation, no launch) against ``dev``'s logits."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.models import GPTForPretraining, gpt_tiny
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.static import InputSpec
+
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0,
+                   attention_impl="flash")
+    m = GPTForPretraining(cfg, device=dev, seed=0).eval()
+    prefix = os.path.join(tmp, "gpt_tiny")
+    jit.save(m, prefix, input_spec=[InputSpec([None, 64], "int64",
+                                              "input_ids")])
+    g = torch.Generator().manual_seed(25)
+    ids = torch.randint(0, cfg.vocab_size, (3, 64), generator=g)
+    with torch.inference_mode():
+        want = m(ids.to(dev)).cpu()
+    cpu = inference.Config(prefix)
+    cpu.disable_gpu()
+    pred = inference.create_predictor(cpu)
+    K.reset_launch_counts()
+    got = torch.from_numpy(pred.run([ids.numpy()])[0])
+    launches = sum(K.launch_counts().values())
+    err = float((got - want).abs().max())
+    print(f"  21e: tiny GPT saved on {dev}, run on the CPU: "
+          f"{err:.3e} max abs from {dev}'s logits, {launches} launches")
+    if pred.device.type != "cpu" or launches or err > EXPORT_CPU_TOL:
+        fail(f"21e: CPU predictor on {pred.device}: {err:.3e} from "
+             f"{dev}'s logits, {launches} kernel launches")
+    return {"max_abs_err": err, "launches": launches}
+
+
+def export_phase(card, dev="cuda", cfgs=None):
+    """Phase 21: 21a-e; the results go on the ``export`` line. ``cfgs``
+    (GPT config, batch, length, runs, ResNet dict) cut the sizes for a
+    rehearsal on the CPU."""
+    import gc
+
+    from paddle_tpu_torch.models import gpt3_1p3b
+
+    t0 = time.monotonic()
+    gpt, B, T, runs, rn = cfgs or (
+        gpt3_1p3b(hidden_dropout=0.0, attention_dropout=0.0), EXPORT_B,
+        EXPORT_T, EXPORT_RUNS, EXPORT_RESNET)
+    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_export_")
+    try:
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        EXPORT["card"] = card
+        EXPORT["21a"], model, prefix = export_gpt_phase(gpt, dev, tmp, B, T,
+                                                        runs)
+        EXPORT["21b"] = export_train_phase(model, prefix, dev, T)
+        del model
+        gc.collect()
+        shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        EXPORT["21c"], demo_check = export_resnet_phase(dev, tmp, rn)
+        EXPORT["21d"] = export_control_flow_phase(dev, tmp)
+        EXPORT["21e"] = export_cpu_phase(dev, tmp)
+        demo_check()
+        if torch.device(dev).type == "cuda":
+            EXPORT["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    EXPORT["seconds"] = time.monotonic() - t0
+    print(f"  (21) {EXPORT['seconds']:.1f} s, peak "
+          f"{EXPORT.get('peak_gib', 0.0):.2f} GiB")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -8453,6 +9029,10 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 20 alone (hapi "
                          "and vision, 20a-e), print its hapi_vision line "
                          "and exit; no result line")
+    ap.add_argument("--phase21", action="store_true",
+                    help="build the kernels and run phase 21 alone (export "
+                         "and deployment, 21a-e), print its export line and "
+                         "exit; no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -8554,6 +9134,11 @@ def main(argv=None) -> int:
         hapi_vision_phase(card)
         print(json.dumps({"hapi_vision": HV}))
         return 0
+    if args.phase21:
+        print("[21] export and deployment alone")
+        export_phase(card)
+        print(json.dumps({"export": EXPORT}))
+        return 0
 
     print("[2] kernels against their plain versions")
     errs = kernel_phase()
@@ -8610,6 +9195,11 @@ def main(argv=None) -> int:
           "rollback through fit, YOLOv3-DarkNet53 at 416², vision.ops at "
           "detection sizes and the other 12 families")
     hapi_vision_phase(card)
+    print("[21] export and deployment: gpt3_1p3b through jit.save, the "
+          "Predictor and a TrainableProgram; ResNet-50 through the C API, "
+          "cloned predictors and capi_demo; a to_static while/if; a tiny "
+          "GPT saved on the card, run on the CPU")
+    export_phase(card)
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -8644,6 +9234,10 @@ def main(argv=None) -> int:
             r["launches_pipeline"] = pipe[r["name"]]
         if r["name"] in auto["launches"]:  # 16a's timed steps
             r["launches_auto"] = auto["launches"][r["name"]]
+        if r["name"] == "flash_attention_fwd":  # 21a's predictor runs
+            r["launches_export"] = EXPORT["21a"]["launches_flash_fwd_timed"]
+        if r["name"] in EXPORT["21b"]["launches"]:  # 21b's SGD steps
+            r["launches_trainable"] = EXPORT["21b"]["launches"][r["name"]]
         if r["name"] == "paged_attention_rows":  # phase 17's tp drives
             tp = TP_NATIVE["gpt"]
             r["launches_tp"] = (tp["17a"]["launches_tp"]
@@ -8669,6 +9263,16 @@ def main(argv=None) -> int:
         print(f"  {r['name']}: {r['ms']:.4f} ms{extra} (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}, library {r['library_ms']}) at {r['shape']}")
+        if r.get("host_us_operator"):
+            h, b = r["host_us_operator"], r["host_us_backward"]
+            print(f"    host us a call: operator {h['operator_us']:.2f}, "
+                  f"launcher {h['launcher_us']:.2f} (+"
+                  f"{h['operator_us'] - h['launcher_us']:.2f})"
+                  + (f"; registered backward {b['operator_us']:.2f}, delta "
+                     f"and the two launchers {b['launcher_us']:.2f} (+"
+                     f"{b['operator_us'] - b['launcher_us']:.2f})" if b
+                     else "")
+                  + " (interleaved medians)")
     for r in paged:
         print(f"  paged_attention_rows ({r['tag']}): {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
@@ -8707,6 +9311,7 @@ def main(argv=None) -> int:
     print(json.dumps({"op_surface": OP_SURFACE}))
     print(json.dumps({"nn": NN}))
     print(json.dumps({"hapi_vision": HV}))
+    print(json.dumps({"export": EXPORT}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,10 @@ retry, the HBM admission and the out-of-memory ladder) and
 ``distributed`` (``init_parallel_env``, the collectives, ``DataParallel``,
 ``HybridParallelEngine``), and the high-level API: ``Model`` (with
 ``callbacks``, ``summary`` and ``flops``), ``metric`` and ``vision``
-(``models``, ``transforms``, ``datasets`` and the detection ``ops``). Under it, kernels written by hand in CUDA C++
+(``models``, ``transforms``, ``datasets`` and the detection ``ops``), and
+deployment: ``jit.to_static``/``save``/``load``, ``static`` (``InputSpec``,
+``Program``, ``save_inference_model``) and ``inference`` (``Config``,
+``Predictor``; a C API over it in ``inference/csrc``). Under it, kernels written by hand in CUDA C++
 (``ops/kernels/csrc``) serve and train:
 
 - serving: ``serving.Engine`` over the paged builders in
@@ -103,6 +106,7 @@ from .linalg import (cholesky, cholesky_solve, cond, cov, eig, eigvals,
                      triangular_solve)
 from . import distribution, fft, linalg, signal, sparse, tensor
 from . import callbacks, metric, vision
+from . import inference, static
 from .hapi.flops import flops
 from .hapi.model import Model, summary
 
@@ -122,12 +126,28 @@ _dispatch._sync_scan()  # FLAGS_check_nan_inf from the environment
 
 bool = bool_  # noqa: A001 (paddle.bool)
 is_grad_enabled = grad_enabled
+__version__ = "0.1.0"
+
+
+def disable_static(place=None):
+    """Eager is the only mode (reference: paddle.disable_static)."""
+
+
+def enable_static():
+    """Accepted for the reference's API: programs are traced callables
+    (``static``), so there is no mode to enter."""
+
+
+def in_dynamic_mode():
+    return True
+
 
 __all__ = [
     "amp", "autograd", "distributed", "io", "jit", "nn", "optimizer",
     "utils", "grad", "DataParallel", "distribution", "fft",
     "linalg", "signal", "sparse", "tensor", "callbacks", "metric", "vision",
-    "Model", "summary", "flops",
+    "Model", "summary", "flops", "static", "inference",
+    "enable_static", "disable_static", "in_dynamic_mode",
     "bool", "save", "load",
     "bfloat16", "complex64", "complex128", "float16", "float32", "float64",
     "int8", "int16", "int32", "int64", "uint8", "get_default_dtype",

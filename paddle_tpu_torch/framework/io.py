@@ -62,13 +62,13 @@ class _TensorPayload:
     load (attributes ``dtype_name``, ``array`` or ``buf`` + ``shape``,
     ``is_param``, ``name``, ``stop_gradient``)."""
 
-    def to_tensor(self, return_numpy=False):
+    def to_tensor(self, return_numpy=False, device=None):
         if self.dtype_name == "bfloat16":
             data = _bf16_from_bytes(self.buf, self.shape)
         else:
             data = self.array
         return _make_tensor(data, self.is_param, self.name,
-                            self.stop_gradient, return_numpy)
+                            self.stop_gradient, return_numpy, device)
 
 
 def _bf16_from_bytes(buf, shape) -> torch.Tensor:
@@ -79,16 +79,18 @@ def _bf16_from_bytes(buf, shape) -> torch.Tensor:
     return raw.view(torch.bfloat16).reshape(shape)
 
 
-def _make_tensor(data, is_param, name, stop_gradient, return_numpy):
-    """A ``Parameter`` (with its name) or a tensor on the current place, or
-    a numpy array (bfloat16 as float32: exact, numpy has no bfloat16)."""
+def _make_tensor(data, is_param, name, stop_gradient, return_numpy,
+                 device=None):
+    """A ``Parameter`` (with its name) or a tensor on ``device`` (default the
+    current place), or a numpy array (bfloat16 as float32: exact, numpy has
+    no bfloat16)."""
     if return_numpy:
         if isinstance(data, torch.Tensor):
             return data.float().numpy()
         return np.asarray(data)
     t = data if isinstance(data, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(data))
-    t = t.to(place_mod.resolve_device(None))
+    t = t.to(place_mod.resolve_device(device))
     if is_param:
         return Parameter(t, name=name, trainable=not stop_gradient)
     if not stop_gradient and t.is_floating_point():
@@ -121,9 +123,9 @@ def _pack(obj: Any) -> Any:
     return obj
 
 
-def _unpack(obj: Any, return_numpy=False) -> Any:
+def _unpack(obj: Any, return_numpy=False, device=None) -> Any:
     if isinstance(obj, _TensorPayload):
-        return obj.to_tensor(return_numpy)
+        return obj.to_tensor(return_numpy, device)
     if isinstance(obj, dict):
         if obj.get(_TENSOR_KEY):
             if obj["dtype"] == "bfloat16":
@@ -131,10 +133,10 @@ def _unpack(obj: Any, return_numpy=False) -> Any:
             else:
                 data = obj["data"]
             return _make_tensor(data, obj["is_param"], obj["name"],
-                                obj["stop_gradient"], return_numpy)
-        return {k: _unpack(v, return_numpy) for k, v in obj.items()}
+                                obj["stop_gradient"], return_numpy, device)
+        return {k: _unpack(v, return_numpy, device) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        out = [_unpack(v, return_numpy) for v in obj]
+        out = [_unpack(v, return_numpy, device) for v in obj]
         return tuple(out) if isinstance(obj, tuple) else out
     return obj
 
@@ -163,10 +165,11 @@ def save(obj, path, protocol=4, **configs):
         pickle.dump(_pack(obj), f, protocol=protocol)
 
 
-def load(path, return_numpy=False, **configs):
-    """The object ``save`` wrote (by either package): tensors on the current
-    place (``set_device``), ``Parameter``s with their names and
-    ``stop_gradient``; with ``return_numpy`` numpy arrays instead."""
+def load(path, return_numpy=False, device=None, **configs):
+    """The object ``save`` wrote (by either package): tensors on ``device``
+    (default the current place, ``set_device``), ``Parameter``s with their
+    names and ``stop_gradient``; with ``return_numpy`` numpy arrays
+    instead."""
     with open(path, "rb") as f:
         obj = _Unpickler(f).load()
-    return _unpack(obj, return_numpy=return_numpy)
+    return _unpack(obj, return_numpy=return_numpy, device=device)

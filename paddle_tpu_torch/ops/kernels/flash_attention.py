@@ -24,11 +24,20 @@ inputs they round where the reference's kernels round (P before P V in the
 forward; P before dV = P^T dO, and dS before dQ = dS K and dK = dS^T Q in
 the backward).
 
-On a CPU tensor ``flash_attention_array`` runs the plain versions (a
-``torch.autograd.Function`` over the two); on a CUDA tensor it launches the
-kernels (each launch counted in ``launches``) or raises. On the CUDA route
-its tile resolves through the kernel registry (``flash_attention``, whose
-one choice is the forward's compile-time 128 x 128 tile).
+The three are PyTorch operators (``torch.library.custom_op``):
+``torch.ops.paddle_tpu_torch.flash_attention_fwd``, ``flash_attention_dq``
+and ``flash_attention_dkv``, each with a fake implementation (output shapes
+from q and k, symbolic batch and length included), and the forward with its
+gradient (delta in plain PyTorch, then the dQ and dK/dV operators). So
+``torch.export`` records one forward node where attention runs, and a
+replay of the exported program launches the kernels. An operator's
+implementation takes the device of its tensors: on the CPU the plain
+versions, on CUDA the kernels (each launch counted in ``launches`` when it
+happens, so every replay counts) or an error; any other device raises.
+``flash_attention_array`` is the differentiable entry; on the CUDA route
+the kernels' tile resolves through the kernel registry (``flash_attention``,
+whose one choice is the forward's compile-time 128 x 128 tile) inside the
+operator, from the concrete shapes of the call.
 """
 from __future__ import annotations
 
@@ -119,34 +128,29 @@ def flash_attention_bwd_plain(q, k, v, do, o, lse, causal=False):
     and P = exp(s - LSE) in f32; dV = P^T dO with P rounded to q's dtype;
     dS = P (dO V^T - delta); dQ = scale (dS K) with dS rounded, and
     dK = (scale dS)^T Q with scale dS rounded; every sum in f32."""
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    return _bwd_plain(q, k, v, do, lse, delta, causal)
+
+
+def _bwd_plain(q, k, v, do, lse, delta, causal, dq=True, dkv=True):
+    """``flash_attention_bwd_plain`` from delta (B, H, T): dQ if ``dq``,
+    then dK and dV if ``dkv``, as a tuple."""
     dt = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = torch.exp(_scores(q, k, causal) - lse[..., None])
     dof = do.float()
-    delta = (dof * o.float()).sum(-1).transpose(1, 2)
-    dv = torch.einsum("bhqk,bqhd->bkhd", _rounded(p, dt), dof)
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
               - delta[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", _rounded(ds, dt), k.float()) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", _rounded(ds * scale, dt), q.float())
-    return dq.to(dt), dk.to(dt), dv.to(dt)
-
-
-class _PlainFlashAttention(torch.autograd.Function):
-    """The plain forward with the plain backward (the CPU route)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention_plain(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        return (*flash_attention_bwd_plain(q, k, v, do.to(q.dtype), o, lse,
-                                           ctx.causal), None)
+    out = ()
+    if dq:
+        out += ((torch.einsum("bhqk,bkhd->bqhd", _rounded(ds, dt), k.float())
+                 * scale).to(dt),)
+    if dkv:
+        dk = torch.einsum("bhqk,bqhd->bkhd", _rounded(ds * scale, dt),
+                          q.float())
+        dv = torch.einsum("bhqk,bqhd->bkhd", _rounded(p, dt), dof)
+        out += (dk.to(dt), dv.to(dt))
+    return out
 
 
 def _strided(x):
@@ -258,28 +262,100 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False):
     return dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The kernels with their gradient: saves q, k, v, O and LSE; the
-    backward computes delta, then launches the dQ and dK/dV kernels."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention_fwd(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = do.to(q.dtype)
-        delta = _delta(do, o)
-        dq = flash_attention_dq(q, k, v, do, lse, delta, ctx.causal)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, ctx.causal)
-        return dq, dk, dv, None
-
-
 _TILE = (128, 128)  # FwdWg's BM x BN in csrc/flash_attention.cu
+
+
+def _tile(q, k, causal, block_q, block_k):
+    """Raise unless the tile is the kernels' own; 0 takes the registry's
+    resolved config at the call's concrete shapes."""
+    if not block_q or not block_k:
+        B, T, H, D = q.shape
+        cfg = launch_config("flash_attention", flash_attention_key, B, H, T,
+                            k.shape[1], D, q.dtype, causal)
+        block_q = block_q or cfg["block_q"]
+        block_k = block_k or cfg["block_k"]
+    if (int(block_q), int(block_k)) != _TILE:
+        raise ValueError(f"flash_attention_array: the kernels' tile is "
+                         f"{_TILE[0]} x {_TILE[1]}, got {block_q} x {block_k}")
+
+
+def _route(name, q):
+    """"cpu" or "cuda", from the tensors' device; any other raises."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return q.device.type
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            block_q: int, block_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    if _route("flash_attention_fwd", q) == "cpu":
+        o, lse = flash_attention_plain(q, k, v, causal)
+        return o.contiguous(), lse.contiguous()
+    _tile(q, k, causal, block_q, block_k)
+    return flash_attention_fwd(q, k, v, causal)
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, causal, block_q, block_k):
+    B, T, H, D = q.shape
+    return q.new_empty((B, T, H, D)), q.new_empty((B, H, T),
+                                                  dtype=torch.float32)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_dq",
+                         mutates_args=())
+def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+           causal: bool) -> torch.Tensor:
+    if _route("flash_attention_dq", q) == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, causal,
+                          dkv=False)[0].contiguous()
+    return flash_attention_dq(q, k, v, do, lse, delta, causal)
+
+
+@_dq_op.register_fake
+def _dq_fake(q, k, v, do, lse, delta, causal):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_dkv",
+                         mutates_args=())
+def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+            causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    if _route("flash_attention_dkv", q) == "cpu":
+        dk, dv = _bwd_plain(q, k, v, do, lse, delta, causal, dq=False)
+        return dk.contiguous(), dv.contiguous()
+    return flash_attention_dkv(q, k, v, do, lse, delta, causal)
+
+
+@_dkv_op.register_fake
+def _dkv_fake(q, k, v, do, lse, delta, causal):
+    return q.new_empty(k.shape), q.new_empty(k.shape)
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, causal = inputs[:4]
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal = causal
+    ctx.mark_non_differentiable(lse)
+
+
+def _fwd_backward(ctx, do, _):
+    """delta in plain PyTorch, then the dQ and dK/dV operators; the LSE
+    carries no gradient."""
+    q, k, v, o, lse = ctx.saved_tensors
+    do = do.to(q.dtype)
+    delta = _delta(do, o)
+    dq = _dq_op(q, k, v, do, lse, delta, ctx.causal)
+    dk, dv = _dkv_op(q, k, v, do, lse, delta, ctx.causal)
+    return dq, dk, dv, None, None, None
+
+
+_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def flash_attention_array(q, k, v, causal=False, block_q=None, block_k=None):
@@ -290,17 +366,7 @@ def flash_attention_array(q, k, v, causal=False, block_q=None, block_k=None):
     one value they take. The plain versions take no tile."""
     k = k.to(q.dtype)
     v = v.to(q.dtype)
-    if q.device.type == "cpu":
-        return _PlainFlashAttention.apply(q, k, v, bool(causal))
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_array: unsupported device {q.device}")
-    if block_q is None or block_k is None:
-        B, T, H, D = q.shape
-        cfg = launch_config("flash_attention", flash_attention_key, B, H, T,
-                            k.shape[1], D, q.dtype, causal)
-        block_q = cfg["block_q"] if block_q is None else block_q
-        block_k = cfg["block_k"] if block_k is None else block_k
-    if (int(block_q), int(block_k)) != _TILE:
-        raise ValueError(f"flash_attention_array: the kernels' tile is "
-                         f"{_TILE[0]} x {_TILE[1]}, got {block_q} x {block_k}")
-    return _FlashAttention.apply(q, k, v, bool(causal))
+    _route("flash_attention_array", q)
+    o, _ = _fwd_op(q, k, v, bool(causal), int(block_q or 0),
+                   int(block_k or 0))
+    return o

@@ -146,11 +146,17 @@ def _cpu_live() -> tuple:
 
     import torch
 
+    def is_tensor(o):
+        try:
+            return isinstance(o, torch.Tensor)
+        except ReferenceError:  # a weakref.proxy whose referent is gone
+            return False
+
     seen, total = set(), 0
     with warnings.catch_warnings():
         # isinstance() touches deprecated module attributes gc also holds
         warnings.simplefilter("ignore")
-        objs = [o for o in gc.get_objects() if isinstance(o, torch.Tensor)]
+        objs = [o for o in gc.get_objects() if is_tensor(o)]
     for o in objs:
         try:
             if o.device.type != "cpu":

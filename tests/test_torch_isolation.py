@@ -143,7 +143,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "paddle_tpu_torch.distributed.collective, "
             "paddle_tpu_torch.distributed.parallel, "
             "paddle_tpu_torch.distributed.engine, "
-            "paddle_tpu_torch.distributed.fleet.grad_buckets\n"
+            "paddle_tpu_torch.distributed.fleet.grad_buckets, "
+            "paddle_tpu_torch.static, paddle_tpu_torch.static.program, "
+            "paddle_tpu_torch.jit.dy2static, paddle_tpu_torch.inference, "
+            "paddle_tpu_torch.inference.capi\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "assert not bad, bad\n")
@@ -288,6 +291,39 @@ def test_native_runtime_loads_nothing_of_runtime_cpp():
             "assert str(native.library_path()) in maps\n"
             "assert 'runtime_cpp' not in maps, 'runtime_cpp mapped'\n"
             "assert 'libpaddle_tpu_runtime' not in maps\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_walk_covers_export_and_deployment():
+    for path in ("paddle_tpu_torch/jit/__init__.py",
+                 "paddle_tpu_torch/jit/dy2static.py",
+                 "paddle_tpu_torch/static/__init__.py",
+                 "paddle_tpu_torch/static/input.py",
+                 "paddle_tpu_torch/static/program.py",
+                 "paddle_tpu_torch/inference/__init__.py",
+                 "paddle_tpu_torch/inference/capi.py"):
+        assert path in PORT_FILES, path
+    for path in ("paddle_tpu_torch/inference/csrc/paddle_tpu_c.h",
+                 "paddle_tpu_torch/inference/csrc/paddle_tpu_c.cc",
+                 "paddle_tpu_torch/inference/csrc/capi_demo.cc"):
+        assert path in PORT_SOURCES, path
+
+
+def test_c_api_loads_nothing_of_runtime_cpp():
+    """A process that drives the port's C inference API has the port's
+    library mapped, and nothing from runtime_cpp/ (whose
+    libpaddle_tpu_c.so is the reference's)."""
+    code = ("import paddle_tpu_torch as tp\n"
+            "from paddle_tpu_torch.inference import capi\n"
+            "L = capi.lib()\n"
+            "assert not L.PD_PredictorCreateOnDevice(b'/nonexistent', b'cpu')"
+            "\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert str(capi.build()) in maps\n"
+            "assert 'runtime_cpp' not in maps, 'runtime_cpp mapped'\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

@@ -302,6 +302,29 @@ def test_a_fresh_step_is_admitted_just_above_its_steady_footprint(kind):
     assert all(torch.isfinite(x) for x in losses)
 
 
+def test_cpu_census_skips_a_dead_weak_proxy():
+    """A ``weakref.proxy`` whose referent is gone raises ``ReferenceError``
+    on ``isinstance``; the CPU census walks past it and still counts a
+    live tensor's storage."""
+    import gc
+    import weakref
+
+    class Obj:
+        pass
+
+    o = Obj()
+    held = [weakref.proxy(o)]
+    del o
+    gc.collect()
+    with pytest.raises(ReferenceError):
+        isinstance(held[0], torch.Tensor)
+    before = profiler.memory_census("cpu")["live_bytes"]
+    t = torch.zeros(1 << 16)
+    assert profiler.memory_census("cpu")["live_bytes"] >= before \
+        + t.nbytes - 1
+    assert held
+
+
 def test_post_mortem_carries_the_budget_and_the_attributions(census):
     memory.note_executable("test_pm_key", dict(MEM, peak_bytes=1 << 51))
     census[0] = 777
