@@ -18,6 +18,9 @@
                                      #   hapi_vision line, no result line
     python3 chip_smoke.py --phase21  # the build and phase 21 alone: its
                                      #   export line, no result line
+    python3 chip_smoke.py --phase22  # the build and phase 22 alone: its
+                                     #   quant_incubate line, no result
+                                     #   line
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -373,8 +376,9 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    bit-equal fails; the kernel at the shard shape against its plain
    version (``TOL``, ``PAGED_O_REL_TOL``), timed beside its bound; one
    decode step's gather bytes against ``tp_collective_bytes``. (17b)
-   Llama-7B the same on the first 8 of drive (c)'s prompts, with the peak
-   memory. (17c) the int8 wire (``tp_int8``) on (a)'s requests: every
+   Llama-7B at full width and ``TP_LLAMA_LAYERS`` = 8 layers (cut from 32
+   to hold the whole script near 900 s) the same on the first 8 of drive
+   (c)'s prompts, with the peak memory. (17c) the int8 wire (``tp_int8``) on (a)'s requests: every
    stream complete, the token agreement, a decode step's wire bytes equal
    to ``tp_collective_bytes``' int8 figure. (17d) drive (i)'s
    observability tax while a host ``Profiler`` records, so every span goes
@@ -507,6 +511,40 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    ``Config.disable_gpu()`` Predictor (no launch) against the card's
    logits (1e-4). One ``{"export": ...}`` line; the flash rows of
    ``kernels`` get ``launches_export`` and ``launches_trainable``;
+22. quantization and incubate (runs after phase 21; ``--phase22`` alone):
+   (22a) GPT-3 1.3B bf16 at full width and depth, b2 x s2048: 5 timed
+   unquantized ``compile_train_step`` steps after 3, then its 96 mp linears wrapped
+   by ``ImperativeQuantAware``, 5 compiled AdamW steps (every moving
+   average must stay untouched) and 2 eager steps (the moving averages
+   move), every weight a forward reads on its abs-max int8 grid (a
+   pre-hook, exact), 24 launches of each flash kernel a step, the losses
+   finite and falling, 5 timed quantized steps (phase 5's step beside, in
+   the whole script); a 2-layer copy at full
+   width, card against the CPU at 3 data seeds: the loss (2e-4 relative),
+   every gradient by relative norm (0.12) and the quantizers' level flips
+   (weights: none); (22b) ResNet-50 f32 at
+   b32 x 224²: PTQ (abs_max) over 4 batches, ``convert_to_int8_inference``
+   (53 ``Int8Conv2D``, 1 ``Int8Linear``), the float and int8 artifacts
+   through ``save_inference_model`` with a None batch, the int8 one
+   through the Predictor and the C API against the eager int8 model (1e-6
+   of the largest logit; bit equality reported), the drift from the PTQ
+   model within 0.12, ``.pdiparams`` at most 0.3 of the float one's, ms a
+   batch; an int8 net with ResNet-50's stem saved on the CPU, run by the
+   card's Predictor at batches 3 and 40 against the CPU (1e-6); (22c) the host embedding at 5,242,880 x 1024 f32 (20 GiB) in a
+   sparse memmap, 65536 rows cached on the card, ``prefetch_iter`` and the
+   async push: 30 steps of 4 Zipf(1.2) micro-batches of 16 x 64 into a
+   Linear head, every forward a prefetch hit, the loss falling, under 1
+   GiB physical, and the touched rows bit-equal to a replay on the numpy
+   path with no cache and no thread; (22d) ERNIE-3.0 base f32,
+   ``DistributedFusedLamb`` against ``Lamb``, 5 steps, losses within
+   1e-5, the optimizer step's ms; (22e) the fused softmaxes,
+   ``graph_send_recv`` (4 pools), ``ResNetUnit`` and the three fused
+   layers card against the CPU (1e-4 of the largest value), ASP 2:4 on
+   ERNIE's linears after 3 decorated SGD steps, a custom op's vjp,
+   LookAhead's first sync and state round trip, ModelAverage's apply and
+   restore. One ``{"quant_incubate": ...}`` line; the flash rows of
+   ``kernels`` get ``launches_qat``, 22a's totals over the compiled and
+   over the eager steps, each exactly 24 a step;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -2778,6 +2816,9 @@ def engine_phase(profile=False):
 TP = 2
 TP_DEVICES = ("cuda:0", "cuda:0")  # both shards on the one card
 TP_LLAMA_REQUESTS = 8  # (17b): the first 8 of drive (c)'s prompts
+# (17b): Llama-7B's depth at tp = 2, cut from 32 to hold the whole script
+# near 900 s (full width: the shard shapes are the full model's)
+TP_LLAMA_LAYERS = 8
 TP_NATIVE = {}  # phase 17's results: the {"tp_native": ...} line
 LOADER_STEPS = 4  # (17e): 12a's steps fed by the thread-worker loader
 
@@ -3139,6 +3180,8 @@ def tp_phase():
     t0 = time.monotonic()
     mem = {"start": card_memory()}
     for name, cfg, _, _ in engine_models():
+        if name == "llama_7b":
+            cfg = dataclasses.replace(cfg, num_layers=TP_LLAMA_LAYERS)
         model = build_engine_model(name, cfg)
         mem[f"{name} built"] = card_memory()
         torch.cuda.reset_peak_memory_stats()
@@ -9006,6 +9049,792 @@ def export_phase(card, dev="cuda", cfgs=None):
           f"{EXPORT.get('peak_gib', 0.0):.2f} GiB")
 
 
+
+# -- phase 22: quantization and incubate --------------------------------------
+
+QI = {}  # phase 22's results: the {"quant_incubate": ...} line
+QAT_TYPES = ["ColumnParallelLinear", "RowParallelLinear"]
+QAT_COMPILED, QAT_EAGER, QAT_LR = 5, 2, 1e-4
+QAT_WARMUP, QAT_TIMED = 3, 5  # the unquantized and quantized steps timed
+# 22a's 2-layer check, card against the CPU: B, T, the data seeds and the
+# failure bounds (bf16 both sides; a value a rounding moves across a grid
+# boundary moves a whole level, scale / 127). Each bound is 3-5x the worst
+# reading over the seeds on an H100 (4.6e-5 and 3.5e-2; PERF.md)
+QAT_CHECK = {"layers": 2, "batch": 1, "seq": 256, "seeds": (7, 8, 9)}
+QAT_LOSS_REL_TOL, QAT_GRAD_REL_TOL = 2e-4, 0.12
+INT8_RESNET = {"batch": 32, "size": 224, "classes": 1000, "calib": 4,
+               "runs": 5}
+INT8_DRIFT_TOL = 0.12  # tests/test_int8_inference.py:50
+INT8_BYTES_RATIO = 0.3
+INT8_EXPORT_REL_TOL = 1e-6  # of the largest logit; bit-equal expected
+HOST_EMB = {"rows": 5_242_880, "dim": 1024, "cache_rows": 65536,
+            "steps": 30, "micro": 4, "shape": (16, 64), "zipf": 1.2,
+            "lr": 0.05, "head_lr": 0.01}
+DFL_STEPS, DFL_LR, DFL_REL_TOL = 5, 1e-3, 1e-5  # tests/test_optimizers.py:233
+
+
+def _count_types(model, name):
+    return sum(1 for m in model.modules() if type(m).__name__ == name)
+
+
+def _grid_hook(param, bad, calls):
+    """A forward pre-hook on a ``QuantedLayer``'s inner layer: the weight
+    the forward reads must be ``k * s * r`` in its dtype for an integer
+    ``|k| <= 127``, with ``s`` the parameter's abs-max and ``r`` the dtype's
+    1/127 (the STE's own operations, so the check is exact). Misses
+    accumulate on the device in ``bad`` (no host sync); ``calls`` counts the
+    forwards that read the fake-quantized weight and those that read the
+    parameter itself."""
+    def hook(layer, inputs):
+        w = layer.weight
+        if w is param:
+            calls["raw"] += 1
+            return
+        calls["quantized"] += 1
+        with torch.no_grad():
+            s = param.detach().abs().amax().clamp_min(1e-8)
+            r = torch.full((), 1.0 / 127.0, dtype=w.dtype, device=w.device)
+            k = torch.round(w.float() / s.float() * 127.0)
+            ok = torch.zeros(w.shape, dtype=torch.bool, device=w.device)
+            for d in (-1.0, 0.0, 1.0):
+                kk = torch.clamp(k + d, -127, 127).to(w.dtype)
+                ok |= (kk * s * r) == w
+            bad.add_((~ok).sum())
+    return hook
+
+
+def _levels_hooks(model, store):
+    """Forward hooks recording each quantizer's int8 levels (its input over
+    the scale it used, times 127, rounded) into ``store`` on the CPU."""
+    from paddle_tpu_torch.quantization import (FakeQuantAbsMax,
+                                               FakeQuantMovingAverageAbsMax)
+
+    handles = []
+    for name, m in model.named_sublayers():
+        if isinstance(m, (FakeQuantAbsMax, FakeQuantMovingAverageAbsMax)):
+            def hook(layer, inputs, out, name=name):
+                x = inputs[0].detach()
+                s = (layer.scale.clamp_min(1e-8)
+                     if isinstance(layer, FakeQuantMovingAverageAbsMax)
+                     else x.abs().amax().clamp_min(1e-8)).to(x.dtype)
+                store[name] = torch.clamp(torch.round(x / s * 127.0),
+                                          -127, 127).float().cpu()
+            handles.append(m.register_forward_post_hook(hook))
+    return handles
+
+
+def qat_check_phase(dev, cfg=QAT_CHECK):
+    """(22a) A ``layers``-deep GPT-3 1.3B at full width, bf16, QAT-wrapped,
+    one train-mode forward and backward a data seed on the card and on a
+    CPU copy (the plain flash versions): the loss, every gradient by
+    relative norm and the quantizers' level flips, the worst over the
+    seeds held against the bounds."""
+    import copy
+
+    from paddle_tpu_torch.quantization import ImperativeQuantAware
+
+    model = train_model(layers=cfg["layers"])
+    ImperativeQuantAware(quantizable_layer_type=QAT_TYPES).quantize(model)
+    cpu = copy.deepcopy(model).to(device="cpu")
+    by_seed = []
+    flips = {"act": [0, 0, 0.0], "weight": [0, 0, 0.0]}
+    for seed in cfg["seeds"]:
+        ids, labels = train_arrays(model.config, cfg["batch"], cfg["seq"],
+                                   seed)
+        levels, losses, grads = {}, {}, {}
+        for tag, m, d in (("card", model, dev), ("cpu", cpu, "cpu")):
+            store = levels.setdefault(tag, {})
+            handles = _levels_hooks(m, store)
+            for p in m.parameters():
+                p.grad = None
+            loss = m.loss(torch.from_numpy(ids).to(d),
+                          torch.from_numpy(labels).to(d))
+            loss.backward()
+            for h in handles:
+                h.remove()
+            losses[tag] = loss.item()
+            grads[tag] = {n: p.grad.detach().float().cpu()
+                          for n, p in m.named_parameters()}
+        for name, a in levels["card"].items():
+            b = levels["cpu"][name]
+            kind = "weight" if name.endswith("weight_quantizer") else "act"
+            diff = (a - b).abs()
+            flips[kind][0] += int((diff > 0).sum())
+            flips[kind][1] += a.numel()
+            flips[kind][2] = max(flips[kind][2], float(diff.max()))
+        worst = max(_rel_norm(grads["card"][n], grads["cpu"][n])
+                    for n in grads["cpu"])
+        rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        by_seed.append({"seed": seed, "loss_card": losses["card"],
+                        "loss_cpu": losses["cpu"], "loss_rel": rel,
+                        "grad_worst_rel_norm": worst})
+    rel = max(r["loss_rel"] for r in by_seed)
+    worst = max(r["grad_worst_rel_norm"] for r in by_seed)
+    out = {"layers": cfg["layers"], "batch": cfg["batch"], "seq": cfg["seq"],
+           "by_seed": by_seed, "loss_rel": rel, "grad_worst_rel_norm": worst,
+           "loss_rel_tol": QAT_LOSS_REL_TOL,
+           "grad_rel_tol": QAT_GRAD_REL_TOL,
+           "act_level_flips": flips["act"][:2],
+           "act_level_max_step": flips["act"][2],
+           "weight_level_flips": flips["weight"][:2]}
+    rels = ", ".join(f"{r['loss_rel']:.3e}" for r in by_seed)
+    worsts = ", ".join(f"{r['grad_worst_rel_norm']:.3e}" for r in by_seed)
+    print(f"  22a check ({cfg['layers']} layers, b{cfg['batch']}x"
+          f"s{cfg['seq']}, card against the CPU, data seeds "
+          f"{list(cfg['seeds'])}): loss rel {rels} (bound "
+          f"{QAT_LOSS_REL_TOL:.0e}), worst gradient by relative norm "
+          f"{worsts} (bound {QAT_GRAD_REL_TOL}); activation level flips "
+          f"{flips['act'][0]} of {flips['act'][1]} (at most "
+          f"{flips['act'][2]:.0f} level), weight level flips "
+          f"{flips['weight'][0]} of {flips['weight'][1]}")
+    if flips["weight"][0] or rel > QAT_LOSS_REL_TOL \
+            or worst > QAT_GRAD_REL_TOL or not math.isfinite(worst):
+        fail(f"22a check: {out}")
+    del model, cpu
+    return out
+
+
+def qat_phase(dev="cuda", cfg=None, B=2, T=2048):
+    """(22a) GPT-3 1.3B bf16 at full width: the unquantized step timed,
+    then the 96 mp linears wrapped by ``ImperativeQuantAware``, 5 steps
+    through ``compile_train_step`` (the traced branch: every moving
+    average untouched), 2 eager steps (the moving-average branch), every
+    read weight on its int8 grid, the flash launches a step, then the
+    quantized step timed."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.quantization import (FakeQuantMovingAverageAbsMax,
+                                               ImperativeQuantAware,
+                                               QuantedLayer)
+
+    card = torch.device(dev).type == "cuda"
+    t0 = time.monotonic()
+    if cfg is None:
+        model = train_model()
+    else:
+        from paddle_tpu_torch.models import GPTForPretraining
+
+        model = GPTForPretraining(cfg, device=dev, seed=0).train()
+    cfg = model.config
+    L = cfg.num_layers
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=g).to(dev)
+    labels = torch.randint(0, cfg.vocab_size, (B, T), generator=g).to(dev)
+    loss_fn = lambda m, i, l: m.loss(i, l)  # noqa: E731
+
+    def timed(step, n):
+        _sync(dev)
+        t = time.perf_counter()
+        for _ in range(n):
+            step(ids, labels)
+        _sync(dev)
+        return (time.perf_counter() - t) / n * 1e3
+
+    opt = pt.optimizer.AdamW(learning_rate=QAT_LR,
+                             parameters=model.named_parameters())
+    step = pt.jit.compile_train_step(model, loss_fn, opt)
+    timed(step, QAT_WARMUP)
+    out = {"plain_step_ms": timed(step, QAT_TIMED)}
+    del step, opt
+    ImperativeQuantAware(quantizable_layer_type=QAT_TYPES).quantize(model)
+    out["wrapped"] = _count_types(model, "QuantedLayer")
+    if out["wrapped"] != 4 * L:
+        fail(f"22a: {out['wrapped']} QuantedLayers, want {4 * L}")
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    calls = {"quantized": 0, "raw": 0}
+    hooks = [m.inner.register_forward_pre_hook(
+        _grid_hook(m.inner.weight, bad, calls))
+        for m in model.modules() if isinstance(m, QuantedLayer)]
+    opt = pt.optimizer.AdamW(learning_rate=QAT_LR,
+                             parameters=model.named_parameters())
+    step = pt.jit.compile_train_step(model, loss_fn, opt)
+    acts = [m for m in model.modules()
+            if isinstance(m, FakeQuantMovingAverageAbsMax)]
+    flash = ("flash_attention_fwd", "flash_attention_dq",
+             "flash_attention_dkv")
+    K.reset_launch_counts()
+    losses = [step(ids, labels) for _ in range(QAT_COMPILED)]
+    counts = K.launch_counts()
+    out["launches"] = {k: {"compiled": counts.get(k, 0)} for k in flash}
+    untouched = all(float(a.scale) == 1.0 and not a._initialized
+                    for a in acts)
+    K.reset_launch_counts()
+    for _ in range(QAT_EAGER):
+        loss = model.loss(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+    counts = K.launch_counts()
+    for k in flash:
+        out["launches"][k]["eager"] = counts.get(k, 0)
+    scales = [float(a.scale) for a in acts]
+    for h in hooks:
+        h.remove()
+    vals = [x.item() for x in losses]
+    out.update(losses=vals, grid_misses=int(bad), grid_calls=dict(calls),
+               ema_untouched_by_compiled=untouched,
+               ema_scales=[min(scales), max(scales)],
+               qat_step_ms=timed(step, QAT_TIMED))
+    if card:
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    n_fwd = (QAT_COMPILED + QAT_EAGER) * 4 * L
+    print(f"  22a: GPT-3 1.3B QAT ({out['wrapped']} QuantedLayers), "
+          f"{QAT_COMPILED} compiled + {QAT_EAGER} eager steps at b{B}xs{T}: "
+          f"losses {[round(v, 4) for v in vals]}; grid misses "
+          f"{out['grid_misses']} over {calls['quantized']} reads "
+          f"({calls['raw']} unquantized); moving averages untouched by the "
+          f"compiled steps {untouched}, after the eager steps "
+          f"{min(scales):.4f}..{max(scales):.4f}; flash launches "
+          f"{out['launches']}; step {out['qat_step_ms']:.2f} ms against "
+          f"{out['plain_step_ms']:.2f} ms unquantized (host clock, "
+          f"{QAT_TIMED} steps each)"
+          + (f", phase 5's {QI['phase5_step_ms']:.2f} ms" if
+             "phase5_step_ms" in QI else "")
+          + f" in {time.monotonic() - t0:.1f} s")
+    if out["grid_misses"] or calls["raw"] or calls["quantized"] != n_fwd:
+        fail(f"22a: grid misses {out['grid_misses']}, reads {calls} "
+             f"(want {n_fwd} quantized)")
+    if not untouched or not all(math.isfinite(s) and s > 0 and s != 1.0
+                                for s in scales):
+        fail(f"22a: moving averages: untouched {untouched}, scales "
+             f"{scales[:4]}...")
+    if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
+        fail(f"22a: losses {vals}")
+    want = {"compiled": L * QAT_COMPILED, "eager": L * QAT_EAGER}
+    if card and any(v != want for v in out["launches"].values()):
+        fail(f"22a: flash launches {out['launches']}, want {want} each")
+    del step, opt, model, hooks
+    return out
+
+
+def int8_cpu_saved_check(dev, tmp):
+    """(22b) An int8 net with ResNet-50's stem (a 7x7 stride-2 convolution
+    of 3 channels: K = 147) and a 10-class head (N = 10), calibrated,
+    converted and saved on the CPU with a None batch, run by the card's
+    Predictor at batches 3 and 40 (M off the card's rules) against the
+    CPU's eager int8 model."""
+    from paddle_tpu_torch import inference, nn, static
+    from paddle_tpu_torch.quantization import (PostTrainingQuantization,
+                                               convert_to_int8_inference)
+    from paddle_tpu_torch.static import InputSpec
+
+    g = torch.Generator().manual_seed(5)
+    kw = {"device": "cpu", "generator": g}
+    net = nn.Sequential(
+        nn.Conv2D(3, 64, 7, stride=2, padding=3, **kw), nn.ReLU(),
+        nn.AdaptiveAvgPool2D(1), nn.Flatten(), nn.Linear(64, 10, **kw)).eval()
+    calib = [(torch.randn(4, 3, 32, 32, generator=g),) for _ in range(2)]
+    ptq = PostTrainingQuantization(net, data_loader=calib, batch_nums=2,
+                                   algo="abs_max")
+    ptq.quantize()
+    convert_to_int8_inference(net, ptq)
+    prefix = os.path.join(tmp, "int8_cpu_saved")
+    static.save_inference_model(
+        prefix, [InputSpec([None, 3, 32, 32], "float32", "image")], net)
+    pred = inference.create_predictor(_predictor_config(prefix, dev))
+    errs = {}
+    for b in (3, 40):
+        x = torch.randn(b, 3, 32, 32, generator=g)
+        with torch.no_grad():
+            want = net(x)
+        h = pred.get_input_handle(pred.get_input_names()[0])
+        h.share_external_data(x.to(dev))
+        pred.run()
+        got = pred.output_tensors()[0].cpu()
+        errs[b] = float((got - want).abs().max()) / float(want.abs().max())
+    print(f"  22b: an int8 net with ResNet-50's stem saved on the CPU, run "
+          f"by the {dev} Predictor: {errs} of the largest logit from the "
+          f"CPU's eager int8 model")
+    if any(not e <= INT8_EXPORT_REL_TOL for e in errs.values()):
+        fail(f"22b: the CPU-saved int8 program on {dev}: {errs}")
+    return {"rel_err_by_batch": errs}
+
+
+def int8_resnet_phase(dev, tmp, cfg=INT8_RESNET):
+    """(22b) ResNet-50 f32: PTQ (abs_max) over ``calib`` synthetic
+    batches, ``convert_to_int8_inference``, the float and int8 artifacts
+    through ``static.save_inference_model`` with a None batch, the int8
+    one through the Predictor and the C API against the eager int8 model,
+    the drift from the float model and the artifacts' bytes."""
+    import ctypes
+
+    from paddle_tpu_torch import inference, jit, static
+    from paddle_tpu_torch.framework import io as fio
+    from paddle_tpu_torch.inference import capi
+    from paddle_tpu_torch.quantization import (PostTrainingQuantization,
+                                               convert_to_int8_inference)
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision.models import resnet50
+
+    card = torch.device(dev).type == "cuda"
+    B, S, C = cfg["batch"], cfg["size"], cfg["classes"]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator(dev).manual_seed(0)
+    net = resnet50(num_classes=C, device=dev, generator=g).eval()
+    spec = [InputSpec([None, 3, S, S], "float32", "image")]
+    gx = torch.Generator(dev).manual_seed(22)
+    calib = [(torch.randn(B, 3, S, S, generator=gx, device=dev),)
+             for _ in range(cfg["calib"])]
+    x = torch.randn(B, 3, S, S, generator=gx, device=dev)
+    out = {}
+
+    def forward():
+        with torch.no_grad():
+            return net(x)
+
+    with torch.no_grad():
+        float_logits = net(x)
+    if card:
+        out["float_ms"] = time_ms(forward, iters=cfg["runs"])
+    # the float artifact's weights file, written as jit.save writes
+    # .pdiparams (its program export is phase 21c's and is not repeated)
+    prefix_f = os.path.join(tmp, "resnet50_f32")
+    fio.save({"state": net.state_dict(),
+              "specs": [([None, 3, S, S], "float32", "image")]},
+             prefix_f + ".pdiparams")
+    out["float_bytes"] = _artifact_bytes(prefix_f)
+    ptq = PostTrainingQuantization(net, data_loader=calib,
+                                   batch_nums=cfg["calib"], algo="abs_max")
+    ptq.quantize()
+    with torch.no_grad():
+        ptq_logits = net(x)
+    convert_to_int8_inference(net, ptq)
+    out["int8_conv"] = _count_types(net, "Int8Conv2D")
+    out["int8_linear"] = _count_types(net, "Int8Linear")
+    with torch.no_grad():
+        int8_logits = net(x)
+    scale = float(ptq_logits.abs().max())
+    out["drift"] = float((int8_logits - ptq_logits).abs().max()) / scale
+    out["drift_from_float"] = float(
+        (int8_logits - float_logits).abs().max()) / float(
+        float_logits.abs().max())
+    if card:
+        out["int8_ms"] = time_ms(forward, iters=cfg["runs"])
+    prefix = os.path.join(tmp, "resnet50_int8")
+    t0 = time.monotonic()
+    static.save_inference_model(prefix, spec, net)
+    out["save_s"] = time.monotonic() - t0
+    out["bytes"] = _artifact_bytes(prefix)
+    _, meta = jit.read_program(prefix + ".pdmodel")
+    out["dynamic_batch"] = meta["dynamic"]
+    if not meta["dynamic"]:
+        fail("22b: the int8 artifact's batch is not symbolic")
+    params = fio.load(prefix + ".pdiparams", return_numpy=True)
+    int8_leaves = sum(1 for k, v in params["state"].items()
+                      if k.endswith("weight_q") and v.dtype == np.int8)
+    out["pdiparams_ratio"] = (out["bytes"][".pdiparams"]
+                              / out["float_bytes"][".pdiparams"])
+    pred = inference.create_predictor(_predictor_config(prefix, dev))
+    h = pred.get_input_handle(pred.get_input_names()[0])
+    h.share_external_data(x)
+    pred.run()
+    got = pred.output_tensors()[0]
+    out["predictor_max_abs_err"] = float((got - int8_logits).abs().max())
+    out["predictor_bit_equal"] = bool(torch.equal(got, int8_logits))
+    if card:
+        out["predictor_ms"] = time_ms(pred.run, iters=cfg["runs"])
+    L = capi.lib()
+    d = torch.device(dev)
+    p = L.PD_PredictorCreate(prefix.encode()) \
+        if d.type == "cuda" and not d.index else \
+        L.PD_PredictorCreateOnDevice(prefix.encode(), str(dev).encode())
+    if not p:
+        fail(f"22b: PD_PredictorCreate: {L.PD_LastError().decode()}")
+    name_in = L.PD_PredictorInputName(p, 0)
+    name_out = L.PD_PredictorOutputName(p, 0)
+    xs = np.ascontiguousarray(x.cpu().numpy())
+    shape = (ctypes.c_int64 * 4)(B, 3, S, S)
+    n = B * C
+    buf = (ctypes.c_float * n)()
+    if L.PD_PredictorSetInputFloat(
+            p, name_in, xs.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            shape, 4) or L.PD_PredictorRun(p) \
+            or L.PD_PredictorOutputNumel(p, name_out) != n \
+            or L.PD_PredictorGetOutputFloat(p, name_out, buf, n):
+        fail(f"22b: C API: {L.PD_LastError().decode()}")
+    L.PD_PredictorDestroy(p)
+    want = int8_logits.cpu().numpy()
+    capi_out = np.frombuffer(buf, np.float32).reshape(B, C)
+    out["capi_max_abs_err"] = float(np.abs(capi_out - want).max())
+    out["capi_bit_equal"] = bool(np.array_equal(capi_out, want))
+    torch.backends.cudnn.deterministic = det
+    out["cpu_saved"] = int8_cpu_saved_check(dev, tmp)
+    print(f"  22b: ResNet-50 b{B}x{S}² int8 ({out['int8_conv']} Int8Conv2D, "
+          f"{out['int8_linear']} Int8Linear): drift {out['drift']:.4f} from "
+          f"the PTQ float model ({out['drift_from_float']:.4f} from the "
+          f"unquantized one); Predictor {out['predictor_max_abs_err']:.3e} "
+          f"(bit-equal {out['predictor_bit_equal']}), C API "
+          f"{out['capi_max_abs_err']:.3e} (bit-equal "
+          f"{out['capi_bit_equal']}) from eager int8; .pdiparams "
+          f"{out['bytes']['.pdiparams']} B = {out['pdiparams_ratio']:.3f} of "
+          f"the float artifact's ({int8_leaves} int8 weights); "
+          + (f"{out['float_ms']:.2f} ms a batch float, {out['int8_ms']:.2f} "
+             f"int8 eager, {out['predictor_ms']:.2f} int8 Predictor; "
+             if card else "") + f"save {out['save_s']:.1f} s")
+    tol = INT8_EXPORT_REL_TOL * float(np.abs(want).max())
+    if out["int8_conv"] != 53 or out["int8_linear"] != 1:
+        fail(f"22b: swapped {out['int8_conv']} Int8Conv2D and "
+             f"{out['int8_linear']} Int8Linear, want 53 and 1")
+    if int8_leaves != out["int8_conv"] + out["int8_linear"] \
+            or not out["dynamic_batch"]:
+        fail(f"22b: {int8_leaves} int8 weights in .pdiparams, dynamic "
+             f"{out['dynamic_batch']}")
+    if out["drift"] > INT8_DRIFT_TOL \
+            or out["pdiparams_ratio"] > INT8_BYTES_RATIO \
+            or out["predictor_max_abs_err"] > tol \
+            or out["capi_max_abs_err"] > tol:
+        fail(f"22b: {out}")
+    return out
+
+
+def host_embedding_run(dev, tmp, cfg, batches, replay):
+    """One 22c run over ``batches`` (steps of micro-batches): the cached,
+    prefetched, async-push table, or (``replay``) the numpy path with no
+    cache and no thread. Returns (layer, losses, ms a step)."""
+    from paddle_tpu_torch import nn, optimizer, profiler
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.incubate import HostEmbedding
+
+    set_flags({"FLAGS_host_emb_native": not replay,
+               "FLAGS_host_emb_async_push": not replay})
+    emb = HostEmbedding(cfg["rows"], cfg["dim"], optimizer="sgd", seed=1,
+                        path=os.path.join(tmp, "replay.npy" if replay
+                                          else "table.npy"),
+                        cache_rows=0 if replay else cfg["cache_rows"],
+                        device=dev)
+    head = nn.Linear(cfg["dim"], 1, device=dev,
+                     generator=torch.Generator(dev).manual_seed(3))
+    opt = optimizer.SGD(cfg["head_lr"], parameters=head.parameters())
+    target = torch.full(cfg["shape"] + (1,), 0.5, device=dev)
+    losses = []
+    c0 = profiler.counters().get("host_emb_prefetch_hits", 0)
+    it = batches if replay else emb.prefetch_iter(batches)
+    for k, step in enumerate(it):
+        for mb in step:
+            loss = ((head(emb(mb)) - target) ** 2).mean()
+            loss.backward()
+            losses.append(loss.detach())
+        emb.apply_gradients(cfg["lr"])
+        opt.step()
+        opt.clear_grad()
+        if k == 0:  # the first step's lazy set-up is not timed
+            emb.sync()
+            _sync(dev)
+            t0 = time.perf_counter()
+    emb.sync()
+    _sync(dev)
+    ms = (time.perf_counter() - t0) / (len(batches) - 1) * 1e3
+    hits = profiler.counters().get("host_emb_prefetch_hits", 0) - c0
+    set_flags({"FLAGS_host_emb_native": True,
+               "FLAGS_host_emb_async_push": False})
+    return emb, [v.item() for v in losses], ms, hits
+
+
+def host_embedding_phase(dev, tmp, cfg=HOST_EMB):
+    """(22c) The host embedding at the reference's 20 GiB logical size in a
+    sparse memmap: ``steps`` steps of ``micro`` Zipf micro-batches into a
+    Linear head, through the device hot-row cache, ``prefetch_iter`` and
+    the async push; then a replay on the numpy path with no cache and no
+    thread, whose touched rows must be bit-equal."""
+    rng = np.random.RandomState(22)
+    n, m, shape = cfg["steps"], cfg["micro"], cfg["shape"]
+    ids = (rng.zipf(cfg["zipf"], (n, m) + shape) - 1) % cfg["rows"]
+    batches = [[ids[s, k] for k in range(m)] for s in range(n)]
+    emb, losses, ms, hits = host_embedding_run(dev, tmp, cfg, batches,
+                                               False)
+    stats = emb.cache.stats()
+    touched = np.unique(ids)
+    physical = emb.table.state_nbytes_physical()
+    logical = emb.table.table.nbytes
+    ref, ref_losses, ref_ms, _ = host_embedding_run(dev, tmp, cfg, batches,
+                                                    True)
+    got, want = emb.table.table[touched], ref.table.table[touched]
+    equal = bool(np.array_equal(got, want))
+    out = {"logical_gib": logical / 2**30, "physical_bytes": physical,
+           "touched_rows": int(touched.size), "step_ms": ms,
+           "replay_step_ms": ref_ms, "cache": stats,
+           "prefetch_hits": hits, "forwards": n * m,
+           "rows_bit_equal": equal,
+           "rows_max_abs_diff": float(np.abs(got - want).max()),
+           "losses_equal": losses == ref_losses,
+           "loss_first_last": [losses[0], losses[-1]]}
+    print(f"  22c: {logical / 2**30:.1f} GiB logical table, "
+          f"{physical / 2**20:.1f} MiB physical, {touched.size} rows "
+          f"touched; {ms:.2f} ms a step (steps 2-{n}; {m} micro-batches of "
+          f"{shape[0]}x{shape[1]}) cached + prefetched + async push against "
+          f"{ref_ms:.2f} ms on the numpy replay; cache hit rate "
+          f"{stats['hit_rate']:.3f} ({stats['occupied_rows']} of "
+          f"{stats['capacity_rows']} rows); prefetch hits {hits} of "
+          f"{n * m}; touched rows bit-equal to the replay {equal} (max "
+          f"{out['rows_max_abs_diff']:.3e}), losses equal "
+          f"{out['losses_equal']}; loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    if not equal or hits != n * m or physical >= 2**30 \
+            or not losses[-1] < losses[0]:
+        fail(f"22c: {out}")
+    del emb, ref
+    return out
+
+
+def dfl_phase(dev, ecfg=None, B=ERNIE_B, T=ERNIE_T, steps=DFL_STEPS):
+    """(22d) ERNIE-3.0 base f32 (dropout 0), ``DistributedFusedLamb`` with
+    ``max_global_grad_norm=0`` against the port's ``Lamb`` on the same
+    weights and data: the losses, and the optimizer step's ms."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.incubate import DistributedFusedLamb
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_3_base
+
+    cfg = ecfg or ernie_3_base(hidden_dropout=0.0, attention_dropout=0.0)
+    np_ids, np_labels, np_nsp = ernie_arrays(cfg.vocab_size, B, T)
+    ids, labels, nsp = (torch.from_numpy(a).to(dev)
+                        for a in (np_ids, np_labels, np_nsp))
+    res = {}
+    for tag in ("lamb", "dfl"):
+        model = ErnieForPretraining(cfg, seed=0, device=dev).train()
+        kw = dict(learning_rate=DFL_LR, lamb_weight_decay=0.01,
+                  parameters=model.parameters(),
+                  exclude_from_weight_decay_fn=ln_excluder(model))
+        opt = optimizer.Lamb(**kw) if tag == "lamb" \
+            else DistributedFusedLamb(max_global_grad_norm=0.0, **kw)
+        losses, ms = [], []
+        for _ in range(steps):
+            loss = model.loss(ids, labels, nsp)
+            loss.backward()
+            losses.append(loss.detach())
+            if torch.device(dev).type == "cuda":
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                opt.step()
+                b.record()
+                b.synchronize()
+                ms.append(a.elapsed_time(b))
+            else:
+                opt.step()
+            opt.clear_grad()
+        res[tag] = ([v.item() for v in losses],
+                    sorted(ms[1:])[len(ms[1:]) // 2] if ms else None)
+        del model, opt
+    (l1, ms1), (l2, ms2) = res["lamb"], res["dfl"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
+    out = {"losses_lamb": l1, "losses_dfl": l2, "max_rel": rel,
+           "bit_equal": l1 == l2, "lamb_step_ms": ms1, "dfl_step_ms": ms2}
+    print(f"  22d: ERNIE-3.0 base, {steps} steps: DistributedFusedLamb "
+          f"{[round(v, 6) for v in l2]} against Lamb "
+          f"{[round(v, 6) for v in l1]} ({rel:.3e} rel, bit-equal "
+          f"{l1 == l2}); optimizer step "
+          + (f"{ms2:.2f} ms against Lamb's {ms1:.2f} ms (median of steps "
+             f"2-{steps})" if ms1 is not None else "not timed"))
+    if rel > DFL_REL_TOL:
+        fail(f"22d: {out}")
+    return out
+
+
+def incubate_rest_phase(dev, ecfg=None):
+    """(22e) The rest at small sizes, the card against the CPU port on the
+    same inputs: the fused softmaxes, ``graph_send_recv`` (4 pools),
+    ``ResNetUnit``, the three fused layers, ASP 2:4 on ERNIE's Linears
+    under a decorated SGD, a custom op with a vjp, and LookAhead and
+    ModelAverage round trips."""
+    import copy
+
+    from paddle_tpu_torch import incubate, optimizer
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.incubate import nn as inn
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_3_base
+    from paddle_tpu_torch.nn import Linear
+
+    rng = np.random.RandomState(5)
+    errs = {}
+
+    def both(name, fn, *arrays, grad=False):
+        outs = []
+        for d in ("cpu", dev):
+            ts = [torch.tensor(a, device=d) for a in arrays]
+            if grad:
+                ts[0].requires_grad_(True)
+            y = fn(*ts)
+            row = [y.detach().float().cpu()]
+            if grad:
+                y.float().square().sum().backward()
+                row.append(ts[0].grad.float().cpu())
+            outs.append(row)
+        errs[name] = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(outs[1], outs[0]))
+
+    x = rng.randn(4, 8, 128, 128).astype(np.float32)
+    both("softmax_mask_fuse", incubate.softmax_mask_fuse, x,
+         (rng.rand(4, 1, 128, 128) < 0.2).astype(np.float32) * -1e4,
+         grad=True)
+    both("softmax_mask_fuse_upper_triangle",
+         incubate.softmax_mask_fuse_upper_triangle, x, grad=True)
+    feats = rng.randn(1000, 64).astype(np.float32)
+    src = rng.randint(0, 1000, 5000)
+    dst = rng.randint(0, 900, 5000)
+    for pool in ("sum", "mean", "max", "min"):
+        both(f"graph_send_recv_{pool}",
+             lambda f, s, t, pool=pool: incubate.graph_send_recv(
+                 f, s, t, pool), feats, src, dst,
+             grad=pool in ("sum", "mean"))
+    layers = {
+        "ResNetUnit": (incubate.ResNetUnit(64, 64, 3, has_shortcut=True,
+                                           num_channels_z=64, device="cpu"),
+                       rng.randn(8, 64, 56, 56).astype(np.float32)),
+        "FusedMultiHeadAttention": (inn.FusedMultiHeadAttention(
+            768, 12, 0.0, 0.0, device="cpu"),
+            rng.randn(4, 128, 768).astype(np.float32)),
+        "FusedFeedForward": (inn.FusedFeedForward(
+            768, 3072, 0.0, device="cpu"),
+            rng.randn(4, 128, 768).astype(np.float32)),
+        "FusedTransformerEncoderLayer": (inn.FusedTransformerEncoderLayer(
+            768, 12, 3072, 0.0, device="cpu"),
+            rng.randn(4, 128, 768).astype(np.float32)),
+    }
+    for name, (layer, inp) in layers.items():
+        card_layer = copy.deepcopy(layer).to(device=dev)
+        outs = []
+        for m, d in ((layer, "cpu"), (card_layer, dev)):
+            m.train()
+            t = torch.tensor(inp, device=d, requires_grad=True)
+            y = m(t, t) if name == "ResNetUnit" else m(t)
+            # a fixed random projection: sum(y^2) would give a final
+            # LayerNorm's input a gradient of 0 (rounding noise only)
+            r = torch.tensor(np.random.RandomState(9).randn(*y.shape)
+                             .astype(np.float32), device=d)
+            (y * r).sum().backward()
+            outs.append([y.detach().cpu(), t.grad.cpu()])
+        errs[name] = max(float((a - b).abs().max() / b.abs().max())
+                         for a, b in zip(outs[1], outs[0]))
+    # ASP 2:4 on ERNIE's Linears (its mp linears too), three decorated SGD
+    # steps
+    ecfg = ecfg or ernie_3_base(hidden_dropout=0.0, attention_dropout=0.0)
+    ernie = ErnieForPretraining(ecfg, seed=1, device=dev).train()
+    kinds = ("Linear", "ColumnParallelLinear", "RowParallelLinear")
+    asp.prune_model(ernie, n=2, m=4, supported_types=kinds)
+    lin = [m.weight for m in ernie.modules() if type(m).__name__ in kinds]
+    opt = asp.decorate(optimizer.SGD(0.1, parameters=ernie.parameters()))
+    e_ids, e_labels, e_nsp = (torch.from_numpy(a).to(dev) for a in
+                              ernie_arrays(ecfg.vocab_size, B=2, T=128))
+    for _ in range(3):
+        ernie.loss(e_ids, e_labels, e_nsp).backward()
+        opt.step()
+        opt.clear_grad()
+    asp_ok = all(asp.check_mask_nm(w, 2, 4) for w in lin)
+    asp_zero = float(np.mean([float((w == 0).float().mean()) for w in lin]))
+    del ernie, opt
+    # a custom op with a hand-written vjp (deliberately not the true one)
+    op = incubate.register_custom_op(
+        "qi_cube", lambda a: a * a * a,
+        vjp=(lambda a: (a * a * a, a), lambda a, gr: (gr * 7.0,)))
+    t = torch.full((16,), 2.0, device=dev, requires_grad=True)
+    op(t).sum().backward()
+    vjp_ok = bool(torch.equal(t.grad, torch.full_like(t, 7.0)))
+    # LookAhead: the first sync lands at w0 + alpha (w_k - w0)
+    X = torch.tensor(rng.randn(32, 6).astype(np.float32), device=dev)
+    Y = X @ torch.tensor(rng.randn(6, 1).astype(np.float32), device=dev)
+
+    def fit(make, steps):
+        m = Linear(6, 1, device=dev,
+                   generator=torch.Generator(dev).manual_seed(6))
+        w0 = m.weight.detach().clone()
+        o = make(m)
+        for _ in range(steps):
+            ((m(X) - Y) ** 2).mean().backward()
+            o.step()
+            o.clear_grad()
+        return m, o, w0
+
+    m_k, _, _ = fit(lambda m: optimizer.SGD(0.05,
+                                            parameters=m.parameters()), 3)
+    m_la, la, w0 = fit(lambda m: incubate.LookAhead(
+        optimizer.SGD(0.05, parameters=m.parameters()), alpha=0.5, k=3), 3)
+    want = w0 + 0.5 * (m_k.weight.detach() - w0)
+    la_err = float((m_la.weight.detach() - want).abs().max())
+    sd = la.state_dict()
+    la2 = incubate.LookAhead(optimizer.SGD(0.05,
+                                           parameters=m_la.parameters()),
+                             alpha=0.5, k=3)
+    la2.set_state_dict(sd)
+    la_rt = la2._step_count == la._step_count and all(
+        torch.equal(la2._slow[k], v) for k, v in la._slow.items())
+    # ModelAverage: apply swaps the average in, restore the exact weights
+    m_ma, o_ma, _ = fit(lambda m: optimizer.SGD(0.1,
+                                                parameters=m.parameters()), 0)
+    ma = incubate.ModelAverage(0.15, parameters=m_ma.parameters(),
+                               min_average_window=10, max_average_window=10)
+    seen = []
+    for _ in range(4):
+        ((m_ma(X) - Y) ** 2).mean().backward()
+        o_ma.step()
+        o_ma.clear_grad()
+        ma.step()
+        seen.append(m_ma.weight.detach().clone())
+    before = m_ma.weight.detach().clone()
+    ma.apply()
+    avg_err = float((m_ma.weight.detach() - torch.stack(seen).mean(0))
+                    .abs().max())
+    ma.restore()
+    ma_rt = bool(torch.equal(m_ma.weight.detach(), before))
+    out = {"card_vs_cpu_rel": errs, "asp_mask_holds": asp_ok,
+           "asp_zero_share": asp_zero, "custom_vjp": vjp_ok,
+           "lookahead_sync_err": la_err, "lookahead_state_roundtrip": la_rt,
+           "model_average_err": avg_err, "model_average_restored": ma_rt}
+    print(f"  22e: card against the CPU (rel. to the largest value): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; ASP 2:4 on {len(lin)} ERNIE Linears holds after 3 steps "
+          f"{asp_ok} ({asp_zero:.3f} zero); custom vjp {vjp_ok}; LookAhead "
+          f"sync {la_err:.2e} from w0 + a(w_k - w0), state round trip "
+          f"{la_rt}; ModelAverage {avg_err:.2e} from the mean, restored "
+          f"{ma_rt}")
+    if max(errs.values()) > 1e-4 or not (asp_ok and vjp_ok and la_rt
+                                          and ma_rt) \
+            or la_err > 1e-6 or avg_err > 1e-6:
+        fail(f"22e: {out}")
+    return out
+
+
+def quant_incubate_phase(card, dev="cuda", cfgs=None):
+    """Phase 22: 22a-e; the results go on the ``quant_incubate`` line.
+    ``cfgs`` (GPT config, batch, length, check dict, ResNet dict, host
+    embedding dict, (ERNIE config, batch, length)) cut the sizes for a
+    rehearsal on the CPU."""
+    import gc
+
+    t0 = time.monotonic()
+    gpt, B, T, check, rn, he, ernie = cfgs or (
+        None, 2, 2048, QAT_CHECK, INT8_RESNET, HOST_EMB,
+        (None, ERNIE_B, ERNIE_T))
+    on_card = torch.device(dev).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_quant_")
+    try:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        QI["card"] = card
+        QI["22a"] = qat_phase(dev, gpt, B, T)
+        if on_card:
+            QI["22a"]["check"] = qat_check_phase(dev, check)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        QI["22b"] = int8_resnet_phase(dev, tmp, rn)
+        gc.collect()
+        QI["22c"] = host_embedding_phase(dev, tmp, he)
+        shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        QI["22d"] = dfl_phase(dev, *ernie)
+        QI["22e"] = incubate_rest_phase(dev, ernie[0])
+        if on_card:
+            QI["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    QI["seconds"] = time.monotonic() - t0
+    print(f"  (22) {QI['seconds']:.1f} s, peak "
+          f"{QI.get('peak_gib', 0.0):.2f} GiB")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -9033,6 +9862,10 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 21 alone (export "
                          "and deployment, 21a-e), print its export line and "
                          "exit; no result line")
+    ap.add_argument("--phase22", action="store_true",
+                    help="build the kernels and run phase 22 alone "
+                         "(quantization and incubate, 22a-e), print its "
+                         "quant_incubate line and exit; no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -9139,6 +9972,11 @@ def main(argv=None) -> int:
         export_phase(card)
         print(json.dumps({"export": EXPORT}))
         return 0
+    if args.phase22:
+        print("[22] quantization and incubate alone")
+        quant_incubate_phase(card)
+        print(json.dumps({"quant_incubate": QI}))
+        return 0
 
     print("[2] kernels against their plain versions")
     errs = kernel_phase()
@@ -9152,6 +9990,7 @@ def main(argv=None) -> int:
     print("[5] train: gpt3_1p3b through jit.compile_train_step")
     train_launches, train_tl, compiled = train_phase(profile=args.profile)
     launches.update(train_launches)
+    QI["phase5_step_ms"] = compiled["step_ms"]  # 22a prints it beside
 
     print("[7] Paddle-API train: gpt3_1p3b through to_tensor, nn.Layer, "
           "AdamW with a warm-up/cosine schedule and global-norm clipping")
@@ -9200,6 +10039,14 @@ def main(argv=None) -> int:
           "cloned predictors and capi_demo; a to_static while/if; a tiny "
           "GPT saved on the card, run on the CPU")
     export_phase(card)
+    print("[22] quantization and incubate: gpt3_1p3b QAT over its 96 mp "
+          "linears (compiled, then eager), a 2-layer check against the "
+          "CPU; ResNet-50 PTQ to the int8 artifact through the Predictor "
+          "and the C API; the 20 GiB host embedding against its numpy "
+          "replay; DistributedFusedLamb on ernie_3_base against Lamb; the "
+          "incubate operators, fused layers, ASP, custom ops, LookAhead "
+          "and ModelAverage")
+    quant_incubate_phase(card)
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -9238,6 +10085,8 @@ def main(argv=None) -> int:
             r["launches_export"] = EXPORT["21a"]["launches_flash_fwd_timed"]
         if r["name"] in EXPORT["21b"]["launches"]:  # 21b's SGD steps
             r["launches_trainable"] = EXPORT["21b"]["launches"][r["name"]]
+        if r["name"] in QI["22a"]["launches"]:  # 22a's QAT steps
+            r["launches_qat"] = QI["22a"]["launches"][r["name"]]
         if r["name"] == "paged_attention_rows":  # phase 17's tp drives
             tp = TP_NATIVE["gpt"]
             r["launches_tp"] = (tp["17a"]["launches_tp"]
@@ -9312,6 +10161,7 @@ def main(argv=None) -> int:
     print(json.dumps({"nn": NN}))
     print(json.dumps({"hapi_vision": HV}))
     print(json.dumps({"export": EXPORT}))
+    print(json.dumps({"quant_incubate": QI}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

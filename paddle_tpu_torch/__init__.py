@@ -25,8 +25,11 @@ retry, the HBM admission and the out-of-memory ladder) and
 (``models``, ``transforms``, ``datasets`` and the detection ``ops``), and
 deployment: ``jit.to_static``/``save``/``load``, ``static`` (``InputSpec``,
 ``Program``, ``save_inference_model``) and ``inference`` (``Config``,
-``Predictor``; a C API over it in ``inference/csrc``). Under it, kernels written by hand in CUDA C++
-(``ops/kernels/csrc``) serve and train:
+``Predictor``; a C API over it in ``inference/csrc``), ``quantization``
+(QAT, PTQ and the int8 serving layers) and ``incubate`` (the fused
+layers, ASP, custom ops, DistributedFusedLamb, LookAhead/ModelAverage and
+the host-embedding parameter server). Under it, kernels written by hand
+in CUDA C++ (``ops/kernels/csrc``) serve and train:
 
 - serving: ``serving.Engine`` over the paged builders in
   ``models.generation``, with the paged-attention decode read and the
@@ -107,6 +110,7 @@ from .linalg import (cholesky, cholesky_solve, cond, cov, eig, eigvals,
 from . import distribution, fft, linalg, signal, sparse, tensor
 from . import callbacks, metric, vision
 from . import inference, static
+from . import incubate, quantization
 from .hapi.flops import flops
 from .hapi.model import Model, summary
 
@@ -146,7 +150,8 @@ __all__ = [
     "amp", "autograd", "distributed", "io", "jit", "nn", "optimizer",
     "utils", "grad", "DataParallel", "distribution", "fft",
     "linalg", "signal", "sparse", "tensor", "callbacks", "metric", "vision",
-    "Model", "summary", "flops", "static", "inference",
+    "Model", "summary", "flops", "static", "inference", "incubate",
+    "quantization",
     "enable_static", "disable_static", "in_dynamic_mode",
     "bool", "save", "load",
     "bfloat16", "complex64", "complex128", "float16", "float32", "float64",

@@ -3,12 +3,14 @@
 
 The C++ sources are the port's own, in ``core/csrc/``: ``trace.cc`` (the
 profiler's event ring and span ring), ``queue.cc`` (the bounded blocking
-byte queue of the ``DataLoader``'s thread workers) and ``arena.cc`` (the
-host staging arena), with the reference's C ABI (``ptt_*``, ``ptq_*``,
-``pta_*``). They are built together at first use with
-``g++ -O2 -fPIC -std=c++17 -pthread -shared`` into ``paddle_tpu_torch/_build/``
-(listed in ``.gitignore``), under a file name that carries the sources'
-hash, so an edited source is rebuilt and an unchanged one loaded as it is.
+byte queue of the ``DataLoader``'s thread workers), ``arena.cc`` (the
+host staging arena) and ``embed.cc`` (the host embedding's unique, gather,
+duplicate-id merge and sparse SGD/Adagrad updates), with the reference's C
+ABI (``ptt_*``, ``ptq_*``, ``pta_*``, ``pte_*``). They are built together at
+first use with ``g++ -O2 -fPIC -std=c++17 -pthread -shared`` into
+``paddle_tpu_torch/_build/`` (listed in ``.gitignore``), under a file name
+that carries the sources' hash, so an edited source is rebuilt and an
+unchanged one loaded as it is.
 
 A build or load failure raises at the first call that needs the library;
 nothing falls back to a Python sink. The reference's rendezvous store is
@@ -28,7 +30,7 @@ __all__ = ["lib", "build", "library_path", "HAS_SPANS", "NativeQueue"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("trace.cc", "queue.cc", "arena.cc")
+SOURCES = ("trace.cc", "queue.cc", "arena.cc", "embed.cc")
 CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 
 _lib = None
@@ -68,6 +70,14 @@ _SIGS = {
     "pta_free": ((_P, _P), None),
     "pta_bytes": ((_P,), _I64),
     "pta_reused": ((_P,), _I64),
+    # embed.cc
+    "pte_unique": ((_P, _I64, _P, _P, _I64), _I64),
+    "pte_gather_f32": ((_P, _I64, _I64, _P, _I64, _P, _I64), ctypes.c_int),
+    "pte_sgd_f32": ((_P, _I64, _I64, _P, _I64, _P, ctypes.c_float, _I64),
+                    ctypes.c_int),
+    "pte_adagrad_f32": ((_P, _P, _I64, _I64, _P, _I64, _P, ctypes.c_float,
+                         ctypes.c_float, _I64), ctypes.c_int),
+    "pte_merge_f32": ((_P, _I64, _P, _I64, _P, _P, _I64), _I64),
 }
 
 

@@ -3,8 +3,9 @@ its supervisor read, ``FLAGS_profile_memory``, the kernel registry's
 ``FLAGS_kernel_*``, the nan/inf scan's ``FLAGS_check_nan_inf*``, the
 stability sentinel's ``FLAGS_stability_*``, the HBM admission's
 ``FLAGS_hbm_*``, data parallelism's bucket, quantization and ZeRO
-switches, the watchdog's ``FLAGS_collective_timeout_s`` and the
-checkpoint's ``FLAGS_ckpt_verify_on_load``).
+switches, the watchdog's ``FLAGS_collective_timeout_s``, the
+checkpoint's ``FLAGS_ckpt_verify_on_load`` and the host embedding's
+``FLAGS_host_emb_*``).
 
 Same names, defaults and ``FLAGS_*`` environment pickup as the reference's
 ``paddle_tpu/framework/flags.py``; ``set_flags`` rejects unknown names with a
@@ -165,6 +166,30 @@ _FLAGS: Dict[str, object] = {
     "FLAGS_quantized_allreduce_block": 128,
     "FLAGS_quantized_allreduce_error_feedback": False,
     "FLAGS_dp_bucket_bytes": 25 * 1024 * 1024,
+    # Host-embedding parameter server (incubate/host_embedding.py).
+    # FLAGS_host_emb_native routes the table's batched unique/gather, the
+    # duplicate-id grad merge and the sparse update through the native
+    # library (core/csrc/embed.cc; multi-threaded, bit-exact with the numpy
+    # path); a library that cannot be built raises. 0 selects the numpy path
+    # explicitly. FLAGS_host_emb_threads caps the kernel thread count (0 =
+    # every core). FLAGS_host_emb_cache_rows sizes the device hot-row cache
+    # (rows; 0 = off); admission needs FLAGS_host_emb_cache_min_count
+    # sightings, and when the device budget resolves the cache is clamped
+    # to FLAGS_host_emb_cache_frac of it (a pressure handler halves it).
+    # FLAGS_host_emb_async_push makes apply_gradients enqueue the sparse
+    # update to the PS worker thread (FIFO against later pulls). Sharded
+    # table transport: FLAGS_host_emb_chunk_bytes per store message,
+    # FLAGS_host_emb_transport_threads parallel store clients (0 = serial),
+    # FLAGS_host_emb_push_fp16 sends push grads as float16 (lossy, off).
+    "FLAGS_host_emb_native": True,
+    "FLAGS_host_emb_threads": 16,
+    "FLAGS_host_emb_cache_rows": 0,
+    "FLAGS_host_emb_cache_min_count": 3,
+    "FLAGS_host_emb_cache_frac": 0.25,
+    "FLAGS_host_emb_async_push": False,
+    "FLAGS_host_emb_chunk_bytes": 4 * 1024 * 1024,
+    "FLAGS_host_emb_transport_threads": 4,
+    "FLAGS_host_emb_push_fp16": False,
 }
 
 for _k, _cur in list(_FLAGS.items()):

@@ -18,9 +18,10 @@ static ``Program`` view (an FX graph from ``make_fx``) and
   program's first argument (so the file holds no weights; their names and
   the device it was traced on are in its ``paddle_tpu_torch.json`` extra
   file). A ``None``/-1 dimension of a spec is a ``torch.export.Dim`` of its
-  own (``d<spec>_<dim>``, at least 1); a forward that is not
-  shape-polymorphic falls back to a static export at size 1, as the
-  reference does;
+  own (``torch.export.Dim.DYNAMIC``, which export narrows itself where a
+  kernel bounds it, as the card's grid bounds a convolution net's batch
+  at 65535); a forward that is not shape-polymorphic falls back to a
+  static export at size 1, as the reference does;
 - ``{path}.pdiparams``: the weights, once, by ``framework.io.save`` in the
   reference's format: ``{"state": state_dict, "specs": [(shape, dtype
   name, name)]}``, which either package's ``framework.io.load`` reads;
@@ -49,6 +50,12 @@ says, and ignores the per-parameter lr scale. The port keeps both
 behaviours, since each is held against the reference: ``step()`` for the
 eager loop, ``Optimizer._step(functional=True)`` here.
 
+While a call runs, :func:`in_compiled_step` is true: the reference traces
+the step, and a layer that takes another branch under a trace reads it
+(``quantization.FakeQuantMovingAverageAbsMax`` quantizes with the batch's
+abs-max and leaves its moving average alone, as the reference's traced
+branch does).
+
 With ``FLAGS_check_nan_inf`` set, a call raises ``TypeError``, as the
 reference's traced step does (``core/dispatch.py``).
 
@@ -75,6 +82,7 @@ allocator's counters and adds no host sync.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import io
 import json
 import os
@@ -88,10 +96,21 @@ from ..core.place import resolve_device
 from ..framework.flags import flag
 from ..static.input import InputSpec
 
-__all__ = ["CompiledTrainStep", "compile_train_step", "StaticFunction",
+__all__ = ["CompiledTrainStep", "compile_train_step", "in_compiled_step",
+           "StaticFunction",
            "to_static", "declarative", "not_to_static", "ignore_module",
            "enable_to_static", "save", "load", "TranslatedLayer",
            "InputSpec"]
+
+
+_COMPILED_STEP = contextvars.ContextVar("paddle_tpu_torch_compiled_step",
+                                        default=False)
+
+
+def in_compiled_step() -> bool:
+    """True inside a ``CompiledTrainStep`` call (the reference's traced
+    step)."""
+    return _COMPILED_STEP.get()
 
 
 class CompiledTrainStep:
@@ -136,10 +155,14 @@ class CompiledTrainStep:
             return loss.detach()
 
     def _run(self, batch):
-        self.optimizer.clear_grad(set_to_zero=False)
-        loss = self.loss_fn(self.model, *batch)
-        loss.backward()
-        self.optimizer._step(functional=True)
+        token = _COMPILED_STEP.set(True)
+        try:
+            self.optimizer.clear_grad(set_to_zero=False)
+            loss = self.loss_fn(self.model, *batch)
+            loss.backward()
+            self.optimizer._step(functional=True)
+        finally:
+            _COMPILED_STEP.reset(token)
         self._step_count += 1
         return loss
 
@@ -371,17 +394,18 @@ def _example(spec, device, dynamic):
 
 def _export(module, weights, specs, device, no_grad=False):
     """(ExportedProgram, dynamic) of ``module(weights, inputs)`` (or
-    ``module(*inputs)`` when ``weights`` is ``()``); free dims symbolic, or
-    static at size 1 when the trace is not shape-polymorphic."""
+    ``module(*inputs)`` when ``weights`` is ``()``); free dims symbolic
+    (within the range export finds), or static at size 1 when the trace
+    is not shape-polymorphic."""
     lifted = isinstance(module, _Lifted)
 
     def attempt(dynamic):
         ex = [_example(s, device, dynamic) for s in specs]
         dims = None
         if dynamic:
-            dims = [{di: torch.export.Dim(f"d{si}_{di}", min=1)
+            dims = [{di: torch.export.Dim.DYNAMIC
                      for di, d in enumerate(s.shape) if _is_dynamic(d)}
-                    or None for si, s in enumerate(specs)]
+                    or None for s in specs]
             # _Bound.forward(*inputs) takes them as one varargs tuple
             dims = ([None] * len(weights), dims) if lifted else (tuple(dims),)
         args = (list(weights), ex) if lifted else tuple(ex)

@@ -80,7 +80,9 @@ def load_reference_state_dict(model: torch.nn.Module,
         p, a = targets[name], np.asarray(state[name])
         np_dtype = a.dtype
         try:
-            a = shard_of(torch.from_numpy(np.ascontiguousarray(a)),
+            # np.require keeps a 0-d buffer 0-d (np.ascontiguousarray
+            # would make it shape (1,))
+            a = shard_of(torch.from_numpy(np.require(a, requirements="C")),
                          layouts.get(name, "replicated"), mp_rank, mp_degree)
         except ValueError as e:
             errors.append(f"{name}: {e}")

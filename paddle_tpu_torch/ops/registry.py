@@ -2,10 +2,10 @@
 names every forward op endpoint of the port.
 
 The reference tries its ``nn.functional`` submodules, ``vision.ops``,
-``text``, ``quantization`` and ``incubate`` under ``except ImportError``.
-The port names exactly the modules it has, so a broken import raises;
-``MISSING_MODULES`` lists the reference's registry modules the port has
-not ported yet, whose names ``all_ops()`` therefore lacks.
+``text`` and ``incubate`` under ``except ImportError``. The port names
+exactly the modules it has, so a broken import raises; ``MISSING_MODULES``
+lists the reference's registry modules the port has not ported yet, whose
+names ``all_ops()`` therefore lacks.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import inspect
 from typing import Callable, Dict
 
 # the reference registry's modules not in the port yet (its queue A)
-MISSING_MODULES = ("quantization", "text", "incubate.operators")
+MISSING_MODULES = ("text",)
 
 
 def _module_fns(mod, prefix=""):
@@ -60,6 +60,16 @@ def all_ops() -> Dict[str, Callable]:
                 for n in sequence.__all__})
     ops.update({f"metric.{n}": getattr(metrics_ops, n)
                 for n in metrics_ops.__all__})
+    from .. import quantization as quant_mod
+    from ..incubate import operators as incubate_ops
+
+    ops.update({f"quant.{n}": getattr(quant_mod, n)
+                for n in ("fake_quantize_dequantize_abs_max",
+                          "quantize_to_int8")})
+    ops.update({f"incubate.{n}": getattr(incubate_ops, n)
+                for n in ("softmax_mask_fuse",
+                          "softmax_mask_fuse_upper_triangle",
+                          "graph_send_recv", "graph_khop_sampler")})
     ops.update(inplace.INPLACE_OPS)
     return ops
 

@@ -353,6 +353,13 @@ CASES = {
     "mv": _pair(X, VEC[:4]),
     "einsum": lambda t: (["bij,bjk->bik", t(B3),
                           t(np.swapaxes(B3, 1, 2).copy())], {}),
+    # incubate
+    "incubate.softmax_mask_fuse": _pair(
+        B3, (np.arange(24).reshape(2, 3, 4) % 3 == 0).astype(np.float32)
+        * -1e4),
+    "incubate.graph_send_recv": lambda t: (
+        [t(X), t(np.array([0, 1, 2, 3, 1])), t(np.array([1, 1, 0, 3, 2]))],
+        {"pool_type": "mean"}),
     # shapes and indices
     **{n: (lambda t: ([t(B3), [4, -1]], {})) for n in ("reshape", "view")},
     **{n: (lambda t: ([t(X[:1]), [3, 4, 4]], {})) for n in (
@@ -570,6 +577,7 @@ RANDOM = {
     "exponential_", "functional.dropout", "functional.dropout2d",
     "functional.dropout3d", "functional.alpha_dropout",
     "functional.gumbel_softmax", "functional.class_center_sample",
+    "incubate.graph_khop_sampler",
 }
 # results unique only up to signs, phases or order (held in phase 18c);
 # lstsq's solvers differ (gelsd here, gels on the card)

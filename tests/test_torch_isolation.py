@@ -328,3 +328,45 @@ def test_c_api_loads_nothing_of_runtime_cpp():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_walk_covers_quantization_and_incubate():
+    for path in ("paddle_tpu_torch/quantization/__init__.py",
+                 "paddle_tpu_torch/incubate/__init__.py",
+                 "paddle_tpu_torch/incubate/operators.py",
+                 "paddle_tpu_torch/incubate/nn/__init__.py",
+                 "paddle_tpu_torch/incubate/asp.py",
+                 "paddle_tpu_torch/incubate/custom_op.py",
+                 "paddle_tpu_torch/incubate/distributed_fused_lamb.py",
+                 "paddle_tpu_torch/incubate/optimizer_extras.py",
+                 "paddle_tpu_torch/incubate/host_embedding.py"):
+        assert path in PORT_FILES, path
+    assert "paddle_tpu_torch/core/csrc/embed.cc" in PORT_SOURCES
+
+
+def test_host_embedding_loads_nothing_of_runtime_cpp():
+    """A process that trains the host embedding on the native kernels and
+    imports quantization and incubate has the port's library mapped (its
+    own embed.cc), nothing from runtime_cpp/, and no JAX."""
+    code = ("import sys, numpy as np, torch\n"
+            "import paddle_tpu_torch as tp\n"
+            "from paddle_tpu_torch import incubate, quantization\n"
+            "from paddle_tpu_torch.core import native\n"
+            "from paddle_tpu_torch.framework.flags import set_flags\n"
+            "tp.set_device('cpu')\n"
+            "set_flags({'FLAGS_host_emb_native': True})\n"
+            "emb = incubate.HostEmbedding(64, 8)\n"
+            "out = emb(torch.tensor([[1, 2, 2, 5]]))\n"
+            "(out * out).sum().backward()\n"
+            "emb.apply_gradients(0.1)\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert str(native.library_path()) in maps\n"
+            "assert 'runtime_cpp' not in maps, 'runtime_cpp mapped'\n"
+            "assert 'libpaddle_tpu_runtime' not in maps\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

@@ -125,11 +125,10 @@ def _module_fns(mod):
 
 
 def _missing():
-    """The reference registry's names from the modules not ported yet:
-    ``quantization``, ``text`` and ``incubate.operators`` (every
-    ``nn.functional`` module's and ``vision.ops``' are in the port)."""
-    return {k for k in RR.all_ops() if k.split(".")[0] in (
-        "quant", "text", "incubate")}
+    """The reference registry's names from the module not ported yet:
+    ``text`` (every ``nn.functional`` module's, ``vision.ops``',
+    ``quantization``'s and ``incubate.operators``' are in the port)."""
+    return {k for k in RR.all_ops() if k.split(".")[0] == "text"}
 
 
 def test_all_ops_is_the_references_less_the_modules_not_ported():
@@ -138,7 +137,7 @@ def test_all_ops_is_the_references_less_the_modules_not_ported():
     assert port - ref == set(), sorted(port - ref)
     assert ref - port == missing, (sorted(ref - port - missing),
                                    sorted(missing - (ref - port)))
-    assert len(missing) == 7, len(missing)
+    assert len(missing) == 1, len(missing)
     assert PR.op_count() == len(ref) - len(missing)
     assert all(callable(f) for f in PR.all_ops().values())
 
@@ -193,8 +192,7 @@ def test_static_op_time_measures_and_caches():
 
 
 def test_missing_modules_are_named():
-    assert PR.MISSING_MODULES == ("quantization", "text",
-                                  "incubate.operators")
+    assert PR.MISSING_MODULES == ("text",)
     assert inspect.isfunction(PR.all_ops)
 
 
