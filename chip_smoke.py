@@ -21,6 +21,8 @@
     python3 chip_smoke.py --phase22  # the build and phase 22 alone: its
                                      #   quant_incubate line, no result
                                      #   line
+    python3 chip_smoke.py --phase23  # the build and phase 23 alone: its
+                                     #   text_data line, no result line
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -376,8 +378,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    bit-equal fails; the kernel at the shard shape against its plain
    version (``TOL``, ``PAGED_O_REL_TOL``), timed beside its bound; one
    decode step's gather bytes against ``tp_collective_bytes``. (17b)
-   Llama-7B at full width and ``TP_LLAMA_LAYERS`` = 8 layers (cut from 32
-   to hold the whole script near 900 s) the same on the first 8 of drive
+   Llama-7B at full width and ``TP_LLAMA_LAYERS`` = 4 layers (cut from 32
+   to hold the whole script near 1000 s) the same on the first 8 of drive
    (c)'s prompts, with the peak memory. (17c) the int8 wire (``tp_int8``) on (a)'s requests: every
    stream complete, the token agreement, a decode step's wire bytes equal
    to ``tp_collective_bytes``' int8 figure. (17d) drive (i)'s
@@ -545,6 +547,34 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    restore. One ``{"quant_incubate": ...}`` line; the flash rows of
    ``kernels`` get ``launches_qat``, 22a's totals over the compiled and
    over the eager steps, each exactly 24 a step;
+23. text and the data modules (runs after phase 22; ``--phase23`` alone),
+   on ERNIE-3.0 base (vocab 40000, hidden 768, 12 layers, f32, seed 0):
+   (23a) a synthetic 40000-line WordPiece vocab (seed 0) and 64 documents
+   of 200-2000 characters (seed 1; upper case, accents, CJK, punctuation,
+   controls, and in 8 known ones the Unicode spaces U+3000, U+2003,
+   U+00A0 and U+0085) through ``text.FasterTokenizer`` (native, on the
+   port's ``tokenizer.cc``) as 64 pairs to (64, 512): the native ids must
+   equal the Python twin's on the other 56 documents, differ on exactly
+   those 8, and follow the C++ split rule (space only) on all 64; the
+   encoder and a 768 -> 27 tag head give (64, 512, 27) emissions, decoded
+   by ``text.viterbi_decode`` on the card with (29, 29) transitions (BOS
+   and EOS last) and the non-pad lengths, against the same decode on the
+   CPU (paths equal, scores within ``TEXT_SCORE_RTOL``); the tokenizer's
+   host ms and tokens/s, the forward's and the decode's ms (CUDA events)
+   and the decode's device ops a call; (23b) under ``FLAGS_thread_checks``,
+   ``dataset.imdb.train()`` -> ``reader.shuffle(buf_size=512)`` (after
+   ``random.seed(0)``) -> ``reader.xmap_readers`` (pad to 160, 4 threads,
+   in order) -> ``batch(32, drop_last=True)``: 16 AdamW (5e-5) steps of the
+   encoder with a 2-class head on its pooled output, losses finite; then 4
+   steps through ``io.DataLoader(text.Imdb)`` -> ``DevicePrefetcher``,
+   whose second consumer thread must raise ``OwnershipError``; (23c)
+   ``utils.dlpack`` both ways on a card tensor (one buffer, writes seen
+   through each view), ``device``'s counts and ``synchronize``,
+   ``hub.load`` of ResNet-50 from a temporary ``hubconf.py`` bit-equal to
+   the same model built directly, ``onnx.export`` of 23b's classifier
+   through ``jit.load`` bit-equal to eager, ``format="onnx"`` raising;
+   (23d) ``analysis.run_all()`` over the port: no finding. One
+   ``{"text_data": ...}`` line; no kernel runs on this path;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -596,8 +626,12 @@ searches, persistence, tuned drive, host µs and the 192-row int8 checks,
 phase 14, ``{"fleet_part2": {...}}``, phase 15, and
 ``{"auto_parallel_ckpt": {...}}``, phase 16, ``{"tp_native": {...}}``,
 phase 17, ``{"op_surface": {...}}``, phase 18, ``{"nn": {...}}``,
-phase 19, ``{"hapi_vision": {...}}``, phase 20, and
-``{"export": {...}}``, phase 21.
+phase 19, ``{"hapi_vision": {...}}``, phase 20,
+``{"export": {...}}``, phase 21, ``{"quant_incubate": {...}}``, phase
+22, and ``{"text_data": {...}}``, phase 23 (the card, 23a's counts, ms,
+tokens/s and worst score, 23b's step ms and losses, 23c's equalities
+and export seconds, 23d's seconds and baseline size, and the phase's
+seconds).
 """
 from __future__ import annotations
 
@@ -2816,9 +2850,10 @@ def engine_phase(profile=False):
 TP = 2
 TP_DEVICES = ("cuda:0", "cuda:0")  # both shards on the one card
 TP_LLAMA_REQUESTS = 8  # (17b): the first 8 of drive (c)'s prompts
-# (17b): Llama-7B's depth at tp = 2, cut from 32 to hold the whole script
-# near 900 s (full width: the shard shapes are the full model's)
-TP_LLAMA_LAYERS = 8
+# (17b): Llama-7B's depth at tp = 2, cut from 32 to 8, then to 4 when
+# phase 23 joined, to hold the whole script near 1000 s (full width: the
+# shard shapes are the full model's)
+TP_LLAMA_LAYERS = 4
 TP_NATIVE = {}  # phase 17's results: the {"tp_native": ...} line
 LOADER_STEPS = 4  # (17e): 12a's steps fed by the thread-worker loader
 
@@ -9835,6 +9870,476 @@ def quant_incubate_phase(card, dev="cuda", cfgs=None):
           f"{QI.get('peak_gib', 0.0):.2f} GiB")
 
 
+TEXT = {}  # phase 23's results: the {"text_data": ...} line
+TEXT_VOCAB = 40000  # ERNIE-3.0 base's vocabulary
+TEXT_DOCS, TEXT_T, TEXT_TAGS = 64, 512, 27
+# the documents that carry the code points the reference's two tokenizer
+# backends split differently (U+3000, U+2003, U+00A0, U+0085)
+TEXT_DIVERGENT = tuple(range(3, TEXT_DOCS, 8))
+TEXT_WS = ("\u3000", "\u2003", "\xa0", "\x85")
+TEXT_SCORE_RTOL = 1e-6
+V1_PAD, V1_BATCH, V1_LR = 160, 32, 5e-5
+V1_LOADER_STEPS = 4
+
+
+def _letters(rng, lo, hi):
+    return "".join(chr(97 + c) for c in rng.randint(0, 26, rng.randint(lo,
+                                                                      hi)))
+
+
+def text_vocab(path, n=TEXT_VOCAB, seed=0):
+    """A synthetic ``n``-line WordPiece vocab from ``seed``, written to
+    ``path``: the special tokens, punctuation, 3000 CJK ideographs, ASCII
+    words and ``##`` continuations (one token a line, ids dense)."""
+    rng = np.random.RandomState(seed)
+    toks = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    toks += list("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+    toks += ["\u3001", "\u3002", "\uff0c", "\uff01", "\u2014", "\u2026"]
+    toks += [chr(0x4E00 + i) for i in range(3000)]
+    toks += ["café", "naïve", "über", "señor"]
+    seen = set(toks)
+    while len(toks) < n:
+        w = _letters(rng, 1, 9)
+        if rng.rand() < 0.3:
+            w = "##" + w[:4]
+        if w not in seen:
+            seen.add(w)
+            toks.append(w)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(toks) + "\n")
+    return toks
+
+
+def text_docs(words, n=TEXT_DOCS, seed=1):
+    """``n`` documents of 200-2000 characters from ``seed``: words (some
+    upper case, some unknown), accented words, CJK runs, punctuation,
+    control characters, tabs and newlines; the ``TEXT_DIVERGENT`` ones also
+    carry ``TEXT_WS``' code points."""
+    rng = np.random.RandomState(seed)
+    accented = ["Café", "naïve", "ÜBER", "señor",
+                "résumé"]
+    punct = list(",.!?;:()\"'-") + ["\u3001", "\u3002", "\uff0c"]
+    docs = []
+    for d in range(n):
+        want = int(rng.randint(200, 2001))
+        parts, size = [], 0
+        while size < want:
+            k = rng.randint(0, 10)
+            if k <= 4:
+                w = words[rng.randint(len(words))]
+                p = w.upper() if k == 0 else w.capitalize() if k == 1 else w
+            elif k == 5:
+                p = "".join(chr(0x4E00 + int(i))
+                            for i in rng.randint(0, 3200, rng.randint(1, 6)))
+            elif k == 6:
+                p = accented[rng.randint(len(accented))]
+            elif k == 7:
+                p = punct[rng.randint(len(punct))]
+            elif k == 8:
+                p = str(rng.choice(["\t", "\n", "\x01x", "\x7f", "\r\n"]))
+            else:
+                p = _letters(rng, 2, 12)
+            if d in TEXT_DIVERGENT and rng.rand() < 0.25:
+                p += TEXT_WS[rng.randint(len(TEXT_WS))]
+            parts.append(p)
+            size += len(p) + 1
+        docs.append(" ".join(parts)[:want])
+    return docs
+
+
+def _space_split_ids(tok, text):
+    """The C++ backend's rule in Python: the twin's cleaning, then a split
+    on the space alone (tab, newline and CR are spaces already); the only
+    place the reference's two backends differ."""
+    from paddle_tpu_torch.text.faster_tokenizer import (_is_cjk, _is_punct,
+                                                        _wordpiece)
+
+    text = text.split("\x00", 1)[0]
+    out = []
+    for ch in text:
+        cp = ord(ch)
+        if cp == 0 or cp == 0xFFFD or (
+                (cp < 0x20 or cp == 0x7F) and ch not in "\t\n\r"):
+            continue
+        if ch in " \t\n\r":
+            out.append(" ")
+            continue
+        if tok.do_lower_case and "A" <= ch <= "Z":
+            ch = ch.lower()
+            cp = ord(ch)
+        out.append(f" {ch} " if _is_cjk(cp) or _is_punct(cp) else ch)
+    return [i for w in "".join(out).split(" ") if w
+            for i in _wordpiece(w, tok.vocab, tok._unk)]
+
+
+def _events_ms(fn, dev, iters=5):
+    """Device ms a call of ``fn`` by CUDA events (``time_ms``; the host
+    clock on the CPU), and its output."""
+    out = fn()
+    if torch.device(dev).type == "cuda":
+        return time_ms(fn, iters), out
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3, out
+
+
+def text_tag_phase(model, dev, tmp, T=TEXT_T, docs_n=TEXT_DOCS):
+    """(23a) Text to tags at full width: ``FasterTokenizer`` on a 40000-line
+    vocab (native; the twin beside it), ERNIE-3.0 base's encoder and a
+    768 -> 27 tag head, ``text.viterbi_decode`` on the card against the
+    CPU."""
+    from paddle_tpu_torch import text
+    from paddle_tpu_torch.nn import Linear
+
+    vocab_path = os.path.join(tmp, "vocab.txt")
+    toks = text_vocab(vocab_path)
+    words = [w for w in toks if w.isascii() and w.isalpha()]
+    docs = text_docs(words, docs_n)
+    tok = text.FasterTokenizer(vocab_path, device=dev)
+    if not tok.is_native:
+        fail("23a: FasterTokenizer took the twin on a dense vocab")
+    twin = text.FasterTokenizer(vocab_path, device=dev)
+    twin._handle = None  # the Python twin
+    pairs = [docs[i ^ 1] for i in range(len(docs))]  # 32 pairs, both ways
+    t0 = time.perf_counter()
+    ids, seg = tok(docs, pairs, max_seq_len=T)
+    _sync(dev)
+    tok_s = time.perf_counter() - t0
+    n_tok = int((ids != tok._pad).sum())
+    ids_twin, _ = twin(docs, pairs, max_seq_len=T)
+    native = [tok._encode_one(d) for d in docs]
+    same, differ, where = [], [], []
+    for i, d in enumerate(docs):
+        (same if native[i] == twin._encode_one(d) else differ).append(i)
+        if native[i] != _space_split_ids(tok, d):
+            where.append(i)
+    if tuple(differ) != TEXT_DIVERGENT or where:
+        fail(f"23a: native and twin differ on documents {differ} (want "
+             f"{list(TEXT_DIVERGENT)}); the native ids break the C++ rule "
+             f"on {where}")
+    rows_differ = [i for i in range(len(docs))
+                   if not torch.equal(ids[i], ids_twin[i])]
+    if set(rows_differ) - {j for i in TEXT_DIVERGENT for j in (i, i ^ 1)}:
+        fail(f"23a: rows {rows_differ} differ outside the divergent pairs")
+    g = torch.Generator(dev).manual_seed(0)
+    head = Linear(model.config.hidden_size, TEXT_TAGS, device=dev,
+                  generator=g)
+    model.eval()
+
+    def encode():
+        with torch.no_grad():
+            seq, _ = model.ernie(ids, seg)
+            return head(seq)
+
+    ernie_ms, emis = _events_ms(encode, dev)
+    trans = torch.randn(TEXT_TAGS + 2, TEXT_TAGS + 2, generator=g,
+                        device=dev)
+    lens = (ids != tok._pad).sum(1)
+
+    def decode():
+        return text.viterbi_decode(emis, trans, lens)
+
+    dec_ms, (score, path) = _events_ms(decode, dev)
+    ev = device_timeline(decode, 1, "23a viterbi_decode") \
+        if torch.device(dev).type == "cuda" else []
+    cpu_score, cpu_path = text.viterbi_decode(emis.cpu(), trans.cpu(),
+                                              lens.cpu())
+    paths_equal = torch.equal(path.cpu(), cpu_path)
+    rel = float(((score.cpu() - cpu_score).abs()
+                 / cpu_score.abs().clamp_min(1e-30)).max())
+    if tuple(emis.shape) != (len(docs), T, TEXT_TAGS) \
+            or not torch.isfinite(emis).all() or not paths_equal \
+            or rel > TEXT_SCORE_RTOL or path.dtype != torch.int64:
+        fail(f"23a: emissions {tuple(emis.shape)}, paths equal "
+             f"{paths_equal}, worst score rel {rel:.3e}")
+    out = {"docs": len(docs), "shape": list(ids.shape),
+           "native": tok.is_native, "docs_native_equal_twin": len(same),
+           "docs_differing": len(differ), "rows_differing": len(rows_differ),
+           "tokenizer_ms": tok_s * 1e3, "tokens": n_tok,
+           "tokens_per_s": n_tok / tok_s,
+           "ernie_forward_ms": ernie_ms, "viterbi_ms": dec_ms,
+           "viterbi_launches_a_call": len(ev),
+           "paths_equal_cpu": paths_equal, "worst_score_rel": rel,
+           "mean_length": float(lens.float().mean())}
+    print(f"  23a: {len(docs)} documents -> {tuple(ids.shape)} native ids "
+          f"in {tok_s * 1e3:.1f} ms host ({n_tok / tok_s:.0f} tokens/s); "
+          f"native = twin on {len(same)} documents, differ on "
+          f"{len(differ)} ({differ}, the C++ split rule on all); ERNIE "
+          f"forward {ernie_ms:.2f} ms, viterbi_decode {dec_ms:.2f} ms "
+          f"({len(ev)} device ops a call), paths equal the CPU's "
+          f"{paths_equal}, worst score {rel:.2e} relative")
+    return out
+
+
+def _pad_sample(sample, T=V1_PAD):
+    """An (ids, label) sample with its ids cut or padded with 0 to ``T``."""
+    doc, label = sample
+    out = np.zeros(T, np.int64)
+    out[:min(T, len(doc))] = doc[:T]
+    return out, label
+
+
+def _pad_batch(batch):
+    """A batch of (ids, label) samples as (B, V1_PAD) int64 ids and (B,)
+    labels."""
+    rows = [_pad_sample(s) for s in batch]
+    return (np.stack([r for r, _ in rows]),
+            np.asarray([int(y) for _, y in rows], np.int64))
+
+
+def v1_data_phase(model, dev):
+    """(23b) ``dataset.imdb.train()`` -> ``reader.shuffle`` ->
+    ``reader.xmap_readers`` (pad to 160, 4 threads, in order) ->
+    ``batch(32, drop_last=True)`` trains ERNIE-3.0 base with a 2-class head
+    on its pooled output (AdamW 5e-5) under ``FLAGS_thread_checks``; then
+    ``io.DataLoader(text.Imdb)`` -> ``DevicePrefetcher`` for 4 steps, and a
+    second consumer thread must raise ``OwnershipError``."""
+    import random
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dataset, io, reader, text
+    from paddle_tpu_torch.analysis.thread_checks import OwnershipError
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.nn import Linear
+
+    set_flags({"FLAGS_thread_checks": True})
+    try:
+        g = torch.Generator(dev).manual_seed(1)
+        head = Linear(model.config.hidden_size, 2, device=dev, generator=g)
+        model.train()
+        params = list(model.ernie.parameters()) + list(head.parameters())
+        opt = pt.optimizer.AdamW(learning_rate=V1_LR, parameters=params)
+
+        def step(ids, labels):
+            _, pooled = model.ernie(ids)
+            loss = torch.nn.functional.cross_entropy(head(pooled), labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+
+        random.seed(0)
+        feed = pt.batch(reader.xmap_readers(
+            _pad_sample, reader.shuffle(dataset.imdb.train(), buf_size=512),
+            4, 64, order=True), V1_BATCH, drop_last=True)
+        losses, ms, n = [], [], 0
+        for batch in feed():
+            ids = torch.from_numpy(np.stack([s[0] for s in batch])).to(dev)
+            y = torch.tensor([int(s[1]) for s in batch], device=dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            losses.append(step(ids, y))
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            n += 1
+        vals = [float(v) for v in losses]
+        if n != 512 // V1_BATCH or not all(np.isfinite(vals)):
+            fail(f"23b: {n} v1 batches, losses {vals}")
+
+        loader = io.DataLoader(text.Imdb(mode="train"), batch_size=V1_BATCH,
+                               shuffle=False, drop_last=True,
+                               collate_fn=_pad_batch)
+        pre = io.DevicePrefetcher(loader, device=dev)
+        pl = []
+        for _ in range(V1_LOADER_STEPS):
+            ids, y = next(pre)
+            pl.append(float(step(ids, y)))
+        caught = []
+
+        def foreign():
+            try:
+                next(pre)
+            except OwnershipError as e:
+                caught.append(str(e))
+            except Exception as e:  # any other outcome fails below
+                caught.append(f"not an OwnershipError: {e!r}")
+
+        th = threading.Thread(target=foreign, name="foreign-consumer")
+        th.start()
+        th.join()
+        pre.close()
+        if len(caught) != 1 or "owned by" not in caught[0] \
+                or not all(np.isfinite(pl)):
+            fail(f"23b: the second consumer gave {caught}; prefetched "
+                 f"losses {pl}")
+    finally:
+        set_flags({"FLAGS_thread_checks": False})
+    out = {"v1_steps": n, "step_ms_median": float(np.median(ms)),
+           "loss_first": vals[0], "loss_last": vals[-1],
+           "ownership_errors_on_the_v1_path": 0,
+           "prefetcher_steps": len(pl), "prefetcher_losses": pl,
+           "foreign_consumer": caught[0]}
+    print(f"  23b: {n} v1 batches (b{V1_BATCH} x s{V1_PAD}), step "
+          f"{out['step_ms_median']:.2f} ms (median), loss {vals[0]:.4f} -> "
+          f"{vals[-1]:.4f}, no OwnershipError; {len(pl)} prefetched steps, "
+          f"the foreign consumer raised: {caught[0][:80]}")
+    return out, head
+
+
+class TextClassifier(torch.nn.Module):
+    """23b's classifier as one layer: ERNIE's pooled output through the
+    2-class head (what 23c exports)."""
+
+    def __init__(self, ernie, head):
+        super().__init__()
+        self.ernie, self.head = ernie, head
+
+    def forward(self, ids):
+        return self.head(self.ernie(ids)[1])
+
+
+HUBCONF = '''"""A local model repository for chip_smoke.py's phase 23c."""
+import torch
+
+from paddle_tpu_torch.vision.models import resnet50 as _resnet50
+
+
+def resnet50(seed=0, device="cuda"):
+    """ResNet-50 (1000 classes) with random weights from ``seed``."""
+    g = torch.Generator(device).manual_seed(seed)
+    return _resnet50(num_classes=1000, device=device, generator=g)
+'''
+
+
+def interop_phase(dev, tmp, classifier, B=8, S=224):
+    """(23c) ``utils.dlpack`` both ways on the card, the ``device``
+    functions, ``hub.load`` of ResNet-50 from a local ``hubconf.py``
+    against the same model built directly, ``onnx.export`` of 23b's
+    classifier (ids with a free batch, 160 positions) through ``jit.load``
+    against eager, and ``format="onnx"`` raising."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import device as pdevice
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.utils import dlpack
+    from paddle_tpu_torch.vision.models import resnet50
+
+    t = torch.arange(1 << 20, dtype=torch.float32, device=dev)
+    u = dlpack.from_dlpack(dlpack.to_dlpack(t))
+    w = torch.from_dlpack(dlpack.to_dlpack(u))
+    u[7] = -1.0
+    w[9] = -2.0
+    dl_ok = (u.data_ptr() == t.data_ptr() == w.data_ptr()
+             and float(t[7]) == -1.0 and float(u[9]) == -2.0
+             and not u.requires_grad)
+    avail = pdevice.get_available_device()
+    pdevice.synchronize(dev)
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        pdevice.cuda.synchronize()
+    dev_ok = (pdevice.device_count("gpu") == torch.cuda.device_count()
+              and ("gpu:0" if on_card else "cpu:0") in avail
+              and pdevice.cuda.device_count() == torch.cuda.device_count())
+    if not dl_ok or not dev_ok:
+        fail(f"23c: dlpack shares {dl_ok}, device functions {dev_ok} "
+             f"({avail})")
+    repo = os.path.join(tmp, "hub")
+    os.makedirs(repo)
+    with open(os.path.join(repo, "hubconf.py"), "w") as f:
+        f.write(HUBCONF)
+    det, bench = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        hub_net = pt.hub.load(repo, "resnet50", seed=5, device=str(dev))
+        g = torch.Generator(dev).manual_seed(5)
+        direct = resnet50(num_classes=1000, device=dev, generator=g)
+        hub_net.eval()
+        direct.eval()
+        x = torch.from_numpy(np.random.RandomState(23).randn(
+            B, 3, S, S).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            a, b = hub_net(x), direct(x)
+        hub_equal = torch.equal(a, b)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+    del hub_net, direct, x
+    classifier.eval()
+    prefix = os.path.join(tmp, "classifier.onnx")
+    t0 = time.monotonic()
+    got_prefix = pt.onnx.export(
+        classifier, prefix, input_spec=[InputSpec([None, V1_PAD], "int64",
+                                                  "ids")])
+    export_s = time.monotonic() - t0
+    loaded = pt.jit.load(got_prefix, device=dev)
+    ids = torch.from_numpy(np.random.RandomState(24).randint(
+        0, 5000, (B, V1_PAD))).to(dev)
+    with torch.no_grad():
+        want, got = classifier(ids), loaded(ids)
+    export_equal = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    try:
+        pt.onnx.export(classifier, prefix, format="onnx")
+        raised = False
+    except NotImplementedError:
+        raised = True
+    names = sorted(os.listdir(tmp))
+    if not hub_equal or not export_equal or not raised \
+            or got_prefix != prefix[:-5]:
+        fail(f"23c: hub bit-equal {hub_equal}, exported bit-equal "
+             f"{export_equal} ({err:.3e}), format='onnx' raised {raised}, "
+             f"files {names}")
+    out = {"dlpack_zero_copy": dl_ok, "devices": avail,
+           "hub_bit_equal": hub_equal, "export_bit_equal": export_equal,
+           "export_s": export_s, "onnx_format_raised": raised,
+           "artifact_bytes": _artifact_bytes(got_prefix)}
+    print(f"  23c: dlpack zero-copy both ways, {avail}; hub ResNet-50 "
+          f"bit-equal to the direct build; onnx.export of the classifier in "
+          f"{export_s:.1f} s ({out['artifact_bytes']}), jit.load bit-equal "
+          "to eager at b8; format='onnx' raised")
+    return out
+
+
+def analysis_phase():
+    """(23d) ``analysis.run_all()`` over the installed port: no unsuppressed
+    finding."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.analysis import lint
+
+    t0 = time.monotonic()
+    findings = analysis.run_all()
+    secs = time.monotonic() - t0
+    base = lint.load_baseline(analysis.baseline_path())
+    if findings:
+        fail("23d: " + "; ".join(map(repr, findings[:5])))
+    print(f"  23d: analysis.run_all() over {analysis.package_root()}: 0 "
+          f"findings in {secs:.2f} s ({len(base)} baseline entries)")
+    return {"findings": 0, "seconds": secs, "baseline_entries": len(base)}
+
+
+def text_data_phase(card, dev="cuda", cfgs=None):
+    """Phase 23: 23a-d; the results go on the ``text_data`` line. ``cfgs``
+    (ERNIE config, sequence length, 23c's image batch and size) cut the
+    sizes for a rehearsal on the CPU."""
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_3_base
+
+    ecfg, T, B, S = cfgs or (ernie_3_base(), TEXT_T, 8, 224)
+    on_card = torch.device(dev).type == "cuda"
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_text_")
+    try:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        TEXT["card"] = card
+        model = ErnieForPretraining(ecfg, seed=0, device=dev)
+        TEXT["23a"] = text_tag_phase(model, dev, tmp, T)
+        TEXT["23b"], head = v1_data_phase(model, dev)
+        TEXT["23c"] = interop_phase(dev, tmp, TextClassifier(model.ernie,
+                                                             head), B, S)
+        del model, head
+        TEXT["23d"] = analysis_phase()
+        if on_card:
+            TEXT["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    TEXT["seconds"] = time.monotonic() - t0
+    print(f"  (23) {TEXT['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -9866,6 +10371,10 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 22 alone "
                          "(quantization and incubate, 22a-e), print its "
                          "quant_incubate line and exit; no result line")
+    ap.add_argument("--phase23", action="store_true",
+                    help="build the kernels and run phase 23 alone (text "
+                         "and the data modules, 23a-d), print its text_data "
+                         "line and exit; no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -9977,6 +10486,11 @@ def main(argv=None) -> int:
         quant_incubate_phase(card)
         print(json.dumps({"quant_incubate": QI}))
         return 0
+    if args.phase23:
+        print("[23] text and the data modules alone")
+        text_data_phase(card)
+        print(json.dumps({"text_data": TEXT}))
+        return 0
 
     print("[2] kernels against their plain versions")
     errs = kernel_phase()
@@ -10047,6 +10561,12 @@ def main(argv=None) -> int:
           "incubate operators, fused layers, ASP, custom ops, LookAhead "
           "and ModelAverage")
     quant_incubate_phase(card)
+    print("[23] text and the data modules: ernie_3_base tags 64 documents "
+          "from FasterTokenizer (native tokenizer.cc) through "
+          "viterbi_decode; the v1 reader path trains it under "
+          "FLAGS_thread_checks; dlpack, device, hub and onnx.export; the "
+          "analysis over the port")
+    text_data_phase(card)
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -10162,6 +10682,7 @@ def main(argv=None) -> int:
     print(json.dumps({"hapi_vision": HV}))
     print(json.dumps({"export": EXPORT}))
     print(json.dumps({"quant_incubate": QI}))
+    print(json.dumps({"text_data": TEXT}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,12 @@ deployment: ``jit.to_static``/``save``/``load``, ``static`` (``InputSpec``,
 ``Predictor``; a C API over it in ``inference/csrc``), ``quantization``
 (QAT, PTQ and the int8 serving layers) and ``incubate`` (the fused
 layers, ASP, custom ops, DistributedFusedLamb, LookAhead/ModelAverage and
-the host-embedding parameter server). Under it, kernels written by hand
+the host-embedding parameter server), and the rest of the reference's
+surface: ``text`` (``FasterTokenizer`` on the native ``tokenizer.cc``,
+``viterbi_decode``, the text datasets), the v1 data modules (``dataset``,
+``reader``, ``batch``), ``device``, ``utils.dlpack``, ``hub``, ``onnx``
+and ``analysis`` (the linter and the lock and thread checks over the
+port's own sources). Under it, kernels written by hand
 in CUDA C++ (``ops/kernels/csrc``) serve and train:
 
 - serving: ``serving.Engine`` over the paged builders in
@@ -42,6 +47,8 @@ Entry points run on ``cuda`` unless the caller asks for the CPU
 (``set_device("cpu")`` or ``device="cpu"``); on the CPU every kernel wrapper
 runs its plain PyTorch version.
 """
+import torch as _torch
+
 from . import amp, autograd, distributed, io, jit, nn, optimizer, utils
 from .autograd import grad
 from .core.dtype import (bfloat16, bool_, complex64, complex128, float16,
@@ -49,9 +56,11 @@ from .core.dtype import (bfloat16, bool_, complex64, complex128, float16,
                          int32, int64, set_default_dtype, uint8)
 from .core.engine import (enable_grad, grad_enabled, no_grad,
                           set_grad_enabled)
-from .core.place import (CPUPlace, CUDAPlace, Place, TPUPlace, get_device,
-                         is_compiled_with_cuda, resolve_device, set_device)
-from .core.random import seed
+from .core.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, CustomPlace,
+                         IPUPlace, MLUPlace, NPUPlace, Place, TPUPlace,
+                         XPUPlace, get_device, is_compiled_with_cuda,
+                         is_compiled_with_tpu, resolve_device, set_device)
+from .core.random import get_rng_state, program_rng, seed, set_rng_state
 from .distributed.parallel import DataParallel
 from .core.tensor import Parameter, Tensor, to_tensor
 from .framework.flags import flag, get_flags, set_flags
@@ -113,6 +122,11 @@ from . import inference, static
 from . import incubate, quantization
 from .hapi.flops import flops
 from .hapi.model import Model, summary
+from . import fault, profiler
+from . import dataset, device, hub, onnx, reader, text
+from .batch import batch
+from .io import DataLoader
+from .nn.layer.common import ParameterList
 
 # the table ops join the top level without replacing a hand-written one
 _GENERATED_TOP = [n for n in _generated.GENERATED if n not in globals()]
@@ -133,6 +147,27 @@ is_grad_enabled = grad_enabled
 __version__ = "0.1.0"
 
 
+# paddle.dtype: the type of the port's dtypes, for isinstance checks (the
+# reference's is np.dtype, the type of its own)
+dtype = _torch.dtype
+
+
+def get_cudnn_version():
+    """cuDNN's version as an int where CUDA has cuDNN, else None (the
+    original Paddle's contract)."""
+    return _torch.backends.cudnn.version()
+
+
+def __getattr__(name):
+    # cost_model imports the kernel registry's autotune and tuning DB, which
+    # a process that never asks for it keeps unimported
+    if name == "cost_model":
+        import importlib
+
+        return importlib.import_module(f"{__name__}.cost_model")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def disable_static(place=None):
     """Eager is the only mode (reference: paddle.disable_static)."""
 
@@ -151,7 +186,11 @@ __all__ = [
     "utils", "grad", "DataParallel", "distribution", "fft",
     "linalg", "signal", "sparse", "tensor", "callbacks", "metric", "vision",
     "Model", "summary", "flops", "static", "inference", "incubate",
-    "quantization",
+    "quantization", "cost_model", "fault", "profiler", "dataset", "device",
+    "hub", "onnx", "reader", "text", "batch", "DataLoader", "ParameterList",
+    "dtype", "get_cudnn_version", "get_rng_state", "set_rng_state",
+    "program_rng", "CUDAPinnedPlace", "IPUPlace", "MLUPlace", "NPUPlace",
+    "XPUPlace", "CustomPlace", "is_compiled_with_tpu",
     "enable_static", "disable_static", "in_dynamic_mode",
     "bool", "save", "load",
     "bfloat16", "complex64", "complex128", "float16", "float32", "float64",

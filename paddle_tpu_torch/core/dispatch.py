@@ -106,8 +106,8 @@ def _nonfinite_error(name, idx, t, origin="eager", extra=None):
             "op": name, "output": idx, "origin": origin,
             "nonfinite_count": cnt, "first_flat_index": flat_idx,
             "message": msg, **(extra or {})})
-    except Exception:  # a crash dump must never mask the diagnostic
-        pass
+    except Exception:  # lint: ok(oom-handler) — flight-dump guard, nothing launches in this try
+        pass  # a crash dump must never mask the diagnostic
     return FloatingPointError(msg)
 
 

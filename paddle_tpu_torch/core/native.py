@@ -4,9 +4,10 @@
 The C++ sources are the port's own, in ``core/csrc/``: ``trace.cc`` (the
 profiler's event ring and span ring), ``queue.cc`` (the bounded blocking
 byte queue of the ``DataLoader``'s thread workers), ``arena.cc`` (the
-host staging arena) and ``embed.cc`` (the host embedding's unique, gather,
-duplicate-id merge and sparse SGD/Adagrad updates), with the reference's C
-ABI (``ptt_*``, ``ptq_*``, ``pta_*``, ``pte_*``). They are built together at
+host staging arena), ``embed.cc`` (the host embedding's unique, gather,
+duplicate-id merge and sparse SGD/Adagrad updates) and ``tokenizer.cc``
+(``text.FasterTokenizer``'s BasicTokenizer and WordPiece), with the
+reference's C ABI (``ptt_*``, ``ptq_*``, ``pta_*``, ``pte_*``, ``ptk_*``). They are built together at
 first use with ``g++ -O2 -fPIC -std=c++17 -pthread -shared`` into
 ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``), under a file name
 that carries the sources' hash, so an edited source is rebuilt and an
@@ -30,7 +31,7 @@ __all__ = ["lib", "build", "library_path", "HAS_SPANS", "NativeQueue"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("trace.cc", "queue.cc", "arena.cc", "embed.cc")
+SOURCES = ("trace.cc", "queue.cc", "arena.cc", "embed.cc", "tokenizer.cc")
 CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 
 _lib = None
@@ -78,6 +79,12 @@ _SIGS = {
     "pte_adagrad_f32": ((_P, _P, _I64, _I64, _P, _I64, _P, ctypes.c_float,
                          ctypes.c_float, _I64), ctypes.c_int),
     "pte_merge_f32": ((_P, _I64, _P, _I64, _P, _P, _I64), _I64),
+    # tokenizer.cc
+    "ptk_create": ((ctypes.c_char_p, ctypes.c_int), _P),
+    "ptk_destroy": ((_P,), None),
+    "ptk_vocab_size": ((_P,), _I64),
+    "ptk_token_id": ((_P, ctypes.c_char_p), _I64),
+    "ptk_encode": ((_P, ctypes.c_char_p, _P, _I64), _I64),
 }
 
 

@@ -105,6 +105,48 @@ def is_compiled_with_cuda() -> bool:
     return torch.backends.cuda.is_built()
 
 
+def is_compiled_with_tpu() -> bool:
+    """This build runs on CUDA or the CPU: never a TPU."""
+    return False
+
+
+class CUDAPinnedPlace(CPUPlace):
+    """Pinned host memory (reference ``platform/place.h``): host memory to
+    the caller; pinning the staging copies is the caching host allocator's
+    job (``DevicePrefetcher`` pins what it copies)."""
+
+
+class _UnavailablePlace:
+    """The reference's places with no hardware behind them here (IPU, MLU,
+    NPU, XPU, custom): constructing one raises instead of running on
+    another device."""
+
+    def __init__(self, *a, **k):
+        raise RuntimeError(
+            f"{type(self).__name__} hardware is not available in this "
+            "build; use CUDAPlace() or CPUPlace()")
+
+
+class IPUPlace(_UnavailablePlace):
+    pass
+
+
+class MLUPlace(_UnavailablePlace):
+    pass
+
+
+class NPUPlace(_UnavailablePlace):
+    pass
+
+
+class XPUPlace(_UnavailablePlace):
+    pass
+
+
+class CustomPlace(_UnavailablePlace):
+    pass
+
+
 def resolve_device(device=None) -> torch.device:
     """The ``torch.device`` for ``device`` (a Place, ``"gpu:0"``, a torch
     device or string); ``None`` reads ``set_device``'s choice and defaults
@@ -129,6 +171,8 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-__all__ = ["Place", "CPUPlace", "CUDAPlace", "TPUPlace", "set_device",
-           "get_device", "current_place", "is_compiled_with_cuda",
+__all__ = ["Place", "CPUPlace", "CUDAPlace", "TPUPlace", "CUDAPinnedPlace",
+           "IPUPlace", "MLUPlace", "NPUPlace", "XPUPlace", "CustomPlace",
+           "set_device", "get_device", "current_place",
+           "is_compiled_with_cuda", "is_compiled_with_tpu",
            "resolve_device"]

@@ -100,7 +100,7 @@ def configure(
     PADDLE_TPU_PROGRESS_DIR / PADDLE_TPU_STORE_DIR). Also registers the
     progress table as a flight-recorder context provider, so EVERY crash
     dump carries the cross-rank view."""
-    global _cfg
+    global _cfg, _guards, _local
     if rank is None:
         rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
     if world_size is None:
@@ -114,6 +114,13 @@ def configure(
     if progress_dir:
         os.makedirs(progress_dir, exist_ok=True)
     with _lock:
+        # FLAGS_thread_checks: wrap the shared tables so an unguarded
+        # mutation anywhere raises at the mutation site (identity when off
+        # and when already wrapped)
+        from ..analysis import thread_checks
+
+        _guards = thread_checks.guarded(_guards, _lock, "watchdog._guards")
+        _local = thread_checks.guarded(_local, _lock, "watchdog._local")
         _cfg = {
             "rank": int(rank),
             "world_size": int(world_size),
@@ -134,8 +141,14 @@ def reset() -> None:
     """Drop the session (tests). Outstanding guards are cleared and the
     monitor thread (if any) is stopped — after reset the process is back to
     the zero-thread disabled state the inert tripwire pins."""
-    global _cfg, _monitor
+    global _cfg, _monitor, _guards, _local
     with _lock:
+        from ..analysis import thread_checks
+
+        # drop configure()'s FLAGS_thread_checks proxies, so the disabled
+        # state is the one a fresh import has
+        _guards = thread_checks.unwrap(_guards)
+        _local = thread_checks.unwrap(_local)
         _cfg = None
         _local.clear()
         _guards.clear()

@@ -4,8 +4,9 @@ its supervisor read, ``FLAGS_profile_memory``, the kernel registry's
 stability sentinel's ``FLAGS_stability_*``, the HBM admission's
 ``FLAGS_hbm_*``, data parallelism's bucket, quantization and ZeRO
 switches, the watchdog's ``FLAGS_collective_timeout_s``, the
-checkpoint's ``FLAGS_ckpt_verify_on_load`` and the host embedding's
-``FLAGS_host_emb_*``).
+checkpoint's ``FLAGS_ckpt_verify_on_load``, the host embedding's
+``FLAGS_host_emb_*`` and the runtime ownership checks'
+``FLAGS_thread_checks``).
 
 Same names, defaults and ``FLAGS_*`` environment pickup as the reference's
 ``paddle_tpu/framework/flags.py``; ``set_flags`` rejects unknown names with a
@@ -24,6 +25,11 @@ _FLAGS: Dict[str, object] = {
     # leaves' CRCs against the manifest (distributed/checkpoint.py).
     "FLAGS_collective_timeout_s": 0.0,
     "FLAGS_ckpt_verify_on_load": True,
+    # Runtime ownership assertions (analysis/thread_checks.py): the
+    # watchdog's tables and the prefetcher's resume anchor are wrapped in
+    # proxies whose every mutation checks its lock or its owner thread, so
+    # a race fails at the mutation site. Off: the wrappers are identities.
+    "FLAGS_thread_checks": False,
     # The nan/inf scan (core/dispatch.py): while FLAGS_check_nan_inf is set,
     # every floating output of every op is checked and the first non-finite
     # one raises FloatingPointError. FLAGS_check_nan_inf_per_op is accepted;

@@ -652,8 +652,11 @@ class DevicePrefetcher:
         self._it = iter(it)
         self._host_source()
         # batches handed to the trainer (not the read-ahead): the resume
-        # anchor, read and written on the consumer thread only
-        self._consumed = [0]
+        # anchor, read and written on the consumer thread only, which
+        # FLAGS_thread_checks pins (the first thread to take a batch)
+        from ..analysis.thread_checks import owned
+
+        self._consumed = owned([0], "DevicePrefetcher._consumed")
         self._q: _queue.Queue = _queue.Queue(maxsize=max(1, int(buffer_size)))
         self._stop = threading.Event()
         self._start()
@@ -821,7 +824,9 @@ class DevicePrefetcher:
                             "DataLoader to restore into")
         self.close()
         loader.load_state_dict(sd)
-        self._consumed = [0]
+        from ..analysis.thread_checks import owned
+
+        self._consumed = owned([0], "DevicePrefetcher._consumed")
         # the position-tracking iterator itself: iter(loader) on a loader
         # with device_prefetch > 0 would start a nested prefetcher
         make = getattr(loader, "_stateful_iter", None)

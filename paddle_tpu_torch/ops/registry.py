@@ -4,16 +4,16 @@ names every forward op endpoint of the port.
 The reference tries its ``nn.functional`` submodules, ``vision.ops``,
 ``text`` and ``incubate`` under ``except ImportError``. The port names
 exactly the modules it has, so a broken import raises; ``MISSING_MODULES``
-lists the reference's registry modules the port has not ported yet, whose
-names ``all_ops()`` therefore lacks.
+lists the reference's registry modules the port has not ported, whose
+names ``all_ops()`` would lack: none is left.
 """
 from __future__ import annotations
 
 import inspect
 from typing import Callable, Dict
 
-# the reference registry's modules not in the port yet (its queue A)
-MISSING_MODULES = ("text",)
+# the reference registry's modules not in the port (none)
+MISSING_MODULES = ()
 
 
 def _module_fns(mod, prefix=""):
@@ -70,6 +70,10 @@ def all_ops() -> Dict[str, Callable]:
                 for n in ("softmax_mask_fuse",
                           "softmax_mask_fuse_upper_triangle",
                           "graph_send_recv", "graph_khop_sampler")})
+    from .. import text as text_mod
+
+    ops.update({f"text.{n}": getattr(text_mod, n)
+                for n in ("viterbi_decode",)})
     ops.update(inplace.INPLACE_OPS)
     return ops
 

@@ -113,6 +113,7 @@ SEQ = _R.randn(3, 5, 4).astype(np.float32)
 LEN = np.array([5, 0, 3], np.int64)
 IDS = _R.randint(0, 6, (3, 5)).astype(np.int64)
 SIG = _R.randn(2, 256).astype(np.float32)
+TRANS = np.random.RandomState(11).randn(6, 6).astype(np.float32)
 WIN = np.hanning(64).astype(np.float32)
 SPARSE = (X * (np.abs(X) > 0.6)).astype(np.float32)
 
@@ -484,6 +485,9 @@ CASES = {
     "metric.positive_negative_pair": lambda t: ([t(np.round(U.ravel(), 1)),
                                                  t(I32.ravel() % 3),
                                                  t(np.arange(16) // 4)], {}),
+    # SEQ's 4 tags, a (6, 6) transition table (BOS and EOS last), ragged
+    "text.viterbi_decode": lambda t: ([t(SEQ), t(TRANS), t(np.array(
+        [5, 1, 3]))], {}),
     "signal.frame": lambda t: ([t(SIG), 64, 16], {}),
     "signal.overlap_add": lambda t: ([t(SEQ), 2], {}),
     "signal.stft": lambda t: ([t(SIG), 64], {"hop_length": 16,

@@ -36,7 +36,7 @@ from typing import Dict, List, Optional
 
 __all__ = ["ProfilerTarget", "ProfilerState", "RecordEvent", "Profiler",
            "make_scheduler", "profiler_guard", "counter_inc", "counters",
-           "reset_counters", "memory_census", "memory_stats", "events",
+           "reset_counters", "KNOWN_COUNTERS", "memory_census", "memory_stats", "events",
            "span_events", "export_metrics", "span", "spans", "flight"]
 
 
@@ -78,17 +78,21 @@ def counter_inc(name: str, n: int = 1) -> None:
 
 def counters() -> Dict[str, int]:
     """Snapshot of the counters. The reference's names, for what the port
-    runs:
+    runs (``KNOWN_COUNTERS`` below is the registry):
 
     Serving engine: ``serve_requests`` / ``serve_admitted`` /
     ``serve_retired`` / ``serve_cancelled`` / ``serve_failed`` (request
     lifecycle), ``serve_prefills`` / ``serve_decode_steps`` /
     ``serve_tokens`` (work done), ``serve_compiles`` (step functions built),
     ``serve_backpressure``, ``serve_preempted``, ``serve_engine_errors``;
-    the prefix cache (``serve_prefix_hits`` / ``_misses`` /
-    ``_blocks_shared`` / ``_evicted``, ``serve_cow_copies``), chunked
-    prefill (``serve_prefill_chunks``, ``serve_tail_prefills``), speculative
-    decoding (``serve_draft_proposed`` / ``_accepted``).
+    the prefix cache (``serve_prefix_hits`` / ``serve_prefix_misses`` /
+    ``serve_prefix_blocks_shared`` / ``serve_prefix_evicted``,
+    ``serve_cow_copies``), chunked prefill (``serve_prefill_chunks``,
+    ``serve_tail_prefills``), speculative decoding
+    (``serve_draft_proposed`` / ``serve_draft_accepted``); the KV pool
+    (``serve_pages_allocated`` / ``serve_pages_freed`` /
+    ``serve_pages_shared``); tensor-parallel serving
+    (``serve_tp_gather_bytes``, the shards' gathered bytes).
 
     Resilience and durability: ``serve_shed``, ``serve_deadline_shed``,
     ``serve_deadline_expired``, ``serve_wedged_close``,
@@ -96,20 +100,43 @@ def counters() -> Dict[str, int]:
     ``serve_restarts`` / ``serve_requeued`` / ``serve_relayed``,
     ``serve_restart_mttr_ms``, ``serve_pool_damaged``, ``serve_snapshots`` /
     ``serve_snapshot_failed`` / ``serve_snapshot_rejected``,
-    ``serve_adoptions``, ``serve_reattached`` / ``_blocks``,
-    ``serve_reprefill_tokens`` / ``_saved``, ``serve_handoffs``;
-    device-memory pressure: ``hbm_oom_trips``, ``serve_pool_shrunk``,
+    ``serve_pool_restores``, ``serve_adoptions``, ``serve_reattached`` /
+    ``serve_reattached_blocks``, ``serve_reprefill_tokens`` /
+    ``serve_reprefill_tokens_saved``, ``serve_handoffs``; device-memory
+    pressure: ``hbm_oom_trips``, ``serve_pool_shrunk``,
     ``serve_pages_parked`` / ``serve_pages_unparked``.
 
     HBM admission and the out-of-memory ladder (``fault/memory.py``):
     ``hbm_admission_checks`` / ``hbm_admission_rejects`` (preflight
     decisions under ``FLAGS_hbm_admission``), ``hbm_oom_recoveries``
     (ladder rungs that brought a step back: a retry or a degrade),
-    ``hbm_degraded_steps`` (steps re-run through the accumulate path),
-    ``hbm_cache_evicted`` (the reference's cold-executable evictions; the
-    port keeps no executable cache, so it never moves). Data parallelism
-    (``distributed/parallel.py``): ``dp_buckets``, ``dp_all_reduces``,
-    ``dp_sync_bytes``.
+    ``hbm_degraded_steps`` (steps re-run through the accumulate path). The
+    reference's ``hbm_cache_evicted`` counts cold-executable evictions; the
+    port keeps no executable cache and has no such counter. Data
+    parallelism (``distributed/parallel.py``, the sharded update):
+    ``dp_buckets``, ``dp_all_reduces``, ``dp_sync_bytes``,
+    ``dp_reduce_scatters``, ``dp_gather_bytes``.
+
+    Training runtime: ``naninf_trips`` (the nan/inf scan),
+    ``io_device_prefetched`` (batches the ``DevicePrefetcher`` staged),
+    ``io_quarantine_skips`` (quarantined samples skipped),
+    ``metric_host_reads`` (``metric`` updates' host reads),
+    ``retry_attempts``, ``preemption_drains``; the stability sentinel:
+    ``stability_observed``, ``stability_readbacks``, ``stability_trips``,
+    ``stability_skips``, ``stability_rollbacks``, ``stability_halts``,
+    ``stability_coordinated_trips``, ``stability_barrier_timeouts``;
+    supervision and checkpoints: ``watchdog_trips``,
+    ``heartbeat_failures``, ``ckpt_saves``, ``ckpt_save_failures``,
+    ``ckpt_coordinated_commits``, ``ckpt_resume_fallbacks``.
+
+    Host embedding (``incubate/host_embedding.py``): ``host_emb_lookups``,
+    ``host_emb_hot_hits`` / ``host_emb_hot_misses``,
+    ``host_emb_cache_admitted`` / ``host_emb_cache_evicted`` /
+    ``host_emb_cache_shrinks``, ``host_emb_prefetch_hits`` /
+    ``host_emb_prefetch_drops`` / ``host_emb_prefetch_patched``,
+    ``host_emb_push_bytes``, ``host_emb_block_ns`` (host ns blocked on the
+    table), ``host_emb_transport_serial`` (sharded-table transfers left on
+    the serial path because the parallel transport's connections failed).
 
     Serving observability: ``serve_trace_evicted`` (completed timelines
     dropped from the bounded trace ring), ``serve_http_requests`` (telemetry
@@ -117,12 +144,69 @@ def counters() -> Dict[str, int]:
     that lost the port). Telemetry: ``flight_dumps``.
 
     Kernel registry (``ops/kernels``, only with ``FLAGS_kernel_autotune``
-    ``ondemand`` or ``search``): ``kernel_tune_hits`` / ``_misses`` (tuning
-    DB), ``kernel_tune_searches``, ``kernel_tune_candidates``,
-    ``kernel_tune_candidate_errors``, ``kernel_tune_verify_fails``,
-    ``kernel_tune_budget_stops``, ``kernel_tune_db_rejects``."""
+    ``ondemand`` or ``search``): ``kernel_tune_hits`` /
+    ``kernel_tune_misses`` (tuning DB), ``kernel_tune_searches``,
+    ``kernel_tune_candidates``, ``kernel_tune_candidate_errors``,
+    ``kernel_tune_verify_fails``, ``kernel_tune_budget_stops``,
+    ``kernel_tune_db_rejects``."""
     with _lock:
         return dict(_counters)
+
+
+# The counter registry: every counter the package bumps, by name. The
+# ``counter-registry`` lint rule (analysis/lint.py) holds the three-way
+# contract: every ``counter_inc`` literal in the package appears here, every
+# name here is bumped somewhere, and every name here is documented
+# (double-backticked) in the :func:`counters` docstring above.
+KNOWN_COUNTERS = frozenset({
+    "ckpt_coordinated_commits", "ckpt_resume_fallbacks",
+    "ckpt_save_failures", "ckpt_saves",
+    "dp_all_reduces", "dp_buckets", "dp_gather_bytes",
+    "dp_reduce_scatters", "dp_sync_bytes",
+    "flight_dumps",
+    "hbm_admission_checks", "hbm_admission_rejects",
+    "hbm_degraded_steps", "hbm_oom_recoveries", "hbm_oom_trips",
+    "heartbeat_failures",
+    "host_emb_block_ns", "host_emb_cache_admitted",
+    "host_emb_cache_evicted", "host_emb_cache_shrinks",
+    "host_emb_hot_hits", "host_emb_hot_misses", "host_emb_lookups",
+    "host_emb_prefetch_drops", "host_emb_prefetch_hits",
+    "host_emb_prefetch_patched", "host_emb_push_bytes",
+    "host_emb_transport_serial",
+    "io_device_prefetched", "io_quarantine_skips",
+    "kernel_tune_budget_stops", "kernel_tune_candidate_errors",
+    "kernel_tune_candidates", "kernel_tune_db_rejects",
+    "kernel_tune_hits", "kernel_tune_misses", "kernel_tune_searches",
+    "kernel_tune_verify_fails",
+    "metric_host_reads",
+    "naninf_trips",
+    "preemption_drains", "retry_attempts",
+    "serve_admitted", "serve_adoptions", "serve_backpressure",
+    "serve_cancelled", "serve_compiles", "serve_cow_copies",
+    "serve_crash_detected", "serve_deadline_expired",
+    "serve_deadline_shed", "serve_decode_steps",
+    "serve_draft_accepted", "serve_draft_proposed",
+    "serve_engine_errors", "serve_failed", "serve_handoffs",
+    "serve_http_bind_failed", "serve_http_requests",
+    "serve_pages_allocated", "serve_pages_freed", "serve_pages_parked",
+    "serve_pages_shared", "serve_pages_unparked", "serve_pool_damaged",
+    "serve_pool_restores", "serve_pool_shrunk", "serve_preempted",
+    "serve_prefill_chunks", "serve_prefills",
+    "serve_prefix_blocks_shared", "serve_prefix_evicted",
+    "serve_prefix_hits", "serve_prefix_misses",
+    "serve_reattached", "serve_reattached_blocks", "serve_relayed",
+    "serve_reprefill_tokens", "serve_reprefill_tokens_saved",
+    "serve_requests", "serve_requeued", "serve_restart_mttr_ms",
+    "serve_restarts", "serve_retired", "serve_shed",
+    "serve_snapshot_failed", "serve_snapshot_rejected",
+    "serve_snapshots", "serve_tail_prefills", "serve_tokens",
+    "serve_tp_gather_bytes", "serve_trace_evicted",
+    "serve_wedge_detected", "serve_wedged_close",
+    "stability_barrier_timeouts", "stability_coordinated_trips",
+    "stability_halts", "stability_observed", "stability_readbacks",
+    "stability_rollbacks", "stability_skips", "stability_trips",
+    "watchdog_trips",
+})
 
 
 def reset_counters() -> None:

@@ -915,7 +915,7 @@ class Engine:
         if self._watchdog is not None:
             try:  # a stale unit record must not outlive its engine
                 self._watchdog.remove_unit(self._provider)
-            except Exception:
+            except Exception:  # lint: ok(oom-handler) — store bookkeeping, nothing launches in this try
                 pass
         if not on_sched_thread:
             # a drain may have used the whole budget on real work: the
@@ -1085,7 +1085,7 @@ class Engine:
             prefix = snap.get("prefix")
             kpool, vpool = snap["kpool"], snap["vpool"]
             fp = snap["fingerprint"]
-        except Exception as e:
+        except Exception as e:  # lint: ok(oom-handler) — dict probing, nothing launches in this try
             raise SnapshotError(f"malformed engine snapshot: {e!r}") from e
         if version != SNAPSHOT_VERSION:
             raise SnapshotError(
@@ -1363,7 +1363,7 @@ class Engine:
     def __del__(self):
         try:
             self.close(timeout=2.0)
-        except Exception:
+        except Exception:  # lint: ok(oom-handler) — teardown guard, nothing launches in this try
             pass
 
     # ------------------------------------------------------- engine thread
@@ -1505,7 +1505,7 @@ class Engine:
             try:
                 if seq.blocks:
                     self._pool.free(seq.blocks)
-            except RuntimeError:  # the pool may be what broke
+            except RuntimeError:  # lint: ok(oom-handler) — the pool may be what broke; host bookkeeping, nothing launches
                 pass
             seq.blocks = []
             seq.chunk_pos = 0
@@ -2234,7 +2234,7 @@ class Engine:
         if self._prefix is not None:
             try:
                 self._prefix.release_all()
-            except RuntimeError:  # a corrupt pool must not stop the sweep
+            except RuntimeError:  # lint: ok(oom-handler) — corrupt-pool containment sweep, the crash was classified in _step
                 pass
         with self._cv:
             waiting = list(self._waiting)
@@ -2248,7 +2248,7 @@ class Engine:
             if seq.blocks:
                 try:
                     self._pool.free(seq.blocks)
-                except RuntimeError:  # a corrupt pool must not stop the sweep
+                except RuntimeError:  # lint: ok(oom-handler) — corrupt-pool containment sweep, the crash was classified in _step
                     pass
                 seq.blocks = []
             self._finish_request(seq.req, error=ServeError(str(err)))

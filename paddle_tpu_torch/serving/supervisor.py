@@ -346,7 +346,7 @@ class ServingSupervisor:
     def __del__(self):
         try:
             self.close(timeout=2.0)
-        except Exception:
+        except Exception:  # lint: ok(oom-handler) — teardown guard, nothing launches in this try
             pass
 
     # ------------------------------------------------------------- recovery
@@ -371,7 +371,7 @@ class ServingSupervisor:
             flight.dump(f"serving_supervisor_{kind}",
                         extra={"reason": str(err), "restarts": restarts,
                                "exhausted": exhausted})
-        except Exception:
+        except Exception:  # lint: ok(oom-handler) — flight-dump guard, nothing launches in this try
             pass  # a failed dump must not stop the recovery
         # quarantine: a bounded wedge that wakes later must exit at its next
         # check instead of driving a restarted request's stream
@@ -383,7 +383,7 @@ class ServingSupervisor:
         if old._watchdog is not None:
             try:  # the dead engine's progress-table unit goes with it
                 old._watchdog.remove_unit(old._provider)
-            except Exception:
+            except Exception:  # lint: ok(oom-handler) — store bookkeeping, nothing launches in this try
                 pass
         # capture BEFORE the harvest empties the dead loop's lists; crash
         # only (a live wedged thread could tear it). A failed capture falls
@@ -575,7 +575,7 @@ class ServingSupervisor:
                            stream=req.stream_q is not None,
                            deadline_s=dl, priority=req.priority,
                            _shed_exempt=True, _trace=req.trace)
-        except Exception as e:
+        except Exception as e:  # lint: ok(oom-handler) — submit() only enqueues; the prefill launches on the engine thread
             _finish(req, error=e if isinstance(e, ServeError)
                     else ServeError(f"requeue after restart failed: {e!r}"))
             return None

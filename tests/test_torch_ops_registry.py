@@ -8,7 +8,7 @@
   counterpart in the port, and the names the reference's top level exports
   from them are exported by the port's.
 - The port's ``all_ops()`` is the reference's less exactly the names of the
-  modules not ported yet (``MISSING`` below, which ROADMAP's queue A names).
+  modules not ported (``MISSING_MODULES``: none is left).
 - Importing the port replaces no attribute of ``torch.Tensor`` (checked in
   a fresh interpreter that records every attribute first) and adds only
   names torch's tensor lacks.
@@ -125,10 +125,10 @@ def _module_fns(mod):
 
 
 def _missing():
-    """The reference registry's names from the module not ported yet:
-    ``text`` (every ``nn.functional`` module's, ``vision.ops``',
-    ``quantization``'s and ``incubate.operators``' are in the port)."""
-    return {k for k in RR.all_ops() if k.split(".")[0] == "text"}
+    """The reference registry's names from the modules not ported: none
+    (``text``'s ``viterbi_decode``, the last, is in the port)."""
+    return {k for k in RR.all_ops()
+            if k.split(".")[0] in PR.MISSING_MODULES}
 
 
 def test_all_ops_is_the_references_less_the_modules_not_ported():
@@ -137,7 +137,7 @@ def test_all_ops_is_the_references_less_the_modules_not_ported():
     assert port - ref == set(), sorted(port - ref)
     assert ref - port == missing, (sorted(ref - port - missing),
                                    sorted(missing - (ref - port)))
-    assert len(missing) == 1, len(missing)
+    assert len(missing) == 0, len(missing)
     assert PR.op_count() == len(ref) - len(missing)
     assert all(callable(f) for f in PR.all_ops().values())
 
@@ -192,7 +192,7 @@ def test_static_op_time_measures_and_caches():
 
 
 def test_missing_modules_are_named():
-    assert PR.MISSING_MODULES == ("text",)
+    assert PR.MISSING_MODULES == ()
     assert inspect.isfunction(PR.all_ops)
 
 
