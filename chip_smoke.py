@@ -23,6 +23,8 @@
                                      #   line
     python3 chip_smoke.py --phase23  # the build and phase 23 alone: its
                                      #   text_data line, no result line
+    python3 chip_smoke.py --phase24  # the build and phase 24 alone: its
+                                     #   parity line, no result line
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -575,6 +577,24 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    through ``jit.load`` bit-equal to eager, ``format="onnx"`` raising;
    (23d) ``analysis.run_all()`` over the port: no finding. One
    ``{"text_data": ...}`` line; no kernel runs on this path;
+24. the Paddle API below the top level (runs after phase 23; ``--phase24``
+   alone): (24a) the reference's 14 flags the port accepts without a reader
+   and ``FLAGS_cudnn_deterministic`` through ``set_flags``, read back
+   (``torch.backends.cudnn.deterministic`` must follow), then restored;
+   (24b) ``x.stop_gradient = False`` on a card tensor records the gradient,
+   ``autograd.jacobian``/``hessian`` of ``(t ** 3).sum()`` at t of 2048 f32
+   on the card against the same calls on the CPU (``PARITY_JAC_RTOL`` of
+   the largest value); (24c) GPT-3 1.3B (full width and depth, bf16, flash,
+   the fused CE, seed 0) through phase 7's eager AdamW loop on one b2 x
+   s2048 batch of seed-0 tokens: 5 uninterrupted steps, the model freed,
+   then 3 steps, ``state_dict()`` of the model and the optimizer copied on
+   the card, a fresh model through ``set_dict`` (its ``wte`` zeroed, then
+   loaded through ``weight.set_value``), a fresh optimizer through
+   ``load_state_dict`` and 2 more steps, the first backward through
+   ``autograd.backward([loss])``, the second clear through each
+   parameter's ``clear_grad()``: the 5 losses must be bit-equal, and each
+   flash kernel launched 24 a step. One ``{"parity": ...}`` line; the
+   flash rows of ``kernels`` get ``launches_parity``;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -628,10 +648,12 @@ phase 14, ``{"fleet_part2": {...}}``, phase 15, and
 phase 17, ``{"op_surface": {...}}``, phase 18, ``{"nn": {...}}``,
 phase 19, ``{"hapi_vision": {...}}``, phase 20,
 ``{"export": {...}}``, phase 21, ``{"quant_incubate": {...}}``, phase
-22, and ``{"text_data": {...}}``, phase 23 (the card, 23a's counts, ms,
+22, ``{"text_data": {...}}``, phase 23 (the card, 23a's counts, ms,
 tokens/s and worst score, 23b's step ms and losses, 23c's equalities
 and export seconds, 23d's seconds and baseline size, and the phase's
-seconds).
+seconds), and ``{"parity": {...}}``, phase 24 (the card, 24a's flags,
+24b's gradient and relative errors, 24c's losses of both runs and their
+equality, the flash launches, the phase's seconds and peak GiB).
 """
 from __future__ import annotations
 
@@ -10340,6 +10362,205 @@ def text_data_phase(card, dev="cuda", cfgs=None):
     print(f"  (23) {TEXT['seconds']:.1f} s")
 
 
+# -- phase 24: the Paddle API below the top level, on GPT-3 1.3B ---------------
+PARITY = {}  # phase 24's results: the {"parity": ...} line
+PARITY_STEPS, PARITY_RESUME_AT = 5, 3  # uninterrupted steps; resumed after
+PARITY_T = 2048  # jacobian/hessian of (t ** 3).sum() at t of this many f32
+PARITY_JAC_RTOL = 1e-6  # card against CPU, relative to the largest value
+# the reference's flags the port accepts without a reader (one new value
+# each), and FLAGS_cudnn_deterministic, which sets torch's cuDNN switch
+PARITY_FLAGS = {
+    "FLAGS_cudnn_deterministic": True,
+    "FLAGS_eager_delete_tensor_gb": 1.5,
+    "FLAGS_allocator_strategy": "naive_best_fit",
+    "FLAGS_fraction_of_gpu_memory_to_use": 0.5,
+    "FLAGS_use_bf16_matmul": False,
+    "FLAGS_jit_cache_size": 16,
+    "FLAGS_log_level": 3,
+    "FLAGS_lazy_verify": True,
+    "FLAGS_lazy_donate": False,
+    "FLAGS_lazy_async": False,
+    "FLAGS_lazy_bg_compile": True,
+    "FLAGS_xla_persistent_cache": False,
+    "FLAGS_xla_persistent_cache_dir": "cache",
+    "FLAGS_xla_persistent_cache_min_compile_secs": 2.0,
+}
+
+
+def parity_flags(paddle):
+    """(24a) The 14 flags through ``set_flags``, read back, restored."""
+    old = paddle.get_flags(list(PARITY_FLAGS))
+    cudnn = torch.backends.cudnn.deterministic
+    try:
+        paddle.set_flags(PARITY_FLAGS)
+        got = paddle.get_flags(list(PARITY_FLAGS))
+        det = torch.backends.cudnn.deterministic
+    finally:
+        paddle.set_flags(old)
+        torch.backends.cudnn.deterministic = cudnn
+    if got != PARITY_FLAGS or det is not True:
+        fail(f"24a: set_flags/get_flags gave {got}, cuDNN deterministic "
+             f"{det}")
+    print(f"  24a: {len(got)} flags set and read back, "
+          "torch.backends.cudnn.deterministic followed "
+          "FLAGS_cudnn_deterministic; restored")
+    return {"flags": len(got), "cudnn_deterministic": det}
+
+
+def parity_autograd(paddle, dev):
+    """(24b) ``stop_gradient = False`` on a card tensor records; jacobian
+    and hessian of ``(t ** 3).sum()`` on the card against the CPU."""
+    x = paddle.to_tensor(np.arange(1.0, 4.0, dtype=np.float32), place=dev)
+    x.stop_gradient = False
+    (x * x).sum().backward()
+    g = x.grad.cpu().numpy() if x.grad is not None else None
+    if g is None or not np.array_equal(g, [2.0, 4.0, 6.0]):
+        fail(f"24b: stop_gradient = False on {x.device} gave grad {g}")
+    t = np.random.RandomState(0).randn(PARITY_T).astype(np.float32)
+    out, errs = {}, {}
+    for op in ("jacobian", "hessian"):
+        fn = getattr(paddle.autograd, op)
+        res = [fn(lambda v: (v ** 3).sum(), torch.tensor(t, device=d))
+               for d in (dev, "cpu")]
+        card, cpu = res[0].cpu(), res[1]
+        errs[op] = float((card - cpu).abs().max() / cpu.abs().max())
+        out[op] = list(card.shape)
+        if card.shape != cpu.shape or not errs[op] <= PARITY_JAC_RTOL:
+            fail(f"24b: {op} on the card {tuple(card.shape)} against the "
+                 f"CPU {tuple(cpu.shape)}: relative error {errs[op]}")
+    print(f"  24b: stop_gradient = False on {x.device}: grad {g.tolist()}; "
+          f"jacobian {out['jacobian']} and hessian {out['hessian']} of "
+          f"(t ** 3).sum() at {PARITY_T} f32, card against CPU: "
+          f"{errs} (tol {PARITY_JAC_RTOL})")
+    return {"stop_gradient_grad": g.tolist(), "shapes": out,
+            "rel_err": errs}
+
+
+def parity_model(paddle, cfg, dev):
+    """Phase 7's model: GPT from seed 0 under ``unique_name.guard()`` (the
+    optimizer's state keys), bf16 on the card."""
+    from paddle_tpu_torch.models import GPTForPretraining
+
+    paddle.seed(0)
+    with paddle.utils.unique_name.guard():
+        model = GPTForPretraining(cfg, device=dev)
+    if torch.device(dev).type == "cuda":
+        model.bfloat16()
+    return model.train()
+
+
+def parity_runs(paddle, cfg, dev):
+    """(24c) Phase 7's eager AdamW loop (warm-up/cosine schedule, global-norm
+    clip) on one batch of seed-0 tokens: 5 uninterrupted steps; then 3
+    steps, the model's and the optimizer's ``state_dict()`` copied on the
+    card, a fresh model through ``set_dict`` (and its ``wte`` through
+    ``set_value``), a fresh optimizer through ``load_state_dict``, 2 more
+    steps, one backward through ``autograd.backward([loss])`` and one clear
+    through each parameter's ``clear_grad()``. The losses must be
+    bit-equal."""
+    np_ids, np_labels = train_arrays(cfg, T=min(2048,
+                                                 cfg.max_position_embeddings))
+    ids, labels = (paddle.to_tensor(a, place=dev) for a in (np_ids,
+                                                           np_labels))
+    wte = "gpt.embeddings.word_embeddings.weight"
+
+    def step(model, opt, sched, i, via_autograd=False, per_param=False):
+        loss = model.loss(ids, labels)
+        if via_autograd:
+            paddle.autograd.backward([loss])
+        else:
+            loss.backward()
+        opt.step()
+        if per_param:
+            for p in model.parameters():
+                p.clear_grad()
+        else:
+            opt.clear_grad()
+        sched.step()
+        return loss.detach()
+
+    def make():
+        model = parity_model(paddle, cfg, dev)
+        opt, sched, _ = api_optimizer(paddle, model,
+                                      paddle.nn.ClipGradByGlobalNorm(API_CLIP))
+        return model, opt, sched
+
+    model, opt, sched = make()
+    whole = [step(model, opt, sched, i) for i in range(PARITY_STEPS)]
+    del model, opt, sched
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    model, opt, sched = make()
+    head = [step(model, opt, sched, i) for i in range(PARITY_RESUME_AT)]
+    model_sd = snapshot(model.state_dict())
+    opt_sd = snapshot(opt.state_dict())
+    del model, opt, sched
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    model, opt, sched = make()
+    with torch.no_grad():
+        model.gpt.embeddings.word_embeddings.weight.zero_()
+    missing, unexpected = model.set_dict(
+        {k: v for k, v in model_sd.items() if k != wte})
+    model.gpt.embeddings.word_embeddings.weight.set_value(model_sd[wte])
+    wte_equal = torch.equal(model.gpt.embeddings.word_embeddings.weight,
+                            model_sd[wte])
+    opt.load_state_dict(opt_sd)
+    if missing != [wte] or unexpected or not wte_equal \
+            or sched.last_epoch != PARITY_RESUME_AT:
+        fail(f"24c: set_dict missing {missing}, unexpected {unexpected}, "
+             f"wte equal {wte_equal}, schedule at {sched.last_epoch}")
+    tail = [step(model, opt, sched, PARITY_RESUME_AT, via_autograd=True),
+            step(model, opt, sched, PARITY_RESUME_AT + 1, per_param=True)]
+    if any(p.grad is not None for p in model.parameters()):
+        fail("24c: clear_grad() left a gradient")
+    del model, opt, sched, model_sd, opt_sd
+    return [x.item() for x in whole], [x.item() for x in head + tail]
+
+
+def parity_phase(card, dev="cuda", cfg=None):
+    """Phase 24: 24a-c; the results go on the ``parity`` line. ``cfg``
+    (a GPT config) cuts the model for a rehearsal on the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import gpt3_1p3b
+    from paddle_tpu_torch.ops import kernels as K
+
+    cfg = cfg or gpt3_1p3b(hidden_dropout=0.0, attention_dropout=0.0,
+                           remat=False, attention_impl="flash",
+                           fused_lm_loss=True)
+    on_card = torch.device(dev).type == "cuda"
+    t0 = time.monotonic()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    PARITY["card"] = card
+    PARITY["24a"] = parity_flags(paddle)
+    PARITY["24b"] = parity_autograd(paddle, dev)
+    K.reset_launch_counts()
+    whole, resumed = parity_runs(paddle, cfg, dev)
+    counts = K.launch_counts()
+    equal = whole == resumed
+    PARITY["24c"] = {"losses": whole, "resumed_losses": resumed,
+                     "bit_equal": equal}
+    PARITY["launches"] = {k: counts[k] for k in FLASH_REPLACES}
+    want = cfg.num_layers * 2 * PARITY_STEPS if on_card else 0
+    print(f"  24c: losses {whole}; resumed after step {PARITY_RESUME_AT} "
+          f"through set_dict/set_value/load_state_dict {resumed}: "
+          f"{'bit-equal' if equal else 'DIFFERENT'}; flash launches "
+          f"{PARITY['launches']} (want {want} each)")
+    if not equal or not all(np.isfinite(whole)):
+        fail(f"24c: resumed losses {resumed} against {whole}")
+    if any(v != want for v in PARITY["launches"].values()):
+        fail(f"24c: flash launches {PARITY['launches']}, want {want} each")
+    if on_card:
+        PARITY["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        torch.cuda.empty_cache()
+    PARITY["seconds"] = time.monotonic() - t0
+    print(f"  (24) {PARITY['seconds']:.1f} s, peak "
+          f"{PARITY.get('peak_gib', 0.0):.2f} GiB")
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -10375,6 +10596,11 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 23 alone (text "
                          "and the data modules, 23a-d), print its text_data "
                          "line and exit; no result line")
+    ap.add_argument("--phase24", action="store_true",
+                    help="build the kernels and run phase 24 alone (the "
+                         "Paddle API below the top level on GPT-3 1.3B, "
+                         "24a-c), print its parity line and exit; no result "
+                         "line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -10491,6 +10717,11 @@ def main(argv=None) -> int:
         text_data_phase(card)
         print(json.dumps({"text_data": TEXT}))
         return 0
+    if args.phase24:
+        print("[24] the Paddle API below the top level alone")
+        parity_phase(card)
+        print(json.dumps({"parity": PARITY}))
+        return 0
 
     print("[2] kernels against their plain versions")
     errs = kernel_phase()
@@ -10567,6 +10798,11 @@ def main(argv=None) -> int:
           "FLAGS_thread_checks; dlpack, device, hub and onnx.export; the "
           "analysis over the port")
     text_data_phase(card)
+    print("[24] the Paddle API below the top level: the 14 new flags, "
+          "stop_gradient and jacobian/hessian on the card; gpt3_1p3b's "
+          "eager AdamW loop resumed through set_dict, set_value and "
+          "load_state_dict, bit-equal to the uninterrupted run")
+    parity_phase(card)
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -10607,6 +10843,8 @@ def main(argv=None) -> int:
             r["launches_trainable"] = EXPORT["21b"]["launches"][r["name"]]
         if r["name"] in QI["22a"]["launches"]:  # 22a's QAT steps
             r["launches_qat"] = QI["22a"]["launches"][r["name"]]
+        if r["name"] in PARITY["launches"]:  # 24c's two runs
+            r["launches_parity"] = PARITY["launches"][r["name"]]
         if r["name"] == "paged_attention_rows":  # phase 17's tp drives
             tp = TP_NATIVE["gpt"]
             r["launches_tp"] = (tp["17a"]["launches_tp"]
@@ -10683,6 +10921,7 @@ def main(argv=None) -> int:
     print(json.dumps({"export": EXPORT}))
     print(json.dumps({"quant_incubate": QI}))
     print(json.dumps({"text_data": TEXT}))
+    print(json.dumps({"parity": PARITY}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,28 @@
-"""paddle.autograd (port of ``paddle_tpu/autograd/__init__.py``): ``grad``
-and ``PyLayer`` over torch's autograd.
+"""paddle.autograd (port of ``paddle_tpu/autograd/__init__.py``):
+``backward``, ``grad``, ``jacobian``, ``hessian`` and ``PyLayer`` over
+torch's autograd.
 
 ``grad`` takes Paddle's signature and returns a list; ``PyLayer`` subclasses
 write static ``forward(ctx, ...)`` and ``backward(ctx, ...)`` and run as a
-``torch.autograd.Function`` made once per subclass.
+``torch.autograd.Function`` made once per subclass; ``jacobian`` and
+``hessian`` are ``torch.func``'s over the caller's function.
 """
 from __future__ import annotations
 
 import torch
+
+from ..core.engine import enable_grad, no_grad, set_grad_enabled  # noqa: F401
+
+
+def backward(tensors, grad_tensors=None, retain_graph=False):
+    """Accumulate into ``.grad`` the gradients of ``tensors`` (one or a
+    list), seeded by ``grad_tensors`` (ones for scalars when None)."""
+    if isinstance(tensors, torch.Tensor):
+        tensors = [tensors]
+    if isinstance(grad_tensors, torch.Tensor):
+        grad_tensors = [grad_tensors]
+    torch.autograd.backward(list(tensors), grad_tensors,
+                            retain_graph=bool(retain_graph))
 
 
 def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
@@ -81,7 +96,11 @@ def _function_for(layer_cls):
     return fn
 
 
-class PyLayer:
+class PyLayerMeta(type):
+    """The metaclass ``PyLayer`` is built with, as the reference's."""
+
+
+class PyLayer(metaclass=PyLayerMeta):
     """Custom autograd op: subclass with static ``forward(ctx, *args)`` and
     ``backward(ctx, *grads)``, call ``apply``."""
 
@@ -98,4 +117,38 @@ class PyLayer:
         return _function_for(cls).apply(kwargs, *args)
 
 
-__all__ = ["grad", "PyLayer", "PyLayerContext"]
+def is_grad_enabled() -> bool:
+    return torch.is_grad_enabled()
+
+
+def _functional(func, xs, transform):
+    """``transform`` (``jacrev`` or ``hessian``) of ``func`` over every
+    input; one input gives the first entry, a list all of them."""
+    single = isinstance(xs, torch.Tensor)
+    xs_l = [xs] if single else list(xs)
+
+    def f(*ts):
+        return func(ts[0] if single else list(ts))
+
+    out = transform(f, argnums=tuple(range(len(xs_l))))(
+        *[t.detach() for t in xs_l])
+    return out, single
+
+
+def jacobian(func, xs, create_graph=False, allow_unused=False):
+    """The Jacobian of ``func`` at ``xs``: a tensor for one input, a tuple
+    (one entry an input) for a list."""
+    jac, single = _functional(func, xs, torch.func.jacrev)
+    return jac[0] if single else tuple(jac)
+
+
+def hessian(func, xs, create_graph=False, allow_unused=False):
+    """The Hessian of scalar ``func`` at ``xs``: a tensor for one input, a
+    tuple of tuples (a block a pair of inputs) for a list."""
+    hess, single = _functional(func, xs, torch.func.hessian)
+    return hess[0][0] if single else tuple(tuple(row) for row in hess)
+
+
+__all__ = ["backward", "grad", "jacobian", "hessian", "is_grad_enabled",
+           "no_grad", "enable_grad", "set_grad_enabled", "PyLayer",
+           "PyLayerMeta", "PyLayerContext"]

@@ -15,7 +15,9 @@ only at the ``eager_call`` boundary. With AMP off, :func:`amp_cast` costs
 one ``is None`` check.
 
 While ``FLAGS_check_nan_inf`` is set, every floating output of every op is
-checked, and the first one that holds a NaN or an infinity raises
+checked (after the ``tensor.nan`` fault point, which may write a NaN into
+a named op's output), and the first one that holds a NaN or an infinity
+raises
 ``FloatingPointError`` with the reference's message: the op, the output's
 index, shape and dtype, how many values are non-finite, the first one's flat
 index and value, and the origin. Before the raise a ``naninf`` flight dump is
@@ -150,8 +152,12 @@ def _written(func, args, kwargs):
 
 class _NanInfScan(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from ..fault import inject
+
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if inject._armed and inject.should_fire("tensor.nan", op=str(func)):
+            inject.poison_first_nan(out)
         if func._schema.name not in _UNCHECKED:
             outs = _outputs(out) or _written(func, args, kwargs)
             _check_nan_inf(str(func), outs)

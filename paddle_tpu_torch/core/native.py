@@ -15,7 +15,8 @@ unchanged one loaded as it is.
 
 A build or load failure raises at the first call that needs the library;
 nothing falls back to a Python sink. The reference's rendezvous store is
-``distributed/coord.py``'s adapter of torch's ``TCPStore``.
+``distributed/coord.py``'s adapter of torch's ``TCPStore``; ``TCPStore``
+here is that adapter with the reference's signature.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["lib", "build", "library_path", "HAS_SPANS", "NativeQueue"]
+__all__ = ["lib", "build", "library_path", "HAS_SPANS", "HAS_EMBED",
+           "NativeQueue", "TCPStore"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -40,6 +42,9 @@ _lock = threading.Lock()
 # True once the loaded library is the port's: its trace ring always carries
 # the span ring (the name is the reference's)
 HAS_SPANS = False
+# True once the loaded library is the port's: it always carries embed.cc's
+# host-embedding kernels (the name is the reference's)
+HAS_EMBED = False
 
 _P, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
                         ctypes.c_uint64)
@@ -129,7 +134,7 @@ def build() -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded native runtime, built on the first call; raises when it
     cannot be built or loaded."""
-    global _lib, HAS_SPANS
+    global _lib, HAS_SPANS, HAS_EMBED
     if _lib is not None:
         return _lib
     with _lock:
@@ -138,9 +143,28 @@ def lib() -> ctypes.CDLL:
             for fn, (argtypes, restype) in _SIGS.items():
                 getattr(L, fn).argtypes = list(argtypes)
                 getattr(L, fn).restype = restype
-            HAS_SPANS = True
+            HAS_SPANS = HAS_EMBED = True
             _lib = L
     return _lib
+
+
+def __getattr__(name):
+    """``TCPStore``: the reference's native store class, with its signature
+    ``(host, port, is_master, timeout)``, over ``distributed.coord``'s
+    adapter of torch's store (made at first use: ``distributed`` imports
+    this module)."""
+    if name != "TCPStore":
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    from ..distributed.coord import TCPStore as _Store
+
+    class TCPStore(_Store):
+        def __init__(self, host="127.0.0.1", port=23456, is_master=False,
+                     timeout=30, world_size=None):
+            super().__init__(host, port, world_size, is_master, timeout)
+
+    TCPStore.__qualname__ = "TCPStore"
+    globals()["TCPStore"] = TCPStore
+    return TCPStore
 
 
 class NativeQueue:

@@ -5,6 +5,14 @@ host-bound, and a ``__torch_function__`` subclass would tax every op it
 launches. ``Parameter`` subclasses ``torch.nn.Parameter`` and adds Paddle's
 attributes; ``to_tensor`` keeps the reference's dtype rules and lands on
 ``set_device``'s device (the card unless the CPU was asked for).
+
+The reference Tensor's own attributes that ``torch.Tensor`` lacks
+(``stop_gradient``, ``place``, ``persistable``, ``clear_grad`` and
+``clear_gradient``, ``set_value``, ``pspec``, ``grad_pspec``,
+``opt_state_pspec``) are set on ``torch.Tensor`` at import, each only where
+torch has no attribute of that name (:data:`ATTACHED` lists them); a
+``Parameter`` is a leaf, so its ``stop_gradient`` is ``requires_grad``
+negated.
 """
 from __future__ import annotations
 
@@ -60,14 +68,6 @@ class Parameter(torch.nn.Parameter):
         self.__dict__["_param_name"] = value
 
     @property
-    def stop_gradient(self) -> bool:
-        return not self.requires_grad
-
-    @stop_gradient.setter
-    def stop_gradient(self, value: bool) -> None:
-        self.requires_grad_(not value)
-
-    @property
     def trainable(self) -> bool:
         return self.requires_grad
 
@@ -83,6 +83,87 @@ class Parameter(torch.nn.Parameter):
         memo[id(self)] = out
         out.__dict__.update(copy.deepcopy(self.__dict__, memo))
         return out
+
+
+def _get_stop_gradient(self) -> bool:
+    return not self.requires_grad
+
+
+def _set_stop_gradient(self, value) -> None:
+    """``True`` on a leaf stops recording; on an intermediate it cuts the
+    graph there (``detach_``): later ops see the tensor as a constant, as the
+    reference's routes do. ``False`` on a leaf records gradients; on an
+    intermediate it changes nothing. A cut cannot be undone, and a view
+    cannot be cut in place: both raise."""
+    if value:
+        if self.grad_fn is None:
+            self.requires_grad_(False)
+            return
+        if self._is_view():
+            raise RuntimeError(
+                "stop_gradient = True on a view of another tensor cannot "
+                "cut the graph in place; use x = x.detach() instead")
+        self.detach_()
+        self.__dict__["_graph_cut"] = True
+    elif self.grad_fn is None:
+        if self.__dict__.get("_graph_cut"):
+            raise RuntimeError(
+                "stop_gradient = False cannot reconnect a tensor whose graph "
+                "was cut by stop_gradient = True; compute it again instead")
+        self.requires_grad_(True)
+
+
+def _place(self):
+    """The tensor's ``Place``: ``CUDAPlace(i)`` or ``CPUPlace()``."""
+    if self.device.type == "cuda":
+        return place_mod.CUDAPlace(self.device.index or 0)
+    if self.device.type == "cpu":
+        return place_mod.CPUPlace()
+    return place_mod.Place(self.device.type, self.device.index or 0)
+
+
+def _clear_grad(self) -> None:
+    self.grad = None
+
+
+def _set_value(self, value) -> None:
+    """Copy ``value`` (a tensor or an array of this shape) into the tensor in
+    place, cast to its dtype, with no gradient recorded."""
+    src = value.detach() if isinstance(value, torch.Tensor) \
+        else torch.as_tensor(np.asarray(value))
+    if tuple(src.shape) != tuple(self.shape):
+        raise ValueError(f"set_value shape mismatch: {tuple(src.shape)} vs "
+                         f"{tuple(self.shape)}")
+    with torch.no_grad():
+        self.copy_(src)
+
+
+_TENSOR_ATTRS = {
+    "stop_gradient": property(_get_stop_gradient, _set_stop_gradient),
+    "place": property(_place),
+    "persistable": False,
+    "clear_grad": _clear_grad,
+    "clear_gradient": _clear_grad,
+    "set_value": _set_value,
+    "pspec": None,
+    "grad_pspec": None,
+    "opt_state_pspec": None,
+}
+
+
+def attach_tensor_attributes():
+    """Set the reference Tensor's attributes that ``torch.Tensor`` lacks;
+    returns the names set. The settable ones (``persistable`` and the
+    ``*pspec`` annotations) are class defaults an instance overrides."""
+    done = []
+    for name, value in _TENSOR_ATTRS.items():
+        if not hasattr(torch.Tensor, name):
+            setattr(torch.Tensor, name, value)
+            done.append(name)
+    return done
+
+
+ATTACHED = attach_tensor_attributes()
 
 
 def _place_device(place) -> torch.device:

@@ -61,6 +61,7 @@ __all__ = [
     "get_world_size", "all_reduce", "all_gather", "all_gather_into_tensor",
     "reduce", "reduce_scatter", "broadcast", "scatter", "all_to_all",
     "alltoall", "alltoall_single", "send", "recv", "isend", "irecv",
+    "p2p_permute",
     "barrier", "wait", "split", "blockwise_quantize", "blockwise_dequantize",
     "quantized_psum_scatter_mean", "quantized_all_reduce_mean",
     "_c_identity", "_mp_allreduce", "_c_split", "_c_concat",
@@ -360,6 +361,31 @@ def alltoall_single(in_tensor, out_tensor=None, in_split_sizes=None,
     dist.all_to_all_single(out, in_tensor.contiguous(),
                            output_split_sizes=out_split_sizes,
                            input_split_sizes=in_split_sizes, group=pg)
+    return out
+
+
+def p2p_permute(tensor, perm, group=None):
+    """The collective permute: ``perm`` is a list of (src, dst) pairs of
+    group ranks, and each dst receives its src's ``tensor``; a rank that no
+    pair names as a dst receives zeros. Point to point over
+    ``batch_isend_irecv``; over one rank, the identity (zeros when ``perm``
+    does not name it)."""
+    if group is None:
+        group = _get_default_group()
+    pg, _ = _resolve(group, "p2p_permute")
+    me = max(group.rank, 0)
+    srcs = [s for s, d in perm if d == me]
+    if pg is None:
+        return tensor if srcs else torch.zeros_like(tensor)
+    x = tensor.contiguous()
+    out = x.clone() if (me, me) in perm else torch.zeros_like(x)
+    ops = [dist.P2POp(dist.isend, x, group.ranks[d], group=pg)
+           for s, d in perm if s == me and d != me]
+    ops += [dist.P2POp(dist.irecv, out, group.ranks[s], group=pg)
+            for s in srcs if s != me]
+    if ops:
+        for q in dist.batch_isend_irecv(ops):
+            q.wait()
     return out
 
 

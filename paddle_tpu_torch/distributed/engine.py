@@ -109,7 +109,7 @@ from . import collective as C
 from .mesh import global_mesh
 from .parallel import DataParallel
 
-__all__ = ["HybridParallelEngine"]
+__all__ = ["HybridParallelEngine", "shard_model_params"]
 
 
 def _drop_frames(exc: BaseException) -> None:
@@ -271,6 +271,7 @@ class HybridParallelEngine:
         # may be half written
         self._update_failed = False
         self.last_oom_attempts = None
+        self._placed = False
 
     def _build_sync_group(self, n):
         """The group over the mesh axes ``dp_axes`` names plus ``sp``: None
@@ -280,6 +281,13 @@ class HybridParallelEngine:
             return None
         return fused_group(self.mesh, [a for a in self.mesh.axis_names
                                        if a in self.dp_axes or a == "sp"])
+
+    def place(self) -> None:
+        """Put the parameters and buffers on this rank's card, once (the
+        reference's placement by ``pspec``; see :func:`shard_model_params`)."""
+        if not self._placed:
+            shard_model_params(self.model, self.mesh, device=self._device)
+            self._placed = True
 
     def attach_sentinel(self, sentinel) -> None:
         """Hook a :class:`~paddle_tpu_torch.fault.sentinel.StabilitySentinel`
@@ -612,3 +620,19 @@ class HybridParallelEngine:
                                    self._sync_group)
         return out
 
+
+def shard_model_params(model, mesh=None, device=None):
+    """Place each parameter by its ``pspec`` without building an engine.
+
+    The port's model-parallel layers are built holding their rank's shard
+    (the placement the reference's ``device_put`` gives a parameter), so
+    what placing leaves to do is the device: every parameter and buffer is
+    moved, in place, onto ``device`` (default: this rank's card, or
+    ``set_device``'s choice). ``mesh`` is accepted for the reference's
+    signature."""
+    dev = resolve_device(device)
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            if t.device != dev:
+                t.data = t.data.to(dev)
+    return model

@@ -18,6 +18,7 @@ reference does: ``strategy.dgc`` wraps a Momentum or SGD optimizer in
 """
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import numpy as np
@@ -65,6 +66,11 @@ def _reset() -> None:
 
 def _get_strategy() -> DistributedStrategy:
     return _strategy or DistributedStrategy()
+
+
+# reference-style ``fleet.fleet`` access: the ``distributed.fleet`` package,
+# whose functions are these (it is in sys.modules while it imports this)
+fleet = sys.modules[__name__.rsplit(".", 2)[0]]
 
 
 def get_hybrid_communicate_group() -> Optional[HybridCommunicateGroup]:

@@ -52,6 +52,16 @@ class Bucket:
     def itemsize(self):
         return torch.empty((), dtype=self.dtype).element_size()
 
+    @property
+    def wd_scale(self):
+        """The decay gate when every parameter of the bucket has the same,
+        else None (``BucketPlan.wd_vector`` gives the gate an element)."""
+        return self.wds[0] if len(set(self.wds)) <= 1 else None
+
+    def key(self):
+        return (self.indices, str(self.dtype).replace("torch.", ""),
+                self.padded, self.wds, self.plr)
+
 
 class BucketPlan:
     """Static bucket geometry for a fixed parameter list. ``nranks`` is the
@@ -62,6 +72,8 @@ class BucketPlan:
         self.buckets = list(buckets)
         self.nranks = int(nranks)
         self.block = int(block)
+        self.signature = (self.nranks, self.block,
+                          tuple(b.key() for b in self.buckets))
 
     def __len__(self):
         return len(self.buckets)
@@ -82,6 +94,17 @@ class BucketPlan:
 
     def shard_size(self, bucket: Bucket) -> int:
         return bucket.padded // self.nranks
+
+    def wd_vector(self, bucket: Bucket):
+        """The decay gate an element (float32, on the CPU) of a bucket whose
+        parameters' gates differ; None when ``wd_scale`` holds. Padding
+        takes 1.0."""
+        if bucket.wd_scale is not None:
+            return None
+        parts = [np.full((sz,), w, np.float32)
+                 for sz, w in zip(bucket.sizes, bucket.wds)]
+        parts.append(np.ones((bucket.padded - bucket.size,), np.float32))
+        return torch.from_numpy(np.concatenate(parts))
 
     def reduce_scatter_bytes(self, quantized: bool = False) -> int:
         """Per-replica payload bytes of one step's bucket reduce-scatters

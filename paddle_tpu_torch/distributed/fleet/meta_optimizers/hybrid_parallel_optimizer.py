@@ -57,8 +57,10 @@ def _base(opt):
 class ShardedWeightUpdate:
     """ZeRO-1 weight-update sharding over ``group`` (``nranks`` ranks)."""
 
-    def __init__(self, optimizer, params, group, nranks: int):
+    def __init__(self, optimizer, params, group, nranks: int,
+                 axis: str = "dp"):
         self.optimizer = optimizer
+        self.axis = axis
         self.base = _base(optimizer)
         self.params = list(params)
         self.group = group
@@ -99,7 +101,7 @@ class ShardedWeightUpdate:
         if len(dp_present) != 1 or other:
             return None
         return ShardedWeightUpdate(optimizer, params, group,
-                                   sizes[dp_present[0]])
+                                   sizes[dp_present[0]], dp_present[0])
 
     def _rank(self):
         g = self.group if self.group is not None else C.get_group(0)
@@ -109,6 +111,16 @@ class ShardedWeightUpdate:
     def _keys(self, b):
         return sorted(self.base._init_accums(
             torch.zeros(1, dtype=b.dtype)).keys())
+
+    def state_specs(self):
+        """The layout of the update's state, as the reference's: the step
+        count replicated, each bucket's flat moments and compression
+        residual sharded over the data axis (the port's specs are tuples)."""
+        return {"t": (),
+                "accums": [{k: (self.axis,) for k in self._keys(b)}
+                           for b in self.plan.buckets],
+                "ef": [(self.axis, None) for _ in self.plan.buckets]
+                if self.error_feedback else []}
 
     def init_state(self):
         """Pack the optimizer's per-parameter accumulators (or zeros) into

@@ -223,11 +223,11 @@ class ParallelCrossEntropy(Layer):
                                              self.ignore_index)
 
 
-def tied_logits(x, embedding: VocabParallelEmbedding):
+def tied_logits(x, embedding):
     """``x @ embedding.weight.T`` over the full vocabulary: each rank's
-    rows of the tied head, gathered over mp (the plain product at one
-    rank)."""
-    g = embedding.group if embedding.world_size > 1 else None
+    rows of the tied head, gathered over mp (the plain product at one rank
+    or for a plain ``Embedding``)."""
+    g = embedding.group if getattr(embedding, "world_size", 1) > 1 else None
     return _c_concat(F.linear(_c_identity(x, g), embedding.weight.T), g)
 
 

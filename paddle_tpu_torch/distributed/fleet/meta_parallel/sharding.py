@@ -120,8 +120,21 @@ class ShardingOptimizerStage1:
 
     clear_gradients = clear_grad
 
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()``, then this optimizer's sharded ``step``."""
+        loss.backward()
+        self.step()
+        return None, None
+
     def get_lr(self):
         return self.inner.get_lr()
+
+    def set_lr(self, value):
+        self.inner.set_lr(value)
+
+    def set_lr_scheduler(self, scheduler):
+        self.inner.set_lr_scheduler(scheduler)
 
     @torch.no_grad()
     def _step(self, functional: bool, with_params: bool = False) -> None:
@@ -200,6 +213,8 @@ class ShardingOptimizerStage1:
                 if tuple(v.shape) == tuple(p.shape):
                     sd[key] = v.narrow(dim, r * size, size).clone()
         opt.set_state_dict(sd)
+
+    load_state_dict = set_state_dict
 
 
 DygraphShardingOptimizer = ShardingOptimizerStage1

@@ -42,7 +42,10 @@ raises SIGTERM inside ``PreemptionGuard.check`` at ``step=K``;
 ``ckpt.commit`` raise :class:`InjectedFault` through :func:`check`; the
 chaos points ``rank.kill``/``rank.hang``/``rank.slow`` act in
 ``watchdog.publish`` (:func:`chaos`) and ``collective.drop`` in
-``watchdog.guard`` (:func:`chaos_drop`).
+``watchdog.guard`` (:func:`chaos_drop`). ``tensor.nan`` is consulted by
+``core/dispatch.py``'s nan/inf scan, op by op, while ``FLAGS_check_nan_inf``
+is set: it writes a NaN into the named op's output
+(:func:`poison_first_nan`) before the scan checks it.
 """
 from __future__ import annotations
 
@@ -63,6 +66,9 @@ POINTS: Dict[str, str] = {
                            "conservation (next free raises)"),
     "serve.snapshot_corrupt": ("Engine.snapshot — tear the pool capture so "
                                "adopt() must reject it and fall back whole"),
+    "tensor.nan": ("core/dispatch.py's nan/inf scan (while "
+                   "FLAGS_check_nan_inf is set) — NaN into a named op's "
+                   "output (op=aten name, e.g. aten::mul.Tensor)"),
     "hbm.oom": ("named sites (op=serve.step) — synthesize a device "
                 "out-of-memory error there"),
     "hbm.pressure": ("memory pressure: bytes=N is read by pressure_bytes() "
@@ -304,6 +310,20 @@ def spike(point: str, step: Optional[int] = None,
     return float(cfg.get("scale", 1000))
 
 
+def poison_first_nan(res) -> bool:
+    """Overwrite the first element of the first floating-point tensor of an
+    op's result (a tensor or a sequence of them) with NaN, in place and
+    unrecorded; False when there is none."""
+    ts = res if isinstance(res, (list, tuple)) else [res]
+    for t in ts:
+        if isinstance(t, torch.Tensor) and t.is_floating_point() \
+                and t.numel():
+            with torch.no_grad():
+                t[(0,) * t.dim()] = float("nan")
+            return True
+    return False
+
+
 def pressure_bytes() -> int:
     """Synthetic live-byte pressure (``hbm.pressure:bytes=N``), read while
     armed without consuming a ``should_fire`` count (pressure is a level,
@@ -331,4 +351,5 @@ _arm_from_env()
 
 __all__ = ["POINTS", "InjectedFault", "arm", "disarm", "armed",
            "should_fire", "check", "point_cfg", "exercised", "fired_counts",
-           "hbm_oom_error", "maybe_hbm_oom", "spike", "pressure_bytes"]
+           "hbm_oom_error", "maybe_hbm_oom", "spike", "pressure_bytes",
+           "poison_first_nan"]

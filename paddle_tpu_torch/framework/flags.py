@@ -10,7 +10,19 @@ checkpoint's ``FLAGS_ckpt_verify_on_load``, the host embedding's
 
 Same names, defaults and ``FLAGS_*`` environment pickup as the reference's
 ``paddle_tpu/framework/flags.py``; ``set_flags`` rejects unknown names with a
-did-you-mean hint instead of creating dead flags.
+did-you-mean hint instead of creating dead flags, and ``register_flag`` adds
+one.
+
+The reference's general flags are accepted with its defaults so that a
+Paddle script setting them runs. ``FLAGS_cudnn_deterministic`` sets
+``torch.backends.cudnn.deterministic``; nothing reads the others here:
+``FLAGS_eager_delete_tensor_gb``, ``FLAGS_allocator_strategy``,
+``FLAGS_fraction_of_gpu_memory_to_use`` (the caching allocator decides),
+``FLAGS_use_bf16_matmul`` (the matmul runs in its inputs' dtype),
+``FLAGS_jit_cache_size``, ``FLAGS_log_level``, the ``FLAGS_lazy_*`` flags
+(the port runs eagerly: no lazy graph to verify, donate, flush or compile
+in the background) and the ``FLAGS_xla_persistent_cache*`` flags (no XLA
+compilation cache).
 """
 from __future__ import annotations
 
@@ -19,6 +31,22 @@ import os
 from typing import Dict
 
 _FLAGS: Dict[str, object] = {
+    # The reference's general flags (see the module's docstring): only
+    # FLAGS_cudnn_deterministic has an effect here.
+    "FLAGS_cudnn_deterministic": False,
+    "FLAGS_eager_delete_tensor_gb": 0.0,
+    "FLAGS_allocator_strategy": "auto_growth",
+    "FLAGS_fraction_of_gpu_memory_to_use": 0.92,
+    "FLAGS_use_bf16_matmul": True,
+    "FLAGS_jit_cache_size": 4096,
+    "FLAGS_log_level": 0,
+    "FLAGS_lazy_verify": False,
+    "FLAGS_lazy_donate": True,
+    "FLAGS_lazy_async": True,
+    "FLAGS_lazy_bg_compile": False,
+    "FLAGS_xla_persistent_cache": True,
+    "FLAGS_xla_persistent_cache_dir": "",
+    "FLAGS_xla_persistent_cache_min_compile_secs": 0.5,
     # Distributed supervision: the deadline of every guarded collective,
     # barrier and host sync (distributed/watchdog.py; 0 disables it: no
     # thread, no sync), and whether a checkpoint load recomputes its
@@ -211,18 +239,38 @@ for _k, _cur in list(_FLAGS.items()):
             _FLAGS[_k] = _v
 
 
+def _sync_cudnn() -> None:
+    import torch
+
+    torch.backends.cudnn.deterministic = bool(
+        _FLAGS["FLAGS_cudnn_deterministic"])
+
+
+if _FLAGS["FLAGS_cudnn_deterministic"]:
+    _sync_cudnn()
+
+
+def register_flag(name: str, default) -> None:
+    """Add a flag (a plugin's or a module's own); an existing flag keeps its
+    value."""
+    _FLAGS.setdefault(name, default)
+
+
 def set_flags(flags: dict) -> None:
     for k, v in flags.items():
         if k not in _FLAGS:
             hint = difflib.get_close_matches(k, _FLAGS, n=1)
             raise KeyError(
                 f"unknown flag {k!r}"
-                + (f"; did you mean {hint[0]!r}?" if hint else ""))
+                + (f"; did you mean {hint[0]!r}?" if hint else "")
+                + " (use framework.flags.register_flag to add new flags)")
         _FLAGS[k] = v
     if "FLAGS_check_nan_inf" in flags:
         from ..core import dispatch
 
         dispatch._sync_scan()
+    if "FLAGS_cudnn_deterministic" in flags:
+        _sync_cudnn()
 
 
 def get_flags(flags) -> dict:

@@ -58,6 +58,7 @@ class GPTConfig:
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
     initializer_range: float = 0.02
+    use_mp_layers: bool = True  # a VocabParallelEmbedding (else Embedding)
     fused_lm_loss: bool = True  # blockwise head+CE, no (B*T, V) logits tensor
     remat: bool = False  # recompute each decoder layer in the backward
     sequence_parallel: bool = False  # shard the sequence over the sp group
@@ -166,8 +167,9 @@ class GPTEmbeddings(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
         init = Normal(std=config.initializer_range)
-        self.word_embeddings = VocabParallelEmbedding(
-            config.vocab_size, config.hidden_size, weight_attr=init, **kw)
+        emb = VocabParallelEmbedding if config.use_mp_layers else Embedding
+        self.word_embeddings = emb(config.vocab_size, config.hidden_size,
+                                   weight_attr=init, **kw)
         self.sequence_parallel = config.sequence_parallel
         self.position_embeddings = Embedding(
             config.max_position_embeddings, config.hidden_size,
@@ -240,7 +242,8 @@ class GPTForPretraining(Layer):
             emb = self.gpt.embeddings.word_embeddings
             return F.fused_linear_cross_entropy(
                 x, emb.weight, labels,
-                group=emb.group if emb.world_size > 1 else None)
+                group=emb.group if getattr(emb, "world_size", 1) > 1
+                else None)
         logits = self(input_ids)
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                labels.reshape(-1))

@@ -128,6 +128,9 @@ class Layer(nn.Module):
             target.copy_(value)
         return missing, unexpected
 
+    set_dict = set_state_dict
+    load_dict = set_state_dict
+
     # -- dtype / device -------------------------------------------------------
     def to(self, *args, device=None, dtype=None, blocking=None,
            non_blocking=False):

@@ -17,6 +17,7 @@ when ``FLAGS_kernel_autotune`` is ``ondemand`` or ``search``.
 from . import builtin  # noqa: F401  (registers flash_attention, fused_ce)
 from . import flash_attention as _flash_mod
 from . import int8_matmul as _int8_mod
+from . import int8_matmul as int8_matmul_mod  # noqa: F401 (the reference's name)
 from . import paged_attention as _paged_mod
 from ._build import build
 from .builtin import flash_attention_key, fused_ce_key

@@ -241,6 +241,8 @@ class Optimizer:
             if st:
                 self._accumulators[name] = st
 
+    load_state_dict = set_state_dict
+
 
 class SGD(Optimizer):
     _elementwise_rule = True
