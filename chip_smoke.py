@@ -25,6 +25,8 @@
                                      #   text_data line, no result line
     python3 chip_smoke.py --phase24  # the build and phase 24 alone: its
                                      #   parity line, no result line
+    python3 chip_smoke.py --phase25  # the build and phase 25 alone: its
+                                     #   lazy line, no result line
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
@@ -595,6 +597,32 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    parameter's ``clear_grad()``: the 5 losses must be bit-equal, and each
    flash kernel launched 24 a step. One ``{"parity": ...}`` line; the
    flash rows of ``kernels`` get ``launches_parity``;
+25. the lazy eager engine over CUDA graphs (runs after phase 24;
+   ``--phase25`` alone): (25a) GPT-3 1.3B (as 24c) through phase 7's eager
+   AdamW loop (warm-up/cosine lr, global-norm clip) with
+   ``core.lazy.flush()`` at each step's end, 8 steps lazy off, then 8 lazy
+   on from the same weights and batch: losses and parameters bit-equal,
+   each graph signature seen twice captured once (``torch.cuda.CUDAGraph``)
+   and no other, at least ``LAZY_MIN_REPLAYS`` replays, no fallback, each
+   flash kernel held 24 times in the captured graph and launched 24 a step
+   (the wrappers' count plus ``lazy.replayed_launches()``); then the step
+   ms off and on in turns (``LAZY_TURNS`` of ``LAZY_TURN_STEPS`` steps;
+   medians), once more on with the heap frozen (``gc.freeze()``), the host
+   ms a step in Python's cyclic collector, µs recorded an op against
+   eager's host µs an op, the flush's host ms and the device idle share of
+   two steps each way from a device timeline; (25d) two steps under
+   ``FLAGS_lazy_verify`` (passes counted, replays verified); (25b)
+   ERNIE-3.0 base f32 (dropout 0.1) through phase 9's eager Lamb loop, off
+   then on from the same weights and generator state: losses within
+   ``LAZY_ERNIE_LOSS_REL``, the graph checks of 25a, the idle share each
+   way, and a dropout probe flushed five times (one capture) whose last
+   two replays must draw different masks; (25c) ``FLAGS_check_nan_inf``
+   under lazy mode with ``tensor.nan`` poisoning the first
+   ``LAZY_NAN_OP``: no raise at the poisoned flush, a ``FloatingPointError``
+   at the next (origin ``lazy flush (deferred)``), whose flight dump names
+   the producing ``lazy_flush`` span and holds a non-empty
+   ``pending_graph``. One ``{"lazy": ...}`` line; the flash rows of
+   ``kernels`` get ``launches_lazy``;
 6. kernel registry, under ``$FLAGS_kernel_tune_dir`` when the caller sets
    it (it must be empty; the DB is kept there) or a fresh temporary one:
    phases 3 and 5 ran with ``FLAGS_kernel_autotune=off``, so no
@@ -651,15 +679,20 @@ phase 19, ``{"hapi_vision": {...}}``, phase 20,
 22, ``{"text_data": {...}}``, phase 23 (the card, 23a's counts, ms,
 tokens/s and worst score, 23b's step ms and losses, 23c's equalities
 and export seconds, 23d's seconds and baseline size, and the phase's
-seconds), and ``{"parity": {...}}``, phase 24 (the card, 24a's flags,
+seconds), ``{"parity": {...}}``, phase 24 (the card, 24a's flags,
 24b's gradient and relative errors, 24c's losses of both runs and their
-equality, the flash launches, the phase's seconds and peak GiB).
+equality, the flash launches, the phase's seconds and peak GiB), and
+``{"lazy": {...}}``, phase 25 (the card, 25a's losses, graph cache,
+counters, step ms, host costs, collector ms, idle shares and launches,
+25b's and 25c's results, 25d's counters, the phase's seconds).
 """
 from __future__ import annotations
 
 import argparse
 import atexit
+import collections
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -10561,6 +10594,408 @@ def parity_phase(card, dev="cuda", cfg=None):
 
 
 
+# -- phase 25: the lazy eager engine over CUDA graphs ----------------------------
+
+LAZY = {}  # phase 25's results: the {"lazy": ...} line
+LAZY_STEPS = 8  # 25a/25b: steps with lazy off, then with lazy on
+LAZY_TURNS = 3  # timing: turns of LAZY_TURN_STEPS steps off, then on
+LAZY_TURN_STEPS = 3
+LAZY_MIN_REPLAYS = 5
+LAZY_ERNIE_LOSS_REL = 1e-3  # 25b: lazy on against off, if not bit-equal
+LAZY_NAN_OP = "aten.mm.default"  # 25c: the op the tensor.nan point poisons
+LAZY_DROPOUT_PROBE = 1 << 20  # 25b: elements of the dropout probe
+
+
+def idle_share(step, steps, label):
+    """The device window, busy time and idle share of ``steps`` calls of
+    ``step`` from a device timeline (as ``device_breakdown`` prints)."""
+    ev = device_timeline(step, steps, label)
+    busy, end = 0, 0
+    for a, b, _ in ev:
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    window = ev[-1][1] - ev[0][0]
+    return {"window_ms_per_step": window / 1e6 / steps,
+            "busy_ms_per_step": busy / 1e6 / steps,
+            "idle_share": 1 - busy / window,
+            "device_ops_per_step": len(ev) / steps}
+
+
+def lazy_counters(c0):
+    from paddle_tpu_torch import profiler
+
+    c1 = profiler.counters()
+    return {k: c1.get(k, 0) - c0.get(k, 0) for k in (
+        "lazy_flushes", "lazy_cache_hits", "lazy_graph_captures",
+        "lazy_graph_replays", "lazy_replay_fallbacks", "lazy_blocks",
+        "lazy_verify_passes", "lazy_deferred_checks", "naninf_trips")}
+
+
+def lazy_graph_check(tag, stats, counters, on_card):
+    """Exactly one capture for each signature seen twice, none for one
+    seen once, no failed capture or replay, and at least
+    ``LAZY_MIN_REPLAYS`` replays."""
+    bad = [e for e in stats["per_entry"]
+           if e["failed"] or e["captures"] != (1 if on_card and e["sights"] >= 2
+                                               else 0)]
+    if bad or counters["lazy_replay_fallbacks"]:
+        fail(f"{tag}: graph cache {stats['per_entry']}, fallbacks "
+             f"{counters['lazy_replay_fallbacks']}")
+    if on_card and stats["replays"] < LAZY_MIN_REPLAYS:
+        fail(f"{tag}: {stats['replays']} replays, want >= "
+             f"{LAZY_MIN_REPLAYS}")
+
+
+def lazy_gpt_phase(paddle, lazy, dev, cfg=None, B=2, T=2048):
+    """(25a) GPT-3 1.3B through phase 7's eager AdamW loop (warm-up/cosine
+    lr, global-norm clip), lazy off then on from the same weights and
+    batch; (25d) two of its steps under FLAGS_lazy_verify."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import kernels as K
+
+    on_card = torch.device(dev).type == "cuda"
+    if cfg is None:
+        model = api_model(paddle)
+    else:
+        from paddle_tpu_torch.models import GPTForPretraining
+
+        paddle.seed(0)
+        with paddle.utils.unique_name.guard():
+            model = GPTForPretraining(cfg, device=dev)
+        model.train()
+    cfg = model.config
+    params = model.parameters()
+    start = [p.detach().clone() for p in params]
+    np_ids, np_labels = train_arrays(cfg, B, T)
+    ids, labels = paddle.to_tensor(np_ids), paddle.to_tensor(np_labels)
+    host = {"record_ms": [], "flush_ms": [], "eager_ms": []}
+
+    def one_step(opt, sched, timed=False):
+        t0 = time.perf_counter()
+        loss = model.loss(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        out = loss.detach()
+        t1 = time.perf_counter()
+        lazy.flush()  # the step boundary: enqueues, does not wait
+        if timed:
+            key = "record_ms" if lazy.lazy_enabled() else "eager_ms"
+            host[key].append((t1 - t0) * 1e3)
+            if lazy.lazy_enabled():
+                host["flush_ms"].append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    def run(lazy_on):
+        with torch.no_grad():
+            for p, s in zip(params, start):
+                p.copy_(s)
+        paddle.seed(0)
+        opt, sched, _ = api_optimizer(
+            paddle, model, paddle.nn.ClipGradByGlobalNorm(API_CLIP))
+        lazy.set_lazy_mode(lazy_on)
+        try:
+            losses = [one_step(opt, sched) for _ in range(LAZY_STEPS)]
+        finally:
+            lazy.set_lazy_mode(False)
+        vals = [float(x) for x in losses]
+        return vals, [p.detach().clone() for p in params], opt, sched
+
+    off, p_off, _, _ = run(False)
+    lazy.evict_cold(0)
+    c0, r0 = profiler.counters(), lazy.recorded_ops()
+    K.reset_launch_counts()
+    lazy.reset_replayed_launches()
+    on, p_on, opt, sched = run(True)
+    counters = lazy_counters(c0)
+    wrapper = K.launch_counts()
+    replayed = lazy.replayed_launches()
+    launches = {k: wrapper[k] + replayed.get(k, 0) for k in FLASH_REPLACES}
+    stats = lazy.graph_stats()
+    ops_per_step = (lazy.recorded_ops() - r0) / LAZY_STEPS
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(p_on, p_off))
+    loss_diff = max(abs(a - b) for a, b in zip(on, off))
+    equal = loss_diff == 0.0 and diff == 0.0
+    del p_on, p_off, start
+    print(f"  (25a) {cfg.num_layers} layers, b{B}xs{T}: losses lazy off "
+          f"{[round(v, 5) for v in off]}; on {[round(v, 5) for v in on]}: "
+          f"{'bit-equal' if equal else f'largest loss diff {loss_diff:.3e}, parameter diff {diff:.3e}'}")
+    print(f"  (25a) graph cache: {[(e['sights'], e['captures'], e['replays']) for e in stats['per_entry']]} "
+          f"(sights, captures, replays); counters {counters}; "
+          f"{ops_per_step:.0f} ops recorded a step; pool "
+          f"{stats['pool_bytes'] / 2**30:.2f} GiB")
+    if not equal:
+        fail(f"(25a) lazy on differs from lazy off: losses {on} against "
+             f"{off}, parameter diff {diff}")
+    lazy_graph_check("(25a)", stats, counters, on_card)
+    held = collections.Counter()
+    for e in stats["per_entry"]:
+        held.update(e["launches"])
+    want = cfg.num_layers * LAZY_STEPS if on_card else 0
+    if on_card and (any(launches[k] != want for k in FLASH_REPLACES)
+                    or any(held[k] != cfg.num_layers for k in FLASH_REPLACES)):
+        fail(f"(25a) flash launches {launches} (want {want} each), held in "
+             f"the captured graphs {dict(held)} (want {cfg.num_layers})")
+    # the step ms in turns (median over turns), host us an op, and the
+    # host ms a step in Python's cyclic collector; then lazy on again with
+    # the heap frozen (gc.freeze(): the collector skips the model's
+    # objects), which shows what the collector costs the recorded step
+    times = {"off": [], "on": [], "on_frozen": []}
+    gc_ms = {"off": [], "on": [], "on_frozen": []}
+    gc_clock = {"t": 0.0, "t0": 0.0}
+
+    def gc_cb(phase, info):
+        if phase == "start":
+            gc_clock["t0"] = time.perf_counter()
+        else:
+            gc_clock["t"] += time.perf_counter() - gc_clock["t0"]
+
+    gc.callbacks.append(gc_cb)
+    try:
+        for turn in range(2 * LAZY_TURNS):
+            frozen = turn >= LAZY_TURNS
+            if frozen and turn == LAZY_TURNS:
+                gc.collect()
+                gc.freeze()
+            for mode in (("on_frozen",) if frozen else ("off", "on")):
+                lazy.set_lazy_mode(mode != "off")
+                if on_card:
+                    torch.cuda.synchronize()
+                gc_clock["t"] = 0.0
+                t0 = time.perf_counter()
+                for _ in range(LAZY_TURN_STEPS):
+                    one_step(opt, sched, timed=not frozen)
+                lazy.set_lazy_mode(False)
+                if on_card:
+                    torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0)
+                                   / LAZY_TURN_STEPS * 1e3)
+                gc_ms[mode].append(gc_clock["t"] / LAZY_TURN_STEPS * 1e3)
+    finally:
+        gc.callbacks.remove(gc_cb)
+        gc.unfreeze()
+    step_ms = {k: float(np.median(v)) for k, v in times.items()}
+    us_op = {"recorded_us_per_op": float(np.median(host["record_ms"]))
+             * 1e3 / ops_per_step,
+             "eager_host_us_per_op": float(np.median(host["eager_ms"]))
+             * 1e3 / ops_per_step,
+             "flush_host_ms": float(np.median(host["flush_ms"]))}
+    idle = {}
+    if on_card:
+        idle["off"] = idle_share(lambda: one_step(opt, sched), 2,
+                                 "25a lazy off")
+        lazy.set_lazy_mode(True)
+        try:
+            idle["on"] = idle_share(lambda: one_step(opt, sched), 2,
+                                    "25a lazy on")
+        finally:
+            lazy.set_lazy_mode(False)
+    gc_step = {k: float(np.median(v)) for k, v in gc_ms.items()}
+    print(f"  (25a) step ms (median of {LAZY_TURNS} turns of "
+          f"{LAZY_TURN_STEPS}): lazy off {step_ms['off']:.2f}, on "
+          f"{step_ms['on']:.2f}, on with the heap frozen "
+          f"{step_ms['on_frozen']:.2f} (turns {times}); host ms a step in "
+          f"the cyclic collector {gc_step}; host: {us_op}; idle "
+          f"share {({k: round(v['idle_share'], 4) for k, v in idle.items()})}")
+    # (25d) two steps under the verifier
+    c1 = profiler.counters()
+    set_flags({"FLAGS_lazy_verify": True})
+    lazy.set_lazy_mode(True)
+    try:
+        for _ in range(2):
+            one_step(opt, sched)
+    finally:
+        lazy.set_lazy_mode(False)
+        set_flags({"FLAGS_lazy_verify": False})
+    verify = lazy_counters(c1)
+    print(f"  (25d) two steps under FLAGS_lazy_verify: {verify}")
+    if verify["lazy_verify_passes"] < 2 or (
+            on_card and verify["lazy_graph_replays"] < 2):
+        fail(f"(25d) verifier passes {verify}")
+    del opt, sched, model, params
+    return {"layers": cfg.num_layers, "batch": [B, T],
+            "losses_off": off, "losses_on": on, "bit_equal": equal,
+            "graph_cache": stats["per_entry"], "counters": counters,
+            "ops_per_step": ops_per_step, "pool_bytes": stats["pool_bytes"],
+            "launches": launches, "held_per_graph": dict(held),
+            "step_ms": step_ms, "turns_ms": times, "gc_ms": gc_step, **us_op,
+            "idle": idle,
+            "verify": verify}
+
+
+def lazy_ernie_phase(paddle, lazy, dev, cfg=None, B=ERNIE_B, T=ERNIE_T):
+    """(25b) ERNIE-3.0 base f32 through phase 9's eager Lamb loop (dropout
+    0.1), lazy off then on from the same weights and generator state; the
+    dropout masks of two replays of one graph; (25c) the deferred NaN scan
+    with the tensor.nan point poisoning one op."""
+    import json as _json
+
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.fault import inject
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.models import ErnieForPretraining, ernie_3_base
+    from paddle_tpu_torch.profiler import flight
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = cfg or ernie_3_base()
+    model = ErnieForPretraining(cfg, seed=0, device=dev).train()
+    params = model.parameters()
+    start = [p.detach().clone() for p in params]
+    np_ids, np_labels, np_nsp = ernie_arrays(cfg.vocab_size, B, T)
+    ids, labels, nsp = (paddle.to_tensor(a) for a in (np_ids, np_labels,
+                                                       np_nsp))
+
+    def one_step(opt):
+        loss = model.loss(ids, labels, nsp)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        out = loss.detach()
+        lazy.flush()
+        return out
+
+    def run(lazy_on):
+        with torch.no_grad():
+            for p, s in zip(params, start):
+                p.copy_(s)
+        paddle.seed(0)
+        opt = paddle.optimizer.Lamb(
+            learning_rate=ERNIE_LR, lamb_weight_decay=0.01,
+            parameters=params, exclude_from_weight_decay_fn=ln_excluder(model))
+        lazy.set_lazy_mode(lazy_on)
+        try:
+            losses = [one_step(opt) for _ in range(LAZY_STEPS)]
+        finally:
+            lazy.set_lazy_mode(False)
+        return [float(x) for x in losses], opt
+
+    off, _ = run(False)
+    lazy.evict_cold(0)
+    c0 = profiler.counters()
+    on, opt = run(True)
+    counters = lazy_counters(c0)
+    stats = lazy.graph_stats()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(on, off))
+    print(f"  (25b) ernie {cfg.num_layers} layers f32 b{B}xs{T} dropout "
+          f"{cfg.hidden_dropout}: losses off {[round(v, 5) for v in off]}, "
+          f"on {[round(v, 5) for v in on]}, largest relative difference "
+          f"{rel:.3e} (bound {LAZY_ERNIE_LOSS_REL}); graph cache "
+          f"{[(e['sights'], e['captures'], e['replays']) for e in stats['per_entry']]}; "
+          f"counters {counters}")
+    if not rel <= LAZY_ERNIE_LOSS_REL or not all(np.isfinite(on)):
+        fail(f"(25b) losses lazy on {on} against off {off}")
+    lazy_graph_check("(25b)", stats, counters, on_card)
+    idle = {}
+    if on_card:
+        idle["off"] = idle_share(lambda: one_step(opt), 2, "25b lazy off")
+        lazy.set_lazy_mode(True)
+        try:
+            idle["on"] = idle_share(lambda: one_step(opt), 2, "25b lazy on")
+        finally:
+            lazy.set_lazy_mode(False)
+        print(f"  (25b) idle share off {idle['off']['idle_share']:.4f}, on "
+              f"{idle['on']['idle_share']:.4f} ({idle})")
+    # the dropout masks of replays: one graph, flushed five times (warm-up,
+    # capture and its replay, then two more replays)
+    lazy.evict_cold(0)
+    x = torch.ones(LAZY_DROPOUT_PROBE, device=dev)
+    ys = []
+    lazy.set_lazy_mode(True)
+    try:
+        for _ in range(5):
+            y = F.dropout(x, p=cfg.hidden_dropout, training=True)
+            lazy.flush()
+            ys.append(lazy.concrete(y))
+    finally:
+        lazy.set_lazy_mode(False)
+    probe = lazy.graph_stats()["per_entry"]
+    masks = [y != 0 for y in ys]
+    keep = [float(m.float().mean()) for m in masks]
+    same = bool(torch.equal(masks[3], masks[4]))
+    print(f"  (25b) dropout probe: graph {[(e['sights'], e['captures'], e['replays']) for e in probe]}, "
+          f"keep shares {[round(k, 4) for k in keep]}, the last two replays "
+          f"{'share a mask' if same else 'draw different masks'}")
+    if same or len(probe) != 1 or (on_card and probe[0]["replays"] < 3) \
+            or not all(abs(k - (1 - cfg.hidden_dropout)) < 1e-2
+                       for k in keep):
+        fail(f"(25b) dropout masks across replays: {probe}, keep {keep}")
+    # (25c) the deferred NaN scan
+    c1 = profiler.counters()
+    lazy.set_lazy_mode(True)
+    set_flags({"FLAGS_check_nan_inf": True})  # its mode above the engine's
+    inject.arm(f"tensor.nan:op={LAZY_NAN_OP},call=1")
+    trip, raised_at = None, None
+    try:
+        with torch.no_grad():  # forward only: the NaN reaches no weight
+            held = [model.loss(ids, labels, nsp)]
+            lazy.flush()  # the poisoned step: enqueued, its scan deferred
+            raised_at = "next forward recorded"
+            held.append(model.loss(ids, labels, nsp))
+            raised_at = "next flush"
+            lazy.flush()
+            raised_at = None
+    except FloatingPointError as e:
+        trip = str(e)
+    finally:
+        inject.disarm()
+        set_flags({"FLAGS_check_nan_inf": False})
+        lazy.set_lazy_mode(False)
+    naninf = lazy_counters(c1)
+    doc = _json.load(open(flight.last_dump())) if trip else {}
+    prod = doc.get("extra", {}).get("producing_span", {})
+    pending = doc.get("pending_graph", {})
+    print(f"  (25c) tensor.nan at the first {LAZY_NAN_OP}: raised at the "
+          f"{raised_at}: {trip!r:.200}; dump producing span "
+          f"{prod.get('name')}, origin {doc.get('extra', {}).get('origin')}, "
+          f"pending_graph {pending}; counters {naninf}")
+    if trip is None or raised_at != "next flush" or prod.get("name") != \
+            "lazy_flush" or not pending.get("pending_nodes"):
+        fail(f"(25c) the deferred NaN trip: {trip!r}, at {raised_at}, "
+             f"producing {prod}, pending {pending}")
+    del opt, model, params, start
+    return {"layers": cfg.num_layers, "batch": [B, T],
+            "losses_off": off, "losses_on": on, "loss_rel_diff": rel,
+            "graph_cache": stats["per_entry"], "counters": counters,
+            "idle": idle, "dropout_keep": keep, "dropout_replays_differ":
+            not same, "naninf": {"op": LAZY_NAN_OP, "message": trip,
+                                 "producing_span": prod.get("name"),
+                                 "origin": doc.get("extra", {}).get("origin"),
+                                 "pending_graph": pending,
+                                 "counters": naninf}}
+
+
+def lazy_phase(card, dev="cuda", cfgs=None):
+    """Phase 25: 25a-d; the results go on the ``lazy`` line. ``cfgs``
+    (a GPT config, an ERNIE config and the batches) cut the models for a
+    rehearsal on the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import lazy
+
+    t0 = time.monotonic()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    gcfg, ecfg, gb, eb = cfgs or (None, None, (2, 2048), (ERNIE_B, ERNIE_T))
+    LAZY["card"] = card
+    LAZY["25a"] = lazy_gpt_phase(paddle, lazy, dev, gcfg, *gb)
+    lazy.evict_cold(0)
+    if on_card:
+        LAZY["25a"]["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        torch.cuda.empty_cache()
+    LAZY["25b"] = lazy_ernie_phase(paddle, lazy, dev, ecfg, *eb)
+    lazy.evict_cold(0)
+    LAZY["launches"] = LAZY["25a"]["launches"]
+    LAZY["seconds"] = time.monotonic() - t0
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"  (25) {LAZY['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -10596,6 +11031,10 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 23 alone (text "
                          "and the data modules, 23a-d), print its text_data "
                          "line and exit; no result line")
+    ap.add_argument("--phase25", action="store_true",
+                    help="build the kernels and run phase 25 alone (the "
+                         "lazy engine over CUDA graphs, 25a-d), print its "
+                         "lazy line and exit; no result line")
     ap.add_argument("--phase24", action="store_true",
                     help="build the kernels and run phase 24 alone (the "
                          "Paddle API below the top level on GPT-3 1.3B, "
@@ -10722,6 +11161,11 @@ def main(argv=None) -> int:
         parity_phase(card)
         print(json.dumps({"parity": PARITY}))
         return 0
+    if args.phase25:
+        print("[25] the lazy engine over CUDA graphs alone")
+        lazy_phase(card)
+        print(json.dumps({"lazy": LAZY}))
+        return 0
 
     print("[2] kernels against their plain versions")
     errs = kernel_phase()
@@ -10803,6 +11247,12 @@ def main(argv=None) -> int:
           "eager AdamW loop resumed through set_dict, set_value and "
           "load_state_dict, bit-equal to the uninterrupted run")
     parity_phase(card)
+    print("[25] the lazy eager engine over CUDA graphs: gpt3_1p3b's eager "
+          "AdamW loop lazy off, then on (one CUDA graph per signature, the "
+          "flash kernels captured), the step ms and idle share of each; "
+          "ernie_3_base's eager Lamb loop with dropout 0.1; the deferred "
+          "NaN scan; two steps under FLAGS_lazy_verify")
+    lazy_phase(card)
 
     print("[6] kernel registry: off through phases 3 and 5, then search, "
           "ondemand from the DB, and drive (a) on the tuned configs")
@@ -10845,6 +11295,8 @@ def main(argv=None) -> int:
             r["launches_qat"] = QI["22a"]["launches"][r["name"]]
         if r["name"] in PARITY["launches"]:  # 24c's two runs
             r["launches_parity"] = PARITY["launches"][r["name"]]
+        if r["name"] in LAZY["launches"]:  # 25a's lazy-on run
+            r["launches_lazy"] = LAZY["launches"][r["name"]]
         if r["name"] == "paged_attention_rows":  # phase 17's tp drives
             tp = TP_NATIVE["gpt"]
             r["launches_tp"] = (tp["17a"]["launches_tp"]
@@ -10922,6 +11374,7 @@ def main(argv=None) -> int:
     print(json.dumps({"quant_incubate": QI}))
     print(json.dumps({"text_data": TEXT}))
     print(json.dumps({"parity": PARITY}))
+    print(json.dumps({"lazy": LAZY}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Static and runtime invariant checks over the port (port of
 ``paddle_tpu/analysis/``).
 
-Two pillars, run over ``paddle_tpu_torch``'s own sources:
+Three pillars; the first two run over ``paddle_tpu_torch``'s own sources:
 
 * :mod:`~paddle_tpu_torch.analysis.lint` — an AST repo-invariant linter
   (zero third-party deps): hidden host syncs, non-atomic writes,
@@ -15,10 +15,12 @@ Two pillars, run over ``paddle_tpu_torch``'s own sources:
   :mod:`~paddle_tpu_torch.analysis.thread_checks` (``FLAGS_thread_checks``)
   that makes races fail deterministically.
 
-The reference's third pillar, ``verify_graph``, verifies its lazy pending
-graph before dispatch; the port runs eagerly and has no such graph.
+* :mod:`~paddle_tpu_torch.analysis.verify_graph` — the lazy engine's
+  pending-graph verifier (``FLAGS_lazy_verify``): wiring, leaf table,
+  donation, signature, the deferred queue and, before a CUDA graph
+  replays, the addresses of the leaves it binds.
 
-``python -m paddle_tpu_torch.analysis`` runs both and exits non-zero on any
+``python -m paddle_tpu_torch.analysis`` runs the first two and exits non-zero on any
 unsuppressed finding; a tier-1 test holds the tree clean.
 """
 from __future__ import annotations

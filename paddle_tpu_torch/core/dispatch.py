@@ -37,10 +37,16 @@ What the port names and reaches differs from the reference in three ways:
 * op names are ATen's (``aten.addmm.default``), not the reference's
   ``eager_call`` names (``"linear"``, ``"rms_norm"``): the port has no
   ``eager_call`` layer, and the mode sees the ops its tensors dispatch;
-* the origin is always ``eager``: the port checks op by op (nothing is
-  fused), so ``FLAGS_check_nan_inf_per_op``, which re-runs the reference's
-  fused lazy flush unfused, is accepted and changes nothing, and the
-  reference's hint about it (given for a lazy flush only) never appears;
+* the origin is ``eager`` op by op; under the lazy engine
+  (``core/lazy.py``) the mode lets every op through and the flush checks
+  instead, as the reference's does: one fused finite check over the
+  flush's live floating outputs and the leaves it wrote, read at the next
+  flush, materialization or ``lazy.sync()`` (origin ``lazy flush
+  (deferred)``, the producing ``lazy_flush`` span in the dump's
+  ``extra``), or at once with ``FLAGS_lazy_async`` off (origin ``lazy
+  flush``). ``FLAGS_check_nan_inf_per_op`` makes such a flush run unfused,
+  eagerly, checking every node's outputs as they land (origin ``lazy
+  per-op replay``);
 * the reference checks its eager ops and its eager ``Optimizer.step()``,
   while its ``CompiledTrainStep`` is traced and cannot read the values: with
   the flag set, its every call raises jax's ``TracerBoolConversionError``,
@@ -153,8 +159,12 @@ def _written(func, args, kwargs):
 class _NanInfScan(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from ..fault import inject
+        from . import lazy
 
         kwargs = kwargs or {}
+        if lazy.lazy_enabled() or any(
+                isinstance(a, lazy.LazyArray) for a in args):
+            return func(*args, **kwargs)  # the lazy flush checks instead
         out = func(*args, **kwargs)
         if inject._armed and inject.should_fire("tensor.nan", op=str(func)):
             inject.poison_first_nan(out)

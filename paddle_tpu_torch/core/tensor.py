@@ -1,6 +1,10 @@
 """Tensor, Parameter and ``to_tensor`` (port of ``paddle_tpu/core/tensor.py``).
 
-There is no wrapper class: ``Tensor`` is ``torch.Tensor``. The train step is
+There is no wrapper class: ``Tensor`` is ``torch.Tensor``. Under the lazy
+engine (``core/lazy.py``) an op's result is a :class:`LazyArray`, a
+``torch.Tensor`` subclass whose host reads flush the pending graph first
+(as the reference's ``.numpy()``, ``__array__`` and print do);
+``lazy_timed_block`` is the engine's attributed host wait. The train step is
 host-bound, and a ``__torch_function__`` subclass would tax every op it
 launches. ``Parameter`` subclasses ``torch.nn.Parameter`` and adds Paddle's
 attributes; ``to_tensor`` keeps the reference's dtype rules and lands on
@@ -23,7 +27,9 @@ import torch
 
 from ..utils import unique_name
 from . import dtype as dtypes
+from . import lazy
 from . import place as place_mod
+from .lazy import LazyArray, timed_block as lazy_timed_block
 
 Tensor = torch.Tensor
 
@@ -46,9 +52,14 @@ class Parameter(torch.nn.Parameter):
             data = torch.empty(0)
         elif not isinstance(data, torch.Tensor):
             data = torch.as_tensor(np.asarray(data))
-        if dtype is not None:
-            data = data.to(dtypes.convert_dtype(dtype))
-        self = torch.Tensor._make_subclass(cls, data.detach(), bool(trainable))
+        # a parameter holds a concrete tensor: under the lazy engine its
+        # data is materialized and it is made eagerly
+        data = lazy.concrete(data)
+        with lazy.eager():
+            if dtype is not None:
+                data = data.to(dtypes.convert_dtype(dtype))
+            self = torch.Tensor._make_subclass(cls, data.detach(),
+                                               bool(trainable))
         self.name = name or unique_name.generate("param")
         self.optimize_attr = {"learning_rate": 1.0}
         self.regularizer = None
@@ -199,8 +210,8 @@ def host_arrays(*xs):
     """Every argument as a numpy array (bfloat16 as float32), with one
     device sync: each card tensor is copied without blocking (into pinned
     memory), then the current stream is waited on once, instead of one
-    blocking ``.cpu()`` a tensor."""
-    ts = [x.detach() if isinstance(x, torch.Tensor)
+    blocking ``.cpu()`` a tensor. A pending lazy graph is flushed first."""
+    ts = [lazy.concrete(x).detach() if isinstance(x, torch.Tensor)
           else torch.as_tensor(np.asarray(x)) for x in xs]
     on_card = [t.device.type == "cuda" for t in ts]
     if any(on_card):
@@ -211,4 +222,5 @@ def host_arrays(*xs):
             for t in ts]
 
 
-__all__ = ["Tensor", "Parameter", "to_tensor", "host_arrays"]
+__all__ = ["Tensor", "Parameter", "to_tensor", "host_arrays", "LazyArray",
+           "lazy_timed_block"]

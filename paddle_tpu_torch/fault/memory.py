@@ -24,12 +24,16 @@
   the step touches the device). The reference admits its lazy flushes with
   numbers XLA predicts at compile time; the port admits its step programs
   (``jit.CompiledTrainStep``, ``distributed.engine.HybridParallelEngine``)
-  with numbers measured on their first calls.
+  with numbers measured on their first calls, and the lazy engine's
+  flushes (``core/lazy.py``) from the measured warm-up replay of a
+  signature: its capture, and every replay after it, is admitted first
+  (an ``enforce`` rejection leaves the pending graph pending).
 * :func:`register_pressure_handler` / :func:`free_pressure` — the ladder's
   give-memory-back rung: the handlers (a serving engine parks KV blocks),
-  then the counterpart of the reference's cold-executable eviction. The
-  port has no executable cache (``evicted_executables`` is always 0); what
-  a torch out-of-memory leaves pinned is the failed step's gradients and
+  then the reference's cold-executable eviction: the lazy engine's cold
+  CUDA graphs, whose pools pin memory (``core.lazy.evict_cold``, all but
+  the most recently used; ``evicted_executables``). What a torch
+  out-of-memory leaves pinned besides is the failed step's gradients and
   the caching allocator's reserved-but-free blocks, so the rung drops the
   given parameters' ``.grad``, collects garbage and empties the cache, and
   reports the bytes released.
@@ -307,7 +311,7 @@ def free_pressure(reason: str = "oom", params=(), device=None) -> dict:
     failed step's graph) and, on a CUDA device, return the caching
     allocator's free blocks to the device (``torch.cuda.empty_cache``).
     Returns a summary that joins the recovery-attempt record:
-    ``evicted_executables`` (always 0: the port keeps no executable cache),
+    ``evicted_executables`` (the lazy engine's cold graphs evicted),
     ``released_bytes`` (the allocator's reserved bytes given back, or on
     the CPU the census's drop), ``freed_grad_bytes`` and ``live_bytes``."""
     handlers = {}
@@ -322,6 +326,9 @@ def free_pressure(reason: str = "oom", params=(), device=None) -> dict:
         reserved0 = torch.cuda.memory_reserved(device)
     else:
         reserved0 = int(_prof.memory_census("cpu")["live_bytes"])
+    from ..core import lazy
+
+    evicted = lazy.evict_cold(keep=1)
     freed = 0
     for p in params:
         if p.grad is not None:
@@ -335,7 +342,7 @@ def free_pressure(reason: str = "oom", params=(), device=None) -> dict:
     else:
         live = int(_prof.memory_census("cpu")["live_bytes"])
         released = reserved0 - live
-    return {"reason": reason, "evicted_executables": 0,
+    return {"reason": reason, "evicted_executables": int(evicted),
             "handlers": handlers, "released_bytes": int(max(released, 0)),
             "freed_grad_bytes": int(freed), "live_bytes": live}
 

@@ -21,11 +21,15 @@ watches each step's signals and escalates:
   newest anchor checkpoint strictly older than the poisoned step; (3)
   **halt**, a :class:`StabilityError` after a flight-recorder dump.
 
-The port has no lazy engine, so detection is synchronous: ``observe``
-judges the step before the caller applies its update, and the skip rung is
-always possible. ``committed=True`` (an update that was already applied)
-still defers the judgment to the next ``observe``/``poll``, which can only
-roll back. ``rollback`` works against any anchor with ``resume(state,
+Detection is synchronous, as the reference's with ``FLAGS_lazy_async=0``:
+``observe`` judges the step before the caller applies its update, and the
+skip rung is always possible. ``committed=True`` (an update that was
+already applied) defers the judgment to the next ``observe``/``poll``,
+which can only roll back; while a sentinel is active, the lazy engine's
+drain points (``core/lazy.py``: each flush, each materialization,
+``sync()``) tap it, and a committed step whose signal pack the card has
+already finished is read there without waiting, so the later judgment
+finds its four floats in hand. ``rollback`` works against any anchor with ``resume(state,
 max_step)``, ``invalidate``, ``protect`` and ``release``:
 ``distributed.checkpoint.AutoCheckpoint`` (which ``from_flags`` builds in
 ``FLAGS_stability_ckpt_dir``) or ``CoordinatedCheckpoint``.
@@ -328,19 +332,34 @@ def last_signals() -> Dict[str, float]:
     return dict(_last_signals)
 
 
+def _tap_all() -> None:
+    """The lazy engine's drain tap while a sentinel is active: a
+    non-blocking sweep that reads the committed steps whose signal pack is
+    finished. Never raises and never flushes."""
+    for s in list(_active):
+        try:
+            s._tap()
+        except Exception:  # lint: ok(oom-handler) — a readiness sweep; the judgment reads again
+            pass
+
+
 def _register(s: "StabilitySentinel") -> None:
+    from ..core import lazy
     from ..profiler import flight as _flight
 
     _active.add(s)
     _flight.add_context_provider("stability", _flight_context)
+    lazy._stability_tap = _tap_all
 
 
 def _unregister(s: "StabilitySentinel") -> None:
     _active.discard(s)
     if not _active:
+        from ..core import lazy
         from ..profiler import flight as _flight
 
         _flight.remove_context_provider("stability")
+        lazy._stability_tap = None
 
 
 def _flight_context() -> dict:
@@ -737,11 +756,35 @@ class StabilitySentinel:
             return self._state_fn()
         return self._state
 
+    def _tap(self) -> None:
+        """Stage the four floats of the committed steps whose signal pack
+        is computed (not pending in a lazy graph, its card work done)."""
+        from ..core import lazy
+
+        with self._lock:
+            pending = [e for e in self._pending if "values" not in e]
+        for e in pending:
+            h = e["handle"]
+            if lazy.is_lazy(h):
+                if h._concrete is None:
+                    return  # its flush has not run yet
+                h = h._concrete
+            if h.device.type == "cuda" and not torch.cuda.current_stream(
+                    h.device).query():
+                return
+            with lazy.suspended():
+                v = np.asarray(h.tolist(), np.float64)  # lint: ok(host-sync) — the work is done
+            if v[2] == 0.0 and math.isfinite(v[0]):
+                e["values"] = v  # a non-finite step is counted at _read
+
     def _read(self, entry) -> np.ndarray:
         """The step's one readback (four floats); a non-finite gradient
         norm adds the exact non-finite count."""
         from .. import profiler as _prof
 
+        if "values" in entry:
+            _prof.counter_inc("stability_readbacks")
+            return entry["values"]
         v = np.asarray(entry["handle"].tolist(), np.float64)
         _prof.counter_inc("stability_readbacks")
         if v[2] > 0.0 or not math.isfinite(v[0]):

@@ -19,10 +19,15 @@ Paddle script setting them runs. ``FLAGS_cudnn_deterministic`` sets
 ``FLAGS_eager_delete_tensor_gb``, ``FLAGS_allocator_strategy``,
 ``FLAGS_fraction_of_gpu_memory_to_use`` (the caching allocator decides),
 ``FLAGS_use_bf16_matmul`` (the matmul runs in its inputs' dtype),
-``FLAGS_jit_cache_size``, ``FLAGS_log_level``, the ``FLAGS_lazy_*`` flags
-(the port runs eagerly: no lazy graph to verify, donate, flush or compile
-in the background) and the ``FLAGS_xla_persistent_cache*`` flags (no XLA
-compilation cache).
+``FLAGS_jit_cache_size``, ``FLAGS_log_level`` and the
+``FLAGS_xla_persistent_cache*`` flags (no XLA compilation cache). The
+``FLAGS_lazy_*`` flags drive the lazy engine (``core/lazy.py``):
+``FLAGS_lazy_verify`` runs ``analysis/verify_graph.py`` before every flush,
+``FLAGS_lazy_async`` returns from a flush once its work is enqueued,
+``FLAGS_lazy_donate`` counts dead rebound leaves as donated (on the card
+they are not copied back out of a graph's static inputs) and
+``FLAGS_lazy_bg_compile`` captures a CUDA graph on a side stream without
+``torch.cuda.graph``'s device-wide synchronize.
 """
 from __future__ import annotations
 
@@ -60,8 +65,9 @@ _FLAGS: Dict[str, object] = {
     "FLAGS_thread_checks": False,
     # The nan/inf scan (core/dispatch.py): while FLAGS_check_nan_inf is set,
     # every floating output of every op is checked and the first non-finite
-    # one raises FloatingPointError. FLAGS_check_nan_inf_per_op is accepted;
-    # the port already checks op by op, so it changes nothing.
+    # one raises FloatingPointError; under the lazy engine the flush checks
+    # its outputs in one fused pass, and FLAGS_check_nan_inf_per_op runs
+    # the flush unfused, checking every op's outputs.
     "FLAGS_check_nan_inf": False,
     "FLAGS_check_nan_inf_per_op": False,
     # Per-step memory census (the caching allocator's counters feeding the

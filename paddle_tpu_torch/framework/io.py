@@ -157,12 +157,19 @@ class _Unpickler(pickle.Unpickler):
 
 def save(obj, path, protocol=4, **configs):
     """Pickle ``obj`` to ``path`` through ``atomic_open`` (a kill mid-write
-    leaves the old file). Tensors on the card are copied to the host."""
+    leaves the old file). Tensors on the card are copied to the host. A
+    pending lazy graph is flushed first, so a parameter whose update is
+    still pending is saved updated."""
+    from ..core import lazy
+
+    lazy.flush()
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
+    with lazy.eager():
+        packed = _pack(obj)
     with atomic_open(path, "wb") as f:
-        pickle.dump(_pack(obj), f, protocol=protocol)
+        pickle.dump(packed, f, protocol=protocol)
 
 
 def load(path, return_numpy=False, device=None, **configs):

@@ -60,7 +60,8 @@ With ``FLAGS_check_nan_inf`` set, a call raises ``TypeError``, as the
 reference's traced step does (``core/dispatch.py``).
 
 Under ``FLAGS_hbm_admission`` ``warn`` or ``enforce`` the step is admitted
-as the reference's lazy flush is (``fault/memory.py``): the first two calls
+as the reference's lazy flush is (and the port's, ``core/lazy.py``; see
+``fault/memory.py``): the first two calls
 of a signature (the batch's shapes and dtypes) measure its footprint
 (``cost_model.MeasuredStep``; on the card this resets the allocator's peak
 statistics; the first builds the state the second finds in place, see
@@ -71,6 +72,11 @@ leaves the parameters, gradients, optimizer state, step counts and RNG
 stream as they were and the same call can simply be made again. With the
 flag ``off`` the cost is one flag probe and ``fault.memory`` is never
 reached.
+
+A call crosses out of the lazy engine, as the reference's compiled
+callables do (``_conc``): the pending graph is flushed, LazyArray inputs
+are materialized, and the step runs eagerly; its capture on the lazy
+engine's graph cache is later work.
 
 Each call is one ``train_step`` span. Under ``Profiler(profile_memory=True)``
 or ``FLAGS_profile_memory`` the step ends with a memory census
@@ -92,6 +98,7 @@ import warnings
 import torch
 
 from .. import profiler
+from ..core import lazy as _lazy
 from ..core.place import resolve_device
 from ..framework.flags import flag
 from ..static.input import InputSpec
@@ -101,6 +108,12 @@ __all__ = ["CompiledTrainStep", "compile_train_step", "in_compiled_step",
            "to_static", "declarative", "not_to_static", "ignore_module",
            "enable_to_static", "save", "load", "TranslatedLayer",
            "InputSpec"]
+
+
+def _conc(a):
+    """A compiled step's arguments must be concrete: a LazyArray is
+    materialized (the pending graph flushes) before it crosses in."""
+    return _lazy.concrete(a)
 
 
 _COMPILED_STEP = contextvars.ContextVar("paddle_tpu_torch_compiled_step",
@@ -141,18 +154,21 @@ class CompiledTrainStep:
                 "compiled train step, whose values are traced in the "
                 "reference; clear the flag or run the eager loop")
         with profiler.span("train_step", step=self._step_count) as sp:
-            batch = [self._as_tensor(b) for b in batch]
-            if flag("FLAGS_hbm_admission", "off") != "off":
-                loss = self._admitted(sp, batch)
-            else:
-                loss = self._run(batch)
+            _lazy.flush()
+            batch = [self._as_tensor(_conc(b)) for b in batch]
+            with _lazy.eager():
+                if flag("FLAGS_hbm_admission", "off") != "off":
+                    loss = self._admitted(sp, batch)
+                else:
+                    loss = self._run(batch)
+                loss = loss.detach()
             if profiler._memory_active():
                 mem = profiler.memory_census(self._device)
                 sp.set(live_bytes=mem["live_bytes"],
                        live_arrays=mem["live_arrays"],
                        peak_live_bytes=mem["peak_live_bytes"],
                        delta_bytes=mem["last_delta_bytes"])
-            return loss.detach()
+            return loss
 
     def _run(self, batch):
         token = _COMPILED_STEP.set(True)

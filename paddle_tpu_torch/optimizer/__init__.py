@@ -27,6 +27,25 @@ its mp group (``_f32_norms``). ``Lamb`` follows the reference's promotion: its b
 are f32 arrays, so a bf16 parameter comes out of the first step as float32
 (the port rebinds ``p.data``), and its moments follow it on the next step.
 
+The values that change from step to step (the learning rate and its
+per-parameter scale, Adam's bias-corrected step size, AdamW's decay factor,
+Lamb's bias corrections) enter the ``_foreach_*`` ops as 0-dim tensors on
+the parameters' device (their ``Tensor`` overloads), made by
+``core.lazy.host_scalars`` without waiting for the card: under the lazy
+engine a Python float that changes every step would change the graph's
+signature every step, so the loop would capture anew each step and never
+replay. Each tensor form computes what the float form computed in f32 (a
+product by the scalar, Adam's ``addcdiv`` with the scalar folded into its
+numerator first); in bf16 the folded numerator rounds once more. SGD and
+Momentum keep the float in ``alpha=`` (one fused multiply-add) while the
+learning rate is a constant, and take the tensor form under a scheduler.
+The folded numerator is a temporary the float form did not need, so
+Adam's tail (and the scheduled SGD step) runs by chunks of at most
+``_CHUNK_BYTES`` of parameters: its temporaries stay small beside a 7B
+model's 13.5 GB of bf16 parameters.
+An optimizer's moments are made eagerly and bound by address in the lazy
+engine's graphs (``note_persistent``).
+
 ``_elementwise_rule`` marks the rules that are elementwise maps over
 (parameter, gradient, state), which a flat shard of the parameters can run
 (the reference's ZeRO-1 update reads it); the base class and the two
@@ -49,11 +68,13 @@ or ``L1Decay``), the decay gate and each parameter's lr scale
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..core import lazy
 from . import lr
 from .lr import LRScheduler
 
@@ -72,9 +93,36 @@ class L1Decay:
         self.coeff = float(coeff)
 
 
+@functools.lru_cache(maxsize=4096)
 def _rounded(x: float, dtype: torch.dtype) -> float:
-    """A Python scalar rounded to ``dtype``, as JAX's weak typing does."""
-    return float(torch.tensor(x, dtype=dtype))
+    """A Python scalar rounded to ``dtype``, as JAX's weak typing does (on
+    the host: never a lazy graph's materialization point)."""
+    with lazy.suspended():
+        return float(torch.tensor(x, dtype=dtype))
+
+
+def _scalars(p: torch.Tensor, *values, dtype=None) -> list:
+    """``values`` as 0-dim tensors on ``p``'s device, each rounded to
+    ``dtype`` (default ``p``'s)."""
+    dt = dtype or p.dtype
+    return lazy.host_scalars([_rounded(float(v), dt) for v in values], dt,
+                             p.device)
+
+
+# the most bytes of parameters one chunk of an update's temporaries covers
+_CHUNK_BYTES = 256 << 20
+
+
+def _chunks(ps, *lists):
+    """``zip(ps, *lists)`` cut into consecutive chunks of at most
+    ``_CHUNK_BYTES`` of ``ps`` (one parameter at least): each chunk as
+    ``(ps_chunk, *lists_chunk)``."""
+    start, size = 0, 0
+    for i, p in enumerate(ps):
+        size += p.numel() * p.element_size()
+        if size >= _CHUNK_BYTES or i == len(ps) - 1:
+            yield (ps[start:i + 1],) + tuple(x[start:i + 1] for x in lists)
+            start, size = i + 1, 0
 
 
 class Optimizer:
@@ -130,6 +178,18 @@ class Optimizer:
         the reference's gate sees (``Lamb`` reads the parameter itself)."""
         return self._wd_on(self._gate_names[i])
 
+    def _lr_step(self, ps, gs, lr: float) -> None:
+        """``ps -= lr * gs`` (the SGD and Momentum step): a float ``alpha``
+        (one fused multiply-add) while the learning rate is a constant, the
+        tensor form under a scheduler."""
+        dt = ps[0].dtype
+        if not isinstance(self._learning_rate, LRScheduler):
+            torch._foreach_add_(ps, gs, alpha=-_rounded(lr, dt))
+            return
+        neg, = _scalars(ps[0], -_rounded(lr, dt))
+        for p_c, g_c in _chunks(ps, gs):
+            torch._foreach_add_(p_c, torch._foreach_mul(g_c, neg))
+
     def _update(self, ps, gs, states, lr: float, t: int, wd: float) -> None:
         """In place over one group of parameters that share device, dtype and
         decay gate: ``states[i]`` holds parameter i's accumulators."""
@@ -179,7 +239,9 @@ class Optimizer:
             name = self._names[i]
             st = self._accumulators.get(name)
             if st is None:
-                st = self._accumulators[name] = self._init_accums(p)
+                with lazy.eager():
+                    st = self._accumulators[name] = self._init_accums(p)
+                lazy.note_persistent(*st.values())
             if g.dtype != p.dtype:
                 g = g.to(p.dtype)
             if functional and not with_params:
@@ -240,6 +302,7 @@ class Optimizer:
                 if isinstance(k, str) and k.startswith(prefix)}
             if st:
                 self._accumulators[name] = st
+                lazy.note_persistent(*st.values())
 
     load_state_dict = set_state_dict
 
@@ -248,7 +311,7 @@ class SGD(Optimizer):
     _elementwise_rule = True
 
     def _update(self, ps, gs, states, lr, t, wd):
-        torch._foreach_add_(ps, gs, alpha=-_rounded(lr, ps[0].dtype))
+        self._lr_step(ps, gs, lr)
 
 
 class Momentum(Optimizer):
@@ -265,13 +328,13 @@ class Momentum(Optimizer):
 
     def _update(self, ps, gs, states, lr, t, wd):
         dt = ps[0].dtype
-        mom, lr_p = _rounded(self._momentum, dt), _rounded(lr, dt)
+        mom = _rounded(self._momentum, dt)
         vs = [st["velocity"] for st in states]
         torch._foreach_mul_(vs, mom)
         torch._foreach_add_(vs, gs)
         step = torch._foreach_add(gs, vs, alpha=mom) if self._use_nesterov \
             else vs
-        torch._foreach_add_(ps, step, alpha=-lr_p)
+        self._lr_step(ps, step, lr)
 
 
 class Adam(Optimizer):
@@ -302,10 +365,16 @@ class Adam(Optimizer):
         torch._foreach_add_(ms, gs, alpha=_rounded(1 - b1, dt))
         torch._foreach_mul_(vs, _rounded(b2, dt))
         torch._foreach_addcmul_(vs, gs, gs, value=_rounded(1 - b2, dt))
-        denom = torch._foreach_sqrt(vs)
-        torch._foreach_add_(denom, _rounded(self._epsilon, dt))
-        torch._foreach_addcdiv_(ps, ms, denom,
-                                value=-_rounded(self._lr_t(lr, t), dt))
+        neg_lr_t, = _scalars(ps[0], -self._lr_t(lr, t))
+        eps = _rounded(self._epsilon, dt)
+        # by chunks of parameters, so the two temporaries (the denominator,
+        # and the numerator with -lr_t folded in: addcdiv multiplies it
+        # first) stay small beside the parameters
+        for p_c, m_c, v_c in _chunks(ps, ms, vs):
+            denom = torch._foreach_sqrt(v_c)
+            torch._foreach_add_(denom, eps)
+            torch._foreach_addcdiv_(p_c, torch._foreach_mul(m_c, neg_lr_t),
+                                    denom)
 
 
 class AdamW(Adam):
@@ -334,9 +403,13 @@ class AdamW(Adam):
             return torch.tensor(x, dtype=dt)
 
         # 1 - lr * wd * gate, each product rounded to the parameter's dtype
-        factor = float(1 - c(_rounded(lr, dt)) * c(self._wd) * c(wd))
+        # (on the host); a factor of 1.0 (lr 0, or any lr in bf16) skips
+        # the pass, which changes the ops only where it starts or stops
+        with lazy.suspended():
+            factor = float(1 - c(_rounded(lr, dt)) * c(self._wd) * c(wd))
         if factor != 1.0:
-            torch._foreach_mul_(ps, factor)
+            f, = _scalars(ps[0], factor)
+            torch._foreach_mul_(ps, f)
         super()._update(ps, gs, states, lr, t, wd)
 
 
@@ -368,7 +441,8 @@ class Adamax(Optimizer):
         torch._foreach_maximum_(us, torch._foreach_abs(gs))
         # lr / (1 - b1^t) in f32, then cast to the parameter's dtype
         lr_t = np.float32(lr) / (np.float32(1) - _f32_pow(b1, t))
-        step = torch._foreach_mul(ms, _rounded(float(lr_t), dt))
+        lr_t, = _scalars(ps[0], float(lr_t))
+        step = torch._foreach_mul(ms, lr_t)
         torch._foreach_div_(step, torch._foreach_add(us, _rounded(
             self._epsilon, dt)))
         torch._foreach_sub_(ps, step)
@@ -409,7 +483,8 @@ class RMSProp(Optimizer):
             denom = torch._foreach_sub(mss, torch._foreach_mul(mgs, mgs))
         denom = torch._foreach_sqrt(torch._foreach_add(denom, _rounded(
             self._epsilon, dt)))
-        step = torch._foreach_mul(gs, _rounded(lr, dt))
+        lr_p, = _scalars(ps[0], lr)
+        step = torch._foreach_mul(gs, lr_p)
         torch._foreach_div_(step, denom)
         torch._foreach_mul_(moms, _rounded(self._momentum, dt))
         torch._foreach_add_(moms, step)
@@ -435,7 +510,8 @@ class Adagrad(Optimizer):
         torch._foreach_add_(ms, torch._foreach_mul(gs, gs))
         denom = torch._foreach_sqrt(ms)
         torch._foreach_add_(denom, _rounded(self._epsilon, dt))
-        step = torch._foreach_mul(gs, _rounded(lr, dt))
+        lr_p, = _scalars(ps[0], lr)
+        step = torch._foreach_mul(gs, lr_p)
         torch._foreach_div_(step, denom)
         torch._foreach_sub_(ps, step)
 
@@ -472,7 +548,8 @@ class Adadelta(Optimizer):
         torch._foreach_mul_(asus, rho)
         torch._foreach_add_(asus, torch._foreach_mul(
             torch._foreach_mul(upd, upd), one_rho))
-        torch._foreach_sub_(ps, torch._foreach_mul(upd, _rounded(lr, dt)))
+        lr_p, = _scalars(ps[0], lr)
+        torch._foreach_sub_(ps, torch._foreach_mul(upd, lr_p))
 
 
 def _weak_mul(x: float, t: torch.Tensor, out=None) -> torch.Tensor:
@@ -539,11 +616,13 @@ class Lamb(Optimizer):
 
     def _update(self, ps, gs, states, lr, t, wd):
         b1, b2 = self._beta1, self._beta2
-        bc1 = float(np.float32(1) - _f32_pow(b1, t))
-        bc2 = float(np.float32(1) - _f32_pow(b2, t))
+        bc1, bc2 = _scalars(ps[0], np.float32(1) - _f32_pow(b1, t),
+                            np.float32(1) - _f32_pow(b2, t),
+                            dtype=torch.float32)
         eps = _rounded(self._epsilon, torch.float32)
         for p, g, st in zip(ps, gs, states):
             dt = p.dtype
+            lr_p, = _scalars(p, lr)
             m0, v0 = st["moment1"], st["moment2"]
             mt = torch.promote_types(m0.dtype, dt)
             m = _weak_mul(b1, m0, mt) + _weak_mul(1 - b1, g, mt)
@@ -553,7 +632,7 @@ class Lamb(Optimizer):
             w_norm, r_norm = _f32_norms(p, p, r)
             trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                                 1.0).to(dt)
-            new_p = p - (trust.float() * _rounded(lr, dt)) * r
+            new_p = p - (trust.float() * lr_p) * r
             st["moment1"], st["moment2"] = m, v
             if new_p.dtype == dt:
                 p.copy_(new_p)
@@ -578,7 +657,7 @@ class LarsMomentum(Optimizer):
 
     def _update(self, ps, gs, states, lr, t, wd):
         lwd, coeff = self._lars_wd, self._lars_coeff
-        lr32 = _rounded(lr, torch.float32)
+        lr32, = _scalars(ps[0], lr, dtype=torch.float32)
         for p, g, st in zip(ps, gs, states):
             dt = p.dtype
             w_norm, g_norm = _f32_norms(p, p, g)

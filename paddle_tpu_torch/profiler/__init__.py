@@ -110,12 +110,21 @@ def counters() -> Dict[str, int]:
     ``hbm_admission_checks`` / ``hbm_admission_rejects`` (preflight
     decisions under ``FLAGS_hbm_admission``), ``hbm_oom_recoveries``
     (ladder rungs that brought a step back: a retry or a degrade),
-    ``hbm_degraded_steps`` (steps re-run through the accumulate path). The
-    reference's ``hbm_cache_evicted`` counts cold-executable evictions; the
-    port keeps no executable cache and has no such counter. Data
+    ``hbm_degraded_steps`` (steps re-run through the accumulate path),
+    ``hbm_cache_evicted`` (cold CUDA graphs the lazy engine evicted). Data
     parallelism (``distributed/parallel.py``, the sharded update):
     ``dp_buckets``, ``dp_all_reduces``, ``dp_sync_bytes``,
     ``dp_reduce_scatters``, ``dp_gather_bytes``.
+
+    The lazy engine (``core/lazy.py``): ``lazy_flushes``,
+    ``lazy_cache_hits`` (flushes whose signature was seen before),
+    ``lazy_graph_captures`` / ``lazy_graph_replays`` (CUDA graphs captured
+    and replayed), ``lazy_replay_fallbacks`` (flushes whose capture or
+    replay failed and that ran eagerly), ``lazy_blocks`` /
+    ``lazy_block_ns`` (attributed host waits), ``lazy_deferred_checks``
+    (NaN/Inf checks moved off the critical path),
+    ``naninf_donation_suppressed``, ``lazy_donated_buffers``,
+    ``lazy_verify_passes`` (``FLAGS_lazy_verify``).
 
     Training runtime: ``naninf_trips`` (the nan/inf scan),
     ``io_device_prefetched`` (batches the ``DevicePrefetcher`` staged),
@@ -164,7 +173,7 @@ KNOWN_COUNTERS = frozenset({
     "dp_all_reduces", "dp_buckets", "dp_gather_bytes",
     "dp_reduce_scatters", "dp_sync_bytes",
     "flight_dumps",
-    "hbm_admission_checks", "hbm_admission_rejects",
+    "hbm_admission_checks", "hbm_admission_rejects", "hbm_cache_evicted",
     "hbm_degraded_steps", "hbm_oom_recoveries", "hbm_oom_trips",
     "heartbeat_failures",
     "host_emb_block_ns", "host_emb_cache_admitted",
@@ -178,8 +187,12 @@ KNOWN_COUNTERS = frozenset({
     "kernel_tune_candidates", "kernel_tune_db_rejects",
     "kernel_tune_hits", "kernel_tune_misses", "kernel_tune_searches",
     "kernel_tune_verify_fails",
+    "lazy_block_ns", "lazy_blocks", "lazy_cache_hits",
+    "lazy_deferred_checks", "lazy_donated_buffers", "lazy_flushes",
+    "lazy_graph_captures", "lazy_graph_replays", "lazy_replay_fallbacks",
+    "lazy_verify_passes",
     "metric_host_reads",
-    "naninf_trips",
+    "naninf_donation_suppressed", "naninf_trips",
     "preemption_drains", "retry_attempts",
     "serve_admitted", "serve_adoptions", "serve_backpressure",
     "serve_cancelled", "serve_compiles", "serve_cow_copies",

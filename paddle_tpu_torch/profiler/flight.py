@@ -13,8 +13,9 @@ post-mortem with:
 * the arming state of fault injection;
 * on the card, the caching allocator's census of every initialized device.
 
-The reference's ``pending_graph`` (the lazy engine's pending graph) has no
-counterpart in the port, which has no lazy engine: its key holds ``{}``.
+``pending_graph`` is the lazy engine's pending graph on the dumping thread
+(``core.lazy.pending_summary()``: node count, the last op names, the
+deferred NaN/Inf checks not yet read).
 
 Triggers wired in the port: the serving scheduler's crash path
 (``serving_loop_error``), a supervisor's recovery
@@ -136,6 +137,15 @@ def allocator_census() -> dict:
     return out
 
 
+def _pending_graph() -> dict:
+    try:
+        from ..core import lazy
+
+        return lazy.pending_summary()
+    except Exception as e:  # lint: ok(oom-handler) — a crash dump must never mask the crash
+        return {"error": repr(e)}
+
+
 def dump(reason: str, extra: Optional[dict] = None,
          path: Optional[str] = None) -> Optional[str]:
     """Write the post-mortem JSON; returns its path (None when disabled or
@@ -164,7 +174,7 @@ def dump(reason: str, extra: Optional[dict] = None,
         "recent_spans": [sp.to_dict() for sp in recent_spans()],
         # one snapshot shape everywhere: traces, metrics export, crash dumps
         **_export.metrics_snapshot(),
-        "pending_graph": {},
+        "pending_graph": _pending_graph(),
         "allocator": allocator,
         "fault_inject": fault_state,
         "context": _provider_context(),

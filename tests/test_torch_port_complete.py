@@ -23,13 +23,10 @@ PORT = ROOT / "paddle_tpu_torch"
 
 # reference files with no counterpart, each with its reason
 NO_COUNTERPART = {
-    "core/lazy.py": "the lazy pending graph: the port runs eagerly",
     "core/compat.py": "a shim over JAX versions",
     "ops/pallas/__init__.py": "the Pallas kernels: ported as ops/kernels/",
     "ops/pallas/flash_attention.py": "ported as ops/kernels/flash_attention"
                                      ".py over csrc/flash_attention.cu",
-    "analysis/verify_graph.py": "verifies core/lazy.py's pending graph, "
-                                "which the port does not have",
 }
 # ``from __future__ import annotations`` binds a name that is not the API
 NOT_API = {"annotations"}
@@ -200,18 +197,17 @@ NO_COUNTERPART_NAMES = {
                        "activation constraints; sharding_api.PartitionSpec "
                        "here",
     "models/generation.py:tp_pool_sharding": "a jax sharding of the KV pool",
-    # imported into core/tensor.py from core/lazy.py (which has no
-    # counterpart); a plain import, which the walk above does not count
-    "core/tensor.py:LazyArray": "the lazy pending graph's array: the port "
-                                "runs eagerly",
-    "core/tensor.py:lazy_timed_block": "a host wait on the lazy graph",
     "models/generation.py:tp_param_shardings": "jax shardings of the "
                                                "parameters",
 }
 
 _WALKED = {f"{rel}:{n}" for rel in PORTED_FILES
            for n in _module_names(REF / rel)}
-MODULE_NAMES = sorted(_WALKED | set(NO_COUNTERPART_NAMES))
+# names a reference module imports from another and exports, which the
+# walk above does not count (a plain import)
+IMPORTED_NAMES = {"core/tensor.py:LazyArray",
+                  "core/tensor.py:lazy_timed_block"}
+MODULE_NAMES = sorted(_WALKED | set(NO_COUNTERPART_NAMES) | IMPORTED_NAMES)
 
 
 def test_the_module_names_are_read():
@@ -219,8 +215,8 @@ def test_the_module_names_are_read():
     assert {"autograd/__init__.py:hessian", "framework/flags.py:"
             "register_flag", "framework/__init__.py:Parameter",
             "distributed/__init__.py:TCPStore"} <= set(MODULE_NAMES)
-    assert set(NO_COUNTERPART_NAMES) - _WALKED == {
-        "core/tensor.py:LazyArray", "core/tensor.py:lazy_timed_block"}
+    assert set(NO_COUNTERPART_NAMES) - _WALKED == set()
+    assert not IMPORTED_NAMES & _WALKED
 
 
 @pytest.mark.parametrize("key", MODULE_NAMES)

@@ -289,7 +289,9 @@ def test_manual_dump_contents(tmp_path, monkeypatch):
     assert doc["reason"] == "manual" and doc["extra"]["note"] == "hello"
     assert [s["name"] for s in doc["active_spans"]] == ["dumping"]
     assert any(s["name"] == "train_step" for s in doc["recent_spans"])
-    assert doc["pending_graph"] == {}  # the port has no lazy engine
+    # the lazy engine is off here: nothing pending (the reference's keys)
+    assert doc["pending_graph"] == {"pending_nodes": 0, "tail_ops": [],
+                                    "deferred_checks": 0}
     assert doc["allocator"] == {}  # CUDA never initialized here
     assert doc["context"]["probe"] == {"rows": 3}
     assert "ZeroDivisionError" in doc["context"]["broken"]["error"]
